@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card check of the PyTorch port: the 1-D main path, 1-D serving and the
-2-D path.
+"""On-card check of the PyTorch port: the 1-D main path, 1-D serving, the
+2-D path and the N-D path with the f64-grade bicubic node route.
 
     python3 chip_smoke.py
 
@@ -21,7 +21,10 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    K6-K9 (double-float 1-D) on non-uniform and float32-colliding knots;
    K10-K13 (double-float 2-D tails) on grids up to 512 x 512 at 1, 3, 16 and
    20 channels, at the indices and fractions K7 gives for 1,000,000 queries
-   per axis with NaN, +-inf and far extrapolation;
+   per axis with NaN, +-inf and far extrapolation; K14 (the bicubic node
+   tail) at 3 x 3 x 1, 200 x 150 x 3 and 512 x 512 x 16 on such inputs; K15
+   (the N-D tail, grades df and f48) at k = 1..4 axes, nbasis 4 and 2, and
+   r = 1, 3, 20 channels (bp = 1 and bp > 1);
 4. drives the main path through the public API on ``device="cuda"``, with
    every launch count set to 0 just before and read just after: the
    2,048-knot not-a-knot spline with extrapolation at 1,000,000 queries in
@@ -38,6 +41,15 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    for both strategies against float64 forms on double-float-rounded
    inputs, an out-of-bounds call), each call with the launch counts set to
    0 just before it and read just after;
+5b. drives the N-D path the same way: ``InterpND`` linear, nearest and cubic
+   on a 64^3 grid (ND1, ND2) in f32 and f64 against SciPy, the cubic node
+   layouts there (ND2b), a 256^3 cubic grid that the builder puts on the
+   node layout and its node2/node4 layouts (ND2c, ND2d, bit-identical to
+   each other), ``DoubleFloatEvaluatorND`` df and f48 for cubic (ND3, ND3b)
+   and linear at 64^3 in f64 against the port's f64 ``InterpND`` and SciPy,
+   and ``DoubleFloatEvaluator2D`` on a 1024 x 1024 x 16 bicubic grid on the
+   node layout (NS3e, K14) against the port's f64 ``Interp2D`` and SciPy,
+   all at 1,000,000 queries;
 6. holds every kernel, through its public wrapper, against its plain version
    on the inputs the paths gave it, bit for bit; then times kernel and
    plain version at the paths' shapes with CUDA events (median, min and
@@ -616,15 +628,20 @@ def busy_ms(fn, calls):
     fn()
     torch.cuda.synchronize()
     # The first session after the timing loops once kept only part of its
-    # kernel records (1 of 3 K8 launches), so the calls are profiled twice
-    # and the second session is read; the launch counts printed beside the
-    # kernels show a drop.
-    for _ in range(2):
+    # kernel records (1 of 3 K8 launches), and a session once recorded no
+    # device event at all, so the calls are profiled until the second session
+    # that records device time (at most four sessions) and that one is read;
+    # the launch counts printed beside the kernels show a drop.
+    seen = 0
+    for _ in range(4):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        seen += bool(events)
+        if seen == 2:
+            break
     if not events:
         raise SystemExit("chip_smoke: the profiler recorded no device time")
     events.sort(key=lambda e: -e.self_device_time_total)
@@ -783,6 +800,24 @@ def bound(kid, args):
         elems = idx.numel() * bank
         nbytes = _nbytes(packed, idx, th, tl) + 8 * elems
         ops, width = (17 if kid == "K8" else 21) * elems, 8
+    elif kid == "K14":  # packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo
+        packed, xi, yi, _, *t = args
+        elems = xi.numel() * ((packed.shape[1] - 4) // 8)  # the (Q, r) output pair
+        nbytes = _nbytes(packed, xi, yi, *t) + 8 * elems
+        # per element: 16 widening adds, 8 derivative scalings, the five scaled
+        # Hermite forms (5 x 13) and the split; dx, dy and t per query
+        ops, width = 92 * elems, 8
+    elif kid in ("K15", "K15f48"):  # packed, idx, t_hi, t_lo, cstrides, nbasis
+        packed, idx, th, tl, _, nbasis = args
+        k, nq = idx.shape
+        nb = nbasis**k
+        elems = nq * (packed.shape[1] // (2 * nb if kid == "K15" else 3 * nb // 2))
+        nbytes = _nbytes(packed, idx, th, tl) + 8 * elems
+        # per element: for each of the nb blocks k - 1 weight products, the
+        # widening add, the product and the tree's add; per axis the basis
+        # (15 operations cubic, 3 linear) and the widening of t
+        ops = elems * (nb * (k + 2) + k * (15 if nbasis == 4 else 3))
+        width = 8
     else:  # K10-K13: packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo
         packed, xi, yi, _, *t = args
         bp = packed.shape[1] // {"K10": 8, "K11": 6, "K12": 32, "K13": 24}[kid]
@@ -952,9 +987,6 @@ def path2d(dev, rng):
     drive, total = counted_calls()
     nx, ny, r = GRID2D
     T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-
-    def f32(v):  # float32-representable, so one float64 oracle serves f32 and f64
-        return np.asarray(v, np.float32).astype(np.float64)
 
     x = f32(make_knots(nx, "nonuniform", np.float64, rng))
     y = f32(make_knots(ny, "nonuniform", np.float64, rng))
@@ -1138,6 +1170,365 @@ def timing2d(state, card, rec):
     return times
 
 
+# -- the N-D slice and the bicubic node route ----------------------------------------------
+# ND1/ND2 of the JAX package (benches/run_benches.py:741-782): a 64^3 grid on
+# linspace(0, 1, 64) axes, one channel, 1,000,000 queries; ND2c/ND2d at 256^3;
+# NS3e (benches/bench_df_node.py:41) at 1024 x 1024 x 16, which the builder puts on
+# the bicubic node layout.
+GRIDND = (64, 64, 64)
+GRIDND_BIG = (256, 256, 256)
+NQND = 1_000_000
+NQ_ND_ORACLE = 2048  # SciPy's sequential tensor-product oracle runs on the host
+NQ_BIG_ORACLE = 256
+GRID_NS3E = (1024, 1024, 16)
+
+
+def seq_spline_oracle(axes, data, pts, m):
+    """The exact tensor-product not-a-knot spline at the first ``m`` points,
+    by sequential 1-D SciPy solves (``tests/test_interpnd.py:397``): the last
+    axis's spline for all points at once; then, axis by axis in reverse
+    order, one spline over every point's slice, of which each point takes its
+    own interval's polynomial (``CubicSpline.c``, extrapolating with the end
+    intervals as ``CubicSpline`` does)."""
+    import scipy.interpolate as si
+
+    k = len(axes)
+    pts = [np.asarray(p[:m], np.float64) for p in pts]
+    g = si.CubicSpline(axes[-1], data, axis=k - 1)(pts[-1])  # (n_0..n_{k-2}, m, *trailing)
+    for d in reversed(range(k - 1)):
+        x, q = axes[d], pts[d]
+        i = np.clip(np.searchsorted(x, q, side="right") - 1, 0, x.size - 2)
+        c = si.CubicSpline(x, g, axis=d).c  # (4, n_d - 1, n_0..n_{d-1}, m, *trailing)
+        c = np.moveaxis(c, (1, 2 + d), (0, 1))[i, np.arange(q.size)]  # (m, 4, ...)
+        h = (q - x[i]).reshape((-1,) + (1,) * (c.ndim - 2))
+        g = np.moveaxis(((c[:, 0] * h + c[:, 1]) * h + c[:, 2]) * h + c[:, 3], 0, d)
+    return g
+
+
+def f32(v):
+    """Float32-representable float64, so one float64 oracle serves f32 and f64."""
+    return np.asarray(v, np.float32).astype(np.float64)
+
+
+def dfnd_kernel_phases(dev, rec):
+    """K14 and K15 against their plain versions on the card, on the same
+    inputs: the ``(idx, t)`` that K7 gives for queries with NaN, +-inf, +-1e38,
+    the knots themselves and far extrapolation.  K14 at 3 x 3 x 1,
+    200 x 150 x 3 and 512 x 512 x 16 (NS3e's node grid) on 1,000,000 queries;
+    K15 (df, f48) at k = 1..4, nbasis 4 and 2, r = 1 (bp = 1) and r = 3, 20
+    (bp = 3, 24)."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df as ek
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as e2
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df_nd as en
+    from ndarray_interp_tpu_torch.ops.df import df_from_f64
+
+    rng = np.random.default_rng(3)
+
+    def pair(v):
+        return df_from_f64(torch.as_tensor(np.asarray(v, np.float64), device=dev))
+
+    def index_frac(kn, nq):
+        return ek.fused_index_frac_df(*pair(kn), *pair(rng.permutation(
+            make_queries(kn, nq, np.float64, rng))))
+
+    print("N-D and node-layout double-float kernel phases (kernel against its plain "
+          "version, same inputs):", flush=True)
+    for nx, ny, r in ((3, 3, 1), (200, 150, 3), (512, 512, 16)):
+        kx, ky = df_knots(nx, "nonuniform", rng), df_knots(ny, "nonuniform", rng)
+        xi, txh, txl = index_frac(kx, NQ2D)
+        yi, tyh, tyl = index_frac(ky, NQ2D)
+        nodes = rng.normal(size=(nx * ny, 4 * r + 2))
+        nodes[:, 4 * r] = np.repeat(kx, ny)
+        nodes[:, 4 * r + 1] = np.tile(ky, nx)
+        packed = e2.pack_bicubic_nodes_df(*pair(nodes))
+        args = (packed, xi, yi, ny, txh, txl, tyh, tyl)
+        ok = rec.add_pair("K14", f"{nx} x {ny} x {r}", e2.gathered_bicubic_node_df_tail(*args),
+                          e2._bicubic_node_df_tail_plain(*args))
+        print(f"  K14 node table {nx} x {ny} x {r}, {NQ2D:,} queries: "
+              f"{'bit-identical' if ok else 'MISMATCH'}", flush=True)
+        del packed, args
+        torch.cuda.synchronize()
+    for k in (1, 2, 3, 4):
+        for nbasis in (4, 2):
+            nb = nbasis**k
+            for r in (1, 3, 20):
+                bp = en._nd_bp(r)
+                # about 2^24 table elements and 2^26 plain-version products
+                ncell = min(2047, int((2**24 / (nb * bp)) ** (1.0 / k)))
+                nq = min(NQND, 2**26 // (nb * bp))
+                parts = [index_frac(df_knots(ncell + 1, "nonuniform", rng), nq) for _ in range(k)]
+                idx, th, tl = (torch.stack([p[j] for p in parts]) for j in range(3))
+                cstrides = [ncell ** (k - 1 - d) for d in range(k)]
+                rows = pair(rng.normal(size=(ncell**k, nb * r)))
+                ok = True
+                for kid, tail, plain, pack in (
+                    ("K15", en.nd_df_tail, en._nd_df_tail_plain, en.pack_rows_nd_df),
+                    ("K15f48", en.nd_f48_tail, en._nd_f48_tail_plain, en.pack_rows_nd_f48),
+                ):
+                    args = (pack(*rows, nb, r), idx, th, tl, cstrides, nbasis)
+                    ok &= rec.add_pair(kid, f"k={k} nbasis={nbasis} r={r}", tail(*args),
+                                       plain(*args))
+                    del args
+                print(f"  K15 df and f48, k={k}, nbasis={nbasis}, r={r} (bp {bp}), {ncell}^{k} "
+                      f"cells, {nq:,} queries: {'bit-identical' if ok else 'MISMATCH'}",
+                      flush=True)
+                del rows, idx, th, tl, parts
+                torch.cuda.synchronize()
+
+
+def nd_path(dev, rng):
+    """The N-D slice and the f64-grade bicubic node route through the public
+    API on ``device="cuda"``.  Every call is driven with all launch counts set
+    to 0 just before it and read just after; returns what the timing phase
+    reuses and the launches of each kernel summed over the calls."""
+    import scipy.interpolate as si
+    import torch
+
+    from ndarray_interp_tpu_torch.interp2d import Bicubic, Interp2D
+    from ndarray_interp_tpu_torch.interpnd import InterpND
+    from ndarray_interp_tpu_torch.serving import DoubleFloatEvaluator2D, DoubleFloatEvaluatorND
+
+    drive, total = counted_calls()
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    out = {}
+
+    def nd(data, axes, method="linear", layout=None):
+        b = InterpND.builder(data).points(*axes).method(method)
+        return (b if layout is None else b.layout(layout)).build()
+
+    # ND1, ND2, ND2b: 64^3 in f32 and f64
+    axes = [f32(np.linspace(0.0, 1.0, n)) for n in GRIDND]
+    data = f32(rng.normal(size=GRIDND))
+    qs = [f32(rng.uniform(0.0, 1.0, NQND)) for _ in GRIDND]
+    t0 = time.perf_counter()
+    pts = np.stack(qs, -1)
+    refs = {m: si.RegularGridInterpolator(axes, data, method=m)(pts) for m in ("linear", "nearest")}
+    refs["cubic"] = seq_spline_oracle(axes, data, qs, NQ_ND_ORACLE)
+    print(f"  SciPy oracles (RegularGridInterpolator linear and nearest; sequential "
+          f"CubicSpline, first {NQ_ND_ORACLE:,} queries) on the host: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    shape = "x".join(map(str, GRIDND))
+    for dt, tol in ((np.float32, F32_TOL), (np.float64, F64_TOL)):
+        tag = np.dtype(dt).name
+        tdt = torch.float32 if dt == np.float32 else torch.float64
+        ax_d, d_d = [T(a.astype(dt)) for a in axes], T(data.astype(dt))
+        q_d = [T(q.astype(dt)) for q in qs]
+        for name, method, expect in (("ND1", "linear", []), ("ND1", "nearest", []),
+                                     ("ND2", "cubic", ["K4"])):
+            itp = drive(f"{name} InterpND {method} {tag} build {shape}", expect,
+                        lambda: nd(d_d, ax_d, method))
+            got = drive(f"{name} {method} {tag} itp(*qs)", ["K2"], lambda: itp(*q_d))
+            if method == "cubic":
+                if itp.layout != "cell":
+                    fail(f"ND2 {tag}: the builder chose layout {itp.layout!r}, not 'cell'")
+                got = got[:NQ_ND_ORACLE]
+                oracle = f" (oracle sequential CubicSpline, first {NQ_ND_ORACLE:,})"
+            else:
+                oracle = " (oracle RegularGridInterpolator)"
+            check_close(f"{name} {method} {tag} {shape} at {NQND:,} queries{oracle}", got,
+                        refs[method], tol, tuple(got.shape[:1]), tdt)
+            out[method, tag] = itp
+        out["queries", tag] = q_d
+        del got
+
+    q32 = out["queries", "float32"]
+    ax32, d32 = [T(a.astype(np.float32)) for a in axes], T(data.astype(np.float32))
+    cell_out = out["cubic", "float32"](*q32)
+    for lay in ("node", "node2", "node4"):
+        itp = drive(f"ND2b InterpND cubic f32 build {shape}, layout {lay!r}", ["K4"],
+                    lambda: nd(d32, ax32, "cubic", lay))
+        got = drive(f"ND2b layout {lay!r} itp(*qs)", ["K2"], lambda: itp(*q32))
+        check_close(f"ND2b layout {lay!r} {shape} at {NQND:,} queries (oracle sequential "
+                    f"CubicSpline, first {NQ_ND_ORACLE:,})", got[:NQ_ND_ORACLE], refs["cubic"],
+                    F32_TOL, (NQ_ND_ORACLE,), torch.float32)
+        err = float((got - cell_out).abs().max() / cell_out.abs().max())
+        print(f"    layout {lay!r} against the cell layout, all queries: scaled {err:.3e}")
+        if not err <= F32_TOL:
+            fail(f"ND2b layout {lay!r} differs from the cell layout by {err}")
+        out["ND2b", lay] = itp
+    del refs, cell_out, got
+
+    # ND2c, ND2d: 256^3 in f32; the builder puts it on the node layout
+    shape_b = "x".join(map(str, GRIDND_BIG))
+    axes_b = [f32(np.linspace(0.0, 1.0, n)) for n in GRIDND_BIG]
+    data_b = f32(rng.normal(size=GRIDND_BIG))
+    qs_b = [f32(rng.uniform(0.0, 1.0, NQND)) for _ in GRIDND_BIG]
+    t0 = time.perf_counter()
+    ref_b = seq_spline_oracle(axes_b, data_b, qs_b, NQ_BIG_ORACLE)
+    print(f"  SciPy sequential CubicSpline oracle at {shape_b}, first {NQ_BIG_ORACLE} queries: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    axb_d = [T(a.astype(np.float32)) for a in axes_b]
+    db_d = T(data_b.astype(np.float32))
+    qb_d = [T(q.astype(np.float32)) for q in qs_b]
+    out["queries", "big"] = qb_d
+    node_out = None
+    for name, lay in (("ND2c", None), ("ND2d", "node2"), ("ND2d", "node4")):
+        itp = drive(f"{name} InterpND cubic f32 build {shape_b}, layout {lay or 'auto'}",
+                    ["K4"], lambda: nd(db_d, axb_d, "cubic", lay))
+        if lay is None and itp.layout != "node":
+            fail(f"ND2c: the builder chose layout {itp.layout!r}, not 'node'")
+        print(f"    table {tuple(itp.table.shape)} f32, "
+              f"{itp.table.numel() * 4 / 1e6:.1f} MB", flush=True)
+        got = drive(f"{name} layout {itp.layout!r} itp(*qs)", ["K2"], lambda: itp(*qb_d))
+        check_close(f"{name} layout {itp.layout!r} {shape_b} at {NQND:,} queries (oracle "
+                    f"sequential CubicSpline, first {NQ_BIG_ORACLE})", got[:NQ_BIG_ORACLE],
+                    ref_b, F32_TOL, (NQ_BIG_ORACLE,), torch.float32)
+        if node_out is None:
+            node_out = got
+        elif not torch.equal(got, node_out):
+            fail(f"{name} layout {itp.layout!r} is not bit-identical to the node layout")
+        else:
+            print(f"    layout {itp.layout!r} bit-identical to the node layout")
+        out[name, itp.layout] = itp
+    del node_out, got, db_d
+
+    # ND3, ND3b, ND linear DF: DoubleFloatEvaluatorND on the 64^3 grid built in f64
+    axes64 = [rep(np.linspace(0.0, 1.0, n)) for n in GRIDND]
+    data64 = rep(rng.normal(size=GRIDND))
+    dq = [rep(rng.uniform(0.0, 1.0, NQND)) for _ in GRIDND]
+    dq_d = [T(q) for q in dq]
+    out["df queries"] = dq_d
+    sc_ref = {"cubic": seq_spline_oracle(axes64, data64, dq, NQ_ND_ORACLE),
+              "linear": si.RegularGridInterpolator(axes64, data64)(np.stack(dq, -1))}
+    for method in ("cubic", "linear"):
+        itp = drive(f"f64 InterpND {method} build {shape}", ["K4"] if method == "cubic" else [],
+                    lambda: nd(T(data64), [T(a) for a in axes64], method))
+        port_ref = itp(*dq_d).cpu().numpy()
+        for grade, kid, tol in (("df", "K15", 4e-12), ("f48", "K15f48", 1e-8)):
+            cell = {("cubic", "df"): "ND3", ("cubic", "f48"): "ND3b"}.get(
+                (method, grade), f"ND linear {grade}")
+            name = f"{cell} DoubleFloatEvaluatorND(grade={grade!r}) {method}"
+            ev = drive(f"{name} build + warmup", ["K7", kid],
+                       lambda: DoubleFloatEvaluatorND(itp, grade=grade).warmup())
+            got = drive(f"{name} at {NQND:,} f64 queries", ["K7", kid], lambda: ev(*dq_d))
+            gate(f"{cell} {grade} {method} {shape}", got, port_ref, tol, (NQND,),
+                 "the port's f64 InterpND")
+            sub = NQ_ND_ORACLE if method == "cubic" else NQND
+            gate(f"{cell} {grade} {method} {shape}, first {sub:,}", got[:sub], sc_ref[method],
+                 tol, (sub,), "SciPy f64")
+            out[cell] = ev
+            del got
+    del sc_ref
+
+    # NS3e: DoubleFloatEvaluator2D on the bicubic node layout
+    nx, ny, r = GRID_NS3E
+    x = rep(make_knots(nx, "nonuniform", np.float64, rng))
+    y = rep(make_knots(ny, "nonuniform", np.float64, rng))
+    z = rep(rng.normal(size=GRID_NS3E))
+    qx, qy = rep(rng.uniform(x[0], x[-1], NQ2D)), rep(rng.uniform(y[0], y[-1], NQ2D))
+    qx_d, qy_d = T(qx), T(qy)
+    shape_e = "x".join(map(str, GRID_NS3E))
+    itp = drive(f"NS3e f64 Bicubic build {shape_e}", ["K4"], lambda: (
+        Interp2D.builder(T(z)).x(T(x)).y(T(y)).strategy(Bicubic()).build()))
+    if itp.strategy.layout != "node":
+        fail(f"NS3e: the builder chose layout {itp.strategy.layout!r}, not 'node'")
+    port_ref = itp(qx_d, qy_d).cpu().numpy()
+    ev = drive("NS3e DoubleFloatEvaluator2D(grade='df') node layout build + warmup",
+               ["K7", "K14"], lambda: DoubleFloatEvaluator2D(itp).warmup())
+    print(f"    DF node table {tuple(ev._packed.shape)} f32, "
+          f"{ev._packed.numel() * 4 / 1e6:.1f} MB", flush=True)
+    got = drive(f"NS3e DoubleFloatEvaluator2D at {NQ2D:,} f64 queries", ["K7", "K14"],
+                lambda: ev(qx_d, qy_d))
+    gate(f"NS3e df {shape_e}", got, port_ref, 4e-12, (NQ2D, r), "the port's f64 Interp2D")
+    t0 = time.perf_counter()
+    ref = seq_spline_oracle([x, y], z, [qx, qy], NQ_BIG_ORACLE)
+    print(f"  SciPy sequential CubicSpline oracle at {shape_e}, first {NQ_BIG_ORACLE} "
+          f"queries: {time.perf_counter() - t0:.1f} s", flush=True)
+    gate(f"NS3e df {shape_e}, first {NQ_BIG_ORACLE}", got[:NQ_BIG_ORACLE], ref, 4e-12,
+         (NQ_BIG_ORACLE, r), "SciPy f64")
+    out["NS3e"] = (ev, qx_d, qy_d)
+    return out, total
+
+
+def timing_nd(state, card, rec):
+    """Hold K14 and K15, through their wrappers, against their plain versions
+    on the paths' own tables and queries; time both there (K15 also at
+    bp > 1); then time the N-D and NS3e calls end to end."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df as edf
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as e2
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df_nd as en
+    from ndarray_interp_tpu_torch.ops.df import df_from_f64
+
+    ev_e, qx, qy = state["NS3e"]
+    itp_e = ev_e._interp
+    xi, txh, txl = edf.fused_index_frac_df(*df_from_f64(itp_e.x.double()), *df_from_f64(qx))
+    yi, tyh, tyl = edf.fused_index_frac_df(*df_from_f64(itp_e.y.double()), *df_from_f64(qy))
+    dq = state["df queries"]
+    ev3 = state["ND3"]
+    parts = [edf.fused_index_frac_df(*df_from_f64(ax.double()), *df_from_f64(q))
+             for ax, q in zip(ev3._interp.axes, dq)]
+    idx, th, tl = (torch.stack([p[j] for p in parts]) for j in range(3))
+    cstrides = [(GRIDND[1] - 1) * (GRIDND[2] - 1), GRIDND[2] - 1, 1]
+    nq = f"{NQND:,} queries"
+    shape_e, shape = "x".join(map(str, GRID_NS3E)), "x".join(map(str, GRIDND))
+    rng = np.random.default_rng(46)
+    nq_wide = 262_144
+    wide = df_from_f64(torch.as_tensor(rng.normal(size=(ev3._packed.shape[0], 64 * 3)),
+                                       device=qx.device))
+    systems = {
+        "K14": [(f"NS3e node table {shape_e}, {NQ2D:,} queries",
+                 (ev_e._packed, xi, yi, itp_e.y.shape[0], txh, txl, tyh, tyl))],
+        "K15": [(f"ND3 df table {shape}, bp 1, {nq}", (ev3._packed, idx, th, tl, cstrides, 4)),
+                (f"ND linear df table {shape}, bp 1, {nq}",
+                 (state["ND linear df"]._packed, idx, th, tl, cstrides, 2)),
+                (f"df table {shape} x 3 channels, bp 3, {nq_wide:,} queries",
+                 (en.pack_rows_nd_df(*wide, 64, 3), idx[:, :nq_wide], th[:, :nq_wide],
+                  tl[:, :nq_wide], cstrides, 4))],
+        "K15f48": [(f"ND3b f48 table {shape}, bp 1, {nq}",
+                    (state["ND3b"]._packed, idx, th, tl, cstrides, 4)),
+                   (f"f48 table {shape} x 3 channels, bp 3, {nq_wide:,} queries",
+                    (en.pack_rows_nd_f48(*wide, 64, 3), idx[:, :nq_wide], th[:, :nq_wide],
+                     tl[:, :nq_wide], cstrides, 4))],
+    }
+    del wide
+    pairs = {
+        "K14": (e2.gathered_bicubic_node_df_tail, e2._bicubic_node_df_tail_plain, rec.add_pair,
+                (5, 1)),
+        "K15": (en.nd_df_tail, en._nd_df_tail_plain, rec.add_pair, (10, 1)),
+        "K15f48": (en.nd_f48_tail, en._nd_f48_tail_plain, rec.add_pair, (10, 1)),
+    }
+    print("K14 and K15 at the paths' shapes and inputs, against their plain versions:")
+    for kid, (kern, plain, compare, _) in pairs.items():
+        for label, args in systems[kid]:
+            ok = compare(kid, label, kern(*args), plain(*args))
+            print(f"  {kid} {label}: {'bit-identical' if ok else 'MISMATCH'}", flush=True)
+    times = time_kernels(pairs, systems, card)
+    for kid in ("K15", "K15f48"):
+        kern, plain, _, (nk, npl) = pairs[kid]
+        for label, args in systems[kid][1:]:
+            tk_, tp_ = device_ms(lambda: kern(*args), nk), device_ms(lambda: plain(*args), npl)
+            bound_ms, bound_by = bound(kid, args)
+            print(f"  {kid} {label}: kernel {fmt(tk_)}, plain {fmt(tp_)}, bound {bound_ms:.4f} "
+                  f"({bound_by}); library: none", flush=True)
+    del systems
+
+    q32, qb = state["queries", "float32"], state["queries", "big"]
+    calls = {
+        f"ND1 InterpND linear f32 itp(*qs), {shape} at {nq}": (
+            lambda: state["linear", "float32"](*q32), 10),
+        f"ND2 cubic f32, layout 'cell', {shape} at {nq}": (
+            lambda: state["cubic", "float32"](*q32), 10),
+    }
+    for lay in ("node", "node2", "node4"):
+        calls[f"ND2b cubic f32, layout {lay!r}, {shape} at {nq}"] = (
+            lambda itp=state["ND2b", lay]: itp(*q32), 5)
+    shape_b = "x".join(map(str, GRIDND_BIG))
+    for name, lay in (("ND2c", "node"), ("ND2d", "node2"), ("ND2d", "node4")):
+        calls[f"{name} cubic f32, layout {lay!r}, {shape_b} at {nq}"] = (
+            lambda itp=state[name, lay]: itp(*qb), 5)
+    for cell in ("ND3", "ND3b", "ND linear df", "ND linear f48"):
+        calls[f"{cell} DoubleFloatEvaluatorND, {shape} at {nq} (f64)"] = (
+            lambda ev=state[cell]: ev(*dq), 5)
+    calls[f"NS3e DoubleFloatEvaluator2D df, node layout {shape_e} at {NQ2D:,} queries"] = (
+        lambda: ev_e(qx, qy), 3)
+    end_to_end(calls, "N-D path and NS3e", card)
+    return times
+
+
 KERNELS = {
     "K1": ("fused_eval_1d", "ndarray_interp_tpu_torch/csrc/eval_kernels.cu",
            "ndarray_interp_tpu/ops/pallas_eval.py:119"),
@@ -1163,6 +1554,12 @@ KERNELS = {
             "ndarray_interp_tpu/ops/pallas_eval_df.py:1571"),
     "K13": ("gathered_bicubic_f48_tail", "ndarray_interp_tpu_torch/csrc/df2d_kernels.cu",
             "ndarray_interp_tpu/ops/pallas_eval_df.py:1667"),
+    "K14": ("gathered_bicubic_node_df_tail", "ndarray_interp_tpu_torch/csrc/df2d_kernels.cu",
+            "ndarray_interp_tpu/ops/pallas_eval_df.py:1921"),
+    "K15": ("nd_df_tail", "ndarray_interp_tpu_torch/csrc/df_nd_kernels.cu",
+            "ndarray_interp_tpu/ops/pallas_eval_df_nd.py:370"),
+    "K15f48": ("nd_f48_tail", "ndarray_interp_tpu_torch/csrc/df_nd_kernels.cu",
+               "ndarray_interp_tpu/ops/pallas_eval_df_nd.py:370"),
 }
 
 
@@ -1189,11 +1586,17 @@ def main():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
+    def elapsed(what):
+        print(f"[{time.perf_counter() - t0:.0f} s since the build started: {what} done]",
+              flush=True)
+
     rec = Record()
     kernel_phases(dev, rec)
     df_kernel_phases(dev, rec)
     df2d_kernel_phases(dev, rec)
+    dfnd_kernel_phases(dev, rec)
     torch.cuda.synchronize()
+    elapsed("kernel phases")
 
     wrappers = kernel_wrappers()
     for w in wrappers.values():
@@ -1223,11 +1626,25 @@ def main():
     for kid in ("K2", "K3", "K4", "K7", "K10", "K11", "K12", "K13"):
         if launched2d[kid] <= 0:
             fail(f"{kid} was not launched by the 2-D path")
+    elapsed("1-D, serving and 2-D paths")
+
+    print("N-D path (ND1-ND3b at 64^3 and 256^3) and NS3e at 1,000,000 queries (public API, "
+          "device='cuda'; counts set to 0 before each call):", flush=True)
+    state_nd, launched_nd = nd_path(dev, np.random.default_rng(47))
+    for kid in ("K14", "K15", "K15f48"):
+        launches[kid] = launched_nd[kid]
+    print(f"  launches during the N-D path: {launched_nd}")
+    for kid in ("K2", "K4", "K7", "K14", "K15", "K15f48"):
+        if launched_nd[kid] <= 0:
+            fail(f"{kid} was not launched by the N-D path")
+    elapsed("N-D path")
 
     times = timing(state, card, rec)
     times.update(df_timing(serving, card, rec))
     times.update(timing2d(state2d, card, rec))
+    times.update(timing_nd(state_nd, card, rec))
     torch.cuda.synchronize()
+    elapsed("timing")
 
     if failures:
         print(f"chip_smoke: {len(failures)} failure(s):", *failures, sep="\n  ")

@@ -3,9 +3,10 @@
 The PyTorch port of ``ndarray_interp_tpu`` (the JAX package, which stays the
 reference).  Ported: the 1-D path (``Interp1D`` with ``Linear`` and
 ``CubicSpline``), the 2-D path (``Interp2D`` with ``Bilinear`` and
-``Bicubic``), and their serving layer (``serving``: ``Evaluator``,
-``Evaluator2D`` and the f64-grade ``DoubleFloatEvaluator`` and
-``DoubleFloatEvaluator2D``), whose GPU kernels are hand-written CUDA for
+``Bicubic``), the N-D path (``InterpND``: linear, nearest, cubic), and their
+serving layer (``serving``: ``Evaluator``, ``Evaluator2D``, ``EvaluatorND``
+and the f64-grade ``DoubleFloatEvaluator``, ``DoubleFloatEvaluator2D`` and
+``DoubleFloatEvaluatorND``), whose GPU kernels are hand-written CUDA for
 Hopper (``csrc/``, built at first use).  Tensors stay on the
 device they are given; numpy or list inputs go to the GPU unless the
 caller names ``device="cpu"`` (without a CUDA device and with none named,
@@ -34,6 +35,14 @@ runs instead.
         .build()
     )
     itp2.interp_array(np.array([0.5, 3.25]), np.array([1.0, 7.5]))
+
+N-D usage::
+
+    from ndarray_interp_tpu_torch.interpnd import InterpND
+
+    grid = np.random.default_rng(0).normal(size=(16, 12, 10))
+    itp3 = InterpND.builder(grid, device="cuda").method("cubic").build()
+    itp3.interp_array(np.array([0.5, 3.25]), np.array([1.0, 7.5]), np.array([2.0, 8.5]))
 """
 
 from .errors import (
@@ -58,6 +67,7 @@ __all__ = [
     "ShapeError",
     "interp1d",
     "interp2d",
+    "interpnd",
 ]
 
-from . import interp1d, interp2d  # noqa: E402
+from . import interp1d, interp2d, interpnd  # noqa: E402

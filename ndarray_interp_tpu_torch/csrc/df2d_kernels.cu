@@ -12,6 +12,10 @@
 // K13 f48_bicubic_tail   replaces pallas_eval_df.py _f48_bicubic_mxu_kernel
 //                        (bicubic_f48_tail): the same on bf16-pair lo halves
 //                        (pack_bicubic_rows_f48).
+// K14 df_bicubic_node_tail  replaces pallas_eval_df.py _df_node_tail_kernel
+//                        (bicubic_df_node_tail): the same Hermite forms from the four
+//                        node rows of the memory-frugal node layout
+//                        (pack_bicubic_nodes_df), the derivatives scaled in the tail.
 //
 // What each computes, not how the TPU computed it.  The TPU has no float64: its
 // kernels built per-query weight rows with one-hot HIGHEST-precision matrix
@@ -40,6 +44,16 @@
 // FP64 operations: at 3.35 TB/s and 34 TFLOP/s the bytes take 10-20 times longer
 // than the arithmetic.  The table (100-535 MB on a 512 x 512 x 16 grid) does not
 // fit the 50 MB L2, so each query's row (0.4-2 KB) comes from HBM.
+//
+// K14 reads four node rows of 8 r + 4 floats a query (the nodes xi ny + yi, +1,
+// +ny, +ny+1, each clamped to the table as the plain version clamps it), widens
+// the pairs, takes dx and dy from the rows' coordinate pairs and scales the
+// derivatives (k dx) before the same five Hermite forms (_df_node_tail).  It
+// writes (Q, r): the node table has no padding.  The JAX route materialises the
+// four gathered (Q, 8 r + 4) row arrays first (2.2 GB at 1M queries x 16
+// channels); here they stay in registers.  Its table (8 r + 4 floats a node,
+// about the grid's float64 memory) is a quarter of the DF cell table's, for
+// four row fetches a query instead of one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,6 +108,11 @@ __device__ __forceinline__ double bicubic(const double* v, double tx, double ty)
   const double g_y1 = hermite_scaled(v[8], v[10], v[12], v[14], tx);
   const double g_y2 = hermite_scaled(v[9], v[11], v[13], v[15], tx);
   return hermite_scaled(f_y1, f_y2, g_y1, g_y2, ty);
+}
+
+// a row index clamped to the table, as the plain versions' gather clamps it
+__device__ __forceinline__ int64_t clamp_row(int64_t i, int64_t rows) {
+  return i < 0 ? 0 : (i >= rows ? rows - 1 : i);
 }
 
 // K10: [z11 | z12 | z21 | z22] hi blocks, then the same lo blocks
@@ -163,11 +182,58 @@ __global__ void cell_tail_kernel(const float* __restrict__ packed, int64_t rows,
   if (e >= n) return;
   const int64_t qi = e / bp;
   const int64_t c = e - qi * bp;
-  int64_t cell = static_cast<int64_t>(__ldg(xi + qi)) * ny1 + __ldg(yi + qi);
-  cell = cell < 0 ? 0 : (cell >= rows ? rows - 1 : cell);
+  const int64_t cell =
+      clamp_row(static_cast<int64_t>(__ldg(xi + qi)) * ny1 + __ldg(yi + qi), rows);
   const double tx = widen(__ldg(txh + qi), __ldg(txl + qi));
   const double ty = widen(__ldg(tyh + qi), __ldg(tyl + qi));
   store_pair(Tail::eval(packed + cell * ch + c, bp, tx, ty), out_hi, out_lo, e);
+}
+
+// quantity i of [f, kx, ky, kxy] at channel c of a block-interleaved node row
+__device__ __forceinline__ double node_block(const float* __restrict__ g, int64_t r, int i,
+                                             int64_t c) {
+  return widen(__ldg(g + 2 * i * r + c), __ldg(g + (2 * i + 1) * r + c));
+}
+
+// coordinate j of [x, y] of a node row
+__device__ __forceinline__ double node_coord(const float* __restrict__ g, int64_t r, int j) {
+  return widen(__ldg(g + 8 * r + 2 * j), __ldg(g + 8 * r + 2 * j + 1));
+}
+
+// K14: one thread per (query, channel) element e = qi r + c of the (nq, r) output
+__global__ void node_tail_kernel(const float* __restrict__ packed, int64_t rows, int64_t ch,
+                                 int64_t r, const int32_t* __restrict__ xi,
+                                 const int32_t* __restrict__ yi, int64_t ny,
+                                 const float* __restrict__ txh, const float* __restrict__ txl,
+                                 const float* __restrict__ tyh, const float* __restrict__ tyl,
+                                 float* __restrict__ out_hi, float* __restrict__ out_lo,
+                                 int64_t n) {
+  const int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (e >= n) return;
+  const int64_t qi = e / r;
+  const int64_t c = e - qi * r;
+  const int64_t base = static_cast<int64_t>(__ldg(xi + qi)) * ny + __ldg(yi + qi);
+  const float* g11 = packed + clamp_row(base, rows) * ch;
+  const float* g12 = packed + clamp_row(base + 1, rows) * ch;
+  const float* g21 = packed + clamp_row(base + ny, rows) * ch;
+  const float* g22 = packed + clamp_row(base + ny + 1, rows) * ch;
+  const double dx = node_coord(g21, r, 0) - node_coord(g11, r, 0);
+  const double dy = node_coord(g12, r, 1) - node_coord(g11, r, 1);
+  const double tx = widen(__ldg(txh + qi), __ldg(txl + qi));
+  const double ty = widen(__ldg(tyh + qi), __ldg(tyl + qi));
+  const double f_y1 = hermite_scaled(node_block(g11, r, 0, c), node_block(g21, r, 0, c),
+                                     node_block(g11, r, 1, c) * dx,
+                                     node_block(g21, r, 1, c) * dx, tx);
+  const double f_y2 = hermite_scaled(node_block(g12, r, 0, c), node_block(g22, r, 0, c),
+                                     node_block(g12, r, 1, c) * dx,
+                                     node_block(g22, r, 1, c) * dx, tx);
+  const double g_y1 = hermite_scaled(node_block(g11, r, 2, c), node_block(g21, r, 2, c),
+                                     node_block(g11, r, 3, c) * dx,
+                                     node_block(g21, r, 3, c) * dx, tx);
+  const double g_y2 = hermite_scaled(node_block(g12, r, 2, c), node_block(g22, r, 2, c),
+                                     node_block(g12, r, 3, c) * dx,
+                                     node_block(g22, r, 3, c) * dx, tx);
+  store_pair(hermite_scaled(f_y1, f_y2, g_y1 * dy, g_y2 * dy, ty), out_hi, out_lo, e);
 }
 
 template <class Tail>
@@ -205,5 +271,22 @@ NDI_CELL_TAIL(ndi_df_bicubic_tail_f32, BicubicDF)
 NDI_CELL_TAIL(ndi_f48_bicubic_tail_f32, BicubicF48)
 
 #undef NDI_CELL_TAIL
+
+int ndi_df_bicubic_node_tail_f32(const void* packed, int64_t rows, int64_t ch, int64_t r,
+                                 const void* xi, const void* yi, int64_t ny, const void* txh,
+                                 const void* txl, const void* tyh, const void* tyl, void* out_hi,
+                                 void* out_lo, int64_t nq, void* stream) {
+  const int64_t n = nq * r;
+  if (n > 0) {
+    const unsigned int blocks = static_cast<unsigned int>((n + kThreads - 1) / kThreads);
+    node_tail_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(packed), rows, ch, r, static_cast<const int32_t*>(xi),
+        static_cast<const int32_t*>(yi), ny, static_cast<const float*>(txh),
+        static_cast<const float*>(txl), static_cast<const float*>(tyh),
+        static_cast<const float*>(tyl), static_cast<float*>(out_hi),
+        static_cast<float*>(out_lo), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // extern "C"

@@ -1,10 +1,10 @@
 """State carried across from the JAX package.
 
-:func:`interp1d_from_numpy` and :func:`interp2d_from_numpy` turn the state
-of an ``ndarray_interp_tpu`` interpolator — its arrays taken with
-``np.asarray`` — into this package's :class:`Interp1D` or
-:class:`Interp2D`, so that both compute the same function, without a new
-solve::
+:func:`interp1d_from_numpy`, :func:`interp2d_from_numpy` and
+:func:`interpnd_from_numpy` turn the state of an ``ndarray_interp_tpu``
+interpolator — its arrays taken with ``np.asarray`` — into this package's
+:class:`Interp1D`, :class:`Interp2D` or :class:`InterpND`, so that both
+compute the same function, without a new solve::
 
     itp_jax = ...  # ndarray_interp_tpu.interp1d.Interp1D, CubicSpline
     s = itp_jax.strategy
@@ -21,6 +21,14 @@ solve::
         rows=np.asarray(s.rows), layout=s.layout, device="cuda",
     )
 
+    nd_jax = ...  # ndarray_interp_tpu.interpnd.InterpND
+    nd = interpnd_from_numpy(
+        [np.asarray(a) for a in nd_jax.axes], np.asarray(nd_jax.data),
+        method=nd_jax.method, extrapolate=nd_jax.extrapolates,
+        table=None if nd_jax.table is None else np.asarray(nd_jax.table),
+        bcs=nd_jax.bcs, layout=nd_jax.layout, device="cuda",
+    )
+
 No JAX object crosses: only numpy arrays, strings and flags.
 """
 
@@ -31,6 +39,7 @@ import torch
 
 from .models.interp1d import Interp1D
 from .models.interp2d import Interp2D
+from .models.interpnd import InterpND
 from .models.strategies.bicubic import BicubicStrategy
 from .models.strategies.bilinear import Bilinear, BilinearPacked
 from .models.strategies.cubic import CubicSplineStrategy
@@ -120,3 +129,38 @@ def interp2d_from_numpy(
     else:
         raise ValueError(f"strategy must be 'bilinear' or 'bicubic', got {strategy!r}")
     return Interp2D.new_unchecked(t(x), t(y), t(data), strat)
+
+
+def interpnd_from_numpy(
+    axes, data, method="linear", extrapolate=False, table=None, bcs=None, layout=None,
+    device=None,
+) -> InterpND:
+    """Build an :class:`InterpND` from carried-over state, without
+    validation or a new solve (``InterpND.new_unchecked``).
+
+    Args:
+      axes: the ``k`` axes, ``(n_d,)`` each.
+      data: ``(n_0, ..., n_{k-1}, *trailing)`` data.
+      method: ``"linear"``, ``"nearest"`` or ``"cubic"``.
+      extrapolate: the ``extrapolates`` flag.
+      table: the packed table (``InterpND.table``): required for cubic,
+        optional for linear (``None``: the unpacked route).
+      bcs: the per-axis boundary kinds (``InterpND.bcs``; cubic).
+      layout: ``InterpND.layout``: ``"cell"``, ``"node"``, ``"node2"`` or
+        ``"node4"`` (cubic).
+      device: where the tensors go (default: the GPU; without one this
+        raises unless ``device="cpu"`` is named).
+    """
+    if method not in ("linear", "nearest", "cubic"):
+        raise ValueError(f"method must be 'linear', 'nearest' or 'cubic', got {method!r}")
+    if method == "cubic" and (table is None or layout is None):
+        raise ValueError("cubic state needs both table and layout")
+    device = default_device(data, device)
+
+    def t(v):
+        return torch.tensor(np.asarray(v), device=device)  # copies
+
+    return InterpND.new_unchecked(
+        [t(a) for a in axes], t(data), method, extrapolate,
+        None if table is None else t(table), bcs, layout,
+    )

@@ -1,0 +1,630 @@
+"""N-dimensional rectilinear-grid interpolation.
+
+Counterpart of ``ndarray_interp_tpu.models.interpnd`` (evaluation; the
+calculus waits).  Interpolation over the leading ``k`` axes of ``data``,
+with SciPy's ``RegularGridInterpolator`` methods ``"linear"``,
+``"nearest"`` and ``"cubic"`` (the tensor-product C² spline with per-axis
+boundary families).  The 1-D/2-D call conventions carry over: query dims
+lead and the output has ``M + N - k`` dims, the ``k`` query arrays share
+one shape, eager calls raise on out-of-range queries and the pure
+``__call__`` masks them to NaN, extrapolation extends the edge cells.
+
+Each axis's ``(idx, t)`` pass is the search kernel K2 on the GPU
+(``bicubic._index_frac``); the cubic state comes from the batched spline
+solves along each axis, K4 on the GPU.  Then one row gather a query from a
+packed table and a weighted sum, in plain PyTorch, as they are XLA (not
+Pallas) in the JAX package:
+
+* ``"linear"``: the ``2^k`` corner blocks of each cell in one row
+  (:func:`pack_corner_rows_nd`), up to :data:`INTERPND_PACK_MAX_ELEMS`
+  table elements; above that the ``2^k`` corner values are gathered from
+  the data;
+* ``"cubic"``, layout ``"cell"``: the ``4^k`` pre-scaled corner quantities
+  of each cell in one row (:func:`pack_cubic_rows_nd`); layouts ``"node"``,
+  ``"node2"``, ``"node4"``: node rows of raw state and coordinates
+  (:func:`pack_cubic_nodes_nd`), ``2^(k-m)`` gathers a query at about
+  ``2^m·2^k`` times the data's memory.  :meth:`InterpND.build_state`
+  picks the layout as the JAX package does: its v5e cost model
+  :meth:`InterpND.route_cost_ns` among the layouts under the cap.
+
+Devices as in :mod:`.interp1d`: tensors keep their device, numpy arrays
+and lists land on the builder's ``device`` (the GPU unless named).
+Autograd flows through evaluation.
+
+Not ported yet: ``derivative`` and ``integrate`` with their helpers (the
+t-derivative bases, ``_dx_chain_factor``, the antiderivative weights), the
+checkpoint codec and the pytree protocol, which PyTorch does not need.
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+
+import torch
+
+from ..errors import MonotonicError, NotEnoughDataError, OutOfBoundsError, ShapeError
+from ..ops.searchsorted import is_in_range
+from ..utils.device import default_device
+from ..utils.monotonic import monotonic_prop
+from .interp1d import _check_buffer, _to_tensor, _write
+from .strategies.bicubic import _AXIS_KINDS, _index_frac, _solve_axis0
+
+_METHODS = ("linear", "nearest", "cubic")
+_BCS = tuple(_AXIS_KINDS)  # not_a_knot / natural / clamped / periodic
+
+#: the packed tables are built up to this many elements; above it linear
+#: gathers from the data and cubic takes a node layout (``config.py:76``)
+INTERPND_PACK_MAX_ELEMS = 128 * 1024 * 1024
+
+# pairing degree m per cubic table layout (gathers per query = 2^(k-m))
+_NODE_PAIRS = {"node": 0, "node2": 1, "node4": 2}
+
+
+def _strides(shape):
+    """Row-major strides of ``shape`` (the last axis fastest)."""
+    out = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        out[d] = out[d + 1] * shape[d + 1]
+    return out
+
+
+def _flat_index(idx, shape):
+    return sum(i.long() * s for i, s in zip(idx, _strides(shape)))
+
+
+def pack_corner_rows_nd(data, k):
+    """Per-cell rows ``(cells, 2^k·r)``: the ``2^k`` corner blocks of each
+    cell (``r = prod(trailing)`` channels each) in
+    :func:`itertools.product` corner order, the weight order of the eval."""
+    grid = tuple(data.shape[:k])
+    r = math.prod(data.shape[k:])
+    cells = tuple(n - 1 for n in grid)
+    blocks = [
+        data[tuple(slice(1, None) if d else slice(None, -1) for d in c)].reshape(cells + (r,))
+        for c in itertools.product((0, 1), repeat=k)
+    ]
+    return torch.stack(blocks, dim=k).reshape(math.prod(cells), (2**k) * r)
+
+
+def _linear_basis(t):
+    """The multilinear basis ``[1-t, t]`` of one axis."""
+    return [1 - t, t]
+
+
+def _corner_weights(ts, k):
+    """(Q, 2^k) multilinear weights in ``itertools.product`` corner order
+    (the block order of :func:`pack_corner_rows_nd`)."""
+    bases = [_linear_basis(t) for t in ts]
+    w = []
+    for c in itertools.product((0, 1), repeat=k):
+        wc = bases[0][c[0]]
+        for d in range(1, k):
+            wc = wc * bases[d][c[d]]
+        w.append(wc)
+    return torch.stack(w, dim=-1)
+
+
+def interpnd_node_grids(axes, data, k, bcs):
+    """All ``2^k`` mixed-derivative node grids of the tensor-product cubic
+    spline: ``grids[mask]`` (bit ``d`` for axis ``d``) holds
+    ``∂^{|mask|} data / ∏_{d∈mask} ∂x_d`` at the nodes, from the batched
+    1-D spline solve applied along each axis in ascending order."""
+    grids = {0: data}
+    for d in range(k):
+        for e in sorted(grids):
+            kd = _solve_axis0(axes[d], torch.movedim(grids[e], d, 0), bcs[d])
+            grids[e | (1 << d)] = torch.movedim(kd, 0, d)
+    return grids
+
+
+def _cubic_digit_channels(k):
+    """Channel order of the cubic routes: one base-4 digit per axis (axis 0
+    most significant), ``digit = 2*deriv + side``; the weight order of
+    :func:`_cubic_weights`."""
+    return list(itertools.product(range(4), repeat=k))
+
+
+def pack_cubic_rows_nd(axes, data, k, grids):
+    """Per-cell rows ``(cells, 4^k·r)`` of the tensor-product cubic: every
+    mixed derivative at every corner, the derivatives pre-scaled by their
+    cell's interval widths, so one gathered row feeds the whole ``k``-fold
+    Hermite blend."""
+    grid = tuple(data.shape[:k])
+    r = math.prod(data.shape[k:])
+    cells = tuple(n - 1 for n in grid)
+    dxs = [(ax[1:] - ax[:-1]).to(data.dtype) for ax in axes]
+    blocks = []
+    for digits in _cubic_digit_channels(k):
+        mask = sum(1 << d for d, dig in enumerate(digits) if dig >= 2)
+        sl = tuple(slice(1, None) if dig & 1 else slice(None, -1) for dig in digits)
+        block = grids[mask][sl].reshape(cells + (r,))
+        for d, dig in enumerate(digits):
+            if dig >= 2:
+                shape = [1] * (k + 1)
+                shape[d] = cells[d]
+                block = block * dxs[d].reshape(shape)
+        blocks.append(block)
+    return torch.stack(blocks, dim=k).reshape(math.prod(cells), (4**k) * r)
+
+
+def _shift_edge(g, axis):
+    """``g`` moved one step down ``axis``, the last slice repeated."""
+    n = g.shape[axis]
+    return torch.cat([g.narrow(axis, 1, n - 1), g.narrow(axis, n - 1, 1)], dim=axis)
+
+
+def pack_cubic_nodes_nd(axes, data, k, grids, pairs=0):
+    """Node table ``(prod(n), 2^m·2^k·r + k + m)``: the raw (unscaled)
+    mixed-derivative state of each node, subset masks ascending, then its
+    ``k`` coordinates.  ``pairs = m``: the row also carries the state of its
+    ``2^m - 1`` neighbours along the last ``m`` axes (edge nodes repeat;
+    those rows never start a gather) and the ``m`` next-node coordinates,
+    so a query gathers ``2^(k-m)`` rows instead of ``2^k``."""
+    grid = tuple(data.shape[:k])
+    m = pairs
+    r = math.prod(data.shape[k:])
+    state = torch.cat([grids[e].reshape(grid + (r,)) for e in range(2**k)], dim=-1)
+    blocks = []
+    for delta in itertools.product((0, 1), repeat=m):
+        g = state
+        for j, bit in enumerate(delta):
+            if bit:
+                g = _shift_edge(g, k - m + j)
+        blocks.append(g)
+    coords = torch.meshgrid(*[ax.to(data.dtype) for ax in axes], indexing="ij")
+    blocks += [c[..., None] for c in coords]
+    for j in range(m):
+        blocks.append(_shift_edge(coords[k - m + j], k - m + j)[..., None])
+    return torch.cat(blocks, dim=-1).reshape(math.prod(grid), (2**m) * (2**k) * r + k + m)
+
+
+def _cubic_basis(t):
+    """(Q, 4) Hermite basis ``[h00, h01, h10, h11]`` for pre-scaled
+    derivatives (``K = k·dx``): the symmetric reference Hermite
+    (``cubic_spline.rs:818-828``) expanded in the corner state."""
+    omt = 1 - t
+    return torch.stack(
+        [omt * omt * (1 + 2 * t), t * t * (3 - 2 * t), t * omt * omt, -t * t * omt], dim=-1
+    )
+
+
+def _cubic_weights(ts):
+    """(Q, 4^k) tensor-product Hermite weights in
+    :func:`_cubic_digit_channels` order."""
+    w = torch.ones(ts[0].shape + (1,), dtype=ts[0].dtype, device=ts[0].device)
+    for t in ts:
+        b = _cubic_basis(t)
+        w = (w[:, :, None] * b[:, None, :]).reshape(w.shape[0], -1)
+    return w
+
+
+def _eval_cubic(interp, idx, ts, trailing):
+    """Tensor-product cubic at per-axis ``(idx, t)``: one cell-row gather
+    (cell layout) or ``2^(k-m)`` node-row gathers (node layouts)."""
+    k = interp.k
+    grid = tuple(interp.data.shape[:k])
+    r = math.prod(trailing)
+    q = idx[0].shape[0]
+    w = _cubic_weights(ts)  # (Q, 4^k)
+    if interp.layout == "cell":
+        cell = _flat_index(idx, tuple(n - 1 for n in grid))
+        rows = interp.table.index_select(0, cell).reshape(q, 4**k, r)
+        return torch.sum(rows * w[:, :, None], dim=1).reshape((q,) + trailing)
+
+    # node layouts: the blend accumulates in the same (s_corner, mask) order
+    # with the same values for every m, so all node layouts are bit-identical
+    m = _NODE_PAIRS[interp.layout]
+    sb = (2**k) * r  # one state block
+    cbase = (2**m) * sb  # the coordinate channels start here
+    nstrides = _strides(grid)
+    base = _flat_index(idx, grid)
+    corner_rows = {}
+    for s_low in itertools.product((0, 1), repeat=k - m):
+        off = sum(d * st for d, st in zip(s_low, nstrides[: k - m]))
+        corner_rows[s_low] = interp.table.index_select(0, base + off)
+    # interval widths: gathered axes from the all-ones corner row, paired
+    # axes from the base row's stored next-node coordinate
+    lo = corner_rows[(0,) * (k - m)]
+    hi = corner_rows[(1,) * (k - m)]
+    dxs = [(hi[:, cbase + d] - lo[:, cbase + d])[:, None] for d in range(k - m)] + [
+        (lo[:, cbase + k + j] - lo[:, cbase + (k - m) + j])[:, None] for j in range(m)
+    ]
+    out = torch.zeros((q, r), dtype=lo.dtype, device=lo.device)
+    for s_corner in itertools.product((0, 1), repeat=k):
+        g = corner_rows[s_corner[: k - m]]
+        p = 0
+        for bit in s_corner[k - m :]:
+            p = 2 * p + bit  # the in-row neighbour block (product order)
+        for mask in range(2**k):
+            # channel of (deriv set = mask, side = s_corner) in the weight
+            # order: per-axis digit 2*deriv + side, axis 0 most significant
+            ch = 0
+            for d in range(k):
+                ch = ch * 4 + 2 * ((mask >> d) & 1) + s_corner[d]
+            scale = w[:, ch][:, None]
+            for d in range(k):
+                if (mask >> d) & 1:
+                    scale = scale * dxs[d]
+            out = out + scale * g[:, p * sb + mask * r : p * sb + (mask + 1) * r]
+    return out.reshape((q,) + trailing)
+
+
+def _eval_core(interp, flats):
+    """Evaluate at flat query vectors, one per interpolated axis."""
+    data = interp.data
+    k = interp.k
+    grid = tuple(data.shape[:k])
+    trailing = tuple(data.shape[k:])
+    idx, ts = [], []
+    for d, (ax, q) in enumerate(zip(interp.axes, flats)):
+        if interp.wraps_axis(d):  # rem_euclid wrap, cubic_spline.rs:804-809
+            q = torch.remainder(q - ax[0], ax[-1] - ax[0]) + ax[0]
+        i, t = _index_frac(ax, q)  # i clamped to [0, n-2]
+        idx.append(i)
+        ts.append(t)
+
+    if interp.method == "cubic":
+        return _eval_cubic(interp, idx, ts, trailing)
+
+    if interp.method == "nearest":
+        # per-axis nearest node, ties toward the lower node; the clamped
+        # interval makes out-of-range queries pick the edge node
+        near = [torch.where(t <= 0.5, i, i + 1) for i, t in zip(idx, ts)]
+        return data.reshape((-1,) + trailing).index_select(0, _flat_index(near, grid))
+
+    w = _corner_weights(ts, k)  # (Q, 2^k)
+    if interp.table is not None:
+        # packed route: one row gather and a weighted sum over the corners
+        cell = _flat_index(idx, tuple(n - 1 for n in grid))
+        rows = interp.table.index_select(0, cell)
+        rows = rows.reshape(rows.shape[0], 2**k, math.prod(trailing))
+        out = torch.sum(rows * w[:, :, None], dim=1)
+        return out.reshape(out.shape[:1] + trailing)
+
+    # unpacked route: the 2^k corner values gathered from the data
+    strides = _strides(grid)
+    base = _flat_index(idx, grid)
+    offsets = torch.tensor(
+        [sum(d * s for d, s in zip(c, strides)) for c in itertools.product((0, 1), repeat=k)],
+        dtype=base.dtype, device=base.device,
+    )
+    g = data.reshape((-1,) + trailing)[base[:, None] + offsets[None, :]]
+    return torch.sum(g * w.reshape(w.shape + (1,) * len(trailing)), dim=1)
+
+
+class InterpND:
+    """Interpolator over the leading ``k`` axes of ``data``.
+
+    Construct via :meth:`builder` (validating) or :meth:`new_unchecked`.
+    ``method``: ``"linear"`` (multilinear, ``2^k``-corner cell blend),
+    ``"nearest"`` (nearest grid node, per-axis ties toward the lower node,
+    extrapolation clamps) or ``"cubic"``.
+    """
+
+    def __init__(self, axes, data, method="linear", extrapolate=False, table=None, bcs=None,
+                 layout=None):
+        self.axes = tuple(axes)
+        self.data = data
+        self.method = method
+        self.extrapolates = bool(extrapolate)
+        self.table = table
+        self.bcs = tuple(bcs) if bcs is not None else None
+        self.layout = layout  # cubic: "cell" | "node" | "node2" | "node4"
+
+    def wraps_axis(self, d: int) -> bool:
+        """Queries wrap (rem_euclid) on a periodic cubic axis, which is
+        never out of range (``cubic_spline.rs:804-809`` per axis)."""
+        return self.bcs is not None and self.bcs[d] == "periodic"
+
+    @property
+    def k(self) -> int:
+        return len(self.axes)
+
+    # -- construction ----------------------------------------------------------
+    @classmethod
+    def builder(cls, data, device=None) -> "InterpNDBuilder":
+        """Get the builder.  ``device`` places numpy or list inputs
+        (default: the GPU; raises without one); tensors keep their own
+        device."""
+        return InterpNDBuilder(data, device=device)
+
+    @classmethod
+    def new_unchecked(cls, axes, data, method="linear", extrapolate=False, table=None, bcs=None,
+                      layout=None) -> "InterpND":
+        """No-validation constructor.  ``table`` is the packed corner or
+        node table (required for ``method="cubic"``, with ``layout``): derive
+        it with :meth:`build_state`, or leave ``None`` for the unpacked
+        linear and the nearest routes."""
+        return cls(axes, data, method, extrapolate, table, bcs, layout)
+
+    @staticmethod
+    def route_cost_ns(k, grid_shape, r, layout):
+        """The JAX package's per-query cost model of a cubic route (ns,
+        measured on a TPU v5e), kept so that both packages pick the same
+        layout: ~6 ns a gathered row until its bytes bind at ~300 GB/s.  The
+        cell layout gathers one ``4^k·r``-channel row, a node layout
+        ``2^(k-m)`` rows of ``2^m·2^k·r + k + m`` channels.  By this model the
+        cell layout wins whenever it fits; the node layouts exist for
+        memory."""
+        row = max(6.0, (4**k) * r * 4 / 300.0)
+        if layout == "cell":
+            return row
+        m = _NODE_PAIRS[layout]
+        ch = (2**m) * (2**k) * r + k + m
+        return (2 ** (k - m)) * max(6.0, ch * 4 / 300.0)
+
+    @staticmethod
+    def build_state(axes, data, k, method, bcs=None, layout=None):
+        """The derived packed state ``(table, layout)``.
+
+        ``linear``: the ``2^k``-corner cell table up to
+        :data:`INTERPND_PACK_MAX_ELEMS` elements (else ``(None, None)``, the
+        unpacked route).  ``cubic``: the mixed-derivative solves
+        (:func:`interpnd_node_grids`) packed per ``layout``: forced when
+        given, else the cheapest by :meth:`route_cost_ns` among the layouts
+        whose table fits the cap (the node layout always qualifies).
+        ``nearest`` needs no state."""
+        if method == "linear":
+            if not data.is_floating_point():
+                return None, None
+            if data.numel() * (2**k) > INTERPND_PACK_MAX_ELEMS:
+                return None, None
+            return pack_corner_rows_nd(data, k), None
+        if method != "cubic":
+            return None, None
+        bcs_eff = bcs or ("not_a_knot",) * k
+        nnodes = math.prod(data.shape[:k])
+        cells = math.prod(n - 1 for n in data.shape[:k])
+        r = data.numel() // max(1, nnodes)
+        if layout is None:
+            fits = {"node"}
+            for cand, m in _NODE_PAIRS.items():
+                if 0 < m < k and nnodes * ((2**m) * (2**k) * r + k + m) <= INTERPND_PACK_MAX_ELEMS:
+                    fits.add(cand)
+            if cells * (4**k) * r <= INTERPND_PACK_MAX_ELEMS:
+                fits.add("cell")
+            layout = min(
+                sorted(fits), key=lambda lo: InterpND.route_cost_ns(k, data.shape[:k], r, lo)
+            )
+        elif layout not in ("cell",) + tuple(_NODE_PAIRS):
+            raise ValueError(
+                f"layout must be 'cell', 'node', 'node2', or 'node4', got {layout!r}"
+            )
+        elif layout != "cell" and _NODE_PAIRS[layout] >= k:
+            raise ValueError(
+                f"layout {layout!r} pairs {_NODE_PAIRS[layout]} axes; needs k > "
+                f"{_NODE_PAIRS[layout]} (got {k})"
+            )
+        grids = interpnd_node_grids(axes, data, k, bcs_eff)
+        if layout == "cell":
+            return pack_cubic_rows_nd(axes, data, k, grids), layout
+        return pack_cubic_nodes_nd(axes, data, k, grids, pairs=_NODE_PAIRS[layout]), layout
+
+    # -- pure core -----------------------------------------------------------------
+    def _flats(self, coords):
+        return [c.reshape(-1).to(ax.dtype) for c, ax in zip(coords, self.axes)]
+
+    def __call__(self, *coords):
+        """Evaluate at ``k`` coordinate arrays of one common shape.  Never
+        synchronises; out-of-range results are NaN unless extrapolating
+        (periodic axes are never out of range)."""
+        coords = self._as_query(coords)
+        flats = self._flats(coords)
+        out = _eval_core(self, flats)
+        if not self.extrapolates and (out.is_floating_point() or out.is_complex()):
+            ok = torch.ones(flats[0].shape, dtype=torch.bool, device=flats[0].device)
+            for d, (ax, q) in enumerate(zip(self.axes, flats)):
+                if not self.wraps_axis(d):
+                    ok = ok & is_in_range(ax, q)
+            out = torch.where(ok.reshape(tuple(ok.shape) + (1,) * (out.ndim - 1)), out, torch.nan)
+        return out.reshape(tuple(coords[0].shape) + tuple(self.data.shape[self.k :]))
+
+    def eval_unchecked(self, *coords):
+        """Evaluate without the out-of-range mask (edge-cell extrapolation)."""
+        coords = self._as_query(coords)
+        out = _eval_core(self, self._flats(coords))
+        return out.reshape(tuple(coords[0].shape) + tuple(self.data.shape[self.k :]))
+
+    # -- eager API -------------------------------------------------------------------
+    def interp(self, *coords):
+        """Value at one point, shape ``data.shape[k:]``; raises
+        ``OutOfBoundsError`` per axis unless extrapolating."""
+        arrs = tuple(_to_tensor(c, self.data.device) for c in coords)
+        self._check_arity(arrs)
+        self._check_queries([c.reshape(-1) for c in arrs])
+        return self.eval_unchecked(*arrs).reshape(tuple(self.data.shape[self.k :]))
+
+    def interp_array(self, *coords):
+        """Batched eval; output dims ``M + N - k`` with the query dims
+        leading; the coordinate arrays share one shape."""
+        coords = self._as_query(coords)
+        self._check_queries([c.reshape(-1) for c in coords])
+        return self.eval_unchecked(*coords)
+
+    def interp_array_into(self, *coords, buffer):
+        """``interp_array`` into a caller-provided buffer (a tensor or a
+        numpy array): shape checked first, untouched on an out-of-range
+        query.  ``buffer`` is keyword-only."""
+        arrs = tuple(_to_tensor(c, self.data.device) for c in coords)
+        self._check_arity(arrs)
+        _check_buffer(buffer, self.get_buffer_shape(arrs[0].shape))
+        return _write(buffer, self.interp_array(*arrs))
+
+    def get_buffer_shape(self, query_shape) -> tuple:
+        return tuple(query_shape) + tuple(self.data.shape[self.k :])
+
+    # -- internals -------------------------------------------------------------------
+    def _check_arity(self, coords):
+        if len(coords) != self.k:
+            raise ValueError(
+                f"expected {self.k} coordinate arrays (one per interpolated axis), "
+                f"got {len(coords)}"
+            )
+
+    def _as_query(self, coords):
+        coords = tuple(_to_tensor(c, self.data.device) for c in coords)
+        self._check_arity(coords)
+        if any(c.shape != coords[0].shape for c in coords[1:]):
+            raise ValueError("query coordinate shapes do not match")
+        return coords
+
+    def _range_host(self):
+        cached = getattr(self, "_range_cache", None)
+        if cached is None:
+            cached = tuple((float(ax[0]), float(ax[-1])) for ax in self.axes)
+            self._range_cache = cached
+        return cached
+
+    def _check_queries(self, flats):
+        """NaN on any axis raises ``ValueError`` first; then, unless
+        extrapolating, the first axis with a value out of range raises
+        ``OutOfBoundsError`` (one flag copied to the host per axis)."""
+        for q in flats:
+            if q.is_floating_point() and bool(torch.isnan(q).any()):
+                raise ValueError("failed to convert NaN to an index")
+        if self.extrapolates:
+            return
+        for d, (q, (lo, hi)) in enumerate(zip(flats, self._range_host())):
+            if self.wraps_axis(d):  # periodic axes are never out of range
+                continue
+            ok = (lo <= q) & (q <= hi)
+            if not bool(ok.all()):
+                bad = q[~ok][0].detach().cpu().numpy()[()]
+                raise OutOfBoundsError(f"axis {d}: {bad} is not in range")
+
+    def __repr__(self):
+        extra = ", packed" if self.table is not None else ""
+        if self.layout is not None:
+            extra = f", layout={self.layout!r}"
+        if self.bcs is not None:
+            extra += f", bcs={self.bcs!r}"
+        return (
+            f"InterpND(k={self.k}, data={tuple(self.data.shape)}, method={self.method!r}, "
+            f"extrapolate={self.extrapolates}{extra})"
+        )
+
+
+class InterpNDBuilder:
+    """Create and configure an :class:`InterpND`.
+
+    Defaults: axes are the indices of every data dim (``k = data.ndim``,
+    ``RegularGridInterpolator``'s convention), method ``"linear"``, no
+    extrapolation.  :meth:`points` sets the axes; their count fixes ``k``
+    and the trailing data dims are batched.
+    """
+
+    def __init__(self, data, device=None):
+        self._device = default_device(data, device)
+        self._data = _to_tensor(data, self._device, copy=True)
+        self._points = None
+        self._method = "linear"
+        self._extrapolate = False
+        self._bcs = None
+        self._layout = None
+
+    def points(self, *axes) -> "InterpNDBuilder":
+        self._points = tuple(_to_tensor(ax, self._device, copy=True) for ax in axes)
+        return self
+
+    def method(self, method: str) -> "InterpNDBuilder":
+        if method not in _METHODS:
+            raise ValueError(
+                f"unknown InterpND method {method!r}; choose from {sorted(_METHODS)}"
+            )
+        self._method = method
+        return self
+
+    def boundary(self, *bcs) -> "InterpNDBuilder":
+        """Per-axis boundary conditions for ``method("cubic")``:
+        ``not_a_knot`` (default), ``natural``, ``clamped`` or ``periodic``
+        per axis; a single name applies to every axis."""
+        for bc in bcs:
+            if bc not in _BCS:
+                raise ValueError(f"unknown boundary {bc!r}; choose from {sorted(_BCS)}")
+        self._bcs = tuple(bcs)
+        return self
+
+    def extrapolate(self, yes: bool = True) -> "InterpNDBuilder":
+        self._extrapolate = bool(yes)
+        return self
+
+    def layout(self, layout: str) -> "InterpNDBuilder":
+        """Force the cubic table layout: ``"cell"`` (one ``4^k·r``-channel
+        row gather a query, ``~4^k``× the data's memory), ``"node"`` (``2^k``
+        node-row gathers, ``~2^k``×) or the paired ``"node2"`` / ``"node4"``
+        (``2^(k-1)`` / ``2^(k-2)`` gathers at 2× / 4× the node table; need
+        ``k > 1`` / ``k > 2``).  Default: :meth:`InterpND.build_state`'s
+        choice."""
+        if layout not in ("cell", "node", "node2", "node4"):
+            raise ValueError(
+                f"layout must be 'cell', 'node', 'node2', or 'node4', got {layout!r}"
+            )
+        self._layout = layout
+        return self
+
+    def build(self) -> InterpND:
+        """Validate and build; the checks follow the 2-D builder per axis
+        (``mod.rs:468-518``): enough data, axis and data lengths match,
+        strictly rising axes."""
+        data = self._data
+        axes = self._points
+        if axes is None:
+            axes = tuple(torch.arange(n, device=data.device).to(data.dtype) for n in data.shape)
+        k = len(axes)
+        if k == 0:
+            raise ShapeError("at least one axis is required")
+        if data.ndim < k:
+            raise ShapeError(f"data dimension needs to be at least {k}")
+        bcs = self._bcs
+        if bcs is not None:
+            if self._method != "cubic":
+                raise ValueError("boundary() applies to method('cubic') only")
+            if len(bcs) == 1:
+                bcs = bcs * k
+            if len(bcs) != k:
+                raise ShapeError(
+                    f"expected {k} boundary conditions (one per axis), got {len(bcs)}"
+                )
+        elif self._method == "cubic":
+            bcs = ("not_a_knot",) * k
+        min_pts = 3 if self._method == "cubic" else 2
+        for d, ax in enumerate(axes):
+            if ax.ndim != 1:
+                raise ShapeError(f"axis {d} must be one-dimensional")
+            if data.shape[d] < min_pts:
+                raise NotEnoughDataError(
+                    f"The {d}-dimension has not enough data for the chosen interpolation "
+                    f"strategy. Provided: {data.shape[d]}, Required: {min_pts}"
+                )
+            if ax.shape[0] != data.shape[d]:
+                raise ShapeError(
+                    f"Lengths of axis {d} and data-{d}-axis need to match. Got axis: "
+                    f"{ax.shape[0]}, data-{d}: {data.shape[d]}"
+                )
+            if not monotonic_prop(ax).is_strict_rising:
+                raise MonotonicError(f"axis {d} needs to be strictly monotonic rising")
+            if ax.device != data.device:
+                raise ValueError(
+                    f"axis {d} and data must be on one device; got axis {d} on {ax.device}, "
+                    f"data on {data.device}"
+                )
+        if bcs is not None:
+            # periodic axes need equal first and last data rows along them
+            # (cubic_spline.rs:483-489 per axis)
+            for d, bc in enumerate(bcs):
+                if bc == "periodic" and not torch.equal(data.select(d, 0), data.select(d, -1)):
+                    raise ValueError(
+                        f"periodic axis {d} requires the first and last data rows along it "
+                        "to be equal"
+                    )
+        ct = data.dtype
+        for ax in axes:
+            ct = torch.promote_types(ct, ax.dtype)
+        if not (ct.is_floating_point or ct.is_complex):
+            ct = torch.promote_types(ct, torch.float32)
+        axes_ct = tuple(ax.to(ct) for ax in axes)
+        data_ct = data.to(ct)
+        table, layout = InterpND.build_state(axes_ct, data_ct, k, self._method, bcs,
+                                             layout=self._layout)
+        return InterpND(axes_ct, data_ct, self._method, self._extrapolate, table, bcs, layout)

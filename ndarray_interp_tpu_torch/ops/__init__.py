@@ -1,7 +1,7 @@
 """Primitive operations: search, lerp, gather, tridiagonal solve, the
 double-float pairs (``df``), and the wrappers of the CUDA kernels
 (``eval_kernels``, ``thomas_kernel``, ``eval_kernels_df``,
-``eval_kernels_df2d``)."""
+``eval_kernels_df2d``, ``eval_kernels_df_nd``)."""
 
 from .eval_kernels import (
     fused_eval_1d,
@@ -18,9 +18,11 @@ from .eval_kernels_df import (
 from .eval_kernels_df2d import (
     gathered_bicubic_df_tail,
     gathered_bicubic_f48_tail,
+    gathered_bicubic_node_df_tail,
     gathered_bilinear_df_tail,
     gathered_bilinear_f48_tail,
 )
+from .eval_kernels_df_nd import nd_df_tail, nd_f48_tail
 from .lerp import calc_frac
 from .searchsorted import get_lower_index, is_in_range, lower_index_fast
 from .thomas import thomas_solve
@@ -35,6 +37,7 @@ __all__ = [
     "fused_lower_index",
     "gathered_bicubic_df_tail",
     "gathered_bicubic_f48_tail",
+    "gathered_bicubic_node_df_tail",
     "gathered_bilinear_df_tail",
     "gathered_bilinear_f48_tail",
     "gathered_df_tail",
@@ -43,6 +46,8 @@ __all__ = [
     "is_in_range",
     "lower_index_fast",
     "make_interval_table",
+    "nd_df_tail",
+    "nd_f48_tail",
     "thomas_solve",
     "thomas_solve_fast",
 ]
@@ -50,7 +55,7 @@ __all__ = [
 
 def kernel_wrappers():
     """The wrapper of every CUDA kernel, by the id the docs give it; each
-    has a ``launches`` count."""
+    has a ``launches`` count.  K15's two grades have a wrapper each."""
     return {
         "K1": fused_eval_1d,
         "K2": fused_index_frac,
@@ -64,4 +69,7 @@ def kernel_wrappers():
         "K11": gathered_bilinear_f48_tail,
         "K12": gathered_bicubic_df_tail,
         "K13": gathered_bicubic_f48_tail,
+        "K14": gathered_bicubic_node_df_tail,
+        "K15": nd_df_tail,
+        "K15f48": nd_f48_tail,
     }

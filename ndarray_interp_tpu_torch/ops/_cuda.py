@@ -46,6 +46,20 @@ _BOTH = tuple(_SUFFIX)
 _PAIRS = (torch.float32,)  # the double-float kernels take (hi, lo) float32 pairs
 # packed, rows, ch, bp, xi, yi, ny - 1, tx_hi, tx_lo, ty_hi, ty_lo, out_hi, out_lo, nq
 _CELL_TAIL = ((_P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P), _PAIRS)
+#: the most axes K15 takes: its strides and bases live in registers
+MAX_ND_AXES = 6
+
+
+class NdStrides(ctypes.Structure):
+    """K15's cell strides, passed by value (``struct NdStrides`` in
+    ``csrc/df_nd_kernels.cu``)."""
+
+    _fields_ = [("s", ctypes.c_int64 * MAX_ND_AXES)]
+
+
+# packed, rows, ch, bp, k, nbasis, idx (k, nq), strides, t_hi, t_lo (k, nq),
+# out_hi, out_lo, nq
+_ND_TAIL = ((_P, _I, _I, _I, _I, _I, _P, NdStrides, _P, _P, _P, _P, _I, _P), _PAIRS)
 # argument types of each entry point, stream last, and the dtypes it has a
 # symbol for: <name>_f32, <name>_f64
 _SIGNATURES = {
@@ -61,6 +75,10 @@ _SIGNATURES = {
     "ndi_f48_bilinear_tail": _CELL_TAIL,
     "ndi_df_bicubic_tail": _CELL_TAIL,
     "ndi_f48_bicubic_tail": _CELL_TAIL,
+    # packed, rows, ch, r, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo, out_hi, out_lo, nq
+    "ndi_df_bicubic_node_tail": _CELL_TAIL,
+    "ndi_df_nd_tail": _ND_TAIL,
+    "ndi_f48_nd_tail": _ND_TAIL,
 }
 
 _lock = threading.Lock()

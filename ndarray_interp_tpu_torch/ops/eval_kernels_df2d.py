@@ -1,9 +1,9 @@
-"""f64-grade 2-D evaluation on the GPU: wrappers of K10, K11, K12 and K13.
+"""f64-grade 2-D evaluation on the GPU: wrappers of K10, K11, K12, K13 and K14.
 
 Counterpart of the 2-D part of ``ndarray_interp_tpu.ops.pallas_eval_df``,
 with its names and signatures: every value crosses the interface as an
 ``(hi, lo)`` float32 pair (``ops/df.py``).  The CUDA kernels are in
-``csrc/df2d_kernels.cu``.  Each gathers its query's cell row from a packed
+``csrc/df2d_kernels.cu``.  Each gathers its query's row(s) from a packed
 table, widens every pair once to float64 (exact) and computes natively in
 FP64, where the TPU kernels ran error-free transforms on float32 and
 one-hot matrix products:
@@ -15,22 +15,31 @@ one-hot matrix products:
 * :func:`gathered_bicubic_df_tail` (K12) and
   :func:`gathered_bicubic_f48_tail` (K13): the tensor-product Hermite of a
   :func:`pack_bicubic_rows_df` / :func:`pack_bicubic_rows_f48` table of
-  bicubic cell rows, five nested scaled Hermite forms.
+  bicubic cell rows, five nested scaled Hermite forms;
+* :func:`gathered_bicubic_node_df_tail` (K14): the same Hermite forms from
+  the four node rows of a :func:`pack_bicubic_nodes_df` table (the
+  memory-frugal node layout), the derivatives scaled by the interval widths
+  that the rows' own coordinates give.
 
-A kernel takes the table, both axes' interval indices (from K7), the y knot
-count and the four fraction halves, computes the cell ``xi·(ny-1) + yi``
-itself and writes a ``(Q, bp)`` result pair (``bp``: the channel count
-padded to a multiple of 8); the routes slice it to the ``r`` channels.  The
-JAX route gathers the ``(Q, 32·bp)`` rows with XLA first and runs its tail
-kernel on them.
+A cell kernel takes the table, both axes' interval indices (from K7), the
+y knot count and the four fraction halves, computes the cell
+``xi·(ny-1) + yi`` itself and writes a ``(Q, bp)`` result pair (``bp``: the
+channel count padded to a multiple of 8); the routes slice it to the ``r``
+channels.  K14 fetches the nodes ``xi·ny + yi``, ``+1``, ``+ny`` and
+``+ny+1`` and writes ``(Q, r)``.  The JAX routes gather the rows with XLA
+first and run their tail kernels on them.
 
 Each kernel's plain version is here, in PyTorch float64 and the kernel's
 operation order: :func:`_df_bilinear_xla_tail` (on rows gathered with
 ``index_select``) for K10, the same after :func:`_unpack_f48_lo` for K11,
-:func:`_df_bicubic_tail` for K12 and, unpacked, K13.  A wrapper runs the
-plain version for CPU tensors and launches its kernel for CUDA tensors; the
-kernels are bit-identical to the plain versions.  ``launches`` on each
-wrapper counts its kernel's launches.
+:func:`_df_bicubic_tail` for K12 and, unpacked, K13, :func:`_df_node_tail`
+for K14.  A wrapper runs the plain version for CPU tensors and launches its
+kernel for CUDA tensors; the kernels are bit-identical to the plain
+versions.  ``launches`` on each wrapper counts its kernel's launches.
+
+Not ported: the JAX node route's ``chunk`` option, which bounds XLA's
+memory for the intermediates of its tail (the kernel keeps none), and its
+``fetch="pair"`` option, a measured-negative record of the TPU.
 
 As in 1-D, the fraction is computed in float64: a ±inf query gives
 ``t = ±inf`` where the JAX double-float fraction is NaN.
@@ -115,6 +124,21 @@ def pack_bicubic_rows_f48(rows_hi, rows_lo, r):
     half = 8 * _bank_pad(r)
     packed_lo = _as_f32_bits((lo16[:, :half] << 16) | lo16[:, half:])
     return torch.cat([_bicubic_blocks(rows_hi, r), packed_lo], dim=1)
+
+
+def pack_bicubic_nodes_df(nodes_hi, nodes_lo):
+    """Double-float node table ``(nx·ny, 8r+4)`` from the pairs of a
+    node-layout ``BicubicStrategy.rows`` table ``(nx·ny, 4r+2)`` (raw
+    ``[f | kx | ky | kxy]`` and the node's ``(x, y)``), block-interleaved:
+    ``[f_hi|f_lo|kx_hi|kx_lo|ky_hi|ky_lo|kxy_hi|kxy_lo|x_hi,x_lo,y_hi,y_lo]``.
+    Bit-identical to the JAX package's table."""
+    r = (nodes_hi.shape[1] - 2) // 4
+    parts = []
+    for i in range(4):
+        parts += [nodes_hi[:, i * r : (i + 1) * r], nodes_lo[:, i * r : (i + 1) * r]]
+    for j in (0, 1):
+        parts += [nodes_hi[:, 4 * r + j : 4 * r + j + 1], nodes_lo[:, 4 * r + j : 4 * r + j + 1]]
+    return torch.cat(parts, dim=1)
 
 
 # -- plain versions -------------------------------------------------------------------
@@ -211,16 +235,61 @@ def _bicubic_f48_tail_plain(packed, xi, yi, ny, txh, txl, tyh, tyl):
     return _df_bicubic_tail(rows, txh, txl, tyh, tyl, rows.shape[1] // 32)
 
 
+def _df_node_tail(g11, g12, g21, g22, txh, txl, tyh, tyl, r):
+    """The bicubic tail on four gathered :func:`pack_bicubic_nodes_df`
+    rows ``(Q, 8r+4)`` at the fraction pairs ``(Q,)``, in float64: interval
+    widths from the rows' coordinates, the derivatives scaled by them
+    (``k·dx``), then the five nested scaled Hermite forms.  Returns the
+    ``(Q, r)`` result pair."""
+
+    def unpack(g):
+        blocks = [df_to_f64(g[:, 2 * i * r : (2 * i + 1) * r], g[:, (2 * i + 1) * r : (2 * i + 2) * r])
+                  for i in range(4)]
+        coords = [df_to_f64(g[:, 8 * r + 2 * j : 8 * r + 2 * j + 1],
+                            g[:, 8 * r + 2 * j + 1 : 8 * r + 2 * j + 2]) for j in (0, 1)]
+        return (*blocks, *coords)
+
+    f11, kx11, ky11, kxy11, x1, y1 = unpack(g11)
+    f12, kx12, ky12, kxy12, _, y2 = unpack(g12)
+    f21, kx21, ky21, kxy21, x2, _ = unpack(g21)
+    f22, kx22, ky22, kxy22, _, _ = unpack(g22)
+    dx = x2 - x1
+    dy = y2 - y1
+    tx = df_to_f64(txh, txl)[:, None]
+    ty = df_to_f64(tyh, tyl)[:, None]
+    f_y1 = _df_hermite_scaled(f11, f21, kx11 * dx, kx21 * dx, tx)
+    f_y2 = _df_hermite_scaled(f12, f22, kx12 * dx, kx22 * dx, tx)
+    g_y1 = _df_hermite_scaled(ky11, ky21, kxy11 * dx, kxy21 * dx, tx)
+    g_y2 = _df_hermite_scaled(ky12, ky22, kxy12 * dx, kxy22 * dx, tx)
+    return df_from_f64(_df_hermite_scaled(f_y1, f_y2, g_y1 * dy, g_y2 * dy, ty))
+
+
+def _bicubic_node_df_tail_plain(packed, xi, yi, ny, txh, txl, tyh, tyl):
+    """Plain version of K14: :func:`_df_node_tail` on the node rows
+    ``xi·ny + yi``, ``+1``, ``+ny``, ``+ny+1`` (each clamped to the table)."""
+    base = xi.long() * ny + yi.long()
+    g = [_gather_rows(packed, base + off) for off in (0, 1, ny, ny + 1)]
+    return _df_node_tail(*g, txh, txl, tyh, tyl, (packed.shape[1] - 4) // 8)
+
+
 # -- kernel launches -----------------------------------------------------------------
 def _launch_tail(symbol, wrapper, blocks, packed, xi, yi, ny, txh, txl, tyh, tyl):
+    """Check the operands and launch a 2-D tail: a cell tail on a table of
+    ``blocks·bp`` channels, or (``blocks=None``) K14 on a node table of
+    ``8r+4`` channels."""
     name = wrapper.__name__
     _cuda.pair_operands(name, txh, txl, tyh, tyl, packed)
     for what, idx in (("xi", xi), ("yi", yi)):
         if idx.dtype != torch.int32 or idx.device != txh.device:
             raise TypeError(f"{name}: {what} must be torch.int32 on {txh.device}")
-    if packed.ndim != 2 or packed.shape[1] % blocks:
+    ch = packed.shape[-1]
+    if blocks is None:  # K14 writes r channels and steps ny nodes a row of x
+        width, ragged, bp, row_step = "8r+4", (ch - 4) % 8, (ch - 4) // 8, ny
+    else:  # a cell tail writes bp channels and steps ny - 1 cells a row of x
+        width, ragged, bp, row_step = f"{blocks}·bp", ch % blocks, ch // blocks, ny - 1
+    if packed.ndim != 2 or ragged:
         raise ValueError(
-            f"{name}: packed must have shape (cells, {blocks}·bp), got {tuple(packed.shape)}"
+            f"{name}: packed must have shape (rows, {width}), got {tuple(packed.shape)}"
         )
     if ny < 2:
         raise ValueError(f"{name}: ny must be at least 2, got {ny}")
@@ -229,13 +298,12 @@ def _launch_tail(symbol, wrapper, blocks, packed, xi, yi, ny, txh, txl, tyh, tyl
     ):
         raise ValueError(f"{name}: xi, yi and the fraction halves must be flat and of one length")
     nq = xi.shape[0]
-    bp = packed.shape[1] // blocks
     out_hi = torch.empty((nq, bp), dtype=torch.float32, device=txh.device)
     out_lo = torch.empty_like(out_hi)
     packed = packed.contiguous()
     _cuda.launch(
         symbol, torch.float32, txh.device,
-        packed, packed.shape[0], packed.shape[1], bp, xi.contiguous(), yi.contiguous(), ny - 1,
+        packed, packed.shape[0], packed.shape[1], bp, xi.contiguous(), yi.contiguous(), row_step,
         *(v.contiguous() for v in (txh, txl, tyh, tyl)), out_hi, out_lo, nq,
     )
     wrapper.launches += 1
@@ -282,10 +350,23 @@ def gathered_bicubic_f48_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
     return _launch_tail("ndi_f48_bicubic_tail", gathered_bicubic_f48_tail, 24, *args)
 
 
+def gathered_bicubic_node_df_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
+    """The bicubic patch of the four nodes ``xi·ny + yi``, ``+1``, ``+ny``,
+    ``+ny+1`` of the :func:`pack_bicubic_nodes_df` table for each query,
+    evaluated at its fractions: the ``(nq, r)`` result pair.  ``ny`` is the
+    y knot count.  CPU tensors: :func:`_bicubic_node_df_tail_plain`; CUDA:
+    K14, which fetches the node rows itself."""
+    args = (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo)
+    if _cuda.kernel_device("gathered_bicubic_node_df_tail", tx_hi) == "cpu":
+        return _bicubic_node_df_tail_plain(*args)
+    return _launch_tail("ndi_df_bicubic_node_tail", gathered_bicubic_node_df_tail, None, *args)
+
+
 gathered_bilinear_df_tail.launches = 0
 gathered_bilinear_f48_tail.launches = 0
 gathered_bicubic_df_tail.launches = 0
 gathered_bicubic_f48_tail.launches = 0
+gathered_bicubic_node_df_tail.launches = 0
 
 
 # -- routes --------------------------------------------------------------------------
@@ -362,6 +443,21 @@ def gathered_bicubic_eval_df(x_hi, x_lo, y_hi, y_lo, rows_hi, rows_lo, qx_hi, qx
     packed = pack_bicubic_rows_df(rows_hi, rows_lo, r)
     return gathered_bicubic_eval_df_packed(x_hi, x_lo, y_hi, y_lo, packed,
                                            qx_hi, qx_lo, qy_hi, qy_lo, r=r)
+
+
+def gathered_bicubic_nodes_eval_df(x_hi, x_lo, y_hi, y_lo, packed, qx_hi, qx_lo, qy_hi,
+                                   qy_lo, r=1):
+    """The double-float bicubic route from the memory-frugal node table
+    (:func:`pack_bicubic_nodes_df`): K7 twice, then K14.  Flat queries;
+    returns the ``(nq, r)`` result pair.  The f64-grade route for grids whose
+    cell table is over ``BICUBIC_PACK_MAX_ELEMS``."""
+    if packed.shape[1] != 8 * r + 4:
+        raise ValueError(f"a node table of r = {r} channels has {8 * r + 4} columns, "
+                         f"got {packed.shape[1]}")
+    xi, txh, txl, yi, tyh, tyl = _df_index_frac_2d(
+        x_hi, x_lo, y_hi, y_lo, qx_hi, qx_lo, qy_hi, qy_lo
+    )
+    return gathered_bicubic_node_df_tail(packed, xi, yi, y_hi.shape[0], txh, txl, tyh, tyl)
 
 
 def _check_ny(ny, y_hi):

@@ -1,26 +1,27 @@
 """Serving helpers: bucketed evaluation of variable-length requests.
 
-Counterpart of the 1-D and 2-D parts of ``ndarray_interp_tpu.serving``.
-:class:`Evaluator` and :class:`Evaluator2D` pad each batch of queries up to
-a size bucket (powers of two by default) with the first knot(s), evaluate,
-and slice the padding off; requests longer than ``max_batch`` are evaluated
-in ``max_batch`` chunks.  The JAX package buckets so that one compiled
-program serves every size; PyTorch runs eagerly, and the buckets keep the
-set of kernel and allocation shapes small (the shapes a later CUDA graph
-would capture).  :class:`DoubleFloatEvaluator` and
-:class:`DoubleFloatEvaluator2D` serve float64-grade answers through the
-double-float kernels K6-K13 (``ops/eval_kernels_df.py``,
-``ops/eval_kernels_df2d.py``).
+Counterpart of ``ndarray_interp_tpu.serving``.  :class:`Evaluator`,
+:class:`Evaluator2D` and :class:`EvaluatorND` pad each batch of queries up
+to a size bucket (powers of two by default) with the first knot(s),
+evaluate, and slice the padding off; requests longer than ``max_batch`` are
+evaluated in ``max_batch`` chunks.  The JAX package buckets so that one
+compiled program serves every size; PyTorch runs eagerly, and the buckets
+keep the set of kernel and allocation shapes small (the shapes a later CUDA
+graph would capture).  :class:`DoubleFloatEvaluator`,
+:class:`DoubleFloatEvaluator2D` and :class:`DoubleFloatEvaluatorND` serve
+float64-grade answers through the double-float kernels K6-K15
+(``ops/eval_kernels_df.py``, ``ops/eval_kernels_df2d.py``,
+``ops/eval_kernels_df_nd.py``).
 
     ev = Evaluator(interp).warmup()
     values = ev(queries)
     ev2 = Evaluator2D(interp2d)
     values = ev2(xs, ys)
 
-Not ported: the N-D evaluators (they wait for ``InterpND``), the ``donate``
-option (PyTorch has no buffer donation; see :func:`eval_into_donated`), and
-``verify_hygiene``, which guards against XLA folding big tables into
-compiled programs, a hazard PyTorch does not have.
+Not ported: the ``donate`` option (PyTorch has no buffer donation; see
+:func:`eval_into_donated`), and ``verify_hygiene``, which guards against
+XLA folding big tables into compiled programs, a hazard PyTorch does not
+have.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 
 from .errors import OutOfBoundsError
 from .models.interp1d import _to_tensor
+from .models.interpnd import pack_corner_rows_nd
 from .models.strategies.bicubic import BicubicStrategy
 from .ops.df import df_from_f64, df_to_f64
 from .ops.eval_kernels_df import (
@@ -45,13 +47,16 @@ from .ops.eval_kernels_df import (
 from .ops.eval_kernels_df2d import (
     gathered_bicubic_eval_df_packed,
     gathered_bicubic_eval_f48_packed,
+    gathered_bicubic_nodes_eval_df,
     gathered_bilinear_eval_df_packed,
     gathered_bilinear_eval_f48_packed,
+    pack_bicubic_nodes_df,
     pack_bicubic_rows_df,
     pack_bicubic_rows_f48,
     pack_bilinear_rows_df,
     pack_bilinear_rows_f48,
 )
+from .ops.eval_kernels_df_nd import gathered_nd_eval_df_packed, pack_rows_nd_df, pack_rows_nd_f48
 
 
 def _default_buckets(max_size: int):
@@ -207,6 +212,31 @@ class Evaluator2D(_BucketedEvaluator):
         return out.reshape(shape)
 
 
+class EvaluatorND(_BucketedEvaluator):
+    """Bucketed evaluator over an :class:`~.models.interpnd.InterpND`:
+    ``ev(*coords)`` equals ``interp(*coords)`` for the ``k`` paired
+    coordinate arrays of any one shape, padded with each axis's first knot.
+    Arguments and devices as :class:`Evaluator`."""
+
+    def warmup(self):
+        """Evaluate every bucket once (kernel build, allocator blocks)."""
+        for b in self._buckets:
+            self._interp(*(ax[:1].expand(b).contiguous() for ax in self._interp.axes))
+        return self
+
+    def __call__(self, *coords):
+        itp = self._interp
+        qs = itp._as_query(coords)  # the arity and shape checks of InterpND
+        flats = [q.reshape(-1) for q in qs]
+        shape = tuple(qs[0].shape) + tuple(itp.data.shape[itp.k :])
+        if flats[0].shape[0] == 0:
+            return torch.zeros(shape, dtype=itp.data.dtype, device=itp.data.device)
+        out = self._padded_chunks(
+            [(f, ax[:1].to(f.dtype)) for f, ax in zip(flats, itp.axes)], itp
+        )
+        return out.reshape(shape)
+
+
 class DoubleFloatEvaluator(_BucketedEvaluator):
     """float64-grade serving of a 1-D cubic/Hermite (or linear)
     interpolator through the double-float kernels.
@@ -321,8 +351,10 @@ class DoubleFloatEvaluator2D(_BucketedEvaluator):
     strategies raise ``ValueError`` on NaN queries.
 
     A bicubic grid above ``BICUBIC_PACK_MAX_ELEMS`` cell elements has the
-    node layout, whose f64-grade route waits for its kernel (K14): it
-    raises ``NotImplementedError``.
+    node layout: its table is packed with
+    :func:`~.ops.eval_kernels_df2d.pack_bicubic_nodes_df` (about the grid's
+    float64 memory, a quarter of the DF cell table) and evaluated by K7 and
+    K14, four node rows a query; grade ``"df"`` only.
     """
 
     def __init__(self, interp, max_batch: int = 1 << 20, buckets=None, grade="df"):
@@ -342,21 +374,21 @@ class DoubleFloatEvaluator2D(_BucketedEvaluator):
         r = math.prod(self._trailing)
         axes = (*df_from_f64(x64), *df_from_f64(y64))
         if isinstance(strat, BicubicStrategy):
+            rows_pair = df_from_f64(strat.rows.detach().to(f64))
             if strat.layout != "cell":
                 if grade != "df":
                     raise ValueError(
                         "grade='f48' supports the bicubic cell layout and bilinear only"
                     )
-                raise NotImplementedError(
-                    "DoubleFloatEvaluator2D: the bicubic node layout (grids above "
-                    "BICUBIC_PACK_MAX_ELEMS cell elements) has no f64-grade route yet; "
-                    "it waits for its kernel (K14)"
-                )
+                self._packed = pack_bicubic_nodes_df(*rows_pair)
+                self._run = functools.partial(gathered_bicubic_nodes_eval_df, *axes,
+                                              self._packed, r=r)
+                return
             pack, route = {
                 "df": (pack_bicubic_rows_df, gathered_bicubic_eval_df_packed),
                 "f48": (pack_bicubic_rows_f48, gathered_bicubic_eval_f48_packed),
             }[grade]
-            self._packed = pack(*df_from_f64(strat.rows.detach().to(f64)), r)
+            self._packed = pack(*rows_pair, r)
             self._run = functools.partial(route, *axes, self._packed, r=r)
         else:
             pack, route = {
@@ -402,6 +434,101 @@ class DoubleFloatEvaluator2D(_BucketedEvaluator):
         out = self._df_chunks(
             [(flats[0], self._xr[0]), (flats[1], self._yr[0])], self._run
         )
+        return out.reshape(shape)
+
+
+class DoubleFloatEvaluatorND(_BucketedEvaluator):
+    """float64-grade serving of an :class:`~.models.interpnd.InterpND`
+    (``method="cubic"`` on the cell layout, or ``method="linear"``) through
+    the double-float kernels.
+
+    At construction the axes are widened to float64 and split into
+    ``(hi, lo)`` pairs, and the packed table is built once on the
+    interpolator's device: from the cubic strategy's float64 cell table, or
+    the linear corner rows of the float64 data, with
+    :func:`~.ops.eval_kernels_df_nd.pack_rows_nd_df` (grade ``"df"``) or
+    :func:`~.ops.eval_kernels_df_nd.pack_rows_nd_f48` (``"f48"``: 75% of the
+    memory and traffic at ~2^-33 scale-relative).  Each bucket of float64
+    queries is split into pairs, evaluated by K7 on every axis and the K15
+    tail, and recombined: a ``torch.float64`` tensor on the interpolator's
+    device.  On CPU tensors the kernels' plain versions run.  Build the
+    interpolator in float64 for float64-grade results.
+
+    Eager checks, as the JAX evaluator: for each axis in turn, a NaN query
+    raises ``ValueError``, then, unless the axis wraps or the interpolator
+    extrapolates, a query outside the axis raises
+    :class:`~..errors.OutOfBoundsError`.  Periodic axes wrap in float64 on
+    the device.  The cubic node layouts and ``method="nearest"`` raise the
+    JAX package's ``ValueError``.
+    """
+
+    def __init__(self, interp, max_batch: int = 1 << 20, buckets=None, grade="df"):
+        if grade not in ("df", "f48"):
+            raise ValueError(f"grade must be 'df' or 'f48', got {grade!r}")
+        super().__init__(interp, max_batch, buckets)
+        k = interp.k
+        f64 = torch.float64
+        self._trailing = tuple(interp.data.shape[k:])
+        self._extrapolates = bool(interp.extrapolates)
+        self._wraps = tuple(interp.wraps_axis(d) for d in range(k))
+        axes64 = [ax.detach().to(f64) for ax in interp.axes]
+        self._ranges = [(float(a[0]), float(a[-1])) for a in axes64]
+        r = math.prod(self._trailing)
+        if interp.method == "cubic":
+            if interp.layout != "cell":
+                raise ValueError(
+                    "DoubleFloatEvaluatorND supports the cubic CELL layout only (one packed "
+                    "row gather); this grid packed as NODE layout — raise "
+                    "config.interpnd_pack_max_elems to force the cell table, or evaluate in "
+                    "f64 on the CPU backend"
+                )
+            rows64 = interp.table.detach().to(f64)
+            nbasis = 4
+        elif interp.method == "linear":
+            # the interpolator may take the unpacked route (a big grid): the
+            # double-float table is packed here from the float64 data
+            rows64 = pack_corner_rows_nd(interp.data.detach().to(f64), k)
+            nbasis = 2
+        else:
+            raise ValueError(
+                "method='nearest' needs no DF route: its gather returns stored values "
+                "exactly — evaluate the f64 InterpND"
+            )
+        pack = {"df": pack_rows_nd_df, "f48": pack_rows_nd_f48}[grade]
+        self._packed = pack(*df_from_f64(rows64), nbasis**k, r)
+        route = gathered_nd_eval_df_packed(
+            k, tuple(interp.data.shape[:k]), r, nbasis=nbasis, tier=grade
+        )
+        pairs = [half for a in axes64 for half in df_from_f64(a)]
+        self._run = functools.partial(route, *pairs, self._packed)
+
+    def warmup(self):
+        """Evaluate every bucket once (kernel build, allocator blocks)."""
+        dev = self._interp.data.device
+        b_max = self._buckets[-1]
+        firsts = [torch.full((b_max,), lo, dtype=torch.float64, device=dev)
+                  for lo, _ in self._ranges]
+        for b in self._buckets:
+            self._run(*(half for q in firsts for half in df_from_f64(q[:b])))
+        return self
+
+    def __call__(self, *coords):
+        dev = self._interp.data.device
+        self._interp._check_arity(coords)
+        qs = [torch.as_tensor(c, dtype=torch.float64, device=dev) for c in coords]
+        if any(q.shape != qs[0].shape for q in qs[1:]):
+            raise ValueError("query coordinate shapes do not match")
+        flats = [q.reshape(-1) for q in qs]
+        shape = tuple(qs[0].shape) + self._trailing
+        if flats[0].shape[0] == 0:
+            return torch.zeros(shape, dtype=torch.float64, device=dev)
+        for d, (f, (lo, hi), wrap) in enumerate(zip(flats, self._ranges, self._wraps)):
+            _check_not_nan(f)
+            if not (wrap or self._extrapolates):
+                _check_in_range(f, lo, hi, f"the axis {d} ")
+        flats = [_wrap_periodic(f, *rng) if wrap else f
+                 for f, rng, wrap in zip(flats, self._ranges, self._wraps)]
+        out = self._df_chunks([(f, lo) for f, (lo, _) in zip(flats, self._ranges)], self._run)
         return out.reshape(shape)
 
 

@@ -403,7 +403,7 @@ def test_df_evaluator2d_errors_match_jax(case):
 def test_df_evaluator2d_grades_and_layouts(monkeypatch):
     """TestF48BicubicTier::test_serving_grade_kwarg: f48 tables are 3/4 of
     the DF tables; a bad grade raises as in JAX.  The bicubic node layout:
-    f48 raises JAX's ValueError, df waits for K14 (NotImplementedError)."""
+    f48 raises JAX's ValueError, df takes the node route (K14)."""
     from ndarray_interp_tpu_torch.models.strategies import bicubic as tb
 
     x, y, rng = axes(seed=41)
@@ -420,8 +420,9 @@ def test_df_evaluator2d_grades_and_layouts(monkeypatch):
     assert node.strategy.layout == "node"
     with pytest.raises(ValueError, match="cell layout and bilinear"):
         ts.DoubleFloatEvaluator2D(node, grade="f48")
-    with pytest.raises(NotImplementedError, match="K14"):
-        ts.DoubleFloatEvaluator2D(node)
+    ev = ts.DoubleFloatEvaluator2D(node)
+    assert tuple(ev._packed.shape) == (64, 12)  # the node table: 8r + 4 columns
+    np.testing.assert_allclose(ev([1.5, 6.25], [2.5, 0.5]).numpy(), [1.0, 1.0], rtol=0, atol=1e-14)
 
 
 def test_df_evaluator2d_from_a_port_build():
@@ -468,3 +469,108 @@ def test_infinite_queries_diverge_from_jax():
             want = [np.nan] * 4 if bicubic else [-np.inf, np.inf, np.nan, np.nan]
             np.testing.assert_array_equal(got, want)
             np.testing.assert_array_equal(got, t(qx, qy).numpy())
+
+
+# -- the bicubic node route: K14 ----------------------------------------------------------
+def node_case(trailing=(), nx=18, ny=15, seed=41, monkeypatch=None):
+    """TestDFBicubicNodeRoute._build: a float64 extrapolating Bicubic on the
+    node layout, in JAX and (carried) in the port."""
+    from ndarray_interp_tpu import config
+
+    monkeypatch.setattr(config, "bicubic_pack_max_elems", 10)
+    x, y, rng = axes(nx, ny, seed)
+    j, t = both(rng.normal(size=(nx, ny) + trailing), x, y, bicubic=True)
+    assert j.strategy.layout == t.strategy.layout == "node"
+    return j, t, x, y, rng
+
+
+def node_rows(nn, r, rng):
+    """Random node rows ``(nn, 4r+2)`` with rising coordinates."""
+    nodes = rng.normal(size=(nn, 4 * r + 2))
+    nodes[:, 4 * r] = np.cumsum(rng.uniform(0.2, 1.0, nn))
+    nodes[:, 4 * r + 1] = np.cumsum(rng.uniform(0.2, 1.0, nn))
+    return nodes
+
+
+@pytest.mark.parametrize("r", [1, 3, 16])
+def test_node_table_matches_jax_bit_for_bit(r):
+    nodes = node_rows(40, r, np.random.default_rng(r))
+    want = np.asarray(jp.pack_bicubic_nodes_df(*jpair(nodes)))
+    got = tp.pack_bicubic_nodes_df(*tpair(nodes))
+    assert tuple(got.shape) == want.shape == (40, 8 * r + 4)
+    np.testing.assert_array_equal(bits(got), bits(want))
+
+
+@pytest.mark.parametrize("r", [1, 16])
+def test_node_tail_matches_jax_node_tail(r):
+    """The plain K14 against JAX ``_df_node_tail`` (XLA, 4e-12) and its
+    Mosaic kernel in interpret mode (1e-5, TestDFBicubicNodeRoute::
+    test_node_tail_kernel_interpret_plumbing), on the same gathered rows."""
+    rng = np.random.default_rng(7)
+    nn, nq = 40, 512
+    nodes = node_rows(nn, r, rng)
+    jpk, tpk = jp.pack_bicubic_nodes_df(*jpair(nodes)), tp.pack_bicubic_nodes_df(*tpair(nodes))
+    ny = 5
+    xi = rng.integers(0, nn // ny - 1, nq).astype(np.int32)
+    yi = rng.integers(0, ny - 1, nq).astype(np.int32)
+    base = xi.astype(np.int64) * ny + yi
+    g = [jnp.take(jpk, jnp.asarray(base + off), axis=0) for off in (0, 1, ny, ny + 1)]
+    t64 = rng.uniform(-0.5, 1.5, (2, nq))
+    jt = jpair(t64[0]) + jpair(t64[1])
+    xla = jax.jit(lambda *a: jp._df_node_tail(*a[:4], *(v[:, None] for v in a[4:]), r))(*g, *jt)
+    mosaic = jp.bicubic_df_node_tail(*g, *jt, r=r, interpret=True, bq=256)
+    args = (tpk, torch.as_tensor(xi), torch.as_tensor(yi), ny, *tpair(t64[0]), *tpair(t64[1]))
+    hi, lo = tp.gathered_bicubic_node_df_tail(*args)
+    assert tuple(hi.shape) == (nq, r) and hi.dtype == torch.float32
+    got = tdf.df_to_f64(hi, lo).numpy()
+    assert scaled_err(got, jf64(xla)) <= 4e-12
+    want = jf64(mosaic)
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
+    for a, b in zip((hi, lo), tp._bicubic_node_df_tail_plain(*args)):
+        np.testing.assert_array_equal(bits(a), bits(b))
+
+
+@pytest.mark.parametrize("trailing", [(), (3,)])
+def test_node_route_matches_jax_and_the_f64_strategy(trailing, monkeypatch):
+    """TestDFBicubicNodeRoute::test_route_matches_f64_strategy: in range,
+    and extrapolating a quarter span past x (test_extrapolation_matches_strategy)."""
+    j, t, x, y, rng = node_case(trailing, monkeypatch=monkeypatch)
+    r = int(np.prod(trailing))
+    x, y = rep(x), rep(y)
+    rows64 = np.asarray(j.strategy.rows)
+    span = x[-1] - x[0]
+    qx = rep(np.r_[rng.uniform(x[0], x[-1], 300), x[0] - rng.uniform(0, span / 4, 50),
+                   x[-1] + rng.uniform(0, span / 4, 50)])
+    qy = rep(rng.uniform(y[0], y[-1], 400))
+    want = jf64(jax.jit(lambda *a: jp.gathered_bicubic_nodes_eval_df(*a, r=r))(
+        *jpair(x), *jpair(y), jp.pack_bicubic_nodes_df(*jpair(rows64)), *jpair(qx), *jpair(qy)))
+    got = tf64(tp.gathered_bicubic_nodes_eval_df(
+        *tpair(x), *tpair(y), tp.pack_bicubic_nodes_df(*tpair(rows64)), *tpair(qx), *tpair(qy),
+        r=r))
+    assert got.shape == (400, r)
+    assert scaled_err(got, want.reshape(400, r)) <= 4e-12
+    strategy = np.asarray(j.interp_array(qx, qy)).reshape(400, r)
+    assert scaled_err(got, strategy) < 1e-9
+    assert scaled_err(got, t.interp_array(qx, qy).numpy().reshape(400, r)) < 1e-9
+    with pytest.raises(ValueError, match="columns"):
+        tp.gathered_bicubic_nodes_eval_df(*tpair(x), *tpair(y), tp.pack_bicubic_nodes_df(
+            *tpair(rows64)), *tpair(qx), *tpair(qy), r=r + 1)
+
+
+def test_node_layout_evaluator_matches_jax(monkeypatch):
+    """TestDFBicubicNodeRoute::test_serving_evaluator_node_layout."""
+    j, t, x, y, rng = node_case((2,), monkeypatch=monkeypatch)
+    ev = ts.DoubleFloatEvaluator2D(t, max_batch=512).warmup()
+    jev = js.DoubleFloatEvaluator2D(j, max_batch=512)
+    assert tuple(ev._packed.shape) == tuple(jev._packed.shape)
+    np.testing.assert_array_equal(bits(ev._packed), bits(jev._packed))
+    qx, qy = rng.uniform(x[0] - 1, x[-1] + 1, 700), rng.uniform(y[0], y[-1], 700)
+    got = ev(qx, qy)
+    assert got.dtype == torch.float64 and tuple(got.shape) == (700, 2)
+    assert scaled_err(got, j.interp_array(qx, qy)) < 1e-9
+    assert scaled_err(got, jev(qx, qy)) <= 1e-12
+    with pytest.raises(ValueError) as t_err:
+        ts.DoubleFloatEvaluator2D(t, grade="f48")
+    with pytest.raises(ValueError) as j_err:
+        js.DoubleFloatEvaluator2D(j, grade="f48")
+    assert str(t_err.value) == str(j_err.value)

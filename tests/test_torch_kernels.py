@@ -325,3 +325,95 @@ def test_df2d_routes_count_launches_and_match_plain(dev):
             # the tables come from builds on two devices (PyTorch's own
             # float64 ops around K4 may round differently from the CPU's)
             torch.testing.assert_close(got.cpu(), want, rtol=1e-12, atol=1e-12)
+
+
+# -- K14 (the bicubic node tail) and K15 (the ND tail) ------------------------------
+@pytest.mark.parametrize("nx,ny,r", [(3, 3, 1), (40, 33, 3), (100, 90, 16)])
+def test_df_bicubic_node_tail_matches_plain(dev, nx, ny, r):
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as ek
+
+    rng = np.random.default_rng(nx + r)
+    nodes = rng.normal(size=(nx * ny, 4 * r + 2))
+    nodes[:, 4 * r] = np.repeat(np.cumsum(rng.uniform(0.2, 1.0, nx)), ny)
+    nodes[:, 4 * r + 1] = np.tile(np.cumsum(rng.uniform(0.2, 1.0, ny)), nx)
+    packed = ek.pack_bicubic_nodes_df(*pair(nodes, dev))
+    nq = 50_000
+    xi = torch.as_tensor(rng.integers(0, nx - 1, nq), dtype=torch.int32, device=dev)
+    yi = torch.as_tensor(rng.integers(0, ny - 1, nq), dtype=torch.int32, device=dev)
+    t = np.r_[rng.uniform(-0.5, 1.5, nq - 6), [np.inf, -np.inf, np.nan, 1e30, 0.0, 1.0]]
+    args = (packed, xi, yi, ny, *pair(t, dev), *pair(rng.permutation(t), dev))
+    assert same_pair(ek.gathered_bicubic_node_df_tail(*args), ek._bicubic_node_df_tail_plain(*args))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("grade", ["df", "f48"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("nbasis", [2, 4])
+@pytest.mark.parametrize("r", [1, 3, 20])
+def test_nd_tail_matches_plain(dev, grade, k, nbasis, r):
+    """Both of the JAX kernel's paths: bp = 1 (r = 1) and bp > 1 (r = 3, and
+    r = 20 padded to bp = 24)."""
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df_nd as ek
+
+    rng = np.random.default_rng(100 * k + 10 * nbasis + r)
+    cells = [6, 5, 4, 3][:k]
+    nb = nbasis**k
+    rows = rng.normal(size=(int(np.prod(cells)), nb * r))
+    packed = getattr(ek, f"pack_rows_nd_{grade}")(*pair(rows, dev), nb, r)
+    nq = 20_000
+    idx = torch.as_tensor(np.stack([rng.integers(0, c, nq) for c in cells]), dtype=torch.int32,
+                          device=dev)
+    t = np.r_[rng.uniform(-0.5, 1.5, k * nq - 6), [np.inf, -np.inf, np.nan, 1e30, 0.0, 1.0]]
+    th, tl = (v.reshape(k, nq) for v in pair(rng.permutation(t), dev))
+    cstrides = [int(np.prod(cells[d + 1:])) for d in range(k)]
+    kernel = {"df": ek.nd_df_tail, "f48": ek.nd_f48_tail}[grade]
+    plain = {"df": ek._nd_df_tail_plain, "f48": ek._nd_f48_tail_plain}[grade]
+    args = (packed, idx, th, tl, cstrides, nbasis)
+    assert same_pair(kernel(*args), plain(*args))
+    torch.cuda.synchronize()
+
+
+def test_nd_tail_raises_above_its_axis_limit(dev):
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df_nd as ek
+
+    k = ek.MAX_K + 1
+    packed = torch.zeros((1, 2 * 2**k), device=dev)
+    idx = torch.zeros((k, 4), dtype=torch.int32, device=dev)
+    t = torch.zeros((k, 4), device=dev)
+    with pytest.raises(ValueError, match="axes"):
+        ek.nd_df_tail(packed, idx, t, t, [1] * k, 2)
+
+
+def test_nd_and_node_routes_count_launches_and_match_plain(dev, monkeypatch):
+    from ndarray_interp_tpu_torch.interp2d import Bicubic, Interp2D
+    from ndarray_interp_tpu_torch.interpnd import InterpND
+    from ndarray_interp_tpu_torch.models.strategies import bicubic
+    from ndarray_interp_tpu_torch.ops import kernel_wrappers
+    from ndarray_interp_tpu_torch.serving import DoubleFloatEvaluator2D, DoubleFloatEvaluatorND
+
+    rng = np.random.default_rng(9)
+    axes = [np.cumsum(rng.uniform(0.2, 1.0, n)) for n in (12, 10, 8)]
+    data = rng.normal(size=(12, 10, 8, 2))
+    qs = [rng.uniform(a[0], a[-1], 5000) for a in axes]
+    for method, grade, kid in (("cubic", "df", "K15"), ("cubic", "f48", "K15f48"),
+                               ("linear", "df", "K15")):
+        builds = [InterpND.builder(data, device=d).points(*axes).method(method).build()
+                  for d in (dev, "cpu")]
+        before = {k: w.launches for k, w in kernel_wrappers().items()}
+        got = DoubleFloatEvaluatorND(builds[0], grade=grade)(*qs)
+        torch.cuda.synchronize()
+        after = {k: w.launches for k, w in kernel_wrappers().items()}
+        assert after[kid] > before[kid] and after["K7"] >= before["K7"] + 3
+        assert after["K2"] == before["K2"]  # the DF route does not use the f32 search
+        want = DoubleFloatEvaluatorND(builds[1], grade=grade)(*qs)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-12, atol=1e-12)
+    monkeypatch.setattr(bicubic, "BICUBIC_PACK_MAX_ELEMS", 1)
+    builds = [Interp2D.builder(data[:, :, 0], device=d).x(axes[0]).y(axes[1])
+              .strategy(Bicubic()).build() for d in (dev, "cpu")]
+    assert builds[0].strategy.layout == "node"
+    before = kernel_wrappers()["K14"].launches
+    got = DoubleFloatEvaluator2D(builds[0])(qs[0], qs[1])
+    torch.cuda.synchronize()
+    assert kernel_wrappers()["K14"].launches > before
+    want = DoubleFloatEvaluator2D(builds[1])(qs[0], qs[1])
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-12, atol=1e-12)
