@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch port: the 1-D main path, 1-D serving, the
-2-D path and the N-D path with the f64-grade bicubic node route.
+2-D path, the N-D path with the f64-grade bicubic node route, and the 1-D
+wide-bank and long-knot-axis routes with Akima, Makima and Pchip.
 
     python3 chip_smoke.py
 
@@ -24,7 +25,11 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    per axis with NaN, +-inf and far extrapolation; K14 (the bicubic node
    tail) at 3 x 3 x 1, 200 x 150 x 3 and 512 x 512 x 16 on such inputs; K15
    (the N-D tail, grades df and f48) at k = 1..4 axes, nbasis 4 and 2, and
-   r = 1, 3, 20 channels (bp = 1 and bp > 1);
+   r = 1, 3, 20 channels (bp = 1 and bp > 1); K5 (the banked Hermite) at
+   ragged shapes up to NS5's 256 x 16,384 x 4,096 with one NaN datum that must
+   stay in its lane and two intervals; R2a (the packed-row tail) at banks 1 to
+   300; R3 and R3idx (the long-axis search and eval) at 65,537 knots up to
+   MAX_BIG_KNOTS on 1,000,000 such queries, cubic and linear tables;
 4. drives the main path through the public API on ``device="cuda"``, with
    every launch count set to 0 just before and read just after: the
    2,048-knot not-a-knot spline with extrapolation at 1,000,000 queries in
@@ -50,6 +55,12 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    and ``DoubleFloatEvaluator2D`` on a 1024 x 1024 x 16 bicubic grid on the
    node layout (NS3e, K14) against the port's f64 ``Interp2D`` and SciPy,
    all at 1,000,000 queries;
+5c. drives the wide-bank and long-axis slice the same way, against SciPy:
+   NS5 (256 knots x 16,384 splines, 4,096 bf16 queries: K5), NS5b (64 x
+   1,000,000 built on the card, 256 queries: K5), NS2b (10,240 x 64 at
+   1,000,000: R2a), NS1b (262,144 knots at 1,000,000: R3, also for Linear,
+   and R3idx + R2a for a bank of 8), NS4 (Akima, Makima, Pchip on 2,048
+   knots: K1; Akima on 262,144: R3);
 6. holds every kernel, through its public wrapper, against its plain version
    on the inputs the paths gave it, bit for bit; then times kernel and
    plain version at the paths' shapes with CUDA events (median, min and
@@ -549,17 +560,17 @@ def serving_path(dev, state, rng):
     # the f32 Evaluator: equal bit for bit to itp(q) at every request size
     ns1, q1 = state["float32"]
     itp10, _, _, q10 = state["bank"]
-    for label, interp, queries, sizes, kid in (
-        ("NS1 2048 knots f32", ns1, q1, (1, 1000, 300_000, nq + 1), "K1"),
-        ("bank 10,000 x 64 f32", itp10, q10, (1000, 262_144), "K2"),
+    for label, interp, queries, sizes, kids in (
+        ("NS1 2048 knots f32", ns1, q1, (1, 1000, 300_000, nq + 1), ["K1"]),
+        ("bank 10,000 x 64 f32", itp10, q10, (1000, 262_144), ["K2", "R2a"]),
     ):
         ev = Evaluator(interp)
         for size in sizes:
             q = torch.cat([queries, queries])[:size]
-            got = drive(f"Evaluator {label} at {size:,} queries", [kid], lambda: ev(q))
+            got = drive(f"Evaluator {label} at {size:,} queries", kids, lambda: ev(q))
             if not torch.equal(got, interp(q)):
                 fail(f"Evaluator {label} at {size:,} queries differs from itp(q)")
-        out[kid] = (ev, queries)
+        out[kids[0]] = (ev, queries)
 
     strict = drive("scalar spline without extrapolation", ["K4"], lambda: DoubleFloatEvaluator(
         Interp1D.builder(vals, device=dev).x(xs).strategy(CubicSpline()).build()))
@@ -779,13 +790,22 @@ def bound(kid, args):
     whichever is larger.  Operations count the arithmetic of the source
     (a binary-search step counts as one compare, or two for the pair knots,
     whose widening is an add)."""
-    if kid in ("K1", "K2", "K3"):
+    if kid in ("K1", "K2", "K3", "R3", "R3idx"):
         knots, q = args[0], args[-1]
         nq, steps = q.numel(), _search_steps(knots.numel())
-        out = {"K1": 4, "K2": 8, "K3": 4}[kid] * nq  # value; idx + t; idx
+        # value; idx + t; idx (float32)
+        out = {"K1": 4, "K2": 8, "K3": 4, "R3": 4, "R3idx": 8}[kid] * nq
         nbytes = _nbytes(*args) + out
-        ops = nq * ({"K1": 15, "K2": 3, "K3": 0}[kid] + steps)
+        ops = nq * ({"K1": 15, "K2": 3, "K3": 0, "R3": 15, "R3idx": 3}[kid] + steps)
         width = q.element_size()
+    elif kid in ("K5", "R2a"):  # data, a, b, idx, t | packed, idx, t, bank
+        idx, t = (args[3], args[4]) if kid == "K5" else (args[1], args[2])
+        bank = args[0][0].numel() if kid == "K5" else args[3]
+        elems = idx.numel() * bank
+        tables = args[:3] if kid == "K5" else args[:1]
+        width = t.element_size()
+        nbytes = _nbytes(*tables, idx, t) + width * elems
+        ops = 10 * elems  # the symmetric Hermite form
     elif kid == "K4":
         rhs = args[3]
         nbytes, ops, width = _nbytes(*args) + _nbytes(rhs), 8 * rhs.numel(), rhs.element_size()
@@ -1528,6 +1548,319 @@ def timing_nd(state, card, rec):
     end_to_end(calls, "N-D path and NS3e", card)
     return times
 
+# -- the wide-bank and long-knot-axis slice ----------------------------------------------
+# The JAX package's NS5 and NS5b (benches/run_benches.py:684-739): a 16,384-spline bank on
+# 256 knots at 4,096 bf16 queries, and a 1e6-spline bank on 64 knots, built and evaluated at
+# 256 queries; NS2b (:399-419): 10,240 knots x 64 at 1,000,000 queries; NS1b (:484-499): a
+# 262,144-knot spline at 1,000,000 queries on linspace(0, 100); NS4 (:670-682): Akima and
+# Pchip on 2,048 knots.  Queries uniform on [0, 100] (NS1b, NS4) or [0, 1], as there.
+NQ_BIG = 1_000_000
+N_NS1B = 262_144
+LANES_ORACLE = 256  # SciPy runs on this many lanes of the 16,384- and 1e6-wide banks
+
+
+def big_knots(n, spacing, rng):
+    """float32 knots of a long axis: ``"integer"`` 0, 1, 2, ... (exact in
+    float32 up to 2^24) or ``"nonuniform"`` gaps of 0.5 to 1.5."""
+    if spacing == "integer":
+        return np.arange(n, dtype=np.float32)
+    kn = np.cumsum(rng.uniform(0.5, 1.5, n)).astype(np.float32)
+    assert np.all(np.diff(kn) > 0)
+    return kn
+
+
+def big_queries(kn, nq, rng):
+    """``nq`` float32 queries: NaN, +-inf, +-1e38, far extrapolation, about
+    ``nq / 10`` of the knots themselves, the rest uniform over the range
+    +-10%."""
+    lo, hi = float(kn[0]), float(kn[-1])
+    span = hi - lo
+    special = np.array([np.nan, np.inf, -np.inf, 1e38, -1e38, 0.0, -0.0,
+                        lo - 1e6 * span, hi + 1e6 * span, lo - span, hi + span], np.float32)
+    own = kn[:: -(-kn.size // (nq // 10))]
+    body = rng.uniform(lo - 0.1 * span, hi + 0.1 * span, nq - special.size - own.size)
+    return rng.permutation(np.concatenate([body.astype(np.float32), own, special]))
+
+
+def bank_big_kernel_phases(dev, rec):
+    """K5, R2a, R3 and R3idx against their plain versions on the card, on the
+    same inputs.  K5 at the JAX test's ragged shapes, (2048, 256, 4096) and
+    NS5's (256, 16,384, 4,096), each with one NaN fraction and one NaN datum,
+    which must reach only its two intervals in its own lane; R2a at
+    10,000 x 64 and at banks 1, 7, 8, 9 and 300 (the padding) on 262,144
+    queries; R3 and R3idx at n = 65,537 up to MAX_BIG_KNOTS on 1,000,000
+    queries with NaN, +-inf, +-1e38, the knots and far extrapolation, for
+    cubic and linear (a = b = 0) tables, against their own plain versions
+    and against K1's and K2's."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops import bank_eval as be
+    from ndarray_interp_tpu_torch.ops import bank_tail as bt
+    from ndarray_interp_tpu_torch.ops import bigknots as bk
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+
+    rng = np.random.default_rng(5)
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+
+    print("wide-bank and long-axis kernel phases (kernel against its plain version, same "
+          "inputs):", flush=True)
+    for n, bank, nq in ((16, (300,), 100), (64, (999,), 513), (33, (256,), 8),
+                        (129, (16, 33), 77), (2048, (256,), 4096), (256, (16_384,), 4096)):
+        width = int(np.prod(bank))
+        d, a, b = (T(rng.normal(size=(m,) + bank).astype(np.float32)) for m in (n, n - 1, n - 1))
+        j, lane = n // 2, width // 3
+        d.view(n, width)[j, lane] = float("nan")
+        idx = rng.integers(0, n - 1, nq).astype(np.int32)
+        idx[:2] = (j - 1, j)
+        idx = T(idx)
+        t = rng.uniform(-0.5, 1.5, nq).astype(np.float32)
+        t[-1] = np.nan
+        t = T(t)
+        label = f"({n}, {'x'.join(map(str, bank))}, {nq})"
+        got = be.banked_eval(d, a, b, idx, t)
+        ok = rec.add("K5", label, got, be._gather_form(d, a, b, idx, t))
+        expect = torch.isnan(t)[:, None].repeat(1, width)
+        expect[:, lane] |= (idx == j - 1) | (idx == j)
+        local = torch.equal(torch.isnan(got.reshape(nq, width)), expect)
+        print(f"  K5 {label}: {'bit-identical' if ok else 'MISMATCH'}; NaN datum only in its "
+              f"two intervals of lane {lane}: {'ok' if local else 'FAIL'}", flush=True)
+        if not local:
+            fail(f"K5 {label}: a NaN datum reached other lanes or intervals")
+        del d, a, b, got, expect
+    for n, bank in ((10_000, 64), (1000, 1), (1000, 7), (1000, 8), (1000, 9), (1000, 300)):
+        nq = 262_144
+        d, a, b = (T(rng.normal(size=(m, bank)).astype(np.float32)) for m in (n, n - 1, n - 1))
+        packed = bt.pack_bank_rows(d, a, b)
+        idx = T(rng.integers(0, n - 1, nq).astype(np.int32))
+        t = T(np.r_[rng.uniform(-0.5, 1.5, nq - 4), [np.nan, np.inf, -np.inf, 1e30]]
+              .astype(np.float32))
+        label = f"({n:,} x {bank}, bp {packed.shape[1] // 4}), {nq:,} queries"
+        ok = rec.add("R2a", label, bt.banked_hermite_tail(packed, idx, t, bank),
+                     bt._tail_plain(packed, idx, t, bank))
+        print(f"  R2a {label}: {'bit-identical' if ok else 'MISMATCH'}", flush=True)
+        del d, a, b, packed
+    torch.cuda.synchronize()
+    for n, spacing in ((65_537, "integer"), (70_001, "nonuniform"), (N_NS1B, "nonuniform"),
+                       (1_048_576, "integer"), (bk.MAX_BIG_KNOTS, "integer")):
+        kn = big_knots(n, spacing, rng)
+        k, q = T(kn), T(big_queries(kn, NQ_BIG, rng))
+        d, a, b = (T(rng.normal(size=m).astype(np.float32)) for m in (n, n - 1, n - 1))
+        z = torch.zeros_like(a)
+        label = f"n={n:,} {spacing} (JAX W={bk._geometry(n)[0]}), {NQ_BIG:,} queries"
+        ok = True
+        for tname, (aa, bb) in (("cubic", (a, b)), ("linear", (z, z))):
+            got = bk.big_eval_1d(k, d, aa, bb, q)
+            ok &= rec.add("R3", f"{label} {tname}", got, bk._big_eval_plain(k, d, aa, bb, q))
+            ok &= rec.add("R3", f"{label} {tname}, K1's plain version", got,
+                          ek._eval_plain(k, ek.make_interval_table(k, d, aa, bb), q))
+        got = bk.big_lower_index_frac(k, q)
+        ok &= rec.add_pair("R3idx", label, got, bk._big_index_frac_plain(k, q))
+        ok &= rec.add_pair("R3idx", f"{label}, K2's plain version", got, ek._index_frac_plain(k, q))
+        print(f"  {label}: R3 (cubic and linear), R3idx (idx, t) "
+              f"{'bit-identical' if ok else 'MISMATCH'}", flush=True)
+        del k, q, d, a, b, z, got
+        torch.cuda.synchronize()
+
+
+def bank_big_path(dev, rng):
+    """The wide-bank and long-axis slice through the public API on
+    ``device="cuda"`` at the JAX package's widths, each call with every launch
+    count set to 0 just before it and read just after; gated against SciPy in
+    f64 on the f32-rounded inputs.  Returns what the timing phase reuses and
+    the launches of each kernel summed over the calls."""
+    import scipy.interpolate as si
+    import torch
+
+    from ndarray_interp_tpu_torch.interp1d import (
+        Akima, CubicSpline, Interp1D, Linear, Makima, Pchip,
+    )
+
+    drive, total = counted_calls()
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    spline = CubicSpline().extrapolate(True)
+    out = {}
+
+    def build(data, x, strat, label, expect):
+        return drive(label, expect, lambda: Interp1D.builder(data).x(x).strategy(strat).build())
+
+    def lanes_of(width):
+        return np.sort(rng.choice(width, LANES_ORACLE, replace=False))
+
+    # NS5: 256 knots x 16,384 splines, 4,096 bf16 queries cast to f32 -> K5
+    x5 = np.linspace(0.0, 1.0, 256).astype(np.float32)
+    d5 = rng.normal(size=(256, 16_384)).astype(np.float32)
+    q5 = T(rng.uniform(0.0, 1.0, 4096)).to(torch.bfloat16)
+    itp5 = build(T(d5), T(x5), spline, "NS5 build 256 x 16,384", ["K4"])
+    q5f = q5.to(torch.float32)
+    got = drive("NS5 itp(q.float()) at 4,096 bf16 queries", ["K2", "K5"], lambda: itp5(q5f))
+    lanes = lanes_of(16_384)
+    ref = si.CubicSpline(x5.astype(np.float64), d5[:, lanes].astype(np.float64), axis=0)(
+        q5f.cpu().numpy().astype(np.float64))
+    check_close(f"NS5 256 x 16,384 at 4,096 queries ({LANES_ORACLE} lanes)", got[:, lanes], ref,
+                F32_TOL, (4096, LANES_ORACLE), torch.float32)
+    out["NS5"] = (itp5, q5f)
+    del got, d5
+
+    # NS5b: 64 knots x 1,000,000 splines, built on the card, eval at 256 queries -> K5
+    x6 = T(np.linspace(0.0, 1.0, 64).astype(np.float32))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    d6 = torch.randn((64, 1_000_000), generator=gen, device=dev)
+    itp6 = build(d6, x6, spline, "NS5b build 64 x 1,000,000", ["K4"])
+    q6 = T(rng.uniform(0.0, 1.0, 256).astype(np.float32))
+    got = drive("NS5b itp(q) at 256 queries", ["K2", "K5"], lambda: itp6(q6))
+    lanes = lanes_of(1_000_000)
+    ref = si.CubicSpline(x6.cpu().numpy().astype(np.float64),
+                         d6[:, lanes].cpu().numpy().astype(np.float64), axis=0)(
+        q6.cpu().numpy().astype(np.float64))
+    check_close(f"NS5b 64 x 1,000,000 at 256 queries ({LANES_ORACLE} lanes)", got[:, lanes], ref,
+                F32_TOL, (256, LANES_ORACLE), torch.float32)
+    out["NS5b"] = (itp6, q6, d6, x6)
+    del got
+    torch.cuda.empty_cache()
+
+    # NS2b: 10,240 knots x 64 at 1,000,000 queries -> K2 + the packed route (R2a)
+    x10 = np.linspace(0.0, 1.0, 10_240).astype(np.float32)
+    d10 = rng.normal(size=(10_240, 64)).astype(np.float32)
+    q10 = rng.uniform(0.0, 1.0, NQ_BIG).astype(np.float32)
+    itp10 = build(T(d10), T(x10), spline, "NS2b build 10,240 x 64", ["K4"])
+    q10_d = T(q10)
+    got = drive(f"NS2b itp(q) at {NQ_BIG:,} queries", ["K2", "R2a"], lambda: itp10(q10_d))
+    ref = si.CubicSpline(x10.astype(np.float64), d10.astype(np.float64), axis=0)(
+        q10.astype(np.float64))
+    check_close(f"NS2b 10,240 x 64 at {NQ_BIG:,} queries", got, ref, F32_TOL, (NQ_BIG, 64),
+                torch.float32)
+    out["NS2b"] = (itp10, q10_d)
+    del got, ref
+
+    # NS1b: 262,144 knots on linspace(0, 100), 1,000,000 queries -> R3; Linear -> R3;
+    # a bank of 8 splines on that axis -> R3idx + R2a
+    xb = np.linspace(0.0, 100.0, N_NS1B).astype(np.float32)
+    vb = rng.normal(size=N_NS1B).astype(np.float32)
+    qb = rng.uniform(0.0, 100.0, NQ_BIG).astype(np.float32)
+    xb_d, vb_d, qb_d = T(xb), T(vb), T(qb)
+    x64, q64 = xb.astype(np.float64), qb.astype(np.float64)
+    itpb = build(vb_d, xb_d, spline, f"NS1b build {N_NS1B:,} knots", ["K4"])
+    got = drive(f"NS1b itp(q) at {NQ_BIG:,} queries", ["R3"], lambda: itpb(qb_d))
+    check_close(f"NS1b {N_NS1B:,} knots at {NQ_BIG:,} queries", got,
+                si.CubicSpline(x64, vb.astype(np.float64))(q64), F32_TOL, (NQ_BIG,), torch.float32)
+    linb = build(vb_d, xb_d, Linear().extrapolate(True), "NS1b Linear build", [])
+    got = drive(f"NS1b Linear itp(q) at {NQ_BIG:,} queries", ["R3"], lambda: linb(qb_d))
+    check_close(f"NS1b Linear {N_NS1B:,} knots at {NQ_BIG:,} queries", got,
+                np.interp(q64, x64, vb.astype(np.float64)), F32_TOL, (NQ_BIG,), torch.float32)
+    db = rng.normal(size=(N_NS1B, 8)).astype(np.float32)
+    bankb = build(T(db), xb_d, spline, f"NS1b bank build {N_NS1B:,} x 8", ["K4"])
+    got = drive(f"NS1b bank itp(q) at {NQ_BIG:,} queries", ["R3idx", "R2a"], lambda: bankb(qb_d))
+    check_close(f"NS1b bank {N_NS1B:,} x 8 at {NQ_BIG:,} queries", got,
+                si.CubicSpline(x64, db.astype(np.float64), axis=0)(q64), F32_TOL, (NQ_BIG, 8),
+                torch.float32)
+    out["NS1b"] = (itpb, linb, bankb, qb_d)
+    del got, db
+
+    # NS4: Akima, Makima and Pchip on 2,048 knots -> K1; Akima on NS1b's axis -> R3
+    x4 = np.linspace(0.0, 100.0, 2048).astype(np.float32)
+    v4 = rng.normal(size=2048).astype(np.float32)
+    x4_64, v4_64 = x4.astype(np.float64), v4.astype(np.float64)
+    for name, strat, oracle in (
+        ("Akima", Akima(), si.Akima1DInterpolator(x4_64, v4_64)),
+        ("Makima", Makima(), si.Akima1DInterpolator(x4_64, v4_64, method="makima")),
+        ("Pchip", Pchip(), si.PchipInterpolator(x4_64, v4_64)),
+    ):
+        itp = build(T(v4), T(x4), strat.extrapolate(True), f"NS4 {name} build 2,048 knots", [])
+        got = drive(f"NS4 {name} itp(q) at {NQ_BIG:,} queries", ["K1"], lambda: itp(qb_d))
+        check_close(f"NS4 {name} 2,048 knots at {NQ_BIG:,} queries", got, oracle(q64), F32_TOL,
+                    (NQ_BIG,), torch.float32)
+        out["NS4", name] = itp
+    itp = build(vb_d, xb_d, Akima().extrapolate(True), f"NS4 Akima build {N_NS1B:,} knots", [])
+    got = drive(f"NS4 Akima {N_NS1B:,} knots itp(q)", ["R3"], lambda: itp(qb_d))
+    check_close(f"NS4 Akima {N_NS1B:,} knots at {NQ_BIG:,} queries", got,
+                si.Akima1DInterpolator(x64, vb.astype(np.float64))(q64), F32_TOL, (NQ_BIG,),
+                torch.float32)
+    out["NS4", "Akima big"] = itp
+    return out, total
+
+
+def timing_big(state, card, rec):
+    """Hold K5, R2a, R3 and R3idx, through their wrappers, against their
+    plain versions on the paths' own inputs; time both there, with K1 at
+    NS1b beside R3; then time the slice's calls end to end."""
+    import torch
+
+    from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
+    from ndarray_interp_tpu_torch.ops import bank_eval as be
+    from ndarray_interp_tpu_torch.ops import bank_tail as bt
+    from ndarray_interp_tpu_torch.ops import bigknots as bk
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+
+    itp5, q5 = state["NS5"]
+    itp6, q6, d6, x6 = state["NS5b"]
+    itp10, q10 = state["NS2b"]
+    itpb, linb, bankb, qb = state["NS1b"]
+
+    def k5_args(itp, q):
+        idx, t = ek.fused_index_frac(itp.x, q)
+        return (itp.data, itp.strategy.a, itp.strategy.b, idx, t)
+
+    def r2a_args(itp, q):
+        idx, t = ek.fused_index_frac(itp.x, q)
+        s, n = itp.strategy, itp.data.shape[0]
+        return (bt.pack_bank_rows(itp.data, s.a.reshape(n - 1, -1), s.b.reshape(n - 1, -1)),
+                idx, t, itp.data.shape[1])
+
+    s = itpb.strategy
+    nq = f"{NQ_BIG:,} queries"
+    systems = {
+        "K5": [("NS5 table 256 x 16,384, 4,096 queries", k5_args(itp5, q5)),
+               ("NS5b table 64 x 1,000,000, 256 queries", k5_args(itp6, q6))],
+        "R2a": [(f"NS2b packed table 10,240 x 64, {nq}", r2a_args(itp10, q10))],
+        "R3": [(f"NS1b {N_NS1B:,} knots, {nq}", (itpb.x, itpb.data, s.a, s.b, qb))],
+        "R3idx": [(f"NS1b {N_NS1B:,} knots, {nq}", (itpb.x, qb))],
+    }
+    pairs = {
+        "K5": (be.banked_eval, be._gather_form, rec.add, (10, 2)),
+        "R2a": (bt.banked_hermite_tail, bt._tail_plain, rec.add, (20, 5)),
+        "R3": (bk.big_eval_1d, bk._big_eval_plain, rec.add, (50, 5)),
+        "R3idx": (bk.big_lower_index_frac, bk._big_index_frac_plain, rec.add_pair, (50, 5)),
+    }
+    print("K5, R2a, R3 and R3idx at the paths' shapes and inputs, against their plain versions:")
+    for kid, (kern, plain, compare, _) in pairs.items():
+        for label, args in systems[kid]:
+            ok = compare(kid, label, kern(*args), plain(*args))
+            print(f"  {kid} {label}: {'bit-identical' if ok else 'MISMATCH'}", flush=True)
+    tbl = ek.make_interval_table(itpb.x, itpb.data, s.a, s.b)
+    ok = rec.add("R3", "NS1b against K1's plain version", bk.big_eval_1d(itpb.x, itpb.data, s.a,
+                 s.b, qb), ek._eval_plain(itpb.x, tbl, qb))
+    print(f"  R3 NS1b against K1's plain version: {'bit-identical' if ok else 'MISMATCH'}")
+    times = time_kernels(pairs, systems, card)
+    kern, plain, _, (nk, npl) = pairs["K5"]
+    label, args = systems["K5"][1]
+    tk_, tp_ = device_ms(lambda: kern(*args), nk), device_ms(lambda: plain(*args), npl)
+    bound_ms, bound_by = bound("K5", args)
+    print(f"  K5 {label}: kernel {fmt(tk_)}, plain {fmt(tp_)}, bound {bound_ms:.4f} ({bound_by}); "
+          f"library: none", flush=True)
+    args = (itpb.x, tbl, qb)
+    tk_ = device_ms(lambda: ek.fused_eval_1d(*args), 50)
+    bound_ms, bound_by = bound("K1", args)
+    print(f"  K1 beside R3, NS1b {N_NS1B:,} knots, {nq}: kernel {fmt(tk_)}, bound "
+          f"{bound_ms:.4f} ({bound_by}); R3 {times['R3']['ms']:.4f}", flush=True)
+    del systems, args, tbl
+
+    spline = CubicSpline().extrapolate(True)
+    end_to_end({
+        "NS5 itp(q), 256 x 16,384 at 4,096 queries": (lambda: itp5(q5), 10),
+        "NS5b itp(q), 64 x 1,000,000 at 256 queries": (lambda: itp6(q6), 5),
+        "NS5b build, 64 x 1,000,000": (
+            lambda: Interp1D.builder(d6).x(x6).strategy(spline).build(), 3),
+        f"NS2b itp(q), 10,240 x 64 at {nq}": (lambda: itp10(q10), 5),
+        f"NS1b itp(q), {N_NS1B:,} knots at {nq}": (lambda: itpb(qb), 20),
+        f"NS1b Linear itp(q), {N_NS1B:,} knots at {nq}": (lambda: linb(qb), 20),
+        f"NS1b bank itp(q), {N_NS1B:,} x 8 at {nq}": (lambda: bankb(qb), 10),
+        f"NS4 Akima itp(q), 2,048 knots at {nq}": (lambda: state["NS4", "Akima"](qb), 20),
+        f"NS4 Pchip itp(q), 2,048 knots at {nq}": (lambda: state["NS4", "Pchip"](qb), 20),
+        f"NS4 Akima itp(q), {N_NS1B:,} knots at {nq}": (
+            lambda: state["NS4", "Akima big"](qb), 20),
+    }, "wide-bank and long-axis slice", card)
+    return times
+
 
 KERNELS = {
     "K1": ("fused_eval_1d", "ndarray_interp_tpu_torch/csrc/eval_kernels.cu",
@@ -1560,6 +1893,14 @@ KERNELS = {
             "ndarray_interp_tpu/ops/pallas_eval_df_nd.py:370"),
     "K15f48": ("nd_f48_tail", "ndarray_interp_tpu_torch/csrc/df_nd_kernels.cu",
                "ndarray_interp_tpu/ops/pallas_eval_df_nd.py:370"),
+    "K5": ("banked_eval", "ndarray_interp_tpu_torch/csrc/bank_kernels.cu",
+           "ndarray_interp_tpu/ops/pallas_bank.py:63"),
+    "R2a": ("banked_hermite_tail", "ndarray_interp_tpu_torch/csrc/bank_kernels.cu",
+            "ndarray_interp_tpu/ops/pallas_tail.py:40"),
+    "R3": ("big_eval_1d", "ndarray_interp_tpu_torch/csrc/bigknots_kernels.cu",
+           "ndarray_interp_tpu/ops/bigknots.py:308"),
+    "R3idx": ("big_lower_index_frac", "ndarray_interp_tpu_torch/csrc/bigknots_kernels.cu",
+              "ndarray_interp_tpu/ops/bigknots.py:308"),
 }
 
 
@@ -1595,6 +1936,7 @@ def main():
     df_kernel_phases(dev, rec)
     df2d_kernel_phases(dev, rec)
     dfnd_kernel_phases(dev, rec)
+    bank_big_kernel_phases(dev, rec)
     torch.cuda.synchronize()
     elapsed("kernel phases")
 
@@ -1606,7 +1948,7 @@ def main():
     torch.cuda.synchronize()
     launches = {kid: w.launches for kid, w in wrappers.items()}
     print(f"  launches during the main path: {launches}")
-    for kid in ("K1", "K2", "K3", "K4"):
+    for kid in ("K1", "K2", "K3", "K4", "R2a"):
         if launches[kid] <= 0:
             fail(f"{kid} was not launched by the main path")
 
@@ -1639,10 +1981,23 @@ def main():
             fail(f"{kid} was not launched by the N-D path")
     elapsed("N-D path")
 
+    print(f"wide-bank and long-axis path (NS5, NS5b, NS2b, NS1b, NS4; public API, "
+          "device='cuda'; counts set to 0 before each call):", flush=True)
+    state_big, launched_big = bank_big_path(dev, np.random.default_rng(48))
+    for kid in ("K5", "R2a", "R3", "R3idx"):
+        launches[kid] += launched_big[kid]
+    print(f"  launches during the wide-bank and long-axis path: {launched_big}")
+    for kid in ("K1", "K2", "K4", "K5", "R2a", "R3", "R3idx"):
+        if launched_big[kid] <= 0:
+            fail(f"{kid} was not launched by the wide-bank and long-axis path")
+    elapsed("wide-bank and long-axis path")
+
     times = timing(state, card, rec)
     times.update(df_timing(serving, card, rec))
     times.update(timing2d(state2d, card, rec))
     times.update(timing_nd(state_nd, card, rec))
+    del state_nd
+    times.update(timing_big(state_big, card, rec))
     torch.cuda.synchronize()
     elapsed("timing")
 

@@ -8,6 +8,7 @@ submodule; aliases live in ``interp1d/aliases.py``.
 from ..models.interp1d import Interp1D, Interp1DBuilder
 from ..models.strategies.base import Interp1DStrategy, Interp1DStrategyBuilder
 from ..models.strategies.cubic import CubicSpline
+from ..models.strategies.hermite import Akima, Makima, Pchip
 from ..models.strategies.linear import Linear
 from . import cubic_spline
 
@@ -18,5 +19,8 @@ __all__ = [
     "Interp1DStrategyBuilder",
     "Linear",
     "CubicSpline",
+    "Akima",
+    "Makima",
+    "Pchip",
     "cubic_spline",
 ]

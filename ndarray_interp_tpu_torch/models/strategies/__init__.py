@@ -6,6 +6,7 @@ from .cubic import (
     RowBoundary,
     SingleBoundary,
 )
+from .hermite import Akima, Makima, Pchip
 from .linear import Linear
 
 __all__ = [
@@ -16,5 +17,8 @@ __all__ = [
     "CubicSplineStrategy",
     "RowBoundary",
     "SingleBoundary",
+    "Akima",
+    "Makima",
+    "Pchip",
     "Linear",
 ]

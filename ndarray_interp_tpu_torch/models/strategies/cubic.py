@@ -23,9 +23,15 @@ kind/value arrays selected with ``torch.where``, the diagonals become
 batched, and one Thomas solve (``thomas_solve_fast``: the plain loop on the
 CPU, the Thomas kernel on the GPU) solves every row at once.
 
-Eval routes: scalar data → ``fused_eval_1d`` (K1); bank data →
-``fused_index_frac`` (K2) and the packed-row gather tail
-(``ops.bank_tail``) for every knot count.
+Eval routes, the JAX package's dispatch (``cubic.py:726-888`` there):
+
+* scalar data → ``fused_eval_1d`` (K1), or ``big_eval_1d`` (R3) for
+  float32 data on 65,536 < n <= ``MAX_BIG_KNOTS`` knots;
+* bank data → ``(idx, t)`` from ``fused_index_frac`` (K2), or from
+  ``big_lower_index_frac`` (R3idx) for float32 on 65,536 < n <=
+  ``MAX_BIG_KNOTS``; then ``banked_eval`` (K5) for short knot axes × wide
+  float32 banks where the JAX cost model prefers it, else the packed-row
+  route (``ops.bank_tail``, R2a).
 """
 
 from __future__ import annotations
@@ -36,7 +42,9 @@ import numpy as np
 import torch
 
 from ...errors import BuilderValueError, ShapeError
+from ...ops.bank_eval import banked_eval, can_use_banked
 from ...ops.bank_tail import gathered_bank_eval
+from ...ops.bigknots import MAX_BIG_KNOTS, big_eval_1d, big_lower_index_frac, can_use_big
 from ...ops.eval_kernels import fused_eval_1d, fused_index_frac, make_interval_table
 from ...ops.thomas_kernel import thomas_solve_fast
 from .base import Interp1DStrategy, Interp1DStrategyBuilder
@@ -536,22 +544,37 @@ class CubicSplineStrategy(Interp1DStrategy):
 
         data = interp.data
         if data.ndim == 1:
+            if xq.dtype == torch.float32 and xq.ndim == 1 and can_use_big(x, data):
+                return big_eval_1d(x, data, self.a, self.b, xq)
             return fused_eval_1d(x, make_interval_table(x, data, self.a, self.b), xq)
         return self._eval_bank(interp, xq)
 
     def _eval_bank(self, interp, xq):
-        """Bank data: ``(idx, t)`` from one search pass, then one packed-row
-        gather and the Hermite tail."""
-        data = interp.data
+        """Bank data: ``(idx, t)`` from one search pass, then K5 or the
+        packed-row route, chosen as the JAX package chooses
+        (``cubic.py:761-887`` there: its v5e cost model, kept for parity)."""
+        x, data = interp.x, interp.data
         n = data.shape[0]
-        idx, t = fused_index_frac(interp.x, xq)
-        out = gathered_bank_eval(
-            data.reshape(n, -1),
-            self.a.reshape(n - 1, -1),
-            self.b.reshape(n - 1, -1),
-            idx,
-            t,
-        )
+        f32 = data.dtype == x.dtype == xq.dtype == torch.float32
+        if f32 and xq.ndim == 1 and 65536 < n <= MAX_BIG_KNOTS:
+            idx, t = big_lower_index_frac(x, xq)
+        else:
+            idx, t = fused_index_frac(x, xq)
+        bank = data[0].numel()
+        n_pad = -(-(n - 1) // 128) * 128
+        kernel_ns = n_pad * bank * 12 / 197_000.0
+        gather_ns = max(6.0, 4 * bank * 4 / 300.0)
+        gather_ok = f32 and xq.ndim == 1 and n >= 4 and n <= MAX_BIG_KNOTS
+        if can_use_banked(x, data) and (not gather_ok or kernel_ns <= gather_ns):
+            out = banked_eval(data, self.a, self.b, idx.reshape(-1), t.reshape(-1))
+        else:
+            out = gathered_bank_eval(
+                data.reshape(n, -1),
+                self.a.reshape(n - 1, -1),
+                self.b.reshape(n - 1, -1),
+                idx,
+                t,
+            )
         return out.reshape(tuple(xq.shape) + tuple(data.shape[1:]))
 
     def __repr__(self):

@@ -9,7 +9,9 @@ Evaluation:
 
 * scalar float data goes through the shared 1-D eval kernel
   (``fused_eval_1d``, K1) with ``a = b = 0``, which reduces the Hermite form
-  to the lerp ``(1-t) y_l + t y_r``;
+  to the lerp ``(1-t) y_l + t y_r``; float32 data on 65,536 < n <=
+  ``MAX_BIG_KNOTS`` knots through the long-axis kernel (``big_eval_1d``,
+  R3), as in the JAX package (``linear.py:76-96`` there);
 * bank data, and integer data, take the interval search (``lower_index_fast``,
   K3 on the GPU), a row gather and ``calc_frac`` (``linear.rs:73-98``).
 """
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ...ops.bigknots import big_eval_1d, can_use_big
 from ...ops.eval_kernels import fused_eval_1d, make_interval_table
 from ...ops.gather import gather_rows
 from ...ops.lerp import calc_frac
@@ -45,9 +48,12 @@ class Linear(Interp1DStrategy, Interp1DStrategyBuilder):
         return self
 
     def eval(self, interp, xq):
-        data = interp.data
+        x, data = interp.x, interp.data
+        if xq.dtype == torch.float32 and xq.ndim == 1 and can_use_big(x, data):
+            zeros = torch.zeros_like(data[:-1])
+            return big_eval_1d(x, data, zeros, zeros, xq)
         if data.ndim == 1 and data.is_floating_point():
-            return fused_eval_1d(interp.x, make_interval_table(interp.x, data), xq)
+            return fused_eval_1d(x, make_interval_table(x, data), xq)
         return self._eval_gather(interp, xq)
 
     def _eval_gather(self, interp, xq):

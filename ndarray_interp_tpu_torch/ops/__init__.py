@@ -1,8 +1,12 @@
 """Primitive operations: search, lerp, gather, tridiagonal solve, the
 double-float pairs (``df``), and the wrappers of the CUDA kernels
-(``eval_kernels``, ``thomas_kernel``, ``eval_kernels_df``,
-``eval_kernels_df2d``, ``eval_kernels_df_nd``)."""
+(``eval_kernels``, ``bank_eval``, ``bank_tail``, ``bigknots``,
+``thomas_kernel``, ``eval_kernels_df``, ``eval_kernels_df2d``,
+``eval_kernels_df_nd``)."""
 
+from .bank_eval import banked_eval, can_use_banked
+from .bank_tail import banked_hermite_tail, gathered_bank_eval
+from .bigknots import MAX_BIG_KNOTS, big_eval_1d, big_lower_index_frac, can_use_big
 from .eval_kernels import (
     fused_eval_1d,
     fused_index_frac,
@@ -29,12 +33,20 @@ from .thomas import thomas_solve
 from .thomas_kernel import thomas_solve_fast
 
 __all__ = [
+    "MAX_BIG_KNOTS",
+    "banked_eval",
+    "banked_hermite_tail",
+    "big_eval_1d",
+    "big_lower_index_frac",
     "calc_frac",
+    "can_use_banked",
+    "can_use_big",
     "fused_eval_1d",
     "fused_eval_1d_df",
     "fused_index_frac",
     "fused_index_frac_df",
     "fused_lower_index",
+    "gathered_bank_eval",
     "gathered_bicubic_df_tail",
     "gathered_bicubic_f48_tail",
     "gathered_bicubic_node_df_tail",
@@ -61,6 +73,7 @@ def kernel_wrappers():
         "K2": fused_index_frac,
         "K3": fused_lower_index,
         "K4": thomas_solve_fast,
+        "K5": banked_eval,
         "K6": fused_eval_1d_df,
         "K7": fused_index_frac_df,
         "K8": gathered_df_tail,
@@ -72,4 +85,7 @@ def kernel_wrappers():
         "K14": gathered_bicubic_node_df_tail,
         "K15": nd_df_tail,
         "K15f48": nd_f48_tail,
+        "R2a": banked_hermite_tail,
+        "R3": big_eval_1d,
+        "R3idx": big_lower_index_frac,
     }

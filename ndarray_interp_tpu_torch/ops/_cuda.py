@@ -67,6 +67,14 @@ _SIGNATURES = {
     "ndi_index_frac": ((_P, _I, _P, _P, _P, _I, _P), _BOTH),
     "ndi_lower_index": ((_P, _I, _P, _P, _I, _P), _BOTH),
     "ndi_thomas": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _P), _BOTH),
+    # data, a, b, rows, bank, idx, t, out, nq
+    "ndi_banked_eval": ((_P, _P, _P, _I, _I, _P, _P, _P, _I, _P), _BOTH),
+    # packed, rows, ch, bp, bank, idx, t, out, nq
+    "ndi_bank_tail": ((_P, _I, _I, _I, _I, _P, _P, _P, _I, _P), _BOTH),
+    # knots, n, data, a, b, q, out, nq
+    "ndi_big_eval": ((_P, _I, _P, _P, _P, _P, _P, _I, _P), _BOTH),
+    # knots, n, q, idx, t, nq
+    "ndi_big_index_frac": ((_P, _I, _P, _P, _P, _I, _P), _BOTH),
     "ndi_df_eval1d": ((_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P), _PAIRS),
     "ndi_df_index_frac": ((_P, _P, _I, _P, _P, _P, _P, _P, _I, _P), _PAIRS),
     "ndi_df_bank_tail": ((_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P), _PAIRS),

@@ -1,0 +1,209 @@
+"""Long-knot-axis evaluation (65,536 < n <= ``MAX_BIG_KNOTS``): the
+wrappers of R3 and R3idx.
+
+Counterpart of ``ndarray_interp_tpu.ops.bigknots``.  The JAX package splits
+the search in two (the block of W knots from a search of the block leaders,
+then a refine inside the block's packed row) because its one-pass kernels
+stop at 65,536 knots.  The CUDA kernels (``csrc/bigknots_kernels.cu``) do
+the same two-level search, the row reads and the Hermite form in one launch:
+
+* :func:`big_eval_1d` (R3): the value, bit-identical to K1's plain version
+  ``eval_kernels._eval_plain``;
+* :func:`big_lower_index_frac` (R3idx): ``(idx, t)``, bit-identical to K2's
+  plain version ``eval_kernels._index_frac_plain``.
+
+Their plain versions here follow the JAX package's XLA form: the block from
+``get_lower_index`` over the leaders (``_geometry``'s W, the axis padded
+with ``finfo.max`` as ``_pad_knots`` pads it), then the count inside the
+block's window with the ``[0, n-2]`` clamp.  Two differences, both kept on
+purpose: the interval's values are selected by index, not by the JAX
+mask-sum (``bigknots.py:152-164``), which NaNs a whole W-knot block on one
+NaN datum; and a NaN query gets index ``n-2``, as K2 and
+``get_lower_index`` give, where the JAX search gives 0 (the value is NaN
+either way).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _cuda
+from .eval_kernels import _eval_plain, _frac, make_interval_table
+from .searchsorted import get_lower_index
+
+# largest axis whose W = 128 leader vector satisfies C + 1 <= 65536 (the JAX
+# package's windowed plan cap): 65535 * 128
+MAX_BIG_KNOTS = 65535 * 128
+
+
+def _block_w(n):
+    """Block width of the JAX package: the smallest tier keeping the leader
+    vector within its windowed kernel's plan (C + 1 <= 65536)."""
+    for w in (16, 32, 64, 128):
+        if -(-n // w) + 1 <= 65536:
+            return w
+    raise ValueError(f"knot axis too long: {n}")
+
+
+def _geometry(n):
+    w = _block_w(n)
+    c = -(-n // w)  # blocks of W knots (ceil)
+    c1 = max(2, math.isqrt(c - 1) + 1)
+    c2 = -(-c // c1)
+    return w, c, c1, c2
+
+
+def _pad_knots(knots, w, c1, c2):
+    """knots padded to C1*C2*W + 1 with the largest finite value, the JAX
+    package's out-of-range sentinel."""
+    n = knots.shape[0]
+    total = c1 * c2 * w + 1
+    big = torch.finfo(knots.dtype).max
+    return torch.cat([knots, knots.new_full((total - n,), big)])
+
+
+def can_use_big(x, data) -> bool:
+    """Shape and dtype eligibility of the R3 route (``bigknots.py:197-203``)."""
+    return (
+        x.dtype == torch.float32
+        and data.dtype == torch.float32
+        and data.ndim == 1
+        and 65536 < x.shape[0] <= MAX_BIG_KNOTS
+    )
+
+
+def _big_index_plain(knots, q):
+    """Plain version of R3's search: ``get_lower_index(knots, q)`` computed
+    the JAX package's two-level way (int32, shaped like ``q``)."""
+    n = knots.shape[0]
+    w, c, c1, c2 = _geometry(n)
+    kp = _pad_knots(knots, w, c1, c2)
+    leaders = torch.cat([kp[: c * w : w], kp.new_full((1,), torch.finfo(kp.dtype).max)])
+    qf = q.reshape(-1)
+    block = get_lower_index(leaders, qf).long().clamp(max=(n - 2) // w)
+    window = kp[block[:, None] * w + torch.arange(w, device=q.device)]  # (Q, W)
+    fine = (window <= qf[:, None]).sum(dim=1)
+    idx = (block * w + fine - 1).clamp(0, n - 2)
+    idx = torch.where(torch.isnan(qf), n - 2, idx)
+    return idx.to(torch.int32).reshape(q.shape)
+
+
+def _big_eval_plain(knots, data, a, b, q):
+    """Plain version of R3: :func:`_big_index_plain`, then the interval's
+    values by index and the symmetric Hermite form with the ``lin_inf``
+    lerp (``bigknots.py:166-170``)."""
+    i = _big_index_plain(knots, q).long()
+    x_l, x_r = knots[i], knots[i + 1]
+    y_l, y_r, ga, gb = data[i], data[i + 1], a[i], b[i]
+    t = (q - x_l) / (x_r - x_l)
+    base = (1 - t) * y_l + t * y_r + t * (1 - t) * (ga * (1 - t) + gb * t)
+    lin_inf = torch.isinf(t) & (ga == 0) & (gb == 0)
+    return torch.where(lin_inf, y_l + t * (y_r - y_l), base)
+
+
+def _big_index_frac_plain(knots, q):
+    """Plain version of R3idx: ``(idx, t)``."""
+    idx = _big_index_plain(knots, q)
+    return idx, _frac(knots, q, idx)
+
+
+def _check(name, knots, q, *tables):
+    dtype = _cuda.float_operands(name, q, knots, *tables)
+    n = knots.shape[0]
+    if knots.ndim != 1 or not 2 <= n <= MAX_BIG_KNOTS:
+        raise ValueError(f"{name}: knots must be 1-D with 2 to {MAX_BIG_KNOTS} entries")
+    return dtype
+
+
+def _launch_eval(knots, data, a, b, q):
+    dtype = _check("big_eval_1d", knots, q, data, a, b)
+    n = knots.shape[0]
+    if data.shape != (n,) or a.shape != (n - 1,) or b.shape != (n - 1,):
+        raise ValueError(
+            f"big_eval_1d: data must be ({n},) and a, b ({n - 1},); got "
+            f"{tuple(data.shape)}, {tuple(a.shape)}, {tuple(b.shape)}"
+        )
+    qf = q.reshape(-1).contiguous()
+    out = torch.empty_like(qf)
+    _cuda.launch(
+        "ndi_big_eval", dtype, q.device,
+        knots.contiguous(), knots.shape[0], data.contiguous(), a.contiguous(),
+        b.contiguous(), qf, out, qf.shape[0],
+    )
+    big_eval_1d.launches += 1
+    return out.reshape(q.shape)
+
+
+def _launch_index_frac(knots, q):
+    dtype = _check("big_lower_index_frac", knots, q)
+    qf = q.reshape(-1).contiguous()
+    idx = torch.empty(qf.shape, dtype=torch.int32, device=q.device)
+    t = torch.empty_like(qf)
+    _cuda.launch(
+        "ndi_big_index_frac", dtype, q.device,
+        knots.contiguous(), knots.shape[0], qf, idx, t, qf.shape[0],
+    )
+    big_lower_index_frac.launches += 1
+    return idx.reshape(q.shape), t.reshape(q.shape)
+
+
+def _interval_form(knots, data, a, b, q):
+    return _eval_plain(knots, make_interval_table(knots, data, a, b), q)
+
+
+class _BigEval1D(torch.autograd.Function):
+    """Forward: R3.  Backward: autograd of K1's plain version on the
+    interval table, as the JAX package's ``_be_bwd`` (``bigknots.py:233-242``)
+    is the VJP of its gather formulation."""
+
+    @staticmethod
+    def forward(ctx, knots, data, a, b, q):
+        ctx.save_for_backward(knots, data, a, b, q)
+        return _launch_eval(knots, data, a, b, q)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _cuda.plain_vjp(_interval_form, ctx.saved_tensors, ctx.needs_input_grad, g)
+
+
+class _BigIndexFrac(torch.autograd.Function):
+    """Forward: R3idx.  Backward: autograd of the fraction with the interval
+    fixed, as K2's; the index has no gradient."""
+
+    @staticmethod
+    def forward(ctx, knots, q):
+        idx, t = _launch_index_frac(knots, q)
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(knots, q, idx)
+        return idx, t
+
+    @staticmethod
+    def backward(ctx, g_idx, g_t):
+        knots, q, idx = ctx.saved_tensors
+        return _cuda.plain_vjp(
+            lambda k, q_: _frac(k, q_, idx), (knots, q), ctx.needs_input_grad, g_t
+        )
+
+
+def big_eval_1d(knots, data, a, b, q):
+    """Hermite evaluation of a scalar spline on a long knot axis: knots and
+    data (n,), a and b (n-1,) (zeros for a linear table), q any shape.
+    CPU tensors: :func:`_big_eval_plain`; CUDA: R3."""
+    if _cuda.kernel_device("big_eval_1d", q) == "cpu":
+        return _big_eval_plain(knots, data, a, b, q)
+    return _BigEval1D.apply(knots, data, a, b, q)
+
+
+def big_lower_index_frac(knots, q):
+    """``(idx, t)`` of the queries on a long knot axis: idx int32 in
+    ``[0, n-2]`` (NaN -> n-2), ``t = (q - x_l) / (x_r - x_l)``.  CPU
+    tensors: :func:`_big_index_frac_plain`; CUDA: R3idx."""
+    if _cuda.kernel_device("big_lower_index_frac", q) == "cpu":
+        return _big_index_frac_plain(knots, q)
+    return _BigIndexFrac.apply(knots, q)
+
+
+big_eval_1d.launches = 0
+big_lower_index_frac.launches = 0

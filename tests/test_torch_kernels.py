@@ -417,3 +417,162 @@ def test_nd_and_node_routes_count_launches_and_match_plain(dev, monkeypatch):
     assert kernel_wrappers()["K14"].launches > before
     want = DoubleFloatEvaluator2D(builds[1])(qs[0], qs[1])
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-12, atol=1e-12)
+
+
+# -- the wide-bank and long-axis kernels K5, R2a, R3, R3idx ----------------------------
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n,bank,nq", [(16, (300,), 100), (64, (999,), 513), (33, (256,), 8),
+                                       (129, (16, 33), 77), (2048, (256,), 4096), (5, (3,), 40)])
+def test_banked_eval_kernel_matches_plain(dev, dtype, n, bank, nq):
+    from ndarray_interp_tpu_torch.ops import bank_eval as be
+
+    rng = np.random.default_rng(n + nq)
+    d, a, b = (torch.as_tensor(rng.normal(size=(m,) + bank).astype(dtype), device=dev)
+               for m in (n, n - 1, n - 1))
+    d.view(-1)[d[0].numel() + 5] = float("nan")  # one datum: its lane, two intervals
+    idx = torch.as_tensor(rng.integers(0, n - 1, nq), dtype=torch.int32, device=dev)
+    t = np.r_[rng.uniform(-0.5, 1.5, nq - 3), [np.nan, np.inf, 1e30]][:nq].astype(dtype)
+    t = torch.as_tensor(t, device=dev)
+    assert same(be.banked_eval(d, a, b, idx, t), be._gather_form(d, a, b, idx, t))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("bank", [1, 7, 8, 9, 64, 300])
+def test_bank_tail_kernel_matches_plain(dev, dtype, bank):
+    from ndarray_interp_tpu_torch.ops import bank_tail as bt
+
+    rng = np.random.default_rng(bank)
+    n, nq = 500, 20_000
+    d, a, b = (torch.as_tensor(rng.normal(size=(m, bank)).astype(dtype), device=dev)
+               for m in (n, n - 1, n - 1))
+    idx = torch.as_tensor(rng.integers(0, n - 1, nq), dtype=torch.int32, device=dev)
+    t = np.r_[rng.uniform(-0.5, 1.5, nq - 4), [np.nan, np.inf, -np.inf, 1e30]].astype(dtype)
+    t = torch.as_tensor(t, device=dev)
+    packed = bt.pack_bank_rows(d, a, b)
+    assert same(bt.banked_hermite_tail(packed, idx, t, bank), bt._tail_plain(packed, idx, t, bank))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [2, 100, 65_537, 70_001, 262_144, 1_048_576])
+def test_big_kernels_match_plain(dev, dtype, n):
+    from ndarray_interp_tpu_torch.ops import bigknots as bk
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+
+    rng = np.random.default_rng(n)
+    kn = knots(n, dtype, n)
+    k = torch.as_tensor(kn, device=dev)
+    q = torch.as_tensor(queries(kn[:: max(1, n // 5000)], dtype, n), device=dev)
+    d, a, b = (torch.as_tensor(rng.normal(size=m).astype(dtype), device=dev)
+               for m in (n, n - 1, n - 1))
+    z = torch.zeros_like(a)
+    for aa, bb in ((a, b), (z, z)):
+        want = ek._eval_plain(k, ek.make_interval_table(k, d, aa, bb), q)
+        assert same(bk.big_eval_1d(k, d, aa, bb, q), want)
+    idx, t = bk.big_lower_index_frac(k, q)
+    idx_p, t_p = ek._index_frac_plain(k, q)
+    assert same(idx, idx_p) and same(t, t_p)
+    if n >= 16:  # the JAX geometry's plain versions
+        assert same(bk._big_eval_plain(k, d, a, b, q),
+                    ek._eval_plain(k, ek.make_interval_table(k, d, a, b), q))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kid", ["K5", "R2a", "R3", "R3idx"])
+def test_bank_and_big_gradients_match_autograd_of_plain(dev, kid):
+    from ndarray_interp_tpu_torch.ops import bank_eval as be
+    from ndarray_interp_tpu_torch.ops import bank_tail as bt
+    from ndarray_interp_tpu_torch.ops import bigknots as bk
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+
+    rng = np.random.default_rng(11)
+    if kid in ("K5", "R2a"):
+        n, bank, nq = 40, 300, 500
+        args = tuple(torch.as_tensor(rng.normal(size=s), device=dev)
+                     for s in ((n, bank), (n - 1, bank), (n - 1, bank)))
+        idx = torch.as_tensor(rng.integers(0, n - 1, nq), dtype=torch.int32, device=dev)
+        t = torch.as_tensor(rng.uniform(-0.5, 1.5, nq), device=dev)
+        fns = ((be.banked_eval, be._gather_form) if kid == "K5"
+               else (bt.gathered_bank_eval, bt._gather_form_2d))
+        pair_ = tuple(lambda d, a, b, t_, f=f: f(d, a, b, idx, t_) for f in fns)
+        args = (*args, t)
+    else:
+        n = 70_001
+        kn = torch.as_tensor(knots(n, np.float64, 3), device=dev)
+        q = torch.as_tensor(rng.uniform(-5.0, 105.0, 2000), device=dev)
+        if kid == "R3":
+            d, a, b = (torch.as_tensor(rng.normal(size=m), device=dev) for m in (n, n - 1, n - 1))
+            args = (kn, d, a, b, q)
+            pair_ = (bk.big_eval_1d, lambda k, d_, a_, b_, q_: ek._eval_plain(
+                k, ek.make_interval_table(k, d_, a_, b_), q_))
+        else:
+            args = (kn, q)
+            pair_ = (lambda k, q_: bk.big_lower_index_frac(k, q_)[1],
+                     lambda k, q_: ek._index_frac_plain(k, q_)[1])
+    grads = []
+    for fn in pair_:
+        leaves = [v.detach().clone().requires_grad_(True) for v in args]
+        (fn(*leaves) ** 2).sum().backward()
+        grads.append([v.grad for v in leaves])
+    for g_kernel, g_plain in zip(*grads):
+        torch.testing.assert_close(g_kernel, g_plain, rtol=1e-12, atol=1e-12)
+
+
+def test_strategy_routes_launch_k5_r2a_r3_r3idx(dev):
+    """The cubic dispatch on the card: K5 for a short axis x wide f32 bank,
+    R2a for a long axis x narrow bank, R3idx + R2a past 65,536 knots, R3 for
+    scalar data there (cubic, Akima and Linear); each against the CPU build."""
+    from ndarray_interp_tpu_torch.interp1d import Akima, CubicSpline, Interp1D, Linear
+    from ndarray_interp_tpu_torch.ops import kernel_wrappers
+
+    rng = np.random.default_rng(21)
+    cases = [
+        ((64, 300), CubicSpline(), {"K2", "K5"}),
+        ((3000, 16), CubicSpline(), {"K2", "R2a"}),
+        ((70_001, 4), CubicSpline(), {"R3idx", "R2a"}),
+        ((70_001,), CubicSpline(), {"R3"}),
+        ((70_001,), Akima(), {"R3"}),
+        ((70_001,), Linear(), {"R3"}),
+    ]
+    for shape, strat, expect in cases:
+        x = np.cumsum(rng.uniform(0.5, 1.5, shape[0])).astype(np.float32)
+        data = rng.normal(size=shape).astype(np.float32)
+        q = rng.uniform(x[0] - 1.0, x[-1] + 1.0, 10_000).astype(np.float32)
+        strat = strat.extrapolate(True)
+        itp = Interp1D.builder(data, device=dev).x(x).strategy(strat).build()
+        q_d = torch.as_tensor(q, device=dev)
+        before = {k: w.launches for k, w in kernel_wrappers().items()}
+        got = itp(q_d)
+        torch.cuda.synchronize()
+        after = {k: w.launches for k, w in kernel_wrappers().items()}
+        launched = {k for k in after if after[k] > before[k]}
+        assert launched == expect, (shape, strat, launched)
+        cpu = Interp1D.builder(data, device="cpu").x(x).strategy(strat).build()
+        want = cpu(torch.as_tensor(q))
+        # the builds ran on two devices (K4 against the plain loop, bit-equal;
+        # PyTorch's own f32 ops around them may round differently)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def test_bank_and_big_wrappers_check_their_inputs(dev):
+    from ndarray_interp_tpu_torch.ops import bank_eval as be
+    from ndarray_interp_tpu_torch.ops import bank_tail as bt
+    from ndarray_interp_tpu_torch.ops import bigknots as bk
+
+    d = torch.zeros((8, 300), device=dev)
+    a = torch.zeros((7, 300), device=dev)
+    t = torch.zeros(5, device=dev)
+    with pytest.raises(TypeError, match="int32"):
+        be.banked_eval(d, a, a, torch.zeros(5, dtype=torch.int64, device=dev), t)
+    with pytest.raises(ValueError, match="a, b"):
+        be.banked_eval(d, d, a, torch.zeros(5, dtype=torch.int32, device=dev), t)
+    with pytest.raises(ValueError, match="bp >= bank"):
+        bt.banked_hermite_tail(torch.zeros((7, 32), device=dev),
+                               torch.zeros(5, dtype=torch.int32, device=dev), t, 9)
+    k = torch.linspace(0.0, 1.0, 100, device=dev)
+    with pytest.raises(ValueError, match="data must be"):
+        bk.big_eval_1d(k, k[:-1], k[:-1], k[:-1], t)
+    with pytest.raises(TypeError, match="torch.int64"):
+        bk.big_lower_index_frac(torch.arange(100, device=dev), torch.arange(5, device=dev))
