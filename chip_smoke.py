@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch port: the 1-D main path, 1-D serving, the
-2-D path, the N-D path with the f64-grade bicubic node route, and the 1-D
-wide-bank and long-knot-axis routes with Akima, Makima and Pchip.
+2-D path with its fused f32/f64 cell route, the N-D path with the f64-grade
+bicubic node route, and the 1-D wide-bank and long-knot-axis routes with
+Akima, Makima and Pchip.
 
     python3 chip_smoke.py
 
@@ -29,7 +30,12 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    ragged shapes up to NS5's 256 x 16,384 x 4,096 with one NaN datum that must
    stay in its lane and two intervals; R2a (the packed-row tail) at banks 1 to
    300; R3 and R3idx (the long-axis search and eval) at 65,537 knots up to
-   MAX_BIG_KNOTS on 1,000,000 such queries, cubic and linear tables;
+   MAX_BIG_KNOTS on 1,000,000 such queries, cubic and linear tables; R1
+   (the 2-D cell search) and the 2-D cell tails R2b (bilinear), R2c, R2d and
+   R2n (bicubic: sequential, halving-tree and nested sums) in f32 and f64 on
+   grids up to 512 x 512 at 1, 3, 16 and 20 channels, on 1,000,000 queries
+   per axis with NaN, +-inf, the knots and far extrapolation, R1 also
+   against K3's index and K2's fractions;
 4. drives the main path through the public API on ``device="cuda"``, with
    every launch count set to 0 just before and read just after: the
    2,048-knot not-a-knot spline with extrapolation at 1,000,000 queries in
@@ -41,7 +47,9 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    grades df and f48) and the 2-D path at the JAX package's config-3 width
    (512 x 512 x 16, non-uniform axes, 1,000,000 queries: ``Interp2D`` with
    ``Bilinear`` and ``Bicubic`` in f32 and f64 against SciPy's
-   ``RegularGridInterpolator`` and ``RectBivariateSpline``, ``Evaluator2D``,
+   ``RegularGridInterpolator`` and ``RectBivariateSpline``, through R1 + R2b
+   and R1 + R2n, each output equal bit for bit to the plain versions of R1
+   and its tail on the card, ``Evaluator2D``,
    ``eval_into_donated_2d``, ``DoubleFloatEvaluator2D`` in grades df and f48
    for both strategies against float64 forms on double-float-rounded
    inputs, an out-of-bounds call), each call with the launch counts set to
@@ -806,6 +814,21 @@ def bound(kid, args):
         width = t.element_size()
         nbytes = _nbytes(*tables, idx, t) + width * elems
         ops = 10 * elems  # the symmetric Hermite form
+    elif kid == "R1":  # x, y, qx, qy
+        x, y, qx, _ = args
+        nq, width = qx.numel(), qx.element_size()
+        nbytes = _nbytes(*args) + (4 + 2 * width) * nq  # cell int32, tx, ty
+        # per query: both searches, the two fractions (2 subtractions and a
+        # division each) and the flat cell (a multiply and an add)
+        ops = nq * (_search_steps(x.numel()) + _search_steps(y.numel()) + 8)
+    elif kid in ("R2b", "R2c", "R2d", "R2n"):  # rows_tbl, cell, qx | tx, qy | ty, r
+        tbl, cell, a, b, r = args
+        elems, width = cell.numel() * r, a.element_size()
+        nbytes = _nbytes(tbl, cell, a, b) + width * elems
+        # per element: three calc_frac lerps (6 operations each); the weight
+        # forms' two bases (9 each), 16 weights, 16 products and 15 adds; the
+        # nested form's five scaled Hermite forms (15 each)
+        ops = {"R2b": 18, "R2c": 65, "R2d": 65, "R2n": 75}[kid] * elems
     elif kid == "K4":
         rhs = args[3]
         nbytes, ops, width = _nbytes(*args) + _nbytes(rhs), 8 * rhs.numel(), rhs.element_size()
@@ -951,6 +974,54 @@ def df2d_kernel_phases(dev, rec):
         torch.cuda.synchronize()
 
 
+def tail2d_kernel_phases(dev, rec):
+    """R1, R2b, R2c, R2d and R2n against their plain versions on the card,
+    on the same inputs, in f32 and f64: the cells and fractions R1 gives for
+    1,000,000 queries per axis (NaN, +-inf, +-1e38, the knots themselves and
+    far extrapolation, so fractions far outside [0, 1]) on grids up to
+    512 x 512 at r in {1, 3, 16, 20} channels; R1 also against K3's index of
+    each axis and K2's fractions."""
+    import torch
+
+    from ndarray_interp_tpu_torch.models.strategies.bilinear import pack_corner_rows
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+    from ndarray_interp_tpu_torch.ops import tail2d as t2
+
+    rng = np.random.default_rng(3)
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    print("2-D cell-route kernel phases (kernel against its plain version, same inputs):",
+          flush=True)
+    for np_dt in (np.float32, np.float64):
+        tag = np.dtype(np_dt).name
+        for nx, ny, r in ((3, 3, 1), (512, 512, 1), (200, 150, 3), (512, 512, 16), (96, 80, 20)):
+            kx, ky = make_knots(nx, "nonuniform", np_dt, rng), make_knots(ny, "log", np_dt, rng)
+            x, y = T(kx), T(ky)
+            qx = T(make_queries(kx, NQ2D, np_dt, rng))
+            qy = T(rng.permutation(make_queries(ky, NQ2D, np_dt, rng)))
+            label = f"{tag} {nx} x {ny} x {r}, {NQ2D:,} queries"
+            cell, tx, ty = ek.fused_cell_index(x, y, qx, qy)
+            ok = rec.add_pair("R1", label, (cell, tx, ty), ek._cell_index_plain(x, y, qx, qy))
+            ok &= rec.add("R1", f"{label} against K3", cell, ek.fused_lower_index(x, qx) * (ny - 1)
+                          + ek.fused_lower_index(y, qy))
+            ok &= rec.add_pair("R1", f"{label} against K2", (tx, ty),
+                               (ek.fused_index_frac(x, qx)[1], ek.fused_index_frac(y, qy)[1]))
+            corners = pack_corner_rows(x, y, T(rng.normal(size=(nx, ny, r)).astype(np_dt)))
+            ok &= rec.add("R2b", label, t2.bilinear_gathered_eval(corners, cell, qx, qy, r),
+                          t2._bilinear_plain(corners, cell, qx, qy, r))
+            del corners
+            rows = T(rng.normal(size=((nx - 1) * (ny - 1), 16 * r)).astype(np_dt))
+            for kid, kernel, plain in (
+                ("R2c", t2.bicubic_gathered_eval, t2._bicubic_weight_plain),
+                ("R2d", t2.bicubic_tree_tail, t2._bicubic_tree_plain),
+                ("R2n", t2.bicubic_nested_tail, t2._bicubic_nested_plain),
+            ):
+                ok &= rec.add(kid, label, kernel(rows, cell, tx, ty, r), plain(rows, cell, tx, ty, r))
+            print(f"  {label}: R1 (also against K3 and K2), R2b, R2c, R2d, R2n "
+                  f"{'bit-identical' if ok else 'MISMATCH'}", flush=True)
+            del rows, cell, tx, ty, qx, qy
+            torch.cuda.synchronize()
+
+
 def bilinear_oracle(x, y, z, qx, qy):
     """The float64 lerp form on double-float-rounded inputs
     (``tests/test_tpu_parity.py:454-465``)."""
@@ -988,6 +1059,21 @@ def bicubic_oracle(x, y, rows, r, qx, qy):
     return hermite(f_y1, f_y2, g_y1, g_y2, ty)
 
 
+def plain_cell_route(itp, qx, qy):
+    """The plain versions of R1 and the strategy's tail on the same inputs
+    (in-range queries, no periodic axis): ``get_lower_index`` per axis, a
+    row ``index_select`` and the PyTorch lerps (``Bilinear``) or nested
+    Hermite tail (``Bicubic``)."""
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+    from ndarray_interp_tpu_torch.ops import tail2d as t2
+
+    rows = itp.strategy.rows
+    cell, tx, ty = ek._cell_index_plain(itp.x, itp.y, qx, qy)
+    if getattr(itp.strategy, "layout", None) == "cell":
+        return t2._bicubic_nested_plain(rows, cell, tx, ty, rows.shape[1] // 16)
+    return t2._bilinear_plain(rows, cell, qx, qy, rows.shape[1] // 4 - 1)
+
+
 def path2d(dev, rng):
     """The 2-D slice through the public API on ``device="cuda"``, at config
     3's width.  Every call is driven with all launch counts set to 0 just
@@ -1008,6 +1094,15 @@ def path2d(dev, rng):
     nx, ny, r = GRID2D
     T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
 
+    def routed_equals_plain(label, itp, got):
+        """The routed output against the plain versions of R1 and the tail
+        on the same inputs, bit for bit."""
+        same, err = bit_compare(got, plain_cell_route(itp, qxd, qyd))
+        print(f"  {label}: R1 + tail {'bit-identical to' if same else 'DIFFERS from'} their "
+              f"plain versions (max abs err {err})", flush=True)
+        if not same:
+            fail(f"{label}: R1 + tail differ from their plain versions (max abs err {err})")
+
     x = f32(make_knots(nx, "nonuniform", np.float64, rng))
     y = f32(make_knots(ny, "nonuniform", np.float64, rng))
     z = f32(rng.normal(size=GRID2D))
@@ -1026,14 +1121,16 @@ def path2d(dev, rng):
         xd, yd, zd, qxd, qyd = (T(v.astype(dt)) for v in (x, y, z, qx, qy))
         bil = drive(f"Bilinear {tag} build {nx} x {ny} x {r}", [], lambda: (
             Interp2D.builder(zd).x(xd).y(yd).build()))
-        got = drive(f"NS3 Bilinear {tag} itp(xs, ys)", ["K3"], lambda: bil(qxd, qyd))
+        got = drive(f"NS3 Bilinear {tag} itp(xs, ys)", ["R1", "R2b"], lambda: bil(qxd, qyd))
         check_close(f"NS3 Bilinear {tag} {nx} x {ny} x {r} at {NQ2D:,} queries", got, ref_lin,
                     tol, (NQ2D, r), tdt)
+        routed_equals_plain(f"NS3 Bilinear {tag}", bil, got)
         bic = drive(f"NS3b Bicubic {tag} build", ["K4"], lambda: (
             Interp2D.builder(zd).x(xd).y(yd).strategy(Bicubic()).build()))
-        got = drive(f"NS3b Bicubic {tag} itp(xs, ys)", ["K2"], lambda: bic(qxd, qyd))
+        got = drive(f"NS3b Bicubic {tag} itp(xs, ys)", ["R1", "R2n"], lambda: bic(qxd, qyd))
         check_close(f"NS3b Bicubic {tag} {nx} x {ny} x {r} at {NQ2D:,} queries "
                     f"(oracle RectBivariateSpline)", got, ref_cub, tol, (NQ2D, r), tdt)
+        routed_equals_plain(f"NS3b Bicubic {tag}", bic, got)
         out[tag] = (bil, bic, qxd, qyd, zd)
         del got
     del ref_lin, ref_cub
@@ -1042,12 +1139,13 @@ def path2d(dev, rng):
     ev = Evaluator2D(bil).warmup()
     for size in (1000, NQ2D + 1):
         ax, ay = torch.cat([qxd, qxd])[:size], torch.cat([qyd, qyd])[:size]
-        got = drive(f"Evaluator2D Bilinear f32 at {size:,} queries", ["K3"], lambda: ev(ax, ay))
+        got = drive(f"Evaluator2D Bilinear f32 at {size:,} queries", ["R1", "R2b"],
+                    lambda: ev(ax, ay))
         if not torch.equal(got, bil(ax, ay)):
             fail(f"Evaluator2D at {size:,} queries differs from itp(xs, ys)")
     out["evaluator"] = ev
     buf = torch.empty((NQ2D, r), dtype=torch.float32, device=dev)
-    got = drive("eval_into_donated_2d Bilinear f32", ["K3"], lambda: (
+    got = drive("eval_into_donated_2d Bilinear f32", ["R1", "R2b"], lambda: (
         eval_into_donated_2d(bil, qxd, qyd, buf)))
     if got is not buf or not torch.equal(buf, bil.eval_unchecked(qxd, qyd)):
         fail("eval_into_donated_2d did not write itp.eval_unchecked(xs, ys) into out")
@@ -1103,9 +1201,10 @@ def path2d(dev, rng):
 
 def timing2d(state, card, rec):
     """Hold the kernels of the 2-D path, through their wrappers, against
-    their plain versions on the path's own inputs; time K10-K13 and the
-    per-column-diagonal K4 against their plain versions; then time the 2-D
-    calls end to end."""
+    their plain versions on the path's own inputs; time R1, R2b-R2n,
+    K10-K13 and the per-column-diagonal K4 against their plain versions;
+    then time the 2-D calls end to end, NS3 and NS3b also as the plain
+    versions of R1 and their tails."""
     import torch
 
     from ndarray_interp_tpu_torch.interp2d import Bicubic, Interp2D
@@ -1113,6 +1212,7 @@ def timing2d(state, card, rec):
     from ndarray_interp_tpu_torch.ops import eval_kernels as ek
     from ndarray_interp_tpu_torch.ops import eval_kernels_df as edf
     from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as e2
+    from ndarray_interp_tpu_torch.ops import tail2d as t2
     from ndarray_interp_tpu_torch.ops import thomas_kernel as tk
     from ndarray_interp_tpu_torch.ops.df import df_from_f64
     from ndarray_interp_tpu_torch.ops.searchsorted import get_lower_index
@@ -1128,14 +1228,22 @@ def timing2d(state, card, rec):
     t = (txh, txl, tyh, tyl)
     shape = "x".join(map(str, GRID2D))
     knots = f"{bil.x.numel()} knots"
+    r = GRID2D[2]
+    cell, tx, ty = ek.fused_cell_index(bic.x, bic.y, qxd, qyd)
     systems = {
-        "K2": [(f"NS3b eval f32: {knots}, {nq}", (bic.x, qxd))],
-        "K3": [(f"NS3 eval f32: {knots}, {nq}", (bil.x, qxd))],
+        "K2": [(f"NS3b's x axis and queries f32: {knots}, {nq}", (bic.x, qxd))],
+        "K3": [(f"NS3's x axis and queries f32: {knots}, {nq}", (bil.x, qxd))],
+        "R1": [(f"NS3 / NS3b cell search f32: {knots} a axis, {nq}", (bil.x, bil.y, qxd, qyd))],
+        "R2b": [(f"NS3 corner-row table {shape} f32, {nq}",
+                 (bil.strategy.rows, cell, qxd, qyd, r))],
         "K4": [(f"NS3b build f32: {knots} x {zd[0].numel():,} columns, along x",
                 _assemble_system(bic.x, zd.reshape(zd.shape[0], -1), _NOT_A_KNOT, 0.0,
                                  _NOT_A_KNOT, 0.0))],
         "K7": [(f"NS3c f64 queries: {knots}, {nq}", (*x_pair, *df_from_f64(dqx)))],
     }
+    for kid in ("R2c", "R2d", "R2n"):
+        systems[kid] = [(f"NS3b cell table {shape} f32, {nq}",
+                         (bic.strategy.rows, cell, tx, ty, r))]
     for kid, kind, grade in (("K10", "Bilinear", "df"), ("K11", "Bilinear", "f48"),
                              ("K12", "Bicubic", "df"), ("K13", "Bicubic", "f48")):
         systems[kid] = [(f"{kind} {grade} table {shape}, {nq}",
@@ -1150,14 +1258,20 @@ def timing2d(state, card, rec):
                 (10, 2)),
         "K12": (e2.gathered_bicubic_df_tail, e2._bicubic_df_tail_plain, rec.add_pair, (5, 1)),
         "K13": (e2.gathered_bicubic_f48_tail, e2._bicubic_f48_tail_plain, rec.add_pair, (5, 1)),
+        "R1": (ek.fused_cell_index, ek._cell_index_plain, rec.add_pair, (50, 20)),
+        "R2b": (t2.bilinear_gathered_eval, t2._bilinear_plain, rec.add, (20, 5)),
+        "R2c": (t2.bicubic_gathered_eval, t2._bicubic_weight_plain, rec.add, (10, 2)),
+        "R2d": (t2.bicubic_tree_tail, t2._bicubic_tree_plain, rec.add, (10, 2)),
+        "R2n": (t2.bicubic_nested_tail, t2._bicubic_nested_plain, rec.add, (10, 2)),
     }
     print("kernels at the 2-D path's shapes and inputs, against their plain versions:")
     for kid, (kern, plain, compare, _) in pairs.items():
         label, args = systems[kid][0]
         ok = compare(kid, label, kern(*args), plain(*args))
         print(f"  {kid} {label}: {'bit-identical' if ok else 'MISMATCH'}", flush=True)
-    tails = ("K10", "K11", "K12", "K13")
-    times = time_kernels({k: pairs[k] for k in tails}, systems, card)
+    timed = ("R1", "R2b", "R2c", "R2d", "R2n", "K10", "K11", "K12", "K13")
+    times = time_kernels({k: pairs[k] for k in timed}, systems, card)
+    del cell, tx, ty
 
     # K4 with per-column diagonals (the JAX package's _kernel_batched) at the
     # bank build's shape
@@ -1175,7 +1289,11 @@ def timing2d(state, card, rec):
 
     end_to_end({
         f"NS3 Bilinear f32 itp(xs, ys), {shape} at {nq}": (lambda: bil(qxd, qyd), 20),
+        f"NS3 Bilinear f32, plain R1 + R2b (searchsorted, row gather, lerps), {shape} at {nq}": (
+            lambda: plain_cell_route(bil, qxd, qyd), 20),
         f"NS3b Bicubic f32 itp(xs, ys), {shape} at {nq}": (lambda: bic(qxd, qyd), 10),
+        f"NS3b Bicubic f32, plain R1 + R2n (searchsorted, row gather, Hermite tail), {shape} "
+        f"at {nq}": (lambda: plain_cell_route(bic, qxd, qyd), 10),
         f"NS3b Bicubic f32 build, {shape}": (
             lambda: Interp2D.builder(zd).x(bic.x).y(bic.y).strategy(Bicubic()).build(), 3),
         f"NS3c DoubleFloatEvaluator2D df Bilinear at {nq} (f64)": (
@@ -1900,7 +2018,17 @@ KERNELS = {
     "R3": ("big_eval_1d", "ndarray_interp_tpu_torch/csrc/bigknots_kernels.cu",
            "ndarray_interp_tpu/ops/bigknots.py:308"),
     "R3idx": ("big_lower_index_frac", "ndarray_interp_tpu_torch/csrc/bigknots_kernels.cu",
-              "ndarray_interp_tpu/ops/bigknots.py:308"),
+              "ndarray_interp_tpu/ops/bigknots.py:248"),
+    "R1": ("fused_cell_index", "ndarray_interp_tpu_torch/csrc/cell2d_kernels.cu",
+           "ndarray_interp_tpu/ops/pallas_eval.py:522"),
+    "R2b": ("bilinear_gathered_eval", "ndarray_interp_tpu_torch/csrc/cell2d_kernels.cu",
+            "ndarray_interp_tpu/ops/pallas_tail.py:112"),
+    "R2c": ("bicubic_gathered_eval", "ndarray_interp_tpu_torch/csrc/cell2d_kernels.cu",
+            "ndarray_interp_tpu/ops/pallas_tail.py:258"),
+    "R2d": ("bicubic_tree_tail", "ndarray_interp_tpu_torch/csrc/cell2d_kernels.cu",
+            "ndarray_interp_tpu/ops/pallas_tail.py:425"),
+    "R2n": ("bicubic_nested_tail", "ndarray_interp_tpu_torch/csrc/cell2d_kernels.cu",
+            "ndarray_interp_tpu/models/strategies/bicubic.py:182"),
 }
 
 
@@ -1935,6 +2063,7 @@ def main():
     kernel_phases(dev, rec)
     df_kernel_phases(dev, rec)
     df2d_kernel_phases(dev, rec)
+    tail2d_kernel_phases(dev, rec)
     dfnd_kernel_phases(dev, rec)
     bank_big_kernel_phases(dev, rec)
     torch.cuda.synchronize()
@@ -1962,10 +2091,10 @@ def main():
     print(f"2-D path, {'x'.join(map(str, GRID2D))} at {NQ2D:,} queries (public API, "
           "device='cuda'; counts set to 0 before each call):", flush=True)
     state2d, launched2d = path2d(dev, np.random.default_rng(44))
-    for kid in ("K10", "K11", "K12", "K13"):
+    for kid in ("R1", "R2b", "R2n", "K10", "K11", "K12", "K13"):
         launches[kid] = launched2d[kid]
     print(f"  launches during the 2-D path: {launched2d}")
-    for kid in ("K2", "K3", "K4", "K7", "K10", "K11", "K12", "K13"):
+    for kid in ("R1", "R2b", "R2n", "K4", "K7", "K10", "K11", "K12", "K13"):
         if launched2d[kid] <= 0:
             fail(f"{kid} was not launched by the 2-D path")
     elapsed("1-D, serving and 2-D paths")

@@ -35,26 +35,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "search.cuh"  // lower_index
+
 namespace {
 
 constexpr int kThreads = 256;
-
-// Clamped lower-interval index of q on the strictly rising axis knots[0..n).
-template <typename T>
-__device__ __forceinline__ int lower_index(const T* __restrict__ knots, int n, T q) {
-  if (q != q) return n - 2;  // NaN
-  int lo = 0, hi = n;        // upper bound: first knot > q
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(knots + mid) <= q) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  const int idx = lo - 1;
-  return idx < 0 ? 0 : (idx > n - 2 ? n - 2 : idx);
-}
 
 template <typename T>
 __global__ void eval1d_kernel(const T* __restrict__ knots, int n,

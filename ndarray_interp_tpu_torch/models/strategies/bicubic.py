@@ -16,7 +16,7 @@ Thomas kernel K4 on the GPU):
 Evaluation is three 1-D Hermite evaluations in the symmetric form of the
 1-D spline (``cubic_spline.rs:818-828``): ``f`` and ``ky`` along x at both
 bracketing y-knots (with ``kx`` and ``kxy`` as their x-derivatives), then
-along y.  Both ``(idx, t)`` passes run the search kernel K2 on the GPU.
+along y.
 
 Two table layouts, chosen at build by :data:`BICUBIC_PACK_MAX_ELEMS`:
 
@@ -26,8 +26,12 @@ Two table layouts, chosen at build by :data:`BICUBIC_PACK_MAX_ELEMS`:
   node's ``(x, y)``), about a quarter of the cell table's memory, four
   fetches per query.
 
-The tails after the fetch are plain PyTorch, as they are XLA (not Pallas)
-in the JAX package.  Not ported: the TPU's dense-operator build
+The cell layout runs the cell search R1 (``fused_cell_index``) and the
+nested tail R2n (``tail2d.bicubic_nested_tail``), which fetches each
+query's row itself: two kernels on the GPU, their plain versions on the
+CPU.  The node layout runs the search kernel K2 on each axis and its tail
+after an ``index_select`` is plain PyTorch, as it is XLA (not Pallas) in
+the JAX package.  Not ported: the TPU's dense-operator build
 (``bicubic.py:79-87``), whose worth on this card is an open question.
 Integer data raises ``TypeError`` (the spline solve needs a floating dtype).
 """
@@ -38,7 +42,8 @@ import math
 
 import torch
 
-from ...ops.eval_kernels import fused_index_frac
+from ...ops.eval_kernels import fused_cell_index, fused_index_frac
+from ...ops.tail2d import bicubic_nested_tail
 from .base2d import Interp2DStrategy, Interp2DStrategyBuilder
 from .cubic import (
     _FIRST_DERIV,
@@ -92,34 +97,6 @@ def _hermite(y_l, y_r, k_l, k_r, dx, t):
     a = k_l * dx - dy
     b = dy - k_r * dx
     return (1 - t) * y_l + t * y_r + t * (1 - t) * (a * (1 - t) + b * t)
-
-
-def _hermite_scaled(y_l, y_r, K_l, K_r, t):
-    """:func:`_hermite` with pre-scaled derivatives ``K = k*dx``."""
-    dy = y_r - y_l
-    a = K_l - dy
-    b = dy - K_r
-    return (1 - t) * y_l + t * y_r + t * (1 - t) * (a * (1 - t) + b * t)
-
-
-def _cell_tail_nested(g, tx, ty, r):
-    """The nested scaled-Hermite tail on gathered cell rows ``(Q, 16r)``
-    with ``tx``/``ty`` of shape ``(Q, 1)``: ``f`` and ``ky·dy`` along x at
-    both bracketing y-knots, then along y."""
-
-    def block(i):  # corner quantity i, corners [11, 12, 21, 22]
-        base = 4 * r * i
-        return tuple(g[:, base + c * r : base + (c + 1) * r] for c in range(4))
-
-    f11, f12, f21, f22 = block(0)
-    kx11, kx12, kx21, kx22 = block(1)
-    ky11, ky12, ky21, ky22 = block(2)
-    kxy11, kxy12, kxy21, kxy22 = block(3)
-    f_y1 = _hermite_scaled(f11, f21, kx11, kx21, tx)
-    f_y2 = _hermite_scaled(f12, f22, kx12, kx22, tx)
-    g_y1 = _hermite_scaled(ky11, ky21, kxy11, kxy21, tx)
-    g_y2 = _hermite_scaled(ky12, ky22, kxy12, kxy22, tx)
-    return _hermite_scaled(f_y1, f_y2, g_y1, g_y2, ty)
 
 
 def _index_frac(knots, q):
@@ -265,16 +242,14 @@ class BicubicStrategy(Interp2DStrategy):
             xq = torch.remainder(xq - x[0], x[-1] - x[0]) + x[0]
         if self.wraps_y:
             yq = torch.remainder(yq - y[0], y[-1] - y[0]) + y[0]
+        out_shape = tuple(xq.shape) + tuple(data.shape[2:])
+        r = math.prod(data.shape[2:])
+        if self.layout == "cell":
+            cell, tx, ty = fused_cell_index(x, y, xq, yq)  # R1
+            return bicubic_nested_tail(self.rows, cell, tx, ty, r).reshape(out_shape)  # R2n
         xi, tx = _index_frac(x, xq)
         yi, ty = _index_frac(y, yq)
-        xi, yi = xi.long(), yi.long()
-        out_shape = tuple(xq.shape) + tuple(data.shape[2:])
-        if self.layout == "cell":
-            ny = data.shape[1]
-            g = self.rows.index_select(0, xi * (ny - 1) + yi)
-            out = _cell_tail_nested(g, tx[:, None], ty[:, None], math.prod(data.shape[2:]))
-            return out.reshape(out_shape)
-        return self._eval_node(data, xi, yi, tx, ty, out_shape)
+        return self._eval_node(data, xi.long(), yi.long(), tx, ty, out_shape)
 
     def _eval_node(self, data, xi, yi, tx, ty, out_shape):
         """Four node-row fetches, then the unscaled Hermite form."""

@@ -6,20 +6,24 @@ eval; calculus waits for the port's calculus).  Reference:
 the four corners and the interval endpoints, then two x-direction lerps and
 one y-direction lerp (``bilinear.rs:64-98``).
 
-Here the whole batch does this at once: the two searches run the search
-kernel K3 on the GPU (``lower_index_fast``); floating data built through the
+Here the whole batch does this at once.  Floating data built through the
 builder gets the packed corner-row table (:class:`BilinearPacked`), so that
-each query fetches one row; data without a table (integer data, or grids
-above ``_PACK_MAX_ELEMS``) gathers the four corners.  Both give the same
-values: the table holds copies.
+each query fetches one row: it runs the cell search R1
+(``fused_cell_index``) and the lerp tail R2b (``tail2d.bilinear_gathered_eval``),
+two kernels on the GPU and their plain versions on the CPU.  Data without a
+table (integer data, or grids above ``_PACK_MAX_ELEMS``) runs the search
+kernel K3 on each axis (``lower_index_fast``) and gathers the four corners.
+Both give the same values: the table holds copies.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...ops.eval_kernels import fused_cell_index
 from ...ops.lerp import calc_frac
 from ...ops.searchsorted import lower_index_fast
+from ...ops.tail2d import bilinear_gathered_eval
 from .base2d import Interp2DStrategy, Interp2DStrategyBuilder
 
 
@@ -75,41 +79,21 @@ class Bilinear(Interp2DStrategy, Interp2DStrategyBuilder):
             return BilinearPacked(pack_corner_rows(x, y, data), self.extrapolates)
         return self
 
-    def _rows(self):
-        return None
-
-    def _corners(self, interp, xi, yi):
-        """``(z11, z12, z21, z22, x1, x2, y1, y2)``: corners ``(Q, *trailing)``,
-        endpoints ``(Q,)`` in the data's dtype."""
-        x, y, data = interp.x, interp.y, interp.data
-        rows = self._rows()
-        if rows is None:
-            return (
-                data[xi, yi], data[xi, yi + 1], data[xi + 1, yi], data[xi + 1, yi + 1],
-                x[xi].to(data.dtype), x[xi + 1].to(data.dtype),
-                y[yi].to(data.dtype), y[yi + 1].to(data.dtype),
-            )
-        ny = data.shape[1]
-        r = rows.shape[1] // 4 - 1
-        g = rows.index_select(0, xi * (ny - 1) + yi)
-        shape = tuple(xi.shape) + tuple(data.shape[2:])
-        corners = tuple(g[:, i * r : (i + 1) * r].reshape(shape) for i in range(4))
-        return corners + tuple(g[:, 4 * r + i] for i in range(4))
-
     def eval(self, interp, xq, yq):
-        data = interp.data
-        xi = lower_index_fast(interp.x, xq).long()
-        yi = lower_index_fast(interp.y, yq).long()
-        z11, z12, z21, z22, x1, x2, y1, y2 = self._corners(interp, xi, yi)
+        x, y, data = interp.x, interp.y, interp.data
+        xi = lower_index_fast(x, xq).long()
+        yi = lower_index_fast(y, yq).long()
         expand = tuple(xq.shape) + (1,) * (data.ndim - 2)
 
         def e(v):
             return v.reshape(expand)
 
+        x1, x2 = e(x[xi].to(data.dtype)), e(x[xi + 1].to(data.dtype))
+        y1, y2 = e(y[yi].to(data.dtype)), e(y[yi + 1].to(data.dtype))
         # the lerp composition and order of bilinear.rs:88-97
-        z1 = calc_frac(e(x1), z11, e(x2), z21, e(xq))
-        z2 = calc_frac(e(x1), z12, e(x2), z22, e(xq))
-        return calc_frac(e(y1), z1, e(y2), z2, e(yq))
+        z1 = calc_frac(x1, data[xi, yi], x2, data[xi + 1, yi], e(xq))
+        z2 = calc_frac(x1, data[xi, yi + 1], x2, data[xi + 1, yi + 1], e(xq))
+        return calc_frac(y1, z1, y2, z2, e(yq))
 
     def __repr__(self):
         return f"Bilinear(extrapolate={self.extrapolates})"
@@ -123,8 +107,10 @@ class BilinearPacked(Bilinear):
         super().__init__(extrapolate)
         self.rows = rows
 
-    def _rows(self):
-        return self.rows
+    def eval(self, interp, xq, yq):
+        cell, _, _ = fused_cell_index(interp.x, interp.y, xq, yq)  # R1
+        out = bilinear_gathered_eval(self.rows, cell, xq, yq, self.rows.shape[1] // 4 - 1)  # R2b
+        return out.reshape(tuple(xq.shape) + tuple(interp.data.shape[2:]))
 
     def __repr__(self):
         return (

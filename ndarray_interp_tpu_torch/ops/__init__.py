@@ -1,6 +1,6 @@
 """Primitive operations: search, lerp, gather, tridiagonal solve, the
 double-float pairs (``df``), and the wrappers of the CUDA kernels
-(``eval_kernels``, ``bank_eval``, ``bank_tail``, ``bigknots``,
+(``eval_kernels``, ``tail2d``, ``bank_eval``, ``bank_tail``, ``bigknots``,
 ``thomas_kernel``, ``eval_kernels_df``, ``eval_kernels_df2d``,
 ``eval_kernels_df_nd``)."""
 
@@ -8,6 +8,7 @@ from .bank_eval import banked_eval, can_use_banked
 from .bank_tail import banked_hermite_tail, gathered_bank_eval
 from .bigknots import MAX_BIG_KNOTS, big_eval_1d, big_lower_index_frac, can_use_big
 from .eval_kernels import (
+    fused_cell_index,
     fused_eval_1d,
     fused_index_frac,
     fused_lower_index,
@@ -29,6 +30,12 @@ from .eval_kernels_df2d import (
 from .eval_kernels_df_nd import nd_df_tail, nd_f48_tail
 from .lerp import calc_frac
 from .searchsorted import get_lower_index, is_in_range, lower_index_fast
+from .tail2d import (
+    bicubic_gathered_eval,
+    bicubic_nested_tail,
+    bicubic_tree_tail,
+    bilinear_gathered_eval,
+)
 from .thomas import thomas_solve
 from .thomas_kernel import thomas_solve_fast
 
@@ -36,11 +43,16 @@ __all__ = [
     "MAX_BIG_KNOTS",
     "banked_eval",
     "banked_hermite_tail",
+    "bicubic_gathered_eval",
+    "bicubic_nested_tail",
+    "bicubic_tree_tail",
     "big_eval_1d",
     "big_lower_index_frac",
+    "bilinear_gathered_eval",
     "calc_frac",
     "can_use_banked",
     "can_use_big",
+    "fused_cell_index",
     "fused_eval_1d",
     "fused_eval_1d_df",
     "fused_index_frac",
@@ -88,4 +100,9 @@ def kernel_wrappers():
         "R2a": banked_hermite_tail,
         "R3": big_eval_1d,
         "R3idx": big_lower_index_frac,
+        "R1": fused_cell_index,
+        "R2b": bilinear_gathered_eval,
+        "R2c": bicubic_gathered_eval,
+        "R2d": bicubic_tree_tail,
+        "R2n": bicubic_nested_tail,
     }

@@ -60,6 +60,8 @@ class NdStrides(ctypes.Structure):
 # packed, rows, ch, bp, k, nbasis, idx (k, nq), strides, t_hi, t_lo (k, nq),
 # out_hi, out_lo, nq
 _ND_TAIL = ((_P, _I, _I, _I, _I, _I, _P, NdStrides, _P, _P, _P, _P, _I, _P), _PAIRS)
+# tbl, rows, ch, r, cell, qx | tx, qy | ty, out, nq
+_CELL_TAIL_F = ((_P, _I, _I, _I, _P, _P, _P, _P, _I, _P), _BOTH)
 # argument types of each entry point, stream last, and the dtypes it has a
 # symbol for: <name>_f32, <name>_f64
 _SIGNATURES = {
@@ -75,6 +77,12 @@ _SIGNATURES = {
     "ndi_big_eval": ((_P, _I, _P, _P, _P, _P, _P, _I, _P), _BOTH),
     # knots, n, q, idx, t, nq
     "ndi_big_index_frac": ((_P, _I, _P, _P, _P, _I, _P), _BOTH),
+    # x, nx, y, ny, qx, qy, cell, tx, ty, nq
+    "ndi_cell_index": ((_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P), _BOTH),
+    "ndi_bilinear_tail": _CELL_TAIL_F,
+    "ndi_bicubic_seq_tail": _CELL_TAIL_F,
+    "ndi_bicubic_tree_tail": _CELL_TAIL_F,
+    "ndi_bicubic_nested_tail": _CELL_TAIL_F,
     "ndi_df_eval1d": ((_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P), _PAIRS),
     "ndi_df_index_frac": ((_P, _P, _I, _P, _P, _P, _P, _P, _I, _P), _PAIRS),
     "ndi_df_bank_tail": ((_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P), _PAIRS),

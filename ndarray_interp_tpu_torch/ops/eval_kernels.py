@@ -1,19 +1,22 @@
-"""1-D evaluation and interval search on the GPU: wrappers of K1, K2 and K3.
+"""Evaluation and interval search on the GPU: wrappers of K1, K2, K3 and R1.
 
-Counterpart of ``ndarray_interp_tpu.ops.pallas_eval`` (its 1-D part).  The
-CUDA kernels are in ``csrc/eval_kernels.cu``:
+Counterpart of ``ndarray_interp_tpu.ops.pallas_eval``.  The CUDA kernels
+are in ``csrc/eval_kernels.cu`` and, for R1, ``csrc/cell2d_kernels.cu``:
 
 * :func:`fused_eval_1d` (K1): bucketize, interval-row fetch and the
   symmetric Hermite form in one pass, for scalar data;
 * :func:`fused_index_frac` (K2): the search emitting ``(idx, t)``, which
   feeds the bank-data eval;
-* :func:`fused_lower_index` (K3): the search emitting ``idx``.
+* :func:`fused_lower_index` (K3): the search emitting ``idx``;
+* :func:`fused_cell_index` (R1): both 2-D axis searches in one pass,
+  emitting the flat cell and both fractions, which feed the 2-D tails of
+  :mod:`.tail2d`.
 
 Each has its plain PyTorch version here (:func:`_eval_plain`, the
 counterpart of the JAX package's ``_eval_xla``; :func:`_index_frac_plain`;
-:func:`.searchsorted.get_lower_index`).  A wrapper takes the plain version
-for a CPU tensor and launches its kernel for a CUDA tensor; each kernel is
-held to its plain version bit for bit.  ``launches`` on each wrapper counts
+:func:`.searchsorted.get_lower_index`; :func:`_cell_index_plain`).  A
+wrapper takes the plain version for a CPU tensor and launches its kernel
+for a CUDA tensor; each kernel is held to its plain version bit for bit.  ``launches`` on each wrapper counts
 its kernel's launches.
 """
 
@@ -59,6 +62,14 @@ def _frac(knots, q, idx):
     x_l = knots[il]
     x_r = knots[il + 1]
     return (q - x_l) / (x_r - x_l)
+
+
+def _cell_index_plain(x, y, qx, qy):
+    """Plain version of R1: ``get_lower_index`` on each axis, the flat cell
+    ``xi * (ny - 1) + yi`` (int32) and the fractions as K2 computes them."""
+    xi = get_lower_index(x, qx)
+    yi = get_lower_index(y, qy)
+    return xi * (y.shape[0] - 1) + yi, _frac(x, qx, xi), _frac(y, qy, yi)
 
 
 def _flat_queries(name, knots, q):
@@ -113,6 +124,34 @@ def _launch_lower_index(knots, q):
     return idx.reshape(q.shape)
 
 
+def _check_cell_axes(x, y, qx, qy):
+    """R1's shapes: two axes of >= 2 knots, queries of one shape, and fewer
+    than 2^31 cells (the flat cell is int32)."""
+    for name, k in (("x", x), ("y", y)):
+        if k.ndim != 1 or k.shape[0] < 2:
+            raise ValueError(f"fused_cell_index: {name} must be 1-D with at least 2 entries")
+    if qx.shape != qy.shape:
+        raise ValueError(
+            f"fused_cell_index: qx and qy must have one shape, got {tuple(qx.shape)} "
+            f"and {tuple(qy.shape)}"
+        )
+    if (x.shape[0] - 1) * (y.shape[0] - 1) >= 2**31:
+        raise ValueError("fused_cell_index: the int32 cell index takes fewer than 2^31 cells")
+
+
+def _launch_cell_index(x, y, qx, qy):
+    dtype = _cuda.float_operands("fused_cell_index", qx, qy, x, y)
+    qxf, qyf = qx.reshape(-1).contiguous(), qy.reshape(-1).contiguous()
+    x, y = x.contiguous(), y.contiguous()
+    cell = torch.empty(qxf.shape, dtype=torch.int32, device=qx.device)
+    tx, ty = torch.empty_like(qxf), torch.empty_like(qyf)
+    _cuda.launch(
+        "ndi_cell_index", dtype, qx.device,
+        x, x.shape[0], y, y.shape[0], qxf, qyf, cell, tx, ty, qxf.shape[0],
+    )
+    return cell.reshape(qx.shape), tx.reshape(qx.shape), ty.reshape(qx.shape)
+
+
 class _FusedEval1D(torch.autograd.Function):
     """Forward: K1.  Backward: autograd of :func:`_eval_plain`, as the JAX
     package's ``_fused_bwd`` (``pallas_eval.py:351``) does."""
@@ -147,6 +186,32 @@ class _FusedIndexFrac(torch.autograd.Function):
         )
 
 
+class _FusedCellIndex(torch.autograd.Function):
+    """Forward: R1.  Backward: autograd of the fractions with the cell
+    fixed, as ``_cell_index_bwd`` (``pallas_eval.py:562``) does; the cell
+    has no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, y, qx, qy):
+        cell, tx, ty = _launch_cell_index(x, y, qx, qy)
+        fused_cell_index.launches += 1
+        ctx.mark_non_differentiable(cell)
+        ctx.save_for_backward(x, y, qx, qy, cell)
+        return cell, tx, ty
+
+    @staticmethod
+    def backward(ctx, g_cell, g_tx, g_ty):
+        x, y, qx, qy, cell = ctx.saved_tensors
+        ny1 = y.shape[0] - 1
+        xi = torch.div(cell, ny1, rounding_mode="floor")
+        yi = cell - xi * ny1
+
+        def fracs(x_, y_, qx_, qy_):
+            return _frac(x_, qx_, xi), _frac(y_, qy_, yi)
+
+        return _cuda.plain_vjp(fracs, (x, y, qx, qy), ctx.needs_input_grad, (g_tx, g_ty))
+
+
 def fused_eval_1d(knots, tbl, q):
     """Evaluate the piecewise cubic (symmetric Hermite form) defined by
     ``tbl[:, :6] = [x_l, x_r, y_l, y_r, a, b]`` at the queries ``q``.
@@ -175,6 +240,21 @@ def fused_lower_index(knots, q):
     return _launch_lower_index(knots, q)
 
 
+def fused_cell_index(x, y, qx, qy):
+    """Both 2-D axis searches: ``(cell, tx, ty)`` with the flat cell
+    ``xi * (ny - 1) + yi`` (int32; ``xi``, ``yi`` the clamped
+    ``get_lower_index`` of each axis, so ±inf clamps to the edge cells and
+    a NaN query takes ``n - 2`` on its axis) and the fractions
+    ``(q - x_l) / (x_r - x_l)`` of K2.  x (nx,), y (ny,); qx, qy of one
+    shape.  ``tx``/``ty`` are differentiable in ``x, y, qx, qy``, ``cell``
+    is not.  CPU: :func:`_cell_index_plain`; CUDA: R1."""
+    _check_cell_axes(x, y, qx, qy)
+    if _cuda.kernel_device("fused_cell_index", qx) == "cpu":
+        return _cell_index_plain(x, y, qx, qy)
+    return _FusedCellIndex.apply(x, y, qx, qy)
+
+
 fused_eval_1d.launches = 0
 fused_index_frac.launches = 0
 fused_lower_index.launches = 0
+fused_cell_index.launches = 0

@@ -1,0 +1,243 @@
+"""The f32/f64 2-D tails on the packed cell-row tables: R2b, R2c, R2d, R2n.
+
+Counterpart of the 2-D part of ``ndarray_interp_tpu.ops.pallas_tail``
+(``bilinear_gathered_eval``, ``bicubic_gathered_eval``,
+``bicubic_mxu_tail``) and of the nested tail of its ``Bicubic`` strategy.
+Each wrapper takes the table, the flat cell of each query (from
+``eval_kernels.fused_cell_index``, R1) and its fractions or coordinates;
+its CUDA kernel (``csrc/cell2d_kernels.cu``) fetches the query's row
+itself, so the gathered rows are never written:
+
+* :func:`bilinear_gathered_eval` (R2b): three ``calc_frac`` lerps on the
+  corner rows of ``bilinear.pack_corner_rows`` (width ``4r + 4``);
+* :func:`bicubic_gathered_eval` (R2c): the weight form on the cell rows of
+  ``bicubic.pack_bicubic_rows`` (width ``16r``), summed in block order;
+* :func:`bicubic_tree_tail` (R2d): the same products summed by the halving
+  tree of ``bicubic_mxu_tail``;
+* :func:`bicubic_nested_tail` (R2n): the nested scaled-Hermite order of
+  :func:`_cell_tail_nested`, the one the ``Bicubic`` strategy runs.
+
+Each has its plain PyTorch version here (an ``index_select`` of the rows,
+clamped to the table as the kernels clamp, and the form).  A CPU tensor
+takes the plain version, a CUDA tensor launches the kernel or raises; the
+two are bit-identical.  ``launches`` on each wrapper counts its launches.
+On the GPU the backward is autograd of the plain version with ``cell``
+fixed (the JAX package's ``_bl_bwd`` / ``_bc_bwd``); on the CPU autograd
+differentiates the plain version directly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+from .lerp import calc_frac
+
+def _rows(rows_tbl, cell):
+    return rows_tbl.index_select(0, cell.long().clamp(0, rows_tbl.shape[0] - 1))
+
+
+# -- plain versions ------------------------------------------------------------------
+def _bilinear_plain(rows_tbl, cell, qx, qy, r):
+    """Plain version of R2b (the JAX package's ``_bilinear_xla_form``)."""
+    g = _rows(rows_tbl, cell)
+    z11, z12, z21, z22 = (g[:, i * r : (i + 1) * r] for i in range(4))
+    x1, x2, y1, y2 = (g[:, 4 * r + i : 4 * r + i + 1] for i in range(4))
+    qxe, qye = qx[:, None], qy[:, None]
+    # the lerp composition and order of bilinear.rs:88-97
+    z1 = calc_frac(x1, z11, x2, z21, qxe)
+    z2 = calc_frac(x1, z12, x2, z22, qxe)
+    return calc_frac(y1, z1, y2, z2, qye)
+
+
+def _bicubic_basis(t):
+    """Scaled-Hermite weights ``(w_yl, w_yr, w_Kl, w_Kr)`` of
+    :func:`_hermite_scaled` in closed form: ``u + p*d, t - p*d, p*u,
+    -p*t`` with ``u = 1-t, p = t*u, d = u-t`` (``pallas_tail.py:232``)."""
+    u = 1 - t
+    p = t * u
+    pd = p * (u - t)
+    return (u + pd, t - pd, p * u, -(p * t))
+
+
+def _bicubic_products(g, tx, ty, r):
+    """The 16 products ``W[b] * block b`` of the weight form, block
+    ``b = 4i + c`` (quantity i in [f, kx, ky, kxy], corner c in [11, 12, 21,
+    22]) with ``W[b] = Ax[i][c >> 1] * Ay[i][c & 1]``
+    (``pallas_tail._bicubic_weights``)."""
+    bx = _bicubic_basis(tx[:, None])
+    by = _bicubic_basis(ty[:, None])
+    prods = []
+    for i in range(4):
+        ax = (bx[0], bx[1]) if i in (0, 2) else (bx[2], bx[3])
+        ay = (by[0], by[1]) if i in (0, 1) else (by[2], by[3])
+        for c in range(4):
+            b = 4 * i + c
+            prods.append((ax[c >> 1] * ay[c & 1]) * g[:, b * r : (b + 1) * r])
+    return prods
+
+
+def _bicubic_weight_plain(rows_tbl, cell, tx, ty, r):
+    """Plain version of R2c (``_bicubic_weight_xla`` on the gathered rows):
+    the products summed in block order."""
+    p = _bicubic_products(_rows(rows_tbl, cell), tx, ty, r)
+    out = p[0]
+    for b in range(1, 16):
+        out = out + p[b]
+    return out
+
+
+def _bicubic_tree_plain(rows_tbl, cell, tx, ty, r):
+    """Plain version of R2d: the products summed by ``bicubic_mxu_tail``'s
+    halving tree, block b added to b + 8, then to b + 4, b + 2, b + 1."""
+    p = _bicubic_products(_rows(rows_tbl, cell), tx, ty, r)
+    h = 8
+    while h:
+        p = [p[b] + p[b + h] for b in range(h)]
+        h //= 2
+    return p[0]
+
+
+def _hermite_scaled(y_l, y_r, K_l, K_r, t):
+    """The symmetric Hermite form (``cubic_spline.rs:818-828``) with
+    pre-scaled derivatives ``K = k*dx``: ``a = K_l - dy``, ``b = dy - K_r``."""
+    dy = y_r - y_l
+    a = K_l - dy
+    b = dy - K_r
+    return (1 - t) * y_l + t * y_r + t * (1 - t) * (a * (1 - t) + b * t)
+
+
+def _cell_tail_nested(g, tx, ty, r):
+    """The nested scaled-Hermite tail on gathered cell rows ``(Q, 16r)``
+    with ``tx``/``ty`` of shape ``(Q, 1)``: ``f`` and ``ky·dy`` along x at
+    both bracketing y-knots, then along y."""
+
+    def block(i):  # corner quantity i, corners [11, 12, 21, 22]
+        base = 4 * r * i
+        return tuple(g[:, base + c * r : base + (c + 1) * r] for c in range(4))
+
+    f11, f12, f21, f22 = block(0)
+    kx11, kx12, kx21, kx22 = block(1)
+    ky11, ky12, ky21, ky22 = block(2)
+    kxy11, kxy12, kxy21, kxy22 = block(3)
+    f_y1 = _hermite_scaled(f11, f21, kx11, kx21, tx)
+    f_y2 = _hermite_scaled(f12, f22, kx12, kx22, tx)
+    g_y1 = _hermite_scaled(ky11, ky21, kxy11, kxy21, tx)
+    g_y2 = _hermite_scaled(ky12, ky22, kxy12, kxy22, tx)
+    return _hermite_scaled(f_y1, f_y2, g_y1, g_y2, ty)
+
+
+def _bicubic_nested_plain(rows_tbl, cell, tx, ty, r):
+    """Plain version of R2n: :func:`_cell_tail_nested` on the gathered rows."""
+    return _cell_tail_nested(_rows(rows_tbl, cell), tx[:, None], ty[:, None], r)
+
+
+# -- the kernels -------------------------------------------------------------------------
+def _launch(name, symbol, width, rows_tbl, cell, a, b, r):
+    """Check the operands of one tail kernel and launch it: ``width(r)`` is
+    the least row width its blocks need."""
+    dtype = _cuda.float_operands(name, rows_tbl, a, b)
+    if cell.dtype != torch.int32 or cell.device != a.device:
+        raise TypeError(f"{name}: cell must be torch.int32 on {a.device}")
+    if r < 0 or rows_tbl.ndim != 2 or rows_tbl.shape[1] < width(r):
+        raise ValueError(
+            f"{name}: rows_tbl must have shape (cells, >= {width(max(r, 0))}) for "
+            f"r = {r} >= 0, got {tuple(rows_tbl.shape)}"
+        )
+    if cell.ndim != 1 or a.shape != cell.shape or b.shape != cell.shape:
+        raise ValueError(f"{name}: cell and its two query operands must be flat and of one length")
+    nq = cell.shape[0]
+    out = torch.empty((nq, r), dtype=dtype, device=a.device)
+    rows_tbl = rows_tbl.contiguous()
+    _cuda.launch(
+        symbol, dtype, a.device,
+        rows_tbl, rows_tbl.shape[0], rows_tbl.shape[1], r,
+        cell.contiguous(), a.contiguous(), b.contiguous(), out, nq,
+    )
+    return out
+
+
+def _width_bilinear(r):
+    return 4 * r + 4
+
+
+def _width_bicubic(r):
+    return 16 * r
+
+
+class _Tail(torch.autograd.Function):
+    """Forward: a tail kernel.  Backward: autograd of its plain version with
+    ``cell`` fixed (``_bl_bwd`` ``pallas_tail.py:213``, ``_bc_bwd`` ``:357``):
+    gradients for ``rows_tbl`` and the two query operands."""
+
+    @staticmethod
+    def forward(ctx, wrapper, rows_tbl, cell, a, b, r):
+        ctx.wrapper, ctx.r = wrapper, r
+        ctx.save_for_backward(rows_tbl, cell, a, b)
+        name, symbol, width, _ = _TAILS[wrapper]
+        out = _launch(name, symbol, width, rows_tbl, cell, a, b, r)
+        wrapper.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        rows_tbl, cell, a, b = ctx.saved_tensors
+        plain, r = _TAILS[ctx.wrapper][3], ctx.r
+        need = ctx.needs_input_grad
+        gr, ga, gb = _cuda.plain_vjp(
+            lambda rt, a_, b_: plain(rt, cell, a_, b_, r),
+            (rows_tbl, a, b), (need[1], need[3], need[4]), g,
+        )
+        return None, gr, None, ga, gb, None
+
+
+def _tail(wrapper, rows_tbl, cell, a, b, r):
+    name = _TAILS[wrapper][0]
+    if _cuda.kernel_device(name, a) == "cpu":
+        return _TAILS[wrapper][3](rows_tbl, cell, a, b, r)
+    return _Tail.apply(wrapper, rows_tbl, cell, a, b, r)
+
+
+def bilinear_gathered_eval(rows_tbl, cell, qx, qy, r):
+    """Bilinear on the corner row ``cell`` of each query (R2b):
+    ``rows_tbl`` ((nx-1)(ny-1), >= 4r + 4) from ``pack_corner_rows``,
+    ``cell`` int32 and the coordinates ``qx``, ``qy`` flat.  Returns
+    (Q, r).  CPU: :func:`_bilinear_plain`; CUDA: R2b."""
+    return _tail(bilinear_gathered_eval, rows_tbl, cell, qx, qy, r)
+
+
+def bicubic_gathered_eval(rows_tbl, cell, tx, ty, r):
+    """The weight-form bicubic on the cell row ``cell`` of each query (R2c,
+    summed in block order): ``rows_tbl`` ((nx-1)(ny-1), >= 16r) from
+    ``pack_bicubic_rows``, ``cell`` int32 and the fractions flat.  Returns
+    (Q, r).  CPU: :func:`_bicubic_weight_plain`; CUDA: R2c."""
+    return _tail(bicubic_gathered_eval, rows_tbl, cell, tx, ty, r)
+
+
+def bicubic_tree_tail(rows_tbl, cell, tx, ty, r):
+    """:func:`bicubic_gathered_eval` summed by the halving tree (R2d).
+    CPU: :func:`_bicubic_tree_plain`; CUDA: R2d."""
+    return _tail(bicubic_tree_tail, rows_tbl, cell, tx, ty, r)
+
+
+def bicubic_nested_tail(rows_tbl, cell, tx, ty, r):
+    """The ``Bicubic`` strategy's nested scaled-Hermite tail on the cell row
+    ``cell`` of each query (R2n).  CPU: :func:`_bicubic_nested_plain`;
+    CUDA: R2n."""
+    return _tail(bicubic_nested_tail, rows_tbl, cell, tx, ty, r)
+
+
+# wrapper: (name in messages, entry point, least row width, plain version)
+_TAILS = {
+    bilinear_gathered_eval: ("bilinear_gathered_eval", "ndi_bilinear_tail", _width_bilinear,
+                             _bilinear_plain),
+    bicubic_gathered_eval: ("bicubic_gathered_eval", "ndi_bicubic_seq_tail", _width_bicubic,
+                            _bicubic_weight_plain),
+    bicubic_tree_tail: ("bicubic_tree_tail", "ndi_bicubic_tree_tail", _width_bicubic,
+                        _bicubic_tree_plain),
+    bicubic_nested_tail: ("bicubic_nested_tail", "ndi_bicubic_nested_tail", _width_bicubic,
+                          _bicubic_nested_plain),
+}
+for _w in _TAILS:
+    _w.launches = 0
+del _w

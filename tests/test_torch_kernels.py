@@ -576,3 +576,166 @@ def test_bank_and_big_wrappers_check_their_inputs(dev):
         bk.big_eval_1d(k, k[:-1], k[:-1], k[:-1], t)
     with pytest.raises(TypeError, match="torch.int64"):
         bk.big_lower_index_frac(torch.arange(100, device=dev), torch.arange(5, device=dev))
+
+
+# -- the f32/f64 2-D cell route: R1, R2b, R2c, R2d, R2n ---------------------------------
+def cell_route_case(nx, ny, r, nq, dtype, dev, seed):
+    """Axes, queries (NaN, +-inf, +-1e38, the knots themselves and far
+    extrapolation on both axes), the bilinear corner-row table of random
+    data and random bicubic cell rows."""
+    from ndarray_interp_tpu_torch.models.strategies.bilinear import pack_corner_rows
+
+    rng = np.random.default_rng(seed)
+    x, y = knots(nx, dtype, seed), knots(ny, dtype, seed + 1)
+    special = [np.nan, np.inf, -np.inf, 1e38, -1e38, 0.0, -0.0, -1e9, 1e9]
+
+    def axis_queries(kn):
+        body = rng.uniform(-20.0, 120.0, nq)
+        return rng.permutation(np.concatenate([body, kn, special])[:nq]).astype(dtype)
+
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    z = T(rng.normal(size=(nx, ny, r)).astype(dtype))
+    tables = {
+        "bilinear": pack_corner_rows(T(x), T(y), z),
+        "bicubic": T(rng.normal(size=((nx - 1) * (ny - 1), 16 * r)).astype(dtype)),
+    }
+    return T(x), T(y), T(axis_queries(x)), T(axis_queries(y)), tables
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("r", [1, 5, 16])
+@pytest.mark.parametrize("nq", [0, 1, 1000, 2**20 + 1])
+def test_cell_route_kernels_match_plain(dev, dtype, r, nq):
+    """R1, R2b, R2c, R2d and R2n bit-identical to their plain versions; R1's
+    cell is K3's index of each axis and its fractions are K2's."""
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+    from ndarray_interp_tpu_torch.ops import tail2d as t2
+
+    x, y, qx, qy, tables = cell_route_case(37, 210, r, nq, dtype, dev, 31 * r + nq % 97)
+    cell, tx, ty = ek.fused_cell_index(x, y, qx, qy)
+    want = ek._cell_index_plain(x, y, qx, qy)
+    assert all(same(g, w) for g, w in zip((cell, tx, ty), want))
+    assert same(cell, ek.fused_lower_index(x, qx) * (y.shape[0] - 1) + ek.fused_lower_index(y, qy))
+    assert same(tx, ek.fused_index_frac(x, qx)[1]) and same(ty, ek.fused_index_frac(y, qy)[1])
+    assert same(t2.bilinear_gathered_eval(tables["bilinear"], cell, qx, qy, r),
+                t2._bilinear_plain(tables["bilinear"], cell, qx, qy, r))
+    for kernel, plain in ((t2.bicubic_gathered_eval, t2._bicubic_weight_plain),
+                          (t2.bicubic_tree_tail, t2._bicubic_tree_plain),
+                          (t2.bicubic_nested_tail, t2._bicubic_nested_plain)):
+        got = kernel(tables["bicubic"], cell, tx, ty, r)
+        assert tuple(got.shape) == (nq, r)
+        assert same(got, plain(tables["bicubic"], cell, tx, ty, r)), kernel.__name__
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kid", ["R1", "R2b", "R2c", "R2d", "R2n"])
+def test_cell_route_gradients_match_autograd_of_plain(dev, kid):
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+    from ndarray_interp_tpu_torch.ops import tail2d as t2
+
+    x, y, qx, qy, tables = cell_route_case(20, 15, 3, 500, np.float64, dev, 13)
+    qx, qy = qx.nan_to_num(50.0).clamp(-10.0, 110.0), qy.nan_to_num(50.0).clamp(-10.0, 110.0)
+    cell, tx, ty = ek._cell_index_plain(x, y, qx, qy)
+    if kid == "R1":
+        args = (x, y, qx, qy)
+        pair_ = (lambda *a: ek.fused_cell_index(*a)[1:], lambda *a: ek._cell_index_plain(*a)[1:])
+    elif kid == "R2b":
+        args = (tables["bilinear"], qx, qy)
+        pair_ = tuple(lambda t, a, b, f=f: f(t, cell, a, b, 3)
+                      for f in (t2.bilinear_gathered_eval, t2._bilinear_plain))
+    else:
+        fns = {"R2c": (t2.bicubic_gathered_eval, t2._bicubic_weight_plain),
+               "R2d": (t2.bicubic_tree_tail, t2._bicubic_tree_plain),
+               "R2n": (t2.bicubic_nested_tail, t2._bicubic_nested_plain)}[kid]
+        args = (tables["bicubic"], tx, ty)
+        pair_ = tuple(lambda t, a, b, f=f: f(t, cell, a, b, 3) for f in fns)
+    grads = []
+    for fn in pair_:
+        leaves = [v.detach().clone().requires_grad_(True) for v in args]
+        out = fn(*leaves)
+        out = out if isinstance(out, tuple) else (out,)
+        sum(((o * (i + 1.5)) ** 2).sum() for i, o in enumerate(out)).backward()
+        grads.append([v.grad for v in leaves])
+    for g_kernel, g_plain in zip(*grads):
+        torch.testing.assert_close(g_kernel, g_plain, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_interp2d_cell_routes_launch_r1_and_a_tail(dev, dtype):
+    """``Bilinear`` (packed) and ``Bicubic`` (cell layout; not-a-knot and
+    periodic in y) built on the card launch R1 + R2b / R1 + R2n once a call
+    and no K2 or K3; each equals the same interpolator run on the CPU, bit
+    for bit, and the plain versions of R1 and its tail on the card."""
+    from ndarray_interp_tpu_torch.interp2d import Bicubic, Bilinear, Interp2D
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+    from ndarray_interp_tpu_torch.ops import kernel_wrappers
+    from ndarray_interp_tpu_torch.ops import tail2d as t2
+
+    rng = np.random.default_rng(17)
+    x = np.cumsum(rng.uniform(0.2, 1.0, 40)).astype(dtype)
+    y = np.cumsum(rng.uniform(0.2, 1.0, 33)).astype(dtype)
+    z = rng.normal(size=(40, 33, 4)).astype(dtype)
+    z[:, -1] = z[:, 0]
+    qx = rng.uniform(x[0] - 1.0, x[-1] + 1.0, 20_000).astype(dtype)
+    qy = rng.uniform(y[0] - 1.0, y[-1] + 1.0, 20_000).astype(dtype)
+    qx_d, qy_d = torch.as_tensor(qx, device=dev), torch.as_tensor(qy, device=dev)
+
+    def bilinear_plain(rows, cell, tx, ty, a, b):
+        return t2._bilinear_plain(rows, cell, a, b, 4)
+
+    def nested_plain(rows, cell, tx, ty, a, b):
+        return t2._bicubic_nested_plain(rows, cell, tx, ty, 4)
+
+    cases = (
+        (Bilinear().extrapolate(True), {"R1": 1, "R2b": 1}, bilinear_plain),
+        (Bicubic().extrapolate(True), {"R1": 1, "R2n": 1}, nested_plain),
+        (Bicubic().boundary("not_a_knot", "periodic").extrapolate(True), {"R1": 1, "R2n": 1},
+         nested_plain),
+    )
+    for strat, expect, tail_plain in cases:
+        itp = Interp2D.builder(z, device=dev).x(x).y(y).strategy(strat).build()
+        assert getattr(itp.strategy, "layout", "cell") == "cell"
+        before = {k: w.launches for k, w in kernel_wrappers().items()}
+        got = itp(qx_d, qy_d)
+        torch.cuda.synchronize()
+        after = {k: w.launches for k, w in kernel_wrappers().items()}
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == expect
+        s = itp.strategy
+        cpu_strat = type(s).__new__(type(s))
+        cpu_strat.__dict__.update(s.__dict__, rows=s.rows.cpu())
+        on_cpu = Interp2D.new_unchecked(itp.x.cpu(), itp.y.cpu(), itp.data.cpu(), cpu_strat)
+        assert same(got.cpu(), on_cpu(qx, qy))
+        qy_w = qy_d
+        if getattr(s, "wraps_y", False):
+            qy_w = torch.remainder(qy_d - itp.y[0], itp.y[-1] - itp.y[0]) + itp.y[0]
+        cell, tx, ty = ek._cell_index_plain(itp.x, itp.y, qx_d, qy_w)
+        assert same(got, tail_plain(s.rows, cell, tx, ty, qx_d, qy_w))
+
+
+def test_cell_route_wrappers_check_their_inputs(dev):
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+    from ndarray_interp_tpu_torch.ops import tail2d as t2
+
+    rows = torch.zeros((12, 16 * 3), device=dev)
+    cell = torch.zeros(5, dtype=torch.int32, device=dev)
+    t = torch.zeros(5, device=dev)
+    with pytest.raises(TypeError, match="int32"):
+        t2.bicubic_nested_tail(rows, cell.long(), t, t, 3)
+    with pytest.raises(TypeError, match="torch.float16"):
+        t2.bicubic_gathered_eval(rows.half(), cell, t.half(), t.half(), 3)
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        t2.bicubic_tree_tail(rows, cell, t.double(), t, 3)
+    with pytest.raises(ValueError, match="rows_tbl"):
+        t2.bilinear_gathered_eval(rows[:, :15], cell, t, t, 3)
+    with pytest.raises(ValueError, match="flat"):
+        t2.bilinear_gathered_eval(rows, cell[:4], t, t, 3)
+    with pytest.raises(ValueError, match="tensors on"):
+        t2.bicubic_nested_tail(rows.cpu(), cell, t, t, 3)
+    with pytest.raises(TypeError, match="int32"):
+        t2.bicubic_nested_tail(rows, cell.cpu(), t, t, 3)
+    k = torch.linspace(0.0, 1.0, 9, device=dev)
+    with pytest.raises(ValueError, match="tensors on"):
+        ek.fused_cell_index(k.cpu(), k, t, t)
+    with pytest.raises(TypeError, match="torch.int64"):
+        ek.fused_cell_index(torch.arange(9, device=dev), torch.arange(9, device=dev),
+                            torch.arange(5, device=dev), torch.arange(5, device=dev))
