@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch port: the 1-D main path, 1-D serving, the
 2-D path with its fused f32/f64 cell route, the N-D path with the f64-grade
-bicubic node route, and the 1-D wide-bank and long-knot-axis routes with
-Akima, Makima and Pchip.
+bicubic node route, the 1-D wide-bank and long-knot-axis routes with
+Akima, Makima and Pchip, the f64-grade bicubic route's three tails, the step
+family and 1-D/2-D calculus.
 
     python3 chip_smoke.py
 
@@ -21,8 +22,9 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    reference-order loop; K1's gradient against autograd of its plain
    version; a NaN datum changing only the queries of its two intervals;
    K6-K9 (double-float 1-D) on non-uniform and float32-colliding knots;
-   K10-K13 (double-float 2-D tails) on grids up to 512 x 512 at 1, 3, 16 and
-   20 channels, at the indices and fractions K7 gives for 1,000,000 queries
+   K10-K13 and R4c (double-float 2-D tails; R4c the weight form, also held
+   within 1e-13 of K12) on grids up to 512 x 512 at 1, 3, 16 and 20
+   channels, at the indices and fractions K7 gives for 1,000,000 queries
    per axis with NaN, +-inf and far extrapolation; K14 (the bicubic node
    tail) at 3 x 3 x 1, 200 x 150 x 3 and 512 x 512 x 16 on such inputs; K15
    (the N-D tail, grades df and f48) at k = 1..4 axes, nbasis 4 and 2, and
@@ -69,6 +71,16 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    1,000,000: R2a), NS1b (262,144 knots at 1,000,000: R3, also for Linear,
    and R3idx + R2a for a bank of 8), NS4 (Akima, Makima, Pchip on 2,048
    knots: K1; Akima on 262,144: R3);
+5d. drives this slice the same way: NS3d's double-float bicubic route
+   (``gathered_bicubic_eval_df_packed``) with each tail, "mxu" and "nested"
+   on K12, "weight" on R4c, against the float64 form; ``Nearest`` in its four
+   modes (2,048 f32 knots, 1,000,000 queries) against SciPy's ``interp1d``,
+   the example's vmapped ``StepInterpolator``, ``Nearest2D`` on NS3's grid
+   against ``RegularGridInterpolator(method="nearest")``; calculus on the NS1
+   spline in f64 (``derivative`` orders 1-3, ``solve``), a 10,000 x 64 f64
+   bank (``integrate`` over 4,096 bound pairs) and the NS3b ``Bicubic`` in f64
+   (``derivative``, ``integrate`` over 4,096 boxes) against SciPy's
+   ``CubicSpline`` and ``RectBivariateSpline`` (K2, K3, K4);
 6. holds every kernel, through its public wrapper, against its plain version
    on the inputs the paths gave it, bit for bit; then times kernel and
    plain version at the paths' shapes with CUDA events (median, min and
@@ -861,14 +873,16 @@ def bound(kid, args):
         # (15 operations cubic, 3 linear) and the widening of t
         ops = elems * (nb * (k + 2) + k * (15 if nbasis == 4 else 3))
         width = 8
-    else:  # K10-K13: packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo
+    else:  # K10-K13, R4c: packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo
         packed, xi, yi, _, *t = args
-        bp = packed.shape[1] // {"K10": 8, "K11": 6, "K12": 32, "K13": 24}[kid]
+        bp = packed.shape[1] // {"K10": 8, "K11": 6, "K12": 32, "K13": 24, "R4c": 32}[kid]
         elems = xi.numel() * bp  # the (Q, bp) output pair
         nbytes = _nbytes(packed, xi, yi, *t) + 8 * elems
-        # per element: the widening adds, then the lerps (3 x 3) or the five
-        # scaled Hermite forms (5 x 13), and the split of the result
-        ops, width = (14 if kid in ("K10", "K11") else 82) * elems, 8
+        # per element: the widening adds, then the lerps (3 x 3), the five
+        # scaled Hermite forms (5 x 13) or R4c's two bases (8 each), 16
+        # weights, 16 products and 15 sums, and the split of the result
+        ops = {"K10": 14, "K11": 14, "R4c": 81}.get(kid, 82) * elems
+        width = 8
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[width] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -925,19 +939,22 @@ GRID2D = (512, 512, 16)
 NQ2D = 1_000_000
 NQ_BICUBIC_ORACLE = 131_072  # the DF bicubic oracle gathers 2 KB a query on the host
 F48_REPORTED = 3e-9  # the JAX package's on-chip f48 gates (tests/test_tpu_parity.py:714, :796)
+R4C_VS_K12 = 1e-13  # the weight form against the nested form, scale-relative
 
 
 def df2d_kernel_phases(dev, rec):
-    """K10-K13 against their plain versions on the card, on the same inputs:
-    the ``(idx, t)`` that K7 gives for 1,000,000 queries per axis (NaN,
-    +-inf, +-1e38, the knots themselves and far extrapolation, so fractions
-    far outside [0, 1]) on grids up to 512 x 512, at r in {1, 3, 16, 20}
-    channels (bp = 8, 8, 16, 24: the padding is exercised)."""
+    """K10-K13 and R4c against their plain versions on the card, on the same
+    inputs: the ``(idx, t)`` that K7 gives for 1,000,000 queries per axis
+    (NaN, +-inf, +-1e38, the knots themselves and far extrapolation, so
+    fractions far outside [0, 1]) on grids up to 512 x 512, at r in {1, 3,
+    16, 20} channels (bp = 8, 8, 16, 24: the padding is exercised).  R4c also
+    against K12 where both fractions lie in [-1, 2]: the same function summed
+    in another order, within ``R4C_VS_K12`` scale-relative."""
     import torch
 
     from ndarray_interp_tpu_torch.ops import eval_kernels_df as ek
     from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as e2
-    from ndarray_interp_tpu_torch.ops.df import df_from_f64
+    from ndarray_interp_tpu_torch.ops.df import df_from_f64, df_to_f64
 
     rng = np.random.default_rng(2)
 
@@ -946,7 +963,8 @@ def df2d_kernel_phases(dev, rec):
 
     print("2-D double-float kernel phases (kernel against its plain version, same inputs):",
           flush=True)
-    for nx, ny, r in ((3, 3, 1), (512, 512, 1), (200, 150, 3), (512, 512, 16), (96, 80, 20)):
+    for nx, ny, r in ((3, 3, 1), (37, 21, 3), (512, 512, 1), (200, 150, 3), (512, 512, 16),
+                      (96, 80, 20)):
         kx, ky = df_knots(nx, "nonuniform", rng), df_knots(ny, "nonuniform", rng)
         xi, txh, txl = ek.fused_index_frac_df(*pair(kx), *pair(make_queries(
             kx, NQ2D, np.float64, rng)))
@@ -968,9 +986,20 @@ def df2d_kernel_phases(dev, rec):
         ):
             args = (packed, xi, yi, ny, txh, txl, tyh, tyl)
             ok &= rec.add_pair(kid, label, kernel(*args), plain(*args))
-        print(f"  {label}: K10, K11, K12, K13 {'bit-identical' if ok else 'MISMATCH'}",
+        args = (e2.pack_bicubic_rows_df(*rows, r), xi, yi, ny, txh, txl, tyh, tyl)
+        weight = e2.gathered_bicubic_df_weight_tail(*args)
+        ok &= rec.add_pair("R4c", label, weight, e2._bicubic_df_weight_tail_plain(*args))
+        # R4c against K12 where both fractions lie in [-1, 2]
+        near = ((df_to_f64(txh, txl) - 0.5).abs() <= 1.5) & (
+            (df_to_f64(tyh, tyl) - 0.5).abs() <= 1.5)
+        err = df_scaled_err(df_to_f64(*weight)[near, :r].cpu().numpy(),
+                            df_to_f64(*e2.gathered_bicubic_df_tail(*args))[near, :r].cpu().numpy())
+        print(f"  {label}: K10, K11, K12, K13, R4c {'bit-identical' if ok else 'MISMATCH'}; "
+              f"R4c against K12 on {int(near.sum()):,} queries {err:.3e} (gate {R4C_VS_K12:g})",
               flush=True)
-        del z, rows
+        if not err <= R4C_VS_K12:
+            fail(f"R4c {label}: {err} from K12, above {R4C_VS_K12}")
+        del z, rows, args, weight
         torch.cuda.synchronize()
 
 
@@ -1196,6 +1225,7 @@ def path2d(dev, rng):
                       f"{'within' if err <= F48_REPORTED else 'above'}")
             out[kind, grade] = dev_
             del got
+    out["NS3d ref"] = refs["Bicubic"]
     return out, total
 
 
@@ -1980,6 +2010,267 @@ def timing_big(state, card, rec):
     return times
 
 
+# -- the f64-grade bicubic tails, the step family and calculus -------------------------------
+# The tails run at NS3d: the 2-D path's f64 extrapolating Bicubic (512 x 512 x 16, built on the
+# card) at its 1,000,000 double-float-representable queries, through
+# gathered_bicubic_eval_df_packed with each tail (R4c is tail="weight").  The step family runs
+# at NS1's width (2,048 f32 knots, 1,000,000 queries) and on NS3's grid; calculus on the NS1
+# spline in f64, a 10,000 x 64 f64 bank and the NS3b Bicubic in f64.
+DF_TAILS = (("mxu", "K12"), ("nested", "K12"), ("weight", "R4c"))
+NQ_STEP_ORACLE = 131_072  # SciPy interp1d on the host
+NQ_CALC_ORACLE = 65_536  # RectBivariateSpline.ev on the host, all 16 channels
+N_BOUNDS = 4096  # integration bound pairs (1-D) and boxes (2-D)
+N_BOUNDS_ORACLE = (1024, 256)  # of them SciPy integrates (1-D, 2-D: dblint is O(grid))
+
+
+def allclose_gate(label, got, ref, rtol, atol):
+    """``np.testing.assert_allclose(got, ref, rtol, atol)`` as a gate: every
+    ``|got - ref| <= atol + rtol |ref|``; prints the largest ratio."""
+    arr = got.detach().cpu().numpy().astype(np.float64)
+    finite = bool(np.isfinite(arr).all())
+    worst = float(np.max(np.abs(arr - ref) / (atol + rtol * np.abs(ref)))) if arr.size else 0.0
+    ok = arr.shape == ref.shape and finite and worst <= 1.0
+    print(f"  {label}: shape {arr.shape}, finite={finite}, max |err| / (atol + rtol |ref|) "
+          f"{worst:.3e} (rtol {rtol:g}, atol {atol:g}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{label}: shape {arr.shape} against {ref.shape}, finite {finite}, ratio {worst}")
+
+
+def roots_gate(label, got, ref):
+    """The finite roots against SciPy's: the same count, then within the
+    tolerance of ``tests/test_calculus.py``'s solve tests."""
+    import torch
+
+    roots = got[torch.isfinite(got)]
+    print(f"  {label}: {roots.numel()} roots (SciPy {ref.size}), padded to {got.shape[0]}",
+          flush=True)
+    if roots.numel() != ref.size:
+        fail(f"{label}: {roots.numel()} roots against SciPy's {ref.size}")
+        return
+    allclose_gate(f"{label} values", roots, ref, 1e-7, 1e-8)
+
+
+def exact_gate(label, got, ref):
+    """Selection does no arithmetic: equal to the oracle, value for value."""
+    arr = got.cpu().numpy().astype(np.float64)
+    err = float(np.max(np.abs(arr - ref))) if arr.size else 0.0
+    ok = arr.shape == ref.shape and err == 0.0
+    print(f"  {label}: shape {arr.shape}, max abs err {err} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{label}: shape {arr.shape} against {ref.shape}, max abs err {err}")
+
+
+def tails_path(state2d):
+    """NS3d's route with each tail, launch counts set to 0 just before each
+    call and read just after; each result gated against the float64
+    scaled-Hermite form at 4e-12, "weight" against "nested" over every
+    query within ``R4C_VS_K12``.  Returns the route's arguments and the
+    launches of each kernel summed over the calls."""
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as e2
+    from ndarray_interp_tpu_torch.ops.df import df_from_f64, df_to_f64
+
+    drive, total = counted_calls()
+    ev = state2d["Bicubic", "df"]
+    dqx, dqy = state2d["df queries"]
+    args = (*ev._run.args[:4], ev._packed, *df_from_f64(dqx), *df_from_f64(dqy))
+    ref, r = state2d["NS3d ref"], GRID2D[2]
+    shape = "x".join(map(str, GRID2D))
+    got = {}
+    for tail, kid in DF_TAILS:
+        pair = drive(f"NS3d gathered_bicubic_eval_df_packed(tail={tail!r}) at {NQ2D:,} queries",
+                     ["K7", kid], lambda: e2.gathered_bicubic_eval_df_packed(*args, r=r, tail=tail))
+        got[tail] = df_to_f64(*pair)
+        gate(f"NS3d tail={tail!r} {shape}", got[tail][: ref.shape[0]], ref, 4e-12, ref.shape,
+             f"the f64 scaled-Hermite form, first {ref.shape[0]:,} queries")
+    err = df_scaled_err(got["weight"].cpu().numpy(), got["nested"].cpu().numpy())
+    print(f"  NS3d tail='weight' against tail='nested' on all {NQ2D:,} queries: {err:.3e} "
+          f"scale-relative (gate {R4C_VS_K12:g}) {'ok' if err <= R4C_VS_K12 else 'FAIL'}",
+          flush=True)
+    if not err <= R4C_VS_K12:
+        fail(f"NS3d: tail='weight' is {err} from tail='nested'")
+    return args, total
+
+
+def step_path(dev, state2d, rng):
+    """``Nearest`` in its four modes at NS1's width (2,048 f32 knots,
+    1,000,000 queries) against SciPy's ``interp1d(kind=...)`` on a prefix,
+    the example's ``StepInterpolator`` (``PointwiseStrategy``, vmapped)
+    equal to ``Nearest("nearest-up")``, and ``Nearest2D`` on NS3's grid
+    against ``RegularGridInterpolator(method="nearest")``; each call with
+    the launch counts set to 0 just before it and read just after (the
+    family runs no kernel: its search is ``torch.searchsorted``, XLA's in the
+    JAX package)."""
+    import scipy.interpolate as si
+    import torch
+
+    from ndarray_interp_tpu_torch.examples.custom_strategy import StepInterpolator
+    from ndarray_interp_tpu_torch.interp1d import Interp1D, Nearest
+    from ndarray_interp_tpu_torch.interp2d import Interp2D, Nearest2D
+
+    drive, total = counted_calls()
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    kn = np.linspace(0.0, 100.0, 2048).astype(np.float32)
+    v = rng.normal(size=2048).astype(np.float32)
+    q = rng.uniform(0.0, 100.0, NQ_BIG).astype(np.float32)
+    q_d, sub = T(q), slice(0, NQ_STEP_ORACLE)
+    q64 = q[sub].astype(np.float64)
+    out = {"queries": q_d}
+    for mode in ("nearest", "nearest-up", "previous", "next"):
+        itp = drive(f"Nearest({mode!r}) build, 2,048 f32 knots", [], lambda: (
+            Interp1D.builder(T(v)).x(T(kn)).strategy(Nearest(mode)).build()))
+        got = drive(f"Nearest({mode!r}) itp(q) at {NQ_BIG:,} queries", [], lambda: itp(q_d))
+        ref = si.interp1d(kn.astype(np.float64), v.astype(np.float64), kind=mode)(q64)
+        exact_gate(f"Nearest({mode!r}) against SciPy interp1d, first {NQ_STEP_ORACLE:,} queries",
+                   got[sub], ref)
+        out[mode] = (itp, got)
+    custom = Interp1D.builder(T(v)).x(T(kn)).strategy(StepInterpolator()).build()
+    got = drive(f"StepInterpolator (PointwiseStrategy, torch.func.vmap) at {NQ_BIG:,} queries",
+                [], lambda: custom(q_d))
+    same, err = bit_compare(got, out["nearest-up"][1])
+    print(f"  StepInterpolator against Nearest('nearest-up') on all {NQ_BIG:,} queries: "
+          f"{'equal' if same else 'DIFFERENT'} (max abs err {err})", flush=True)
+    if not same:
+        fail(f"StepInterpolator differs from Nearest('nearest-up') (max abs err {err})")
+    out["custom"] = custom
+
+    x, y = state2d["axes"]
+    _, _, qx, qy, zd = state2d["float32"]
+    nn = drive(f"Nearest2D build {'x'.join(map(str, GRID2D))} f32", [], lambda: (
+        Interp2D.builder(zd).x(T(x.astype(np.float32))).y(T(y.astype(np.float32)))
+        .strategy(Nearest2D()).build()))
+    got = drive(f"NS3 Nearest2D itp(xs, ys) at {NQ2D:,} queries", [], lambda: nn(qx, qy))
+    ref = si.RegularGridInterpolator((x, y), zd.cpu().numpy().astype(np.float64),
+                                     method="nearest")(
+        np.stack([qx.cpu().numpy(), qy.cpu().numpy()], -1).astype(np.float64))
+    exact_gate(f"NS3 Nearest2D against RegularGridInterpolator(method='nearest'), all "
+               f"{NQ2D:,} queries", got, ref)
+    out["Nearest2D"] = nn
+    return out, total
+
+
+def calculus_path(dev, state, state2d, rng):
+    """Calculus through the public API at full width, against SciPy at the
+    tolerances of ``tests/test_calculus.py``, each call with the launch
+    counts set to 0 just before it and read just after: on the NS1 spline in
+    f64 (2,048 knots, not-a-knot, extrapolating) ``derivative`` of orders 1-3
+    at 1,000,000 queries (K3), ``roots()`` and ``solve(0.3)``; a 10,000 x 64
+    f64 bank built on the card (K4) and integrated over 4,096 bound pairs
+    (K3); the NS3b ``Bicubic`` in f64 (512 x 512 x 16): ``derivative`` at
+    (dx, dy) in {(1, 0), (0, 1), (1, 1), (2, 0)} at 1,000,000 queries (K2)
+    against ``RectBivariateSpline(s=0).ev`` on a prefix, and ``integrate``
+    over 4,096 boxes (the node grids solved again: K4) against
+    ``.integral``."""
+    import scipy.interpolate as si
+    import torch
+
+    from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
+
+    drive, total = counted_calls()
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    out = {}
+    itp, q = state["float64"]
+    sp = si.CubicSpline(itp.x.cpu().numpy(), itp.data.cpu().numpy())
+    qn = q.cpu().numpy()
+    for order, rtol, atol in ((1, 1e-9, 1e-10), (2, 1e-8, 1e-9), (3, 1e-8, 1e-9)):
+        got = drive(f"NS1 f64 derivative(order={order}) at {qn.size:,} queries", ["K3"],
+                    lambda: itp.derivative(q, order=order))
+        allclose_gate(f"NS1 f64 derivative(order={order}) against CubicSpline.derivative",
+                      got, sp.derivative(order)(qn), rtol, atol)
+        del got
+    for level in (0.0, 0.3):
+        got = drive(f"NS1 f64 solve({level})", [], lambda: itp.solve(level))
+        roots_gate(f"NS1 f64 solve({level}) against CubicSpline.solve(extrapolate=True)", got,
+                   np.sort(sp.solve(level, extrapolate=True)))
+    out["NS1"] = (itp, q)
+
+    xb = np.linspace(0.0, 1.0, 10_000)
+    bank = rng.normal(size=(10_000, 64))
+    itpb = drive("f64 bank build 10,000 x 64", ["K4"], lambda: (
+        Interp1D.builder(T(bank)).x(T(xb)).strategy(CubicSpline()).build()))
+    bounds = rng.uniform(0.0, 1.0, (N_BOUNDS, 2))  # lo > hi in about half: signed
+    got = drive(f"bank integrate over {N_BOUNDS:,} bound pairs", ["K3"], lambda: (
+        torch.stack([itpb.integrate(lo, hi) for lo, hi in bounds])))
+    m = N_BOUNDS_ORACLE[0]
+    spb = si.CubicSpline(xb, bank)
+    allclose_gate(f"bank integrate against CubicSpline.integrate, first {m:,} pairs", got[:m],
+                  np.stack([spb.integrate(lo, hi) for lo, hi in bounds[:m]]), 1e-9, 1e-11)
+
+    x, y = state2d["axes"]
+    _, bic, qx, qy, zd = state2d["float64"]
+    z = zd.cpu().numpy()
+    rbs = [si.RectBivariateSpline(x, y, z[..., c], s=0) for c in range(GRID2D[2])]
+    sub = slice(0, NQ_CALC_ORACLE)
+    qxn, qyn = qx[sub].cpu().numpy(), qy[sub].cpu().numpy()
+    for ox, oy in ((1, 0), (0, 1), (1, 1), (2, 0)):
+        got = drive(f"NS3b Bicubic f64 derivative(dx={ox}, dy={oy}) at {NQ2D:,} queries", ["K2"],
+                    lambda: bic.derivative(qx, qy, dx=ox, dy=oy))
+        ref = np.stack([s.ev(qxn, qyn, dx=ox, dy=oy) for s in rbs], axis=1)
+        allclose_gate(f"NS3b derivative(dx={ox}, dy={oy}) against RectBivariateSpline.ev, first "
+                      f"{NQ_CALC_ORACLE:,} queries", got[sub], ref, 1e-9, 1e-10)
+        del got
+    ends = (np.sort(rng.uniform(x[0], x[-1], (N_BOUNDS, 2)), axis=1),
+            np.sort(rng.uniform(y[0], y[-1], (N_BOUNDS, 2)), axis=1))
+    boxes = np.concatenate(ends, axis=1)  # xlo, xhi, ylo, yhi
+    got = drive(f"NS3b Bicubic f64 integrate over {N_BOUNDS:,} boxes", ["K4"], lambda: (
+        torch.stack([bic.integrate(*b) for b in boxes])))
+    m = N_BOUNDS_ORACLE[1]
+    allclose_gate(f"NS3b integrate against RectBivariateSpline.integral, first {m} boxes",
+                  got[:m], np.array([[s.integral(*b) for s in rbs] for b in boxes[:m]]),
+                  1e-10, 1e-11)
+    out["NS3b"] = (bic, qx, qy)
+    return out, total
+
+
+def timing_tails_step_calculus(tails_args, steps, calc, state2d, card, rec):
+    """Hold R4c, through its wrapper, against its plain version on NS3d's
+    table and queries; time both there, with K12 beside it; then time the
+    NS3d route with each tail, the step family and calculus end to end."""
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df as edf
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as e2
+
+    ax, packed, q = tails_args[:4], tails_args[4], tails_args[5:]
+    xi, txh, txl = edf.fused_index_frac_df(*ax[:2], *q[:2])
+    yi, tyh, tyl = edf.fused_index_frac_df(*ax[2:], *q[2:])
+    shape = "x".join(map(str, GRID2D))
+    args = (packed, xi, yi, ax[2].shape[0], txh, txl, tyh, tyl)
+    systems = {"R4c": [(f"NS3d df cell table {shape}, {NQ2D:,} queries", args)]}
+    pairs = {"R4c": (e2.gathered_bicubic_df_weight_tail, e2._bicubic_df_weight_tail_plain,
+                     rec.add_pair, (5, 1))}
+    ok = rec.add_pair("R4c", "NS3d", e2.gathered_bicubic_df_weight_tail(*args),
+                      e2._bicubic_df_weight_tail_plain(*args))
+    print(f"R4c at NS3d's table and queries, against its plain version: "
+          f"{'bit-identical' if ok else 'MISMATCH'}", flush=True)
+    times = time_kernels(pairs, systems, card)
+    k12 = device_ms(lambda: e2.gathered_bicubic_df_tail(*args), 5)
+    print(f"  K12 beside it, same table and queries: {fmt(k12)} (R4c {times['R4c']['ms']:.4f})",
+          flush=True)
+
+    r = GRID2D[2]
+    itp1, q1 = calc["NS1"]
+    bic, qx, qy = calc["NS3b"]
+    calls = {
+        f"NS3d route tail={tail!r} (K7 x 2 + {kid}), {shape} at {NQ2D:,} queries": (
+            lambda tail=tail: e2.gathered_bicubic_eval_df_packed(*tails_args, r=r, tail=tail), 3)
+        for tail, kid in DF_TAILS
+    }
+    calls.update({
+        f"NS1 f64 derivative(order=1), 2,048 knots at {q1.numel():,} queries": (
+            lambda: itp1.derivative(q1), 10),
+        f"NS1 Nearest('nearest') f32 itp(q), 2,048 knots at {NQ_BIG:,} queries": (
+            lambda: steps["nearest"][0](steps["queries"]), 10),
+        f"NS3 Nearest2D f32 itp(xs, ys), {shape} at {NQ2D:,} queries": (
+            lambda: steps["Nearest2D"](*state2d["float32"][2:4]), 10),
+        f"StepInterpolator (vmapped PointwiseStrategy) f32 itp(q), 2,048 knots at {NQ_BIG:,} "
+        f"queries": (lambda: steps["custom"](steps["queries"]), 10),
+        f"NS3b Bicubic f64 derivative(dx=1), {shape} at {NQ2D:,} queries": (
+            lambda: bic.derivative(qx, qy, dx=1), 5),
+        f"NS3b Bicubic f64 integrate over one box, {shape}": (
+            lambda: bic.integrate(bic.x[3], bic.x[-4], bic.y[2], bic.y[-3]), 5),
+    })
+    end_to_end(calls, "f64-grade tails, step family and calculus", card)
+    return times
+
+
 KERNELS = {
     "K1": ("fused_eval_1d", "ndarray_interp_tpu_torch/csrc/eval_kernels.cu",
            "ndarray_interp_tpu/ops/pallas_eval.py:119"),
@@ -1998,11 +2289,13 @@ KERNELS = {
     "K9": ("gathered_f48_tail", "ndarray_interp_tpu_torch/csrc/df_kernels.cu",
            "ndarray_interp_tpu/ops/pallas_eval_df.py:749"),
     "K10": ("gathered_bilinear_df_tail", "ndarray_interp_tpu_torch/csrc/df2d_kernels.cu",
-            "ndarray_interp_tpu/ops/pallas_eval_df.py:1027"),
+            "ndarray_interp_tpu/ops/pallas_eval_df.py:1027; "
+            "ndarray_interp_tpu/ops/pallas_eval_df.py:892"),
     "K11": ("gathered_bilinear_f48_tail", "ndarray_interp_tpu_torch/csrc/df2d_kernels.cu",
             "ndarray_interp_tpu/ops/pallas_eval_df.py:1119"),
     "K12": ("gathered_bicubic_df_tail", "ndarray_interp_tpu_torch/csrc/df2d_kernels.cu",
-            "ndarray_interp_tpu/ops/pallas_eval_df.py:1571"),
+            "ndarray_interp_tpu/ops/pallas_eval_df.py:1571; "
+            "ndarray_interp_tpu/ops/pallas_eval_df.py:1378"),
     "K13": ("gathered_bicubic_f48_tail", "ndarray_interp_tpu_torch/csrc/df2d_kernels.cu",
             "ndarray_interp_tpu/ops/pallas_eval_df.py:1667"),
     "K14": ("gathered_bicubic_node_df_tail", "ndarray_interp_tpu_torch/csrc/df2d_kernels.cu",
@@ -2029,6 +2322,8 @@ KERNELS = {
             "ndarray_interp_tpu/ops/pallas_tail.py:425"),
     "R2n": ("bicubic_nested_tail", "ndarray_interp_tpu_torch/csrc/cell2d_kernels.cu",
             "ndarray_interp_tpu/models/strategies/bicubic.py:182"),
+    "R4c": ("gathered_bicubic_df_weight_tail", "ndarray_interp_tpu_torch/csrc/df2d_kernels.cu",
+            "ndarray_interp_tpu/ops/df_records.py:159"),
 }
 
 
@@ -2051,9 +2346,12 @@ def main():
     _cuda.library()
     print(f"kernel build (nvcc, sources in ndarray_interp_tpu_torch/csrc): "
           f"{time.perf_counter() - t0:.2f} s -> {path.name}", flush=True)
+    entry = "?"  # the (mangled) kernel each register and spill line is about
     for line in path.with_suffix(".so.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+        if "Function properties for" in line:
+            entry = line.split("Function properties for", 1)[1].strip()
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas: {entry}: {line.strip()}")
 
     def elapsed(what):
         print(f"[{time.perf_counter() - t0:.0f} s since the build started: {what} done]",
@@ -2121,12 +2419,35 @@ def main():
             fail(f"{kid} was not launched by the wide-bank and long-axis path")
     elapsed("wide-bank and long-axis path")
 
+    print(f"NS3d double-float bicubic tails (gathered_bicubic_eval_df_packed, each tail; counts "
+          "set to 0 before each call):", flush=True)
+    tails_args, launched_tails = tails_path(state2d)
+    launches["R4c"] = launched_tails["R4c"]
+    launches["K12"] += launched_tails["K12"]
+    for kid in ("K7", "K12", "R4c"):
+        if launched_tails[kid] <= 0:
+            fail(f"{kid} was not launched by the NS3d tails path")
+    print("step family (Nearest, the custom StepInterpolator, Nearest2D; public API, "
+          "device='cuda'; counts set to 0 before each call):", flush=True)
+    steps, launched_steps = step_path(dev, state2d, np.random.default_rng(49))
+    print(f"  launches during the step path: {launched_steps}")
+    print("calculus (1-D and 2-D derivative, integrate, solve; public API, device='cuda'; "
+          "counts set to 0 before each call):", flush=True)
+    calc, launched_calc = calculus_path(dev, state, state2d, np.random.default_rng(50))
+    print(f"  launches during the calculus path: {launched_calc}")
+    for kid in ("K2", "K3", "K4"):
+        if launched_calc[kid] <= 0:
+            fail(f"{kid} was not launched by the calculus path")
+    elapsed("tails, step and calculus paths")
+
     times = timing(state, card, rec)
     times.update(df_timing(serving, card, rec))
     times.update(timing2d(state2d, card, rec))
     times.update(timing_nd(state_nd, card, rec))
     del state_nd
     times.update(timing_big(state_big, card, rec))
+    del state_big
+    times.update(timing_tails_step_calculus(tails_args, steps, calc, state2d, card, rec))
     torch.cuda.synchronize()
     elapsed("timing")
 

@@ -2,9 +2,12 @@
 
 The PyTorch port of ``ndarray_interp_tpu`` (the JAX package, which stays the
 reference).  Ported: the 1-D path (``Interp1D`` with ``Linear``,
-``CubicSpline``, ``Akima``, ``Makima`` and ``Pchip``, on short and long knot
-axes and wide banks), the 2-D path (``Interp2D`` with ``Bilinear`` and
-``Bicubic``), the N-D path (``InterpND``: linear, nearest, cubic), and their
+``CubicSpline``, ``Akima``, ``Makima``, ``Pchip`` and ``Nearest``, on short
+and long knot axes and wide banks), the 2-D path (``Interp2D`` with
+``Bilinear``, ``Bicubic`` and ``Nearest2D``), both with calculus
+(``derivative``, ``integrate``; ``solve``, ``roots`` in 1-D) and the
+pointwise strategy adapters, the N-D path (``InterpND``: linear, nearest,
+cubic), and their
 serving layer (``serving``: ``Evaluator``, ``Evaluator2D``, ``EvaluatorND``
 and the f64-grade ``DoubleFloatEvaluator``, ``DoubleFloatEvaluator2D`` and
 ``DoubleFloatEvaluatorND``), whose GPU kernels are hand-written CUDA for

@@ -1,17 +1,28 @@
 // Double-float 2-D tail kernels for Hopper (sm_90a), in native FP64.
 //
-// K10 df_bilinear_tail   replaces the Pallas kernel ndarray_interp_tpu/ops/pallas_eval_df.py
-//                        _df_bilinear_mxu_kernel (bilinear_df_tail_mxu): bilinear on the
-//                        corner rows of a pack_bilinear_rows_df table.
+// K10 df_bilinear_tail   the lerp form of ndarray_interp_tpu/ops/pallas_eval_df.py
+//                        _df_bilinear_core (:882) on the corner rows of a
+//                        pack_bilinear_rows_df table.  It replaces the Pallas kernels
+//                        _df_bilinear_mxu_kernel (:1027, bilinear_df_tail_mxu: the weight
+//                        form on the TPU) and _df_bilinear_tail_kernel (:892,
+//                        bilinear_df_tail, R4a: this form in this order).
 // K11 f48_bilinear_tail  replaces pallas_eval_df.py _f48_bilinear_tail_kernel
 //                        (bilinear_f48_tail): the same on rows whose lo half is packed as
 //                        bf16 pairs (pack_bilinear_rows_f48).
-// K12 df_bicubic_tail    replaces pallas_eval_df.py _df_bicubic_mxu_kernel
-//                        (bicubic_df_tail_mxu): the tensor-product Hermite on bicubic cell
-//                        rows (pack_bicubic_rows_df).
+// K12 df_bicubic_tail    the five nested Hermite forms of pallas_eval_df.py
+//                        _df_bicubic_tail (:1355) on bicubic cell rows
+//                        (pack_bicubic_rows_df).  It replaces _df_bicubic_mxu_kernel
+//                        (:1571, bicubic_df_tail_mxu: a weight form summed in a halving
+//                        tree on the TPU) and _df_bicubic_tail_kernel (:1378,
+//                        bicubic_df_tail, R4b: this form in this order).
 // K13 f48_bicubic_tail   replaces pallas_eval_df.py _f48_bicubic_mxu_kernel
 //                        (bicubic_f48_tail): the same on bf16-pair lo halves
 //                        (pack_bicubic_rows_f48).
+// R4c df_bicubic_weight_tail  replaces ndarray_interp_tpu/ops/df_records.py
+//                        _df_bicubic_weight_kernel (:159, bicubic_df_tail_w): the weight
+//                        form of _df_bicubic_weight_tail, 16 tensor-product Hermite
+//                        weights a query summed against the 16 cell-row blocks one block
+//                        after another.
 // K14 df_bicubic_node_tail  replaces pallas_eval_df.py _df_node_tail_kernel
 //                        (bicubic_df_node_tail): the same Hermite forms from the four
 //                        node rows of the memory-frugal node layout
@@ -25,8 +36,11 @@
 // JAX package's XLA form in double: bilinear as the lerp z1 + t (z2 - z1), along x
 // at both y-knots, then along y (_df_bilinear_core); bicubic as five nested scaled
 // Hermite forms, dy = y_r - y_l, a = K_l - dy, b = dy - K_r, u = 1 - t,
-// (u y_l + t y_r) + (t u)(a u + b t) (_df_hermite_scaled, _df_bicubic_tail).  The
-// result is split back into a pair (lo = 0 where hi is not finite).  With
+// (u y_l + t y_r) + (t u)(a u + b t) (_df_hermite_scaled, _df_bicubic_tail), or
+// for R4c as the weights u = 1 - t, d = u - t, p = t u, pd = p d,
+// [u + pd, t - pd, p u, -(p t)] per axis, W[4 i + c] = Ax[i][c >> 1] Ay[i][c & 1],
+// s = W[0] v[0], s = s + W[b] v[b] (_df_bicubic_weights, _df_bicubic_weight_tail).
+// The result is split back into a pair (lo = 0 where hi is not finite).  With
 // --fmad=false each kernel is bit-identical to its plain PyTorch float64 version
 // in ops/eval_kernels_df2d.py.
 //
@@ -150,6 +164,41 @@ struct BicubicDF {
   }
 };
 
+// _df_hermite_basis: the weights of (y_l, y_r, K_l, K_r) at t
+__device__ __forceinline__ void hermite_basis(double t, double* w) {
+  const double u = 1.0 - t;
+  const double d = u - t;
+  const double p = t * u;
+  const double pd = p * d;
+  w[0] = u + pd;
+  w[1] = t - pd;
+  w[2] = p * u;
+  w[3] = -(p * t);
+}
+
+// R4c: the K12 row, in the weight form summed block by block.  The 16 weights
+// are built per thread: the bp threads of a query repeat those ~40 operations.
+struct BicubicWeightDF {
+  __device__ static double eval(const float* __restrict__ row, int64_t bp, double tx,
+                                double ty) {
+    double bx[4], by[4];
+    hermite_basis(tx, bx);
+    hermite_basis(ty, by);
+    double s = 0.0;
+#pragma unroll
+    for (int b = 0; b < 16; ++b) {
+      const int i = b >> 2, c = b & 3;
+      // the value basis along x for f and ky, the derivative basis for kx and
+      // kxy; along y the value basis for f and kx, the derivative basis else
+      const double ax = (i == 0 || i == 2) ? bx[c >> 1] : bx[2 + (c >> 1)];
+      const double ay = (i < 2) ? by[c & 1] : by[2 + (c & 1)];
+      const double term = (ax * ay) * widen(__ldg(row + b * bp), __ldg(row + (b + 16) * bp));
+      s = b == 0 ? term : s + term;
+    }
+    return s;
+  }
+};
+
 // K13: 16 hi blocks, then 8 bp packed lanes: lane k bp + c holds lo block k in
 // its high 16 bits and lo block k + 8 in its low 16
 struct BicubicF48 {
@@ -268,6 +317,7 @@ extern "C" {
 NDI_CELL_TAIL(ndi_df_bilinear_tail_f32, BilinearDF)
 NDI_CELL_TAIL(ndi_f48_bilinear_tail_f32, BilinearF48)
 NDI_CELL_TAIL(ndi_df_bicubic_tail_f32, BicubicDF)
+NDI_CELL_TAIL(ndi_df_bicubic_weight_tail_f32, BicubicWeightDF)
 NDI_CELL_TAIL(ndi_f48_bicubic_tail_f32, BicubicF48)
 
 #undef NDI_CELL_TAIL

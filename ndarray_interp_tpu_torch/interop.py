@@ -21,6 +21,13 @@ compute the same function, without a new solve::
         rows=np.asarray(s.rows), layout=s.layout, device="cuda",
     )
 
+    step_jax = ...  # ndarray_interp_tpu.interp1d.Interp1D, Nearest
+    s = step_jax.strategy
+    step = interp1d_from_numpy(
+        np.asarray(step_jax.x), np.asarray(step_jax.data), strategy="nearest",
+        nearest_mode=s.mode, mode="yes" if s.extrapolates else "no", device="cuda",
+    )
+
     nd_jax = ...  # ndarray_interp_tpu.interpnd.InterpND
     nd = interpnd_from_numpy(
         [np.asarray(a) for a in nd_jax.axes], np.asarray(nd_jax.data),
@@ -44,13 +51,14 @@ from .models.strategies.bicubic import BicubicStrategy
 from .models.strategies.bilinear import Bilinear, BilinearPacked
 from .models.strategies.cubic import CubicSplineStrategy
 from .models.strategies.linear import Linear
+from .models.strategies.step import Nearest, Nearest2D
 from .utils.device import default_device
 
 _MODES = ("no", "yes", "periodic")
 
 
 def interp1d_from_numpy(
-    x, data, a=None, b=None, mode="no", strategy=None, device=None
+    x, data, a=None, b=None, mode="no", strategy=None, device=None, nearest_mode="nearest"
 ) -> Interp1D:
     """Build an :class:`Interp1D` from carried-over state, without
     validation or a new solve (``Interp1D.new_unchecked``).
@@ -60,11 +68,13 @@ def interp1d_from_numpy(
       data: (n, *trailing) data.
       a, b: (n-1, *trailing) cubic coefficient banks (``CubicSplineStrategy.a/.b``).
       mode: extrapolation mode, ``"no"``, ``"yes"`` or (cubic only)
-        ``"periodic"``; for ``Linear``, ``"yes"`` means ``extrapolate(True)``.
-      strategy: ``"linear"`` or ``"cubic_spline"``; default ``"cubic_spline"``
-        when ``a`` is given, else ``"linear"``.
+        ``"periodic"``; for ``Linear`` and ``Nearest``, ``"yes"`` means
+        ``extrapolate(True)``.
+      strategy: ``"linear"``, ``"cubic_spline"`` or ``"nearest"``; default
+        ``"cubic_spline"`` when ``a`` is given, else ``"linear"``.
       device: where the tensors go (default: the GPU; without one this
         raises unless ``device="cpu"`` is named).
+      nearest_mode: ``Nearest.mode`` for ``strategy="nearest"``.
     """
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
@@ -76,17 +86,19 @@ def interp1d_from_numpy(
         return torch.tensor(np.asarray(v), device=device)  # copies
 
     x_t, data_t = t(x), t(data)
+    if strategy in ("linear", "nearest") and mode == "periodic":
+        raise ValueError(f"{strategy.capitalize()} has no periodic mode")
     if strategy == "linear":
-        if mode == "periodic":
-            raise ValueError("Linear has no periodic mode")
         strat = Linear(extrapolate=(mode == "yes"))
+    elif strategy == "nearest":
+        strat = Nearest(nearest_mode, extrapolate=(mode == "yes"))
     elif strategy == "cubic_spline":
         if a is None or b is None:
             raise ValueError("cubic_spline state needs both a and b")
         strat = CubicSplineStrategy(t(a), t(b), mode)
     else:
         raise ValueError(
-            f"strategy must be 'linear' or 'cubic_spline', got {strategy!r}"
+            f"strategy must be 'linear', 'cubic_spline' or 'nearest', got {strategy!r}"
         )
     return Interp1D.new_unchecked(x_t, data_t, strat)
 
@@ -101,8 +113,9 @@ def interp2d_from_numpy(
     Args:
       x, y: (nx,) and (ny,) axes.
       data: (nx, ny, *trailing) data.
-      strategy: ``"bilinear"`` or ``"bicubic"``; default ``"bicubic"`` when
-        ``layout`` is given, else ``"bilinear"``.
+      strategy: ``"bilinear"``, ``"bicubic"`` or ``"nearest"``
+        (``Nearest2D``); default ``"bicubic"`` when ``layout`` is given, else
+        ``"bilinear"``.
       extrapolate: the strategy's ``extrapolates`` flag.
       bc_x, bc_y: the bicubic boundary kinds (``BicubicStrategy.bc_x/bc_y``).
       rows: the packed table: ``BicubicStrategy.rows`` (required for
@@ -126,8 +139,12 @@ def interp2d_from_numpy(
         if rows is None or layout is None:
             raise ValueError("bicubic state needs both rows and layout")
         strat = BicubicStrategy(t(rows), extrapolate, bc_x, bc_y, layout)
+    elif strategy == "nearest":
+        strat = Nearest2D(extrapolate)
     else:
-        raise ValueError(f"strategy must be 'bilinear' or 'bicubic', got {strategy!r}")
+        raise ValueError(
+            f"strategy must be 'bilinear', 'bicubic' or 'nearest', got {strategy!r}"
+        )
     return Interp2D.new_unchecked(t(x), t(y), t(data), strat)
 
 

@@ -6,10 +6,15 @@ submodule; aliases live in ``interp1d/aliases.py``.
 """
 
 from ..models.interp1d import Interp1D, Interp1DBuilder
-from ..models.strategies.base import Interp1DStrategy, Interp1DStrategyBuilder
+from ..models.strategies.base import (
+    Interp1DStrategy,
+    Interp1DStrategyBuilder,
+    PointwiseStrategy,
+)
 from ..models.strategies.cubic import CubicSpline
 from ..models.strategies.hermite import Akima, Makima, Pchip
 from ..models.strategies.linear import Linear
+from ..models.strategies.step import Nearest
 from . import cubic_spline
 
 __all__ = [
@@ -17,10 +22,12 @@ __all__ = [
     "Interp1DBuilder",
     "Interp1DStrategy",
     "Interp1DStrategyBuilder",
+    "PointwiseStrategy",
     "Linear",
     "CubicSpline",
     "Akima",
     "Makima",
     "Pchip",
+    "Nearest",
     "cubic_spline",
 ]

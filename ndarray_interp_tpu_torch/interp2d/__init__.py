@@ -1,14 +1,17 @@
 """Public 2-D interpolation API (mirrors ``ndarray_interp::interp2d``).
 
-Reference: ``src/interp2d/mod.rs:29-32``.  ``Nearest2D`` and
-``PointwiseStrategy2D`` of the JAX package wait for the port of the other
-strategies.
+Reference: ``src/interp2d/mod.rs:29-32``.
 """
 
 from ..models.interp2d import Interp2D, Interp2DBuilder
-from ..models.strategies.base2d import Interp2DStrategy, Interp2DStrategyBuilder
+from ..models.strategies.base2d import (
+    Interp2DStrategy,
+    Interp2DStrategyBuilder,
+    PointwiseStrategy2D,
+)
 from ..models.strategies.bicubic import Bicubic, bicubic_node_grids
 from ..models.strategies.bilinear import Bilinear
+from ..models.strategies.step import Nearest2D
 from . import aliases
 
 __all__ = [
@@ -16,8 +19,10 @@ __all__ = [
     "Interp2DBuilder",
     "Interp2DStrategy",
     "Interp2DStrategyBuilder",
+    "PointwiseStrategy2D",
     "Bicubic",
     "bicubic_node_grids",
     "Bilinear",
+    "Nearest2D",
     "aliases",
 ]

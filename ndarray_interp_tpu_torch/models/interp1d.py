@@ -12,6 +12,10 @@ Counterpart of ``ndarray_interp_tpu.models.interp1d``.  Reference:
 * any out-of-bounds query aborts the whole eager call (``mod.rs:321``),
 * builder validation order and error messages (``mod.rs:443-476``).
 
+Beyond the reference, as in the JAX package: ``derivative``, ``integrate``,
+``solve`` and ``roots`` (SciPy's ``CubicSpline`` surface), for the
+strategies that have them.
+
 Devices: the interpolator's tensors live on one device.  Tensors given to
 the builder keep theirs; numpy arrays and lists land on the builder's
 ``device``, which is the GPU unless named (``device="cpu"`` for the CPU;
@@ -32,10 +36,11 @@ from ..errors import (
     OutOfBoundsError,
     ShapeError,
 )
-from ..ops.searchsorted import is_in_range
+from ..ops.searchsorted import get_lower_index, is_in_range
 from ..utils.device import default_device
 from ..utils.monotonic import monotonic_prop
 from .strategies.base import Interp1DStrategyBuilder
+from .strategies.cubic import _scalars
 from .strategies.linear import Linear
 
 
@@ -57,6 +62,14 @@ def _write(buffer, result):
     else:
         buffer[...] = result.detach().cpu().numpy()
     return buffer
+
+
+def _calculus(strategy, name, what):
+    """The strategy's calculus method ``name``; ``TypeError`` without one."""
+    fn = getattr(strategy, name, None)
+    if fn is None:
+        raise TypeError(f"{type(strategy).__name__} does not support {what}()")
+    return fn
 
 
 def _check_buffer(buffer, expect):
@@ -142,6 +155,17 @@ class Interp1D:
         out = self._eval_flat(xs.reshape(-1))
         return out.reshape(tuple(xs.shape) + tuple(self.data.shape[1:]))
 
+    # -- helpers available to strategies (mod.rs:367-386) --------------------
+    def index_point(self, index):
+        """``(x, data)`` at the given index."""
+        return self.x[index], self.data[index]
+
+    def get_index_left_of(self, x):
+        """Index of a knot left of, or at, ``x`` and never the last one, so
+        ``index_point(idx + 1)`` is always safe: ``get_lower_index``, plain
+        PyTorch (``torch.searchsorted``), so it also runs under ``vmap``."""
+        return get_lower_index(self.x, _to_tensor(x, self.x.device))
+
     # -- eager API (reference parity; raises on bad values) ------------------
     def _check_queries(self, xs_flat):
         """Reference error contract: OutOfBounds unless extrapolating
@@ -197,6 +221,51 @@ class Interp1D:
         """Required buffer shape for ``interp_array_into``
         (``mod.rs:346-354``): query dims ++ data dims[1:]."""
         return tuple(query_shape) + tuple(self.data.shape[1:])
+
+    # -- calculus (beyond the reference; SciPy-style surface) -----------------
+    def derivative(self, xs, order=1):
+        """The ``order``-th derivative at ``xs``, the analytic derivative of
+        the strategy's piecewise polynomial (SciPy
+        ``CubicSpline(...).derivative(order)(xs)``).  Output dims
+        ``M + N - 1`` like ``interp_array``; checked like it (out-of-range
+        queries raise unless the strategy extrapolates, NaN raises).  The
+        cubic-Hermite family (``CubicSpline``, ``Akima``, ``Makima``,
+        ``Pchip``: orders 1-3) and ``Linear`` (order 1; higher orders are
+        zero)."""
+        fn = _calculus(self.strategy, "eval_derivative", "derivative")
+        xs = self._queries(xs)
+        flat = xs.reshape(-1)
+        self._check_queries(flat)
+        out = fn(self, self._promote(flat), order=order)
+        return out.reshape(tuple(xs.shape) + tuple(self.data.shape[1:]))
+
+    def integrate(self, lo, hi):
+        """The definite integral from ``lo`` to ``hi`` per trailing element:
+        exact per-interval polynomial quadrature (SciPy
+        ``CubicSpline.integrate``).  Signed (``lo > hi`` negates).  Periodic
+        splines integrate the periodic extension, other extrapolating
+        strategies the edge polynomials; out-of-range bounds raise unless
+        the strategy extrapolates.  Returns shape ``data.shape[1:]``."""
+        fn = _calculus(self.strategy, "eval_integrate", "integrate")
+        self._check_queries(_scalars(torch.float64, self.x.device, lo, hi))
+        return fn(self, lo, hi)
+
+    def solve(self, y=0.0, *, max_roots=None):
+        """All real solutions of ``interp(x) == y`` (SciPy
+        ``CubicSpline.solve``): a NaN-padded, ascending ``(3*(n_knots-1),)
+        + data.shape[1:]`` tensor, the static per-interval bound of three
+        roots (``ops/cubicroots.py``).  ``y`` is a scalar or broadcasts over
+        the trailing dims.  Extrapolating strategies also report roots of
+        the extended edge polynomials; periodic splines the base-range
+        roots.  ``max_roots`` keeps the first ``max_roots`` rows.  The
+        cubic-Hermite family and ``Linear``."""
+        out = _calculus(self.strategy, "eval_solve", "solve")(self, y)
+        return out if max_roots is None else out[:max_roots]
+
+    def roots(self, *, max_roots=None):
+        """The real zero crossings: ``solve(0.0)`` (SciPy
+        ``CubicSpline.roots``)."""
+        return self.solve(0.0, max_roots=max_roots)
 
     def __repr__(self):
         return (

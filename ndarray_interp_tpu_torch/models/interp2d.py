@@ -18,9 +18,11 @@ and lists land on the builder's ``device`` (the GPU unless named).
 ``__call__`` never synchronises with the device; the eager methods check
 their queries first, one flag copied to the host per axis.
 
-Not ported: the JAX package's native host paths (``_native_*``,
-``ScalarEval2D``), ``eval_checked``, and ``derivative`` / ``integrate``,
-which wait for the port's calculus.
+Beyond the reference, as in the JAX package: ``derivative`` (SciPy's
+``RectBivariateSpline.ev(xs, ys, dx, dy)``) and ``integrate`` (its
+``.integral``) for ``Bilinear`` and ``Bicubic``.  Not ported: the JAX
+package's native host paths (``_native_*``, ``ScalarEval2D``) and
+``eval_checked``.
 """
 
 from __future__ import annotations
@@ -31,9 +33,10 @@ from ..errors import MonotonicError, NotEnoughDataError, OutOfBoundsError, Shape
 from ..ops.searchsorted import get_lower_index, is_in_range
 from ..utils.device import default_device
 from ..utils.monotonic import monotonic_prop
-from .interp1d import _check_buffer, _to_tensor, _write
+from .interp1d import _calculus, _check_buffer, _to_tensor, _write
 from .strategies.base2d import Interp2DStrategyBuilder
 from .strategies.bilinear import Bilinear
+from .strategies.cubic import _scalars
 
 _SHAPES_DIFFER = "`xs.shape` and `ys.shape` do not match"
 
@@ -196,6 +199,33 @@ class Interp2D:
     def get_buffer_shape(self, query_shape) -> tuple:
         """Query dims ++ data dims[2:] (``mod.rs:310-321``)."""
         return tuple(query_shape) + tuple(self.data.shape[2:])
+
+    # -- calculus (beyond the reference; SciPy-style surface) -----------------
+    def derivative(self, xs, ys, dx=0, dy=0):
+        """The partial ``d^(dx+dy) z / dx^dx dy^dy`` at the query pairs, the
+        analytic derivative of the strategy's surface (SciPy
+        ``RectBivariateSpline.ev(xs, ys, dx, dy)``).  Output dims
+        ``M + N - 2`` like ``interp_array``, checked like it.  ``Bicubic``
+        (orders 0-3 per axis) and ``Bilinear`` (orders 0-1 exact, higher
+        orders zero)."""
+        fn = _calculus(self.strategy, "eval_derivative", "derivative")
+        xs, ys = self._queries(xs, ys)
+        xf, yf = xs.reshape(-1), ys.reshape(-1)
+        self._check_queries(xf, yf)
+        out = fn(self, self._promote(xf), self._promote(yf), dx=dx, dy=dy)
+        return out.reshape(self._out_shape(xs))
+
+    def integrate(self, xlo, xhi, ylo, yhi):
+        """The exact integral over the box ``[xlo, xhi] x [ylo, yhi]`` per
+        trailing element, per-cell polynomial quadrature (SciPy
+        ``RectBivariateSpline.integral``).  Signed per axis.  Out-of-range
+        bounds raise unless the strategy extrapolates (then the edge cells
+        extend).  ``Bilinear`` and ``Bicubic`` (no periodic axis); returns
+        shape ``data.shape[2:]``."""
+        fn = _calculus(self.strategy, "eval_integrate_box", "integrate")
+        f64, dev = torch.float64, self.x.device
+        self._check_queries(_scalars(f64, dev, xlo, xhi), _scalars(f64, dev, ylo, yhi))
+        return fn(self, xlo, xhi, ylo, yhi)
 
     def __repr__(self):
         return (

@@ -31,9 +31,11 @@ Devices as in :mod:`.interp1d`: tensors keep their device, numpy arrays
 and lists land on the builder's ``device`` (the GPU unless named).
 Autograd flows through evaluation.
 
-Not ported yet: ``derivative`` and ``integrate`` with their helpers (the
-t-derivative bases, ``_dx_chain_factor``, the antiderivative weights), the
-checkpoint codec and the pytree protocol, which PyTorch does not need.
+The exact box quadrature (:func:`integrate_box`, the antiderivative
+weights) serves the 2-D strategies' ``integrate``.  Not ported yet:
+``InterpND.derivative`` and ``integrate`` with their other helpers (the
+t-derivative bases, ``_dx_chain_factor``), the checkpoint codec and the
+pytree protocol, which PyTorch does not need.
 """
 
 from __future__ import annotations
@@ -177,6 +179,76 @@ def pack_cubic_nodes_nd(axes, data, k, grids, pairs=0):
     for j in range(m):
         blocks.append(_shift_edge(coords[k - m + j], k - m + j)[..., None])
     return torch.cat(blocks, dim=-1).reshape(math.prod(grid), (2**m) * (2**k) * r + k + m)
+
+
+# -- exact box quadrature (the 2-D strategies' integrate) ----------------------------
+def _linear_antider(t):
+    """Antiderivatives ``[B0, B1]`` of the multilinear basis ``[1-t, t]``."""
+    return [t - 0.5 * t * t, 0.5 * t * t]
+
+
+def _cubic_antider(t):
+    """Antiderivatives ``[H00, H01, H10, H11]`` of the Hermite basis."""
+    t2 = t * t
+    t3 = t2 * t
+    t4 = t2 * t2
+    return [
+        0.5 * t4 - t3 + t,
+        t3 - 0.5 * t4,
+        0.25 * t4 - (2.0 / 3.0) * t3 + 0.5 * t2,
+        0.25 * t4 - t3 / 3.0,
+    ]
+
+
+def _axis_integral_weights(x, lo, hi, method, extrapolate):
+    """Per-cell integral weights of one axis, ``W[i, digit] =
+    dx_i^(1+deriv) · (H_digit(t1_i) - H_digit(t0_i))`` over the overlap of
+    ``[lo, hi]`` with cell ``i`` (the 1-D quadrature per axis).  When
+    extrapolating, the edge cells' polynomials extend beyond the grid."""
+    dx = x[1:] - x[:-1]
+    nc = dx.shape[0]
+    t0 = (lo - x[:-1]) / dx
+    t1 = (hi - x[:-1]) / dx
+    lo_clip, hi_clip = torch.zeros_like(dx), torch.ones_like(dx)
+    if extrapolate:
+        big = torch.finfo(x.dtype).max
+        lo_clip[0], hi_clip[-1] = -big, big
+    anti = _cubic_antider if method == "cubic" else _linear_antider
+    h0 = anti(torch.clamp(t0, lo_clip, hi_clip))
+    h1 = anti(torch.clamp(t1, lo_clip, hi_clip))
+    cols = [dx * (h1[j] - h0[j]) for j in range(2)]
+    if method == "cubic":  # derivative channels: raw k times dx^2
+        cols += [dx * dx * (h1[j] - h0[j]) for j in (2, 3)]
+    return torch.stack(cols, dim=-1)  # (n-1, 2 or 4)
+
+
+def _axis_node_weights(w, deriv):
+    """Per-cell side weights scattered onto the nodes: node ``m`` takes the
+    left weight of cell ``m`` and the right weight of cell ``m - 1``."""
+    z = w.new_zeros(1)
+    return torch.cat([w[:, 2 * deriv], z]) + torch.cat([z, w[:, 2 * deriv + 1]])
+
+
+def integrate_box(axes, data, los, his, method, bcs, extrapolate):
+    """The exact integral of the tensor-product interpolant over the box
+    ``[los[d], his[d]]`` of each of the ``k = len(axes)`` axes, per trailing
+    element: per-axis integral weights contracted against the
+    (mixed-derivative, for cubic: the spline solves, K4 on the GPU) node
+    grids, ``2^k`` tensor contractions, no sampling
+    (``interpnd._integrate_fn`` of the JAX package)."""
+    k = len(axes)
+    grids = interpnd_node_grids(axes, data, k, bcs) if method == "cubic" else {0: data}
+    ws = [_axis_integral_weights(ax, los[d], his[d], method, extrapolate)
+          for d, ax in enumerate(axes)]
+    out = None
+    for mask in sorted(grids):
+        g = grids[mask]
+        for d in reversed(range(k)):
+            u = _axis_node_weights(ws[d], (mask >> d) & 1)
+            dt = torch.promote_types(g.dtype, u.dtype)  # promote: integer data
+            g = torch.tensordot(g.to(dt), u.to(dt), dims=([d], [0]))
+        out = g if out is None else out + g
+    return out
 
 
 def _cubic_basis(t):

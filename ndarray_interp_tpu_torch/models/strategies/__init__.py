@@ -1,4 +1,5 @@
-from .base import Interp1DStrategy, Interp1DStrategyBuilder
+from .base import Interp1DStrategy, Interp1DStrategyBuilder, PointwiseStrategy
+from .base2d import Interp2DStrategy, Interp2DStrategyBuilder, PointwiseStrategy2D
 from .cubic import (
     BoundaryCondition,
     CubicSpline,
@@ -8,10 +9,15 @@ from .cubic import (
 )
 from .hermite import Akima, Makima, Pchip
 from .linear import Linear
+from .step import Nearest, Nearest2D
 
 __all__ = [
     "Interp1DStrategy",
     "Interp1DStrategyBuilder",
+    "PointwiseStrategy",
+    "Interp2DStrategy",
+    "Interp2DStrategyBuilder",
+    "PointwiseStrategy2D",
     "BoundaryCondition",
     "CubicSpline",
     "CubicSplineStrategy",
@@ -21,4 +27,6 @@ __all__ = [
     "Makima",
     "Pchip",
     "Linear",
+    "Nearest",
+    "Nearest2D",
 ]

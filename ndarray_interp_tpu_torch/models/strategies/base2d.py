@@ -11,10 +11,13 @@ calling a strategy (``:30-37``):
 * interpolation happens along axes 0 (x) and 1 (y).
 
 As in the 1-D protocol, strategies receive the whole flattened query
-vectors at once.
+vectors at once; :class:`PointwiseStrategy2D` vectorizes a strategy written
+one ``(x, y)`` point at a time.
 """
 
 from __future__ import annotations
+
+from .base import _vmap_points
 
 
 class Interp2DStrategyBuilder:
@@ -35,4 +38,20 @@ class Interp2DStrategy:
     def eval(self, interp, xq, yq):
         """Evaluate at the flat query vectors ``xq``/``yq`` of shape
         ``(Q,)``; return ``(Q, *data.shape[2:])``."""
+        raise NotImplementedError
+
+
+class PointwiseStrategy2D(Interp2DStrategy, Interp2DStrategyBuilder):
+    """Adapter for strategies written one ``(x, y)`` point at a time,
+    vectorized with ``torch.func.vmap`` (the 2-D analogue of
+    :class:`~.base.PointwiseStrategy`, with its rules: plain PyTorch
+    operations and ``torch.where`` in ``eval_point``)."""
+
+    def build(self, x, y, data):
+        return self
+
+    def eval(self, interp, xq, yq):
+        return _vmap_points(lambda x, y: self.eval_point(interp, x, y), xq, yq)
+
+    def eval_point(self, interp, x, y):
         raise NotImplementedError

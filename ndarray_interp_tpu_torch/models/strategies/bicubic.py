@@ -1,8 +1,8 @@
 """Bicubic (tensor-product cubic spline) interpolation on a rectilinear grid.
 
-Counterpart of ``ndarray_interp_tpu.models.strategies.bicubic`` (build and
-eval; calculus waits for the port's calculus).  A strategy beyond the
-reference crate, which ships only ``Bilinear``.
+Counterpart of ``ndarray_interp_tpu.models.strategies.bicubic``: build,
+eval and calculus (``eval_derivative``, ``eval_integrate_box``).  A strategy
+beyond the reference crate, which ships only ``Bilinear``.
 
 The tensor-product spline through ``data[(nx, ny, ...)]`` is, per cell, a
 bicubic Hermite patch whose corner state is the value and three derivative
@@ -50,6 +50,7 @@ from .cubic import (
     _NOT_A_KNOT,
     _SECOND_DERIV,
     _dtype_name,
+    _scalars,
     _solve_for_k,
     _solve_periodic_core,
     _validate_periodic_data,
@@ -97,6 +98,53 @@ def _hermite(y_l, y_r, k_l, k_r, dx, t):
     a = k_l * dx - dy
     b = dy - k_r * dx
     return (1 - t) * y_l + t * y_r + t * (1 - t) * (a * (1 - t) + b * t)
+
+
+def _hermite_scaled_d(y_l, y_r, K_l, K_r, t, order):
+    """``d^order/dt^order`` (0-3) of the Hermite form with pre-scaled
+    derivatives ``K = k·dx``: the forms of the 1-D calculus
+    (``CubicSplineStrategy.eval_derivative``); order 0 is the value."""
+    dy = y_r - y_l
+    a = K_l - dy
+    b = dy - K_r
+    if order == 0:
+        return (1.0 - t) * y_l + t * y_r + t * (1.0 - t) * (a * (1.0 - t) + b * t)
+    if order == 1:
+        return dy + (1.0 - 2 * t) * (a * (1.0 - t) + b * t) + t * (1.0 - t) * (b - a)
+    if order == 2:
+        return a * (6 * t - 4) + b * (2 - 6 * t)
+    return (6 * (a - b)) + 0.0 * t  # order 3: piecewise constant
+
+
+def _cell_tail_nested_d(g, tx, ty, r, ox, oy):
+    """The partial ``d^(ox+oy) / dtx^ox dty^oy`` of the nested cell tail on
+    gathered cell rows ``(Q, 16r)``: the tail is linear in its corner
+    state, so it is the same nesting with the x-Hermites at order ``ox`` and
+    the y-Hermite at order ``oy`` (the caller divides by ``dx^ox · dy^oy``)."""
+
+    def block(i):  # quantity i of [f, kx, ky, kxy] at corners [11, 12, 21, 22]
+        return [g[:, (4 * i + c) * r : (4 * i + c + 1) * r] for c in range(4)]
+
+    f, kx, ky, kxy = (block(i) for i in range(4))
+    f_y1 = _hermite_scaled_d(f[0], f[2], kx[0], kx[2], tx, ox)
+    f_y2 = _hermite_scaled_d(f[1], f[3], kx[1], kx[3], tx, ox)
+    g_y1 = _hermite_scaled_d(ky[0], ky[2], kxy[0], kxy[2], tx, ox)
+    g_y2 = _hermite_scaled_d(ky[1], ky[3], kxy[1], kxy[3], tx, ox)
+    return _hermite_scaled_d(f_y1, f_y2, g_y1, g_y2, ty, oy)
+
+
+def _check_orders(dx, dy):
+    if dx not in (0, 1, 2, 3) or dy not in (0, 1, 2, 3):
+        raise ValueError(f"derivative orders must be in 0..3; got dx={dx}, dy={dy}")
+
+
+def _box_bounds(interp, xlo, xhi, ylo, yhi):
+    """``(axes, los, his)`` of a box integral in a floating dtype (float32
+    at least: integer grids are evaluated too)."""
+    x, y = interp.x, interp.y
+    bt = torch.promote_types(torch.promote_types(x.dtype, y.dtype), torch.float32)
+    return ((x.to(bt), y.to(bt)), _scalars(bt, x.device, xlo, ylo),
+            _scalars(bt, x.device, xhi, yhi))
 
 
 def _index_frac(knots, q):
@@ -233,15 +281,19 @@ class BicubicStrategy(Interp2DStrategy):
     def wraps_y(self):
         return self.bc_y == "periodic"
 
-    def eval(self, interp, xq, yq):
-        x, y, data = interp.x, interp.y, interp.data
-        # rem_euclid wrap of every query (cubic_spline.rs:804-809); the
-        # JAX package wraps in-range queries too, which can move them by
-        # an ulp, so the port does the same
+    def _wrap(self, x, y, xq, yq):
+        """The rem_euclid wrap of every query on a periodic axis
+        (``cubic_spline.rs:804-809``); the JAX package wraps in-range queries
+        too, which can move them by an ulp, so the port does the same."""
         if self.wraps_x:
             xq = torch.remainder(xq - x[0], x[-1] - x[0]) + x[0]
         if self.wraps_y:
             yq = torch.remainder(yq - y[0], y[-1] - y[0]) + y[0]
+        return xq, yq
+
+    def eval(self, interp, xq, yq):
+        x, y, data = interp.x, interp.y, interp.data
+        xq, yq = self._wrap(x, y, xq, yq)
         out_shape = tuple(xq.shape) + tuple(data.shape[2:])
         r = math.prod(data.shape[2:])
         if self.layout == "cell":
@@ -277,6 +329,53 @@ class BicubicStrategy(Interp2DStrategy):
         ky_y1 = _hermite(ky11, ky21, kxy11, kxy21, dx, tx)
         ky_y2 = _hermite(ky12, ky22, kxy12, kxy22, dx, tx)
         return _hermite(f_y1, f_y2, ky_y1, ky_y2, dy, ty)
+
+    # -- calculus (beyond the reference; SciPy RectBivariateSpline.ev) --------
+    def eval_derivative(self, interp, xq, yq, dx=0, dy=0):
+        """The partial ``d^(dx+dy) z / dx^dx dy^dy`` (orders 0-3 per axis;
+        order 3 is piecewise constant): the nested Hermite at each axis's
+        order, divided by the cell widths ``dx_cell^dx · dy_cell^dy``.  Both
+        layouts: the search K2 on each axis, then the cell row (the node
+        layout assembles it from four node rows); periodic axes wrap like
+        ``eval``."""
+        _check_orders(dx, dy)
+        x, y, data = interp.x, interp.y, interp.data
+        xq, yq = self._wrap(x, y, xq, yq)
+        ny = data.shape[1]
+        r = math.prod(data.shape[2:])
+        xi, tx = _index_frac(x, xq)
+        yi, ty = _index_frac(y, yq)
+        xi, yi = xi.long(), yi.long()
+        dxg = (x[xi + 1] - x[xi]).to(data.dtype)[:, None]
+        dyg = (y[yi + 1] - y[yi]).to(data.dtype)[:, None]
+        if self.layout == "cell":
+            g = self.rows.index_select(0, xi * (ny - 1) + yi)
+        else:  # the scaled 16r cell row from the four node rows
+
+            def node(ix, iy):
+                gg = self.rows.index_select(0, ix * ny + iy)
+                return [gg[:, i * r : (i + 1) * r] for i in range(4)]
+
+            corners = (node(xi, yi), node(xi, yi + 1), node(xi + 1, yi), node(xi + 1, yi + 1))
+            scales = (1.0, dxg, dyg, dxg * dyg)
+            g = torch.cat([c[i] * scales[i] for i in range(4) for c in corners], dim=-1)
+        out = _cell_tail_nested_d(g, tx[:, None], ty[:, None], r, dx, dy)
+        return (out / (dxg**dx * dyg**dy)).reshape(tuple(xq.shape) + tuple(data.shape[2:]))
+
+    def eval_integrate_box(self, interp, xlo, xhi, ylo, yhi):
+        """The exact integral of the surface over ``[xlo, xhi] x [ylo, yhi]``
+        per trailing element: per-axis Hermite antiderivative weights
+        contracted against the four mixed-derivative node grids, solved
+        again from ``data`` (K4 on the GPU).  Signed per axis;
+        extrapolation extends the edge cells; periodic axes raise (a box
+        that wraps is ambiguous)."""
+        if self.wraps_x or self.wraps_y:
+            raise ValueError("integrate() does not support periodic axes")
+        from ..interpnd import integrate_box  # interpnd imports this module
+
+        axes, los, his = _box_bounds(interp, xlo, xhi, ylo, yhi)
+        return integrate_box(axes, interp.data, los, his, "cubic", (self.bc_x, self.bc_y),
+                             self.extrapolates)
 
     def __repr__(self):
         return (

@@ -1,7 +1,7 @@
 """Bilinear interpolation strategy on a rectilinear grid.
 
-Counterpart of ``ndarray_interp_tpu.models.strategies.bilinear`` (build and
-eval; calculus waits for the port's calculus).  Reference:
+Counterpart of ``ndarray_interp_tpu.models.strategies.bilinear``: build,
+eval and calculus (``eval_derivative``, ``eval_integrate_box``).  Reference:
 ``src/interp2d/strategies/bilinear.rs``.  Per query: two interval searches,
 the four corners and the interval endpoints, then two x-direction lerps and
 one y-direction lerp (``bilinear.rs:64-98``).
@@ -25,6 +25,7 @@ from ...ops.lerp import calc_frac
 from ...ops.searchsorted import lower_index_fast
 from ...ops.tail2d import bilinear_gathered_eval
 from .base2d import Interp2DStrategy, Interp2DStrategyBuilder
+from .bicubic import _box_bounds, _check_orders
 
 
 def pack_corner_rows(x, y, data):
@@ -94,6 +95,49 @@ class Bilinear(Interp2DStrategy, Interp2DStrategyBuilder):
         z1 = calc_frac(x1, data[xi, yi], x2, data[xi + 1, yi], e(xq))
         z2 = calc_frac(x1, data[xi, yi + 1], x2, data[xi + 1, yi + 1], e(xq))
         return calc_frac(y1, z1, y2, z2, e(yq))
+
+    # -- calculus (beyond the reference; SciPy-style surface) -----------------
+    def eval_derivative(self, interp, xq, yq, dx=0, dy=0):
+        """Analytic partials of the bilinear surface: per-cell constant
+        slopes along each axis, the twist ``(z22 - z21 - z12 + z11) /
+        (dx·dy)`` for (1, 1), and zero for any order of 2 or more (away from
+        the grid lines, where the derivative is undefined).  The search K3
+        on each axis and the four corners."""
+        _check_orders(dx, dy)
+        x, y, data = interp.x, interp.y, interp.data
+        xi = lower_index_fast(x, xq).long()
+        yi = lower_index_fast(y, yq).long()
+        z11, z12 = data[xi, yi], data[xi, yi + 1]
+        z21, z22 = data[xi + 1, yi], data[xi + 1, yi + 1]
+        expand = tuple(xq.shape) + (1,) * (data.ndim - 2)
+
+        def e(v):
+            return v.reshape(expand)
+
+        x1, x2 = e(x[xi]), e(x[xi + 1])
+        y1, y2 = e(y[yi]), e(y[yi + 1])
+        dxv, dyv = x2 - x1, y2 - y1
+        if (dx, dy) in ((0, 0), (0, 1)):
+            z1 = calc_frac(x1, z11, x2, z21, e(xq))
+            z2 = calc_frac(x1, z12, x2, z22, e(xq))
+            return calc_frac(y1, z1, y2, z2, e(yq)) if dy == 0 else (z2 - z1) / dyv
+        if (dx, dy) == (1, 0):
+            return calc_frac(y1, (z21 - z11) / dxv, y2, (z22 - z12) / dxv, e(yq))
+        if (dx, dy) == (1, 1):
+            return (z22 - z21 - z12 + z11) / (dxv * dyv)
+        return torch.zeros_like((z11 - z11) / dxv)  # any order of 2 or more
+
+    def eval_integrate_box(self, interp, xlo, xhi, ylo, yhi):
+        """The exact integral over ``[xlo, xhi] x [ylo, yhi]`` per trailing
+        element: the per-axis integral weights of the multilinear basis
+        contracted against the data grid.  Signed per axis; extrapolating
+        strategies integrate the extended edge cells.  Integer grids are
+        integrated in a floating dtype."""
+        from ..interpnd import integrate_box  # interpnd imports the bicubic module
+
+        axes, los, his = _box_bounds(interp, xlo, xhi, ylo, yhi)
+        data = interp.data if interp.data.is_floating_point() else interp.data.to(los.dtype)
+        return integrate_box(axes, data, los, his, "linear", None, self.extrapolates)
 
     def __repr__(self):
         return f"Bilinear(extrapolate={self.extrapolates})"

@@ -1,7 +1,7 @@
 """Cubic-spline interpolation strategy.
 
-Counterpart of ``ndarray_interp_tpu.models.strategies.cubic`` (build and
-eval; calculus is not ported yet).  Reference:
+Counterpart of ``ndarray_interp_tpu.models.strategies.cubic``: build, eval
+and calculus.  Reference:
 ``src/interp1d/strategies/cubic_spline.rs``.  A C² cubic spline
 parameterized by knot derivatives ``k`` obtained from a tridiagonal system,
 with four boundary-condition families plus per-row/per-side mixing:
@@ -32,6 +32,14 @@ Eval routes, the JAX package's dispatch (``cubic.py:726-888`` there):
   ``MAX_BIG_KNOTS``; then ``banked_eval`` (K5) for short knot axes × wide
   float32 banks where the JAX cost model prefers it, else the packed-row
   route (``ops.bank_tail``, R2a).
+
+Calculus (SciPy ``CubicSpline`` parity, no reference analogue):
+``eval_derivative`` (orders 1-3), ``eval_integrate`` (exact per-interval
+quadrature) and ``eval_solve`` (closed-form roots, ``ops/cubicroots.py``).
+The first two search their intervals with ``lower_index_fast`` (K3 on the
+GPU) and gather one row a query, as the JAX package does
+(``cubic.py:891-1031`` there).  ``Akima``, ``Makima`` and ``Pchip`` build
+this strategy and share them.
 """
 
 from __future__ import annotations
@@ -45,7 +53,10 @@ from ...errors import BuilderValueError, ShapeError
 from ...ops.bank_eval import banked_eval, can_use_banked
 from ...ops.bank_tail import gathered_bank_eval
 from ...ops.bigknots import MAX_BIG_KNOTS, big_eval_1d, big_lower_index_frac, can_use_big
+from ...ops.cubicroots import interval_roots_to_x, real_cubic_roots
 from ...ops.eval_kernels import fused_eval_1d, fused_index_frac, make_interval_table
+from ...ops.gather import gather_rows
+from ...ops.searchsorted import lower_index_fast
 from ...ops.thomas_kernel import thomas_solve_fast
 from .base import Interp1DStrategy, Interp1DStrategyBuilder
 
@@ -531,17 +542,21 @@ class CubicSplineStrategy(Interp1DStrategy):
     def extrapolates(self) -> bool:
         return self.mode != "no"
 
+    def _wrap(self, x, xq):
+        """Periodic mode: queries outside the range wrap into it."""
+        if self.mode != "periodic":
+            return xq
+        x0 = x[0]
+        xn = x[x.shape[0] - 1]
+        # torch.remainder takes the divisor's sign, like jnp.mod and
+        # rem_euclid for the positive period
+        wrapped = torch.remainder(xq - x0, xn - x0) + x0
+        in_r = (x0 <= xq) & (xq <= xn)
+        return torch.where(in_r, xq, wrapped)
+
     def eval(self, interp, xq):
         x = interp.x
-        if self.mode == "periodic":
-            x0 = x[0]
-            xn = x[x.shape[0] - 1]
-            # torch.remainder takes the divisor's sign, like jnp.mod and
-            # rem_euclid for the positive period
-            wrapped = torch.remainder(xq - x0, xn - x0) + x0
-            in_r = (x0 <= xq) & (xq <= xn)
-            xq = torch.where(in_r, xq, wrapped)
-
+        xq = self._wrap(x, xq)
         data = interp.data
         if data.ndim == 1:
             if xq.dtype == torch.float32 and xq.ndim == 1 and can_use_big(x, data):
@@ -577,5 +592,118 @@ class CubicSplineStrategy(Interp1DStrategy):
             )
         return out.reshape(tuple(xq.shape) + tuple(data.shape[1:]))
 
+    # -- calculus (beyond the reference; SciPy CubicSpline parity) -------------
+    def _interval_quantities(self, interp, p):
+        """``(idx, dx, t, y_l, y_r, a, b)`` at the flat queries ``p``, shared
+        by the derivative and antiderivative forms."""
+        data = interp.data
+        return _interval_rows(interp, p, data[:-1], data[1:], self.a, self.b)
+
+    def eval_derivative(self, interp, xq, order=1):
+        """``d^order y / dx^order`` of the symmetric Hermite form
+        ``y = (1-t) y_l + t y_r + t(1-t)[a(1-t) + b t]``, order 1, 2 or 3:
+        ``[y_r - y_l + (1-2t)(a(1-t) + b t) + t(1-t)(b-a)] / dx``, then
+        ``[a(6t-4) + b(2-6t)] / dx^2`` and ``6(a-b) / dx^3`` (piecewise
+        constant).  Periodic mode wraps like ``eval``."""
+        if order not in (1, 2, 3):
+            raise ValueError(f"derivative order must be 1, 2, or 3; got {order}")
+        _, dx, t, y_l, y_r, a, b = self._interval_quantities(interp, self._wrap(interp.x, xq))
+        if order == 1:
+            return ((y_r - y_l) + (1.0 - 2 * t) * (a * (1.0 - t) + b * t)
+                    + t * (1.0 - t) * (b - a)) / dx
+        if order == 2:
+            return (a * (6 * t - 4) + b * (2 - 6 * t)) / (dx * dx)
+        return 6 * (a - b) / (dx * dx * dx)
+
+    def _antideriv(self, interp, p):
+        """``F(p)``, the integral from ``x[0]`` to each flat ``p``: the
+        cumulative exact interval integrals ``dx·[(y_l+y_r)/2 + (a+b)/12]``
+        plus the partial interval ``dx·[y_l(t - t^2/2) + y_r t^2/2 +
+        a(t^2/2 - 2t^3/3 + t^4/4) + b(t^3/3 - t^4/4)]``.  Periodic mode: whole
+        periods times the total plus the wrapped remainder."""
+        x, data = interp.x, interp.data
+        tr = data.ndim - 1
+        dxk = (x[1:] - x[:-1]).reshape((-1,) + (1,) * tr)
+        full = dxk * (0.5 * (data[:-1] + data[1:]) + (self.a + self.b) / 12.0)
+        csum = torch.cat([torch.zeros_like(full[:1]), torch.cumsum(full, dim=0)], dim=0)
+
+        def f_in(p):
+            idx, dx, t, y_l, y_r, a, b = self._interval_quantities(interp, p)
+            t2 = t * t
+            t3 = t2 * t
+            t4 = t2 * t2
+            part = (y_l * (t - 0.5 * t2) + y_r * (0.5 * t2)
+                    + a * (0.5 * t2 - 2.0 * t3 / 3.0 + 0.25 * t4) + b * (t3 / 3.0 - 0.25 * t4))
+            return csum[idx] + dx * part
+
+        if self.mode == "periodic":
+            x0, period = x[0], x[x.shape[0] - 1] - x[0]
+            k = torch.floor((p - x0) / period)
+            return k.reshape(tuple(p.shape) + (1,) * tr) * csum[-1] + f_in(p - k * period)
+        return f_in(p)
+
+    def eval_integrate(self, interp, lo, hi):
+        """The integral from ``lo`` to ``hi`` per trailing element (signed:
+        ``lo > hi`` negates), exact polynomial quadrature."""
+        f = self._antideriv(interp, _bounds(interp, lo, hi))
+        return f[1] - f[0]
+
+    def eval_solve(self, interp, y=0.0):
+        """Real roots of ``spline(x) - y``: each interval's Hermite form is
+        the cubic ``(y_l - y) + (y_r - y_l + a) t + (b - 2a) t^2 + (a - b)
+        t^3``, solved in closed form in one batch (``ops/cubicroots.py``):
+        ``(3(n-1), *trailing)``, sorted, NaN-padded.  ``y`` is a scalar or
+        broadcasts over the trailing dims.  Extrapolating splines ("yes")
+        also report roots of the edge polynomials outside the range;
+        periodic ones the base-range roots.  A segment identically equal to
+        ``y`` contributes its left knot."""
+        y_l, y_r, yq = _solve_operands(interp, y)
+        a, b = self.a.to(yq.dtype), self.b.to(yq.dtype)
+        return _interval_roots(interp, y_l - yq, (y_r - y_l) + a, b - 2.0 * a, a - b,
+                               self.mode == "yes")
+
     def __repr__(self):
         return f"CubicSplineStrategy(a={tuple(self.a.shape)}, mode={self.mode})"
+
+
+def _interval_rows(interp, p, *columns):
+    """``(idx, dx, t, *rows)`` at the flat queries ``p``: the interval search
+    (K3 on the GPU), the interval width and fraction, and one gather of the
+    interval's row of the stacked ``columns`` (each ``(n-1, *trailing)``)."""
+    x = interp.x
+    idx = lower_index_fast(x, p).long()
+    xg = torch.stack([x[:-1], x[1:]], dim=-1)[idx]
+    dx = xg[..., 1] - xg[..., 0]
+    t = (p - xg[..., 0]) / dx
+    g = gather_rows(torch.stack(columns, dim=-1), idx)
+    expand = tuple(p.shape) + (1,) * (interp.data.ndim - 1)
+    return (idx, dx.reshape(expand), t.reshape(expand), *g.unbind(-1))
+
+
+def _scalars(dtype, device, *values):
+    """Scalars (numbers or 0-d tensors) as one flat tensor of ``dtype`` on
+    ``device``: integration bounds."""
+    return torch.stack([torch.as_tensor(v, dtype=dtype, device=device) for v in values])
+
+
+def _bounds(interp, lo, hi):
+    """The integration bounds in the table's dtype, on its device."""
+    return _scalars(torch.promote_types(interp.x.dtype, interp.data.dtype), interp.x.device, lo, hi)
+
+
+def _solve_operands(interp, y):
+    """``(y_l, y_r, y)`` of every interval in the solve's dtype (the
+    table's, float32 at least)."""
+    data = interp.data
+    dtype = torch.promote_types(torch.promote_types(interp.x.dtype, data.dtype), torch.float32)
+    yq = torch.as_tensor(y, dtype=dtype, device=data.device)
+    return data[:-1].to(dtype), data[1:].to(dtype), yq
+
+
+def _interval_roots(interp, c0, c1, c2, c3, extrapolate):
+    """The sorted roots of the interval polynomials ``c0 + c1 t + c2 t^2 +
+    c3 t^3``; an identically zero one reports its left knot."""
+    t = real_cubic_roots(c0, c1, c2, c3)
+    const0 = (c0 == 0) & (c1 == 0) & (c2 == 0) & (c3 == 0)
+    t[..., 0] = torch.where(const0, torch.zeros_like(t[..., 0]), t[..., 0])
+    return interval_roots_to_x(interp.x.to(t.dtype), t, extrapolate=extrapolate)

@@ -22,6 +22,7 @@ from .eval_kernels_df import (
 )
 from .eval_kernels_df2d import (
     gathered_bicubic_df_tail,
+    gathered_bicubic_df_weight_tail,
     gathered_bicubic_f48_tail,
     gathered_bicubic_node_df_tail,
     gathered_bilinear_df_tail,
@@ -60,6 +61,7 @@ __all__ = [
     "fused_lower_index",
     "gathered_bank_eval",
     "gathered_bicubic_df_tail",
+    "gathered_bicubic_df_weight_tail",
     "gathered_bicubic_f48_tail",
     "gathered_bicubic_node_df_tail",
     "gathered_bilinear_df_tail",
@@ -105,4 +107,5 @@ def kernel_wrappers():
         "R2c": bicubic_gathered_eval,
         "R2d": bicubic_tree_tail,
         "R2n": bicubic_nested_tail,
+        "R4c": gathered_bicubic_df_weight_tail,
     }

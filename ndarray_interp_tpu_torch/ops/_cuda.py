@@ -90,6 +90,7 @@ _SIGNATURES = {
     "ndi_df_bilinear_tail": _CELL_TAIL,
     "ndi_f48_bilinear_tail": _CELL_TAIL,
     "ndi_df_bicubic_tail": _CELL_TAIL,
+    "ndi_df_bicubic_weight_tail": _CELL_TAIL,
     "ndi_f48_bicubic_tail": _CELL_TAIL,
     # packed, rows, ch, r, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo, out_hi, out_lo, nq
     "ndi_df_bicubic_node_tail": _CELL_TAIL,

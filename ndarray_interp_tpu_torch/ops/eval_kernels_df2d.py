@@ -1,21 +1,28 @@
-"""f64-grade 2-D evaluation on the GPU: wrappers of K10, K11, K12, K13 and K14.
+"""f64-grade 2-D evaluation on the GPU: wrappers of K10-K14 and R4c.
 
-Counterpart of the 2-D part of ``ndarray_interp_tpu.ops.pallas_eval_df``,
-with its names and signatures: every value crosses the interface as an
-``(hi, lo)`` float32 pair (``ops/df.py``).  The CUDA kernels are in
-``csrc/df2d_kernels.cu``.  Each gathers its query's row(s) from a packed
-table, widens every pair once to float64 (exact) and computes natively in
-FP64, where the TPU kernels ran error-free transforms on float32 and
-one-hot matrix products:
+Counterpart of the 2-D part of ``ndarray_interp_tpu.ops.pallas_eval_df``
+(and of ``ops/df_records.py``), with its names and signatures: every value
+crosses the interface as an ``(hi, lo)`` float32 pair (``ops/df.py``).  The
+CUDA kernels are in ``csrc/df2d_kernels.cu``.  Each gathers its query's
+row(s) from a packed table, widens every pair once to float64 (exact) and
+computes natively in FP64, where the TPU kernels ran error-free transforms
+on float32 and one-hot matrix products:
 
 * :func:`gathered_bilinear_df_tail` (K10) and
   :func:`gathered_bilinear_f48_tail` (K11): bilinear on a
   :func:`pack_bilinear_rows_df` / :func:`pack_bilinear_rows_f48` table, in
-  the lerp form ``z1 + t·(z2 - z1)``, x first, then y;
+  the lerp form ``z1 + t·(z2 - z1)``, x first, then y
+  (:func:`_df_bilinear_core`, the form and order of the JAX record tail
+  ``_df_bilinear_tail_kernel`` too, R4a);
 * :func:`gathered_bicubic_df_tail` (K12) and
   :func:`gathered_bicubic_f48_tail` (K13): the tensor-product Hermite of a
   :func:`pack_bicubic_rows_df` / :func:`pack_bicubic_rows_f48` table of
-  bicubic cell rows, five nested scaled Hermite forms;
+  bicubic cell rows, five nested scaled Hermite forms (the form and order
+  of the JAX ``_df_bicubic_tail_kernel`` too, R4b);
+* :func:`gathered_bicubic_df_weight_tail` (R4c): the same function in the
+  weight form of the JAX record ``df_records._df_bicubic_weight_tail``: 16
+  tensor-product Hermite weights a query, summed against the 16 cell-row
+  blocks one block after another;
 * :func:`gathered_bicubic_node_df_tail` (K14): the same Hermite forms from
   the four node rows of a :func:`pack_bicubic_nodes_df` table (the
   memory-frugal node layout), the derivatives scaled by the interval widths
@@ -32,8 +39,9 @@ first and run their tail kernels on them.
 Each kernel's plain version is here, in PyTorch float64 and the kernel's
 operation order: :func:`_df_bilinear_xla_tail` (on rows gathered with
 ``index_select``) for K10, the same after :func:`_unpack_f48_lo` for K11,
-:func:`_df_bicubic_tail` for K12 and, unpacked, K13, :func:`_df_node_tail`
-for K14.  A wrapper runs the plain version for CPU tensors and launches its
+:func:`_df_bicubic_tail` for K12 and, unpacked, K13,
+:func:`_df_bicubic_weight_tail` for R4c, :func:`_df_node_tail` for K14.  A
+wrapper runs the plain version for CPU tensors and launches its
 kernel for CUDA tensors; the kernels are bit-identical to the plain
 versions.  ``launches`` on each wrapper counts its kernel's launches.
 
@@ -197,6 +205,50 @@ def _df_bicubic_tail(rows, txh, txl, tyh, tyl, bp):
     return df_from_f64(_df_hermite_scaled(f_y1, f_y2, g_y1, g_y2, ty))
 
 
+def _df_hermite_basis(t):
+    """The four scaled-Hermite weights of ``(y_l, y_r, K_l, K_r)`` in
+    float64: ``u = 1 - t``, ``d = u - t``, ``p = t·u``, ``pd = p·d``, giving
+    ``[u + pd, t - pd, p·u, -(p·t)]`` (the closed form of
+    :func:`_df_hermite_scaled`, another rounding)."""
+    u = 1.0 - t
+    d = u - t
+    p = t * u
+    pd = p * d
+    return u + pd, t - pd, p * u, -(p * t)
+
+
+def _df_bicubic_weights(tx, ty):
+    """The 16 tensor-product weights, one per cell-row block ``4i + c``
+    (quantity ``i`` of ``[f, kx, ky, kxy]``, corner ``c`` of ``[11, 12, 21,
+    22]``): ``W[4i + c] = Ax[i][c >> 1] · Ay[i][c & 1]``, with ``Ax`` the
+    value basis of x for ``i`` in {0, 2} and its derivative basis for {1,
+    3}, ``Ay`` the value basis of y for {0, 1} and its derivative basis for
+    {2, 3}."""
+    bx = _df_hermite_basis(tx)
+    by = _df_hermite_basis(ty)
+    w16 = []
+    for i in range(4):
+        ax = bx[:2] if i in (0, 2) else bx[2:]
+        ay = by[:2] if i in (0, 1) else by[2:]
+        w16 += [ax[c >> 1] * ay[c & 1] for c in range(4)]
+    return w16
+
+
+def _df_bicubic_weight_tail(rows, txh, txl, tyh, tyl, bp):
+    """The weight-form bicubic tail on gathered :func:`pack_bicubic_rows_df`
+    rows ``(Q, 32·bp)`` at the fraction pairs ``(Q,)``, in float64:
+    ``s = W[0]·v[0]``, then ``s = s + W[b]·v[b]`` for ``b = 1 … 15``, each
+    block ``v[b]`` widened from its hi and lo halves first (the block order
+    of the JAX record's Mosaic branch).  Returns the ``(Q, bp)`` result
+    pair."""
+    w16 = _df_bicubic_weights(df_to_f64(txh, txl)[:, None], df_to_f64(tyh, tyl)[:, None])
+    s = None
+    for b, w in enumerate(w16):
+        term = w * df_to_f64(rows[:, b * bp : (b + 1) * bp], rows[:, (b + 16) * bp : (b + 17) * bp])
+        s = term if s is None else s + term
+    return df_from_f64(s)
+
+
 def _cells(packed, xi, yi, ny):
     return _gather_rows(packed, xi.long() * (ny - 1) + yi.long())
 
@@ -226,6 +278,13 @@ def _bicubic_df_tail_plain(packed, xi, yi, ny, txh, txl, tyh, tyl):
     """Plain version of K12: :func:`_df_bicubic_tail` on the gathered rows."""
     rows = _cells(packed, xi, yi, ny)
     return _df_bicubic_tail(rows, txh, txl, tyh, tyl, rows.shape[1] // 32)
+
+
+def _bicubic_df_weight_tail_plain(packed, xi, yi, ny, txh, txl, tyh, tyl):
+    """Plain version of R4c: :func:`_df_bicubic_weight_tail` on the gathered
+    rows."""
+    rows = _cells(packed, xi, yi, ny)
+    return _df_bicubic_weight_tail(rows, txh, txl, tyh, tyl, rows.shape[1] // 32)
 
 
 def _bicubic_f48_tail_plain(packed, xi, yi, ny, txh, txl, tyh, tyl):
@@ -341,6 +400,16 @@ def gathered_bicubic_df_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
     return _launch_tail("ndi_df_bicubic_tail", gathered_bicubic_df_tail, 32, *args)
 
 
+def gathered_bicubic_df_weight_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
+    """:func:`gathered_bicubic_df_tail` in the weight form: 16 weights a
+    query, summed block by block.  CPU tensors:
+    :func:`_bicubic_df_weight_tail_plain`; CUDA: R4c."""
+    args = (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo)
+    if _cuda.kernel_device("gathered_bicubic_df_weight_tail", tx_hi) == "cpu":
+        return _bicubic_df_weight_tail_plain(*args)
+    return _launch_tail("ndi_df_bicubic_weight_tail", gathered_bicubic_df_weight_tail, 32, *args)
+
+
 def gathered_bicubic_f48_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
     """:func:`gathered_bicubic_df_tail` on a :func:`pack_bicubic_rows_f48`
     table.  CPU tensors: :func:`_bicubic_f48_tail_plain`; CUDA: K13."""
@@ -365,6 +434,7 @@ def gathered_bicubic_node_df_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo
 gathered_bilinear_df_tail.launches = 0
 gathered_bilinear_f48_tail.launches = 0
 gathered_bicubic_df_tail.launches = 0
+gathered_bicubic_df_weight_tail.launches = 0
 gathered_bicubic_f48_tail.launches = 0
 gathered_bicubic_node_df_tail.launches = 0
 
@@ -418,13 +488,29 @@ def gathered_bilinear_eval_df(x_hi, x_lo, y_hi, y_lo, z_hi, z_lo, qx_hi, qx_lo, 
     return hi.reshape((nq,) + trailing), lo.reshape((nq,) + trailing)
 
 
+_BICUBIC_DF_TAILS = {
+    "mxu": gathered_bicubic_df_tail,
+    "nested": gathered_bicubic_df_tail,
+    "weight": gathered_bicubic_df_weight_tail,
+}
+
+
 def gathered_bicubic_eval_df_packed(x_hi, x_lo, y_hi, y_lo, packed, qx_hi, qx_lo, qy_hi,
-                                    qy_lo, r=1):
+                                    qy_lo, r=1, tail="mxu"):
     """The double-float bicubic route from a prepacked
-    :func:`pack_bicubic_rows_df` table: K7 twice, then K12.  Flat queries;
-    returns the ``(nq, r)`` result pair."""
-    return _packed_route(gathered_bicubic_df_tail, x_hi, x_lo, y_hi, y_lo, packed, r,
-                         qx_hi, qx_lo, qy_hi, qy_lo)
+    :func:`pack_bicubic_rows_df` table: K7 twice, then the tail.  Flat
+    queries; returns the ``(nq, r)`` result pair.
+
+    ``tail`` picks the form, on every device (a CPU tensor runs the chosen
+    form's plain version): ``"nested"`` the five nested Hermite forms (K12),
+    ``"weight"`` the weight form summed block by block (R4c), and ``"mxu"``
+    (the default) K12 as well.  On the TPU ``"mxu"`` names a weight form
+    summed in a halving tree, an order that served the matrix unit; keeping
+    the nested kernel for it moves no value of the shipped route, and the
+    JAX package computes the nested form off the TPU whatever the tail.
+    Any other value raises ``KeyError``, as the JAX lookup does."""
+    kernel = _BICUBIC_DF_TAILS[tail]
+    return _packed_route(kernel, x_hi, x_lo, y_hi, y_lo, packed, r, qx_hi, qx_lo, qy_hi, qy_lo)
 
 
 def gathered_bicubic_eval_f48_packed(x_hi, x_lo, y_hi, y_lo, packed, qx_hi, qx_lo, qy_hi,

@@ -35,7 +35,7 @@ def get_lower_index(knots, xq):
     """
     n = knots.shape[0]
     idx = torch.searchsorted(knots, xq.contiguous(), right=True, out_int32=True)
-    return (idx - 1).clamp_(0, n - 2)
+    return (idx - 1).clamp(0, n - 2)  # not in place: the batching rule of vmap
 
 
 def is_in_range(knots, xq):

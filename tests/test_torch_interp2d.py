@@ -391,7 +391,7 @@ def test_interop_carries_jax_state(kind, monkeypatch):
     qy = rng.uniform(y[0] - 0.5, y[-1] + 0.5, 200)
     assert_scaled_close(t(qx, qy), j(jnp.asarray(qx), jnp.asarray(qy)), np.float64)
     with pytest.raises(ValueError, match="strategy must be"):
-        interp2d_from_numpy(x, y, z, strategy="nearest", device="cpu")
+        interp2d_from_numpy(x, y, z, strategy="lanczos", device="cpu")
 
 
 # -- autograd -------------------------------------------------------------------------------

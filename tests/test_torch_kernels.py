@@ -281,12 +281,14 @@ def cell_tables(nx, ny, r, dev, seed):
                 ek.pack_bilinear_rows_f48(*z)),
         "K12": (ek.gathered_bicubic_df_tail, ek._bicubic_df_tail_plain,
                 ek.pack_bicubic_rows_df(*rows, r)),
+        "R4c": (ek.gathered_bicubic_df_weight_tail, ek._bicubic_df_weight_tail_plain,
+                ek.pack_bicubic_rows_df(*rows, r)),
         "K13": (ek.gathered_bicubic_f48_tail, ek._bicubic_f48_tail_plain,
                 ek.pack_bicubic_rows_f48(*rows, r)),
     }
 
 
-@pytest.mark.parametrize("kid", ["K10", "K11", "K12", "K13"])
+@pytest.mark.parametrize("kid", ["K10", "K11", "K12", "K13", "R4c"])
 @pytest.mark.parametrize("nx,ny,r", [(3, 3, 1), (40, 33, 3), (100, 90, 16), (64, 50, 20)])
 def test_df2d_cell_tails_match_plain(dev, kid, nx, ny, r):
     kernel, plain, packed = cell_tables(nx, ny, r, dev, nx * ny + r)[kid]
@@ -325,6 +327,31 @@ def test_df2d_routes_count_launches_and_match_plain(dev):
             # the tables come from builds on two devices (PyTorch's own
             # float64 ops around K4 may round differently from the CPU's)
             torch.testing.assert_close(got.cpu(), want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("tail,kid", [("mxu", "K12"), ("nested", "K12"), ("weight", "R4c")])
+def test_df_bicubic_route_tails_launch_their_kernels(dev, tail, kid):
+    """``gathered_bicubic_eval_df_packed(tail=...)`` launches K7 twice and
+    its tail's kernel once, equal bit for bit to the same route on the CPU."""
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as ek
+    from ndarray_interp_tpu_torch.ops import kernel_wrappers
+
+    rng = np.random.default_rng(9)
+    x, y = np.cumsum(rng.uniform(0.2, 1.0, 30)), np.cumsum(rng.uniform(0.2, 1.0, 20))
+    rows = rng.normal(size=(29 * 19, 16 * 3))
+    qx = np.r_[rng.uniform(x[0] - 1, x[-1] + 1, 4997), [np.nan, np.inf, -np.inf]]
+    qy = rng.uniform(y[0] - 1, y[-1] + 1, qx.size)
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        args = (*pair(x, device), *pair(y, device), ek.pack_bicubic_rows_df(*pair(rows, device), 3),
+                *pair(qx, device), *pair(qy, device))
+        before = {k: w.launches for k, w in kernel_wrappers().items()}
+        outs.append([v.cpu() for v in ek.gathered_bicubic_eval_df_packed(*args, r=3, tail=tail)])
+        torch.cuda.synchronize()
+        after = {k: w.launches for k, w in kernel_wrappers().items()}
+        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        assert launched == ({"K7": 2, kid: 1} if device == dev else {})
+    assert same_pair(outs[0], outs[1])
 
 
 # -- K14 (the bicubic node tail) and K15 (the ND tail) ------------------------------
