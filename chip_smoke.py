@@ -86,7 +86,11 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    plain version at the paths' shapes with CUDA events (median, min and
    max of 7 runs after 2 warm-ups), and the paths' calls end to end: host
    wall time, and device busy time, idle share and the largest kernels
-   from a ``torch.profiler`` trace.
+   from a ``torch.profiler`` trace.  K4 is timed at the bank build (10,000
+   x 64), NS1's one column (its chain floor), NS3b's three solves, NS5b's
+   64 x 1,000,000 and with per-column diagonals, beside
+   ``torch.linalg.solve_ex`` on the dense matrix (10,000 x 64, 512 x 8,192);
+   K15 beside the floor of its rows' bytes.
 
 Any failure exits non-zero before the result lines.  The second-to-last
 line is the kernels' JSON record; the last line is the contract line
@@ -746,6 +750,13 @@ def timing(state, card, rec):
     lib = device_ms(lambda: torch.searchsorted(knots, q3, right=True), 50)
     times["K3"]["library_ms"] = lib[0]
     print(f"  K3 library call torch.searchsorted: {fmt(lib)}", flush=True)
+    label, args = systems["K4"][1]
+    tk_, tp_ = device_ms(lambda: tk.thomas_solve_fast(*args), 3), device_ms(
+        lambda: thomas_solve(*args), 1)
+    bound_ms, bound_by = bound("K4", args)
+    print(f"  K4 {label} (the chain floor: one column, 2 x 2,047 dependent steps): kernel "
+          f"{fmt(tk_)}, plain {fmt(tp_)}, bound {bound_ms:.4f} ({bound_by})", flush=True)
+    times["K4"]["library_ms"] = dense_solve_ms(systems["K4"][0], "K4")
 
     strat = CubicSpline().extrapolate(True)
     end_to_end({
@@ -775,6 +786,26 @@ def time_kernels(pairs, systems, card):
         print(f"  {kid} {shape}: kernel {fmt(tk_)}, plain {fmt(tp_)}, bound {bound_ms:.4f} "
               f"({bound_by})", flush=True)
     return times
+
+
+def dense_solve_ms(system, kid):
+    """The library yardstick of K4: ``torch.linalg.solve_ex`` on the assembled
+    dense (n, n) matrix of a shared-diagonal system (built outside the timed
+    window) for every column at once; median ms, printed with its distance
+    from the kernel's result."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops import thomas_kernel as tk
+
+    label, (up, mid, low, rhs) = system
+    a = torch.diag(mid) + torch.diag(up[:-1], 1) + torch.diag(low[1:], -1)
+    # solve_ex: torch.linalg.solve would synchronise to check its info flag
+    lib = device_ms(lambda: torch.linalg.solve_ex(a, rhs), 1)
+    got, ref = tk.thomas_solve_fast(up, mid, low, rhs), torch.linalg.solve(a, rhs)
+    err = float((got - ref).abs().max() / ref.abs().max())
+    print(f"  {kid} library call torch.linalg.solve_ex on the dense {tuple(a.shape)} matrix, "
+          f"{label}: {fmt(lib)} (scaled distance from the kernel {err:.2e})", flush=True)
+    return lib[0]
 
 
 def end_to_end(calls, what, card):
@@ -886,6 +917,18 @@ def bound(kid, args):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[width] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def row_floor_ms(kid, args):
+    """K15's reachable floor with random queries: each query's own cell row
+    read once (queries cannot share rows), its idx and t pairs and its output
+    pair, at the HBM rate."""
+    packed, idx, th, tl, _, nbasis = args
+    k, nq = idx.shape
+    nb = nbasis**k
+    bp = packed.shape[1] // (2 * nb if kid == "K15" else 3 * nb // 2)
+    row = packed.shape[1] * packed.element_size()
+    return (nq * (row + 8 * bp) + _nbytes(idx, th, tl)) / HBM_BYTES_PER_S * 1e3
 
 
 def df_timing(serving, card, rec):
@@ -1303,6 +1346,22 @@ def timing2d(state, card, rec):
     times = time_kernels({k: pairs[k] for k in timed}, systems, card)
     del cell, tx, ty
 
+    # K4 at the NS3b build: its three solves of the 512 x 512 x 16 grid (x, then
+    # y of the data and of the x derivatives), held bit for bit and timed as one
+    nak = (_NOT_A_KNOT, 0.0, _NOT_A_KNOT, 0.0)
+    kx = tk.thomas_solve_fast(*systems["K4"][0][1]).reshape(zd.shape)
+    solves = [systems["K4"][0][1]] + [
+        _assemble_system(bic.y, torch.movedim(g, 1, 0).reshape(ny, -1), *nak) for g in (zd, kx)]
+    ok = all([rec.add("K4", f"NS3b build solve {i}", tk.thomas_solve_fast(*a), thomas_solve(*a))
+              for i, a in enumerate(solves)])
+    tk_ = device_ms(lambda: [tk.thomas_solve_fast(*a) for a in solves], 3)
+    bound_ms = sum(bound("K4", a)[0] for a in solves)
+    print(f"  K4 NS3b build, three solves of (512, {zd[0].numel():,}) f32 "
+          f"({'bit-identical' if ok else 'MISMATCH'}): kernel {fmt(tk_)} for the three, bound "
+          f"{bound_ms:.4f} (bytes)", flush=True)
+    dense_solve_ms(systems["K4"][0], "K4")
+    del kx, solves
+
     # K4 with per-column diagonals (the JAX package's _kernel_batched) at the
     # bank build's shape
     n, bank = 10_000, 64
@@ -1667,11 +1726,14 @@ def timing_nd(state, card, rec):
     times = time_kernels(pairs, systems, card)
     for kid in ("K15", "K15f48"):
         kern, plain, _, (nk, npl) = pairs[kid]
+        print(f"  {kid} {systems[kid][0][0]}: row-read floor "
+              f"{row_floor_ms(kid, systems[kid][0][1]):.4f}")
         for label, args in systems[kid][1:]:
             tk_, tp_ = device_ms(lambda: kern(*args), nk), device_ms(lambda: plain(*args), npl)
             bound_ms, bound_by = bound(kid, args)
             print(f"  {kid} {label}: kernel {fmt(tk_)}, plain {fmt(tp_)}, bound {bound_ms:.4f} "
-                  f"({bound_by}); library: none", flush=True)
+                  f"({bound_by}), row-read floor {row_floor_ms(kid, args):.4f}; library: none",
+                  flush=True)
     del systems
 
     q32, qb = state["queries", "float32"], state["queries", "big"]
@@ -1985,6 +2047,19 @@ def timing_big(state, card, rec):
     bound_ms, bound_by = bound("K5", args)
     print(f"  K5 {label}: kernel {fmt(tk_)}, plain {fmt(tp_)}, bound {bound_ms:.4f} ({bound_by}); "
           f"library: none", flush=True)
+    # K4 at the NS5b build: 64 knots x 1,000,000 columns, the resident slice
+    from ndarray_interp_tpu_torch.models.strategies.cubic import _NOT_A_KNOT, _assemble_system
+    from ndarray_interp_tpu_torch.ops import thomas_kernel as tk
+    from ndarray_interp_tpu_torch.ops.thomas import thomas_solve
+
+    args = _assemble_system(x6, d6, _NOT_A_KNOT, 0.0, _NOT_A_KNOT, 0.0)
+    ok = rec.add("K4", "NS5b build 64 x 1,000,000", tk.thomas_solve_fast(*args),
+                 thomas_solve(*args))
+    tk_, tp_ = device_ms(lambda: tk.thomas_solve_fast(*args), 5), device_ms(
+        lambda: thomas_solve(*args), 1)
+    bound_ms, bound_by = bound("K4", args)
+    print(f"  K4 NS5b build 64 x 1,000,000 f32 ({'bit-identical' if ok else 'MISMATCH'}): kernel "
+          f"{fmt(tk_)}, plain {fmt(tp_)}, bound {bound_ms:.4f} ({bound_by})", flush=True)
     args = (itpb.x, tbl, qb)
     tk_ = device_ms(lambda: ek.fused_eval_1d(*args), 50)
     bound_ms, bound_by = bound("K1", args)
@@ -2384,6 +2459,7 @@ def main():
     serving, served = serving_path(dev, state, np.random.default_rng(43))
     for kid in ("K6", "K7", "K8", "K9"):
         launches[kid] = served[kid]
+    launches["K4"] += served["K4"]
     print(f"  launches during the serving path: {served}")
 
     print(f"2-D path, {'x'.join(map(str, GRID2D))} at {NQ2D:,} queries (public API, "
@@ -2391,6 +2467,7 @@ def main():
     state2d, launched2d = path2d(dev, np.random.default_rng(44))
     for kid in ("R1", "R2b", "R2n", "K10", "K11", "K12", "K13"):
         launches[kid] = launched2d[kid]
+    launches["K4"] += launched2d["K4"]
     print(f"  launches during the 2-D path: {launched2d}")
     for kid in ("R1", "R2b", "R2n", "K4", "K7", "K10", "K11", "K12", "K13"):
         if launched2d[kid] <= 0:
@@ -2402,6 +2479,7 @@ def main():
     state_nd, launched_nd = nd_path(dev, np.random.default_rng(47))
     for kid in ("K14", "K15", "K15f48"):
         launches[kid] = launched_nd[kid]
+    launches["K4"] += launched_nd["K4"]
     print(f"  launches during the N-D path: {launched_nd}")
     for kid in ("K2", "K4", "K7", "K14", "K15", "K15f48"):
         if launched_nd[kid] <= 0:
@@ -2411,7 +2489,7 @@ def main():
     print(f"wide-bank and long-axis path (NS5, NS5b, NS2b, NS1b, NS4; public API, "
           "device='cuda'; counts set to 0 before each call):", flush=True)
     state_big, launched_big = bank_big_path(dev, np.random.default_rng(48))
-    for kid in ("K5", "R2a", "R3", "R3idx"):
+    for kid in ("K4", "K5", "R2a", "R3", "R3idx"):
         launches[kid] += launched_big[kid]
     print(f"  launches during the wide-bank and long-axis path: {launched_big}")
     for kid in ("K1", "K2", "K4", "K5", "R2a", "R3", "R3idx"):
@@ -2435,6 +2513,8 @@ def main():
           "counts set to 0 before each call):", flush=True)
     calc, launched_calc = calculus_path(dev, state, state2d, np.random.default_rng(50))
     print(f"  launches during the calculus path: {launched_calc}")
+    launches["K4"] += launched_tails["K4"] + launched_steps["K4"] + launched_calc["K4"]
+    print(f"  K4 launches over every path: {launches['K4']}")
     for kid in ("K2", "K3", "K4"):
         if launched_calc[kid] <= 0:
             fail(f"{kid} was not launched by the calculus path")

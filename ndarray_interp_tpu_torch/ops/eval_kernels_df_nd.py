@@ -162,6 +162,8 @@ def _launch_nd(wrapper, f48, packed, idx, t_hi, t_lo, cstrides, nbasis):
     strides = _cuda.NdStrides()
     strides.s[:k] = [int(s) for s in cstrides]
     packed = packed.contiguous()
+    if packed.data_ptr() % 16:  # the kernel reads bp = 1 rows with 16-byte loads
+        packed = packed.clone()
     _cuda.launch(
         "ndi_f48_nd_tail" if f48 else "ndi_df_nd_tail", torch.float32, t_hi.device,
         packed, packed.shape[0], packed.shape[1], bp, k, nbasis, idx.contiguous(), strides,

@@ -2,9 +2,12 @@
 
 Counterpart of ``ndarray_interp_tpu.ops.pallas_thomas``.  The CUDA kernel
 (``csrc/thomas_kernel.cu``) replaces both of its Pallas kernels, ``_kernel``
-(shared diagonals) and ``_kernel_batched`` (per-column diagonals): one thread
-per bank column steps down the knot axis in the reference elimination order,
-bit-identical to the plain loop :func:`.thomas.thomas_solve`.
+(shared diagonals) and ``_kernel_batched`` (per-column diagonals), in the
+reference elimination order, bit-identical to the plain loop
+:func:`.thomas.thomas_solve`.  With shared diagonals a first launch computes
+the column-independent ``w``, ``mid'`` chain once; then a warp a block
+sweeps 32 columns, its rows staged through shared memory, and keeps the
+whole slice there when it fits.
 
 On the TPU the JAX package solves the build by parallel cyclic reduction,
 which won on that chip; on this card the Thomas kernel is the build until a
@@ -40,7 +43,8 @@ def _launch(a_up, a_mid, a_low, rhs):
                 f"thomas_solve_fast: diagonal of length {d.shape[0]}, rhs of {n}"
             )
     k = torch.empty_like(rhs2)
-    scratch = torch.empty_like(rhs2)  # the swept diagonal, per column
+    # per column the swept diagonal mid'; shared, the chain's w and mid' once
+    scratch = torch.empty_like(rhs2) if per_column else rhs2.new_empty((2, n))
     _cuda.launch(
         "ndi_thomas", dtype, rhs.device,
         a_up, a_mid, a_low, rhs2, k, scratch, n, bank, int(per_column),

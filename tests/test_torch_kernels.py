@@ -69,9 +69,20 @@ def test_search_and_eval_kernels_match_plain(dev, dtype, n):
     torch.cuda.synchronize()
 
 
+# Every branch of K4: n of 1-3 rows, about one chunk (32 rows) and the ring of
+# eight chunks (256 rows), not a multiple of either; the resident slice (f32 up to
+# 1,440 rows, f64 704: n = 1,000 is resident in f32 and streams in f64) and the
+# streaming form (n = 10,000); banks of 1, 31, 33 (a partial block, two blocks)
+# and 8,192; shared and per-column diagonals.
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("n,bank,per_column", [(1, 5, False), (3, 1, False),
-                                                (300, 200, False), (129, 70, True)])
+@pytest.mark.parametrize("n,bank,per_column", [
+    (1, 5, False), (3, 1, False), (300, 200, False), (129, 70, True),
+    (1, 1, False), (1, 33, True), (2, 31, False), (2, 1, True), (3, 33, False), (3, 31, True),
+    (31, 8192, False), (33, 33, True), (255, 31, False), (257, 33, False), (257, 1, True),
+    (1000, 31, False), (1000, 33, True), (704, 33, False), (1440, 31, False),
+    (10_000, 1, False), (10_000, 33, False), (10_000, 31, True), (513, 8192, False),
+    (64, 8192, False), (129, 8192, True),
+])
 def test_thomas_kernel_matches_plain_loop(dev, dtype, n, bank, per_column):
     from ndarray_interp_tpu_torch.ops.thomas import thomas_solve
     from ndarray_interp_tpu_torch.ops.thomas_kernel import thomas_solve_fast
@@ -374,22 +385,26 @@ def test_df_bicubic_node_tail_matches_plain(dev, nx, ny, r):
 
 
 @pytest.mark.parametrize("grade", ["df", "f48"])
-@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6])
 @pytest.mark.parametrize("nbasis", [2, 4])
 @pytest.mark.parametrize("r", [1, 3, 20])
 def test_nd_tail_matches_plain(dev, grade, k, nbasis, r):
-    """Both of the JAX kernel's paths: bp = 1 (r = 1) and bp > 1 (r = 3, and
-    r = 20 padded to bp = 24)."""
+    """Every compiled (k, nbasis, grade) on both of the JAX kernel's paths:
+    bp = 1 (r = 1: the group kernel at nb >= 32, the row kernel at 4 <= nb <
+    32, the element kernel at nb = 2) and bp > 1 (r = 3, and r = 20 padded to
+    bp = 24); NaN and +-inf fractions and clamped cells among the queries."""
     from ndarray_interp_tpu_torch.ops import eval_kernels_df_nd as ek
 
     rng = np.random.default_rng(100 * k + 10 * nbasis + r)
-    cells = [6, 5, 4, 3][:k]
     nb = nbasis**k
+    cells = [6, 5, 4, 3, 2, 2][:k] if nb < 1024 else [2] * k
     rows = rng.normal(size=(int(np.prod(cells)), nb * r))
     packed = getattr(ek, f"pack_rows_nd_{grade}")(*pair(rows, dev), nb, r)
-    nq = 20_000
-    idx = torch.as_tensor(np.stack([rng.integers(0, c, nq) for c in cells]), dtype=torch.int32,
-                          device=dev)
+    nq = min(20_000, 2**22 // (nb * ek._nd_bp(r)))  # the plain version holds (nq, nb, bp)
+    idx = np.stack([rng.integers(0, c, nq) for c in cells])
+    idx[:, :2] = -3  # cells the clamp moves: before the first, after the last
+    idx[:, 2:4] = np.array(cells)[:, None] + 2
+    idx = torch.as_tensor(idx, dtype=torch.int32, device=dev)
     t = np.r_[rng.uniform(-0.5, 1.5, k * nq - 6), [np.inf, -np.inf, np.nan, 1e30, 0.0, 1.0]]
     th, tl = (v.reshape(k, nq) for v in pair(rng.permutation(t), dev))
     cstrides = [int(np.prod(cells[d + 1:])) for d in range(k)]
@@ -398,6 +413,30 @@ def test_nd_tail_matches_plain(dev, grade, k, nbasis, r):
     args = (packed, idx, th, tl, cstrides, nbasis)
     assert same_pair(kernel(*args), plain(*args))
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("grade", ["df", "f48"])
+def test_nd_tail_reads_a_misaligned_table(dev, grade):
+    """A table view that starts 4 bytes into its storage: the wrapper copies
+    it to a 16-byte boundary for the kernel's vector loads."""
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df_nd as ek
+
+    rng = np.random.default_rng(5)
+    cells, nb = [7, 6, 5], 64
+    rows = rng.normal(size=(int(np.prod(cells)), nb))
+    packed = getattr(ek, f"pack_rows_nd_{grade}")(*pair(rows, dev), nb, 1)
+    flat = torch.empty(packed.numel() + 1, device=dev)
+    view = flat[1:].view(packed.shape)
+    view.copy_(packed)
+    assert view.data_ptr() % 16
+    nq = 5000
+    idx = torch.as_tensor(np.stack([rng.integers(0, c, nq) for c in cells]), dtype=torch.int32,
+                          device=dev)
+    th, tl = (v.reshape(3, nq) for v in pair(rng.uniform(0, 1, 3 * nq), dev))
+    args = (view, idx, th, tl, [30, 5, 1], 4)
+    kernel = {"df": ek.nd_df_tail, "f48": ek.nd_f48_tail}[grade]
+    plain = {"df": ek._nd_df_tail_plain, "f48": ek._nd_f48_tail_plain}[grade]
+    assert same_pair(kernel(*args), plain(*args))
 
 
 def test_nd_tail_raises_above_its_axis_limit(dev):

@@ -252,6 +252,27 @@ def test_thomas_matches_pallas_batched_kernel(n, bank):
     np.testing.assert_allclose(got.numpy(), want, **THOMAS_TOL[np.float32])
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_thomas_shared_chain_once_is_the_plain_loop(dtype):
+    """K4's factoring for shared diagonals: the column-independent w, mid'
+    chain computed once, then each column's r and back substitution, gives
+    the plain loop's bits (the loop broadcasts the same w and mid')."""
+    up, mid, low, rhs = (torch.as_tensor(v) for v in system(70, 9, False, dtype))
+    n = rhs.shape[0]
+    w, m = [None], [mid[0]]
+    for i in range(1, n):
+        w.append(low[i] / m[i - 1])
+        m.append(mid[i] - w[i] * up[i - 1])
+    r = [rhs[0]]
+    for i in range(1, n):
+        r.append(rhs[i] - w[i] * r[i - 1])
+    k = [None] * n
+    k[n - 1] = r[n - 1] / m[n - 1]
+    for i in range(n - 2, -1, -1):
+        k[i] = (r[i] - up[i] * k[i + 1]) / m[i]
+    assert torch.equal(torch.stack(k), t_th.thomas_solve(up, mid, low, rhs))
+
+
 @pytest.mark.parametrize("per_column", [False, True])
 def test_thomas_wrapper_on_cpu_is_the_plain_loop(per_column):
     args = [torch.as_tensor(v) for v in system(40, 6, per_column, np.float64)]
