@@ -90,7 +90,16 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    x 64), NS1's one column (its chain floor), NS3b's three solves, NS5b's
    64 x 1,000,000 and with per-column diagonals, beside
    ``torch.linalg.solve_ex`` on the dense matrix (10,000 x 64, 512 x 8,192);
-   K15 beside the floor of its rows' bytes.
+   K12, K14 and K15 beside the floor of their rows' bytes.  K12 (at NS3d)
+   and K14 (at NS3e) also run their ordering by cell apart, held against
+   its plain version (the same bucket keys, a permutation of the queries)
+   and timed beside ``torch.argsort`` of the same keys, and both of their
+   branches (ordered, and the unordered body of small batches) are held bit
+   for bit and timed in turn on the path's queries, on all of them in one
+   cell, on them already in cell order, at batch sizes from 4,096 up (the
+   crossover), and on narrower tables (K12 at 3 channels, bp 8; K14 at 3, 4
+   and 8 channels, 3 on one float a lane): the data behind the wrappers'
+   choice of branch.
 
 Any failure exits non-zero before the result lines.  The second-to-last
 line is the kernels' JSON record; the last line is the contract line
@@ -886,6 +895,12 @@ def bound(kid, args):
         elems = idx.numel() * bank
         nbytes = _nbytes(packed, idx, th, tl) + 8 * elems
         ops, width = (17 if kid == "K8" else 21) * elems, 8
+    elif kid == "ORD":  # xi, yi, row_step, lo, rows, tx_hi, tx_lo, ty_hi, ty_lo
+        xi, yi, _, _, _, *t = args
+        # the queries' indices and fraction halves in, the 24 bytes a record
+        # holds out (the kernel writes 32, two of them padding); a compare and
+        # an add a query
+        nbytes, ops, width = _nbytes(xi, yi, *t) + 24 * xi.numel(), 4 * xi.numel(), 4
     elif kid == "K14":  # packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo
         packed, xi, yi, _, *t = args
         elems = xi.numel() * ((packed.shape[1] - 4) // 8)  # the (Q, r) output pair
@@ -920,15 +935,128 @@ def bound(kid, args):
 
 
 def row_floor_ms(kid, args):
-    """K15's reachable floor with random queries: each query's own cell row
-    read once (queries cannot share rows), its idx and t pairs and its output
-    pair, at the HBM rate."""
+    """The floor of a design that reads each query's own rows from HBM, as
+    queries in random order do: its rows (K15 one cell row, K12 one cell row,
+    K14 four node rows), its idx and t pairs and its output pair, at the HBM
+    rate."""
+    if kid in ("K12", "K14"):  # packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo
+        packed, xi, yi, _, *t = args
+        ch, nq = packed.shape[1], xi.numel()
+        if kid == "K12":  # one row of 32 bp floats, a (bp,) output pair
+            per_query = 4 * ch + 8 * (ch // 32)
+        else:  # four rows of 8 r + 4 floats, an (r,) output pair
+            per_query = 4 * 4 * ch + 8 * ((ch - 4) // 8)
+        return (nq * per_query + _nbytes(xi, yi, *t)) / HBM_BYTES_PER_S * 1e3
     packed, idx, th, tl, _, nbasis = args
     k, nq = idx.shape
     nb = nbasis**k
     bp = packed.shape[1] // (2 * nb if kid == "K15" else 3 * nb // 2)
     row = packed.shape[1] * packed.element_size()
     return (nq * (row + 8 * bp) + _nbytes(idx, th, tl)) / HBM_BYTES_PER_S * 1e3
+
+
+ORDER_SWEEP = (4096, 16_384, 65_536, 131_072, 262_144, 524_288)
+
+
+def ordered_phase(kid, system, card, rec, extra=()):
+    """K12 or K14 on a path's table and queries ``system``: the ordering by
+    cell held against its plain version (the same bucket keys, a permutation
+    of the queries, each record its query's row value and fraction halves)
+    and timed apart beside ``torch.argsort`` of the same keys; then both
+    branches of the kernel, ordered and the unordered body, held bit for bit
+    against the plain version and timed in turn on the path's queries, on
+    all of them in one cell, on them already in cell order, on prefixes of
+    ``ORDER_SWEEP`` queries (the crossover behind the wrappers' choice), and
+    on the ``extra`` (label, args).  Returns the keys the kernels line adds."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops import cell_order as co
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as e2
+
+    kern, plain = {
+        "K12": (e2.gathered_bicubic_df_tail, e2._bicubic_df_tail_plain),
+        "K14": (e2.gathered_bicubic_node_df_tail, e2._bicubic_node_df_tail_plain),
+    }[kid]
+    label, args = system
+    packed, xi, yi, ny, *t = args
+    rows, nq = packed.shape[0], xi.shape[0]
+    row_step, lo = (ny - 1, 0) if kid == "K12" else (ny, -(ny + 1))
+
+    oargs = (xi, yi, row_step, lo, rows, *t)
+    v, qid, frac = co.record_fields(co.order_by_cell(*oargs))
+    want_v = co.record_fields(co._order_plain(*oargs))[0]
+    values = co.row_values(xi, yi, row_step, lo, rows)
+    keys = co.bucket_keys(values, rows)
+    qid = qid.long()
+    checks = {
+        "bucket keys": torch.equal(co.bucket_keys(v.long(), rows),
+                                   co.bucket_keys(want_v.long(), rows)),
+        "permutation": torch.equal(torch.sort(qid).values, torch.arange(nq, device=xi.device)),
+        "row values": torch.equal(v.long(), values[qid]),
+        "fractions": bit_compare(frac, torch.stack(t, dim=1)[qid])[0],
+    }
+    del v, qid, frac, want_v
+    order = device_ms(lambda: co.order_by_cell(*oargs), 10)
+    order_plain = device_ms(lambda: co._order_plain(*oargs), 2)
+    argsort = device_ms(lambda: torch.argsort(keys), 10)
+    order_bound = bound("ORD", oargs)[0]
+    busy, top = busy_ms(lambda: co.order_by_cell(*oargs), 10)
+    bad = [k for k, ok in checks.items() if not ok]
+    print(f"  ORD ordering by cell for {kid}, {label} ({rows:,} buckets of 2^"
+          f"{co.bucket_shift(rows)} rows): {'matches its plain version' if not bad else bad} "
+          f"(bucket keys, permutation, records); kernel {fmt(order)}, plain (stable argsort) "
+          f"{fmt(order_plain)}, bound {order_bound:.4f} (bytes); library call torch.argsort "
+          f"of the same keys {fmt(argsort)}; its kernels by the profiler (busy {busy:.4f}):",
+          flush=True)
+    for name, ms in top:
+        print(f"      {ms:.4f}  {name[:120]}")
+    if bad:
+        fail(f"ORD for {kid} {label}: {', '.join(bad)} differ from the plain ordering")
+
+    orders = e2._orders
+
+    def branches(what, a, calls):
+        """Both branches held against the plain version and timed in turn:
+        ordered, unordered, unordered, ordered; the median of each pair."""
+        want = plain(*a)
+        res, ok = {True: [], False: []}, True
+        try:
+            for ordered in (True, False, False, True):
+                e2._orders = lambda nq, fetched, ordered=ordered: ordered
+                if not res[ordered]:
+                    name = "ordered" if ordered else "unordered"
+                    ok &= rec.add_pair(kid, f"{what}, {name}", kern(*a), want)
+                res[ordered].append(device_ms(lambda: kern(*a), calls)[0])
+        finally:
+            e2._orders = orders
+        got = {k: float(np.median(v)) for k, v in res.items()}
+        n, per_query = a[1].shape[0], 4 * a[0].shape[1] * (1 if kid == "K12" else 4)
+        print(f"  {kid} {what}: {n:,} queries, {per_query:,} B of rows a query: ordered "
+              f"{got[True]:.4f} (ordering included), unordered body {got[False]:.4f} ms; "
+              f"{'both bit-identical to' if ok else 'MISMATCH against'} the plain version; "
+              f"the wrapper takes the {'ordered' if orders(n, per_query) else 'unordered'} "
+              f"branch", flush=True)
+        return got
+
+    print(f"  {kid} {label}: bound {bound(kid, args)[0]:.4f} (bytes), row-read floor "
+          f"{row_floor_ms(kid, args):.4f} (each query's own rows from HBM)", flush=True)
+    main = branches(label, args, 5)
+    hot = (packed, torch.full_like(xi, int(xi[0])), torch.full_like(yi, int(yi[0])), ny, *t)
+    branches("all queries in one cell", hot, 5)
+    del hot
+    perm = torch.argsort(values, stable=True)
+    branches("queries already in cell order", (packed, xi[perm], yi[perm], ny,
+                                                *(v[perm] for v in t)), 5)
+    del perm, values, keys
+    for n in ORDER_SWEEP:
+        branches(f"first {n:,} queries", (packed, xi[:n], yi[:n], ny, *(v[:n] for v in t)),
+                 20 if n <= 65_536 else 5)
+    for what, a in extra:
+        branches(what, a, 5)
+    torch.cuda.synchronize()
+    return {"unordered_ms": main[False], "row_floor_ms": row_floor_ms(kid, args),
+            "order_ms": order[0], "order_plain_ms": order_plain[0],
+            "order_bound_ms": order_bound, "order_library_ms": argsort[0]}
 
 
 def df_timing(serving, card, rec):
@@ -1345,6 +1473,16 @@ def timing2d(state, card, rec):
     timed = ("R1", "R2b", "R2c", "R2d", "R2n", "K10", "K11", "K12", "K13")
     times = time_kernels({k: pairs[k] for k in timed}, systems, card)
     del cell, tx, ty
+    # K12 on a cell table of 3 channels (bp 8, 1 KiB of rows a query) at NS3d's queries
+    rng = np.random.default_rng(51)
+    cells = (GRID2D[0] - 1) * (GRID2D[1] - 1)
+    narrow = e2.pack_bicubic_rows_df(*df_from_f64(torch.as_tensor(
+        rng.normal(size=(cells, 16 * 3)), device=qxd.device)), 3)
+    print("K12 at NS3d's table and queries, ordered by cell and unordered:", flush=True)
+    times["K12"].update(ordered_phase(
+        "K12", systems["K12"][0], card, rec,
+        [(f"cell table {GRID2D[0]}x{GRID2D[1]}x3 (bp 8)", (narrow, *systems["K12"][0][1][1:]))]))
+    del narrow
 
     # K4 at the NS3b build: its three solves of the 512 x 512 x 16 grid (x, then
     # y of the data and of the x derivatives), held bit for bit and timed as one
@@ -1724,6 +1862,20 @@ def timing_nd(state, card, rec):
             ok = compare(kid, label, kern(*args), plain(*args))
             print(f"  {kid} {label}: {'bit-identical' if ok else 'MISMATCH'}", flush=True)
     times = time_kernels(pairs, systems, card)
+    # K14 on node tables of 3 (one float a lane), 4 and 8 channels at NS3e's grid and queries
+    nx_e, ny_e = itp_e.x.shape[0], itp_e.y.shape[0]
+    narrow = []
+    for r in (3, 4, 8):
+        nodes = rng.normal(size=(nx_e * ny_e, 4 * r + 2))
+        nodes[:, 4 * r] = np.repeat(itp_e.x.cpu().numpy(), ny_e)
+        nodes[:, 4 * r + 1] = np.tile(itp_e.y.cpu().numpy(), nx_e)
+        packed = e2.pack_bicubic_nodes_df(*df_from_f64(torch.as_tensor(nodes, device=qx.device)))
+        narrow.append((f"node table {nx_e}x{ny_e}x{r}{' (r % 4 != 0)' if r % 4 else ''}",
+                       (packed, *systems["K14"][0][1][1:])))
+    del nodes, packed
+    print("K14 at NS3e's table and queries, ordered by cell and unordered:", flush=True)
+    times["K14"].update(ordered_phase("K14", systems["K14"][0], card, rec, narrow))
+    del narrow
     for kid in ("K15", "K15f48"):
         kern, plain, _, (nk, npl) = pairs[kid]
         print(f"  {kid} {systems[kid][0][0]}: row-read floor "
@@ -2468,8 +2620,9 @@ def main():
     for kid in ("R1", "R2b", "R2n", "K10", "K11", "K12", "K13"):
         launches[kid] = launched2d[kid]
     launches["K4"] += launched2d["K4"]
+    order_launches = {"K12": launched2d["ORD"]}
     print(f"  launches during the 2-D path: {launched2d}")
-    for kid in ("R1", "R2b", "R2n", "K4", "K7", "K10", "K11", "K12", "K13"):
+    for kid in ("R1", "R2b", "R2n", "K4", "K7", "K10", "K11", "K12", "K13", "ORD"):
         if launched2d[kid] <= 0:
             fail(f"{kid} was not launched by the 2-D path")
     elapsed("1-D, serving and 2-D paths")
@@ -2480,8 +2633,9 @@ def main():
     for kid in ("K14", "K15", "K15f48"):
         launches[kid] = launched_nd[kid]
     launches["K4"] += launched_nd["K4"]
+    order_launches["K14"] = launched_nd["ORD"]
     print(f"  launches during the N-D path: {launched_nd}")
-    for kid in ("K2", "K4", "K7", "K14", "K15", "K15f48"):
+    for kid in ("K2", "K4", "K7", "K14", "K15", "K15f48", "ORD"):
         if launched_nd[kid] <= 0:
             fail(f"{kid} was not launched by the N-D path")
     elapsed("N-D path")
@@ -2502,7 +2656,8 @@ def main():
     tails_args, launched_tails = tails_path(state2d)
     launches["R4c"] = launched_tails["R4c"]
     launches["K12"] += launched_tails["K12"]
-    for kid in ("K7", "K12", "R4c"):
+    order_launches["K12"] += launched_tails["ORD"]
+    for kid in ("K7", "K12", "R4c", "ORD"):
         if launched_tails[kid] <= 0:
             fail(f"{kid} was not launched by the NS3d tails path")
     print("step family (Nearest, the custom StepInterpolator, Nearest2D; public API, "
@@ -2544,6 +2699,10 @@ def main():
             "launches": launches[kid],
             "max_abs_err": rec.err[kid],
             **times[kid],
+            # K12 and K14: the launches of their ordering by cell on the paths
+            **({"order_launches": order_launches[kid],
+                "order_source": "ndarray_interp_tpu_torch/csrc/cell_order.cu"}
+               if kid in order_launches else {}),
         }
         for kid, (name, source, replaces) in KERNELS.items()
     ]

@@ -68,6 +68,20 @@
 // channels); here they stay in registers.  Its table (8 r + 4 floats a node,
 // about the grid's float64 memory) is a quarter of the DF cell table's, for
 // four row fetches a query instead of one.
+//
+// K12 and K14 at large batches.  With queries in random order each query's
+// row comes from HBM: ~2.1 GB for 1M queries, where the tables are 535 and
+// 554 MB.  Above a batch size the wrappers first order the queries by cell
+// (csrc/cell_order.cu) and run bicubic_ordered_kernel / node_ordered_kernel
+// on the ordered records: several queries a warp, W = 4 channels a lane on
+// float4 rows where the blocks allow it, the results written to each query's
+// own slot.  Queries of one cell then share one fetch in a load instruction
+// or through L1, and the sweep over the cells reads each row from HBM about
+// once (K14's next x-column of nodes is reused from L2 one column later).
+// Each element is computed by the same operations in the same order as in
+// cell_tail_kernel<BicubicDF> and node_tail_kernel, so both paths are
+// bit-identical to the plain versions.  K10, K11, K13 and R4c keep the
+// unordered kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -285,6 +299,202 @@ __global__ void node_tail_kernel(const float* __restrict__ packed, int64_t rows,
   store_pair(hermite_scaled(f_y1, f_y2, g_y1 * dy, g_y2 * dy, ty), out_hi, out_lo, e);
 }
 
+// -- K12 and K14 on queries ordered by cell -------------------------------------------
+// The records come from csrc/cell_order.cu in cell order, 32 bytes each:
+// [v, qid, tx_hi, tx_lo, ty_hi, ty_lo, 0, 0] (the halves' bits), v the clamped
+// cell (K12) or the base node clamped to [-(ny + 1), rows - 1] (K14).  A warp takes
+// 32 / L queries of L lanes (L = the query's channel chunks, at most 32; the
+// lanes past them idle), each lane W channels of one chunk at a time: float4
+// rows where the blocks are 16-byte aligned (K12 at bp % 4 == 0, K14 at
+// r % 4 == 0), one float else.  Neighbouring queries of one warp mostly share
+// a cell, so one load instruction fetches their row once; the next warps, on
+// the same and the next cells, find it in L1 or L2.  Each result goes to its
+// query's own slot (qid, c), as the unordered kernels write it.
+
+template <int W>
+struct Vec;
+template <>
+struct Vec<4> {
+  __device__ static void load(const float* __restrict__ p, float* v) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  }
+  __device__ static void store(float* __restrict__ p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <>
+struct Vec<1> {
+  __device__ static void load(const float* __restrict__ p, float* v) { v[0] = __ldg(p); }
+  __device__ static void store(float* __restrict__ p, const float* v) { *p = v[0]; }
+};
+
+// W channels of a (hi, lo) block pair, widened
+template <int W>
+__device__ __forceinline__ void widen_w(const float* __restrict__ hi,
+                                        const float* __restrict__ lo, double* out) {
+  float h[W], l[W];
+  Vec<W>::load(hi, h);
+  Vec<W>::load(lo, l);
+#pragma unroll
+  for (int j = 0; j < W; ++j) out[j] = widen(h[j], l[j]);
+}
+
+// store_pair of W results at element i
+template <int W>
+__device__ __forceinline__ void store_pair_w(const double* r, float* __restrict__ out_hi,
+                                             float* __restrict__ out_lo, int64_t i) {
+  float h[W], l[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    h[j] = static_cast<float>(r[j]);
+    l[j] = isfinite(h[j]) ? static_cast<float>(r[j] - static_cast<double>(h[j])) : 0.0f;
+  }
+  Vec<W>::store(out_hi + i, h);
+  Vec<W>::store(out_lo + i, l);
+}
+
+// A record: the row value, the query's index and its two fractions, widened
+struct Record {
+  int32_t v, qid;
+  double tx, ty;
+};
+
+__device__ __forceinline__ Record record_at(const int4* __restrict__ rec, int64_t q) {
+  const int4 a = __ldg(rec + 2 * q);
+  const int4 b = __ldg(rec + 2 * q + 1);
+  return {a.x, a.y, widen(__int_as_float(a.z), __int_as_float(a.w)),
+          widen(__int_as_float(b.x), __int_as_float(b.y))};
+}
+
+// This lane's query slot in its warp: record q (valid only below n and in
+// the warp's 32 / size slots), lane `sub` of the `size` lanes that start at
+// lane `leader`.
+struct Slot {
+  int64_t q;
+  int sub, size, leader;
+  bool valid;
+};
+
+__device__ __forceinline__ Slot slot_of(int64_t chunks, int64_t n) {
+  Slot s;
+  s.size = chunks < 32 ? static_cast<int>(chunks) : 32;
+  const int per_warp = 32 / s.size;
+  const int lane = threadIdx.x & 31;
+  const int slot = lane / s.size;
+  const int64_t warp = (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) >> 5;
+  s.q = warp * per_warp + slot;
+  s.sub = lane - slot * s.size;
+  s.leader = slot * s.size;
+  s.valid = slot < per_warp && s.q < n;
+  return s;
+}
+
+// _df_hermite_scaled of W channels at c from the (hi, lo) blocks a, b, c, d
+// of a cell row: (y_l, y_r, K_l, K_r)
+template <int W>
+__device__ __forceinline__ void cell_hermite(const float* __restrict__ row, int64_t bp, int a,
+                                             int b, int c, int d, double t, double* out) {
+  double yl[W], yr[W], kl[W], kr[W];
+  widen_w<W>(row + a * bp, row + (a + 16) * bp, yl);
+  widen_w<W>(row + b * bp, row + (b + 16) * bp, yr);
+  widen_w<W>(row + c * bp, row + (c + 16) * bp, kl);
+  widen_w<W>(row + d * bp, row + (d + 16) * bp, kr);
+#pragma unroll
+  for (int j = 0; j < W; ++j) out[j] = hermite_scaled(yl[j], yr[j], kl[j], kr[j], t);
+}
+
+// K12 on ordered records: BicubicDF's forms, four blocks at a time
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+    bicubic_ordered_kernel(const float* __restrict__ packed, int64_t ch, int64_t bp,
+                           const int4* __restrict__ rec, float* __restrict__ out_hi,
+                           float* __restrict__ out_lo, int64_t n) {
+  const int64_t chunks = bp / W;
+  const Slot s = slot_of(chunks, n);
+  if (!s.valid) return;
+  const Record q = record_at(rec, s.q);
+  const double tx = q.tx, ty = q.ty;
+  const float* row = packed + static_cast<int64_t>(q.v) * ch;
+  for (int64_t k = s.sub; k < chunks; k += s.size) {
+    const float* cr = row + k * W;
+    double f1[W], f2[W], g1[W], g2[W], v[W];
+    cell_hermite<W>(cr, bp, 0, 2, 4, 6, tx, f1);
+    cell_hermite<W>(cr, bp, 1, 3, 5, 7, tx, f2);
+    cell_hermite<W>(cr, bp, 8, 10, 12, 14, tx, g1);
+    cell_hermite<W>(cr, bp, 9, 11, 13, 15, tx, g2);
+#pragma unroll
+    for (int j = 0; j < W; ++j) v[j] = hermite_scaled(f1[j], f2[j], g1[j], g2[j], ty);
+    store_pair_w<W>(v, out_hi, out_lo, static_cast<int64_t>(q.qid) * bp + k * W);
+  }
+}
+
+// The Hermite form along x of quantities i (value) and i + 1 (its x
+// derivative, scaled by dx) of W channels at c, between the node rows gl, gr
+template <int W>
+__device__ __forceinline__ void node_hermite(const float* __restrict__ gl,
+                                             const float* __restrict__ gr, int64_t r, int64_t c,
+                                             int i, double dx, double t, double* out) {
+  double yl[W], yr[W], kl[W], kr[W];
+  widen_w<W>(gl + 2 * i * r + c, gl + (2 * i + 1) * r + c, yl);
+  widen_w<W>(gr + 2 * i * r + c, gr + (2 * i + 1) * r + c, yr);
+  widen_w<W>(gl + (2 * i + 2) * r + c, gl + (2 * i + 3) * r + c, kl);
+  widen_w<W>(gr + (2 * i + 2) * r + c, gr + (2 * i + 3) * r + c, kr);
+#pragma unroll
+  for (int j = 0; j < W; ++j) out[j] = hermite_scaled(yl[j], yr[j], kl[j] * dx, kr[j] * dx, t);
+}
+
+// K14 on ordered records: the group's first lane reads the node coordinates
+// and passes dx, dy to the others, once a query
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+    node_ordered_kernel(const float* __restrict__ packed, int64_t rows, int64_t ch, int64_t r,
+                        int64_t ny, const int4* __restrict__ rec,
+                        float* __restrict__ out_hi, float* __restrict__ out_lo, int64_t n) {
+  const int64_t chunks = r / W;
+  const Slot s = slot_of(chunks, n);
+  const Record q = s.valid ? record_at(rec, s.q) : Record{0, 0, 0.0, 0.0};
+  const int64_t base = q.v;
+  const float* g11 = packed + clamp_row(base, rows) * ch;
+  const float* g12 = packed + clamp_row(base + 1, rows) * ch;
+  const float* g21 = packed + clamp_row(base + ny, rows) * ch;
+  const float* g22 = packed + clamp_row(base + ny + 1, rows) * ch;
+  double dx = 0.0, dy = 0.0;
+  if (s.valid && s.sub == 0) {
+    // [x_hi, x_lo, y_hi, y_lo] at 8 r: 16-byte aligned, since a row is 8 r + 4 floats
+    const float4 c11 = __ldg(reinterpret_cast<const float4*>(g11 + 8 * r));
+    const float2 x21 = __ldg(reinterpret_cast<const float2*>(g21 + 8 * r));
+    const float2 y12 = __ldg(reinterpret_cast<const float2*>(g12 + 8 * r + 2));
+    dx = widen(x21.x, x21.y) - widen(c11.x, c11.y);
+    dy = widen(y12.x, y12.y) - widen(c11.z, c11.w);
+  }
+  dx = __shfl_sync(0xFFFFFFFFu, dx, s.leader);
+  dy = __shfl_sync(0xFFFFFFFFu, dy, s.leader);
+  if (!s.valid) return;
+  const double tx = q.tx, ty = q.ty;
+  for (int64_t k = s.sub; k < chunks; k += s.size) {
+    const int64_t c = k * W;
+    double f1[W], f2[W], g1[W], g2[W], v[W];
+    node_hermite<W>(g11, g21, r, c, 0, dx, tx, f1);
+    node_hermite<W>(g12, g22, r, c, 0, dx, tx, f2);
+    node_hermite<W>(g11, g21, r, c, 2, dx, tx, g1);
+    node_hermite<W>(g12, g22, r, c, 2, dx, tx, g2);
+#pragma unroll
+    for (int j = 0; j < W; ++j) v[j] = hermite_scaled(f1[j], f2[j], g1[j] * dy, g2[j] * dy, ty);
+    store_pair_w<W>(v, out_hi, out_lo, static_cast<int64_t>(q.qid) * r + c);
+  }
+}
+
+// the grid of an ordered kernel: whole warps of 32 / L queries each
+inline unsigned int ordered_blocks(int64_t chunks, int64_t n) {
+  const int64_t per_warp = 32 / (chunks < 32 ? chunks : 32);
+  const int64_t warps = (n + per_warp - 1) / per_warp;
+  return static_cast<unsigned int>((warps * 32 + kThreads - 1) / kThreads);
+}
+
 template <class Tail>
 int launch(const void* packed, int64_t rows, int64_t ch, int64_t bp, const void* xi,
            const void* yi, int64_t ny1, const void* txh, const void* txl, const void* tyh,
@@ -335,6 +545,49 @@ int ndi_df_bicubic_node_tail_f32(const void* packed, int64_t rows, int64_t ch, i
         static_cast<const float*>(txl), static_cast<const float*>(tyh),
         static_cast<const float*>(tyl), static_cast<float*>(out_hi),
         static_cast<float*>(out_lo), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K12 and K14 on records of csrc/cell_order.cu: packed, rows, ch, bp (K12) or
+// r (K14), ny, rec (nq, 8) int32, out_hi, out_lo, nq
+int ndi_df_bicubic_tail_ordered_f32(const void* packed, int64_t rows, int64_t ch, int64_t bp,
+                                    int64_t ny, const void* rec, void* out_hi, void* out_lo,
+                                    int64_t nq, void* stream) {
+  (void)rows;
+  (void)ny;
+  if (nq > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float* p = static_cast<const float*>(packed);
+    const int4* q = static_cast<const int4*>(rec);
+    float* oh = static_cast<float*>(out_hi);
+    float* ol = static_cast<float*>(out_lo);
+    if (bp % 4 == 0)
+      bicubic_ordered_kernel<4><<<ordered_blocks(bp / 4, nq), kThreads, 0, s>>>(
+          p, ch, bp, q, oh, ol, nq);
+    else
+      bicubic_ordered_kernel<1><<<ordered_blocks(bp, nq), kThreads, 0, s>>>(
+          p, ch, bp, q, oh, ol, nq);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int ndi_df_bicubic_node_tail_ordered_f32(const void* packed, int64_t rows, int64_t ch,
+                                         int64_t r, int64_t ny, const void* rec,
+                                         void* out_hi, void* out_lo, int64_t nq,
+                                         void* stream) {
+  if (nq > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float* p = static_cast<const float*>(packed);
+    const int4* q = static_cast<const int4*>(rec);
+    float* oh = static_cast<float*>(out_hi);
+    float* ol = static_cast<float*>(out_lo);
+    if (r % 4 == 0)
+      node_ordered_kernel<4><<<ordered_blocks(r / 4, nq), kThreads, 0, s>>>(
+          p, rows, ch, r, ny, q, oh, ol, nq);
+    else
+      node_ordered_kernel<1><<<ordered_blocks(r, nq), kThreads, 0, s>>>(
+          p, rows, ch, r, ny, q, oh, ol, nq);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,11 +2,13 @@
 double-float pairs (``df``), and the wrappers of the CUDA kernels
 (``eval_kernels``, ``tail2d``, ``bank_eval``, ``bank_tail``, ``bigknots``,
 ``thomas_kernel``, ``eval_kernels_df``, ``eval_kernels_df2d``,
-``eval_kernels_df_nd``)."""
+``eval_kernels_df_nd``, and ``cell_order``, the ordering ahead of K12 and
+K14)."""
 
 from .bank_eval import banked_eval, can_use_banked
 from .bank_tail import banked_hermite_tail, gathered_bank_eval
 from .bigknots import MAX_BIG_KNOTS, big_eval_1d, big_lower_index_frac, can_use_big
+from .cell_order import order_by_cell
 from .eval_kernels import (
     fused_cell_index,
     fused_eval_1d,
@@ -74,6 +76,7 @@ __all__ = [
     "make_interval_table",
     "nd_df_tail",
     "nd_f48_tail",
+    "order_by_cell",
     "thomas_solve",
     "thomas_solve_fast",
 ]
@@ -81,7 +84,8 @@ __all__ = [
 
 def kernel_wrappers():
     """The wrapper of every CUDA kernel, by the id the docs give it; each
-    has a ``launches`` count.  K15's two grades have a wrapper each."""
+    has a ``launches`` count.  K15's two grades have a wrapper each; "ORD"
+    is the ordering of a batch by cell ahead of K12 and K14 (no TPU twin)."""
     return {
         "K1": fused_eval_1d,
         "K2": fused_index_frac,
@@ -108,4 +112,5 @@ def kernel_wrappers():
         "R2d": bicubic_tree_tail,
         "R2n": bicubic_nested_tail,
         "R4c": gathered_bicubic_df_weight_tail,
+        "ORD": order_by_cell,
     }

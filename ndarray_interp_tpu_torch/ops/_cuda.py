@@ -2,7 +2,8 @@
 
 The kernels are compiled with ``nvcc`` into one shared library with a plain
 ``extern "C"`` interface and loaded with ``ctypes``; no PyTorch header is
-compiled, so a build takes seconds.  The build happens at first use, never
+compiled, so a build takes seconds: one ``nvcc -c`` a source, all started
+together, then one link.  The build happens at first use, never
 at import, into ``ndarray_interp_tpu_torch/_build/``, keyed by a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one is
 loaded again.  A failed build raises.
@@ -32,12 +33,13 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 
-NVCC_FLAGS = (
+COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
     "-Xptxas=-v",  # registers and spills per kernel, kept in the build log
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
+NVCC_FLAGS = COMPILE_FLAGS + ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -96,6 +98,13 @@ _SIGNATURES = {
     "ndi_df_bicubic_node_tail": _CELL_TAIL,
     "ndi_df_nd_tail": _ND_TAIL,
     "ndi_f48_nd_tail": _ND_TAIL,
+    # packed, rows, ch, bp | r, ny, records, out_hi, out_lo, nq
+    "ndi_df_bicubic_tail_ordered": ((_P, _I, _I, _I, _I, _P, _P, _P, _I, _P), _PAIRS),
+    "ndi_df_bicubic_node_tail_ordered": ((_P, _I, _I, _I, _I, _P, _P, _P, _I, _P), _PAIRS),
+    # xi, yi, row_step, lo, rows, shift, tx_hi, tx_lo, ty_hi, ty_lo, counts,
+    # tile_sums, ntiles, records, nq
+    "ndi_cell_order": ((_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P),
+                       _PAIRS),
 }
 
 _lock = threading.Lock()
@@ -136,22 +145,42 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless this exact build exists; return its path.
 
-    The compiler's output (with ``-Xptxas=-v``: registers and spills of every
-    kernel) is kept beside the library as ``<library>.log``."""
+    Each source is compiled by its own ``nvcc -c``, all at once, and the
+    objects are linked into the library.  The compilers' output (with
+    ``-Xptxas=-v``: registers and spills of every kernel) is kept beside the
+    library as ``<library>.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    nvcc = _nvcc()
+    jobs = []
+    for src in sources():
+        obj, log = BUILD_DIR / f"{tag}.{src.stem}.o", BUILD_DIR / f"{tag}.{src.stem}.log"
+        cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+        with open(log, "w") as f:
+            jobs.append((cmd, obj, log, subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)))
+    logs, failed = [], []
+    for cmd, _, log, proc in jobs:
+        rc = proc.wait()
+        logs.append(log.read_text())
+        log.unlink()
+        if rc != 0:
+            failed.append(f"exit code {rc}:\n{' '.join(cmd)}\n{logs[-1]}")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"exit code {res.returncode}:\n{' '.join(cmd)}\n{logs[-1]}")
+    for _, obj, _, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {res.returncode}:\n"
-            f"{' '.join(cmd)}\n{res.stdout}{res.stderr}"
-        )
-    out.with_suffix(".so.log").write_text(res.stdout + res.stderr)
+        raise RuntimeError("nvcc failed with " + "\n".join(failed))
+    out.with_suffix(".so.log").write_text("".join(logs))
     os.replace(tmp, out)
     return out
 

@@ -36,6 +36,12 @@ channels.  K14 fetches the nodes ``xi·ny + yi``, ``+1``, ``+ny`` and
 ``+ny+1`` and writes ``(Q, r)``.  The JAX routes gather the rows with XLA
 first and run their tail kernels on them.
 
+K12 and K14 order a large batch by cell first (:mod:`.cell_order`, a
+counting sort on the card) and run on the ordered records, so that the
+queries of one cell share their row's fetch; each result still goes to its
+query's own slot.  Smaller batches, and tables of narrow rows, run
+unordered (:func:`_orders`).
+
 Each kernel's plain version is here, in PyTorch float64 and the kernel's
 operation order: :func:`_df_bilinear_xla_tail` (on rows gathered with
 ``index_select``) for K10, the same after :func:`_unpack_f48_lo` for K11,
@@ -61,6 +67,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
+from .cell_order import order_by_cell, record_fields
 from .df import df_from_f64, df_to_f64
 from .eval_kernels_df import (
     _as_f32_bits,
@@ -331,11 +338,61 @@ def _bicubic_node_df_tail_plain(packed, xi, yi, ny, txh, txl, tyh, tyl):
     return _df_node_tail(*g, txh, txl, tyh, tyl, (packed.shape[1] - 4) // 8)
 
 
+def _scatter_back(hi, lo, qid):
+    """Rows of ordered results put back at their queries' slots."""
+    out_hi, out_lo = torch.empty_like(hi), torch.empty_like(lo)
+    out_hi[qid.long()] = hi
+    out_lo[qid.long()] = lo
+    return out_hi, out_lo
+
+
+def _bicubic_df_tail_ordered_plain(packed, records):
+    """Plain version of K12 on ordered records (:mod:`.cell_order`): the
+    rows of the records' cells, :func:`_df_bicubic_tail` at their fraction
+    halves, each result put back at its query's slot."""
+    cell, qid, frac = record_fields(records)
+    rows = _gather_rows(packed, cell)
+    hi, lo = _df_bicubic_tail(rows, *frac.unbind(1), rows.shape[1] // 32)
+    return _scatter_back(hi, lo, qid)
+
+
+def _bicubic_node_df_tail_ordered_plain(packed, ny, records):
+    """Plain version of K14 on ordered records: the node rows ``v``, ``v+1``,
+    ``v+ny``, ``v+ny+1`` of each record's base ``v`` (each clamped to the
+    table), :func:`_df_node_tail`, each result put back at its query's
+    slot."""
+    base, qid, frac = record_fields(records)
+    g = [_gather_rows(packed, base.long() + off) for off in (0, 1, ny, ny + 1)]
+    hi, lo = _df_node_tail(*g, *frac.unbind(1), (packed.shape[1] - 4) // 8)
+    return _scatter_back(hi, lo, qid)
+
+
 # -- kernel launches -----------------------------------------------------------------
-def _launch_tail(symbol, wrapper, blocks, packed, xi, yi, ny, txh, txl, tyh, tyl):
+# K12 and K14 order a batch by cell first (``cell_order.order_by_cell``) when a
+# query reads at least _ORDER_MIN_ROW_BYTES of rows (one cell row; four node
+# rows) and the batch at least _ORDER_MIN_BYTES.  Ordering saves the HBM
+# re-reads of rows that the L2 (50 MB on an H100) no longer holds when their
+# next query comes, and costs ~60 ns a query.  Measured on an H100 80GB HBM3
+# at 700 W (chip_smoke.py): at 2 KiB of rows a query the ordered branch,
+# ordering included, overtakes the unordered body between 2^17 and 2^18
+# queries (256 and 512 MiB of rows, 5 and 10 times the L2); at 1M queries it
+# wins from 1 KiB a query (K12 at bp 8, K14 at 8 channels) and loses below
+# (K14 at 3 and 4 channels, 448 and 576 B).
+_ORDER_MIN_BYTES = 384 << 20
+_ORDER_MIN_ROW_BYTES = 1024
+
+
+def _orders(nq, fetched):
+    """Whether a batch of ``nq`` queries reading ``fetched`` bytes of rows
+    each is ordered by cell first."""
+    return fetched >= _ORDER_MIN_ROW_BYTES and nq * fetched >= _ORDER_MIN_BYTES
+
+
+def _launch_tail(symbol, wrapper, blocks, packed, xi, yi, ny, txh, txl, tyh, tyl, ordered=None):
     """Check the operands and launch a 2-D tail: a cell tail on a table of
     ``blocks·bp`` channels, or (``blocks=None``) K14 on a node table of
-    ``8r+4`` channels."""
+    ``8r+4`` channels.  ``ordered`` names the kernel on ordered records that
+    takes the batches :func:`_orders` picks (K12, K14)."""
     name = wrapper.__name__
     _cuda.pair_operands(name, txh, txl, tyh, tyl, packed)
     for what, idx in (("xi", xi), ("yi", yi)):
@@ -344,8 +401,10 @@ def _launch_tail(symbol, wrapper, blocks, packed, xi, yi, ny, txh, txl, tyh, tyl
     ch = packed.shape[-1]
     if blocks is None:  # K14 writes r channels and steps ny nodes a row of x
         width, ragged, bp, row_step = "8r+4", (ch - 4) % 8, (ch - 4) // 8, ny
+        fetched, lo = 4 * 4 * ch, -(ny + 1)
     else:  # a cell tail writes bp channels and steps ny - 1 cells a row of x
         width, ragged, bp, row_step = f"{blocks}·bp", ch % blocks, ch // blocks, ny - 1
+        fetched, lo = 4 * ch, 0
     if packed.ndim != 2 or ragged:
         raise ValueError(
             f"{name}: packed must have shape (rows, {width}), got {tuple(packed.shape)}"
@@ -360,13 +419,29 @@ def _launch_tail(symbol, wrapper, blocks, packed, xi, yi, ny, txh, txl, tyh, tyl
     out_hi = torch.empty((nq, bp), dtype=torch.float32, device=txh.device)
     out_lo = torch.empty_like(out_hi)
     packed = packed.contiguous()
-    _cuda.launch(
-        symbol, torch.float32, txh.device,
-        packed, packed.shape[0], packed.shape[1], bp, xi.contiguous(), yi.contiguous(), row_step,
-        *(v.contiguous() for v in (txh, txl, tyh, tyl)), out_hi, out_lo, nq,
-    )
+    if ordered is not None and _orders(nq, fetched):
+        records = order_by_cell(xi, yi, row_step, lo, packed.shape[0], txh, txl, tyh, tyl)
+        _launch_ordered(ordered, packed, bp, ny, records, out_hi, out_lo)
+    else:
+        _cuda.launch(
+            symbol, torch.float32, txh.device,
+            packed, packed.shape[0], packed.shape[1], bp, xi.contiguous(), yi.contiguous(),
+            row_step, *(v.contiguous() for v in (txh, txl, tyh, tyl)), out_hi, out_lo, nq,
+        )
     wrapper.launches += 1
     return out_hi, out_lo
+
+
+def _launch_ordered(symbol, packed, bp, ny, records, out_hi, out_lo):
+    """Launch K12 or K14 on the records of :func:`~.cell_order.order_by_cell`,
+    into the ``(nq, bp)`` outputs."""
+    if packed.data_ptr() % 16:  # the rows are read with 16-byte loads
+        packed = packed.clone()
+    _cuda.launch(
+        symbol, torch.float32, records.device,
+        packed, packed.shape[0], packed.shape[1], bp, ny, records.contiguous(), out_hi, out_lo,
+        records.shape[0],
+    )
 
 
 # -- public wrappers ---------------------------------------------------------------
@@ -393,11 +468,13 @@ def gathered_bilinear_f48_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
 def gathered_bicubic_df_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
     """Cell ``xi·(ny-1) + yi`` of the :func:`pack_bicubic_rows_df` table for
     each query, evaluated at its fractions: the ``(nq, bp)`` result pair.
-    CPU tensors: :func:`_bicubic_df_tail_plain`; CUDA: K12."""
+    CPU tensors: :func:`_bicubic_df_tail_plain`; CUDA: K12, on the queries
+    ordered by cell when the batch is large."""
     args = (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo)
     if _cuda.kernel_device("gathered_bicubic_df_tail", tx_hi) == "cpu":
         return _bicubic_df_tail_plain(*args)
-    return _launch_tail("ndi_df_bicubic_tail", gathered_bicubic_df_tail, 32, *args)
+    return _launch_tail("ndi_df_bicubic_tail", gathered_bicubic_df_tail, 32, *args,
+                        ordered="ndi_df_bicubic_tail_ordered")
 
 
 def gathered_bicubic_df_weight_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
@@ -424,11 +501,13 @@ def gathered_bicubic_node_df_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo
     ``+ny+1`` of the :func:`pack_bicubic_nodes_df` table for each query,
     evaluated at its fractions: the ``(nq, r)`` result pair.  ``ny`` is the
     y knot count.  CPU tensors: :func:`_bicubic_node_df_tail_plain`; CUDA:
-    K14, which fetches the node rows itself."""
+    K14, which fetches the node rows itself, on the queries ordered by cell
+    when the batch is large."""
     args = (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo)
     if _cuda.kernel_device("gathered_bicubic_node_df_tail", tx_hi) == "cpu":
         return _bicubic_node_df_tail_plain(*args)
-    return _launch_tail("ndi_df_bicubic_node_tail", gathered_bicubic_node_df_tail, None, *args)
+    return _launch_tail("ndi_df_bicubic_node_tail", gathered_bicubic_node_df_tail, None, *args,
+                        ordered="ndi_df_bicubic_node_tail_ordered")
 
 
 gathered_bilinear_df_tail.launches = 0

@@ -384,6 +384,199 @@ def test_df_bicubic_node_tail_matches_plain(dev, nx, ny, r):
     torch.cuda.synchronize()
 
 
+# -- K12 and K14 on queries ordered by cell, and the ordering kernel ------------------
+ORDER_KINDS = {"K12": lambda ny: (ny - 1, 0), "K14": lambda ny: (ny, -(ny + 1))}
+
+
+def order_indices(case, nx, ny, nq, rng):
+    """Interval indices: uniform, all in one cell, already in cell order, or
+    far outside the grid on both sides (the tails clamp them)."""
+    if case == "random":
+        return rng.integers(0, nx - 1, nq), rng.integers(0, ny - 1, nq)
+    if case == "hot":
+        return np.full(nq, nx // 2), np.full(nq, ny // 3)
+    if case == "sorted":
+        xi, yi = rng.integers(0, nx - 1, nq), rng.integers(0, ny - 1, nq)
+        order = np.lexsort((yi, xi))
+        return xi[order], yi[order]
+    return rng.integers(-3 * nx, 3 * nx, nq), rng.integers(-3 * ny, 3 * ny, nq)
+
+
+def order_fractions(rng, nq):
+    t = rng.uniform(-0.5, 1.5, (2, nq))
+    special = [np.nan, np.inf, -np.inf, 1e30, 0.0, 1.0]
+    k = min(nq, len(special))
+    t[0, :k], t[1, nq - k:] = special[:k], special[:k]
+    return t
+
+
+def ordered_case(kind, r, case, nq, dev, seed, nx=90, ny=70):
+    """A K12 cell table (``r`` channels; ``r = -5``: a raw table of bp = 5,
+    which no packer makes) or a K14 node table, and the wrapper's
+    arguments."""
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as ek
+
+    rng = np.random.default_rng(seed)
+    if kind == "K12":
+        cells = (nx - 1) * (ny - 1)
+        if r < 0:
+            packed = torch.as_tensor(rng.normal(size=(cells, 32 * -r)), dtype=torch.float32,
+                                     device=dev)
+        else:
+            packed = ek.pack_bicubic_rows_df(*pair(rng.normal(size=(cells, 16 * r)), dev), r)
+        xi, yi = order_indices(case, nx, ny, nq, rng)
+    else:
+        nodes = rng.normal(size=(nx * ny, 4 * r + 2))
+        nodes[:, 4 * r] = np.repeat(np.cumsum(rng.uniform(0.2, 1.0, nx)), ny)
+        nodes[:, 4 * r + 1] = np.tile(np.cumsum(rng.uniform(0.2, 1.0, ny)), nx)
+        packed = ek.pack_bicubic_nodes_df(*pair(nodes, dev))
+        xi, yi = order_indices(case, nx - 1, ny - 1, nq, rng)
+    t = order_fractions(rng, nq)
+    idx = [torch.as_tensor(v, dtype=torch.int32, device=dev) for v in (xi, yi)]
+    return (packed, *idx, ny, *pair(t[0], dev), *pair(t[1], dev))
+
+
+def ordered_tail(kind):
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as ek
+
+    if kind == "K12":
+        return (ek.gathered_bicubic_df_tail, ek._bicubic_df_tail_plain,
+                "ndi_df_bicubic_tail_ordered")
+    return (ek.gathered_bicubic_node_df_tail, ek._bicubic_node_df_tail_plain,
+            "ndi_df_bicubic_node_tail_ordered")
+
+
+def force_branch(monkeypatch, ordered):
+    """Make the K12 and K14 wrappers take one branch whatever the batch."""
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as ek
+
+    monkeypatch.setattr(ek, "_orders", lambda nq, fetched: ordered)
+
+
+def launched_by(fn):
+    from ndarray_interp_tpu_torch.ops import kernel_wrappers
+
+    before = {k: w.launches for k, w in kernel_wrappers().items()}
+    out = fn()
+    torch.cuda.synchronize()
+    after = {k: w.launches for k, w in kernel_wrappers().items()}
+    return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@pytest.mark.parametrize("ordered", [True, False])
+@pytest.mark.parametrize("kind,r", [("K12", 1), ("K12", 3), ("K12", 16), ("K12", 20),
+                                    ("K12", -5), ("K14", 1), ("K14", 3), ("K14", 4),
+                                    ("K14", 16), ("K14", 20), ("K14", 37), ("K14", 132)])
+def test_df_bicubic_tails_ordered_and_unordered_match_plain(dev, kind, r, ordered, monkeypatch):
+    """Both branches of K12 and K14 at every row width: float4 rows (K12 bp
+    of 8, 16, 24; K14 r of 4, 16, 20, 132) and one float a lane (K12 bp = 5,
+    K14 r of 1, 3, 37), a query's chunks on one lane each or, past 32 (K14 r
+    = 37, 132), looped; NaN and +-inf fractions among the queries.  The
+    ordered branch launches the ordering once and the tail once."""
+    force_branch(monkeypatch, ordered)
+    kernel, plain, _ = ordered_tail(kind)
+    args = ordered_case(kind, r, "random", 40_000 if abs(r) < 100 else 8_000, dev, abs(r))
+    got, launched = launched_by(lambda: kernel(*args))
+    assert launched == ({"ORD": 1, kind: 1} if ordered else {kind: 1})
+    assert same_pair(got, plain(*args))
+
+
+@pytest.mark.parametrize("kind,r", [("K12", 16), ("K12", 3), ("K14", 16), ("K14", 3)])
+@pytest.mark.parametrize("case", ["hot", "sorted", "out of range"])
+def test_df_bicubic_ordered_tails_on_hot_sorted_and_clamped_batches(dev, kind, r, case,
+                                                                   monkeypatch):
+    force_branch(monkeypatch, True)
+    kernel, plain, _ = ordered_tail(kind)
+    args = ordered_case(kind, r, case, 300_000, dev, 7 + r)
+    got, launched = launched_by(lambda: kernel(*args))
+    assert launched == {"ORD": 1, kind: 1}
+    assert same_pair(got, plain(*args))
+
+
+@pytest.mark.parametrize("kind", ["K12", "K14"])
+@pytest.mark.parametrize("nq", [0, 1])
+@pytest.mark.parametrize("ordered", [True, False])
+def test_df_bicubic_tails_take_empty_and_single_query_batches(dev, kind, nq, ordered,
+                                                              monkeypatch):
+    force_branch(monkeypatch, ordered)
+    kernel, plain, _ = ordered_tail(kind)
+    args = ordered_case(kind, 3, "random", nq, dev, 11)
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert same_pair(got, plain(*args)) and tuple(got[0].shape) == (nq, 8 if kind == "K12" else 3)
+
+
+@pytest.mark.parametrize("kind,r", [("K12", 16), ("K12", -5), ("K14", 16), ("K14", 3)])
+def test_df_bicubic_ordered_kernels_match_their_plain_versions_on_records(dev, kind, r):
+    """The ordered tails alone, on the records of the plain ordering, against
+    the plain tails on the same records."""
+    from ndarray_interp_tpu_torch.ops import cell_order as co
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as ek
+
+    packed, xi, yi, ny, *t = ordered_case(kind, r, "random", 30_000, dev, 13)
+    row_step, lo = ORDER_KINDS[kind](ny)
+    records = co._order_plain(xi, yi, row_step, lo, packed.shape[0], *t)
+    nq, ch = xi.shape[0], packed.shape[1]
+    bp = ch // 32 if kind == "K12" else (ch - 4) // 8
+    out = [torch.empty((nq, bp), dtype=torch.float32, device=dev) for _ in range(2)]
+    ek._launch_ordered(ordered_tail(kind)[2], packed, bp, ny, records, *out)
+    if kind == "K12":
+        want = ek._bicubic_df_tail_ordered_plain(packed, records)
+    else:
+        want = ek._bicubic_node_df_tail_ordered_plain(packed, ny, records)
+    torch.cuda.synchronize()
+    assert same_pair(out, want)
+
+
+@pytest.mark.parametrize("kind", ["K12", "K14"])
+@pytest.mark.parametrize("case", ["random", "hot", "sorted", "out of range"])
+@pytest.mark.parametrize("nq", [0, 1, 1000, 1_000_000])
+def test_cell_order_matches_plain(dev, kind, case, nq):
+    """The counting sort against the stable argsort: the same bucket keys in
+    the same order, a permutation of the queries, and each record the row
+    value and fraction halves of its query."""
+    from ndarray_interp_tpu_torch.ops import cell_order as co
+
+    rng = np.random.default_rng(nq + len(case))
+    nx, ny = 512, 512
+    row_step, lo = ORDER_KINDS[kind](ny)
+    rows = (nx - 1) * (ny - 1) if kind == "K12" else nx * ny
+    xi, yi = (torch.as_tensor(v, dtype=torch.int32, device=dev)
+              for v in order_indices(case, nx, ny, nq, rng))
+    t = order_fractions(rng, nq)
+    args = (xi, yi, row_step, lo, rows, *pair(t[0], dev), *pair(t[1], dev))
+    v, qid, frac = co.record_fields(co.order_by_cell(*args))
+    want_v, _, _ = co.record_fields(co._order_plain(*args))
+    torch.cuda.synchronize()
+    keys = co.bucket_keys(v.long(), rows)
+    assert torch.equal(keys, co.bucket_keys(want_v.long(), rows))
+    qid = qid.long()
+    assert torch.equal(torch.sort(qid).values, torch.arange(nq, device=dev))
+    assert torch.equal(v.long(), co.row_values(xi, yi, row_step, lo, rows)[qid])
+    assert same(frac, torch.stack(args[5:], dim=1)[qid])
+
+
+def test_cell_order_on_a_table_past_2_to_the_22_rows(dev):
+    """Buckets of 2^shift rows: the bucket keys sort, the rows within a
+    bucket need not."""
+    from ndarray_interp_tpu_torch.ops import cell_order as co
+
+    rng = np.random.default_rng(17)
+    rows, nq = 3 * 2**22 + 5, 500_000
+    xi = torch.as_tensor(rng.integers(0, 3 * 2**11, nq), dtype=torch.int32, device=dev)
+    yi = torch.as_tensor(rng.integers(0, 2**11, nq), dtype=torch.int32, device=dev)
+    t = pair(rng.uniform(0, 1, nq), dev)
+    v, qid, _ = co.record_fields(co.order_by_cell(xi, yi, 2**11, 0, rows, *t, *t))
+    want_v, _, _ = co.record_fields(co._order_plain(xi, yi, 2**11, 0, rows, *t, *t))
+    torch.cuda.synchronize()
+    assert co.bucket_shift(rows) == 2
+    keys = co.bucket_keys(v.long(), rows)
+    assert torch.equal(keys, co.bucket_keys(want_v.long(), rows))
+    qid = qid.long()
+    assert torch.equal(torch.sort(qid).values, torch.arange(nq, device=dev))
+    assert torch.equal(v.long(), co.row_values(xi, yi, 2**11, 0, rows)[qid])
+
+
 @pytest.mark.parametrize("grade", ["df", "f48"])
 @pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6])
 @pytest.mark.parametrize("nbasis", [2, 4])
