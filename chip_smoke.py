@@ -54,8 +54,9 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    and its tail on the card, ``Evaluator2D``,
    ``eval_into_donated_2d``, ``DoubleFloatEvaluator2D`` in grades df and f48
    for both strategies against float64 forms on double-float-rounded
-   inputs, an out-of-bounds call), each call with the launch counts set to
-   0 just before it and read just after;
+   inputs, for ``Bilinear`` also bit for bit against ``df_to_f64`` of the
+   pair route, an out-of-bounds call), each call with the launch counts set
+   to 0 just before it and read just after;
 5b. drives the N-D path the same way: ``InterpND`` linear, nearest and cubic
    on a 64^3 grid (ND1, ND2) in f32 and f64 against SciPy, the cubic node
    layouts there (ND2b), a 256^3 cubic grid that the builder puts on the
@@ -90,7 +91,7 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    x 64), NS1's one column (its chain floor), NS3b's three solves, NS5b's
    64 x 1,000,000 and with per-column diagonals, beside
    ``torch.linalg.solve_ex`` on the dense matrix (10,000 x 64, 512 x 8,192);
-   K12, K13, K14 and K15 beside the floor of their rows' bytes.  K7 is
+   K10-K15 beside the floor of their rows' bytes.  K7 is
    timed at the serving axis (10,240 knots, 2^20 queries, also with every
    query in one interval), at the 2-D and N-D paths' axis widths (512 and 64
    knots, 1,000,000 queries) and on 70,001 knots, each at the wrapper's
@@ -105,13 +106,14 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    and the unordered body of small batches) are held bit for bit and timed
    in turn on the path's queries, on all of them in one cell or interval,
    on them already in order, at batch sizes from 4,096 up (the crossover),
-   and on narrower or wider tables (K12 and K13 at 3 channels, bp 8; K14 at
-   3, 4 and 8 channels, 3 on one float a lane; K8 and K9 at banks of 8 and
-   256 with their own sweeps, and 63, one column a lane): the data behind
-   the wrappers' choice of branch.  K8, K9 and K13 also hold their float64
-   store form on both branches against ``df_to_f64`` of the plain pair, bit
-   for bit, and time it; the evaluator calls end to end list their eight
-   largest kernels, and NS3d's route with each tail is also timed by CUDA
+   and on narrower or wider tables (K12 and K13 at 3 channels, bp 8, K13
+   with its own sweep; K14 at 3, 4 and 8 channels, 3 on one float a lane; K8
+   and K9 at banks of 8 and 256 with their own sweeps, and 63, one column a
+   lane): the data behind the wrappers' choice of branch.  K8, K9 and K13
+   also hold their float64 store form on both branches against
+   ``df_to_f64`` of the plain pair, bit for bit, and time it, and K10 and
+   K11 (which have no ordered branch) on their one branch; the evaluator
+   calls end to end list their eight largest kernels, and NS3d's route with each tail is also timed by CUDA
    events (the profiler has lost the "weight" calls in some runs).
 
 Any failure exits non-zero before the result lines.  The second-to-last
@@ -528,7 +530,8 @@ def gate(label, got, ref, tol, shape, oracle="SciPy f64"):
 
 
 # the tails that order their batch first (ORD); a call's orderings are those
-# of the one of them it launched
+# of the one of them it launched (K10 and K11 never order: a call of theirs
+# that launches ORD fails)
 ORDERED_TAILS = ("K8", "K9", "K12", "K13", "K14")
 
 
@@ -958,7 +961,7 @@ def bound(kid, args):
         width = 8
     else:  # K10-K13, R4c: packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo
         packed, xi, yi, _, *t = args
-        bp = packed.shape[1] // {"K10": 8, "K11": 6, "K12": 32, "K13": 24, "R4c": 32}[kid]
+        bp = packed.shape[1] // CELL_BLOCKS[kid]
         elems = xi.numel() * bp  # the (Q, bp) output pair
         nbytes = _nbytes(packed, xi, yi, *t) + 8 * elems
         # per element: the widening adds, then the lerps (3 x 3), the five
@@ -971,18 +974,22 @@ def bound(kid, args):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# a 2-D cell tail's row width in bp
+CELL_BLOCKS = {"K10": 8, "K11": 6, "K12": 32, "K13": 24, "R4c": 32}
+
+
 def row_floor_ms(kid, args):
     """The floor of a design that reads each query's own rows from HBM, as
-    queries in random order do: its rows (K15 one cell row, K12 and K13 one
+    queries in random order do: its rows (K15 one cell row, K10-K13 one
     cell row, K14 four node rows), its idx and t pairs and its output pair,
     at the HBM rate."""
-    if kid in ("K12", "K13", "K14"):  # packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo
+    if kid in ("K10", "K11", "K12", "K13", "K14"):  # packed, xi, yi, ny, t halves
         packed, xi, yi, _, *t = args
         ch, nq = packed.shape[1], xi.numel()
         if kid == "K14":  # four rows of 8 r + 4 floats, an (r,) output pair
             per_query = 4 * 4 * ch + 8 * ((ch - 4) // 8)
-        else:  # one row of 32 bp (K13: 24 bp) floats, a (bp,) output pair
-            per_query = 4 * ch + 8 * (ch // (32 if kid == "K12" else 24))
+        else:  # one row of blocks x bp floats, a (bp,) output pair
+            per_query = 4 * ch + 8 * (ch // CELL_BLOCKS[kid])
         return (nq * per_query + _nbytes(xi, yi, *t)) / HBM_BYTES_PER_S * 1e3
     packed, idx, th, tl, _, nbasis = args
     k, nq = idx.shape
@@ -1012,6 +1019,16 @@ def ordered_tail(kid):
                 e2._gathered_bicubic_f48_tail_f64),
         "K14": (e2, e2.gathered_bicubic_node_df_tail, e2._bicubic_node_df_tail_plain, None),
     }[kid]
+
+
+def wrapper_orders(kid, nq, ch):
+    """Whether the 2-D tail ``kid``'s wrapper orders a batch of ``nq``
+    queries on a table of ``ch`` columns (its rule, ``_orders``, at the
+    wrapper's least row bytes): the label of a timed branch, never what a
+    check expects."""
+    mod, kern, _, _ = ordered_tail(kid)
+    fetched = 4 * ch * (4 if kid == "K14" else 1)
+    return mod._orders(nq, fetched, mod._TAILS[kern.__name__][4])
 
 
 def order_args(kid, args):
@@ -1111,12 +1128,7 @@ def ordered_phase(kid, system, card, rec, extra=(), sweep=ORDER_SWEEP):
         forms = " (both store forms)" if kern64 is not None else ""
         verdict = ("both bit-identical to" if ok else "MISMATCH against") if check else (
             "not compared here:")
-        if one_d:
-            picks = orders(n, a[-1])
-        elif kid == "K13":
-            picks = orders(n, per_query, mod._ORDER_MIN_ROW_BYTES_F48)
-        else:
-            picks = orders(n, per_query)
+        picks = orders(n, a[-1]) if one_d else wrapper_orders(kid, n, a[0].shape[1])
         print(f"  {kid} {what}: {n:,} queries, {per_query:,} B of rows a query: ordered "
               f"{got[True]:.4f} (ordering included), unordered body {got[False]:.4f} ms; "
               f"{verdict} the plain version{forms}; the wrapper takes the "
@@ -1585,11 +1597,19 @@ def path2d(dev, rng):
             kid = {("Bilinear", "df"): "K10", ("Bilinear", "f48"): "K11",
                    ("Bicubic", "df"): "K12", ("Bicubic", "f48"): "K13"}[kind, grade]
             name = f"DoubleFloatEvaluator2D(grade={grade!r}) {kind}"
-            # K12 and K13 order the 1M batch by cell first
+            # K12 and K13 order the 2^20 bucket by cell first; K10 and K11 never do
             kids = ["K7", kid] + (["ORD"] if kind == "Bicubic" else [])
             dev_ = drive(f"{name} build + warmup", kids, lambda: (
                 DoubleFloatEvaluator2D(itp, grade=grade).warmup()))
             got = drive(f"{name} at {NQ2D:,} f64 queries", kids, lambda: dev_(dqx_d, dqy_d))
+            if kind == "Bilinear":  # K10's / K11's float64 store form
+                same, err = bit_compare(got, recombined_pair_route(dev_, grade, dqx_d, dqy_d))
+                print(f"  {name}: the float64 {kid} writes is "
+                      f"{'bit for bit' if same else 'NOT'} df_to_f64 of the pair route "
+                      f"(max abs err {err})", flush=True)
+                if not same:
+                    fail(f"{name}: the float64 store form differs from the recombined pair "
+                         f"route (max abs err {err})")
             oracle = "the f64 lerp form" if kind == "Bilinear" else (
                 f"the f64 scaled-Hermite form, first {NQ_BICUBIC_ORACLE:,} queries")
             if kind == "Bicubic":
@@ -1603,6 +1623,23 @@ def path2d(dev, rng):
             del got
     out["NS3d ref"] = refs["Bicubic"]
     return out, total
+
+
+def recombined_pair_route(ev, grade, qx, qy):
+    """``df_to_f64`` of the pair route ``gathered_bilinear_eval_{grade}_packed``
+    on the chunk that the Bilinear evaluator ``ev`` runs for ``qx, qy`` (one
+    bucket, padded with the first knots), ``(nq, r)``."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as e2
+    from ndarray_interp_tpu_torch.ops.df import df_from_f64, df_to_f64
+
+    n = qx.shape[0]
+    pad = ev._bucket(n) - n
+    halves = [h for v, v0 in ((qx, ev._xr[0]), (qy, ev._yr[0]))
+              for h in df_from_f64(torch.cat([v, v.new_full((pad,), v0)]))]
+    route = getattr(e2, f"gathered_bilinear_eval_{grade}_packed")
+    return df_to_f64(*route(*ev._run.args, *halves))[:n].reshape(n, -1)
 
 
 def timing2d(state, card, rec):
@@ -1620,7 +1657,7 @@ def timing2d(state, card, rec):
     from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as e2
     from ndarray_interp_tpu_torch.ops import tail2d as t2
     from ndarray_interp_tpu_torch.ops import thomas_kernel as tk
-    from ndarray_interp_tpu_torch.ops.df import df_from_f64
+    from ndarray_interp_tpu_torch.ops.df import df_from_f64, df_to_f64
     from ndarray_interp_tpu_torch.ops.searchsorted import get_lower_index
     from ndarray_interp_tpu_torch.ops.thomas import thomas_solve
 
@@ -1678,8 +1715,22 @@ def timing2d(state, card, rec):
     timed = ("R1", "R2b", "R2c", "R2d", "R2n", "K10", "K11", "K12", "K13")
     times = time_kernels({k: pairs[k] for k in timed}, systems, card)
     del cell, tx, ty
-    # K12 on a cell table of 3 channels (bp 8, 1 KiB of rows a query) at NS3d's queries
+    # K10's and K11's float64 store form at NS3c's and NS3g's inputs: held
+    # against df_to_f64 of the plain pair and timed beside the pair form
+    for kid, entry, plain in (("K10", e2._gathered_bilinear_df_tail_f64,
+                               e2._bilinear_df_tail_plain),
+                              ("K11", e2._gathered_bilinear_f48_tail_f64,
+                               e2._bilinear_f48_tail_plain)):
+        label, args = systems[kid][0]
+        ok = rec.add(kid, f"{label}, float64 store form", entry(*args), df_to_f64(*plain(*args)))
+        f64 = device_ms(lambda: entry(*args), 10)
+        times[kid] |= {"f64_ms": f64[0], "row_floor_ms": row_floor_ms(kid, args)}
+        print(f"  {kid} {label}, float64 store form "
+              f"({'bit-identical to' if ok else 'MISMATCH against'} df_to_f64 of the plain "
+              f"pair): {fmt(f64)} (pair form {times[kid]['ms']:.4f}); row-read floor "
+              f"{times[kid]['row_floor_ms']:.4f} (each query's own row from HBM)", flush=True)
     rng = np.random.default_rng(51)
+    # K12 on a cell table of 3 channels (bp 8, 1 KiB of rows a query) at NS3d's queries
     cells = (GRID2D[0] - 1) * (GRID2D[1] - 1)
     narrow = e2.pack_bicubic_rows_df(*df_from_f64(torch.as_tensor(
         rng.normal(size=(cells, 16 * 3)), device=qxd.device)), 3)

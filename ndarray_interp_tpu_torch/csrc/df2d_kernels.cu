@@ -48,7 +48,8 @@
 // both axes (from K7), ny - 1 and the four fraction halves, and fetches the row
 // of cell xi (ny-1) + yi itself: the (Q, 32 bp) gathered rows of the JAX route
 // (2.1 GB at 2^20 queries x 16 channels) are never written.  It writes a (Q, bp)
-// result pair; the route slices it to the r channels.  Consecutive threads take
+// result, a pair or (K10, K11, K13) float64; the route slices it to the r
+// channels.  Consecutive threads take
 // consecutive (query, channel) elements, so each corner block of a row is read
 // as bp contiguous floats (64 bytes at bp = 16) and the outputs are written
 // contiguously.
@@ -73,22 +74,23 @@
 // query's row comes from HBM: ~2.1 GB (K13: 1.6 GB) for 1M queries, where the
 // tables are 535, 401 and 554 MB.  Above a batch size the wrappers first order
 // the queries by cell (csrc/cell_order.cu) and run bicubic_ordered_kernel
-// (K12), bicubic_ordered_cached_kernel (K13; each body generic over its row
-// reader, DFRows and F48Rows) or node_ordered_kernel on the ordered records:
-// several queries a warp, W = 4 channels a lane on float4 rows where the
-// blocks allow it (K13: W = 2, each lane keeping its channels of the cell's
-// row widened for the run of queries on the cell), the results written to
-// each query's own slot.  Queries of one cell then share one fetch in a load
-// instruction or through L1, and the sweep over the cells reads each row from
-// HBM about once (K14's next x-column of nodes is reused from L2 one column
-// later).  Each element is computed by the same operations in the same order
-// as in cell_tail_kernel<BicubicDF / BicubicF48> and node_tail_kernel, so
-// both paths are bit-identical to the plain versions.
-// K10, K11 and R4c keep the unordered kernel.
+// (K12, generic over its row reader DFRows), cached_ordered_kernel (K13) or
+// node_ordered_kernel on the ordered records: several queries a warp, W = 4
+// channels a lane on float4 rows where the blocks allow it (K13: W = 2, each
+// lane keeping its channels of the cell's blocks widened for the run of
+// queries on the cell), the results written to each query's own slot.
+// Queries of one cell then share one fetch in a load instruction or through
+// L1, and the sweep over the cells reads each row from HBM about once (K14's
+// next x-column of nodes is reused from L2 one column later).  Each element
+// is computed by the same operations in the same order as in cell_tail_kernel
+// and node_tail_kernel, so both paths are bit-identical to the plain
+// versions.  K10, K11 and R4c keep the unordered kernel: the bilinear rows
+// (512 and 384 B at 16 channels) are too narrow for the ordering to pay.
 //
-// K13 also has the float64 store form of df_common.cuh on both paths (out_lo
-// null): DoubleFloatEvaluator2D(grade="f48") on the Bicubic cell layout takes
-// it, and no longer widens and adds the (Q, bp) pair itself.
+// K10, K11 and K13 also have the float64 store form of df_common.cuh (out_lo
+// null; K13 on both paths): DoubleFloatEvaluator2D takes it for Bilinear (both
+// grades) and the f48 Bicubic cell layout, and no longer widens and adds the
+// (Q, bp) pair itself.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -129,53 +131,105 @@ __device__ __forceinline__ double hermite_scaled(double y_l, double y_r, double 
   return (u * y_l + t * y_r) + (t * u) * (a * u + b * t);
 }
 
-// _df_bicubic_tail on the 16 widened blocks v[4 i + c] (quantity i of
-// [f, kx, ky, kxy], corner c of [11, 12, 21, 22])
-__device__ __forceinline__ double bicubic(const double* v, double tx, double ty) {
-  const double f_y1 = hermite_scaled(v[0], v[2], v[4], v[6], tx);
-  const double f_y2 = hermite_scaled(v[1], v[3], v[5], v[7], tx);
-  const double g_y1 = hermite_scaled(v[8], v[10], v[12], v[14], tx);
-  const double g_y2 = hermite_scaled(v[9], v[11], v[13], v[15], tx);
-  return hermite_scaled(f_y1, f_y2, g_y1, g_y2, ty);
-}
-
 // a row index clamped to the table, as the plain versions' gather clamps it
 __device__ __forceinline__ int64_t clamp_row(int64_t i, int64_t rows) {
   return i < 0 ? 0 : (i >= rows ? rows - 1 : i);
 }
 
+// W channels of a (hi, lo) block pair, widened
+template <int W>
+__device__ __forceinline__ void widen_w(const float* __restrict__ hi,
+                                        const float* __restrict__ lo, double* out) {
+  float h[W], l[W];
+  Vec<W>::load(hi, h);
+  Vec<W>::load(lo, l);
+#pragma unroll
+  for (int j = 0; j < W; ++j) out[j] = widen(h[j], l[j]);
+}
+
+// The cell layouts of K10-K13: a cell row holds kValues (hi, lo) blocks a
+// channel.  all<W> widens W channels of every block into v, at<W> evaluates
+// channel j of them, and eval is one element in query order (cell_tail_kernel)
+// by the same two; cached_ordered_kernel keeps v for the run of records on a
+// cell (K13).
+struct BilinearForm {  // _df_bilinear_core on [z11, z12, z21, z22]
+  static constexpr int kValues = 4;
+  template <int W>
+  __device__ __forceinline__ static double at(double (*z)[W], int j, double tx, double ty) {
+    return bilinear(z[0][j], z[1][j], z[2][j], z[3][j], tx, ty);
+  }
+};
+
+struct BicubicForm {  // _df_bicubic_tail on [f, kx, ky, kxy] x [11, 12, 21, 22]
+  static constexpr int kValues = 16;
+  template <int W>
+  __device__ __forceinline__ static double at(double (*v)[W], int j, double tx, double ty) {
+    const double f1 = hermite_scaled(v[0][j], v[2][j], v[4][j], v[6][j], tx);
+    const double f2 = hermite_scaled(v[1][j], v[3][j], v[5][j], v[7][j], tx);
+    const double g1 = hermite_scaled(v[8][j], v[10][j], v[12][j], v[14][j], tx);
+    const double g2 = hermite_scaled(v[9][j], v[11][j], v[13][j], v[15][j], tx);
+    return hermite_scaled(f1, f2, g1, g2, ty);
+  }
+};
+
+template <class Cell>
+__device__ __forceinline__ double cached_eval(const float* __restrict__ row, int64_t bp,
+                                              double tx, double ty) {
+  double v[Cell::kValues][1];
+  Cell::template all<1>(row, bp, v);
+  return Cell::template at<1>(v, 0, tx, ty);
+}
+
 // K10: [z11 | z12 | z21 | z22] hi blocks, then the same lo blocks
-struct BilinearDF {
+struct BilinearDF : BilinearForm {
+  template <int W>
+  __device__ __forceinline__ static void all(const float* __restrict__ row, int64_t bp,
+                                             double (*z)[W]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) widen_w<W>(row + i * bp, row + (i + 4) * bp, z[i]);
+  }
   __device__ static double eval(const float* __restrict__ row, int64_t bp, double tx,
                                 double ty) {
-    double z[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) z[j] = widen(__ldg(row + j * bp), __ldg(row + (j + 4) * bp));
-    return bilinear(z[0], z[1], z[2], z[3], tx, ty);
+    return cached_eval<BilinearDF>(row, bp, tx, ty);
   }
 };
 
 // K11: four hi blocks, then 2 bp packed lanes: lane c holds z11_lo (high 16
 // bits) and z21_lo (low 16), lane bp + c z12_lo and z22_lo
-struct BilinearF48 {
+struct BilinearF48 : BilinearForm {
+  template <int W>
+  __device__ __forceinline__ static void all(const float* __restrict__ row, int64_t bp,
+                                             double (*z)[W]) {
+    float hi[4][W], first[W], second[W];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) Vec<W>::load(row + i * bp, hi[i]);
+    Vec<W>::load(row + 4 * bp, first);
+    Vec<W>::load(row + 5 * bp, second);
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      z[0][j] = widen(hi[0][j], lo_high(first[j]));
+      z[1][j] = widen(hi[1][j], lo_high(second[j]));
+      z[2][j] = widen(hi[2][j], lo_low(first[j]));
+      z[3][j] = widen(hi[3][j], lo_low(second[j]));
+    }
+  }
   __device__ static double eval(const float* __restrict__ row, int64_t bp, double tx,
                                 double ty) {
-    const float first = __ldg(row + 4 * bp);
-    const float second = __ldg(row + 5 * bp);
-    return bilinear(widen(__ldg(row), lo_high(first)), widen(__ldg(row + bp), lo_high(second)),
-                    widen(__ldg(row + 2 * bp), lo_low(first)),
-                    widen(__ldg(row + 3 * bp), lo_low(second)), tx, ty);
+    return cached_eval<BilinearF48>(row, bp, tx, ty);
   }
 };
 
 // K12: 16 hi blocks, then the 16 lo blocks
-struct BicubicDF {
+struct BicubicDF : BicubicForm {
+  template <int W>
+  __device__ __forceinline__ static void all(const float* __restrict__ row, int64_t bp,
+                                             double (*v)[W]) {
+#pragma unroll
+    for (int b = 0; b < 16; ++b) widen_w<W>(row + b * bp, row + (b + 16) * bp, v[b]);
+  }
   __device__ static double eval(const float* __restrict__ row, int64_t bp, double tx,
                                 double ty) {
-    double v[16];
-#pragma unroll
-    for (int b = 0; b < 16; ++b) v[b] = widen(__ldg(row + b * bp), __ldg(row + (b + 16) * bp));
-    return bicubic(v, tx, ty);
+    return cached_eval<BicubicDF>(row, bp, tx, ty);
   }
 };
 
@@ -215,18 +269,28 @@ struct BicubicWeightDF {
 };
 
 // K13: 16 hi blocks, then 8 bp packed lanes: lane k bp + c holds lo block k in
-// its high 16 bits and lo block k + 8 in its low 16
-struct BicubicF48 {
-  __device__ static double eval(const float* __restrict__ row, int64_t bp, double tx,
-                                double ty) {
-    double v[16];
+// its high 16 bits and lo block k + 8 in its low 16; each packed lane is
+// loaded once for its two blocks
+struct BicubicF48 : BicubicForm {
+  template <int W>
+  __device__ __forceinline__ static void all(const float* __restrict__ row, int64_t bp,
+                                             double (*v)[W]) {
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      const float lane = __ldg(row + (16 + k) * bp);
-      v[k] = widen(__ldg(row + k * bp), lo_high(lane));
-      v[k + 8] = widen(__ldg(row + (k + 8) * bp), lo_low(lane));
+      float lo[W], hi0[W], hi8[W];
+      Vec<W>::load(row + (16 + k) * bp, lo);
+      Vec<W>::load(row + k * bp, hi0);
+      Vec<W>::load(row + (k + 8) * bp, hi8);
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        v[k][j] = widen(hi0[j], lo_high(lo[j]));
+        v[k + 8][j] = widen(hi8[j], lo_low(lo[j]));
+      }
     }
-    return bicubic(v, tx, ty);
+  }
+  __device__ static double eval(const float* __restrict__ row, int64_t bp, double tx,
+                                double ty) {
+    return cached_eval<BicubicF48>(row, bp, tx, ty);
   }
 };
 
@@ -314,17 +378,6 @@ __global__ void node_tail_kernel(const float* __restrict__ packed, int64_t rows,
 // Each result goes to its query's own slot (qid, c), as the unordered kernels
 // write it.
 
-// W channels of a (hi, lo) block pair, widened
-template <int W>
-__device__ __forceinline__ void widen_w(const float* __restrict__ hi,
-                                        const float* __restrict__ lo, double* out) {
-  float h[W], l[W];
-  Vec<W>::load(hi, h);
-  Vec<W>::load(lo, l);
-#pragma unroll
-  for (int j = 0; j < W; ++j) out[j] = widen(h[j], l[j]);
-}
-
 // A record: the row value, the query's index and its two fractions, widened
 struct Record {
   int32_t v, qid;
@@ -338,37 +391,14 @@ __device__ __forceinline__ Record record_at(const int4* __restrict__ rec, int64_
           widen(__int_as_float(b.x), __int_as_float(b.y))};
 }
 
-// The row readers of the ordered cell tails: W channels of block b (block) or
-// of all 16 blocks (all) of [f, kx, ky, kxy] x [11, 12, 21, 22] of a cell row,
-// widened.  K12's rows hold the 16 hi blocks, then the 16 lo blocks; K13's the
-// 16 hi blocks, then 8 bp packed lanes, lane k bp + c holding lo block k in
-// its high 16 bits and lo block k + 8 in its low 16 (BicubicF48).  Each widens
-// exactly as the unordered tail's eval does.
+// K12's row reader: W channels of block b of [f, kx, ky, kxy] x [11, 12, 21,
+// 22] of a cell row (the 16 hi blocks, then the 16 lo blocks), widened as
+// BicubicDF widens them
 struct DFRows {
   template <int W>
   __device__ __forceinline__ static void block(const float* __restrict__ row, int64_t bp, int b,
                                                double* out) {
     widen_w<W>(row + b * bp, row + (b + 16) * bp, out);
-  }
-};
-
-struct F48Rows {
-  // all 16 blocks, each packed lane loaded once for its two blocks
-  template <int W>
-  __device__ __forceinline__ static void all(const float* __restrict__ row, int64_t bp,
-                                             double (*v)[W]) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      float lo[W], hi0[W], hi8[W];
-      Vec<W>::load(row + (16 + k) * bp, lo);
-      Vec<W>::load(row + k * bp, hi0);
-      Vec<W>::load(row + (k + 8) * bp, hi8);
-#pragma unroll
-      for (int j = 0; j < W; ++j) {
-        v[k][j] = widen(hi0[j], lo_high(lo[j]));
-        v[k + 8][j] = widen(hi8[j], lo_low(lo[j]));
-      }
-    }
   }
 };
 
@@ -386,7 +416,7 @@ __device__ __forceinline__ void cell_hermite(const float* __restrict__ row, int6
   for (int j = 0; j < W; ++j) out[j] = hermite_scaled(yl[j], yr[j], kl[j], kr[j], t);
 }
 
-// K12 on ordered records (Rows = DFRows): the five forms of bicubic(), four
+// K12 on ordered records (Rows = DFRows): the five forms of BicubicForm, four
 // blocks at a time, each result in the store form Out
 template <class Rows, int W, class Out>
 __global__ void __launch_bounds__(kThreads)
@@ -411,19 +441,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K13 on ordered records with a row cache: a slot takes G consecutive records,
-// and each lane keeps its W channels of the 16 blocks of the current cell
-// widened in registers, loading and widening them again only where the cell
-// changes.  At NS3f's 1M queries over 261,121 cells ~3.8 consecutive records
-// share a cell, and widening is what the tail spends most on: 32 FP64
-// conversions a result (a quarter of the FP64 add rate) against 81 adds and
-// products.  The five forms of bicubic() in its order, each result in the
-// store form Out.  W = 2 keeps the 32 widened values a lane holds in
-// registers.
-template <class Rows, int W, int G, class Out>
+// K13 on ordered records with a row cache (Cell = BicubicF48): a slot takes G
+// consecutive records, and each lane keeps its W channels of the current
+// cell's 16 blocks widened in registers, loading and widening them again only
+// where the cell changes.  At NS3f's 1M queries over 261,121 cells ~3.8
+// consecutive records share a cell, and widening is what the tail spends most
+// on: 32 FP64 conversions a result (a quarter of the FP64 add rate) against 81
+// adds and products.  Each result is Cell::at of the widened values, the form
+// and order of the unordered tail's eval, in the store form Out.  W = 2 keeps
+// the 32 widened values a lane holds in registers.
+template <class Cell, int W, int G, class Out>
 __global__ void __launch_bounds__(kThreads)
-    bicubic_ordered_cached_kernel(const float* __restrict__ packed, int64_t ch, int64_t bp,
-                                  const int4* __restrict__ rec, Out out, int64_t n) {
+    cached_ordered_kernel(const float* __restrict__ packed, int64_t ch, int64_t bp,
+                          const int4* __restrict__ rec, Out out, int64_t n) {
   const int64_t chunks = bp / W;
   const Slot s = slot_of(chunks, (n + G - 1) / G);
   if (!s.valid) return;
@@ -431,22 +461,16 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t last = first + G < n ? first + G : n;
   for (int64_t k = s.sub; k < chunks; k += s.size) {
     int32_t cell = -1;  // the cell widened in v (cells are >= 0)
-    double v[16][W];
+    double v[Cell::kValues][W];
     for (int64_t i = first; i < last; ++i) {
       const Record q = record_at(rec, i);
       if (q.v != cell) {
         cell = q.v;
-        Rows::template all<W>(packed + static_cast<int64_t>(cell) * ch + k * W, bp, v);
+        Cell::template all<W>(packed + static_cast<int64_t>(cell) * ch + k * W, bp, v);
       }
       double r[W];
 #pragma unroll
-      for (int j = 0; j < W; ++j) {
-        const double f1 = hermite_scaled(v[0][j], v[2][j], v[4][j], v[6][j], q.tx);
-        const double f2 = hermite_scaled(v[1][j], v[3][j], v[5][j], v[7][j], q.tx);
-        const double g1 = hermite_scaled(v[8][j], v[10][j], v[12][j], v[14][j], q.tx);
-        const double g2 = hermite_scaled(v[9][j], v[11][j], v[13][j], v[15][j], q.tx);
-        r[j] = hermite_scaled(f1, f2, g1, g2, q.ty);
-      }
+      for (int j = 0; j < W; ++j) r[j] = Cell::template at<W>(v, j, q.tx, q.ty);
       store_split<W>(out, static_cast<int64_t>(q.qid) * bp + k * W, r);
     }
   }
@@ -524,6 +548,39 @@ int launch(const void* packed, int64_t rows, int64_t ch, int64_t bp, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kGroup = 8;  // consecutive records a slot of cached_ordered_kernel
+
+template <class Cell, int W, class Out>
+void cached_launch(const float* p, int64_t ch, int64_t bp, const int4* q, Out out, int64_t nq,
+                   cudaStream_t s) {
+  const int64_t groups = (nq + kGroup - 1) / kGroup;
+  if (bp % W == 0)
+    cached_ordered_kernel<Cell, W, kGroup><<<ordered_blocks(bp / W, groups), kThreads, 0, s>>>(
+        p, ch, bp, q, out, nq);
+  else
+    cached_ordered_kernel<Cell, 1, kGroup><<<ordered_blocks(bp, groups), kThreads, 0, s>>>(
+        p, ch, bp, q, out, nq);
+}
+
+// a cached tail on ordered records, W channels a lane where bp allows it; out_lo
+// null selects the float64 store form, out_hi then (nq, bp) float64
+template <class Cell, int W>
+int cached_ordered(const void* packed, int64_t ch, int64_t bp, const void* rec, void* out_hi,
+                   void* out_lo, int64_t nq, void* stream) {
+  if (nq > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float* p = static_cast<const float*>(packed);
+    const int4* q = static_cast<const int4*>(rec);
+    if (out_lo)
+      cached_launch<Cell, W>(p, ch, bp, q,
+                             PairOut{static_cast<float*>(out_hi), static_cast<float*>(out_lo)},
+                             nq, s);
+    else
+      cached_launch<Cell, W>(p, ch, bp, q, F64Out{static_cast<double*>(out_hi)}, nq, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -537,25 +594,30 @@ extern "C" {
                         nq, stream);                                                        \
   }
 
-NDI_CELL_TAIL(ndi_df_bilinear_tail_f32, BilinearDF)
-NDI_CELL_TAIL(ndi_f48_bilinear_tail_f32, BilinearF48)
 NDI_CELL_TAIL(ndi_df_bicubic_tail_f32, BicubicDF)
 NDI_CELL_TAIL(ndi_df_bicubic_weight_tail_f32, BicubicWeightDF)
 
 #undef NDI_CELL_TAIL
 
-// K13: out_lo null selects the float64 store form, out_hi then (nq, bp) float64
-int ndi_f48_bicubic_tail_f32(const void* packed, int64_t rows, int64_t ch, int64_t bp,
-                             const void* xi, const void* yi, int64_t ny1, const void* txh,
-                             const void* txl, const void* tyh, const void* tyl, void* out_hi,
-                             void* out_lo, int64_t nq, void* stream) {
-  if (out_lo)
-    return launch<BicubicF48>(packed, rows, ch, bp, xi, yi, ny1, txh, txl, tyh, tyl,
-                              PairOut{static_cast<float*>(out_hi), static_cast<float*>(out_lo)},
-                              nq, stream);
-  return launch<BicubicF48>(packed, rows, ch, bp, xi, yi, ny1, txh, txl, tyh, tyl,
-                            F64Out{static_cast<double*>(out_hi)}, nq, stream);
-}
+// K10, K11, K13: out_lo null selects the float64 store form, out_hi then (nq, bp)
+// float64
+#define NDI_CELL_TAIL_FORMS(name, Tail)                                                     \
+  int name(const void* packed, int64_t rows, int64_t ch, int64_t bp, const void* xi,        \
+           const void* yi, int64_t ny1, const void* txh, const void* txl, const void* tyh,  \
+           const void* tyl, void* out_hi, void* out_lo, int64_t nq, void* stream) {         \
+    if (out_lo)                                                                             \
+      return launch<Tail>(packed, rows, ch, bp, xi, yi, ny1, txh, txl, tyh, tyl,           \
+                          PairOut{static_cast<float*>(out_hi), static_cast<float*>(out_lo)}, \
+                          nq, stream);                                                      \
+    return launch<Tail>(packed, rows, ch, bp, xi, yi, ny1, txh, txl, tyh, tyl,             \
+                        F64Out{static_cast<double*>(out_hi)}, nq, stream);                  \
+  }
+
+NDI_CELL_TAIL_FORMS(ndi_df_bilinear_tail_f32, BilinearDF)
+NDI_CELL_TAIL_FORMS(ndi_f48_bilinear_tail_f32, BilinearF48)
+NDI_CELL_TAIL_FORMS(ndi_f48_bicubic_tail_f32, BicubicF48)
+
+#undef NDI_CELL_TAIL_FORMS
 
 int ndi_df_bicubic_node_tail_f32(const void* packed, int64_t rows, int64_t ch, int64_t r,
                                  const void* xi, const void* yi, int64_t ny, const void* txh,
@@ -596,39 +658,12 @@ int ndi_df_bicubic_tail_ordered_f32(const void* packed, int64_t rows, int64_t ch
   return static_cast<int>(cudaGetLastError());
 }
 
-// K13: out_lo null selects the float64 store form, out_hi then (nq, bp) float64
-int ndi_f48_bicubic_tail_ordered_f32(const void* packed, int64_t rows, int64_t ch, int64_t bp,
-                                     int64_t ny, const void* rec, void* out_hi, void* out_lo,
+// K13, the row cached: out_lo null selects the float64 store form, out_hi then
+// (nq, bp) float64
+int ndi_f48_bicubic_tail_ordered_f32(const void* packed, int64_t, int64_t ch, int64_t bp,
+                                     int64_t, const void* rec, void* out_hi, void* out_lo,
                                      int64_t nq, void* stream) {
-  (void)rows;
-  (void)ny;
-  constexpr int kGroup = 8;
-  if (nq > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const float* p = static_cast<const float*>(packed);
-    const int4* q = static_cast<const int4*>(rec);
-    const PairOut pair{static_cast<float*>(out_hi), static_cast<float*>(out_lo)};
-    const F64Out f64{static_cast<double*>(out_hi)};
-    const int64_t groups = (nq + kGroup - 1) / kGroup;
-    if (bp % 2 == 0) {
-      const unsigned int blocks = ordered_blocks(bp / 2, groups);
-      if (out_lo)
-        bicubic_ordered_cached_kernel<F48Rows, 2, kGroup><<<blocks, kThreads, 0, s>>>(
-            p, ch, bp, q, pair, nq);
-      else
-        bicubic_ordered_cached_kernel<F48Rows, 2, kGroup><<<blocks, kThreads, 0, s>>>(
-            p, ch, bp, q, f64, nq);
-    } else {
-      const unsigned int blocks = ordered_blocks(bp, groups);
-      if (out_lo)
-        bicubic_ordered_cached_kernel<F48Rows, 1, kGroup><<<blocks, kThreads, 0, s>>>(
-            p, ch, bp, q, pair, nq);
-      else
-        bicubic_ordered_cached_kernel<F48Rows, 1, kGroup><<<blocks, kThreads, 0, s>>>(
-            p, ch, bp, q, f64, nq);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  return cached_ordered<BicubicF48, 2>(packed, ch, bp, rec, out_hi, out_lo, nq, stream);
 }
 
 int ndi_df_bicubic_node_tail_ordered_f32(const void* packed, int64_t rows, int64_t ch,

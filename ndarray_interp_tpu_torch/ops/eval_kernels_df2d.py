@@ -40,10 +40,12 @@ K12, K13 and K14 order a large batch by cell first (:mod:`.cell_order`, a
 counting sort on the card) and run on the ordered records, so that the
 queries of one cell share their row's fetch; each result still goes to its
 query's own slot.  Smaller batches, and tables of narrow rows, run
-unordered (:func:`_orders`).  :func:`_gathered_bicubic_f48_tail_f64` and
-:func:`_gathered_bicubic_eval_f48_packed_f64` take K13's float64 store
-form: the kernel writes ``df_to_f64`` of its result pair, bit for bit, into
-one float64 array, which ``DoubleFloatEvaluator2D(grade="f48")`` returns
+unordered (:func:`_orders`); K10 and K11, whose rows are narrower than any
+that ordering wins on, always do.  The private entries ``_gathered_bilinear_df_tail_f64``,
+``_gathered_bilinear_f48_tail_f64``, ``_gathered_bicubic_f48_tail_f64``
+and their routes ``_gathered_*_packed_f64`` take the float64 store form of
+K10, K11 and K13: the kernel writes ``df_to_f64`` of its result pair, bit
+for bit, into one float64 array, which ``DoubleFloatEvaluator2D`` returns
 without widening and adding the pair itself.
 
 Each kernel's plain version is here, in PyTorch float64 and the kernel's
@@ -389,26 +391,29 @@ def _bicubic_node_df_tail_ordered_plain(packed, ny, records):
 # (K12 at bp 8, K14 at 8 channels) and K14 loses below (3 and 4 channels, 448
 # and 576 B), while K13, whose ordered kernel widens a cell's row once for
 # the run of queries on it, wins at its smallest row, 768 B (bp 8: 0.2448 /
-# 0.2882).
+# 0.2882).  K10 and K11 have no ordered branch: on that row-cached kernel
+# their 2-D serving rows (512 and 384 B at bp 16) lost at every batch size
+# (1M queries: K10 0.2183 ordered, 0.1942 in query order), the results
+# written to scattered query slots costing about what the row re-reads saved.
 _ORDER_MIN_BYTES = 384 << 20
 _ORDER_MIN_ROW_BYTES = 1024
 _ORDER_MIN_ROW_BYTES_F48 = 768
 
 
-def _orders(nq, fetched, min_row=_ORDER_MIN_ROW_BYTES):
+def _orders(nq, fetched, min_row):
     """Whether a batch of ``nq`` queries reading ``fetched`` bytes of rows
     each (at least ``min_row``) is ordered by cell first."""
     return fetched >= min_row and nq * fetched >= _ORDER_MIN_BYTES
 
 
-def _launch_tail(symbol, wrapper, blocks, packed, xi, yi, ny, txh, txl, tyh, tyl, ordered=None,
-                 f64=False, min_row=_ORDER_MIN_ROW_BYTES):
+def _launch_tail(symbol, wrapper, blocks, packed, xi, yi, ny, txh, txl, tyh, tyl, ordered, f64,
+                 min_row):
     """Check the operands and launch a 2-D tail: a cell tail on a table of
     ``blocks·bp`` channels, or (``blocks=None``) K14 on a node table of
     ``8r+4`` channels.  ``ordered`` names the kernel on ordered records that
     takes the batches :func:`_orders` picks at ``min_row`` (K12, K13, K14).
-    ``f64`` (K13) takes the kernels' float64 store form: one ``(nq, bp)``
-    float64 output, the pair's ``hi + lo``."""
+    ``f64`` (K10, K11, K13) takes the kernels' float64 store form: one
+    ``(nq, bp)`` float64 output, the pair's ``hi + lo``."""
     name = wrapper.__name__
     _cuda.pair_operands(name, txh, txl, tyh, tyl, packed)
     for what, idx in (("xi", xi), ("yi", yi)):
@@ -464,24 +469,47 @@ def _launch_ordered(symbol, packed, bp, ny, records, out_hi, out_lo):
 
 
 # -- public wrappers ---------------------------------------------------------------
+def _tail(wrapper, args, f64=False):
+    """``wrapper`` on ``args`` (table, xi, yi, ny and the four fraction
+    halves): CPU tensors run its plain version (the pair recombined to
+    float64 where ``f64``), CUDA tensors its kernel (:data:`_TAILS`)."""
+    name = wrapper.__name__
+    plain, symbol, blocks, ordered, min_row = _TAILS[name]
+    if _cuda.kernel_device(name, args[4]) == "cpu":
+        out = plain(*args)
+        return df_to_f64(*out) if f64 else out
+    return _launch_tail(symbol, wrapper, blocks, *args, ordered, f64, min_row)
+
+
 def gathered_bilinear_df_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
     """Cell ``xi·(ny-1) + yi`` of the :func:`pack_bilinear_rows_df` table for
     each query, evaluated at its fractions: the ``(nq, bp)`` result pair.
     ``ny`` is the y knot count.  CPU tensors: :func:`_bilinear_df_tail_plain`;
     CUDA: K10, which gathers the rows itself."""
-    args = (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo)
-    if _cuda.kernel_device("gathered_bilinear_df_tail", tx_hi) == "cpu":
-        return _bilinear_df_tail_plain(*args)
-    return _launch_tail("ndi_df_bilinear_tail", gathered_bilinear_df_tail, 8, *args)
+    return _tail(gathered_bilinear_df_tail, (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo))
 
 
 def gathered_bilinear_f48_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
     """:func:`gathered_bilinear_df_tail` on a :func:`pack_bilinear_rows_f48`
     table.  CPU tensors: :func:`_bilinear_f48_tail_plain`; CUDA: K11."""
-    args = (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo)
-    if _cuda.kernel_device("gathered_bilinear_f48_tail", tx_hi) == "cpu":
-        return _bilinear_f48_tail_plain(*args)
-    return _launch_tail("ndi_f48_bilinear_tail", gathered_bilinear_f48_tail, 6, *args)
+    return _tail(gathered_bilinear_f48_tail, (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo))
+
+
+def _gathered_bilinear_df_tail_f64(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
+    """:func:`gathered_bilinear_df_tail` recombined to float64 (``df_to_f64``
+    of the pair, bit for bit), which K10 writes itself on CUDA (its float64
+    store form, counted in ``gathered_bilinear_df_tail.launches``): the
+    ``(nq, bp)`` float64 result.  CPU tensors: the plain version's pair,
+    recombined."""
+    return _tail(gathered_bilinear_df_tail, (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo),
+                 f64=True)
+
+
+def _gathered_bilinear_f48_tail_f64(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
+    """:func:`_gathered_bilinear_df_tail_f64` for K11 on a
+    :func:`pack_bilinear_rows_f48` table."""
+    return _tail(gathered_bilinear_f48_tail, (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo),
+                 f64=True)
 
 
 def gathered_bicubic_df_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
@@ -489,46 +517,28 @@ def gathered_bicubic_df_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
     each query, evaluated at its fractions: the ``(nq, bp)`` result pair.
     CPU tensors: :func:`_bicubic_df_tail_plain`; CUDA: K12, on the queries
     ordered by cell when the batch is large."""
-    args = (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo)
-    if _cuda.kernel_device("gathered_bicubic_df_tail", tx_hi) == "cpu":
-        return _bicubic_df_tail_plain(*args)
-    return _launch_tail("ndi_df_bicubic_tail", gathered_bicubic_df_tail, 32, *args,
-                        ordered="ndi_df_bicubic_tail_ordered")
+    return _tail(gathered_bicubic_df_tail, (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo))
 
 
 def gathered_bicubic_df_weight_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
     """:func:`gathered_bicubic_df_tail` in the weight form: 16 weights a
     query, summed block by block.  CPU tensors:
     :func:`_bicubic_df_weight_tail_plain`; CUDA: R4c."""
-    args = (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo)
-    if _cuda.kernel_device("gathered_bicubic_df_weight_tail", tx_hi) == "cpu":
-        return _bicubic_df_weight_tail_plain(*args)
-    return _launch_tail("ndi_df_bicubic_weight_tail", gathered_bicubic_df_weight_tail, 32, *args)
+    return _tail(gathered_bicubic_df_weight_tail,
+                 (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo))
 
 
 def gathered_bicubic_f48_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
     """:func:`gathered_bicubic_df_tail` on a :func:`pack_bicubic_rows_f48`
     table.  CPU tensors: :func:`_bicubic_f48_tail_plain`; CUDA: K13."""
-    args = (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo)
-    if _cuda.kernel_device("gathered_bicubic_f48_tail", tx_hi) == "cpu":
-        return _bicubic_f48_tail_plain(*args)
-    return _launch_tail("ndi_f48_bicubic_tail", gathered_bicubic_f48_tail, 24, *args,
-                        ordered="ndi_f48_bicubic_tail_ordered",
-                        min_row=_ORDER_MIN_ROW_BYTES_F48)
+    return _tail(gathered_bicubic_f48_tail, (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo))
 
 
 def _gathered_bicubic_f48_tail_f64(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
-    """:func:`gathered_bicubic_f48_tail` recombined to float64 (``df_to_f64``
-    of the pair, bit for bit), which K13 writes itself on CUDA (its float64
-    store form, counted in ``gathered_bicubic_f48_tail.launches``): the
-    ``(nq, bp)`` float64 result.  CPU tensors: the plain version's pair,
-    recombined."""
-    args = (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo)
-    if _cuda.kernel_device("gathered_bicubic_f48_tail", tx_hi) == "cpu":
-        return df_to_f64(*_bicubic_f48_tail_plain(*args))
-    return _launch_tail("ndi_f48_bicubic_tail", gathered_bicubic_f48_tail, 24, *args,
-                        ordered="ndi_f48_bicubic_tail_ordered", f64=True,
-                        min_row=_ORDER_MIN_ROW_BYTES_F48)
+    """:func:`_gathered_bilinear_df_tail_f64` for K13 on a
+    :func:`pack_bicubic_rows_f48` table."""
+    return _tail(gathered_bicubic_f48_tail, (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo),
+                 f64=True)
 
 
 def gathered_bicubic_node_df_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
@@ -538,12 +548,26 @@ def gathered_bicubic_node_df_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo
     y knot count.  CPU tensors: :func:`_bicubic_node_df_tail_plain`; CUDA:
     K14, which fetches the node rows itself, on the queries ordered by cell
     when the batch is large."""
-    args = (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo)
-    if _cuda.kernel_device("gathered_bicubic_node_df_tail", tx_hi) == "cpu":
-        return _bicubic_node_df_tail_plain(*args)
-    return _launch_tail("ndi_df_bicubic_node_tail", gathered_bicubic_node_df_tail, None, *args,
-                        ordered="ndi_df_bicubic_node_tail_ordered")
+    return _tail(gathered_bicubic_node_df_tail,
+                 (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo))
 
+
+# each wrapper's plain version, kernel, table width in bp (None: K14's 8r+4),
+# kernel on ordered records and least row bytes a query that it orders at
+_TAILS = {
+    "gathered_bilinear_df_tail": (_bilinear_df_tail_plain, "ndi_df_bilinear_tail", 8, None, None),
+    "gathered_bilinear_f48_tail": (_bilinear_f48_tail_plain, "ndi_f48_bilinear_tail", 6, None,
+                                   None),
+    "gathered_bicubic_df_tail": (_bicubic_df_tail_plain, "ndi_df_bicubic_tail", 32,
+                                 "ndi_df_bicubic_tail_ordered", _ORDER_MIN_ROW_BYTES),
+    "gathered_bicubic_df_weight_tail": (_bicubic_df_weight_tail_plain,
+                                        "ndi_df_bicubic_weight_tail", 32, None, None),
+    "gathered_bicubic_f48_tail": (_bicubic_f48_tail_plain, "ndi_f48_bicubic_tail", 24,
+                                  "ndi_f48_bicubic_tail_ordered", _ORDER_MIN_ROW_BYTES_F48),
+    "gathered_bicubic_node_df_tail": (_bicubic_node_df_tail_plain, "ndi_df_bicubic_node_tail",
+                                      None, "ndi_df_bicubic_node_tail_ordered",
+                                      _ORDER_MIN_ROW_BYTES),
+}
 
 gathered_bilinear_df_tail.launches = 0
 gathered_bilinear_f48_tail.launches = 0
@@ -560,12 +584,24 @@ def _df_index_frac_2d(x_hi, x_lo, y_hi, y_lo, qx_hi, qx_lo, qy_hi, qy_lo):
             *fused_index_frac_df(y_hi, y_lo, qy_hi, qy_lo))
 
 
-def _packed_route(tail, x_hi, x_lo, y_hi, y_lo, packed, r, qx_hi, qx_lo, qy_hi, qy_lo):
+def _tail_args(x_hi, x_lo, y_hi, y_lo, packed, qx_hi, qx_lo, qy_hi, qy_lo):
+    """K7 on both axes: a 2-D tail's arguments on ``packed``."""
     xi, txh, txl, yi, tyh, tyl = _df_index_frac_2d(
         x_hi, x_lo, y_hi, y_lo, qx_hi, qx_lo, qy_hi, qy_lo
     )
-    hi, lo = tail(packed, xi, yi, y_hi.shape[0], txh, txl, tyh, tyl)
+    return packed, xi, yi, y_hi.shape[0], txh, txl, tyh, tyl
+
+
+def _packed_route(tail, x_hi, x_lo, y_hi, y_lo, packed, r, qx_hi, qx_lo, qy_hi, qy_lo):
+    """K7 on both axes, then ``tail``: its ``(nq, r)`` pair."""
+    hi, lo = tail(*_tail_args(x_hi, x_lo, y_hi, y_lo, packed, qx_hi, qx_lo, qy_hi, qy_lo))
     return hi[:, :r], lo[:, :r]
+
+
+def _packed_route_f64(tail, x_hi, x_lo, y_hi, y_lo, packed, r, qx_hi, qx_lo, qy_hi, qy_lo):
+    """:func:`_packed_route` with a tail in the float64 store form: its
+    ``(nq, r)`` float64 result."""
+    return tail(*_tail_args(x_hi, x_lo, y_hi, y_lo, packed, qx_hi, qx_lo, qy_hi, qy_lo))[:, :r]
 
 
 def gathered_bilinear_eval_df_packed(x_hi, x_lo, y_hi, y_lo, packed, ny, r,
@@ -585,6 +621,24 @@ def gathered_bilinear_eval_f48_packed(x_hi, x_lo, y_hi, y_lo, packed, ny, r,
     _check_ny(ny, y_hi)
     return _packed_route(gathered_bilinear_f48_tail, x_hi, x_lo, y_hi, y_lo, packed, r,
                          qx_hi, qx_lo, qy_hi, qy_lo)
+
+
+def _gathered_bilinear_eval_df_packed_f64(x_hi, x_lo, y_hi, y_lo, packed, ny, r,
+                                         qx_hi, qx_lo, qy_hi, qy_lo):
+    """:func:`gathered_bilinear_eval_df_packed` with K10's float64 store
+    form: the ``(nq, r)`` float64 ``df_to_f64`` of its pair."""
+    _check_ny(ny, y_hi)
+    return _packed_route_f64(_gathered_bilinear_df_tail_f64, x_hi, x_lo, y_hi, y_lo, packed,
+                             r, qx_hi, qx_lo, qy_hi, qy_lo)
+
+
+def _gathered_bilinear_eval_f48_packed_f64(x_hi, x_lo, y_hi, y_lo, packed, ny, r,
+                                          qx_hi, qx_lo, qy_hi, qy_lo):
+    """:func:`gathered_bilinear_eval_f48_packed` with K11's float64 store
+    form: the ``(nq, r)`` float64 ``df_to_f64`` of its pair."""
+    _check_ny(ny, y_hi)
+    return _packed_route_f64(_gathered_bilinear_f48_tail_f64, x_hi, x_lo, y_hi, y_lo, packed,
+                             r, qx_hi, qx_lo, qy_hi, qy_lo)
 
 
 def gathered_bilinear_eval_df(x_hi, x_lo, y_hi, y_lo, z_hi, z_lo, qx_hi, qx_lo, qy_hi, qy_lo):
@@ -639,10 +693,8 @@ def _gathered_bicubic_eval_f48_packed_f64(x_hi, x_lo, y_hi, y_lo, packed, qx_hi,
                                           qy_lo, r=1):
     """:func:`gathered_bicubic_eval_f48_packed` with K13's float64 store
     form: the ``(nq, r)`` float64 ``df_to_f64`` of its pair."""
-    xi, txh, txl, yi, tyh, tyl = _df_index_frac_2d(
-        x_hi, x_lo, y_hi, y_lo, qx_hi, qx_lo, qy_hi, qy_lo
-    )
-    return _gathered_bicubic_f48_tail_f64(packed, xi, yi, y_hi.shape[0], txh, txl, tyh, tyl)[:, :r]
+    return _packed_route_f64(_gathered_bicubic_f48_tail_f64, x_hi, x_lo, y_hi, y_lo, packed,
+                             r, qx_hi, qx_lo, qy_hi, qy_lo)
 
 
 def gathered_bicubic_eval_df(x_hi, x_lo, y_hi, y_lo, rows_hi, rows_lo, qx_hi, qx_lo, qy_hi,

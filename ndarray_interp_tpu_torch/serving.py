@@ -46,10 +46,10 @@ from .ops.eval_kernels_df import (
 )
 from .ops.eval_kernels_df2d import (
     _gathered_bicubic_eval_f48_packed_f64,
+    _gathered_bilinear_eval_df_packed_f64,
+    _gathered_bilinear_eval_f48_packed_f64,
     gathered_bicubic_eval_df_packed,
     gathered_bicubic_nodes_eval_df,
-    gathered_bilinear_eval_df_packed,
-    gathered_bilinear_eval_f48_packed,
     pack_bicubic_nodes_df,
     pack_bicubic_rows_df,
     pack_bicubic_rows_f48,
@@ -131,7 +131,7 @@ class _BucketedEvaluator:
         of the bucket of their count, the last one padded with ``pad``;
         each chunk split into pairs and run.  ``run`` returns the result
         pair, recombined here to float64, or (the routes whose kernel has a
-        float64 store form: K8, K9, K13) that float64 result itself.  ``axes``
+        float64 store form: K8-K11, K13) that float64 result itself.  ``axes``
         holds one ``(flat queries, pad)`` per axis."""
         n = axes[0][0].shape[0]
         bsz = self._bucket(n)
@@ -346,9 +346,10 @@ class DoubleFloatEvaluator2D(_BucketedEvaluator):
     Each bucket of float64 queries is split into pairs and evaluated by K7
     on both axes and the K10/K11 (bilinear) or K12/K13 (bicubic) tail, and
     the result recombined: a ``torch.float64`` tensor on the interpolator's
-    device.  K13 writes the recombined float64 itself (its float64 store
-    form, bit for bit the recombination).  On CPU tensors the kernels' plain versions run.  Build the
-    interpolator in float64 for float64-grade results.
+    device.  K10, K11 and K13 write the recombined float64 themselves (their
+    float64 store form, bit for bit the recombination).  On CPU tensors the
+    kernels' plain versions run.  Build the interpolator in float64 for
+    float64-grade results.
 
     Out-of-range semantics follow the JAX evaluator: without extrapolation
     a query outside its axis raises :class:`~..errors.OutOfBoundsError` (x
@@ -398,8 +399,8 @@ class DoubleFloatEvaluator2D(_BucketedEvaluator):
             self._run = functools.partial(route, *axes, self._packed, r=r)
         else:
             pack, route = {
-                "df": (pack_bilinear_rows_df, gathered_bilinear_eval_df_packed),
-                "f48": (pack_bilinear_rows_f48, gathered_bilinear_eval_f48_packed),
+                "df": (pack_bilinear_rows_df, _gathered_bilinear_eval_df_packed_f64),
+                "f48": (pack_bilinear_rows_f48, _gathered_bilinear_eval_f48_packed_f64),
             }[grade]
             self._packed = pack(*df_from_f64(interp.data.detach().to(f64)))
             self._run = functools.partial(route, *axes, self._packed, y64.shape[0], r)

@@ -471,6 +471,70 @@ def test_f48_bicubic_f64_entries_are_the_recombined_pair(r):
         i64(route.contiguous()), i64(tdf.df_to_f64(*tp.gathered_bicubic_eval_f48_packed(*q, r=r))))
 
 
+# -- K10's and K11's float64 store form --------------------------------------------------
+@pytest.mark.parametrize("grade", ["df", "f48"])
+@pytest.mark.parametrize("r", [1, 3, 16, 20])
+def test_bilinear_f64_entries_are_the_recombined_pair(grade, r):
+    """``_gathered_bilinear_{df,f48}_tail_f64`` and their routes
+    ``_gathered_bilinear_eval_{df,f48}_packed_f64`` (the entries of K10's and
+    K11's float64 store form) on the CPU: bit for bit ``df_to_f64`` of the
+    pair entries, with NaN, +-inf and huge fractions and far extrapolation
+    among the queries; CPU tensors launch no kernel."""
+    x, y, rng = axes(nx=13, ny=10, seed=70 + r)
+    packed = getattr(tp, f"pack_bilinear_rows_{grade}")(*tpair(rng.normal(size=(13, 10, r))))
+    tail, tail64 = (getattr(tp, f"gathered_bilinear_{grade}_tail"),
+                    getattr(tp, f"_gathered_bilinear_{grade}_tail_f64"))
+    route, route64 = (getattr(tp, f"gathered_bilinear_eval_{grade}_packed"),
+                      getattr(tp, f"_gathered_bilinear_eval_{grade}_packed_f64"))
+    before = {kid: w.launches for kid, w in kernel_wrappers().items()}
+    xi = torch.as_tensor(rng.integers(0, 12, 600), dtype=torch.int32)
+    yi = torch.as_tensor(rng.integers(0, 9, 600), dtype=torch.int32)
+    t = rng.uniform(-0.5, 1.5, (2, 600))
+    t[0, :4], t[1, -4:] = [np.nan, np.inf, -np.inf, 1e30], [np.nan, np.inf, -np.inf, 1e30]
+    args = (packed, xi, yi, 10, *tpair(t[0]), *tpair(t[1]))
+    got = tail64(*args)
+    bp = -(-r // 8) * 8
+    assert got.dtype == torch.float64 and tuple(got.shape) == (600, bp)
+    np.testing.assert_array_equal(i64(got), i64(tdf.df_to_f64(*tail(*args))))
+    qx = np.r_[rng.uniform(x[0] - 2, x[-1] + 2, 596), [np.nan, np.inf, -np.inf, x[3]]]
+    qy = np.r_[rng.uniform(y[0] - 2, y[-1] + 2, 596), [y[2], np.inf, np.nan, -np.inf]]
+    q = (*tpair(x), *tpair(y), packed, 10, r, *tpair(qx), *tpair(qy))
+    got = route64(*q)
+    assert got.dtype == torch.float64 and tuple(got.shape) == (600, r)
+    np.testing.assert_array_equal(i64(got.contiguous()), i64(tdf.df_to_f64(*route(*q))))
+    assert {kid: w.launches for kid, w in kernel_wrappers().items()} == before
+
+
+@pytest.mark.parametrize("grade", ["df", "f48"])
+@pytest.mark.parametrize("trailing", [(), (3,), (2, 5), (16,)])
+@pytest.mark.parametrize("max_batch", [256, 2048])
+def test_bilinear_evaluator2d_output_is_the_recombined_pair_route(grade, trailing, max_batch):
+    """``DoubleFloatEvaluator2D`` on ``Bilinear`` runs K10's (K11's) float64
+    store form: bit for bit ``df_to_f64`` of the pair route
+    ``gathered_bilinear_eval_{df,f48}_packed`` on the same chunks (several
+    of them at ``max_batch`` 256), padded with the first knots."""
+    x, y, rng = axes(seed=61)
+    _, t = both(rng.normal(size=(20, 16) + trailing), x, y)
+    ev = ts.DoubleFloatEvaluator2D(t, max_batch=max_batch, grade=grade)
+    route = getattr(tp, f"gathered_bilinear_eval_{grade}_packed")
+    n = 1000
+    qx = torch.as_tensor(rng.uniform(x[0] - 0.5, x[-1] + 0.5, n))
+    qy = torch.as_tensor(rng.uniform(y[0] - 0.5, y[-1] + 0.5, n))
+    got = ev(qx, qy)
+    r = int(np.prod(trailing))
+    bsz = ev._bucket(n)
+    outs = []
+    for start in range(0, n, bsz):
+        halves = []
+        for flat, pad in ((qx, x[0]), (qy, y[0])):
+            chunk = flat[start:start + bsz]
+            halves += tpair(torch.cat([chunk, chunk.new_full((bsz - chunk.shape[0],), pad)]))
+        outs.append(tdf.df_to_f64(*route(*ev._run.args, *halves)))
+    want = torch.cat(outs)[:n]
+    assert got.dtype == torch.float64 and tuple(got.shape) == (n,) + trailing
+    np.testing.assert_array_equal(i64(got.reshape(n, r).contiguous()), i64(want))
+
+
 @pytest.mark.parametrize("trailing", [(), (3,), (2, 5), (16,)])
 @pytest.mark.parametrize("max_batch", [256, 2048])
 def test_f48_bicubic_evaluator2d_output_is_the_recombined_pair_route(trailing, max_batch):

@@ -387,6 +387,7 @@ def test_df_bicubic_node_tail_matches_plain(dev, nx, ny, r):
 # -- K12, K13 and K14 on queries ordered by cell, and the ordering kernel -------------
 ORDER_KINDS = {"K12": lambda ny: (ny - 1, 0), "K13": lambda ny: (ny - 1, 0),
                "K14": lambda ny: (ny, -(ny + 1))}
+CELL_BLOCKS = {"K10": 8, "K11": 6, "K12": 32, "K13": 24}  # a cell row's width in bp
 
 
 def order_indices(case, nx, ny, nq, rng):
@@ -412,18 +413,20 @@ def order_fractions(rng, nq):
 
 
 def ordered_case(kind, r, case, nq, dev, seed, nx=90, ny=70):
-    """A K12 (K13: f48) cell table (``r`` channels; ``r = -5``: a raw table
-    of bp = 5, which no packer makes) or a K14 node table, and the wrapper's
-    arguments."""
+    """A K10 or K12 (K11, K13: f48) cell table (``r`` channels; ``r = -5``:
+    a raw table of bp = 5, which no packer makes) or a K14 node table, and
+    the wrapper's arguments."""
     from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as ek
 
     rng = np.random.default_rng(seed)
-    if kind in ("K12", "K13"):
+    if kind in CELL_BLOCKS:
         cells = (nx - 1) * (ny - 1)
-        blocks = 32 if kind == "K12" else 24
         if r < 0:
-            packed = torch.as_tensor(rng.normal(size=(cells, blocks * -r)), dtype=torch.float32,
-                                     device=dev)
+            packed = torch.as_tensor(rng.normal(size=(cells, CELL_BLOCKS[kind] * -r)),
+                                     dtype=torch.float32, device=dev)
+        elif kind in ("K10", "K11"):
+            pack = ek.pack_bilinear_rows_df if kind == "K10" else ek.pack_bilinear_rows_f48
+            packed = pack(*pair(rng.normal(size=(nx, ny, r)), dev))
         else:
             pack = ek.pack_bicubic_rows_df if kind == "K12" else ek.pack_bicubic_rows_f48
             packed = pack(*pair(rng.normal(size=(cells, 16 * r)), dev), r)
@@ -887,6 +890,54 @@ def test_f48_bicubic_tail_f64_form_matches_the_recombined_pair(dev, r, ordered, 
     got, launched = launched_by(lambda: ek._gathered_bicubic_f48_tail_f64(*args))
     assert launched == ({"ORD": 1, "K13": 1} if ordered else {"K13": 1})
     assert got.dtype == torch.float64 and same(got, df_to_f64(*ek._bicubic_f48_tail_plain(*args)))
+
+
+@pytest.mark.parametrize("kind", ["K10", "K11"])
+@pytest.mark.parametrize("r", [16, 3, 20, -5])
+@pytest.mark.parametrize("case", ["random", "hot", "sorted", "out of range"])
+def test_bilinear_tails_f64_form_matches_the_recombined_pair(dev, kind, r, case):
+    """K10's and K11's float64 store form, float4 rows (bp 16, 8, 24) and
+    one float a lane (a raw table of bp 5), on random, hot, sorted and
+    clamped batches with NaN and +-inf fractions: bit for bit ``df_to_f64``
+    of the plain version's pair, one launch of the tail."""
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as ek
+    from ndarray_interp_tpu_torch.ops.df import df_to_f64
+
+    entry, plain = {"K10": (ek._gathered_bilinear_df_tail_f64, ek._bilinear_df_tail_plain),
+                    "K11": (ek._gathered_bilinear_f48_tail_f64, ek._bilinear_f48_tail_plain)}[kind]
+    args = ordered_case(kind, r, case, 40_000, dev, 30 + abs(r) + len(case))
+    got, launched = launched_by(lambda: entry(*args))
+    assert launched == {kind: 1}
+    assert got.dtype == torch.float64 and same(got, df_to_f64(*plain(*args)))
+
+
+@pytest.mark.parametrize("grade", ["df", "f48"])
+def test_bilinear_evaluator2d_on_the_f64_store_form_equals_the_recombined_pair_route(dev, grade):
+    """``DoubleFloatEvaluator2D`` on ``Bilinear`` runs K10 (K11) in its
+    float64 store form: bit for bit ``df_to_f64`` of the pair route on the
+    card."""
+    from ndarray_interp_tpu_torch.interp2d import Bilinear, Interp2D
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as e2
+    from ndarray_interp_tpu_torch.ops.df import df_from_f64, df_to_f64
+    from ndarray_interp_tpu_torch.serving import DoubleFloatEvaluator2D
+
+    rng = np.random.default_rng(32)
+    x = np.cumsum(rng.uniform(0.2, 1.0, 300))
+    y = np.cumsum(rng.uniform(0.2, 1.0, 40))
+    itp = Interp2D.builder(rng.normal(size=(300, 40, 5)), device=dev).x(x).y(y).strategy(
+        Bilinear().extrapolate(True)).build()
+    ev = DoubleFloatEvaluator2D(itp, grade=grade)
+    n = 70_000
+    qx = torch.as_tensor(rng.uniform(x[0] - 1, x[-1] + 1, n), device=dev)
+    qy = torch.as_tensor(rng.uniform(y[0] - 1, y[-1] + 1, n), device=dev)
+    kid = "K10" if grade == "df" else "K11"
+    got, launched = launched_by(lambda: ev(qx, qy))
+    assert launched == {"K7": 2, kid: 1}
+    pad = ev._bucket(n) - n
+    halves = [h for v, v0 in ((qx, x[0]), (qy, y[0]))
+              for h in df_from_f64(torch.cat([v, v.new_full((pad,), v0)]))]
+    route = getattr(e2, f"gathered_bilinear_eval_{grade}_packed")
+    assert same(got.reshape(n, 5), df_to_f64(*route(*ev._run.args, *halves))[:n])
 
 
 @pytest.mark.parametrize("ordered", [True, False])
