@@ -5,7 +5,7 @@ bicubic node route, the 1-D wide-bank and long-knot-axis routes with
 Akima, Makima and Pchip, the f64-grade bicubic route's three tails, the step
 family and 1-D/2-D calculus.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--sweeps]
 
 Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
 
@@ -97,6 +97,18 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    knots, 1,000,000 queries) and on 70,001 knots, each at the wrapper's
    shared-knot budget and at budget 1 (every level of the search on the
    global pairs, the first design's search), with a sweep of the budget.
+   K3 likewise: at 2,048 knots on 2, 262,144 and 1,000,000 queries and at
+   64 to 70,001 knots on 1,000,000, in f32 and f64, at the wrapper's 32 KB
+   tree, at one knot (every level global, the first design's search) and
+   as leaders, beside ``torch.searchsorted``.  R2a at NS2b (10,240 x 64,
+   1,000,000 queries) and at the bank eval's shape: its 16-byte lanes
+   against the first design's column a lane (on a table off 16-byte
+   alignment), held bit for bit and timed in turn.  ``--sweeps`` adds the
+   design sweeps behind those choices: K3's tree from 16 to 128 KB and the
+   tree against the global search on batches of 2 to 65,536; R2a with
+   every query in one interval and in interval order (the diagnosis), in
+   f64, and on prefixes of 2^12 to 2^20 queries at banks 8, 64 and 256.
+   Every kernel's launches are summed over every path.
    K12 (at NS3d), K13 (at NS3f), K14 (at NS3e), K8 and K9 (at the DF and f48
    bank serving's 10,240 x 64 tables and 2^20 queries) also run their
    ordering (by cell; K8's and K9's by interval, the 1-D form) apart, held
@@ -760,10 +772,10 @@ def main_path_systems(state):
     return systems
 
 
-def timing(state, card, rec):
+def timing(state, card, rec, sweeps):
     """Hold each kernel, through its public wrapper, against its plain version
     on the inputs the main path gave it; then time both at the main path's
-    float32 shape."""
+    float32 shape, and K3 by its budgets (``k3_phase``)."""
     import torch
 
     from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
@@ -795,6 +807,7 @@ def timing(state, card, rec):
     lib = device_ms(lambda: torch.searchsorted(knots, q3, right=True), 50)
     times["K3"]["library_ms"] = lib[0]
     print(f"  K3 library call torch.searchsorted: {fmt(lib)}", flush=True)
+    times["K3"].update(k3_phase(q3.device, card, rec, sweeps))
     label, args = systems["K4"][1]
     tk_, tp_ = device_ms(lambda: tk.thomas_solve_fast(*args), 3), device_ms(
         lambda: thomas_solve(*args), 1)
@@ -812,6 +825,88 @@ def timing(state, card, rec):
         "Linear bank interp_array, 2048 x 64 at 262,144 f32": (lambda: lin.interp_array(ql), 10),
     }, "main path", card)
     return times
+
+
+# --sweeps: K3's trees at 10,240 knots and up, 16 to 128 KB of shared memory,
+# and the batch sizes on 2,048 knots where the tree meets the global search
+K3_TREE_SWEEP = (16 << 10, 32 << 10, 64 << 10, 128 << 10)
+K3_SMALL = (2, 64, 256, 1024, 4096, 16_384, 65_536)
+
+
+def k3_phase(dev, card, rec, sweeps):
+    """K3 at 2,048 knots on 2, 262,144 and 1,000,000 queries and at 64, 512,
+    10,240, 65,536 and 70,001 knots on 1,000,000, in f32 and f64: each at the
+    wrapper's shared-memory budget, at one knot (every level on the global
+    axis, the first design's search) and as leaders (every 16th knot
+    staged), held index for index against ``get_lower_index`` on queries with
+    NaN, +-inf, +-1e38, the knots and far extrapolation, and timed beside
+    ``torch.searchsorted``.  With ``sweeps``, also the tree's size from
+    10,240 knots up and, at 2,048 knots, the tree against the global search
+    on batches of 2 to 65,536 queries.  Returns the keys the kernels line
+    adds."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+    from ndarray_interp_tpu_torch.ops.searchsorted import get_lower_index
+
+    rng = np.random.default_rng(54)
+    default = ek._K3_TREE_BYTES
+    cases = [(2048, 2), (2048, 262_144), (2048, 1_000_000)] + [
+        (n, 1_000_000) for n in (64, 512, 10_240, 65_536, 70_001)]
+    out = {}
+    print(f"K3 by shared-memory budget (one knot: every level global, the first design's "
+          f"search; the wrapper's tree {default:,} B), ms (median [min, max] of {RUNS} runs by "
+          f"CUDA events; card: {card}):", flush=True)
+
+    def run(knots_staged, k, q):
+        ek._K3_TREE_BYTES = (knots_staged + 1) * k.element_size()
+        return ek.fused_lower_index(k, q)
+
+    try:
+        for np_dt in (np.float32, np.float64):
+            tag, size = np.dtype(np_dt).name, np.dtype(np_dt).itemsize
+            for n, nq in cases:
+                kn = make_knots(n, "nonuniform", np_dt, rng)
+                q = (np.array([np.nan, np.inf], np_dt) if nq == 2 else
+                     rng.permutation(make_queries(kn, nq, np_dt, rng)))
+                k, q = torch.as_tensor(kn, device=dev), torch.as_tensor(q, device=dev)
+                want = get_lower_index(k, q)
+                label = f"{tag}, {n:,} knots, {nq:,} queries"
+                budgets = {"wrapper": default // size - 1, "global": 1,
+                           "leaders": max(2, n // 16)}
+                if sweeps and n > 10_000:
+                    budgets |= {f"tree {b >> 10} KB": b // size - 1 for b in K3_TREE_SWEEP}
+                got = {}
+                for name, b in budgets.items():
+                    ok = rec.add("K3", f"{label}, {b} knots staged", run(b, k, q), want)
+                    got[name] = device_ms(lambda b=b: run(b, k, q), 50)
+                    print(f"  K3 {label}, {name} ({b:,} knots staged): {fmt(got[name])} "
+                          f"({'identical' if ok else 'MISMATCH'})", flush=True)
+                lib = device_ms(lambda: torch.searchsorted(k, q, right=True), 50)
+                bound_ms = bound("K3", (k, q))[0]
+                print(f"  K3 {label}: {got['wrapper'][0]:.4f} against {got['global'][0]:.4f} "
+                      f"every level global ({got['global'][0] / got['wrapper'][0]:.2f}x), "
+                      f"leaders {got['leaders'][0]:.4f}; torch.searchsorted {fmt(lib)}; bound "
+                      f"{bound_ms:.4f}", flush=True)
+                out[label] = {"ms": got["wrapper"][0], "global_ms": got["global"][0],
+                              "leader_ms": got["leaders"][0], "library_ms": lib[0],
+                              "bound_ms": bound_ms}
+                del k, q, want
+        k = torch.as_tensor(make_knots(2048, "nonuniform", np.float32, rng), device=dev)
+        for nq in K3_SMALL if sweeps else ():
+            q = torch.as_tensor(rng.uniform(-1.0, 101.0, nq).astype(np.float32), device=dev)
+            turns = {True: [], False: []}
+            for staged in (True, False, False, True):
+                b = default // 4 - 1 if staged else 1
+                turns[staged].append(device_ms(lambda: run(b, k, q), 50)[0])
+            print(f"  K3 float32, 2,048 knots, {nq:,} queries: tree {np.mean(turns[True]):.4f}, "
+                  f"every level global {np.mean(turns[False]):.4f} (each the mean of two "
+                  f"turns)", flush=True)
+    finally:
+        ek._K3_TREE_BYTES = default
+    torch.cuda.synchronize()
+    shape = "float32, 2,048 knots, 1,000,000 queries"
+    return {"global_search_ms": out[shape]["global_ms"], "shapes": out}
 
 
 def time_kernels(pairs, systems, card):
@@ -2408,10 +2503,103 @@ def bank_big_path(dev, rng):
     return out, total
 
 
-def timing_big(state, card, rec):
+# --sweeps: R2a on prefixes 2^12-2^20 of NS2b's queries, on 10,240-knot
+# tables of these banks
+R2A_BANKS = (8, 64, 256)
+
+
+def misaligned(packed):
+    """A copy of ``packed`` one element past a 16-byte boundary, which R2a
+    reads one column a lane: its first design's body."""
+    import torch
+
+    buf = torch.empty(packed.numel() + 1, dtype=packed.dtype, device=packed.device)
+    return buf[1:].view(packed.shape).copy_(packed)
+
+
+def r2a_phase(system, bank_eval, card, rec, sweeps):
+    """R2a on NS2b's packed table and queries ``system`` and at the bank
+    eval's shape ``bank_eval`` (its interpolator and queries): the wrapper's
+    body (16-byte lanes) against the first design's (one column a lane, which
+    the wrapper takes on a table off 16-byte alignment), both held bit for
+    bit against ``_tail_plain`` and timed in turn.  With ``sweeps``, also the
+    diagnosis at NS2b (all queries in one interval, the queries already in
+    interval order: how much of the time is row traffic), the table in
+    float64 and prefixes of 2^12 to 2^20 queries at banks 8, 64 and 256.
+    Returns the keys the kernels line adds."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops import bank_tail as bt
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+
+    label, args = system
+    packed, idx, t, bank = args
+    nq = idx.shape[0]
+
+    def turns(what, a, calls, check=True, both_ways=True):
+        """The two bodies held against the plain version and timed in turn
+        (16-byte lanes, first design, and back where ``both_ways``); the
+        mean of each body's turns."""
+        table, rest = a[0], a[1:]
+        bodies = {"16-byte lanes": table, "first design": misaligned(table)}
+        want = bt._tail_plain(*a) if check else None
+        got, ok = {name: [] for name in bodies}, True
+        for name in list(bodies) + (list(bodies)[::-1] if both_ways else []):
+            if check and not got[name]:
+                ok &= rec.add("R2a", f"{what}, {name}", bt.banked_hermite_tail(
+                    bodies[name], *rest), want)
+            got[name].append(device_ms(lambda: bt.banked_hermite_tail(bodies[name], *rest),
+                                       calls)[0])
+        got = {name: float(np.mean(v)) for name, v in got.items()}
+        row = table.shape[1] * table.element_size()
+        verdict = ("both bit-identical to" if ok else "MISMATCH against") if check else (
+            "not compared here with")
+        print(f"  R2a {what}: {rest[0].shape[0]:,} queries, {row:,} B rows: "
+              + ", ".join(f"{name} {ms:.4f}" for name, ms in got.items())
+              + f" ms; {verdict} _tail_plain", flush=True)
+        return got
+
+    print(f"  R2a {label}: bound {bound('R2a', args)[0]:.4f} (bytes)", flush=True)
+    main = turns(label, args, 5)
+    itp, q = bank_eval
+    idx_b, t_b = ek.fused_index_frac(itp.x, q)
+    s_, rows_b = itp.strategy, itp.data.shape[0] - 1
+    table = bt.pack_bank_rows(itp.data, s_.a.reshape(rows_b, -1), s_.b.reshape(rows_b, -1))
+    at_eval = turns(f"bank eval's table {rows_b + 1:,} x {itp.data.shape[1]}",
+                    (table, idx_b, t_b, itp.data.shape[1]), 10)
+    del table
+    if sweeps:
+        turns("all queries in one interval", (packed, torch.full_like(idx, int(idx[0])), t,
+                                              bank), 5)
+        perm = torch.argsort(idx.clamp(0, packed.shape[0] - 1), stable=True)
+        turns("queries already in interval order", (packed, idx[perm], t[perm], bank), 5)
+        del perm
+        turns("the table in float64", (packed.double(), idx, t.double(), bank), 5)
+        rng = np.random.default_rng(55)
+        n = packed.shape[0] + 1
+        for width in R2A_BANKS:
+            if width == bank:
+                table = packed
+            else:
+                data = [torch.as_tensor(rng.normal(size=(m, width)).astype(np.float32),
+                                        device=packed.device) for m in (n, n - 1, n - 1)]
+                table = bt.pack_bank_rows(*data)
+                del data
+            for m in BANK_SWEEP:
+                m = min(m, nq)
+                turns(f"{n:,} x {width} table, first {m:,} queries",
+                      (table, idx[:m], t[:m], width), 20 if m <= 65_536 else 5,
+                      check=m == nq, both_ways=False)
+            del table
+    torch.cuda.synchronize()
+    return {"first_design_ms": main["first design"], "bank_eval_ms": at_eval}
+
+
+def timing_big(state, bank_eval, card, rec, sweeps):
     """Hold K5, R2a, R3 and R3idx, through their wrappers, against their
     plain versions on the paths' own inputs; time both there, with K1 at
-    NS1b beside R3; then time the slice's calls end to end."""
+    NS1b beside R3, and R2a's two bodies (``r2a_phase``, also at the bank
+    eval's shape ``bank_eval``); then time the slice's calls end to end."""
     import torch
 
     from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
@@ -2460,6 +2648,8 @@ def timing_big(state, card, rec):
                  s.b, qb), ek._eval_plain(itpb.x, tbl, qb))
     print(f"  R3 NS1b against K1's plain version: {'bit-identical' if ok else 'MISMATCH'}")
     times = time_kernels(pairs, systems, card)
+    print("R2a's bodies at NS2b's table and queries:", flush=True)
+    times["R2a"].update(r2a_phase(systems["R2a"][0], bank_eval, card, rec, sweeps))
     kern, plain, _, (nk, npl) = pairs["K5"]
     label, args = systems["K5"][1]
     tk_, tp_ = device_ms(lambda: kern(*args), nk), device_ms(lambda: plain(*args), npl)
@@ -2501,6 +2691,18 @@ def timing_big(state, card, rec):
         f"NS4 Akima itp(q), {N_NS1B:,} knots at {nq}": (
             lambda: state["NS4", "Akima big"](qb), 20),
     }, "wide-bank and long-axis slice", card)
+    # the calls on R2a by CUDA events too (they make no host sync, so with the
+    # queue held full this is their busy time): the profiler has lost some of
+    # their records
+    print(f"R2a's calls by CUDA events (device ms per call, median [min, max] of {RUNS} runs, "
+          f"queue held full; card: {card}):", flush=True)
+    itp_b, q_b = bank_eval
+    for label, fn in (
+        (f"bank eval itp(q), 10,000 x 64 at {q_b.numel():,}", lambda: itp_b(q_b)),
+        (f"NS2b itp(q), 10,240 x 64 at {nq}", lambda: itp10(q10)),
+        (f"NS1b bank itp(q), {N_NS1B:,} x 8 at {nq}", lambda: bankb(qb)),
+    ):
+        print(f"  {label}: {fmt(device_ms(fn, 5))}", flush=True)
     return times
 
 
@@ -2831,6 +3033,12 @@ KERNELS = {
 
 
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description="On-card check of the PyTorch port.")
+    ap.add_argument("--sweeps", action="store_true",
+                    help="also run the design sweeps behind K3's tree budget and R2a's body")
+    sweeps = ap.parse_args().sweeps
     import torch
 
     if not torch.cuda.is_available():
@@ -2876,27 +3084,20 @@ def main():
     print("main path (public API, device='cuda'):", flush=True)
     state = main_path(dev, np.random.default_rng(42))
     torch.cuda.synchronize()
-    launches = {kid: w.launches for kid, w in wrappers.items()}
-    main_launches = dict(launches)
-    print(f"  launches during the main path: {launches}")
+    main_launches = {kid: w.launches for kid, w in wrappers.items()}
+    print(f"  launches during the main path: {main_launches}")
     for kid in ("K1", "K2", "K3", "K4", "R2a"):
-        if launches[kid] <= 0:
+        if main_launches[kid] <= 0:
             fail(f"{kid} was not launched by the main path")
 
     print("serving path (public API, device='cuda'; counts set to 0 before each call):",
           flush=True)
     serving, served = serving_path(dev, state, np.random.default_rng(43))
-    for kid in ("K6", "K7", "K8", "K9"):
-        launches[kid] = served[kid]
-    order_launches = {"K8": served["ORD:K8"], "K9": served["ORD:K9"]}
     print(f"  launches during the serving path: {served}")
 
     print(f"2-D path, {'x'.join(map(str, GRID2D))} at {NQ2D:,} queries (public API, "
           "device='cuda'; counts set to 0 before each call):", flush=True)
     state2d, launched2d = path2d(dev, np.random.default_rng(44))
-    for kid in ("R1", "R2b", "R2n", "K10", "K11", "K12", "K13"):
-        launches[kid] = launched2d[kid]
-    order_launches.update(K12=launched2d["ORD:K12"], K13=launched2d["ORD:K13"])
     print(f"  launches during the 2-D path: {launched2d}")
     for kid in ("R1", "R2b", "R2n", "K4", "K7", "K10", "K11", "K12", "K13", "ORD:K12",
                 "ORD:K13"):
@@ -2907,9 +3108,6 @@ def main():
     print("N-D path (ND1-ND3b at 64^3 and 256^3) and NS3e at 1,000,000 queries (public API, "
           "device='cuda'; counts set to 0 before each call):", flush=True)
     state_nd, launched_nd = nd_path(dev, np.random.default_rng(47))
-    for kid in ("K14", "K15", "K15f48"):
-        launches[kid] = launched_nd[kid]
-    order_launches["K14"] = launched_nd["ORD:K14"]
     print(f"  launches during the N-D path: {launched_nd}")
     for kid in ("K2", "K4", "K7", "K14", "K15", "K15f48", "ORD"):
         if launched_nd[kid] <= 0:
@@ -2919,8 +3117,6 @@ def main():
     print(f"wide-bank and long-axis path (NS5, NS5b, NS2b, NS1b, NS4; public API, "
           "device='cuda'; counts set to 0 before each call):", flush=True)
     state_big, launched_big = bank_big_path(dev, np.random.default_rng(48))
-    for kid in ("K5", "R2a", "R3", "R3idx"):
-        launches[kid] += launched_big[kid]
     print(f"  launches during the wide-bank and long-axis path: {launched_big}")
     for kid in ("K1", "K2", "K4", "K5", "R2a", "R3", "R3idx"):
         if launched_big[kid] <= 0:
@@ -2930,9 +3126,6 @@ def main():
     print(f"NS3d double-float bicubic tails (gathered_bicubic_eval_df_packed, each tail; counts "
           "set to 0 before each call):", flush=True)
     tails_args, launched_tails = tails_path(state2d)
-    launches["R4c"] = launched_tails["R4c"]
-    launches["K12"] += launched_tails["K12"]
-    order_launches["K12"] += launched_tails["ORD:K12"]
     for kid in ("K7", "K12", "R4c", "ORD"):
         if launched_tails[kid] <= 0:
             fail(f"{kid} was not launched by the NS3d tails path")
@@ -2944,26 +3137,29 @@ def main():
           "counts set to 0 before each call):", flush=True)
     calc, launched_calc = calculus_path(dev, state, state2d, np.random.default_rng(50))
     print(f"  launches during the calculus path: {launched_calc}")
-    # the search and build kernels that every path runs: their launches summed
-    # over the paths (most of K3's and K4's are the calculus path's small calls)
+    # every kernel's launches summed over every path, and the orderings of
+    # each tail that orders its batch (the main path orders none)
     paths = (served, launched2d, launched_nd, launched_big, launched_tails, launched_steps,
              launched_calc)
-    for kid in ("K2", "K3", "K4", "K7"):
-        launches[kid] = main_launches[kid] + sum(path[kid] for path in paths)
-        print(f"  {kid} launches over every path: {launches[kid]} (main path "
-              f"{main_launches[kid]}; {', '.join(str(path[kid]) for path in paths)} in the "
-              f"serving, 2-D, N-D, wide-bank, tails, step and calculus paths)")
+    launches = {kid: main_launches[kid] + sum(path[kid] for path in paths) for kid in wrappers}
+    order_launches = {kid: sum(path[f"ORD:{kid}"] for path in paths) for kid in ORDERED_TAILS}
+    print(f"  launches over every path (main + serving + 2-D + N-D + wide-bank + tails + step "
+          f"+ calculus): {launches}; orderings by tail: {order_launches}")
+    for kid, total in launches.items():
+        parts = " + ".join(str(n) for n in (main_launches[kid], *(path[kid] for path in paths)))
+        print(f"  {kid} launches over every path: {total} = {parts}")
     for kid in ("K2", "K3", "K4"):
         if launched_calc[kid] <= 0:
             fail(f"{kid} was not launched by the calculus path")
     elapsed("tails, step and calculus paths")
 
-    times = timing(state, card, rec)
+    times = timing(state, card, rec, sweeps)
     times.update(df_timing(serving, card, rec))
     times.update(timing2d(state2d, card, rec))
     times.update(timing_nd(state_nd, card, rec))
     del state_nd
-    times.update(timing_big(state_big, card, rec))
+    itp10, _, _, q10 = state["bank"]
+    times.update(timing_big(state_big, (itp10, q10), card, rec, sweeps))
     del state_big
     times.update(timing_tails_step_calculus(tails_args, steps, calc, state2d, card, rec))
     torch.cuda.synchronize()

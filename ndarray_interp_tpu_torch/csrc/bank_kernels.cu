@@ -24,15 +24,29 @@
 // the query's idx selects.  The output is the memory bound: 268 MB at 4,096
 // queries x 16,384 splines (K5's tables are 50 MB), 1 GB at 256 x 1,000,000
 // (the tables 768 MB), 67 MB at 262,144 x 64 for R2a (its table 10 MB).
-// Threads run along the bank axis, so every table read and every output
-// write of a warp is one 128-byte line (f32).  K5: a block owns one tile of
+// K5: threads run along the bank axis, so every table read and every output
+// write of a warp is one 128-byte line (f32); a block owns one tile of
 // kBankTile bank columns and a chunk of kQueryChunk queries, whose idx and t
 // it stages in shared memory; blocks are numbered bank-tile-major (the query
 // chunk is blockIdx.x, the fastest), so the blocks that share a table tile run
 // together and the tile is read from device memory about once and then from
 // L2, as the TPU grid's bank-outer order (pallas_bank.py:138) does for VMEM.
-// R2a: a block is kTailRows queries x kTailCols columns, one warp a row
-// segment, as K8's.
+//
+// R2a reads each query's whole packed row, 4 bp values (1 KiB at bank 64 in
+// f32), from the L2 that holds the table, for bank values of output: at
+// NS2b's 10,240 x 64 and 1M queries 1 GB of row reads for 256 MB written.
+// The first design (a thread a column, four 4-byte loads) was bound by its
+// load instructions, not by that traffic: it took as long with every query
+// in one interval.  A lane takes W columns with 16-byte loads and stores
+// (f32 4, f64 2) where the row blocks and the output rows are 16-byte
+// aligned (bank and bp multiples of W, the table's base aligned:
+// pack_bank_rows makes bp a multiple of 8), one column a lane else; a block
+// is 256 / L queries of L = min(bank / W, 32) lanes, so narrow banks fill the
+// warps.  Ordering the queries by interval first (cell_order.cu's 1-D form,
+// a lane holding its chunk of a row for a run of records) lost at every batch
+// on 128-byte and 1 KiB rows and tied on 2 KiB ones; it won only on rows of
+// 4 KiB and up from 2^17 queries, which no path reads, so it was not kept
+// (PERF.md).
 //
 // Numerics: the Hermite form is written in the plain PyTorch versions'
 // operation order, ((1-t) y_l + t y_r) + (t (1-t)) (a (1-t) + b t), and the
@@ -44,12 +58,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "df_common.cuh"  // Vec, kThreads
+
 namespace {
 
 constexpr int kBankTile = 256;   // K5: bank columns per block, one per thread
 constexpr int kQueryChunk = 32;  // K5: queries per block, idx and t in shared memory
-constexpr int kTailCols = 32;    // R2a: bank columns per block (one warp)
-constexpr int kTailRows = 8;     // R2a: queries per block
+constexpr int kTailLanes = 32;   // R2a: the most lanes a query's row takes in a block
 
 template <typename T>
 __device__ __forceinline__ T hermite(T y_l, T y_r, T a, T b, T t) {
@@ -87,17 +102,26 @@ __global__ void banked_eval_kernel(const T* __restrict__ data, const T* __restri
   }
 }
 
-// R2a.  packed (rows, ch) with ch = 4 bp: [y_l | y_r | a | b], bp columns each.
-template <typename T>
+// R2a.  packed (rows, ch) with ch = 4 bp: [y_l | y_r | a | b],
+// bp columns each; a lane (threadIdx.x) takes W columns of one query
+// (threadIdx.y).
+template <typename T, int W>
 __global__ void bank_tail_kernel(const T* __restrict__ packed, int64_t rows, int64_t ch,
                                  int64_t bp, int64_t bank, const int32_t* __restrict__ idx,
                                  const T* __restrict__ t, T* __restrict__ out, int64_t nq) {
-  const int64_t qi = blockIdx.x * static_cast<int64_t>(kTailRows) + threadIdx.y;
-  const int64_t c = blockIdx.y * static_cast<int64_t>(kTailCols) + threadIdx.x;
+  const int64_t qi = blockIdx.x * static_cast<int64_t>(blockDim.y) + threadIdx.y;
+  const int64_t c = (blockIdx.y * static_cast<int64_t>(blockDim.x) + threadIdx.x) * W;
   if (qi >= nq || c >= bank) return;
   const T* row = packed + clamp_row(__ldg(idx + qi), rows) * ch + c;
-  out[qi * bank + c] = hermite(__ldg(row), __ldg(row + bp), __ldg(row + 2 * bp),
-                               __ldg(row + 3 * bp), __ldg(t + qi));
+  T y_l[W], y_r[W], a[W], b[W], r[W];
+  Vec<W>::load(row, y_l);
+  Vec<W>::load(row + bp, y_r);
+  Vec<W>::load(row + 2 * bp, a);
+  Vec<W>::load(row + 3 * bp, b);
+  const T tq = __ldg(t + qi);
+#pragma unroll
+  for (int j = 0; j < W; ++j) r[j] = hermite(y_l[j], y_r[j], a[j], b[j], tq);
+  Vec<W>::store(out + qi * bank + c, r);
 }
 
 template <typename T>
@@ -114,16 +138,39 @@ int banked_eval(const void* data, const void* a, const void* b, int64_t rows, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// whether R2a's rows and output rows take 16-byte accesses of W values
+template <int W>
+bool wide_lanes(const void* packed, int64_t bp, int64_t bank) {
+  return bank % W == 0 && bp % W == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0;
+}
+
+template <typename T, int W>
+void bank_tail_launch(const T* packed, int64_t rows, int64_t ch, int64_t bp, int64_t bank,
+                      const int32_t* idx, const T* t, T* out, int64_t nq, cudaStream_t s) {
+  const int64_t chunks = bank / W;
+  const int lanes = static_cast<int>(chunks < kTailLanes ? chunks : kTailLanes);
+  const int per_block = kThreads / lanes;  // queries a block
+  const dim3 grid(static_cast<unsigned int>((nq + per_block - 1) / per_block),
+                  static_cast<unsigned int>((chunks + lanes - 1) / lanes));
+  bank_tail_kernel<T, W><<<grid, dim3(lanes, per_block), 0, s>>>(packed, rows, ch, bp, bank,
+                                                                 idx, t, out, nq);
+}
+
+// R2a: 16-byte lanes where the layout allows them, else a column a lane
 template <typename T>
 int bank_tail(const void* packed, int64_t rows, int64_t ch, int64_t bp, int64_t bank,
               const void* idx, const void* t, void* out, int64_t nq, void* stream) {
   if (nq > 0 && bank > 0) {
-    const dim3 grid(static_cast<unsigned int>((nq + kTailRows - 1) / kTailRows),
-                    static_cast<unsigned int>((bank + kTailCols - 1) / kTailCols));
-    bank_tail_kernel<T><<<grid, dim3(kTailCols, kTailRows), 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(packed), rows, ch, bp, bank, static_cast<const int32_t*>(idx),
-        static_cast<const T*>(t), static_cast<T*>(out), nq);
+    constexpr int W = 16 / sizeof(T);
+    const T* p = static_cast<const T*>(packed);
+    const int32_t* ix = static_cast<const int32_t*>(idx);
+    const T* tt = static_cast<const T*>(t);
+    T* o = static_cast<T*>(out);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (wide_lanes<W>(packed, bp, bank))
+      bank_tail_launch<T, W>(p, rows, ch, bp, bank, ix, tt, o, nq, s);
+    else
+      bank_tail_launch<T, 1>(p, rows, ch, bp, bank, ix, tt, o, nq, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 // What the double-float tails share (df_kernels.cu K6-K9, df2d_kernels.cu
 // K10-K14): the widening of a pair, the two store forms of a result, W-wide
 // loads and stores, and the query slots of the tails that run on the
-// ordered records of cell_order.cu.
+// ordered records of cell_order.cu (bank_kernels.cu's R2a takes the loads
+// and stores too).
 //
 // Store forms.  A tail computes its result r in FP64 and splits it into the
 // pair (hi, lo) of ops/df.py df_from_f64: hi = (float)r, lo = (float)(r - hi),
@@ -57,6 +58,11 @@ struct Vec<2> {
     v[0] = t.x;
     v[1] = t.y;
   }
+  __device__ static void load(const double* __restrict__ p, double* v) {
+    const double2 t = __ldg(reinterpret_cast<const double2*>(p));
+    v[0] = t.x;
+    v[1] = t.y;
+  }
   __device__ static void store(float* __restrict__ p, const float* v) {
     *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
   }
@@ -67,6 +73,7 @@ struct Vec<2> {
 template <>
 struct Vec<1> {
   __device__ static void load(const float* __restrict__ p, float* v) { v[0] = __ldg(p); }
+  __device__ static void load(const double* __restrict__ p, double* v) { v[0] = __ldg(p); }
   __device__ static void store(float* __restrict__ p, const float* v) { *p = v[0]; }
   __device__ static void store(double* __restrict__ p, const double* v) { *p = v[0]; }
 };

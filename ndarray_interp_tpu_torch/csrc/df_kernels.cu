@@ -66,6 +66,7 @@
 #include <stdint.h>
 
 #include "df_common.cuh"
+#include "search.cuh"  // upper_bound, clamp_index, the staged search (K7)
 
 namespace {
 
@@ -81,26 +82,6 @@ __device__ __forceinline__ double load_pair(const float* __restrict__ hi,
 __device__ __forceinline__ void store_pair(double r, float* __restrict__ out_hi,
                                            float* __restrict__ out_lo, int64_t i) {
   store_split<1>(PairOut{out_hi, out_lo}, i, &r);
-}
-
-// the upper bound of q in the sorted at(lo .. hi-1): lo plus the count of them <= q
-template <class I, class At>
-__device__ __forceinline__ I upper_bound(At at, I lo, I hi, double q) {
-  while (lo < hi) {
-    const I mid = (lo + hi) >> 1;
-    if (at(mid) <= q) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
-// a count of knots <= q minus one, clamped to [0, n-2]
-__device__ __forceinline__ int clamp_index(int count, int n) {
-  const int idx = count - 1;
-  return idx < 0 ? 0 : (idx > n - 2 ? n - 2 : idx);
 }
 
 // count of knots <= q minus one, clamped to [0, n-2]; NaN gives 0
@@ -174,32 +155,10 @@ __global__ void df_eval1d_kernel(const float* __restrict__ xh, const float* __re
 // which at 70,001 knots took 0.053 ms against 0.070 with 1,024.
 constexpr int kSearchThreads = 1024;
 
-// The staged knots sit in shared memory in breadth-first (Eytzinger) order:
-// slot 1 the middle one, slots 2k and 2k + 1 the middles of the halves
-// below slot k, for a perfect tree of 2^h - 1 slots, those past the c staged
-// knots +inf.  A search step is then s = 2s + (lead[s] <= q): one load, a
-// compare and a shift-add on the dependent chain, and after h steps
-// s - 2^h is the count of staged knots <= q (the path's bits).  The probes
-// of level L lie in 2^L consecutive slots.  In sorted order a level's mids
-// are multiples of the level's stride: on a 10,240-knot array they fell in
-// one bank of 8-byte words, up to 32 ways, and took 0.034 ms against 0.019.
-
-// the slot of the knot of sorted rank r
-__device__ __forceinline__ int slot_of_rank(int r, int h) {
-  const int t = __ffs(r + 1) - 1;  // r + 1 = (2 j + 1) 2^t at depth h - 1 - t
-  return (1 << (h - 1 - t)) + ((r + 1) >> (t + 1));
-}
-
-// the sorted rank of the knot in slot i
-__device__ __forceinline__ int rank_of_slot(int i, int h) {
-  const int d = 31 - __clz(i);
-  return ((2 * (i - (1 << d)) + 1) << (h - 1 - d)) - 1;
-}
-
-// Shared memory holds c widened knots: knot j w for j < c.  kWhole (w = 1):
-// the whole axis, and the search and x_l, x_r never touch global memory.
-// Else the leaders: the count of leaders <= q puts q between knot (count-1) w
-// and knot count w, and the search ends on the global pairs between them.
+// Shared memory holds c widened knots, knot j w for j < c, as the tree of
+// search.cuh.  kWhole (w = 1): the whole axis, and the search and x_l, x_r
+// never touch global memory.  Else the leaders, and the search ends on the
+// global pairs between two of them.
 template <bool kWhole>
 __global__ void __launch_bounds__(kSearchThreads)
     df_index_frac_kernel(const float* __restrict__ xh, const float* __restrict__ xl, int n,
@@ -208,30 +167,16 @@ __global__ void __launch_bounds__(kSearchThreads)
                          float* __restrict__ t_hi, float* __restrict__ t_lo, int64_t nq) {
   extern __shared__ __align__(16) unsigned char smem[];
   double* lead = reinterpret_cast<double*>(smem);
-  for (int i = threadIdx.x + 1; i < (1 << h); i += blockDim.x) {
-    const int r = rank_of_slot(i, h);
-    lead[i] = r < c ? load_pair(xh, xl, r * w) : __longlong_as_double(0x7ff0000000000000LL);
-  }
-  __syncthreads();
   const auto knot = [&](int64_t m) { return load_pair(xh, xl, m); };
+  stage_tree(lead, knot, w, c, h);
+  __syncthreads();
   // one query at a time: unrolled, the loop takes more registers
 #pragma unroll 1
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < nq;
        i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     const double q = widen(qh[i], ql[i]);
-    int k = 0;  // NaN gives 0
-    if (q == q) {
-      int s = 1;
-      for (int l = 0; l < h; ++l) s = 2 * s + (lead[s] <= q);
-      int count = s - (1 << h);
-      count = count < c ? count : c;  // +inf passes the +inf slots
-      if (!kWhole && count > 0) {  // knot base <= q < knot base + w, where it exists
-        const int64_t base = (count - 1) * w;
-        const int64_t end = base + w < n ? base + w : n;
-        count = static_cast<int>(upper_bound(knot, base + 1, end, q));
-      }
-      k = clamp_index(count, n);
-    }
+    // NaN gives 0
+    const int k = q == q ? clamp_index(staged_count<kWhole>(lead, h, c, w, n, knot, q), n) : 0;
     const double x_l = kWhole ? lead[slot_of_rank(k, h)] : knot(k);
     const double x_r = kWhole ? lead[slot_of_rank(k + 1, h)] : knot(k + 1);
     idx_out[i] = k;
@@ -245,23 +190,13 @@ cudaError_t df_index_frac(const float* xh, const float* xl, int n, int64_t w, co
                           cudaStream_t s) {
   auto kernel = df_index_frac_kernel<kWhole>;
   const int c = static_cast<int>((n + w - 1) / w);
-  int h = 1;  // the levels of the tree: 2^h - 1 >= c slots
-  while ((1 << h) - 1 < c) ++h;
+  const int h = tree_levels(c);
   const size_t smem = (static_cast<size_t>(1) << h) * sizeof(double);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  // a grid that fills the card once: every block stages its knots once
-  int dev = 0, sms = 132, per_sm = 1;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int threads = kWhole ? kSearchThreads : kSearchThreads / 2;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  unsigned int blocks = 0;
+  const cudaError_t err = staged_grid(kernel, threads, smem, nq, &blocks);
   if (err != cudaSuccess) return err;
-  const int64_t need = (nq + threads - 1) / threads;
-  const int64_t most = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-  kernel<<<static_cast<unsigned int>(need < most ? need : most), threads, smem, s>>>(
-      xh, xl, n, w, c, h, qh, ql, idx, t_hi, t_lo, nq);
+  kernel<<<blocks, threads, smem, s>>>(xh, xl, n, w, c, h, qh, ql, idx, t_hi, t_lo, nq);
   return cudaGetLastError();
 }
 
@@ -491,13 +426,9 @@ int ndi_df_index_frac_f32(const void* xh, const void* xl, int64_t n, int64_t sha
                           const void* qh, const void* ql, void* idx, void* t_hi, void* t_lo,
                           int64_t nq, void* stream) {
   if (nq <= 0) return static_cast<int>(cudaGetLastError());
-  int dev = 0, optin = 48 * 1024;
-  cudaError_t err = cudaGetDevice(&dev);
+  int64_t budget = 1;
+  cudaError_t err = tree_budget(shared_knots, sizeof(double), &budget);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  int64_t most = 1;  // the most knots in a tree that a block's shared memory holds
-  while ((most + 1) * 2 * static_cast<int64_t>(sizeof(double)) <= optin) most = 2 * most + 1;
-  const int64_t budget = shared_knots < 1 ? 1 : (shared_knots < most ? shared_knots : most);
   const int64_t w = (n + budget - 1) / budget;  // the stride between staged knots
   const float* h = static_cast<const float*>(xh);
   const float* l = static_cast<const float*>(xl);

@@ -13,12 +13,22 @@
 // The axis of a 2,048-knot spline is 8 KB (f32), so after the first queries
 // every search step hits L1/L2 and the kernels are bound by the latency of
 // that dependent chain, not by device memory; the queries and results stream
-// once (8 bytes per query for K1 in f32).  The design answers with plenty of
+// once (8 bytes per query for K1 in f32).  K1 and K2 answer with plenty of
 // independent work: one thread per query and enough blocks to fill all SMs,
-// so the scheduler hides each thread's load chain behind other warps.  The
-// axis is read through the read-only path (__ldg).  A 65,536-knot f32 axis is
-// 256 KB, more than one block's 227 KB of shared memory, so staging the axis
-// in shared memory (or a guessed-then-verified search) is later work.
+// so the scheduler hides each thread's load chain behind other warps; the
+// axis is read through the read-only path (__ldg).  Below the first levels
+// the 32 lanes of a warp then read 32 different lines, which the first-level
+// cache serves one at a time.
+//
+// K3 searches a copy of the axis staged in shared memory (search.cuh): each
+// block stages it once, in the kernel's type, as a breadth-first tree, and
+// strides over the queries; a grid that fills the card once.  The whole axis
+// up to the budget the wrapper passes (2,048 knots are 16 KB of tree in f32,
+// 32 KB in f64), else every w-th knot as leaders with the last log2(w) levels
+// on the global axis (a 65,536-knot f32 tree would be 512 KB).  At a budget
+// of one knot the search runs every level on the global axis, as K1's and
+// K2's do (the first design's search; the tree beat it at every batch size
+// measured, two queries included).
 //
 // What the Pallas kernels did for the TPU and these do not: the one-hot MXU
 // window fetch, the bf16 split passes, the finfo.max padding of the axis and
@@ -35,7 +45,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "search.cuh"  // lower_index
+#include "search.cuh"  // lower_index, the staged search (K3)
 
 namespace {
 
@@ -80,13 +90,28 @@ __global__ void index_frac_kernel(const T* __restrict__ knots, int n,
   t_out[i] = (qi - x_l) / (x_r - x_l);
 }
 
-template <typename T>
-__global__ void lower_index_kernel(const T* __restrict__ knots, int n,
-                                   const T* __restrict__ q, int32_t* __restrict__ idx_out,
-                                   int64_t nq) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= nq) return;
-  idx_out[i] = lower_index(knots, n, q[i]);
+// K3 on the staged tree: knot j w, j < c, in h levels of shared memory
+// (kWhole: w = 1, the whole axis)
+constexpr int kSearchThreads = 1024;
+
+template <typename T, bool kWhole>
+__global__ void __launch_bounds__(kSearchThreads)
+    staged_lower_index_kernel(const T* __restrict__ knots, int n, int64_t w, int c, int h,
+                              const T* __restrict__ q, int32_t* __restrict__ idx_out,
+                              int64_t nq) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tree = reinterpret_cast<T*>(smem);
+  const auto knot = [&](int64_t m) { return __ldg(knots + m); };
+  stage_tree(tree, knot, w, c, h);
+  __syncthreads();
+#pragma unroll 1
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < nq;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const T qi = q[i];
+    // NaN gives n-2, as lower_index (the tree's compares would all be false)
+    idx_out[i] = qi == qi ? clamp_index(staged_count<kWhole>(tree, h, c, w, n, knot, qi), n)
+                          : n - 2;
+  }
 }
 
 inline unsigned int blocks_for(int64_t nq) {
@@ -115,15 +140,39 @@ int index_frac(const void* knots, int64_t n, const void* q, void* idx, void* t,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool kWhole>
+cudaError_t staged_lower_index(const T* knots, int n, int64_t w, const T* q, int32_t* idx,
+                               int64_t nq, cudaStream_t s) {
+  auto kernel = staged_lower_index_kernel<T, kWhole>;
+  const int c = static_cast<int>((n + w - 1) / w);
+  const int h = tree_levels(c);
+  const size_t smem = (static_cast<size_t>(1) << h) * sizeof(T);
+  const int threads = kWhole ? kSearchThreads : kSearchThreads / 2;
+  unsigned int blocks = 0;
+  const cudaError_t err = staged_grid(kernel, threads, smem, nq, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, threads, smem, s>>>(knots, n, w, c, h, q, idx, nq);
+  return cudaGetLastError();
+}
+
+// K3 on a tree of at most shared_knots knots (capped at the largest a block
+// holds; at least 1)
 template <typename T>
-int lower_index_launch(const void* knots, int64_t n, const void* q, void* idx, int64_t nq,
-                       void* stream) {
-  if (nq > 0) {
-    lower_index_kernel<T><<<blocks_for(nq), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(knots), static_cast<int>(n), static_cast<const T*>(q),
-        static_cast<int32_t*>(idx), nq);
-  }
-  return static_cast<int>(cudaGetLastError());
+int lower_index_launch(const void* knots, int64_t n, int64_t shared_knots, const void* q,
+                       void* idx, int64_t nq, void* stream) {
+  if (nq <= 0) return static_cast<int>(cudaGetLastError());
+  const T* k = static_cast<const T*>(knots);
+  const T* qq = static_cast<const T*>(q);
+  int32_t* ix = static_cast<int32_t*>(idx);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nn = static_cast<int>(n);
+  int64_t budget = 1;
+  cudaError_t err = tree_budget(shared_knots, sizeof(T), &budget);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t w = (n + budget - 1) / budget;  // the stride between staged knots
+  err = w == 1 ? staged_lower_index<T, true>(k, nn, w, qq, ix, nq, s)
+               : staged_lower_index<T, false>(k, nn, w, qq, ix, nq, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -150,14 +199,16 @@ int ndi_index_frac_f64(const void* knots, int64_t n, const void* q, void* idx, v
   return index_frac<double>(knots, n, q, idx, t, nq, stream);
 }
 
-int ndi_lower_index_f32(const void* knots, int64_t n, const void* q, void* idx, int64_t nq,
-                        void* stream) {
-  return lower_index_launch<float>(knots, n, q, idx, nq, stream);
+// K3: knots, n, shared_knots (the most knots a block stages; 1: every level of
+// the search on the global axis), q, idx, nq
+int ndi_lower_index_f32(const void* knots, int64_t n, int64_t shared_knots, const void* q,
+                        void* idx, int64_t nq, void* stream) {
+  return lower_index_launch<float>(knots, n, shared_knots, q, idx, nq, stream);
 }
 
-int ndi_lower_index_f64(const void* knots, int64_t n, const void* q, void* idx, int64_t nq,
-                        void* stream) {
-  return lower_index_launch<double>(knots, n, q, idx, nq, stream);
+int ndi_lower_index_f64(const void* knots, int64_t n, int64_t shared_knots, const void* q,
+                        void* idx, int64_t nq, void* stream) {
+  return lower_index_launch<double>(knots, n, shared_knots, q, idx, nq, stream);
 }
 
 const char* ndi_error_string(int code) {

@@ -69,7 +69,8 @@ _CELL_TAIL_F = ((_P, _I, _I, _I, _P, _P, _P, _P, _I, _P), _BOTH)
 _SIGNATURES = {
     "ndi_eval1d": ((_P, _I, _P, _I, _P, _P, _I, _P), _BOTH),
     "ndi_index_frac": ((_P, _I, _P, _P, _P, _I, _P), _BOTH),
-    "ndi_lower_index": ((_P, _I, _P, _P, _I, _P), _BOTH),
+    # knots, n, shared_knots, q, idx, nq
+    "ndi_lower_index": ((_P, _I, _I, _P, _P, _I, _P), _BOTH),
     "ndi_thomas": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _P), _BOTH),
     # data, a, b, rows, bank, idx, t, out, nq
     "ndi_banked_eval": ((_P, _P, _P, _I, _I, _P, _P, _P, _I, _P), _BOTH),

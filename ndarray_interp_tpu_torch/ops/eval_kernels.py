@@ -7,7 +7,8 @@ are in ``csrc/eval_kernels.cu`` and, for R1, ``csrc/cell2d_kernels.cu``:
   symmetric Hermite form in one pass, for scalar data;
 * :func:`fused_index_frac` (K2): the search emitting ``(idx, t)``, which
   feeds the bank-data eval;
-* :func:`fused_lower_index` (K3): the search emitting ``idx``;
+* :func:`fused_lower_index` (K3): the search emitting ``idx``, on the axis
+  staged in shared memory as a breadth-first tree (``_K3_TREE_BYTES``);
 * :func:`fused_cell_index` (R1): both 2-D axis searches in one pass,
   emitting the flat cell and both fractions, which feed the 2-D tails of
   :mod:`.tail2d`.
@@ -111,6 +112,23 @@ def _launch_index_frac(knots, q):
     return idx.reshape(q.shape), t.reshape(q.shape)
 
 
+# K3's shared-memory budget: a block stages as many knots as a tree of
+# _K3_TREE_BYTES holds (8,191 in f32, 4,095 in f64), the whole axis up to
+# there, every w-th knot above it with the last log2(w) levels of the search
+# on the global axis; the kernel caps it at the largest tree a block holds.
+# Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py's K3 phase, 1M
+# queries), trees of 16 / 32 / 64 / 128 KB against the global search: f32 at
+# 65,536 knots 0.0249 / 0.0226 / 0.0299 / 0.0343 against 0.0380 ms, at
+# 70,001 0.0263 / 0.0230 / 0.0304 / 0.0348 against 0.0252 (128 KB leave one
+# block of 512 threads an SM); f64 (32 / 64 / 128 KB) at 65,536 knots 0.0310
+# / 0.0352 / 0.0345 against 0.0485, at 70,001 0.0336 / 0.0361 / 0.0346
+# against 0.0346.  Staging pays at every batch: at 2,048 knots the tree took
+# 0.0033 ms against the global search's 0.0037 at 2 queries, 0.0036 against
+# 0.0040 at 1,024, 0.0095 against 0.0177 at 1M.  At a budget of one knot
+# every level of the search runs on the global axis, as K1's and K2's do.
+_K3_TREE_BYTES = 32 << 10
+
+
 def _launch_lower_index(knots, q):
     dtype = _cuda.float_operands("fused_lower_index", q, knots)
     qf = _flat_queries("fused_lower_index", knots, q)
@@ -118,7 +136,7 @@ def _launch_lower_index(knots, q):
     idx = torch.empty(qf.shape, dtype=torch.int32, device=q.device)
     _cuda.launch(
         "ndi_lower_index", dtype, q.device,
-        knots, knots.shape[0], qf, idx, qf.shape[0],
+        knots, knots.shape[0], _K3_TREE_BYTES // qf.element_size() - 1, qf, idx, qf.shape[0],
     )
     fused_lower_index.launches += 1
     return idx.reshape(q.shape)

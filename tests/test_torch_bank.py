@@ -178,6 +178,55 @@ def test_banked_hermite_tail_and_route_match_jax(bank):
         tail.numpy(), np.asarray(j_tail._gather_form_2d(*jargs)), rtol=1e-5, atol=1e-5)
 
 
+# -- R2a's plain version at its edges, against the JAX tails -------------------------
+def edge_tail_case(bank, case, nq, dtype, seed, nrow=70):
+    """A packed table with one NaN datum, intervals (uniform, all in one, or
+    far outside the table: clamped) and fractions with NaN, +-inf, 1e30 and
+    -0.0 among them."""
+    rng = np.random.default_rng(seed)
+    d2, a2, b2 = (rng.normal(size=(m, bank)).astype(dtype) for m in (nrow, nrow - 1, nrow - 1))
+    d2[nrow // 2, bank // 2] = np.nan
+    if case == "random":
+        idx = rng.integers(0, nrow - 1, nq)
+    elif case == "one interval":
+        idx = np.full(nq, nrow // 3)
+    else:
+        idx = rng.integers(-3 * nrow, 3 * nrow, nq)
+    t = rng.uniform(-0.5, 1.5, nq).astype(dtype)
+    t[:6] = [np.nan, np.inf, -np.inf, 1e30, -0.0, 1.0]
+    return d2, a2, b2, idx.astype(np.int32), t
+
+
+@pytest.mark.parametrize("case", ["random", "one interval", "out of range"])
+@pytest.mark.parametrize("bank", [1, 7, 8, 64, 130])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_plain_tail_at_its_edges_matches_the_jax_tails(dtype, bank, case):
+    """``banked_hermite_tail`` on the CPU (``_tail_plain``, what R2a is held
+    to on the card) against the JAX package on the same rows: the Pallas
+    tail in interpret mode in f32 (``rtol = atol = 1e-5``,
+    ``tests/test_pallas_tail.py:67``), its gather formulation
+    ``_gather_form_2d`` in f64 (1e-12), each on the indices clamped to the
+    table as the port clamps them (512 queries: the Pallas tail takes
+    multiples of 512).  NaN fractions give NaN rows, and the NaN
+    datum reaches only the rows of its two intervals."""
+    d2, a2, b2, idx, t = edge_tail_case(bank, case, 512, dtype, bank + len(case))
+    packed = t_tail.pack_bank_rows(*(torch.as_tensor(v) for v in (d2, a2, b2)))
+    got = t_tail.banked_hermite_tail(packed, torch.as_tensor(idx), torch.as_tensor(t), bank)
+    assert tuple(got.shape) == (512, bank) and got.dtype == packed.dtype
+    got = got.numpy()
+    clamped = np.clip(idx, 0, packed.shape[0] - 1)
+    if dtype == np.float32:
+        rows = jnp.take(jnp.asarray(packed.numpy()), jnp.asarray(clamped), axis=0)
+        want = j_tail.banked_hermite_tail(rows, jnp.asarray(t), bank, interpret=True)
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+    else:
+        want = j_tail._gather_form_2d(*(jnp.asarray(v) for v in (d2, a2, b2, clamped, t)))
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-12, atol=1e-12)
+    assert np.isnan(got[0]).all()
+    nan_rows = np.isnan(got[:, bank // 2]) & (np.abs(t) <= 2)  # NaN from the datum alone
+    assert np.isin(clamped[nan_rows], [34, 35]).all()
+
+
 def test_packed_route_nan_localization():
     """``tests/test_pallas_tail.py:100-111``: a NaN datum reaches only the
     queries that touch its intervals, in its own column."""

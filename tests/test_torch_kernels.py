@@ -1220,6 +1220,67 @@ def test_strategy_routes_launch_k5_r2a_r3_r3idx(dev):
                                    atol=1e-5 * float(want.abs().max()))
 
 
+# -- R2a on 16-byte lanes or one column a lane -----------------------------------------
+def tail_case_r2a(bank, case, nq, dtype, dev, seed, n=700):
+    """A packed R2a table of ``n - 1`` rows at ``bank`` columns with one NaN
+    datum, and intervals (uniform, all in one, sorted, or far outside the
+    table: clamped) with fractions that include NaN, +-inf and 1e30."""
+    from ndarray_interp_tpu_torch.ops import bank_tail as bt
+
+    rng = np.random.default_rng(seed)
+    d, a, b = (rng.normal(size=(m, bank)).astype(dtype) for m in (n, n - 1, n - 1))
+    d[n // 2, bank // 2] = np.nan
+    packed = bt.pack_bank_rows(*(torch.as_tensor(v, device=dev) for v in (d, a, b)))
+    idx = torch.as_tensor(order_indices(case, n, 2, nq, rng)[0], dtype=torch.int32, device=dev)
+    t = torch.as_tensor(order_fractions(rng, nq)[0].astype(dtype), device=dev)
+    return packed, idx, t, bank
+
+
+def misaligned_copy(packed):
+    """``packed`` copied one element past a 16-byte boundary."""
+    buf = torch.empty(packed.numel() + 1, dtype=packed.dtype, device=packed.device)
+    shifted = buf[1:].view(packed.shape).copy_(packed)
+    assert shifted.data_ptr() % 16
+    return shifted
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("bank", [1, 2, 7, 8, 64, 130, 256])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_bank_tail_matches_plain(dev, dtype, bank, aligned):
+    """R2a on 16-byte lanes (f32 4 columns, f64 2; banks that are no
+    multiple of them and tables off 16-byte alignment one column a lane):
+    bit for bit ``_tail_plain``, a NaN datum only in its intervals' rows;
+    one launch."""
+    from ndarray_interp_tpu_torch.ops import bank_tail as bt
+
+    packed, idx, t, bank = tail_case_r2a(bank, "random", 30_000, dtype, dev, bank)
+    table = packed if aligned else misaligned_copy(packed)
+    got, launched = launched_by(lambda: bt.banked_hermite_tail(table, idx, t, bank))
+    assert launched == {"R2a": 1}
+    assert same(got, bt._tail_plain(packed, idx, t, bank))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["hot", "sorted", "out of range"])
+def test_bank_tail_on_hot_sorted_and_clamped_batches(dev, case, dtype):
+    from ndarray_interp_tpu_torch.ops import bank_tail as bt
+
+    args = tail_case_r2a(64, case, 300_000, dtype, dev, 17)
+    assert same(bt.banked_hermite_tail(*args), bt._tail_plain(*args))
+
+
+@pytest.mark.parametrize("nq", [0, 1])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_bank_tail_takes_empty_and_single_query_batches(dev, dtype, nq):
+    from ndarray_interp_tpu_torch.ops import bank_tail as bt
+
+    args = tail_case_r2a(64, "random", nq, dtype, dev, 19)
+    got = bt.banked_hermite_tail(*args)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (nq, 64) and same(got, bt._tail_plain(*args))
+
+
 def test_bank_and_big_wrappers_check_their_inputs(dev):
     from ndarray_interp_tpu_torch.ops import bank_eval as be
     from ndarray_interp_tpu_torch.ops import bank_tail as bt
@@ -1240,6 +1301,33 @@ def test_bank_and_big_wrappers_check_their_inputs(dev):
         bk.big_eval_1d(k, k[:-1], k[:-1], k[:-1], t)
     with pytest.raises(TypeError, match="torch.int64"):
         bk.big_lower_index_frac(torch.arange(100, device=dev), torch.arange(5, device=dev))
+
+
+# -- K3 on the staged tree, whole or as leaders, and on the global search ---------------
+@pytest.mark.parametrize("shared", [None, 1, 2, 7, 63, 40_000])
+@pytest.mark.parametrize("n", [2, 3, 33, 2048, 70_001])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_lower_index_kernel_matches_plain_at_every_budget(dev, dtype, n, shared, monkeypatch):
+    """K3 at the wrapper's budget (``None``: a 32 KB tree), at one knot
+    (every level of the search on the global axis), as leaders (at most 2, 7 or 63 staged knots, the
+    search ending on the global axis) and past the largest tree a block
+    holds (40,000 knots: capped, the whole axis or leaders), on 0, 1, 2 and
+    1,000,000 queries with NaN (``n-2``), +-inf, +-1e38, the knots and far
+    extrapolation: index for index ``get_lower_index``."""
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+    from ndarray_interp_tpu_torch.ops.searchsorted import get_lower_index
+
+    if shared is not None:
+        monkeypatch.setattr(ek, "_K3_TREE_BYTES", (shared + 1) * np.dtype(dtype).itemsize)
+    kn = knots(n, dtype, n + 5)
+    k = torch.as_tensor(kn, device=dev)
+    body = queries(kn, dtype, n, count=1_000_000 - n - 9)
+    for q in (body[:0], body[-9:-8], body[-9:-7], body):  # 0, NaN, NaN and +inf, 1M
+        q = torch.as_tensor(q, device=dev)
+        got, launched = launched_by(lambda: ek.fused_lower_index(k, q))
+        assert launched == {"K3": 1}
+        assert same(got, get_lower_index(k, q)), (q.numel(), shared)
+    assert got[-9].item() == n - 2 and got[-8].item() == n - 2 and got[-7].item() == 0
 
 
 # -- the f32/f64 2-D cell route: R1, R2b, R2c, R2d, R2n ---------------------------------
