@@ -109,19 +109,23 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    every query in one interval and in interval order (the diagnosis), in
    f64, and on prefixes of 2^12 to 2^20 queries at banks 8, 64 and 256.
    Every kernel's launches are summed over every path.
-   K12 (at NS3d), K13 (at NS3f), K14 (at NS3e), K8 and K9 (at the DF and f48
-   bank serving's 10,240 x 64 tables and 2^20 queries) also run their
-   ordering (by cell; K8's and K9's by interval, the 1-D form) apart, held
-   against its plain version
-   (the same bucket keys, a permutation of the queries) and timed beside
-   ``torch.argsort`` of the same keys, and both of their branches (ordered,
-   and the unordered body of small batches) are held bit for bit and timed
-   in turn on the path's queries, on all of them in one cell or interval,
-   on them already in order, at batch sizes from 4,096 up (the crossover),
-   and on narrower or wider tables (K12 and K13 at 3 channels, bp 8, K13
-   with its own sweep; K14 at 3, 4 and 8 channels, 3 on one float a lane; K8
-   and K9 at banks of 8 and 256 with their own sweeps, and 63, one column a
-   lane): the data behind the wrappers' choice of branch.  K8, K9 and K13
+   K12 (at NS3d), K13 (at NS3f), K14 (at NS3e), R4c (at NS3d), K8 and K9 (at
+   the DF and f48 bank serving's 10,240 x 64 tables and 2^20 queries) also
+   run their ordering ORD (by cell; K8's and K9's by interval, the 1-D form)
+   apart, in the form the wrapper picks (shared or global), held against its
+   plain version (the same bucket keys, a permutation of the queries, each
+   query's record bit for bit) and timed beside the first design and
+   ``torch.argsort`` of the same keys, both with their kernels (the phases)
+   from the profiler; and both of their branches (ordered, and the unordered
+   body of small batches) are held bit for bit and timed in turn on the
+   path's queries, on all of them in one cell or interval and on them
+   already in order.  ``--sweeps`` adds the crossover sweeps: batch sizes
+   from 4,096 up, and narrower or wider tables (K12 and K13 at 3 channels,
+   bp 8, K13 with its own sweep; K14 at 3, 4 and 8 channels, 3 on one float a
+   lane; K8 and K9 at banks of 8 and 256 with their own sweeps, and 63, one
+   column a lane): the data behind the wrappers' choice of branch; and ORD
+   in each form on 1,024 to 49,152 buckets, the data behind the shared
+   form's bucket limit.  K8, K9 and K13
    also hold their float64 store form on both branches against
    ``df_to_f64`` of the plain pair, bit for bit, and time it, and K10 and
    K11 (which have no ordered branch) on their one branch; the evaluator
@@ -544,7 +548,7 @@ def gate(label, got, ref, tol, shape, oracle="SciPy f64"):
 # the tails that order their batch first (ORD); a call's orderings are those
 # of the one of them it launched (K10 and K11 never order: a call of theirs
 # that launches ORD fails)
-ORDERED_TAILS = ("K8", "K9", "K12", "K13", "K14")
+ORDERED_TAILS = ("K8", "K9", "K12", "K13", "K14", "R4c")
 
 
 def counted_calls():
@@ -1075,10 +1079,10 @@ CELL_BLOCKS = {"K10": 8, "K11": 6, "K12": 32, "K13": 24, "R4c": 32}
 
 def row_floor_ms(kid, args):
     """The floor of a design that reads each query's own rows from HBM, as
-    queries in random order do: its rows (K15 one cell row, K10-K13 one
-    cell row, K14 four node rows), its idx and t pairs and its output pair,
-    at the HBM rate."""
-    if kid in ("K10", "K11", "K12", "K13", "K14"):  # packed, xi, yi, ny, t halves
+    queries in random order do: its rows (K15 one cell row, K10-K13 and R4c
+    one cell row, K14 four node rows), its idx and t pairs and its output
+    pair, at the HBM rate."""
+    if kid in ("K10", "K11", "K12", "K13", "K14", "R4c"):  # packed, xi, yi, ny, t halves
         packed, xi, yi, _, *t = args
         ch, nq = packed.shape[1], xi.numel()
         if kid == "K14":  # four rows of 8 r + 4 floats, an (r,) output pair
@@ -1101,8 +1105,8 @@ BANK_SWEEP = (4096, 16_384, 65_536, 131_072, 262_144, 524_288, 1_048_576)
 
 def ordered_tail(kid):
     """``(module, wrapper, plain, f64 entry)`` of a tail that orders its
-    batch: K8 and K9 (1-D, by interval), K12, K13, K14 (by cell); the module
-    holds the wrapper's ``_orders``."""
+    batch: K8 and K9 (1-D, by interval), K12, K13, K14 and R4c (by cell); the
+    module holds the wrapper's ``_orders``."""
     from ndarray_interp_tpu_torch.ops import eval_kernels_df as e1
     from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as e2
 
@@ -1113,6 +1117,7 @@ def ordered_tail(kid):
         "K13": (e2, e2.gathered_bicubic_f48_tail, e2._bicubic_f48_tail_plain,
                 e2._gathered_bicubic_f48_tail_f64),
         "K14": (e2, e2.gathered_bicubic_node_df_tail, e2._bicubic_node_df_tail_plain, None),
+        "R4c": (e2, e2.gathered_bicubic_df_weight_tail, e2._bicubic_df_weight_tail_plain, None),
     }[kid]
 
 
@@ -1128,7 +1133,7 @@ def wrapper_orders(kid, nq, ch):
 
 def order_args(kid, args):
     """The ordering's arguments for a tail's ``args``: K8's and K9's 1-D form
-    (no yi, no y halves), the cell (K12, K13) or the base node (K14)."""
+    (no yi, no y halves), the cell (K12, K13, R4c) or the base node (K14)."""
     if kid in ("K8", "K9"):
         packed, idx, th, tl, _ = args
         return (idx, None, 1, 0, packed.shape[0], th, tl, None, None)
@@ -1137,20 +1142,22 @@ def order_args(kid, args):
     return (xi, yi, row_step, lo, packed.shape[0], *t)
 
 
-def ordered_phase(kid, system, card, rec, extra=(), sweep=ORDER_SWEEP):
-    """K8, K9, K12, K13 or K14 on a path's table and queries ``system``: the
-    ordering (by interval for K8 and K9, by cell else) held against its plain
-    version (the same bucket keys, a permutation of the queries, each
-    record its query's row value and fraction halves) and timed apart
-    beside ``torch.argsort`` of the same keys; then both branches of the
-    kernel, ordered and the unordered body, held bit for bit against the
+def ordered_phase(kid, system, card, rec, sweeps, extra=(), sweep=ORDER_SWEEP):
+    """K8, K9, K12, K13, K14 or R4c on a path's table and queries ``system``:
+    the ordering (by interval for K8 and K9, by cell else) in the form the
+    wrapper picks for the table held against its plain version (the same
+    bucket keys, a permutation of the queries, and each query's record, its
+    row value and fraction halves, bit for bit the plain one's) and timed
+    apart beside the first design and ``torch.argsort`` of the same keys,
+    each with its kernels from the profiler (the phases); then both branches
+    of the tail, ordered and the unordered body, held bit for bit against the
     plain version (K8, K9 and K13 in both store forms, the float64 one against
     ``df_to_f64`` of the plain pair) and timed in turn on the path's
-    queries, on all of them in one cell or interval, on them already in
-    order, on prefixes of ``sweep`` queries (the crossover behind the
-    wrappers' choice), and on the ``extra`` (label, args, sweep) (a sweep
-    of prefixes too where one is given).  Returns the keys the kernels line
-    adds."""
+    queries, on all of them in one cell or interval and on them already in
+    order.  With ``sweeps``, also on prefixes of ``sweep`` queries (the
+    crossover behind the wrappers' choice) and on the ``extra`` (label,
+    args, sweep) (a sweep of prefixes too where one is given).  Returns the
+    keys the kernels line adds."""
     import torch
 
     from ndarray_interp_tpu_torch.ops import cell_order as co
@@ -1160,39 +1167,53 @@ def ordered_phase(kid, system, card, rec, extra=(), sweep=ORDER_SWEEP):
     label, args = system
     packed = args[0]
     oargs = order_args(kid, args)
-    idx_args, t = (oargs[:2], list(oargs[5:]))
     rows, nq = packed.shape[0], oargs[0].shape[0]
     one_d = kid in ("K8", "K9")
+    form = co._form(co.bucket_count(rows))
 
-    v, qid, frac = co.record_fields(co.order_by_cell(*oargs))
-    want_v = co.record_fields(co._order_plain(*oargs))[0]
     values = co.row_values(*oargs[:5])
     keys = co.bucket_keys(values, rows)
-    qid = qid.long()
-    halves = torch.stack(t[:2] + ([torch.zeros_like(t[0])] * 2 if one_d else t[2:]), dim=1)
-    checks = {
-        "bucket keys": torch.equal(co.bucket_keys(v.long(), rows),
-                                   co.bucket_keys(want_v.long(), rows)),
-        "permutation": torch.equal(torch.sort(qid).values,
-                                   torch.arange(nq, device=packed.device)),
-        "row values": torch.equal(v.long(), values[qid]),
-        "fractions": bit_compare(frac, halves[qid])[0],
-    }
-    del v, qid, frac, want_v, halves
+    want = co._order_plain(*oargs)
+    want_query = want[want[:, 1].long().argsort()]  # each query's record, in query order
+    bad = []
+    # the wrapper's form, and the first design (the global form) where that is another
+    forms = [("", lambda: co.order_by_cell(*oargs))]
+    if form != co.GLOBAL:
+        forms.append((", the first design", lambda: co._order_kernel(oargs, co.GLOBAL)))
+    for what, fn in forms:
+        records = fn()
+        v, qid = records[:, 0].long(), records[:, 1].long()
+        if not torch.equal(co.bucket_keys(v, rows), co.bucket_keys(want[:, 0].long(), rows)):
+            bad.append(f"bucket keys{what}")
+        if not torch.equal(torch.sort(qid).values, torch.arange(nq, device=packed.device)):
+            bad.append(f"permutation{what}")
+        elif not rec.add("ORD", f"for {kid} {label}{what}, each query's record",
+                         records[qid.argsort()], want_query):
+            bad.append(f"records{what}")
+        del records, v, qid
+    del want, want_query
     order = device_ms(lambda: co.order_by_cell(*oargs), 10)
+    first = order if form == co.GLOBAL else device_ms(
+        lambda: co._order_kernel(oargs, co.GLOBAL), 10)
     order_plain = device_ms(lambda: co._order_plain(*oargs), 2)
     argsort = device_ms(lambda: torch.argsort(keys), 10)
     order_bound = bound("ORD", oargs)[0]
-    busy, top = busy_ms(lambda: co.order_by_cell(*oargs), 10)
-    bad = [k for k, ok in checks.items() if not ok]
-    print(f"  ORD ordering by {'interval' if one_d else 'cell'} for {kid}, {label} ({rows:,} "
-          f"buckets of 2^{co.bucket_shift(rows)} rows): "
-          f"{'matches its plain version' if not bad else bad} (bucket keys, permutation, "
-          f"records); kernel {fmt(order)}, plain (stable argsort) {fmt(order_plain)}, bound "
-          f"{order_bound:.4f} (bytes); library call torch.argsort of the same keys "
-          f"{fmt(argsort)}; its kernels by the profiler (busy {busy:.4f}):", flush=True)
-    for name, ms in top:
-        print(f"      {ms:.4f}  {name[:120]}")
+    name = "shared" if form == co.SHARED else "global"
+    print(f"  ORD ordering by {'interval' if one_d else 'cell'} for {kid}, {label} "
+          f"({co.bucket_count(rows):,} buckets of 2^{co.bucket_shift(rows)} rows; the {name} "
+          f"form): {'matches its plain version' if not bad else bad} (bucket keys, "
+          f"permutation, each query's record); kernel {fmt(order)}, the first design (the "
+          f"global form: global atomics, a memset, two scans) {fmt(first)}, plain (stable "
+          f"argsort) {fmt(order_plain)}, bound {order_bound:.4f} (bytes); library call "
+          f"torch.argsort of the same keys {fmt(argsort)}", flush=True)
+    phases = [(f"the {name} form", lambda: co.order_by_cell(*oargs))]
+    if form != co.GLOBAL:
+        phases.append(("the first design", lambda: co._order_kernel(oargs, co.GLOBAL)))
+    for what, fn in phases:
+        busy, top = busy_ms(fn, 10, top=6)
+        print(f"    phases of {what} by the profiler (busy {busy:.4f}):", flush=True)
+        for kernel, ms in top:
+            print(f"      {ms:.4f}  {kernel[:120]}")
     if bad:
         fail(f"ORD for {kid} {label}: {', '.join(bad)} differ from the plain ordering")
 
@@ -1261,17 +1282,18 @@ def ordered_phase(kid, system, card, rec, extra=(), sweep=ORDER_SWEEP):
         srt = (packed, args[1][perm], args[2][perm], args[3], *(v[perm] for v in args[4:]))
     branches(f"queries already in {'interval' if one_d else 'cell'} order", srt, 5)
     del perm, values, keys, srt
-    for n in sweep:
+    for n in sweep if sweeps else ():
         if n < nq:
             branches(f"first {n:,} queries", prefix(args, n), 20 if n <= 65_536 else 5)
-    for what, a, sub in extra:
+    for what, a, sub in extra if sweeps else ():
         branches(what, a, 5, check=a[1].shape[0] * 4 * a[0].shape[1] <= 2**33)
         for n in sub:
             if n < a[1].shape[0]:
                 branches(f"{what}, first {n:,} queries", prefix(a, n), 20 if n <= 65_536 else 5)
     torch.cuda.synchronize()
-    out = {"unordered_ms": main[False], "order_ms": order[0], "order_plain_ms": order_plain[0],
-           "order_bound_ms": order_bound, "order_library_ms": argsort[0]}
+    out = {"unordered_ms": main[False], "order_ms": order[0], "order_first_ms": first[0],
+           "order_plain_ms": order_plain[0], "order_bound_ms": order_bound,
+           "order_library_ms": argsort[0], "order_form": name}
     if not one_d:
         out["row_floor_ms"] = row_floor_ms(kid, args)
     if kern64 is not None:
@@ -1343,7 +1365,45 @@ def k7_phase(x, qbp, card, rec):
     return {"global_search_ms": out[cases[0][0]]["global_ms"], "shapes": out}
 
 
-def df_timing(serving, card, rec):
+# --sweeps: ORD's forms by bucket count, the data behind SHARED_MAX_BUCKETS
+ORD_BUCKETS = (1024, 4096, 8192, 16_384, 24_576, 32_768, 49_152)
+
+
+def ord_form_sweep(dev, card):
+    """ORD in each form (the shared form, and the global form of the first
+    design) on 2^20 1-D queries uniform over ``ORD_BUCKETS`` intervals, each
+    held against the plain ordering (each query's record, bit for bit) and
+    timed: the crossover of the two."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops import cell_order as co
+
+    rng = np.random.default_rng(54)
+    n = 1 << 20
+    th, tl = (torch.as_tensor(rng.uniform(-1, 2, n), dtype=torch.float32, device=dev)
+              for _ in range(2))
+    names = {co.SHARED: "shared", co.GLOBAL: "global (the first design)"}
+    print(f"ORD by form and bucket count, 2^20 1-D queries (ms, median [min, max]; the "
+          f"wrapper's limit of the shared form {co.SHARED_MAX_BUCKETS:,}; card: {card}):",
+          flush=True)
+    for rows in ORD_BUCKETS:
+        xi = torch.as_tensor(rng.integers(0, rows, n), dtype=torch.int32, device=dev)
+        args = (xi, None, 1, 0, rows, th, tl, None, None)
+        want = co._order_plain(*args)
+        want = want[want[:, 1].long().argsort()]
+        got = {}
+        for form in (co.SHARED, co.GLOBAL):
+            records = co._order_kernel(args, form)
+            same = bit_compare(records[records[:, 1].long().argsort()], want)[0]
+            got[form] = device_ms(lambda: co._order_kernel(args, form), 10)
+            if not same:
+                fail(f"ORD {names[form]} form on {rows:,} intervals differs from the plain "
+                     "ordering")
+        print(f"  {rows:,} intervals: " + ", ".join(f"{names[f]} {fmt(t)}" for f, t in got.items()),
+              flush=True)
+
+
+def df_timing(serving, card, rec, sweeps):
     """Hold K6-K9, through their wrappers, against their plain versions on
     the serving path's own tables and queries; time both there; K7 by its
     shared-knot budget (``k7_phase``); K8's and K9's ordering by interval
@@ -1398,11 +1458,14 @@ def df_timing(serving, card, rec):
     for kid, grade, pack in (("K8", "df", ek.pack_bank_rows_df),
                              ("K9", "f48", ek.pack_bank_rows_f48)):
         extra = [(f"{n:,} x {bank} {grade} table", (bank_table(pack, bank), idx, th, tl, bank),
-                  BANK_SWEEP if bank != 63 else ()) for bank in (8, 256, 63)]
+                  BANK_SWEEP if bank != 63 else ()) for bank in ((8, 256, 63) if sweeps else ())]
         print(f"{kid} at the serving path's table and queries, ordered by interval and "
               "unordered:", flush=True)
-        times[kid].update(ordered_phase(kid, systems[kid][0], card, rec, extra, BANK_SWEEP))
+        times[kid].update(ordered_phase(kid, systems[kid][0], card, rec, sweeps, extra,
+                                        BANK_SWEEP))
         del extra
+    if sweeps:
+        ord_form_sweep(qb.device, card)
 
     ev1, q1 = serving["K1"]
     end_to_end({
@@ -1737,7 +1800,7 @@ def recombined_pair_route(ev, grade, qx, qy):
     return df_to_f64(*route(*ev._run.args, *halves))[:n].reshape(n, -1)
 
 
-def timing2d(state, card, rec):
+def timing2d(state, card, rec, sweeps):
     """Hold the kernels of the 2-D path, through their wrappers, against
     their plain versions on the path's own inputs; time R1, R2b-R2n,
     K10-K13 and the per-column-diagonal K4 against their plain versions;
@@ -1825,26 +1888,25 @@ def timing2d(state, card, rec):
               f"pair): {fmt(f64)} (pair form {times[kid]['ms']:.4f}); row-read floor "
               f"{times[kid]['row_floor_ms']:.4f} (each query's own row from HBM)", flush=True)
     rng = np.random.default_rng(51)
-    # K12 on a cell table of 3 channels (bp 8, 1 KiB of rows a query) at NS3d's queries
     cells = (GRID2D[0] - 1) * (GRID2D[1] - 1)
-    narrow = e2.pack_bicubic_rows_df(*df_from_f64(torch.as_tensor(
-        rng.normal(size=(cells, 16 * 3)), device=qxd.device)), 3)
+
+    def narrow(pack):  # a cell table of 3 channels (bp 8) at NS3d's cells (--sweeps)
+        return pack(*df_from_f64(torch.as_tensor(rng.normal(size=(cells, 16 * 3)),
+                                                 device=qxd.device)), 3)
+
+    # K12 also on a cell table of 3 channels (1 KiB of rows a query) at NS3d's queries
     print("K12 at NS3d's table and queries, ordered by cell and unordered:", flush=True)
-    times["K12"].update(ordered_phase(
-        "K12", systems["K12"][0], card, rec,
-        [(f"cell table {GRID2D[0]}x{GRID2D[1]}x3 (bp 8)", (narrow, *systems["K12"][0][1][1:]),
-          ())]))
-    del narrow
-    # K13 likewise at NS3f, and on an f48 cell table of 3 channels (bp 8, 768 B
-    # of rows a query)
-    narrow = e2.pack_bicubic_rows_f48(*df_from_f64(torch.as_tensor(
-        rng.normal(size=(cells, 16 * 3)), device=qxd.device)), 3)
+    extra = [(f"cell table {GRID2D[0]}x{GRID2D[1]}x3 (bp 8)",
+              (narrow(e2.pack_bicubic_rows_df), *systems["K12"][0][1][1:]), ())] if sweeps else []
+    times["K12"].update(ordered_phase("K12", systems["K12"][0], card, rec, sweeps, extra))
+    # K13 likewise at NS3f, and on an f48 cell table of 3 channels (768 B of
+    # rows a query)
     print("K13 at NS3f's table and queries, ordered by cell and unordered:", flush=True)
-    times["K13"].update(ordered_phase(
-        "K13", systems["K13"][0], card, rec,
-        [(f"f48 cell table {GRID2D[0]}x{GRID2D[1]}x3 (bp 8)",
-          (narrow, *systems["K13"][0][1][1:]), ORDER_SWEEP)]))
-    del narrow
+    extra = [(f"f48 cell table {GRID2D[0]}x{GRID2D[1]}x3 (bp 8)",
+              (narrow(e2.pack_bicubic_rows_f48), *systems["K13"][0][1][1:]),
+              ORDER_SWEEP)] if sweeps else []
+    times["K13"].update(ordered_phase("K13", systems["K13"][0], card, rec, sweeps, extra))
+    del extra
 
     # K4 at the NS3b build: its three solves of the 512 x 512 x 16 grid (x, then
     # y of the data and of the x derivatives), held bit for bit and timed as one
@@ -2169,7 +2231,7 @@ def nd_path(dev, rng):
     return out, total
 
 
-def timing_nd(state, card, rec):
+def timing_nd(state, card, rec, sweeps):
     """Hold K14 and K15, through their wrappers, against their plain versions
     on the paths' own tables and queries; time both there (K15 also at
     bp > 1); then time the N-D and NS3e calls end to end."""
@@ -2227,16 +2289,16 @@ def timing_nd(state, card, rec):
     # K14 on node tables of 3 (one float a lane), 4 and 8 channels at NS3e's grid and queries
     nx_e, ny_e = itp_e.x.shape[0], itp_e.y.shape[0]
     narrow = []
-    for r in (3, 4, 8):
+    for r in (3, 4, 8) if sweeps else ():
         nodes = rng.normal(size=(nx_e * ny_e, 4 * r + 2))
         nodes[:, 4 * r] = np.repeat(itp_e.x.cpu().numpy(), ny_e)
         nodes[:, 4 * r + 1] = np.tile(itp_e.y.cpu().numpy(), nx_e)
         packed = e2.pack_bicubic_nodes_df(*df_from_f64(torch.as_tensor(nodes, device=qx.device)))
         narrow.append((f"node table {nx_e}x{ny_e}x{r}{' (r % 4 != 0)' if r % 4 else ''}",
                        (packed, *systems["K14"][0][1][1:]), ()))
-    del nodes, packed
+        del nodes, packed
     print("K14 at NS3e's table and queries, ordered by cell and unordered:", flush=True)
-    times["K14"].update(ordered_phase("K14", systems["K14"][0], card, rec, narrow))
+    times["K14"].update(ordered_phase("K14", systems["K14"][0], card, rec, sweeps, narrow))
     del narrow
     for kid in ("K15", "K15f48"):
         kern, plain, _, (nk, npl) = pairs[kid]
@@ -2917,7 +2979,7 @@ def calculus_path(dev, state, state2d, rng):
     return out, total
 
 
-def timing_tails_step_calculus(tails_args, steps, calc, state2d, card, rec):
+def timing_tails_step_calculus(tails_args, steps, calc, state2d, card, rec, sweeps):
     """Hold R4c, through its wrapper, against its plain version on NS3d's
     table and queries; time both there, with K12 beside it; then time the
     NS3d route with each tail, the step family and calculus end to end."""
@@ -2940,6 +3002,8 @@ def timing_tails_step_calculus(tails_args, steps, calc, state2d, card, rec):
     k12 = device_ms(lambda: e2.gathered_bicubic_df_tail(*args), 5)
     print(f"  K12 beside it, same table and queries: {fmt(k12)} (R4c {times['R4c']['ms']:.4f})",
           flush=True)
+    print("R4c at NS3d's table and queries, ordered by cell and unordered:", flush=True)
+    times["R4c"].update(ordered_phase("R4c", systems["R4c"][0], card, rec, sweeps))
 
     r = GRID2D[2]
     itp1, q1 = calc["NS1"]
@@ -3029,7 +3093,25 @@ KERNELS = {
             "ndarray_interp_tpu/models/strategies/bicubic.py:182"),
     "R4c": ("gathered_bicubic_df_weight_tail", "ndarray_interp_tpu_torch/csrc/df2d_kernels.cu",
             "ndarray_interp_tpu/ops/df_records.py:159"),
+    "ORD": ("order_by_cell", "ndarray_interp_tpu_torch/csrc/cell_order.cu",
+            "none: no TPU twin (the JAX routes evaluate in query order)"),
 }
+# ORD's shapes: (its label, the tail whose ordered phase timed it there)
+ORD_SHAPES = (("K8/K9: 2^20 queries over 10,239 intervals", "K8"),
+              ("K12/K13/R4c (NS3d): 1,000,000 queries over 261,121 cells", "K12"),
+              ("K14 (NS3e): 1,000,000 queries over 1,048,576 base nodes", "K14"))
+
+
+def ord_times(times):
+    """ORD's entry of the kernels line: its times at K8's shape, the DF bank
+    serving's (the most launches), and at every shape beside them."""
+    shapes = {label: {key: times[kid][f"order_{key}"]
+                      for key in ("ms", "first_ms", "plain_ms", "bound_ms", "library_ms", "form")}
+              for label, kid in ORD_SHAPES}
+    head = shapes[ORD_SHAPES[0][0]]
+    return {"ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": "bytes", "library_ms": head["library_ms"],
+            "first_design_ms": head["first_ms"], "shapes": shapes}
 
 
 def main():
@@ -3037,7 +3119,8 @@ def main():
 
     ap = argparse.ArgumentParser(description="On-card check of the PyTorch port.")
     ap.add_argument("--sweeps", action="store_true",
-                    help="also run the design sweeps behind K3's tree budget and R2a's body")
+                    help="also run the design sweeps behind K3's tree budget, R2a's body, the "
+                         "ordered branches' crossovers and ORD's forms")
     sweeps = ap.parse_args().sweeps
     import torch
 
@@ -3154,14 +3237,15 @@ def main():
     elapsed("tails, step and calculus paths")
 
     times = timing(state, card, rec, sweeps)
-    times.update(df_timing(serving, card, rec))
-    times.update(timing2d(state2d, card, rec))
-    times.update(timing_nd(state_nd, card, rec))
+    times.update(df_timing(serving, card, rec, sweeps))
+    times.update(timing2d(state2d, card, rec, sweeps))
+    times.update(timing_nd(state_nd, card, rec, sweeps))
     del state_nd
     itp10, _, _, q10 = state["bank"]
     times.update(timing_big(state_big, (itp10, q10), card, rec, sweeps))
     del state_big
-    times.update(timing_tails_step_calculus(tails_args, steps, calc, state2d, card, rec))
+    times.update(timing_tails_step_calculus(tails_args, steps, calc, state2d, card, rec, sweeps))
+    times["ORD"] = ord_times(times)
     torch.cuda.synchronize()
     elapsed("timing")
 

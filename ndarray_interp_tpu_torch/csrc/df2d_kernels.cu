@@ -70,22 +70,26 @@
 // about the grid's float64 memory) is a quarter of the DF cell table's, for
 // four row fetches a query instead of one.
 //
-// K12, K13 and K14 at large batches.  With queries in random order each
+// K12, K13, K14 and R4c at large batches.  With queries in random order each
 // query's row comes from HBM: ~2.1 GB (K13: 1.6 GB) for 1M queries, where the
 // tables are 535, 401 and 554 MB.  Above a batch size the wrappers first order
 // the queries by cell (csrc/cell_order.cu) and run bicubic_ordered_kernel
-// (K12, generic over its row reader DFRows), cached_ordered_kernel (K13) or
-// node_ordered_kernel on the ordered records: several queries a warp, W = 4
-// channels a lane on float4 rows where the blocks allow it (K13: W = 2, each
-// lane keeping its channels of the cell's blocks widened for the run of
-// queries on the cell), the results written to each query's own slot.
-// Queries of one cell then share one fetch in a load instruction or through
-// L1, and the sweep over the cells reads each row from HBM about once (K14's
-// next x-column of nodes is reused from L2 one column later).  Each element
-// is computed by the same operations in the same order as in cell_tail_kernel
-// and node_tail_kernel, so both paths are bit-identical to the plain
-// versions.  K10, K11 and R4c keep the unordered kernel: the bilinear rows
-// (512 and 384 B at 16 channels) are too narrow for the ordering to pay.
+// (K12, generic over its row reader DFRows), cached_ordered_kernel (K13, R4c)
+// or node_ordered_kernel on the ordered records: several queries a warp, W = 4
+// channels a lane on float4 rows where the blocks allow it (K13, R4c: W = 2,
+// each lane keeping its channels of the cell's blocks widened for the run of
+// queries on the cell; R4c builds its 16 weights once a record), the results
+// written to each query's own slot.  Queries of one cell then share one fetch
+// in a load instruction or through L1, and the sweep over the cells reads
+// each row from HBM about once (K14's next x-column of nodes is reused from
+// L2 one column later).  Each element is computed by the same operations in
+// the same order as in cell_tail_kernel and node_tail_kernel, so both paths
+// are bit-identical to the plain versions.  At NS3d's 1M queries R4c takes
+// 0.370 ms so, ordering included, against 0.705 in query order; K12's
+// uncached body with the weight form (W = 4, weights once a record) took
+// 0.488 (an H100 80GB HBM3 at 700 W).  K10 and K11 keep the unordered kernel:
+// the bilinear rows (512 and 384 B at 16 channels) are too narrow for the
+// ordering to pay.
 //
 // K10, K11 and K13 also have the float64 store form of df_common.cuh (out_lo
 // null; K13 on both paths): DoubleFloatEvaluator2D takes it for Bilinear (both
@@ -147,28 +151,87 @@ __device__ __forceinline__ void widen_w(const float* __restrict__ hi,
   for (int j = 0; j < W; ++j) out[j] = widen(h[j], l[j]);
 }
 
-// The cell layouts of K10-K13: a cell row holds kValues (hi, lo) blocks a
-// channel.  all<W> widens W channels of every block into v, at<W> evaluates
-// channel j of them, and eval is one element in query order (cell_tail_kernel)
-// by the same two; cached_ordered_kernel keeps v for the run of records on a
-// cell (K13).
+// The cell layouts of K10-K13 and R4c: a cell row holds kValues (hi, lo)
+// blocks a channel.  all<W> widens W channels of every block into v, point
+// turns a query's fractions into what at<W> takes (the fractions; R4c's 16
+// weights), at<W> evaluates channel j of v there, and eval is one element in
+// query order (cell_tail_kernel) by the same three; cached_ordered_kernel
+// keeps v for the run of records on a cell (K13, R4c) and takes point once a
+// record.
+struct Fractions {
+  double tx, ty;
+};
+
 struct BilinearForm {  // _df_bilinear_core on [z11, z12, z21, z22]
   static constexpr int kValues = 4;
+  using Point = Fractions;
+  __device__ __forceinline__ static Point point(double tx, double ty) { return {tx, ty}; }
   template <int W>
-  __device__ __forceinline__ static double at(double (*z)[W], int j, double tx, double ty) {
-    return bilinear(z[0][j], z[1][j], z[2][j], z[3][j], tx, ty);
+  __device__ __forceinline__ static double at(double (*z)[W], int j, const Point& p) {
+    return bilinear(z[0][j], z[1][j], z[2][j], z[3][j], p.tx, p.ty);
   }
 };
 
 struct BicubicForm {  // _df_bicubic_tail on [f, kx, ky, kxy] x [11, 12, 21, 22]
   static constexpr int kValues = 16;
+  using Point = Fractions;
+  __device__ __forceinline__ static Point point(double tx, double ty) { return {tx, ty}; }
   template <int W>
-  __device__ __forceinline__ static double at(double (*v)[W], int j, double tx, double ty) {
-    const double f1 = hermite_scaled(v[0][j], v[2][j], v[4][j], v[6][j], tx);
-    const double f2 = hermite_scaled(v[1][j], v[3][j], v[5][j], v[7][j], tx);
-    const double g1 = hermite_scaled(v[8][j], v[10][j], v[12][j], v[14][j], tx);
-    const double g2 = hermite_scaled(v[9][j], v[11][j], v[13][j], v[15][j], tx);
-    return hermite_scaled(f1, f2, g1, g2, ty);
+  __device__ __forceinline__ static double at(double (*v)[W], int j, const Point& p) {
+    const double f1 = hermite_scaled(v[0][j], v[2][j], v[4][j], v[6][j], p.tx);
+    const double f2 = hermite_scaled(v[1][j], v[3][j], v[5][j], v[7][j], p.tx);
+    const double g1 = hermite_scaled(v[8][j], v[10][j], v[12][j], v[14][j], p.tx);
+    const double g2 = hermite_scaled(v[9][j], v[11][j], v[13][j], v[15][j], p.tx);
+    return hermite_scaled(f1, f2, g1, g2, p.ty);
+  }
+};
+
+// _df_hermite_basis: the weights of (y_l, y_r, K_l, K_r) at t
+__device__ __forceinline__ void hermite_basis(double t, double* w) {
+  const double u = 1.0 - t;
+  const double d = u - t;
+  const double p = t * u;
+  const double pd = p * d;
+  w[0] = u + pd;
+  w[1] = t - pd;
+  w[2] = p * u;
+  w[3] = -(p * t);
+}
+
+// _df_bicubic_weights, _df_bicubic_weight_tail on the blocks of BicubicForm:
+// W[4 i + c] = Ax[i][c >> 1] Ay[i][c & 1], the value basis along x for f and
+// ky, the derivative basis for kx and kxy; along y the value basis for f and
+// kx, the derivative basis else; then s = W[0] v[0], s = s + W[b] v[b]
+struct BicubicWeightForm {
+  static constexpr int kValues = 16;
+  struct Point {
+    double w[16];
+  };
+  // W[b] from the bases bx, by of tx, ty
+  __device__ __forceinline__ static double weight(const double* bx, const double* by, int b) {
+    const int i = b >> 2, c = b & 3;
+    const double ax = (i == 0 || i == 2) ? bx[c >> 1] : bx[2 + (c >> 1)];
+    const double ay = (i < 2) ? by[c & 1] : by[2 + (c & 1)];
+    return ax * ay;
+  }
+  __device__ __forceinline__ static Point point(double tx, double ty) {
+    double bx[4], by[4];
+    hermite_basis(tx, bx);
+    hermite_basis(ty, by);
+    Point p;
+#pragma unroll
+    for (int b = 0; b < 16; ++b) p.w[b] = weight(bx, by, b);
+    return p;
+  }
+  template <int W>
+  __device__ __forceinline__ static double at(double (*v)[W], int j, const Point& p) {
+    double s = 0.0;
+#pragma unroll
+    for (int b = 0; b < 16; ++b) {
+      const double term = p.w[b] * v[b][j];
+      s = b == 0 ? term : s + term;
+    }
+    return s;
   }
 };
 
@@ -177,7 +240,7 @@ __device__ __forceinline__ double cached_eval(const float* __restrict__ row, int
                                               double tx, double ty) {
   double v[Cell::kValues][1];
   Cell::template all<1>(row, bp, v);
-  return Cell::template at<1>(v, 0, tx, ty);
+  return Cell::template at<1>(v, 0, Cell::point(tx, ty));
 }
 
 // K10: [z11 | z12 | z21 | z22] hi blocks, then the same lo blocks
@@ -233,21 +296,16 @@ struct BicubicDF : BicubicForm {
   }
 };
 
-// _df_hermite_basis: the weights of (y_l, y_r, K_l, K_r) at t
-__device__ __forceinline__ void hermite_basis(double t, double* w) {
-  const double u = 1.0 - t;
-  const double d = u - t;
-  const double p = t * u;
-  const double pd = p * d;
-  w[0] = u + pd;
-  w[1] = t - pd;
-  w[2] = p * u;
-  w[3] = -(p * t);
-}
-
-// R4c: the K12 row, in the weight form summed block by block.  The 16 weights
-// are built per thread: the bp threads of a query repeat those ~40 operations.
-struct BicubicWeightDF {
+// R4c: the K12 row, in the weight form summed block by block.  In query order
+// the 16 weights are built per thread (the bp threads of a query repeat those
+// ~40 operations), each as the sum reaches its block; on ordered records
+// they are built once a record (point).
+struct BicubicWeightDF : BicubicWeightForm {
+  template <int W>
+  __device__ __forceinline__ static void all(const float* __restrict__ row, int64_t bp,
+                                             double (*v)[W]) {
+    BicubicDF::all<W>(row, bp, v);
+  }
   __device__ static double eval(const float* __restrict__ row, int64_t bp, double tx,
                                 double ty) {
     double bx[4], by[4];
@@ -256,12 +314,8 @@ struct BicubicWeightDF {
     double s = 0.0;
 #pragma unroll
     for (int b = 0; b < 16; ++b) {
-      const int i = b >> 2, c = b & 3;
-      // the value basis along x for f and ky, the derivative basis for kx and
-      // kxy; along y the value basis for f and kx, the derivative basis else
-      const double ax = (i == 0 || i == 2) ? bx[c >> 1] : bx[2 + (c >> 1)];
-      const double ay = (i < 2) ? by[c & 1] : by[2 + (c & 1)];
-      const double term = (ax * ay) * widen(__ldg(row + b * bp), __ldg(row + (b + 16) * bp));
+      const double term =
+          weight(bx, by, b) * widen(__ldg(row + b * bp), __ldg(row + (b + 16) * bp));
       s = b == 0 ? term : s + term;
     }
     return s;
@@ -468,9 +522,10 @@ __global__ void __launch_bounds__(kThreads)
         cell = q.v;
         Cell::template all<W>(packed + static_cast<int64_t>(cell) * ch + k * W, bp, v);
       }
+      const typename Cell::Point p = Cell::point(q.tx, q.ty);
       double r[W];
 #pragma unroll
-      for (int j = 0; j < W; ++j) r[j] = Cell::template at<W>(v, j, q.tx, q.ty);
+      for (int j = 0; j < W; ++j) r[j] = Cell::template at<W>(v, j, p);
       store_split<W>(out, static_cast<int64_t>(q.qid) * bp + k * W, r);
     }
   }
@@ -664,6 +719,18 @@ int ndi_f48_bicubic_tail_ordered_f32(const void* packed, int64_t, int64_t ch, in
                                      int64_t, const void* rec, void* out_hi, void* out_lo,
                                      int64_t nq, void* stream) {
   return cached_ordered<BicubicF48, 2>(packed, ch, bp, rec, out_hi, out_lo, nq, stream);
+}
+
+// R4c on records of csrc/cell_order.cu, the row cached (the pair store form)
+int ndi_df_bicubic_weight_tail_ordered_f32(const void* packed, int64_t, int64_t ch, int64_t bp,
+                                           int64_t, const void* rec, void* out_hi,
+                                           void* out_lo, int64_t nq, void* stream) {
+  if (nq > 0)
+    cached_launch<BicubicWeightDF, 2>(
+        static_cast<const float*>(packed), ch, bp, static_cast<const int4*>(rec),
+        PairOut{static_cast<float*>(out_hi), static_cast<float*>(out_lo)}, nq,
+        static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
 }
 
 int ndi_df_bicubic_node_tail_ordered_f32(const void* packed, int64_t rows, int64_t ch,

@@ -85,8 +85,8 @@ __all__ = [
 def kernel_wrappers():
     """The wrapper of every CUDA kernel, by the id the docs give it; each
     has a ``launches`` count.  K15's two grades have a wrapper each; "ORD"
-    is the ordering of a batch by cell ahead of K12, K13 and K14, and by
-    interval ahead of K8 and K9 (no TPU twin)."""
+    is the ordering of a batch by cell ahead of K12, K13, K14 and R4c, and
+    by interval ahead of K8 and K9 (no TPU twin)."""
     return {
         "K1": fused_eval_1d,
         "K2": fused_index_frac,

@@ -105,13 +105,14 @@ _SIGNATURES = {
     # packed, rows, ch, bp | r, ny, records, out_hi, out_lo, nq
     "ndi_df_bicubic_tail_ordered": ((_P, _I, _I, _I, _I, _P, _P, _P, _I, _P), _PAIRS),
     "ndi_f48_bicubic_tail_ordered": ((_P, _I, _I, _I, _I, _P, _P, _P, _I, _P), _PAIRS),
+    "ndi_df_bicubic_weight_tail_ordered": ((_P, _I, _I, _I, _I, _P, _P, _P, _I, _P), _PAIRS),
     # packed, rows, ch, bp, bank, records, out_hi, out_lo, nq
     "ndi_df_bank_tail_ordered": ((_P, _I, _I, _I, _I, _P, _P, _P, _I, _P), _PAIRS),
     "ndi_f48_bank_tail_ordered": ((_P, _I, _I, _I, _I, _P, _P, _P, _I, _P), _PAIRS),
     "ndi_df_bicubic_node_tail_ordered": ((_P, _I, _I, _I, _I, _P, _P, _P, _I, _P), _PAIRS),
-    # xi, yi, row_step, lo, rows, shift, tx_hi, tx_lo, ty_hi, ty_lo, counts,
-    # tile_sums, ntiles, records, nq
-    "ndi_cell_order": ((_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P),
+    # xi, yi, row_step, lo, rows, shift, tx_hi, tx_lo, ty_hi, ty_lo, work,
+    # blocks, form, records, nq
+    "ndi_cell_order": ((_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P),
                        _PAIRS),
 }
 

@@ -1,6 +1,6 @@
 """Order a batch of 2-D queries by cell, ahead of the f64-grade bicubic
-tails K12, K13 and K14 (``eval_kernels_df2d``), and a batch of 1-D queries
-by interval, ahead of the bank tails K8 and K9 (``eval_kernels_df``).
+tails K12, K13, K14 and R4c (``eval_kernels_df2d``), and a batch of 1-D
+queries by interval, ahead of the bank tails K8 and K9 (``eval_kernels_df``).
 
 No TPU twin: the JAX routes gather every query's row in query order.  On
 the GPU a large batch in random order reads each query's row from device
@@ -16,20 +16,27 @@ fraction halves and returns the records the ordered tails read, one
 ``qid``, the bits of its ``tx_hi, tx_lo, ty_hi, ty_lo`` and two zeros
 (:func:`record_fields` reads them back), in the order of the bucket
 ``max(v, 0) >> shift``, where ``shift`` keeps the buckets at most
-``2^MAX_BUCKET_BITS``.  K12 and K13 pass the cell
+``2^MAX_BUCKET_BITS``.  K12, K13 and R4c pass the cell
 (``row_step = ny - 1``, ``lo = 0``); K14 the base node (``row_step = ny``,
 ``lo = -(ny + 1)``: every base below it clamps all four nodes to row 0).
-:func:`order_by_interval` is the 1-D form on the same kernel: no ``yi``
-and no ``ty`` halves, the key the interval clamped to ``[0, rows - 1]``,
-the record ``[v, qid, t_hi, t_lo, 0, 0, 0, 0]``.
-On a CUDA tensor the kernel in ``csrc/cell_order.cu`` does a counting
-sort (histogram, scan, scatter); the order within a bucket then varies
-from run to run.  Its plain version, :func:`_order_plain`, is a stable
-``torch.argsort`` of the buckets.  ``order_by_cell.launches`` counts the
-kernel's launches, those of :func:`order_by_interval` too.
+:func:`order_by_interval` is the 1-D form: no ``yi`` and no ``ty``
+halves, the key the interval clamped to ``[0, rows - 1]``, the record
+``[v, qid, t_hi, t_lo, 0, 0, 0, 0]``.
+
+On a CUDA tensor the kernels in ``csrc/cell_order.cu`` do a counting sort
+in one of two forms, picked by the number of buckets (:func:`_form`): up to
+:data:`SHARED_MAX_BUCKETS` (the 1-D keys) each block counts a chunk of the
+batch in shared memory, with no global atomic and no memset; above it (the
+2-D keys) a histogram in device memory, its scan and a scatter, the first
+design, which the shared form's ideas did not speed up there.  The order
+within a bucket then varies from run to run.  Its plain version, :func:`_order_plain`, is a
+stable ``torch.argsort`` of the buckets.  ``order_by_cell.launches`` counts
+the orderings, those of :func:`order_by_interval` too.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -37,13 +44,26 @@ from . import _cuda
 
 #: at most 2^22 buckets: 16 MB of counts however large the table
 MAX_BUCKET_BITS = 22
-_TILE = 4096  # counts a block of the scan
+#: the most buckets the shared form takes: a block's counts in shared memory
+SHARED_MAX_BUCKETS = 32_768
+_TILE = 4096  # counts a block of the global form's scan
+_SHARED_THREADS = 1024  # a block of the shared form
+_SHARED_MAX_BLOCKS = 256  # the shared form's scan cuts the blocks' rows in 8 of 32
+_BUCKET_TILE = 32  # buckets a block of the shared form's scan
+# the kernel's forms: a histogram in device memory (the first design), or
+# one in each block's shared memory
+GLOBAL, SHARED = 0, 1
 
 
 def bucket_shift(rows):
     """The right shift from a row value to its bucket for a table of
     ``rows`` rows: 0 up to ``2^MAX_BUCKET_BITS`` rows."""
     return max(0, (rows - 1).bit_length() - MAX_BUCKET_BITS)
+
+
+def bucket_count(rows):
+    """The buckets of a table of ``rows`` rows."""
+    return ((rows - 1) >> bucket_shift(rows)) + 1
 
 
 def row_values(xi, yi, row_step, lo, rows):
@@ -79,12 +99,30 @@ def _order_plain(xi, yi, row_step, lo, rows, txh, txl, tyh, tyl):
 
 def order_by_cell(xi, yi, row_step, lo, rows, tx_hi, tx_lo, ty_hi, ty_lo):
     """The ``(nq, 8)`` int32 records of the queries, in bucket order.  CPU
-    tensors: :func:`_order_plain`; CUDA: the counting sort.  ``yi``,
-    ``ty_hi`` and ``ty_lo`` may be ``None`` together (1-D, as
-    :func:`order_by_interval`)."""
+    tensors: :func:`_order_plain`; CUDA: the counting sort, in the form
+    :func:`_form` picks.  ``yi``, ``ty_hi`` and ``ty_lo`` may be ``None``
+    together (1-D, as :func:`order_by_interval`)."""
     args = (xi, yi, row_step, lo, rows, tx_hi, tx_lo, ty_hi, ty_lo)
     if _cuda.kernel_device("order_by_cell", tx_hi) == "cpu":
         return _order_plain(*args)
+    return _order_kernel(args, _form(bucket_count(rows)))
+
+
+def _form(buckets):
+    """The kernel's form for a table of ``buckets`` buckets."""
+    return SHARED if buckets <= SHARED_MAX_BUCKETS else GLOBAL
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _order_kernel(args, form):
+    """The counting sort of ``args`` (as :func:`order_by_cell` takes them)
+    on the card in ``form`` (:data:`GLOBAL` or :data:`SHARED`): the
+    ``(nq, 8)`` records."""
+    xi, yi, row_step, lo, rows, tx_hi, tx_lo, ty_hi, ty_lo = args
     one_d = yi is None
     _cuda.pair_operands("order_by_cell", tx_hi, tx_lo, *(() if one_d else (ty_hi, ty_lo)))
     for what, idx in (("xi", xi),) + (() if one_d else (("yi", yi),)):
@@ -97,14 +135,20 @@ def order_by_cell(xi, yi, row_step, lo, rows, tx_hi, tx_lo, ty_hi, ty_lo):
     records = torch.empty((nq, 8), dtype=torch.int32, device=dev)
     if nq == 0:
         return records
-    shift = bucket_shift(rows)
-    ntiles = -(-(((rows - 1) >> shift) + 1) // _TILE)
-    counts = torch.zeros(ntiles * (_TILE + 1), dtype=torch.int32, device=dev)
+    nb = bucket_count(rows)
+    if form == GLOBAL:  # the counts, zeroed, and the tiles' sums
+        blocks = -(-nb // _TILE)
+        work = torch.zeros(blocks * (_TILE + 1), dtype=torch.int32, device=dev)
+    else:  # a (blocks, nb) histogram, bucket starts, the tiles' sums, the count done
+        blocks = min(_sm_count(dev.index), _SHARED_MAX_BLOCKS, -(-nq // _SHARED_THREADS))
+        work = torch.empty(blocks * nb + nb + -(-nb // _BUCKET_TILE) + 1, dtype=torch.int32,
+                           device=dev)
     _cuda.launch(
         "ndi_cell_order", torch.float32, dev,
-        xi.contiguous(), None if one_d else yi.contiguous(), row_step, lo, rows, shift,
+        xi.contiguous(), None if one_d else yi.contiguous(), row_step, lo, rows,
+        bucket_shift(rows),
         *(None if v is None else v.contiguous() for v in (tx_hi, tx_lo, ty_hi, ty_lo)),
-        counts, counts[ntiles * _TILE:], ntiles, records, nq,
+        work, blocks, form, records, nq,
     )
     order_by_cell.launches += 1
     return records

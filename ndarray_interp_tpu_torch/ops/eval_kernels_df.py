@@ -339,15 +339,16 @@ def _launch_index_frac(x_hi, x_lo, q_hi, q_lo):
 # when _orders says so.  Their rows sit in the L2 (21 MB / 16 MB at 10,240 x
 # 64), so what ordering saves is not HBM traffic but instructions: in
 # interval order a lane widens its chunk of a row once for a run of queries.
-# Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, 10,240 knots,
-# ordering included, against the body in query order), K8 / K9: at bank 64
-# the ordered branch loses at 2^16 queries (0.0439 / 0.0332 ms; K9 0.0415 /
-# 0.0296), ties at 2^17 (0.0606 / 0.0621; 0.0586 / 0.0598) and wins from
-# 2^18 (0.0961 / 0.1159; 0.0947 / 0.1134; 2^20: 0.3128 / 0.4399; 0.3109 /
-# 0.4330); at bank 256 it wins from 2^16 (0.1064 / 0.1257; 0.0985 / 0.1149);
-# at bank 8 it loses at every size (2^20: 0.2444 / 0.1850; 0.2454 / 0.1830),
-# and so does the one-column-a-lane kernel of a bank that is no multiple of
-# 4 (63 at 2^20: 0.7976 / 0.6881; 0.7978 / 0.7594).  One rule serves both.
+# Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py --sweeps, 10,240
+# knots, the ordering's shared form included, against the body in query
+# order), K8 / K9: at bank 64 the ordered branch loses at 2^16 queries
+# (0.0474 / 0.0332 ms; K9 0.0452 / 0.0297), ties at 2^17 (0.0620 / 0.0618;
+# 0.0606 / 0.0600) and wins from 2^18 (0.0932 / 0.1155; 0.0920 / 0.1134;
+# 2^20: 0.2854 / 0.4390; 0.2830 / 0.4326); at bank 256 it wins from 2^16
+# (0.1095 / 0.1258; 0.1008 / 0.1147); at bank 8 it loses at every size (2^20:
+# 0.2145 / 0.1847; 0.2148 / 0.1830), and so does the one-column-a-lane kernel
+# of a bank that is no multiple of 4 (63 at 2^20: 0.7751 / 0.6887; 0.7753 /
+# 0.7535).  One rule serves both; no path runs bank 256 below 2^17.
 _ORDER_MIN_QUERIES = 1 << 17
 _ORDER_MIN_BANK = 64
 

@@ -36,8 +36,8 @@ channels.  K14 fetches the nodes ``xi·ny + yi``, ``+1``, ``+ny`` and
 ``+ny+1`` and writes ``(Q, r)``.  The JAX routes gather the rows with XLA
 first and run their tail kernels on them.
 
-K12, K13 and K14 order a large batch by cell first (:mod:`.cell_order`, a
-counting sort on the card) and run on the ordered records, so that the
+K12, K13, K14 and R4c order a large batch by cell first (:mod:`.cell_order`,
+a counting sort on the card) and run on the ordered records, so that the
 queries of one cell share their row's fetch; each result still goes to its
 query's own slot.  Smaller batches, and tables of narrow rows, run
 unordered (:func:`_orders`); K10 and K11, whose rows are narrower than any
@@ -53,7 +53,8 @@ operation order: :func:`_df_bilinear_xla_tail` (on rows gathered with
 ``index_select``) for K10, the same after :func:`_unpack_f48_lo` for K11,
 :func:`_df_bicubic_tail` for K12 and, unpacked, K13 (on ordered records
 :func:`_bicubic_df_tail_ordered_plain`, :func:`_bicubic_f48_tail_ordered_plain`),
-:func:`_df_bicubic_weight_tail` for R4c, :func:`_df_node_tail` for K14.  A
+:func:`_df_bicubic_weight_tail` for R4c (on ordered records
+:func:`_bicubic_df_weight_tail_ordered_plain`), :func:`_df_node_tail` for K14.  A
 wrapper runs the plain version for CPU tensors and launches its
 kernel for CUDA tensors; the kernels are bit-identical to the plain
 versions.  ``launches`` on each wrapper counts its kernel's launches.
@@ -356,6 +357,16 @@ def _bicubic_df_tail_ordered_plain(packed, records):
     return _scatter_back(hi, lo, qid)
 
 
+def _bicubic_df_weight_tail_ordered_plain(packed, records):
+    """Plain version of R4c on ordered records: the rows of the records'
+    cells, :func:`_df_bicubic_weight_tail` at their fraction halves, each
+    result put back at its query's slot."""
+    cell, qid, frac = record_fields(records)
+    rows = _gather_rows(packed, cell)
+    hi, lo = _df_bicubic_weight_tail(rows, *frac.unbind(1), rows.shape[1] // 32)
+    return _scatter_back(hi, lo, qid)
+
+
 def _bicubic_f48_tail_ordered_plain(packed, records):
     """Plain version of K13 on ordered records: the rows of the records'
     cells, lo halves unpacked, :func:`_df_bicubic_tail` at their fraction
@@ -378,20 +389,23 @@ def _bicubic_node_df_tail_ordered_plain(packed, ny, records):
 
 
 # -- kernel launches -----------------------------------------------------------------
-# K12, K13 and K14 order a batch by cell first (``cell_order.order_by_cell``) when a
-# query reads at least _ORDER_MIN_ROW_BYTES of rows (one cell row; four node
-# rows; K13: _ORDER_MIN_ROW_BYTES_F48) and the batch at least
+# K12, K13, K14 and R4c order a batch by cell first (``cell_order.order_by_cell``)
+# when a query reads at least _ORDER_MIN_ROW_BYTES of rows (one cell row; four
+# node rows; K13: _ORDER_MIN_ROW_BYTES_F48) and the batch at least
 # _ORDER_MIN_BYTES.  Ordering saves the HBM re-reads of rows that the L2 (50
-# MB on an H100) no longer holds when their next query comes, and costs ~0.06
-# ms a 1M batch.  Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py): at 2
-# KiB of rows a query (K12) the ordered branch, ordering included, overtakes
-# the unordered body between 2^17 and 2^18 queries (256 and 512 MiB of rows, 5
-# and 10 times the L2), and so it does at K13's 1.5 KiB (2^17: 0.0915 / 0.0780
-# ms, 2^18: 0.1442 / 0.1512); at 1M queries K12 and K14 win from 1 KiB a query
-# (K12 at bp 8, K14 at 8 channels) and K14 loses below (3 and 4 channels, 448
-# and 576 B), while K13, whose ordered kernel widens a cell's row once for
-# the run of queries on it, wins at its smallest row, 768 B (bp 8: 0.2448 /
-# 0.2882).  K10 and K11 have no ordered branch: on that row-cached kernel
+# MB on an H100) no longer holds when their next query comes, and costs ~0.062
+# ms a 1M batch.  Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py
+# --sweeps, ordered with the ordering included / unordered body): at 2 KiB of
+# rows a query the ordered branch overtakes the unordered body between 2^17
+# and 2^18 queries (256 and 512 MiB of rows, 5 and 10 times the L2): K12
+# 0.1062 / 0.1001 and 0.1615 / 0.1935 ms, R4c 0.1054 / 0.1068 and 0.1657 /
+# 0.2056, K14 0.1207 / 0.1240 and 0.1891 / 0.2398; so it does at K13's 1.5 KiB
+# (0.0881 / 0.0747, 0.1395 / 0.1445); at 1M queries K12 and K14 win from 1 KiB
+# a query (K12 at bp 8 0.2454 / 0.3904, K14 at 8 channels 0.2965 / 0.5059) and
+# K14 loses below (3 and 4 channels, 448 and 576 B: 0.2431 / 0.2097, 0.3988 /
+# 0.2712), while K13, whose ordered kernel widens a cell's row once for the
+# run of queries on it, wins at its smallest row, 768 B (bp 8: 0.2413 /
+# 0.2852).  K10 and K11 have no ordered branch: on that row-cached kernel
 # their 2-D serving rows (512 and 384 B at bp 16) lost at every batch size
 # (1M queries: K10 0.2183 ordered, 0.1942 in query order), the results
 # written to scattered query slots costing about what the row re-reads saved.
@@ -411,7 +425,7 @@ def _launch_tail(symbol, wrapper, blocks, packed, xi, yi, ny, txh, txl, tyh, tyl
     """Check the operands and launch a 2-D tail: a cell tail on a table of
     ``blocks·bp`` channels, or (``blocks=None``) K14 on a node table of
     ``8r+4`` channels.  ``ordered`` names the kernel on ordered records that
-    takes the batches :func:`_orders` picks at ``min_row`` (K12, K13, K14).
+    takes the batches :func:`_orders` picks at ``min_row`` (K12, K13, K14, R4c).
     ``f64`` (K10, K11, K13) takes the kernels' float64 store form: one
     ``(nq, bp)`` float64 output, the pair's ``hi + lo``."""
     name = wrapper.__name__
@@ -561,7 +575,9 @@ _TAILS = {
     "gathered_bicubic_df_tail": (_bicubic_df_tail_plain, "ndi_df_bicubic_tail", 32,
                                  "ndi_df_bicubic_tail_ordered", _ORDER_MIN_ROW_BYTES),
     "gathered_bicubic_df_weight_tail": (_bicubic_df_weight_tail_plain,
-                                        "ndi_df_bicubic_weight_tail", 32, None, None),
+                                        "ndi_df_bicubic_weight_tail", 32,
+                                        "ndi_df_bicubic_weight_tail_ordered",
+                                        _ORDER_MIN_ROW_BYTES),
     "gathered_bicubic_f48_tail": (_bicubic_f48_tail_plain, "ndi_f48_bicubic_tail", 24,
                                   "ndi_f48_bicubic_tail_ordered", _ORDER_MIN_ROW_BYTES_F48),
     "gathered_bicubic_node_df_tail": (_bicubic_node_df_tail_plain, "ndi_df_bicubic_node_tail",

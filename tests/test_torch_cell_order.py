@@ -1,4 +1,4 @@
-"""The ordering of a batch by cell ahead of K12, K13 and K14, and by
+"""The ordering of a batch by cell ahead of K12, K13, K14 and R4c, and by
 interval ahead of K8 (``ops/cell_order.py``), and the plain tails on ordered
 records, on the CPU.
 
@@ -11,7 +11,9 @@ queries' slots, are held bit for bit against the direct plain tails and,
 with the same numpy inputs, against the JAX package's XLA tails (4e-12
 scale-relative, as ``test_torch_df2d.py``; K13's also against its Pallas
 tail in interpret mode within 1e-5, which degrades the error-free
-transforms).  The kernels themselves run in ``test_torch_kernels.py`` on
+transforms; R4c's against the weight-form record tail
+``df_records._df_bicubic_weight_tail`` within 4e-12 of the largest value, as
+``test_torch_records.py``).  The kernels themselves run in ``test_torch_kernels.py`` on
 the card.
 """
 
@@ -23,6 +25,7 @@ import jax
 import jax.numpy as jnp
 
 from ndarray_interp_tpu.ops import df as jdf
+from ndarray_interp_tpu.ops import df_records as jrec
 from ndarray_interp_tpu.ops import pallas_eval_df as jp
 from ndarray_interp_tpu_torch.ops import cell_order as co
 from ndarray_interp_tpu_torch.ops import df as tdf
@@ -79,7 +82,7 @@ def ints(v):
 # (row_step, lo) of each kind's ordering; K8's is 1-D (no yi, no y halves:
 # the key is the interval, row_step 1, lo 0)
 KINDS = {"K8": None, "K12": lambda ny: (ny - 1, 0), "K13": lambda ny: (ny - 1, 0),
-         "K14": lambda ny: (ny, -(ny + 1))}
+         "K14": lambda ny: (ny, -(ny + 1)), "R4c": lambda ny: (ny - 1, 0)}
 
 
 def order_args(kind, xi, yi, nx, ny, t):
@@ -135,6 +138,19 @@ def test_buckets_stay_at_most_2_to_the_22(rows, shift):
     assert keys.tolist() == [0, 0, (rows - 1) >> shift]
 
 
+def test_the_shared_form_takes_tables_up_to_its_bucket_limit():
+    """The kernel's form follows the bucket count alone: the shared form up
+    to ``SHARED_MAX_BUCKETS`` (K8's 10,239 intervals), the global form past
+    it (NS3d's 261,121 cells, NS3e's 1,048,576 nodes, 2^22 buckets of two
+    rows past 2^22 rows)."""
+    limit = co.SHARED_MAX_BUCKETS
+    assert [co.bucket_count(rows) for rows in (1, 10_239, limit, 2**22, 2**22 + 1)] == [
+        1, 10_239, limit, 2**22, 2**21 + 1]
+    assert co._form(co.bucket_count(10_239)) == co._form(limit) == co.SHARED
+    for rows in (limit + 1, 261_121, 1_048_576, 2**22 + 1):
+        assert co._form(co.bucket_count(rows)) == co.GLOBAL
+
+
 def test_plain_order_on_a_shifted_table_sorts_buckets_not_rows():
     rows = 2**22 + 3  # shift 1: cells 2k and 2k + 1 share a bucket
     v = torch.tensor([7, 6, 2, 3, 9, 8, 0], dtype=torch.int32)
@@ -188,7 +204,7 @@ def make_case(kind, r, case, seed, **kw):
         return bank_case(r, case, seed, **kw)
     if kind == "K14":
         return node_case(r, case, seed, **kw)
-    return cell_case(r, case, seed, grade="df" if kind == "K12" else "f48", **kw)
+    return cell_case(r, case, seed, grade="f48" if kind == "K13" else "df", **kw)
 
 
 NX = 11  # the x knots of every case's grid (K8: of its axis)
@@ -209,6 +225,9 @@ def ordered_and_direct(kind, packed, xi, yi, ny, t, r):
     if kind == "K12":
         return tp._bicubic_df_tail_ordered_plain(packed, records), tp._bicubic_df_tail_plain(
             *direct)
+    if kind == "R4c":
+        return (tp._bicubic_df_weight_tail_ordered_plain(packed, records),
+                tp._bicubic_df_weight_tail_plain(*direct))
     return tp._bicubic_f48_tail_ordered_plain(packed, records), tp._bicubic_f48_tail_plain(
         *direct)
 
@@ -234,7 +253,8 @@ def test_ordered_plain_tails_match_the_jax_tails(kind, r):
     ``_df_xla_tail`` (K8), ``_df_bicubic_tail`` (K12; K13 on the unpacked
     f48 rows) and ``_df_node_tail`` (K14) on the same rows in query order,
     4e-12 scale-relative; K13 also against its Pallas tail in interpret
-    mode, 1e-5."""
+    mode, 1e-5; R4c against the record tail ``_df_bicubic_weight_tail``,
+    4e-12 of the largest value."""
     src, packed, xi, yi, t, ny = make_case(kind, r, "random", seed=40 + r, nq=512)
     t = np.random.default_rng(r).uniform(-0.5, 1.5, (2, 512))
     records = co.order_by_cell(*order_args(kind, xi, yi, NX, ny, t))
@@ -244,6 +264,16 @@ def test_ordered_plain_tails_match_the_jax_tails(kind, r):
         rows = jnp.take(jpk, jnp.asarray(xi), axis=0)
         want = jp._df_xla_tail(rows, *jpair(t[0]), r)
         hi, lo_ = t1._df_tail_ordered_plain(packed, records, r)
+    elif kind == "R4c":
+        jpk = jp.pack_bicubic_rows_df(*jpair(src), r)
+        rows = jnp.take(jpk, jnp.asarray(xi * (ny - 1) + yi), axis=0)
+        bp = jpk.shape[1] // 32
+        want = jax.jit(lambda rw, *a: jrec._df_bicubic_weight_tail(rw, *a, bp))(rows, *jt)
+        hi, lo_ = tp._bicubic_df_weight_tail_ordered_plain(packed, records)
+        got = tdf.df_to_f64(hi[:, :r], lo_[:, :r]).numpy()
+        want = np.asarray(jdf.df_to_f64(*want))[:, :r]
+        assert np.abs(got - want).max() / np.abs(want).max() < 4e-12
+        return
     elif kind in ("K12", "K13"):
         grade = "df" if kind == "K12" else "f48"
         jpk = getattr(jp, f"pack_bicubic_rows_{grade}")(*jpair(src), r)
@@ -288,6 +318,7 @@ def test_cpu_wrappers_run_the_plain_tail_at_any_batch(kind, monkeypatch):
         "K13": (tp.gathered_bicubic_f48_tail, tp._bicubic_f48_tail_plain,
                 tp._gathered_bicubic_f48_tail_f64),
         "K14": (tp.gathered_bicubic_node_df_tail, tp._bicubic_node_df_tail_plain, None),
+        "R4c": (tp.gathered_bicubic_df_weight_tail, tp._bicubic_df_weight_tail_plain, None),
     }[kind]
     before = {k: w.launches for k, w in kernel_wrappers().items()}
     want = plain(*args)

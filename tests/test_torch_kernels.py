@@ -386,8 +386,9 @@ def test_df_bicubic_node_tail_matches_plain(dev, nx, ny, r):
 
 # -- K12, K13 and K14 on queries ordered by cell, and the ordering kernel -------------
 ORDER_KINDS = {"K12": lambda ny: (ny - 1, 0), "K13": lambda ny: (ny - 1, 0),
+               "R4c": lambda ny: (ny - 1, 0),
                "K14": lambda ny: (ny, -(ny + 1))}
-CELL_BLOCKS = {"K10": 8, "K11": 6, "K12": 32, "K13": 24}  # a cell row's width in bp
+CELL_BLOCKS = {"K10": 8, "K11": 6, "K12": 32, "K13": 24, "R4c": 32}  # a cell row's width in bp
 
 
 def order_indices(case, nx, ny, nq, rng):
@@ -428,7 +429,7 @@ def ordered_case(kind, r, case, nq, dev, seed, nx=90, ny=70):
             pack = ek.pack_bilinear_rows_df if kind == "K10" else ek.pack_bilinear_rows_f48
             packed = pack(*pair(rng.normal(size=(nx, ny, r)), dev))
         else:
-            pack = ek.pack_bicubic_rows_df if kind == "K12" else ek.pack_bicubic_rows_f48
+            pack = ek.pack_bicubic_rows_f48 if kind == "K13" else ek.pack_bicubic_rows_df
             packed = pack(*pair(rng.normal(size=(cells, 16 * r)), dev), r)
         xi, yi = order_indices(case, nx, ny, nq, rng)
     else:
@@ -451,6 +452,9 @@ def ordered_tail(kind):
     if kind == "K13":
         return (ek.gathered_bicubic_f48_tail, ek._bicubic_f48_tail_plain,
                 "ndi_f48_bicubic_tail_ordered")
+    if kind == "R4c":
+        return (ek.gathered_bicubic_df_weight_tail, ek._bicubic_df_weight_tail_plain,
+                "ndi_df_bicubic_weight_tail_ordered")
     return (ek.gathered_bicubic_node_df_tail, ek._bicubic_node_df_tail_plain,
             "ndi_df_bicubic_node_tail_ordered")
 
@@ -480,7 +484,8 @@ def launched_by(fn):
                                     ("K12", -5), ("K13", 1), ("K13", 16), ("K13", 20),
                                     ("K13", 140), ("K13", -5), ("K14", 1), ("K14", 3),
                                     ("K14", 4), ("K14", 16), ("K14", 20), ("K14", 37),
-                                    ("K14", 132)])
+                                    ("K14", 132), ("R4c", 1), ("R4c", 3), ("R4c", 16),
+                                    ("R4c", 20), ("R4c", -5)])
 def test_df_bicubic_tails_ordered_and_unordered_match_plain(dev, kind, r, ordered, monkeypatch):
     """Both branches of K12, K13 and K14 at every row width: float4 rows
     (K12 bp of 8, 16, 24; K13 bp of 8, 16, 24, 144; K14 r of 4, 16, 20, 132)
@@ -497,7 +502,7 @@ def test_df_bicubic_tails_ordered_and_unordered_match_plain(dev, kind, r, ordere
 
 
 @pytest.mark.parametrize("kind,r", [("K12", 16), ("K12", 3), ("K13", 16), ("K13", -5),
-                                    ("K14", 16), ("K14", 3)])
+                                    ("K14", 16), ("K14", 3), ("R4c", 16), ("R4c", 3)])
 @pytest.mark.parametrize("case", ["hot", "sorted", "out of range"])
 def test_df_bicubic_ordered_tails_on_hot_sorted_and_clamped_batches(dev, kind, r, case,
                                                                    monkeypatch):
@@ -509,7 +514,7 @@ def test_df_bicubic_ordered_tails_on_hot_sorted_and_clamped_batches(dev, kind, r
     assert same_pair(got, plain(*args))
 
 
-@pytest.mark.parametrize("kind", ["K12", "K13", "K14"])
+@pytest.mark.parametrize("kind", ["K12", "K13", "K14", "R4c"])
 @pytest.mark.parametrize("nq", [0, 1])
 @pytest.mark.parametrize("ordered", [True, False])
 def test_df_bicubic_tails_take_empty_and_single_query_batches(dev, kind, nq, ordered,
@@ -523,7 +528,7 @@ def test_df_bicubic_tails_take_empty_and_single_query_batches(dev, kind, nq, ord
 
 
 @pytest.mark.parametrize("kind,r", [("K12", 16), ("K12", -5), ("K13", 16), ("K13", -5),
-                                    ("K14", 16), ("K14", 3)])
+                                    ("K14", 16), ("K14", 3), ("R4c", 16), ("R4c", -5)])
 def test_df_bicubic_ordered_kernels_match_their_plain_versions_on_records(dev, kind, r):
     """The ordered tails alone, on the records of the plain ordering, against
     the plain tails on the same records."""
@@ -534,13 +539,15 @@ def test_df_bicubic_ordered_kernels_match_their_plain_versions_on_records(dev, k
     row_step, lo = ORDER_KINDS[kind](ny)
     records = co._order_plain(xi, yi, row_step, lo, packed.shape[0], *t)
     nq, ch = xi.shape[0], packed.shape[1]
-    bp = {"K12": ch // 32, "K13": ch // 24, "K14": (ch - 4) // 8}[kind]
+    bp = {"K12": ch // 32, "K13": ch // 24, "K14": (ch - 4) // 8, "R4c": ch // 32}[kind]
     out = [torch.empty((nq, bp), dtype=torch.float32, device=dev) for _ in range(2)]
     ek._launch_ordered(ordered_tail(kind)[2], packed, bp, ny, records, *out)
     if kind == "K12":
         want = ek._bicubic_df_tail_ordered_plain(packed, records)
     elif kind == "K13":
         want = ek._bicubic_f48_tail_ordered_plain(packed, records)
+    elif kind == "R4c":
+        want = ek._bicubic_df_weight_tail_ordered_plain(packed, records)
     else:
         want = ek._bicubic_node_df_tail_ordered_plain(packed, ny, records)
     torch.cuda.synchronize()
@@ -594,6 +601,95 @@ def test_cell_order_on_a_table_past_2_to_the_22_rows(dev):
     qid = qid.long()
     assert torch.equal(torch.sort(qid).values, torch.arange(nq, device=dev))
     assert torch.equal(v.long(), co.row_values(xi, yi, 2**11, 0, rows)[qid])
+
+
+# -- ORD's two forms at their edges, and every ordered tail on each form -----------------
+def order_form(name):
+    from ndarray_interp_tpu_torch.ops import cell_order as co
+
+    return {"shared": co.SHARED, "global": co.GLOBAL}[name]
+
+
+def order_edge_args(case, dims, dev, seed):
+    """The ordering's arguments at an edge of its forms: every query in one
+    bucket (a table of one row), the shared form's bucket limit and one past
+    it, an empty batch, one query, and 2^22 + 1 rows (buckets of two rows);
+    1-D keys, or 2-D ones of 64 cells a row of x.  Indices run past both ends
+    of the table, which the ordering clamps."""
+    from ndarray_interp_tpu_torch.ops import cell_order as co
+
+    limit = co.SHARED_MAX_BUCKETS
+    rows, nq = {"one bucket": (1, 5000), "the limit": (limit, 300_000),
+                "one past the limit": (limit + 1, 300_000), "empty": (1000, 0),
+                "one query": (1000, 1), "2^22 + 1 rows": (2**22 + 1, 300_000)}[case]
+    rng = np.random.default_rng(seed)
+    th, tl = pair(order_fractions(rng, nq)[0], dev)
+    if dims == 1:
+        xi = torch.as_tensor(rng.integers(-3, rows + 3, nq), dtype=torch.int32, device=dev)
+        return (xi, None, 1, 0, rows, th, tl, None, None)
+    xi = torch.as_tensor(rng.integers(-1, rows // 64 + 2, nq), dtype=torch.int32, device=dev)
+    yi = torch.as_tensor(rng.integers(0, 64, nq), dtype=torch.int32, device=dev)
+    uh, ul = pair(order_fractions(rng, nq)[1], dev)
+    return (xi, yi, 64, 0, rows, th, tl, uh, ul)
+
+
+ORDER_EDGES = [(form, case, dims) for form in ("shared", "global")
+               for case in ("one bucket", "the limit", "one past the limit", "empty", "one query",
+                            "2^22 + 1 rows")
+               for dims in (1, 2) if not (form == "shared" and case == "2^22 + 1 rows")]
+
+
+@pytest.mark.parametrize("form,case,dims", ORDER_EDGES)
+def test_cell_order_forms_at_their_edges(dev, form, case, dims):
+    """Each form of the counting sort (the shared one up to 2^21 + 1 buckets'
+    worth of shared memory excepted) against the stable argsort: the same
+    bucket keys in the same order, a permutation of the queries, each record
+    its query's row value and fraction halves, zeros past them; one launch
+    counted."""
+    from ndarray_interp_tpu_torch.ops import cell_order as co
+
+    args = order_edge_args(case, dims, dev, len(case) + dims)
+    xi, yi, row_step, lo, rows, th, tl, uh, ul = args
+    nq = xi.shape[0]
+    before = co.order_by_cell.launches
+    records = co._order_kernel(args, order_form(form))
+    want = co._order_plain(*args)
+    torch.cuda.synchronize()
+    assert co.order_by_cell.launches == before + (nq > 0)
+    assert tuple(records.shape) == (nq, 8) and not bool(records[:, 6:].any())
+    v, qid, frac = co.record_fields(records)
+    keys = co.bucket_keys(v.long(), rows)
+    assert torch.equal(keys, co.bucket_keys(co.record_fields(want)[0].long(), rows))
+    qid = qid.long()
+    assert torch.equal(torch.sort(qid).values, torch.arange(nq, device=dev))
+    assert torch.equal(v.long(), co.row_values(xi, yi, row_step, lo, rows)[qid])
+    zero = torch.zeros_like(th)
+    halves = torch.stack([th, tl, zero, zero] if yi is None else [th, tl, uh, ul], dim=1)
+    assert same(frac, halves[qid])
+
+
+@pytest.mark.parametrize("form", ["shared", "global"])
+@pytest.mark.parametrize("kind", ["K8", "K9", "K12", "K13", "K14", "R4c"])
+def test_ordered_tails_on_each_form_of_the_ordering(dev, kind, form, monkeypatch):
+    """Every tail that orders its batch, on the records of each form of the
+    ordering, bit for bit against its plain version: the ordering once, the
+    tail once."""
+    from ndarray_interp_tpu_torch.ops import cell_order as co
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df as e1
+
+    monkeypatch.setattr(co, "_form", lambda buckets: order_form(form))
+    force_branch(monkeypatch, True)
+    if kind in ("K8", "K9"):
+        grade = "df" if kind == "K8" else "f48"
+        args = bank_case(64, "random", 200_000, dev, 31, grade=grade)
+        kernel, plain = ((e1.gathered_df_tail, e1._df_tail_plain) if kind == "K8" else
+                         (e1.gathered_f48_tail, e1._f48_tail_plain))
+    else:
+        args = ordered_case(kind, 16, "random", 200_000, dev, 31)
+        kernel, plain, _ = ordered_tail(kind)
+    got, launched = launched_by(lambda: kernel(*args))
+    assert launched == {"ORD": 1, kind: 1}
+    assert same_pair(got, plain(*args))
 
 
 # -- K8 on queries ordered by interval, and the float64 store forms of K8 and K13 ------
