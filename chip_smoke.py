@@ -33,11 +33,13 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    stay in its lane and two intervals; R2a (the packed-row tail) at banks 1 to
    300; R3 and R3idx (the long-axis search and eval) at 65,537 knots up to
    MAX_BIG_KNOTS on 1,000,000 such queries, cubic and linear tables; R1
-   (the 2-D cell search) and the 2-D cell tails R2b (bilinear), R2c, R2d and
-   R2n (bicubic: sequential, halving-tree and nested sums) in f32 and f64 on
+   (the 2-D cell search) and the 2-D cell tails R2b and R2g (bilinear, on
+   the corner rows and on the grid), R2c, R2d and R2n (bicubic: sequential,
+   halving-tree and nested sums; R2n in both branches) in f32 and f64 on
    grids up to 512 x 512 at 1, 3, 16 and 20 channels, on 1,000,000 queries
    per axis with NaN, +-inf, the knots and far extrapolation, R1 also
-   against K3's index and K2's fractions;
+   against K3's index and K2's fractions, R2g also against R2b's plain
+   version on the corner rows of its grid;
 4. drives the main path through the public API on ``device="cuda"``, with
    every launch count set to 0 just before and read just after: the
    2,048-knot not-a-knot spline with extrapolation at 1,000,000 queries in
@@ -49,9 +51,10 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    grades df and f48) and the 2-D path at the JAX package's config-3 width
    (512 x 512 x 16, non-uniform axes, 1,000,000 queries: ``Interp2D`` with
    ``Bilinear`` and ``Bicubic`` in f32 and f64 against SciPy's
-   ``RegularGridInterpolator`` and ``RectBivariateSpline``, through R1 + R2b
-   and R1 + R2n, each output equal bit for bit to the plain versions of R1
-   and its tail on the card, ``Evaluator2D``,
+   ``RegularGridInterpolator`` and ``RectBivariateSpline``, through R1 + R2g
+   and R1 + R2n (ordered by cell first, ORD's flat-cell form), each output
+   equal bit for bit to the plain versions of R1 and its tail on the card
+   (``Bilinear`` also to R2b's on the corner rows), ``Evaluator2D``,
    ``eval_into_donated_2d``, ``DoubleFloatEvaluator2D`` in grades df and f48
    for both strategies against float64 forms on double-float-rounded
    inputs, for ``Bilinear`` also bit for bit against ``df_to_f64`` of the
@@ -91,7 +94,14 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    x 64), NS1's one column (its chain floor), NS3b's three solves, NS5b's
    64 x 1,000,000 and with per-column diagonals, beside
    ``torch.linalg.solve_ex`` on the dense matrix (10,000 x 64, 512 x 8,192);
-   K10-K15 beside the floor of their rows' bytes.  K7 is
+   K10-K15, R2b and R2n beside the floor of their rows' bytes.  R2b's
+   designs at NS3 in one run: the grid tail R2g (the path's), the corner
+   rows on 16-byte lanes and a channel a lane (a table off 16-byte
+   alignment; ``--sweeps``: also on a 2048 x 2048 x 16 grid past the L2);
+   R2n's phases at NS3b: the present body in query order, on every query's
+   row from one cell (the compute floor), ORD's flat-cell form beside its
+   2-D form on R1's cells, the ordered kernel alone and with ORD; then R2n
+   through ``ordered_phase`` as K12 below, in f32 and f64.  K7 is
    timed at the serving axis (10,240 knots, 2^20 queries, also with every
    query in one interval), at the 2-D and N-D paths' axis widths (512 and 64
    knots, 1,000,000 queries) and on 70,001 knots, each at the wrapper's
@@ -109,8 +119,9 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    every query in one interval and in interval order (the diagnosis), in
    f64, and on prefixes of 2^12 to 2^20 queries at banks 8, 64 and 256.
    Every kernel's launches are summed over every path.
-   K12 (at NS3d), K13 (at NS3f), K14 (at NS3e), R4c (at NS3d), K8 and K9 (at
-   the DF and f48 bank serving's 10,240 x 64 tables and 2^20 queries) also
+   K12 (at NS3d), K13 (at NS3f), K14 (at NS3e), R4c (at NS3d), R2n (at NS3b),
+   K8 and K9 (at the DF and f48 bank serving's 10,240 x 64 tables and 2^20
+   queries) also
    run their ordering ORD (by cell; K8's and K9's by interval, the 1-D form)
    apart, in the form the wrapper picks (shared or global), held against its
    plain version (the same bucket keys, a permutation of the queries, each
@@ -122,7 +133,8 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    already in order.  ``--sweeps`` adds the crossover sweeps: batch sizes
    from 4,096 up, and narrower or wider tables (K12 and K13 at 3 channels,
    bp 8, K13 with its own sweep; K14 at 3, 4 and 8 channels, 3 on one float a
-   lane; K8 and K9 at banks of 8 and 256 with their own sweeps, and 63, one
+   lane; R2n at 16 channels and on a table of 8 with its own sweep; K8 and K9
+   at banks of 8 and 256 with their own sweeps, and 63, one
    column a lane): the data behind the wrappers' choice of branch; and ORD
    in each form on 1,024 to 49,152 buckets, the data behind the shared
    form's bucket limit.  K8, K9 and K13
@@ -548,7 +560,7 @@ def gate(label, got, ref, tol, shape, oracle="SciPy f64"):
 # the tails that order their batch first (ORD); a call's orderings are those
 # of the one of them it launched (K10 and K11 never order: a call of theirs
 # that launches ORD fails)
-ORDERED_TAILS = ("K8", "K9", "K12", "K13", "K14", "R4c")
+ORDERED_TAILS = ("K8", "K9", "K12", "K13", "K14", "R4c", "R2n")
 
 
 def counted_calls():
@@ -1010,6 +1022,13 @@ def bound(kid, args):
         # per query: both searches, the two fractions (2 subtractions and a
         # division each) and the flat cell (a multiply and an add)
         ops = nq * (_search_steps(x.numel()) + _search_steps(y.numel()) + 8)
+    elif kid == "R2g":  # data (nx, ny, r), x, y, cell, qx, qy
+        data, x, y, cell, qx, qy = args
+        elems, width = cell.numel() * data.shape[2], qx.element_size()
+        # the grid and the axes once, the cells and queries, the output; three
+        # calc_frac lerps (6 operations each) an element
+        nbytes = _nbytes(data, x, y, cell, qx, qy) + width * elems
+        ops = 18 * elems
     elif kid in ("R2b", "R2c", "R2d", "R2n"):  # rows_tbl, cell, qx | tx, qy | ty, r
         tbl, cell, a, b, r = args
         elems, width = cell.numel() * r, a.element_size()
@@ -1034,11 +1053,13 @@ def bound(kid, args):
         ops, width = (17 if kid == "K8" else 21) * elems, 8
     elif kid == "ORD":  # xi, yi, row_step, lo, rows, tx_hi, tx_lo, ty_hi, ty_lo
         xi, yi, _, _, _, *t = args
-        # the queries' indices and fraction halves in (1-D: no yi, no y
-        # halves), the bytes a record holds out (24, 1-D 12; the kernel writes
-        # 32, the rest padding); a compare and an add a query
+        # the queries' indices and fraction words in (1-D: no yi, no y halves;
+        # R2n's flat-cell form: no yi, tx and ty in the tail's dtype), the
+        # bytes a record holds out (the row value, qid and the fraction words:
+        # 24, 1-D and the f32 flat-cell form 16; the kernel writes 32, the
+        # rest padding); a compare and an add a query
         given = [v for v in (xi, yi, *t) if v is not None]
-        held = 24 if yi is not None else 12
+        held = 8 + sum(v.element_size() for v in t if v is not None)
         nbytes, ops, width = _nbytes(*given) + held * xi.numel(), 4 * xi.numel(), 4
     elif kid == "K14":  # packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo
         packed, xi, yi, _, *t = args
@@ -1080,8 +1101,14 @@ CELL_BLOCKS = {"K10": 8, "K11": 6, "K12": 32, "K13": 24, "R4c": 32}
 def row_floor_ms(kid, args):
     """The floor of a design that reads each query's own rows from HBM, as
     queries in random order do: its rows (K15 one cell row, K10-K13 and R4c
-    one cell row, K14 four node rows), its idx and t pairs and its output
-    pair, at the HBM rate."""
+    one cell row, K14 four node rows, R2b one corner row, R2n one cell row),
+    its idx and t pairs (R2b: its coordinates) and its output (pair), at
+    the HBM rate.  The rows are read as whole 32-byte sectors."""
+    if kid in ("R2b", "R2n"):  # rows_tbl, cell, qx | tx, qy | ty, r
+        tbl, cell, a, b, r = args
+        used = (4 * r + 4 if kid == "R2b" else 16 * r) * tbl.element_size()
+        per_query = -(-used // 32) * 32 + r * a.element_size()
+        return (cell.numel() * per_query + _nbytes(cell, a, b)) / HBM_BYTES_PER_S * 1e3
     if kid in ("K10", "K11", "K12", "K13", "K14", "R4c"):  # packed, xi, yi, ny, t halves
         packed, xi, yi, _, *t = args
         ch, nq = packed.shape[1], xi.numel()
@@ -1105,10 +1132,11 @@ BANK_SWEEP = (4096, 16_384, 65_536, 131_072, 262_144, 524_288, 1_048_576)
 
 def ordered_tail(kid):
     """``(module, wrapper, plain, f64 entry)`` of a tail that orders its
-    batch: K8 and K9 (1-D, by interval), K12, K13, K14 and R4c (by cell); the
-    module holds the wrapper's ``_orders``."""
+    batch: K8 and K9 (1-D, by interval), K12, K13, K14 and R4c (by cell), R2n
+    (by R1's flat cell); the module holds the wrapper's ``_orders``."""
     from ndarray_interp_tpu_torch.ops import eval_kernels_df as e1
     from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as e2
+    from ndarray_interp_tpu_torch.ops import tail2d as t2
 
     return {
         "K8": (e1, e1.gathered_df_tail, e1._df_tail_plain, e1._gathered_df_tail_f64),
@@ -1118,33 +1146,47 @@ def ordered_tail(kid):
                 e2._gathered_bicubic_f48_tail_f64),
         "K14": (e2, e2.gathered_bicubic_node_df_tail, e2._bicubic_node_df_tail_plain, None),
         "R4c": (e2, e2.gathered_bicubic_df_weight_tail, e2._bicubic_df_weight_tail_plain, None),
+        "R2n": (t2, t2.bicubic_nested_tail, t2._bicubic_nested_plain, None),
     }[kid]
 
 
-def wrapper_orders(kid, nq, ch):
-    """Whether the 2-D tail ``kid``'s wrapper orders a batch of ``nq``
-    queries on a table of ``ch`` columns (its rule, ``_orders``, at the
-    wrapper's least row bytes): the label of a timed branch, never what a
-    check expects."""
+def wrapper_orders(kid, args):
+    """Whether the tail ``kid``'s wrapper orders its batch ``args`` (its
+    rule, ``_orders``, at the wrapper's least row bytes): the label of a
+    timed branch, never what a check expects."""
     mod, kern, _, _ = ordered_tail(kid)
-    fetched = 4 * ch * (4 if kid == "K14" else 1)
-    return mod._orders(nq, fetched, mod._TAILS[kern.__name__][4])
+    if kid in ("K8", "K9"):
+        return mod._orders(args[1].shape[0], args[-1])
+    if kid == "R2n":  # rows_tbl, cell, tx, ty, r: 16 r values of row a query
+        rows, cell, _, _, r = args
+        return mod._orders(cell.shape[0], 16 * r * rows.element_size(), mod._ORDER_MIN_ROW_BYTES)
+    fetched = 4 * args[0].shape[1] * (4 if kid == "K14" else 1)
+    return mod._orders(args[1].shape[0], fetched, mod._TAILS[kern.__name__][4])
 
 
 def order_args(kid, args):
     """The ordering's arguments for a tail's ``args``: K8's and K9's 1-D form
-    (no yi, no y halves), the cell (K12, K13, R4c) or the base node (K14)."""
+    (no yi, no y halves), R2n's flat-cell form, the cell (K12, K13, R4c) or
+    the base node (K14)."""
     if kid in ("K8", "K9"):
         packed, idx, th, tl, _ = args
         return (idx, None, 1, 0, packed.shape[0], th, tl, None, None)
+    if kid == "R2n":  # order_by_flat_cell's arguments: the fractions in the tail's dtype
+        import torch
+
+        rows, cell, tx, ty, _ = args
+        if tx.dtype == torch.float64:
+            return (cell, None, 1, 0, rows.shape[0], tx, None, ty, None)
+        return (cell, None, 1, 0, rows.shape[0], tx, ty, None, None)
     packed, xi, yi, ny, *t = args
     row_step, lo = (ny, -(ny + 1)) if kid == "K14" else (ny - 1, 0)
     return (xi, yi, row_step, lo, packed.shape[0], *t)
 
 
 def ordered_phase(kid, system, card, rec, sweeps, extra=(), sweep=ORDER_SWEEP):
-    """K8, K9, K12, K13, K14 or R4c on a path's table and queries ``system``:
-    the ordering (by interval for K8 and K9, by cell else) in the form the
+    """K8, K9, K12, K13, K14, R4c or R2n on a path's table and queries
+    ``system``: the ordering (by interval for K8 and K9, by cell else; R2n's
+    keyed on R1's flat cell, its fractions in the tail's dtype) in the form the
     wrapper picks for the table held against its plain version (the same
     bucket keys, a permutation of the queries, and each query's record, its
     row value and fraction halves, bit for bit the plain one's) and timed
@@ -1169,6 +1211,8 @@ def ordered_phase(kid, system, card, rec, sweeps, extra=(), sweep=ORDER_SWEEP):
     oargs = order_args(kid, args)
     rows, nq = packed.shape[0], oargs[0].shape[0]
     one_d = kid in ("K8", "K9")
+    flat = one_d or kid == "R2n"  # args (table, key, two fraction operands, width)
+    key = "interval" if one_d else "cell"
     form = co._form(co.bucket_count(rows))
 
     values = co.row_values(*oargs[:5])
@@ -1199,7 +1243,7 @@ def ordered_phase(kid, system, card, rec, sweeps, extra=(), sweep=ORDER_SWEEP):
     argsort = device_ms(lambda: torch.argsort(keys), 10)
     order_bound = bound("ORD", oargs)[0]
     name = "shared" if form == co.SHARED else "global"
-    print(f"  ORD ordering by {'interval' if one_d else 'cell'} for {kid}, {label} "
+    print(f"  ORD ordering by {key} for {kid}, {label} "
           f"({co.bucket_count(rows):,} buckets of 2^{co.bucket_shift(rows)} rows; the {name} "
           f"form): {'matches its plain version' if not bad else bad} (bucket keys, "
           f"permutation, each query's record); kernel {fmt(order)}, the first design (the "
@@ -1230,7 +1274,8 @@ def ordered_phase(kid, system, card, rec, sweeps, extra=(), sweep=ORDER_SWEEP):
                 mod._orders = lambda *_, ordered=ordered: ordered
                 if check and not res[ordered]:
                     name = "ordered" if ordered else "unordered"
-                    ok &= rec.add_pair(kid, f"{what}, {name}", kern(*a), want)
+                    add = rec.add if kid == "R2n" else rec.add_pair
+                    ok &= add(kid, f"{what}, {name}", kern(*a), want)
                     if kern64 is not None:
                         ok &= rec.add(kid, f"{what}, {name}, float64 store form", kern64(*a),
                                       df_to_f64(*want))
@@ -1240,11 +1285,13 @@ def ordered_phase(kid, system, card, rec, sweeps, extra=(), sweep=ORDER_SWEEP):
         finally:
             mod._orders = orders
         got = {k: float(np.median(v)) for k, v in res.items()}
-        n, per_query = a[1].shape[0], 4 * a[0].shape[1] * (4 if kid == "K14" else 1)
+        n = a[1].shape[0]
+        per_query = (16 * a[4] * a[0].element_size() if kid == "R2n" else
+                     4 * a[0].shape[1] * (4 if kid == "K14" else 1))
         forms = " (both store forms)" if kern64 is not None else ""
         verdict = ("both bit-identical to" if ok else "MISMATCH against") if check else (
             "not compared here:")
-        picks = orders(n, a[-1]) if one_d else wrapper_orders(kid, n, a[0].shape[1])
+        picks = wrapper_orders(kid, a)
         print(f"  {kid} {what}: {n:,} queries, {per_query:,} B of rows a query: ordered "
               f"{got[True]:.4f} (ordering included), unordered body {got[False]:.4f} ms; "
               f"{verdict} the plain version{forms}; the wrapper takes the "
@@ -1257,7 +1304,7 @@ def ordered_phase(kid, system, card, rec, sweeps, extra=(), sweep=ORDER_SWEEP):
         return got
 
     def prefix(a, n):
-        if one_d:
+        if flat:
             return (a[0], a[1][:n], a[2][:n], a[3][:n], a[4])
         return (a[0], a[1][:n], a[2][:n], a[3], *(v[:n] for v in a[4:]))
 
@@ -1267,20 +1314,20 @@ def ordered_phase(kid, system, card, rec, sweeps, extra=(), sweep=ORDER_SWEEP):
     else:
         print(f"  {kid} {label}: bound {bound(kid, args)[0]:.4f} (bytes)", flush=True)
     main = branches(label, args, 5, f64_time=kern64 is not None)
-    if one_d:
+    if flat:
         hot = (packed, torch.full_like(args[1], int(args[1][0])), *args[2:])
-        branches("all queries in one interval", hot, 5)
+        branches(f"all queries in one {key}", hot, 5)
     else:
         hot = (packed, torch.full_like(args[1], int(args[1][0])),
                torch.full_like(args[2], int(args[2][0])), *args[3:])
         branches("all queries in one cell", hot, 5)
     del hot
     perm = torch.argsort(values, stable=True)
-    if one_d:
+    if flat:
         srt = (packed, args[1][perm], args[2][perm], args[3][perm], args[4])
     else:
         srt = (packed, args[1][perm], args[2][perm], args[3], *(v[perm] for v in args[4:]))
-    branches(f"queries already in {'interval' if one_d else 'cell'} order", srt, 5)
+    branches(f"queries already in {key} order", srt, 5)
     del perm, values, keys, srt
     for n in sweep if sweeps else ():
         if n < nq:
@@ -1291,7 +1338,8 @@ def ordered_phase(kid, system, card, rec, sweeps, extra=(), sweep=ORDER_SWEEP):
             if n < a[1].shape[0]:
                 branches(f"{what}, first {n:,} queries", prefix(a, n), 20 if n <= 65_536 else 5)
     torch.cuda.synchronize()
-    out = {"unordered_ms": main[False], "order_ms": order[0], "order_first_ms": first[0],
+    out = {"ordered_ms": main[True], "unordered_ms": main[False], "order_ms": order[0],
+           "order_first_ms": first[0],
            "order_plain_ms": order_plain[0], "order_bound_ms": order_bound,
            "order_library_ms": argsort[0], "order_form": name}
     if not one_d:
@@ -1549,12 +1597,14 @@ def df2d_kernel_phases(dev, rec):
 
 
 def tail2d_kernel_phases(dev, rec):
-    """R1, R2b, R2c, R2d and R2n against their plain versions on the card,
-    on the same inputs, in f32 and f64: the cells and fractions R1 gives for
-    1,000,000 queries per axis (NaN, +-inf, +-1e38, the knots themselves and
-    far extrapolation, so fractions far outside [0, 1]) on grids up to
-    512 x 512 at r in {1, 3, 16, 20} channels; R1 also against K3's index of
-    each axis and K2's fractions."""
+    """R1, R2b, R2g, R2c, R2d and R2n against their plain versions on the
+    card, on the same inputs, in f32 and f64: the cells and fractions R1
+    gives for 1,000,000 queries per axis (NaN, +-inf, +-1e38, the knots
+    themselves and far extrapolation, so fractions far outside [0, 1]) on
+    grids up to 512 x 512 at r in {1, 3, 16, 20} channels; R1 also against
+    K3's index of each axis and K2's fractions; R2g also against R2b's plain
+    version on ``pack_corner_rows`` of its grid; R2n in both branches (the
+    wrapper's, and the other forced)."""
     import torch
 
     from ndarray_interp_tpu_torch.models.strategies.bilinear import pack_corner_rows
@@ -1579,10 +1629,14 @@ def tail2d_kernel_phases(dev, rec):
                           + ek.fused_lower_index(y, qy))
             ok &= rec.add_pair("R1", f"{label} against K2", (tx, ty),
                                (ek.fused_index_frac(x, qx)[1], ek.fused_index_frac(y, qy)[1]))
-            corners = pack_corner_rows(x, y, T(rng.normal(size=(nx, ny, r)).astype(np_dt)))
-            ok &= rec.add("R2b", label, t2.bilinear_gathered_eval(corners, cell, qx, qy, r),
-                          t2._bilinear_plain(corners, cell, qx, qy, r))
-            del corners
+            grid = T(rng.normal(size=(nx, ny, r)).astype(np_dt))
+            corners = pack_corner_rows(x, y, grid)
+            want = t2._bilinear_plain(corners, cell, qx, qy, r)
+            ok &= rec.add("R2b", label, t2.bilinear_gathered_eval(corners, cell, qx, qy, r), want)
+            got = t2.bilinear_grid_eval(grid, x, y, cell, qx, qy)
+            ok &= rec.add("R2g", label, got, t2._bilinear_grid_plain(grid, x, y, cell, qx, qy))
+            ok &= rec.add("R2g", f"{label} against R2b's plain version", got, want)
+            del corners, grid, got, want
             rows = T(rng.normal(size=((nx - 1) * (ny - 1), 16 * r)).astype(np_dt))
             for kid, kernel, plain in (
                 ("R2c", t2.bicubic_gathered_eval, t2._bicubic_weight_plain),
@@ -1590,7 +1644,17 @@ def tail2d_kernel_phases(dev, rec):
                 ("R2n", t2.bicubic_nested_tail, t2._bicubic_nested_plain),
             ):
                 ok &= rec.add(kid, label, kernel(rows, cell, tx, ty, r), plain(rows, cell, tx, ty, r))
-            print(f"  {label}: R1 (also against K3 and K2), R2b, R2c, R2d, R2n "
+            orders = t2._orders
+            picks = orders(NQ2D, 16 * r * rows.element_size(), t2._ORDER_MIN_ROW_BYTES)
+            t2._orders = lambda *_: not picks  # R2n's other branch
+            try:
+                ok &= rec.add("R2n", f"{label}, {'un' if picks else ''}ordered branch",
+                              t2.bicubic_nested_tail(rows, cell, tx, ty, r),
+                              t2._bicubic_nested_plain(rows, cell, tx, ty, r))
+            finally:
+                t2._orders = orders
+            print(f"  {label}: R1 (also against K3 and K2), R2b, R2g (also against R2b's plain "
+                  f"version), R2c, R2d, R2n (both branches) "
                   f"{'bit-identical' if ok else 'MISMATCH'}", flush=True)
             del rows, cell, tx, ty, qx, qy
             torch.cuda.synchronize()
@@ -1633,19 +1697,22 @@ def bicubic_oracle(x, y, rows, r, qx, qy):
     return hermite(f_y1, f_y2, g_y1, g_y2, ty)
 
 
-def plain_cell_route(itp, qx, qy):
+def plain_cell_route(itp, qx, qy, corner_rows=False):
     """The plain versions of R1 and the strategy's tail on the same inputs
     (in-range queries, no periodic axis): ``get_lower_index`` per axis, a
-    row ``index_select`` and the PyTorch lerps (``Bilinear``) or nested
-    Hermite tail (``Bicubic``)."""
+    gather of the grid's corners and the PyTorch lerps (``Bilinear``;
+    ``corner_rows``: R2b's, a row ``index_select`` of the corner-row table)
+    or a row ``index_select`` and the nested Hermite tail (``Bicubic``)."""
     from ndarray_interp_tpu_torch.ops import eval_kernels as ek
     from ndarray_interp_tpu_torch.ops import tail2d as t2
 
-    rows = itp.strategy.rows
+    s = itp.strategy
     cell, tx, ty = ek._cell_index_plain(itp.x, itp.y, qx, qy)
-    if getattr(itp.strategy, "layout", None) == "cell":
-        return t2._bicubic_nested_plain(rows, cell, tx, ty, rows.shape[1] // 16)
-    return t2._bilinear_plain(rows, cell, qx, qy, rows.shape[1] // 4 - 1)
+    if getattr(s, "layout", None) == "cell":
+        return t2._bicubic_nested_plain(s.rows, cell, tx, ty, s.rows.shape[1] // 16)
+    if corner_rows:
+        return t2._bilinear_plain(s.rows, cell, qx, qy, s.rows.shape[1] // 4 - 1)
+    return t2._bilinear_grid_plain(s.grid, itp.x, itp.y, cell, qx, qy)
 
 
 def path2d(dev, rng):
@@ -1668,14 +1735,16 @@ def path2d(dev, rng):
     nx, ny, r = GRID2D
     T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
 
-    def routed_equals_plain(label, itp, got):
+    def routed_equals_plain(label, itp, got, corner_rows=False):
         """The routed output against the plain versions of R1 and the tail
-        on the same inputs, bit for bit."""
-        same, err = bit_compare(got, plain_cell_route(itp, qxd, qyd))
-        print(f"  {label}: R1 + tail {'bit-identical to' if same else 'DIFFERS from'} their "
-              f"plain versions (max abs err {err})", flush=True)
+        (``corner_rows``: R2b's on the corner-row table) on the same inputs,
+        bit for bit."""
+        same, err = bit_compare(got, plain_cell_route(itp, qxd, qyd, corner_rows))
+        what = "R2b's plain version on the corner rows" if corner_rows else "their plain versions"
+        print(f"  {label}: R1 + tail {'bit-identical to' if same else 'DIFFERS from'} {what} "
+              f"(max abs err {err})", flush=True)
         if not same:
-            fail(f"{label}: R1 + tail differ from their plain versions (max abs err {err})")
+            fail(f"{label}: R1 + tail differ from {what} (max abs err {err})")
 
     x = f32(make_knots(nx, "nonuniform", np.float64, rng))
     y = f32(make_knots(ny, "nonuniform", np.float64, rng))
@@ -1695,13 +1764,16 @@ def path2d(dev, rng):
         xd, yd, zd, qxd, qyd = (T(v.astype(dt)) for v in (x, y, z, qx, qy))
         bil = drive(f"Bilinear {tag} build {nx} x {ny} x {r}", [], lambda: (
             Interp2D.builder(zd).x(xd).y(yd).build()))
-        got = drive(f"NS3 Bilinear {tag} itp(xs, ys)", ["R1", "R2b"], lambda: bil(qxd, qyd))
+        got = drive(f"NS3 Bilinear {tag} itp(xs, ys)", ["R1", "R2g"], lambda: bil(qxd, qyd))
         check_close(f"NS3 Bilinear {tag} {nx} x {ny} x {r} at {NQ2D:,} queries", got, ref_lin,
                     tol, (NQ2D, r), tdt)
         routed_equals_plain(f"NS3 Bilinear {tag}", bil, got)
+        routed_equals_plain(f"NS3 Bilinear {tag}", bil, got, corner_rows=True)
         bic = drive(f"NS3b Bicubic {tag} build", ["K4"], lambda: (
             Interp2D.builder(zd).x(xd).y(yd).strategy(Bicubic()).build()))
-        got = drive(f"NS3b Bicubic {tag} itp(xs, ys)", ["R1", "R2n"], lambda: bic(qxd, qyd))
+        # R2n orders the 1M batch by cell first (ORD's flat-cell form)
+        got = drive(f"NS3b Bicubic {tag} itp(xs, ys)", ["R1", "ORD", "R2n"],
+                    lambda: bic(qxd, qyd))
         check_close(f"NS3b Bicubic {tag} {nx} x {ny} x {r} at {NQ2D:,} queries "
                     f"(oracle RectBivariateSpline)", got, ref_cub, tol, (NQ2D, r), tdt)
         routed_equals_plain(f"NS3b Bicubic {tag}", bic, got)
@@ -1713,13 +1785,18 @@ def path2d(dev, rng):
     ev = Evaluator2D(bil).warmup()
     for size in (1000, NQ2D + 1):
         ax, ay = torch.cat([qxd, qxd])[:size], torch.cat([qyd, qyd])[:size]
-        got = drive(f"Evaluator2D Bilinear f32 at {size:,} queries", ["R1", "R2b"],
+        got = drive(f"Evaluator2D Bilinear f32 at {size:,} queries", ["R1", "R2g"],
                     lambda: ev(ax, ay))
         if not torch.equal(got, bil(ax, ay)):
             fail(f"Evaluator2D at {size:,} queries differs from itp(xs, ys)")
+        same, err = bit_compare(got, plain_cell_route(bil, ax, ay, corner_rows=True))
+        print(f"  Evaluator2D at {size:,} queries: {'bit-identical to' if same else 'DIFFERS from'}"
+              f" R1 + R2b's plain versions on the corner rows (max abs err {err})", flush=True)
+        if not same:
+            fail(f"Evaluator2D at {size:,} queries differs from R2b's plain version")
     out["evaluator"] = ev
     buf = torch.empty((NQ2D, r), dtype=torch.float32, device=dev)
-    got = drive("eval_into_donated_2d Bilinear f32", ["R1", "R2b"], lambda: (
+    got = drive("eval_into_donated_2d Bilinear f32", ["R1", "R2g"], lambda: (
         eval_into_donated_2d(bil, qxd, qyd, buf)))
     if got is not buf or not torch.equal(buf, bil.eval_unchecked(qxd, qyd)):
         fail("eval_into_donated_2d did not write itp.eval_unchecked(xs, ys) into out")
@@ -1800,12 +1877,138 @@ def recombined_pair_route(ev, grade, qx, qy):
     return df_to_f64(*route(*ev._run.args, *halves))[:n].reshape(n, -1)
 
 
+GRID2D_PAST_L2 = (2048, 2048, 16)  # R2g's and R2b's --sweeps grid: 268 MB, its table 1.07 GB
+
+
+def timed_designs(what, want, designs, calls, rec):
+    """Each of ``designs`` ({label: (kid, fn)}) held bit for bit against
+    ``want`` and timed by CUDA events, in turn, first to last and back;
+    ``{label: median ms}``."""
+    times = {label: [] for label in designs}
+    for label, (k, fn) in designs.items():
+        rec.add(k, f"{what}, {label}", fn(), want)
+    for label, (_, fn) in list(designs.items()) + list(reversed(designs.items())):
+        times[label].append(device_ms(fn, calls)[0])
+    out = {label: float(np.median(v)) for label, v in times.items()}
+    for label, ms in out.items():
+        print(f"    {label}: {ms:.4f} ms", flush=True)
+    return out
+
+
+def bilinear_designs(dev, bil, qx, qy, card, rec, sweeps):
+    """R2b's designs at NS3 in one run (each held bit for bit against
+    ``_bilinear_plain`` on the corner rows and timed in turn): the grid tail
+    R2g, the corner-row kernel on 16-byte lanes (R2b) and the same on a
+    table copy off 16-byte alignment, a channel a lane (the first design's
+    layout, without its 64-bit division); with ``sweeps`` also on a grid past
+    the L2 (``GRID2D_PAST_L2``).  Returns ``{label: ms}`` at NS3."""
+    import torch
+
+    from ndarray_interp_tpu_torch.models.strategies.bilinear import pack_corner_rows
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+    from ndarray_interp_tpu_torch.ops import tail2d as t2
+
+    def run(label, x, y, grid, rows):
+        cell, _, _ = ek.fused_cell_index(x, y, qx, qy)
+        r = grid.shape[2]
+        want = t2._bilinear_plain(rows, cell, qx, qy, r)
+        rec.add("R2g", f"{label} against _bilinear_grid_plain",
+                t2.bilinear_grid_eval(grid, x, y, cell, qx, qy),
+                t2._bilinear_grid_plain(grid, x, y, cell, qx, qy))
+        off = misaligned(rows)
+        print(f"  R2b designs, {label} ({grid.numel() * grid.element_size() / 1e6:.1f} MB grid, "
+              f"{rows.numel() * rows.element_size() / 1e6:.1f} MB corner-row table; each "
+              f"bit-identical to _bilinear_plain on the table; card {card}):", flush=True)
+        return timed_designs(label, want, {
+            "grid tail R2g": ("R2g", lambda: t2.bilinear_grid_eval(grid, x, y, cell, qx, qy)),
+            "corner rows, 16-byte lanes (R2b)": (
+                "R2b", lambda: t2.bilinear_gathered_eval(rows, cell, qx, qy, r)),
+            "corner rows, a channel a lane (table off 16-byte alignment)": (
+                "R2b", lambda: t2.bilinear_gathered_eval(off, cell, qx, qy, r)),
+        }, 20, rec)
+
+    out = run(f"NS3 {'x'.join(map(str, GRID2D))} f32, {qx.numel():,} queries", bil.x, bil.y,
+              bil.strategy.grid, bil.strategy.rows)
+    if sweeps:
+        rng = np.random.default_rng(52)
+        nx, ny, r = GRID2D_PAST_L2
+        # axes over NS3's span [0, 100], so NS3's queries fall in the grid
+        x = torch.as_tensor(make_knots(nx, "nonuniform", np.float32, rng), device=dev)
+        y = torch.as_tensor(make_knots(ny, "nonuniform", np.float32, rng), device=dev)
+        grid = torch.randn((nx, ny, r), device=dev, generator=torch.Generator(dev).manual_seed(52))
+        rows = pack_corner_rows(x, y, grid)
+        run(f"past the L2 {nx}x{ny}x{r} f32, {qx.numel():,} queries", x, y, grid, rows)
+        del grid, rows
+        torch.cuda.synchronize()
+    return out
+
+
+def nested_designs(bic, qx, qy, card, rec):
+    """R2n's phases at NS3b in one run: the present body in query order
+    (the first design), the same on every query's row from one cell (the
+    compute floor with the row traffic gone), the present 2-D ORD on R1's
+    cells beside ORD's flat-cell form, and the ordered kernel alone on the
+    records and with the ordering; each result held bit for bit against
+    ``_bicubic_nested_plain``.  Returns ``{key: ms}``."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops import _cuda
+    from ndarray_interp_tpu_torch.ops import cell_order as co
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+    from ndarray_interp_tpu_torch.ops import tail2d as t2
+
+    cell, tx, ty = ek.fused_cell_index(bic.x, bic.y, qx, qy)
+    rows = bic.strategy.rows
+    r, ny1, nrows = rows.shape[1] // 16, bic.y.shape[0] - 1, rows.shape[0]
+    want = t2._bicubic_nested_plain(rows, cell, tx, ty, r)
+    hot = torch.full_like(cell, int(cell[0]))
+    xi = torch.div(cell, ny1, rounding_mode="floor")
+    zero = torch.zeros_like(tx)
+    records = co.order_by_flat_cell(cell, nrows, tx, ty)
+    orders = t2._orders
+
+    def ordered_alone():
+        out = torch.empty((cell.shape[0], r), dtype=rows.dtype, device=rows.device)
+        _cuda.launch("ndi_bicubic_nested_tail_ordered", rows.dtype, rows.device, rows, nrows,
+                     rows.shape[1], r, records, out, cell.shape[0])
+        return out
+
+    def branch(ordered, c=cell):
+        def fn():
+            t2._orders = lambda *_: ordered
+            try:
+                return t2.bicubic_nested_tail(rows, c, tx, ty, r)
+            finally:
+                t2._orders = orders
+        return fn
+
+    print(f"  R2n phases at NS3b ({nrows:,} cells x {rows.shape[1] * rows.element_size():,} B "
+          f"rows f32, {cell.numel():,} queries; card {card}):", flush=True)
+    out = timed_designs("R2n at NS3b", want, {
+        "the present body in query order (the first design)": ("R2n", branch(False)),
+        "ordered, the ordering included": ("R2n", branch(True)),
+        "the ordered kernel alone": ("R2n", ordered_alone),
+    }, 5, rec)
+    rec.add("R2n", "every query on one cell", branch(False, hot)(),
+            t2._bicubic_nested_plain(rows, hot, tx, ty, r))
+    out["one cell"] = device_ms(branch(False, hot), 5)[0]
+    out["ORD flat"] = device_ms(lambda: co.order_by_flat_cell(cell, nrows, tx, ty), 10)[0]
+    out["ORD 2-D"] = device_ms(lambda: co.order_by_cell(
+        xi, cell - xi * ny1, ny1, 0, nrows, tx, zero, ty, zero), 10)[0]
+    print(f"    the present body on every query's row from one cell (compute floor): "
+          f"{out['one cell']:.4f} ms; ORD, the flat-cell form: {out['ORD flat']:.4f}, the present "
+          f"2-D form on R1's cells: {out['ORD 2-D']:.4f} ms", flush=True)
+    return out
+
+
 def timing2d(state, card, rec, sweeps):
     """Hold the kernels of the 2-D path, through their wrappers, against
-    their plain versions on the path's own inputs; time R1, R2b-R2n,
+    their plain versions on the path's own inputs; time R1, R2b-R2n, R2g,
     K10-K13 and the per-column-diagonal K4 against their plain versions;
-    then time the 2-D calls end to end, NS3 and NS3b also as the plain
-    versions of R1 and their tails."""
+    R2b's designs and R2n's phases and both branches (f32 and f64); then
+    time the 2-D calls end to end (``Evaluator2D`` and
+    ``eval_into_donated_2d`` too), NS3 and NS3b also as the plain versions
+    of R1 and their tails."""
     import torch
 
     from ndarray_interp_tpu_torch.interp2d import Bicubic, Interp2D
@@ -1818,6 +2021,7 @@ def timing2d(state, card, rec, sweeps):
     from ndarray_interp_tpu_torch.ops.df import df_from_f64, df_to_f64
     from ndarray_interp_tpu_torch.ops.searchsorted import get_lower_index
     from ndarray_interp_tpu_torch.ops.thomas import thomas_solve
+    from ndarray_interp_tpu_torch.serving import eval_into_donated_2d
 
     bil, bic, qxd, qyd, zd = state["float32"]
     dqx, dqy = state["df queries"]
@@ -1837,6 +2041,8 @@ def timing2d(state, card, rec, sweeps):
         "R1": [(f"NS3 / NS3b cell search f32: {knots} a axis, {nq}", (bil.x, bil.y, qxd, qyd))],
         "R2b": [(f"NS3 corner-row table {shape} f32, {nq}",
                  (bil.strategy.rows, cell, qxd, qyd, r))],
+        "R2g": [(f"NS3 grid {shape} f32, {nq}",
+                 (bil.strategy.grid, bil.x, bil.y, cell, qxd, qyd))],
         "K4": [(f"NS3b build f32: {knots} x {zd[0].numel():,} columns, along x",
                 _assemble_system(bic.x, zd.reshape(zd.shape[0], -1), _NOT_A_KNOT, 0.0,
                                  _NOT_A_KNOT, 0.0))],
@@ -1861,6 +2067,7 @@ def timing2d(state, card, rec, sweeps):
         "K13": (e2.gathered_bicubic_f48_tail, e2._bicubic_f48_tail_plain, rec.add_pair, (5, 1)),
         "R1": (ek.fused_cell_index, ek._cell_index_plain, rec.add_pair, (50, 20)),
         "R2b": (t2.bilinear_gathered_eval, t2._bilinear_plain, rec.add, (20, 5)),
+        "R2g": (t2.bilinear_grid_eval, t2._bilinear_grid_plain, rec.add, (20, 5)),
         "R2c": (t2.bicubic_gathered_eval, t2._bicubic_weight_plain, rec.add, (10, 2)),
         "R2d": (t2.bicubic_tree_tail, t2._bicubic_tree_plain, rec.add, (10, 2)),
         "R2n": (t2.bicubic_nested_tail, t2._bicubic_nested_plain, rec.add, (10, 2)),
@@ -1870,9 +2077,34 @@ def timing2d(state, card, rec, sweeps):
         label, args = systems[kid][0]
         ok = compare(kid, label, kern(*args), plain(*args))
         print(f"  {kid} {label}: {'bit-identical' if ok else 'MISMATCH'}", flush=True)
-    timed = ("R1", "R2b", "R2c", "R2d", "R2n", "K10", "K11", "K12", "K13")
+    timed = ("R1", "R2b", "R2g", "R2c", "R2d", "R2n", "K10", "K11", "K12", "K13")
     times = time_kernels({k: pairs[k] for k in timed}, systems, card)
-    del cell, tx, ty
+    times["R2b"]["row_floor_ms"] = row_floor_ms("R2b", systems["R2b"][0][1])
+    print(f"  R2b row-read floor {times['R2b']['row_floor_ms']:.4f} (each query's own corner "
+          f"row from HBM)", flush=True)
+    # R2b's designs at NS3: the grid tail R2g (the path's), the corner rows on
+    # 16-byte lanes and a channel a lane; R2n's phases at NS3b, then both of its
+    # branches (ordered by cell, and the unordered body) in f32 and f64
+    print("R2b's designs and R2n's phases, each in one run:", flush=True)
+    designs = bilinear_designs(qxd.device, bil, qxd, qyd, card, rec, sweeps)
+    times["R2b"]["first_design_ms"] = designs[
+        "corner rows, a channel a lane (table off 16-byte alignment)"]
+    times["R2g"]["corner_rows_ms"] = designs["corner rows, 16-byte lanes (R2b)"]
+    phases = nested_designs(bic, qxd, qyd, card, rec)
+    times["R2n"] |= {"one_cell_ms": phases["one cell"], "order_2d_form_ms": phases["ORD 2-D"],
+                     "ordered_alone_ms": phases["the ordered kernel alone"]}
+    print("R2n at NS3b's table and queries, ordered by cell and unordered:", flush=True)
+    extra = [(f"cell table {GRID2D[0]}x{GRID2D[1]}x8 f32", (
+        torch.randn(((GRID2D[0] - 1) * (GRID2D[1] - 1), 16 * 8), device=qxd.device), cell, tx, ty,
+        8), ORDER_SWEEP)] if sweeps else []
+    times["R2n"].update(ordered_phase("R2n", systems["R2n"][0], card, rec, sweeps, extra))
+    bic64, qx64, qy64 = state["float64"][1], state["float64"][2], state["float64"][3]
+    c64, tx64, ty64 = ek.fused_cell_index(bic64.x, bic64.y, qx64, qy64)
+    f64 = ordered_phase("R2n", (f"NS3b cell table {shape} f64, {nq}",
+                                (bic64.strategy.rows, c64, tx64, ty64, r)), card, rec, False)
+    times["R2n"] |= {"f64_ms": f64["ordered_ms"], "unordered_f64_ms": f64["unordered_ms"],
+                     "f64_row_floor_ms": f64["row_floor_ms"]}
+    del cell, tx, ty, extra, c64, tx64, ty64
     # K10's and K11's float64 store form at NS3c's and NS3g's inputs: held
     # against df_to_f64 of the plain pair and timed beside the pair form
     for kid, entry, plain in (("K10", e2._gathered_bilinear_df_tail_f64,
@@ -1938,10 +2170,15 @@ def timing2d(state, card, rec, sweeps):
           f": kernel {fmt(tk_)}, plain {fmt(tp_)}, bound {bound_ms:.4f} ({bound_by}); "
           f"library: none", flush=True)
 
+    out_buf = torch.empty((qxd.numel(), r), dtype=torch.float32, device=qxd.device)
     end_to_end({
         f"NS3 Bilinear f32 itp(xs, ys), {shape} at {nq}": (lambda: bil(qxd, qyd), 20),
-        f"NS3 Bilinear f32, plain R1 + R2b (searchsorted, row gather, lerps), {shape} at {nq}": (
-            lambda: plain_cell_route(bil, qxd, qyd), 20),
+        f"NS3 Bilinear f32, plain R1 + R2g (searchsorted, corner gather, lerps), {shape} at "
+        f"{nq}": (lambda: plain_cell_route(bil, qxd, qyd), 20),
+        f"NS3 Evaluator2D Bilinear f32 ev(xs, ys), {shape} at {nq}": (
+            lambda: state["evaluator"](qxd, qyd), 20),
+        f"NS3 eval_into_donated_2d Bilinear f32, {shape} at {nq}": (
+            lambda: eval_into_donated_2d(bil, qxd, qyd, out_buf), 20),
         f"NS3b Bicubic f32 itp(xs, ys), {shape} at {nq}": (lambda: bic(qxd, qyd), 10),
         f"NS3b Bicubic f32, plain R1 + R2n (searchsorted, row gather, Hermite tail), {shape} "
         f"at {nq}": (lambda: plain_cell_route(bic, qxd, qyd), 10),
@@ -3085,6 +3322,8 @@ KERNELS = {
            "ndarray_interp_tpu/ops/pallas_eval.py:522"),
     "R2b": ("bilinear_gathered_eval", "ndarray_interp_tpu_torch/csrc/cell2d_kernels.cu",
             "ndarray_interp_tpu/ops/pallas_tail.py:112"),
+    "R2g": ("bilinear_grid_eval", "ndarray_interp_tpu_torch/csrc/cell2d_kernels.cu",
+            "ndarray_interp_tpu/ops/pallas_tail.py:112"),
     "R2c": ("bicubic_gathered_eval", "ndarray_interp_tpu_torch/csrc/cell2d_kernels.cu",
             "ndarray_interp_tpu/ops/pallas_tail.py:258"),
     "R2d": ("bicubic_tree_tail", "ndarray_interp_tpu_torch/csrc/cell2d_kernels.cu",
@@ -3099,6 +3338,7 @@ KERNELS = {
 # ORD's shapes: (its label, the tail whose ordered phase timed it there)
 ORD_SHAPES = (("K8/K9: 2^20 queries over 10,239 intervals", "K8"),
               ("K12/K13/R4c (NS3d): 1,000,000 queries over 261,121 cells", "K12"),
+              ("R2n (NS3b): 1,000,000 queries over 261,121 cells, f32 records", "R2n"),
               ("K14 (NS3e): 1,000,000 queries over 1,048,576 base nodes", "K14"))
 
 
@@ -3182,8 +3422,8 @@ def main():
           "device='cuda'; counts set to 0 before each call):", flush=True)
     state2d, launched2d = path2d(dev, np.random.default_rng(44))
     print(f"  launches during the 2-D path: {launched2d}")
-    for kid in ("R1", "R2b", "R2n", "K4", "K7", "K10", "K11", "K12", "K13", "ORD:K12",
-                "ORD:K13"):
+    for kid in ("R1", "R2g", "R2n", "K4", "K7", "K10", "K11", "K12", "K13", "ORD:K12",
+                "ORD:K13", "ORD:R2n"):
         if launched2d[kid] <= 0:
             fail(f"{kid} was not launched by the 2-D path")
     elapsed("1-D, serving and 2-D paths")

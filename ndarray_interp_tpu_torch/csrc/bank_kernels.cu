@@ -58,13 +58,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "df_common.cuh"  // Vec, kThreads
+#include "df_common.cuh"  // Vec, kThreads, wide_lanes, lane_grid
 
 namespace {
 
 constexpr int kBankTile = 256;   // K5: bank columns per block, one per thread
 constexpr int kQueryChunk = 32;  // K5: queries per block, idx and t in shared memory
-constexpr int kTailLanes = 32;   // R2a: the most lanes a query's row takes in a block
 
 template <typename T>
 __device__ __forceinline__ T hermite(T y_l, T y_r, T a, T b, T t) {
@@ -138,22 +137,11 @@ int banked_eval(const void* data, const void* a, const void* b, int64_t rows, in
   return static_cast<int>(cudaGetLastError());
 }
 
-// whether R2a's rows and output rows take 16-byte accesses of W values
-template <int W>
-bool wide_lanes(const void* packed, int64_t bp, int64_t bank) {
-  return bank % W == 0 && bp % W == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0;
-}
-
 template <typename T, int W>
 void bank_tail_launch(const T* packed, int64_t rows, int64_t ch, int64_t bp, int64_t bank,
                       const int32_t* idx, const T* t, T* out, int64_t nq, cudaStream_t s) {
-  const int64_t chunks = bank / W;
-  const int lanes = static_cast<int>(chunks < kTailLanes ? chunks : kTailLanes);
-  const int per_block = kThreads / lanes;  // queries a block
-  const dim3 grid(static_cast<unsigned int>((nq + per_block - 1) / per_block),
-                  static_cast<unsigned int>((chunks + lanes - 1) / lanes));
-  bank_tail_kernel<T, W><<<grid, dim3(lanes, per_block), 0, s>>>(packed, rows, ch, bp, bank,
-                                                                 idx, t, out, nq);
+  const LaneGrid g = lane_grid(bank / W, nq);
+  bank_tail_kernel<T, W><<<g.grid, g.block, 0, s>>>(packed, rows, ch, bp, bank, idx, t, out, nq);
 }
 
 // R2a: 16-byte lanes where the layout allows them, else a column a lane

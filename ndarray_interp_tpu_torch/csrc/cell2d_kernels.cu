@@ -1,5 +1,5 @@
 // The f32/f64 2-D cell route for Hopper (sm_90a): the fused cell search and
-// the tails on the packed cell-row tables.
+// the tails on the grid and on the packed cell-row tables.
 //
 // R1   cell_index         replaces the Pallas kernel ndarray_interp_tpu/ops/pallas_eval.py
 //                         _cell_kernel (fused_cell_index): both axis searches in one
@@ -8,6 +8,8 @@
 // R2b  bilinear_tail      replaces ndarray_interp_tpu/ops/pallas_tail.py _bilinear_kernel
 //                         (bilinear_tail): three calc_frac lerps on the packed corner
 //                         row [z11 | z12 | z21 | z22 | x1 x2 y1 y2] (width >= 4r + 4).
+// R2g  bilinear_grid      R2b's function on the grid itself, (nx, ny, r) and the two
+//                         axes: what the Bilinear route runs.
 // R2c  bicubic seq tail   replaces pallas_tail.py _bicubic_weight_kernel
 //                         (bicubic_weight_tail): the 16 tensor-product weights times the
 //                         16 blocks of the cell row (width >= 16r), summed in order.
@@ -16,7 +18,9 @@
 //                         then + b+4, b+2, b+1).
 // R2n  bicubic nested     the nested scaled-Hermite order of the strategy's tail
 //                         (models/strategies/bicubic.py _cell_tail_nested; XLA, not
-//                         Pallas, in the JAX package): the order the Bicubic route takes.
+//                         Pallas, in the JAX package): the order the Bicubic route takes,
+//                         in query order (bicubic_cell_tail_kernel) or on records ordered
+//                         by cell (nested_ordered_kernel).
 //
 // What the TPU kernels did and these do not.  R1's Pallas body searched a
 // two-level window with one-hot bf16 split matrix products (_axis_search); a GPU
@@ -24,44 +28,65 @@
 // endpoints.  The Pallas tails took rows that XLA had already gathered, so the
 // gathered (Q, 4r + 4) or (Q, 16r) intermediate was written and read again; here
 // each thread fetches its own row from the packed table, as K8-K14 and R2a do, so
-// that intermediate never exists.  R2d's one-hot MXU build of the weight row
-// (exact at Precision.HIGHEST) was a TPU relayout trick: here each weight is the
-// one product Ax * Ay it stands for.  Neither the TPU's block multiples of the
+// that intermediate never exists.  The corner-row table itself was a TPU device:
+// a gather a query was the cost there, so one row held all a query needed.  Here
+// R2g reads the grid, which the L2 holds, where the table (four times the grid)
+// does not fit it.  R2d's one-hot MXU build of the weight row (exact at
+// Precision.HIGHEST) was a TPU relayout trick: here each weight is the one
+// product Ax * Ay it stands for.  Neither the TPU's block multiples of the
 // query count nor its r % 8 == 0 apply.
 //
 // What bounds them on this card.  R1 reads 8 bytes a query and writes 12 (f32);
 // its two searches of 9 steps on a 512-knot axis hit L1/L2, so it is latency
-// bound like K3.  The tails write 4r bytes a query and read one row a query at
-// an address the cell selects: 272 B (R2b) or 1 KB (R2c/R2d/R2n) at r = 16, so
-// the rows read (272 MB / 1.07 GB at 1M queries) are several times the table
-// (71 / 267 MB at 512 x 512 x 16), which does not fit the 50 MB L2.  One thread
-// a (query, channel) element, threads along the channel: adjacent threads read
-// adjacent channels of one block and write adjacent outputs, so at r = 16 a warp
-// reads two rows' blocks in 64-byte segments and writes 128 contiguous bytes.
+// bound like K3.  The tails write 4r bytes a query (f32).  R2b reads one corner
+// row a query at an address the cell selects, 272 B at r = 16: 272 MB at 1M
+// queries from a 71 MB table at 512 x 512 x 16, past the 50 MB L2.  R2g reads
+// the same values from the 16.8 MB grid, two runs of 2r contiguous values
+// (data[xi, yi:yi+2], data[xi+1, yi:yi+2]) and four axis values, all from L2;
+// only the cells, queries and outputs (76 MB) cross HBM.  At NS3's 1M queries
+// (an H100 80GB HBM3 at 700 W, tools/tail2d_phases.py): R2g 0.0562 ms, R2b on
+// 16-byte lanes 0.0994 (its row-read floor 0.104), a channel a lane 0.1215, the
+// first design (a thread an element, a 64-bit division each) 0.1281; on a
+// 2048 x 2048 x 16 grid past the L2, R2g 0.1212 against R2b's 0.1384.  Both take
+// W channels a lane with 16-byte loads and stores (f32 4, f64 2) where r and the
+// base allow them, one channel a lane else, up to 32 lanes a query and as many
+// queries as fill a block: no per-element division.
+//
+// R2c, R2d and R2n read a 1 KiB cell row a query (r = 16, f32): 1.07 GB at 1M
+// queries from a 267 MB table.  In query order each query's row comes from HBM,
+// R2n's body 0.3309 ms at NS3b against its row-read floor 0.3284 and 0.1153 on
+// every query's row from one cell (the compute floor).  Above a batch size
+// (eval_kernels_df2d._orders, K12's rule) the wrapper first orders the queries
+// by cell (cell_order.cu's flat-cell form, 0.0580) and runs nested_ordered_kernel
+// on the records: 0.1593 alone, 0.2198 with the ordering.  A lane keeping its
+// channels of a cell's 16 blocks for the run of records on the cell (K13's row
+// cache, 8 records a slot) took 0.2203: in f32 nothing is widened, so it saved
+// loads the L1 already served, and was not kept.  R2c and R2d keep the body in
+// query order: no path runs them.
 //
 // Numerics: every form is written in its plain PyTorch version's operation order
 // (ops/eval_kernels.py _cell_index_plain, ops/tail2d.py _bilinear_plain,
-// _bicubic_weight_plain, _bicubic_tree_plain, _cell_tail_nested) and the library
-// is compiled with --fmad=false, so each kernel is bit-identical to its plain
-// version.  R1's index is K3's and its fractions K2's.  A cell outside the table
-// is clamped, as the plain versions clamp it, so a bad cell cannot read outside
-// the table.
+// _bilinear_grid_plain, _bicubic_weight_plain, _bicubic_tree_plain,
+// _cell_tail_nested) and the library is compiled with --fmad=false, so each
+// kernel is bit-identical to its plain version, and R2g to R2b on the corner
+// rows of its grid (the strategy packs them only where the axes' dtype is the
+// data's, so the endpoints are the same values).  R1's index is K3's and its
+// fractions K2's.  A cell outside the table is clamped, as the plain versions
+// clamp it, so a bad cell cannot read outside the table.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "search.cuh"  // lower_index
+#include "df_common.cuh"  // kThreads, Vec, wide_lanes, lane_grid, Slot, slot_of, ordered_blocks
+#include "search.cuh"     // lower_index
 
 namespace {
-
-constexpr int kThreads = 256;
 
 enum Order { kSeq = 0, kTree = 1, kNested = 2 };
 
 __device__ __forceinline__ int64_t clamp_cell(int64_t c, int64_t rows) {
   return c < 0 ? 0 : (c >= rows ? rows - 1 : c);
 }
-
 // calc_frac (linear.rs:29-37): m = (y2 - y1) / (x2 - x1); m * (x - x1) + y1
 template <typename T>
 __device__ __forceinline__ T calc_frac(T x1, T y1, T x2, T y2, T x) {
@@ -113,30 +138,81 @@ __global__ void cell_index_kernel(const T* __restrict__ x, int nx, const T* __re
   ty[i] = (qyi - y_l) / (y_r - y_l);
 }
 
-// R2b.  tbl (rows, ch), ch >= 4r + 4; out (nq, r); n = nq * r elements.
-template <typename T>
-__global__ void bilinear_tail_kernel(const T* __restrict__ tbl, int64_t rows, int64_t ch,
-                                     int64_t r, const int32_t* __restrict__ cell,
-                                     const T* __restrict__ qx, const T* __restrict__ qy,
-                                     T* __restrict__ out, int64_t n) {
-  const int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (e >= n) return;
-  const int64_t q = e / r;
-  const int64_t c = e - q * r;
-  const T* row = tbl + clamp_cell(__ldg(cell + q), rows) * ch;
-  const T z11 = __ldg(row + c);
-  const T z12 = __ldg(row + r + c);
-  const T z21 = __ldg(row + 2 * r + c);
-  const T z22 = __ldg(row + 3 * r + c);
-  const T x1 = __ldg(row + 4 * r);
-  const T x2 = __ldg(row + 4 * r + 1);
-  const T y1 = __ldg(row + 4 * r + 2);
-  const T y2 = __ldg(row + 4 * r + 3);
-  const T xq = __ldg(qx + q);
-  // the lerp composition and order of bilinear.rs:88-97
-  const T z1 = calc_frac(x1, z11, x2, z21, xq);
-  const T z2 = calc_frac(x1, z12, x2, z22, xq);
-  out[e] = calc_frac(y1, z1, y2, z2, __ldg(qy + q));
+// A (query, channel chunk) lane of the tails on W-wide lanes: threadIdx.y the
+// query of the block, threadIdx.x its chunk; q < 0 past the batch or the row
+struct Lane {
+  int64_t q, c;
+};
+
+template <int W>
+__device__ __forceinline__ Lane lane_of(int64_t r, int64_t nq) {
+  const int64_t q = blockIdx.x * static_cast<int64_t>(blockDim.y) + threadIdx.y;
+  const int64_t c = (blockIdx.y * static_cast<int64_t>(blockDim.x) + threadIdx.x) * W;
+  return {q < nq && c < r ? q : -1, c};
+}
+
+// the three lerps of bilinear.rs:88-97 on W channels: along x at both
+// y-knots, then along y
+template <typename T, int W>
+__device__ __forceinline__ void bilinear_lerps(const T* z11, const T* z12, const T* z21,
+                                               const T* z22, T x1, T x2, T y1, T y2, T xq,
+                                               T yq, T* out) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    const T z1 = calc_frac(x1, z11[j], x2, z21[j], xq);
+    const T z2 = calc_frac(x1, z12[j], x2, z22[j], xq);
+    out[j] = calc_frac(y1, z1, y2, z2, yq);
+  }
+}
+
+// R2b on the corner rows.  tbl (rows, ch), ch >= 4r + 4: [z11 | z12 | z21 | z22
+// | x1 x2 y1 y2]; out (nq, r).  A lane takes W channels of one query.
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads)
+    bilinear_rows_kernel(const T* __restrict__ tbl, int64_t rows, int64_t ch, int64_t r,
+                         const int32_t* __restrict__ cell, const T* __restrict__ qx,
+                         const T* __restrict__ qy, T* __restrict__ out, int64_t nq) {
+  const Lane l = lane_of<W>(r, nq);
+  if (l.q < 0) return;
+  const T* row = tbl + clamp_cell(__ldg(cell + l.q), rows) * ch;
+  T z11[W], z12[W], z21[W], z22[W], o[W];
+  Vec<W>::load(row + l.c, z11);
+  Vec<W>::load(row + r + l.c, z12);
+  Vec<W>::load(row + 2 * r + l.c, z21);
+  Vec<W>::load(row + 3 * r + l.c, z22);
+  const T* ends = row + 4 * r;
+  bilinear_lerps<T, W>(z11, z12, z21, z22, __ldg(ends), __ldg(ends + 1), __ldg(ends + 2),
+                       __ldg(ends + 3), __ldg(qx + l.q), __ldg(qy + l.q), o);
+  Vec<W>::store(out + l.q * r + l.c, o);
+}
+
+// R2g: R2b's function on the grid itself.  data (nx, ny, r), x (nx), y (ny);
+// the cell, clamped to the (nx - 1)(ny - 1) cells, is xi (ny - 1) + yi.  The
+// corner blocks are data[xi, yi : yi + 2] and data[xi + 1, yi : yi + 2], two
+// runs of 2r contiguous values.
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads)
+    bilinear_grid_kernel(const T* __restrict__ data, const T* __restrict__ x,
+                         const T* __restrict__ y, int64_t nx, int64_t ny, int64_t r,
+                         const int32_t* __restrict__ cell, const T* __restrict__ qx,
+                         const T* __restrict__ qy, T* __restrict__ out, int64_t nq) {
+  const Lane l = lane_of<W>(r, nq);
+  if (l.q < 0) return;
+  const int64_t ny1 = ny - 1;
+  // < 2^31 cells (the cell search checks): 32-bit division
+  const int32_t c = static_cast<int32_t>(clamp_cell(__ldg(cell + l.q), (nx - 1) * ny1));
+  const int32_t xi = c / static_cast<int32_t>(ny1);
+  const int32_t yi = c - xi * static_cast<int32_t>(ny1);
+  const T* lo = data + (static_cast<int64_t>(xi) * ny + yi) * r + l.c;  // z11, z12 at + r
+  const T* hi = lo + ny * r;                                             // z21, z22 at + r
+  T z11[W], z12[W], z21[W], z22[W], o[W];
+  Vec<W>::load(lo, z11);
+  Vec<W>::load(lo + r, z12);
+  Vec<W>::load(hi, z21);
+  Vec<W>::load(hi + r, z22);
+  bilinear_lerps<T, W>(z11, z12, z21, z22, __ldg(x + xi), __ldg(x + xi + 1), __ldg(y + yi),
+                       __ldg(y + yi + 1), __ldg(qx + l.q), __ldg(qy + l.q), o);
+  Vec<W>::store(out + l.q * r + l.c, o);
 }
 
 // R2c / R2d / R2n.  tbl (rows, ch), ch >= 16r: block b = 4 i + c of the row
@@ -196,6 +272,62 @@ __global__ void bicubic_cell_tail_kernel(const T* __restrict__ tbl, int64_t rows
   }
 }
 
+// -- R2n on queries ordered by cell --------------------------------------------------------
+// The records come from csrc/cell_order.cu's form keyed on the flat cell, 32
+// bytes each: [v, qid, tx, ty, ...], v the cell clamped to the table and the
+// fractions' bits in the tail's dtype (f32 one word each, f64 two).
+template <typename T>
+struct NestedRecord {
+  int32_t v, qid;
+  T tx, ty;
+};
+
+__device__ __forceinline__ void record_at(const int4* __restrict__ rec, int64_t i,
+                                          NestedRecord<float>* q) {
+  const int4 a = __ldg(rec + 2 * i);
+  *q = {a.x, a.y, __int_as_float(a.z), __int_as_float(a.w)};
+}
+
+__device__ __forceinline__ void record_at(const int4* __restrict__ rec, int64_t i,
+                                          NestedRecord<double>* q) {
+  const int4 a = __ldg(rec + 2 * i);
+  const int4 b = __ldg(rec + 2 * i + 1);
+  *q = {a.x, a.y, __hiloint2double(a.w, a.z), __hiloint2double(b.y, b.x)};
+}
+
+// A warp takes 32 / L slots of L lanes (L = the query's chunks of W channels,
+// at most 32; slot_of in df_common.cuh), each slot one record, each lane W
+// channels of one chunk at a time: float4 (double2) where the blocks are
+// 16-byte aligned, one value else.  Neighbouring slots mostly share a cell, so
+// one load instruction fetches their blocks once.  Each result is the
+// unordered body's five hermite_scaled calls in _cell_tail_nested's order,
+// written to its query's slot (qid, c).
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads)
+    nested_ordered_kernel(const T* __restrict__ tbl, int64_t ch, int64_t r,
+                          const int4* __restrict__ rec, T* __restrict__ out, int64_t n) {
+  const int64_t chunks = r / W;
+  const Slot s = slot_of(chunks, n);
+  if (!s.valid) return;
+  NestedRecord<T> q;
+  record_at(rec, s.q, &q);
+  const T* row = tbl + static_cast<int64_t>(q.v) * ch;
+  for (int64_t k = s.sub; k < chunks; k += s.size) {
+    T v[16][W], o[W];
+#pragma unroll
+    for (int b = 0; b < 16; ++b) Vec<W>::load(row + b * r + k * W, v[b]);
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const T f_y1 = hermite_scaled(v[0][j], v[2][j], v[4][j], v[6][j], q.tx);
+      const T f_y2 = hermite_scaled(v[1][j], v[3][j], v[5][j], v[7][j], q.tx);
+      const T g_y1 = hermite_scaled(v[8][j], v[10][j], v[12][j], v[14][j], q.tx);
+      const T g_y2 = hermite_scaled(v[9][j], v[11][j], v[13][j], v[15][j], q.tx);
+      o[j] = hermite_scaled(f_y1, f_y2, g_y1, g_y2, q.ty);
+    }
+    Vec<W>::store(out + static_cast<int64_t>(q.qid) * r + k * W, o);
+  }
+}
+
 inline unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
@@ -212,14 +344,51 @@ int cell_index(const void* x, int64_t nx, const void* y, int64_t ny, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
+// R2b: 16-byte lanes where the rows allow them, one channel a lane else
 template <typename T>
 int bilinear_tail(const void* tbl, int64_t rows, int64_t ch, int64_t r, const void* cell,
                   const void* qx, const void* qy, void* out, int64_t nq, void* stream) {
-  const int64_t n = nq * r;
-  if (n > 0) {
-    bilinear_tail_kernel<T><<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(tbl), rows, ch, r, static_cast<const int32_t*>(cell),
-        static_cast<const T*>(qx), static_cast<const T*>(qy), static_cast<T*>(out), n);
+  if (nq > 0 && r > 0) {
+    constexpr int W = 16 / sizeof(T);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const T* p = static_cast<const T*>(tbl);
+    const int32_t* c = static_cast<const int32_t*>(cell);
+    const T* a = static_cast<const T*>(qx);
+    const T* b = static_cast<const T*>(qy);
+    T* o = static_cast<T*>(out);
+    if (wide_lanes<W>(tbl, r, ch)) {
+      const LaneGrid g = lane_grid(r / W, nq);
+      bilinear_rows_kernel<T, W><<<g.grid, g.block, 0, s>>>(p, rows, ch, r, c, a, b, o, nq);
+    } else {
+      const LaneGrid g = lane_grid(r, nq);
+      bilinear_rows_kernel<T, 1><<<g.grid, g.block, 0, s>>>(p, rows, ch, r, c, a, b, o, nq);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// R2g: the same lanes on the grid
+template <typename T>
+int bilinear_grid(const void* data, const void* x, const void* y, int64_t nx, int64_t ny,
+                  int64_t r, const void* cell, const void* qx, const void* qy, void* out,
+                  int64_t nq, void* stream) {
+  if (nq > 0 && r > 0) {
+    constexpr int W = 16 / sizeof(T);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const T* d = static_cast<const T*>(data);
+    const T* xs = static_cast<const T*>(x);
+    const T* ys = static_cast<const T*>(y);
+    const int32_t* c = static_cast<const int32_t*>(cell);
+    const T* a = static_cast<const T*>(qx);
+    const T* b = static_cast<const T*>(qy);
+    T* o = static_cast<T*>(out);
+    if (wide_lanes<W>(data, r, r)) {
+      const LaneGrid g = lane_grid(r / W, nq);
+      bilinear_grid_kernel<T, W><<<g.grid, g.block, 0, s>>>(d, xs, ys, nx, ny, r, c, a, b, o, nq);
+    } else {
+      const LaneGrid g = lane_grid(r, nq);
+      bilinear_grid_kernel<T, 1><<<g.grid, g.block, 0, s>>>(d, xs, ys, nx, ny, r, c, a, b, o, nq);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -233,6 +402,26 @@ int bicubic_tail(const void* tbl, int64_t rows, int64_t ch, int64_t r, const voi
         <<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const T*>(tbl), rows, ch, r, static_cast<const int32_t*>(cell),
             static_cast<const T*>(tx), static_cast<const T*>(ty), static_cast<T*>(out), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// R2n on ordered records: 16-byte lanes where the rows allow them, one channel
+// a lane else
+template <typename T>
+int nested_ordered(const void* tbl, int64_t ch, int64_t r, const void* rec, void* out,
+                   int64_t nq, void* stream) {
+  if (nq > 0 && r > 0) {
+    constexpr int W = 16 / sizeof(T);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const T* p = static_cast<const T*>(tbl);
+    const int4* q = static_cast<const int4*>(rec);
+    T* o = static_cast<T*>(out);
+    if (wide_lanes<W>(tbl, r, ch))
+      nested_ordered_kernel<T, W><<<ordered_blocks(r / W, nq), kThreads, 0, s>>>(p, ch, r, q, o,
+                                                                                 nq);
+    else
+      nested_ordered_kernel<T, 1><<<ordered_blocks(r, nq), kThreads, 0, s>>>(p, ch, r, q, o, nq);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -269,5 +458,30 @@ NDI_CELL_TAIL(ndi_bicubic_nested_tail_f32, (bicubic_tail<float, kNested>))
 NDI_CELL_TAIL(ndi_bicubic_nested_tail_f64, (bicubic_tail<double, kNested>))
 
 #undef NDI_CELL_TAIL
+
+// R2g: data (nx, ny, r), x (nx), y (ny), cell, qx, qy (nq), out (nq, r)
+int ndi_bilinear_grid_tail_f32(const void* data, const void* x, const void* y, int64_t nx,
+                               int64_t ny, int64_t r, const void* cell, const void* qx,
+                               const void* qy, void* out, int64_t nq, void* stream) {
+  return bilinear_grid<float>(data, x, y, nx, ny, r, cell, qx, qy, out, nq, stream);
+}
+
+int ndi_bilinear_grid_tail_f64(const void* data, const void* x, const void* y, int64_t nx,
+                               int64_t ny, int64_t r, const void* cell, const void* qx,
+                               const void* qy, void* out, int64_t nq, void* stream) {
+  return bilinear_grid<double>(data, x, y, nx, ny, r, cell, qx, qy, out, nq, stream);
+}
+
+// R2n on the records of csrc/cell_order.cu keyed on the flat cell: tbl (rows,
+// ch), ch >= 16 r, rec (nq, 8) int32, out (nq, r)
+int ndi_bicubic_nested_tail_ordered_f32(const void* tbl, int64_t, int64_t ch, int64_t r,
+                                        const void* rec, void* out, int64_t nq, void* stream) {
+  return nested_ordered<float>(tbl, ch, r, rec, out, nq, stream);
+}
+
+int ndi_bicubic_nested_tail_ordered_f64(const void* tbl, int64_t, int64_t ch, int64_t r,
+                                        const void* rec, void* out, int64_t nq, void* stream) {
+  return nested_ordered<double>(tbl, ch, r, rec, out, nq, stream);
+}
 
 }  // extern "C"

@@ -1,13 +1,14 @@
-// Query ordering by cell for the f64-grade bicubic tails K12, K13, K14 and R4c,
-// and by interval for the 1-D bank tails K8 and K9 (sm_90a).
+// Query ordering by cell for the f64-grade bicubic tails K12, K13, K14 and R4c
+// and the f32/f64 nested bicubic tail R2n, and by interval for the 1-D bank
+// tails K8 and K9 (sm_90a).
 //
 // No TPU twin.  The TPU routes gathered every query's row in query order; on
 // this card a 1M-query batch over a 512 x 512 cell table (535 MB, ten times
 // the 50 MB L2) then reads each query's 2 KB row from HBM, about four times
 // for each row.  A counting sort of the batch by cell puts the queries of one
 // cell, and of neighbouring cells, next to each other, so the tails that read
-// the ordered records (csrc/df2d_kernels.cu) fetch each row from HBM about
-// once and share it between the queries of a warp.
+// the ordered records (csrc/df2d_kernels.cu, csrc/cell2d_kernels.cu) fetch
+// each row from HBM about once and share it between the queries of a warp.
 //
 // The key of query i is its row value v = xi[i] * row_step + yi[i], clamped
 // to [lo, rows - 1]: the cell xi (ny - 1) + yi with lo = 0 (K12, K13, R4c), or
@@ -16,11 +17,15 @@
 // one does).  A 1-D batch (K8, K9) passes no yi and no ty halves (null): its
 // key is the interval xi[i] clamped to [0, rows - 1] (row_step 1, lo 0), its
 // record [v, i, t_hi, t_lo, 0, 0, 0, 0].  K8's and K9's tables sit in the L2;
-// there the ordering saves the L2 -> SM traffic of ~100 queries a row.  The
-// bucket of v is max(v, 0) >> shift; the wrapper picks the shift so that
-// there are at most 2^22 buckets.  A record rec[p] = [v, i, tx_hi, tx_lo,
-// ty_hi, ty_lo, 0, 0] is 32 bytes (the halves' bits), one sector, written
-// whole (write_records).
+// there the ordering saves the L2 -> SM traffic of ~100 queries a row.  R2n's
+// flat-cell form keys on R1's cell the same way and carries its fractions in
+// the tail's dtype: [v, i, tx, ty, 0, 0, 0, 0] in f32 (tx and ty passed as the
+// two x halves), [v, i, tx, ty, 0, 0] of two words each in f64 (the f64 entry,
+// tx and ty passed as the hi halves, the lo ones null).  The bucket of v is
+// max(v, 0) >> shift; the wrapper picks the shift so that there are at most
+// 2^22 buckets.  A record rec[p] = [v, i, tx_hi, tx_lo, ty_hi, ty_lo, 0, 0] is
+// 32 bytes (the fraction words' bits), one sector, written whole
+// (write_records).
 //
 // Two forms, by the number of buckets (the wrapper picks):
 //
@@ -122,8 +127,10 @@ __device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t v, uint32_t* t
   return x - v + (warp ? s_warp[warp - 1] : 0u);
 }
 
-// The query's fraction halves as the record holds their bits (the y halves 0
-// in 1-D)
+// The query's fraction words as the record holds their bits: the four halves
+// (the y halves 0 in 1-D), or the flat-cell form's tx and ty (f32: tx in the
+// tx_hi slot and ty in the tx_lo slot; f64: the low and high words of each,
+// the two lo pointers null)
 struct Fields {
   int a, c, d, e;
 };
@@ -141,6 +148,18 @@ __device__ __forceinline__ Fields fields_of(const float* __restrict__ txh,
       f.d = __float_as_int(__ldg(tyh + i));
       f.e = __float_as_int(__ldg(tyl + i));
     }
+  }
+  return f;
+}
+
+__device__ __forceinline__ Fields fields_of(const double* __restrict__ tx, const double*,
+                                            const double* __restrict__ ty, const double*,
+                                            int64_t i, bool active) {
+  Fields f{0, 0, 0, 0};
+  if (active) {
+    const double t = __ldg(tx + i);
+    const double u = __ldg(ty + i);
+    f = {__double2loint(t), __double2hiint(t), __double2loint(u), __double2hiint(u)};
   }
   return f;
 }
@@ -254,11 +273,12 @@ __global__ void __launch_bounds__(kScanThreads)
 // Each query's record at tile_off[tile] + cursor[bucket]++ (the cursor starts
 // at the bucket's prefix within its tile), a warp's lanes of one bucket
 // adding once
+template <typename F>
 __global__ void __launch_bounds__(kThreads)
     global_scatter_kernel(const int32_t* __restrict__ xi, const int32_t* __restrict__ yi,
                           int64_t row_step, int64_t lo, int64_t rows, int shift,
-                          const float* __restrict__ txh, const float* __restrict__ txl,
-                          const float* __restrict__ tyh, const float* __restrict__ tyl,
+                          const F* __restrict__ txh, const F* __restrict__ txl,
+                          const F* __restrict__ tyh, const F* __restrict__ tyl,
                           int64_t n, uint32_t* __restrict__ cursor,
                           const uint32_t* __restrict__ tile_off, int4* __restrict__ rec) {
   __shared__ int32_t s_first;
@@ -391,11 +411,12 @@ __global__ void __launch_bounds__(32 * kSegments)
 
 // Each query of block g's chunk at tile_off[b >> 5] + bucket_start[b] +
 // hist[g nb + b] + its rank among the block's queries of bucket b
+template <typename F>
 __global__ void __launch_bounds__(kSharedThreads)
     shared_scatter_kernel(const int32_t* __restrict__ xi, const int32_t* __restrict__ yi,
                           int64_t row_step, int64_t lo, int64_t rows, int shift,
-                          const float* __restrict__ txh, const float* __restrict__ txl,
-                          const float* __restrict__ tyh, const float* __restrict__ tyl,
+                          const F* __restrict__ txh, const F* __restrict__ txl,
+                          const F* __restrict__ tyh, const F* __restrict__ tyl,
                           int64_t n, int64_t chunk, int nb, const uint32_t* __restrict__ hist,
                           const uint32_t* __restrict__ bucket_start,
                           const uint32_t* __restrict__ tile_off, int4* __restrict__ rec) {
@@ -445,30 +466,19 @@ cudaError_t open_shared(Kernel kernel, size_t bytes) {
   return cudaSuccess;
 }
 
-}  // namespace
-
-extern "C" {
-
-// xi, yi (n,) int32 from K7 (yi null: 1-D); the four fraction halves (n,)
-// float32 (ty_hi, ty_lo null: 1-D); work, int32, by form:
-//   form 0 (global): counts (ntiles * 4096, ntiles = ceil(buckets / 4096))
-//     zeroed by the caller, then the tiles' sums (ntiles); `blocks` = ntiles;
-//   form 1 (shared): hist (blocks * nb), bucket_start (nb), the tiles' sums
-//     (ceil(nb / 32)) and a count (1), with `blocks` (at most 256) blocks of
-//     1,024 threads;
-// out: rec (n, 8) int32 in bucket order.
-int ndi_cell_order_f32(const void* xi, const void* yi, int64_t row_step, int64_t lo,
-                       int64_t rows, int64_t shift, const void* txh, const void* txl,
-                       const void* tyh, const void* tyl, void* work, int64_t blocks,
-                       int64_t form, void* rec, int64_t n, void* stream) {
+template <typename F>
+int cell_order(const void* xi, const void* yi, int64_t row_step, int64_t lo, int64_t rows,
+               int64_t shift, const void* txh, const void* txl, const void* tyh,
+               const void* tyl, void* work, int64_t blocks, int64_t form, void* rec, int64_t n,
+               void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* x = static_cast<const int32_t*>(xi);
   const int32_t* y = static_cast<const int32_t*>(yi);
-  const float* th = static_cast<const float*>(txh);
-  const float* tl = static_cast<const float*>(txl);
-  const float* uh = static_cast<const float*>(tyh);
-  const float* ul = static_cast<const float*>(tyl);
+  const F* th = static_cast<const F*>(txh);
+  const F* tl = static_cast<const F*>(txl);
+  const F* uh = static_cast<const F*>(tyh);
+  const F* ul = static_cast<const F*>(tyl);
   uint32_t* w = static_cast<uint32_t*>(work);
   int4* out = static_cast<int4*>(rec);
   const int sh = static_cast<int>(shift);
@@ -484,8 +494,8 @@ int ndi_cell_order_f32(const void* xi, const void* yi, int64_t row_step, int64_t
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     global_scan_top_kernel<<<1, kScanThreads, 0, s>>>(tile_sums, nt);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    global_scatter_kernel<<<grid, kThreads, 0, s>>>(x, y, row_step, lo, rows, sh, th, tl, uh, ul,
-                                                    n, w, tile_sums, out);
+    global_scatter_kernel<F><<<grid, kThreads, 0, s>>>(x, y, row_step, lo, rows, sh, th, tl, uh,
+                                                       ul, n, w, tile_sums, out);
     return static_cast<int>(cudaGetLastError());
   }
   const int nb = static_cast<int>(((rows - 1) >> shift) + 1);
@@ -504,12 +514,42 @@ int ndi_cell_order_f32(const void* xi, const void* yi, int64_t row_step, int64_t
   shared_scan_kernel<<<static_cast<unsigned int>(nscan), 32 * kSegments, 0, s>>>(
       hist, static_cast<int>(blocks), nb, bucket_start, tile_sums, done, nscan);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  if ((err = open_shared(shared_scatter_kernel, smem)) != cudaSuccess)
+  if ((err = open_shared(shared_scatter_kernel<F>, smem)) != cudaSuccess)
     return static_cast<int>(err);
-  shared_scatter_kernel<<<grid, kSharedThreads, smem, s>>>(x, y, row_step, lo, rows, sh, th, tl,
-                                                           uh, ul, n, chunk, nb, hist,
-                                                           bucket_start, tile_sums, out);
+  shared_scatter_kernel<F><<<grid, kSharedThreads, smem, s>>>(
+      x, y, row_step, lo, rows, sh, th, tl, uh, ul, n, chunk, nb, hist, bucket_start, tile_sums,
+      out);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// xi, yi (n,) int32 from K7 or R1 (yi null: 1-D, and the flat-cell form); the
+// four fraction halves (n,) float32 (ty_hi, ty_lo null: 1-D; the f32 flat-cell
+// form passes tx, ty, null, null; the f64 entry tx, null, ty, null, float64);
+// work, int32, by form:
+//   form 0 (global): counts (ntiles * 4096, ntiles = ceil(buckets / 4096))
+//     zeroed by the caller, then the tiles' sums (ntiles); `blocks` = ntiles;
+//   form 1 (shared): hist (blocks * nb), bucket_start (nb), the tiles' sums
+//     (ceil(nb / 32)) and a count (1), with `blocks` (at most 256) blocks of
+//     1,024 threads;
+// out: rec (n, 8) int32 in bucket order.
+int ndi_cell_order_f32(const void* xi, const void* yi, int64_t row_step, int64_t lo,
+                       int64_t rows, int64_t shift, const void* txh, const void* txl,
+                       const void* tyh, const void* tyl, void* work, int64_t blocks,
+                       int64_t form, void* rec, int64_t n, void* stream) {
+  return cell_order<float>(xi, yi, row_step, lo, rows, shift, txh, txl, tyh, tyl, work, blocks,
+                           form, rec, n, stream);
+}
+
+int ndi_cell_order_f64(const void* xi, const void* yi, int64_t row_step, int64_t lo,
+                       int64_t rows, int64_t shift, const void* txh, const void* txl,
+                       const void* tyh, const void* tyl, void* work, int64_t blocks,
+                       int64_t form, void* rec, int64_t n, void* stream) {
+  return cell_order<double>(xi, yi, row_step, lo, rows, shift, txh, txl, tyh, tyl, work, blocks,
+                            form, rec, n, stream);
 }
 
 }  // extern "C"

@@ -113,6 +113,29 @@ __device__ __forceinline__ void store_split(const Out& out, int64_t i, const dou
   out.template put<W>(i, h, l);
 }
 
+// -- W-wide lanes (R2a, R2b, R2g) -------------------------------------------------------
+// A query's W channels a lane with 16-byte loads and stores where its row
+// blocks allow them: both strides multiples of W and the table's base 16-byte
+// aligned.
+template <int W>
+bool wide_lanes(const void* base, int64_t a, int64_t b) {
+  return a % W == 0 && b % W == 0 && reinterpret_cast<uintptr_t>(base) % 16 == 0;
+}
+
+// The launch shape of a query's `chunks` lanes: up to 32 lanes a query
+// (threadIdx.x), as many queries as fill a block of kThreads (threadIdx.y)
+struct LaneGrid {
+  dim3 grid, block;
+};
+
+inline LaneGrid lane_grid(int64_t chunks, int64_t nq) {
+  const int lanes = static_cast<int>(chunks < 32 ? chunks : 32);
+  const int per_block = kThreads / lanes;
+  return {dim3(static_cast<unsigned int>((nq + per_block - 1) / per_block),
+               static_cast<unsigned int>((chunks + lanes - 1) / lanes)),
+          dim3(lanes, per_block)};
+}
+
 // -- the ordered tails' query slots ----------------------------------------------------
 // Records come from cell_order.cu in bucket order, 32 bytes each:
 // [v, qid, t0_hi, t0_lo, t1_hi, t1_lo, 0, 0] (the halves' bits; a 1-D record

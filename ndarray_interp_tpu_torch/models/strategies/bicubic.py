@@ -28,8 +28,9 @@ Two table layouts, chosen at build by :data:`BICUBIC_PACK_MAX_ELEMS`:
 
 The cell layout runs the cell search R1 (``fused_cell_index``) and the
 nested tail R2n (``tail2d.bicubic_nested_tail``), which fetches each
-query's row itself: two kernels on the GPU, their plain versions on the
-CPU.  The node layout runs the search kernel K2 on each axis and its tail
+query's row itself, on a large batch after ordering it by cell
+(``cell_order.order_by_flat_cell``): kernels on the GPU, their plain
+versions on the CPU.  The node layout runs the search kernel K2 on each axis and its tail
 after an ``index_select`` is plain PyTorch, as it is XLA (not Pallas) in
 the JAX package.  Not ported: the TPU's dense-operator build
 (``bicubic.py:79-87``), whose worth on this card is an open question.

@@ -7,13 +7,18 @@ the four corners and the interval endpoints, then two x-direction lerps and
 one y-direction lerp (``bilinear.rs:64-98``).
 
 Here the whole batch does this at once.  Floating data built through the
-builder gets the packed corner-row table (:class:`BilinearPacked`), so that
-each query fetches one row: it runs the cell search R1
-(``fused_cell_index``) and the lerp tail R2b (``tail2d.bilinear_gathered_eval``),
-two kernels on the GPU and their plain versions on the CPU.  Data without a
-table (integer data, or grids above ``_PACK_MAX_ELEMS``) runs the search
-kernel K3 on each axis (``lower_index_fast``) and gathers the four corners.
-Both give the same values: the table holds copies.
+builder gets :class:`BilinearPacked`: the JAX package's packed corner-row
+table (``rows``, one row a cell holding all a query needs) and a contiguous
+``(nx, ny, r)`` view of the grid.  It runs the cell search R1
+(``fused_cell_index``) and the lerp tail R2g
+(``tail2d.bilinear_grid_eval``) on the grid, two kernels on the GPU and
+their plain versions on the CPU: a query's four corner blocks are two runs
+of ``2r`` values of the grid, which the GPU's L2 holds where the corner-row
+table, four times the grid, does not fit it.  The table's tail R2b
+(``tail2d.bilinear_gathered_eval``) gives the same values bit for bit.
+Data without a table (integer data, or grids above ``_PACK_MAX_ELEMS``)
+runs the search kernel K3 on each axis (``lower_index_fast``) and gathers
+the four corners.  All give the same values: the table holds copies.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import torch
 from ...ops.eval_kernels import fused_cell_index
 from ...ops.lerp import calc_frac
 from ...ops.searchsorted import lower_index_fast
-from ...ops.tail2d import bilinear_gathered_eval
+from ...ops.tail2d import bilinear_grid_eval
 from .base2d import Interp2DStrategy, Interp2DStrategyBuilder
 from .bicubic import _box_bounds, _check_orders
 
@@ -77,7 +82,8 @@ class Bilinear(Interp2DStrategy, Interp2DStrategyBuilder):
             and x.dtype == data.dtype
             and data.numel() <= _PACK_MAX_ELEMS
         ):
-            return BilinearPacked(pack_corner_rows(x, y, data), self.extrapolates)
+            grid = data.reshape(data.shape[0], data.shape[1], -1).contiguous()
+            return BilinearPacked(pack_corner_rows(x, y, data), self.extrapolates, grid)
         return self
 
     def eval(self, interp, xq, yq):
@@ -145,16 +151,23 @@ class Bilinear(Interp2DStrategy, Interp2DStrategyBuilder):
 
 class BilinearPacked(Bilinear):
     """Finished bilinear strategy with the corner-row table of
-    :func:`pack_corner_rows` built once (one row gather per query)."""
+    :func:`pack_corner_rows` built once, and the grid as ``(nx, ny, r)``
+    (``grid``; ``None``: ``interp.data`` reshaped at each call), which its
+    eval reads."""
 
-    def __init__(self, rows, extrapolate: bool = False):
+    def __init__(self, rows, extrapolate: bool = False, grid=None):
         super().__init__(extrapolate)
         self.rows = rows
+        self.grid = grid
 
     def eval(self, interp, xq, yq):
+        data = interp.data
+        grid = self.grid
+        if grid is None:
+            grid = data.reshape(data.shape[0], data.shape[1], -1)
         cell, _, _ = fused_cell_index(interp.x, interp.y, xq, yq)  # R1
-        out = bilinear_gathered_eval(self.rows, cell, xq, yq, self.rows.shape[1] // 4 - 1)  # R2b
-        return out.reshape(tuple(xq.shape) + tuple(interp.data.shape[2:]))
+        out = bilinear_grid_eval(grid, interp.x, interp.y, cell, xq, yq)  # R2g
+        return out.reshape(tuple(xq.shape) + tuple(data.shape[2:]))
 
     def __repr__(self):
         return (

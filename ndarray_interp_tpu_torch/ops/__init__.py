@@ -38,6 +38,7 @@ from .tail2d import (
     bicubic_nested_tail,
     bicubic_tree_tail,
     bilinear_gathered_eval,
+    bilinear_grid_eval,
 )
 from .thomas import thomas_solve
 from .thomas_kernel import thomas_solve_fast
@@ -52,6 +53,7 @@ __all__ = [
     "big_eval_1d",
     "big_lower_index_frac",
     "bilinear_gathered_eval",
+    "bilinear_grid_eval",
     "calc_frac",
     "can_use_banked",
     "can_use_big",
@@ -85,8 +87,9 @@ __all__ = [
 def kernel_wrappers():
     """The wrapper of every CUDA kernel, by the id the docs give it; each
     has a ``launches`` count.  K15's two grades have a wrapper each; "ORD"
-    is the ordering of a batch by cell ahead of K12, K13, K14 and R4c, and
-    by interval ahead of K8 and K9 (no TPU twin)."""
+    is the ordering of a batch by cell ahead of K12, K13, K14, R4c and R2n,
+    and by interval ahead of K8 and K9 (no TPU twin); "R2g" is R2b's
+    function on the grid, the ``Bilinear`` path's tail."""
     return {
         "K1": fused_eval_1d,
         "K2": fused_index_frac,
@@ -109,6 +112,7 @@ def kernel_wrappers():
         "R3idx": big_lower_index_frac,
         "R1": fused_cell_index,
         "R2b": bilinear_gathered_eval,
+        "R2g": bilinear_grid_eval,
         "R2c": bicubic_gathered_eval,
         "R2d": bicubic_tree_tail,
         "R2n": bicubic_nested_tail,

@@ -86,6 +86,10 @@ _SIGNATURES = {
     "ndi_bicubic_seq_tail": _CELL_TAIL_F,
     "ndi_bicubic_tree_tail": _CELL_TAIL_F,
     "ndi_bicubic_nested_tail": _CELL_TAIL_F,
+    # data, x, y, nx, ny, r, cell, qx, qy, out, nq
+    "ndi_bilinear_grid_tail": ((_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P), _BOTH),
+    # tbl, rows, ch, r, records, out, nq
+    "ndi_bicubic_nested_tail_ordered": ((_P, _I, _I, _I, _P, _P, _I, _P), _BOTH),
     "ndi_df_eval1d": ((_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P), _PAIRS),
     # xh, xl, n, shared_knots, qh, ql, idx, t_hi, t_lo, nq
     "ndi_df_index_frac": ((_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P), _PAIRS),
@@ -111,9 +115,9 @@ _SIGNATURES = {
     "ndi_f48_bank_tail_ordered": ((_P, _I, _I, _I, _I, _P, _P, _P, _I, _P), _PAIRS),
     "ndi_df_bicubic_node_tail_ordered": ((_P, _I, _I, _I, _I, _P, _P, _P, _I, _P), _PAIRS),
     # xi, yi, row_step, lo, rows, shift, tx_hi, tx_lo, ty_hi, ty_lo, work,
-    # blocks, form, records, nq
+    # blocks, form, records, nq (f64: the flat-cell form's tx, None, ty, None)
     "ndi_cell_order": ((_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P),
-                       _PAIRS),
+                       _BOTH),
 }
 
 _lock = threading.Lock()

@@ -1,13 +1,14 @@
 """Order a batch of 2-D queries by cell, ahead of the f64-grade bicubic
-tails K12, K13, K14 and R4c (``eval_kernels_df2d``), and a batch of 1-D
-queries by interval, ahead of the bank tails K8 and K9 (``eval_kernels_df``).
+tails K12, K13, K14 and R4c (``eval_kernels_df2d``) and the f32/f64 nested
+bicubic tail R2n (``tail2d``), and a batch of 1-D queries by interval, ahead
+of the bank tails K8 and K9 (``eval_kernels_df``).
 
 No TPU twin: the JAX routes gather every query's row in query order.  On
 the GPU a large batch in random order reads each query's row from device
-memory, about four times for each row at NS3d's and NS3e's shapes; in cell
-order the queries of one cell run next to each other and share the row.
-K8's and K9's tables sit in the L2; in interval order the ~100 queries of
-a row share its widening.
+memory, about four times for each row at NS3b's, NS3d's and NS3e's shapes;
+in cell order the queries of one cell run next to each other and share the
+row.  K8's and K9's tables sit in the L2; in interval order the ~100 queries
+of a row share its widening.
 
 :func:`order_by_cell` takes K7's interval indices ``xi``, ``yi`` and the
 fraction halves and returns the records the ordered tails read, one
@@ -21,7 +22,11 @@ fraction halves and returns the records the ordered tails read, one
 ``lo = -(ny + 1)``: every base below it clamps all four nodes to row 0).
 :func:`order_by_interval` is the 1-D form: no ``yi`` and no ``ty``
 halves, the key the interval clamped to ``[0, rows - 1]``, the record
-``[v, qid, t_hi, t_lo, 0, 0, 0, 0]``.
+``[v, qid, t_hi, t_lo, 0, 0, 0, 0]``.  :func:`order_by_flat_cell` keys on
+R1's flat cell the same way (no ``yi``, ``row_step`` 1) and carries the
+fractions in the tail's own dtype: ``[v, qid, tx, ty, 0, 0, 0, 0]`` in f32,
+``[v, qid, tx (2 words), ty (2 words), 0, 0]`` in f64, so that one 32-byte
+record serves both.
 
 On a CUDA tensor the kernels in ``csrc/cell_order.cu`` do a counting sort
 in one of two forms, picked by the number of buckets (:func:`_form`): up to
@@ -31,7 +36,8 @@ batch in shared memory, with no global atomic and no memset; above it (the
 design, which the shared form's ideas did not speed up there.  The order
 within a bucket then varies from run to run.  Its plain version, :func:`_order_plain`, is a
 stable ``torch.argsort`` of the buckets.  ``order_by_cell.launches`` counts
-the orderings, those of :func:`order_by_interval` too.
+the orderings, those of :func:`order_by_interval` and
+:func:`order_by_flat_cell` too.
 """
 
 from __future__ import annotations
@@ -78,23 +84,25 @@ def bucket_keys(values, rows):
     return values.clamp(min=0) >> bucket_shift(rows)
 
 
-def record_fields(records):
+def record_fields(records, dtype=torch.float32):
     """``(v, qid, frac)`` of ``(nq, 8)`` records: the row values and query
-    indices (int32) and the ``(nq, 4)`` float32 fraction halves."""
-    return records[:, 0], records[:, 1], records[:, 2:6].view(torch.float32)
+    indices (int32) and the fraction words as ``dtype``: ``(nq, 4)`` float32
+    (the halves; the f32 flat-cell form's ``tx, ty, 0, 0``) or ``(nq, 2)``
+    float64 (the f64 flat-cell form's ``tx, ty``)."""
+    return records[:, 0], records[:, 1], records[:, 2:6].view(dtype)
 
 
 def _order_plain(xi, yi, row_step, lo, rows, txh, txl, tyh, tyl):
     """Plain version of the ordering kernel: the records in the stable
-    order of their buckets."""
+    order of their buckets.  The fraction operands given (``None`` for the
+    others) fill the record's words in order, zeros after them."""
     v = row_values(xi, yi, row_step, lo, rows)
     perm = torch.argsort(bucket_keys(v, rows), stable=True)
-    if tyh is None:  # 1-D: the y halves' bits are 0
-        tyh = tyl = torch.zeros_like(txh)
-    halves = torch.stack([txh, txl, tyh, tyl], dim=1).view(torch.int32)
-    zeros = torch.zeros((xi.shape[0], 2), dtype=torch.int32, device=xi.device)
+    given = [t for t in (txh, txl, tyh, tyl) if t is not None]
+    words = torch.stack(given, dim=1).view(torch.int32)
+    zeros = torch.zeros((xi.shape[0], 6 - words.shape[1]), dtype=torch.int32, device=xi.device)
     key = torch.stack([v[perm], perm], dim=1).to(torch.int32)
-    return torch.cat([key, halves[perm], zeros], dim=1)
+    return torch.cat([key, words[perm], zeros], dim=1)
 
 
 def order_by_cell(xi, yi, row_step, lo, rows, tx_hi, tx_lo, ty_hi, ty_lo):
@@ -124,7 +132,11 @@ def _order_kernel(args, form):
     ``(nq, 8)`` records."""
     xi, yi, row_step, lo, rows, tx_hi, tx_lo, ty_hi, ty_lo = args
     one_d = yi is None
-    _cuda.pair_operands("order_by_cell", tx_hi, tx_lo, *(() if one_d else (ty_hi, ty_lo)))
+    fracs = [t for t in (tx_hi, tx_lo, ty_hi, ty_lo) if t is not None]
+    dtype = _cuda.float_operands("order_by_cell", *fracs)
+    if dtype == torch.float64 and (tx_lo is not None or ty_lo is not None or ty_hi is None):
+        raise TypeError("order_by_cell: float64 fractions are the flat-cell form's tx and ty "
+                        "(tx, None, ty, None)")
     for what, idx in (("xi", xi),) + (() if one_d else (("yi", yi),)):
         if idx.dtype != torch.int32 or idx.device != tx_hi.device:
             raise TypeError(f"order_by_cell: {what} must be torch.int32 on {tx_hi.device}")
@@ -144,7 +156,7 @@ def _order_kernel(args, form):
         work = torch.empty(blocks * nb + nb + -(-nb // _BUCKET_TILE) + 1, dtype=torch.int32,
                            device=dev)
     _cuda.launch(
-        "ndi_cell_order", torch.float32, dev,
+        "ndi_cell_order", dtype, dev,
         xi.contiguous(), None if one_d else yi.contiguous(), row_step, lo, rows,
         bucket_shift(rows),
         *(None if v is None else v.contiguous() for v in (tx_hi, tx_lo, ty_hi, ty_lo)),
@@ -160,6 +172,18 @@ def order_by_interval(idx, rows, t_hi, t_lo):
     y part.  :func:`order_by_cell`'s kernel (its launch counted there) or,
     on CPU tensors, its plain version."""
     return order_by_cell(idx, None, 1, 0, rows, t_hi, t_lo, None, None)
+
+
+def order_by_flat_cell(cell, rows, tx, ty):
+    """The ``(nq, 8)`` records of R1's output in cell order, for R2n: the
+    flat cells ``cell`` clamped to ``[0, rows - 1]`` and the fractions'
+    bits in their own dtype (f32 ``[v, qid, tx, ty, 0, 0, 0, 0]``, f64
+    ``[v, qid, tx, ty, 0, 0]`` of two words each; :func:`record_fields` with
+    that dtype reads them back).  :func:`order_by_cell`'s kernel (its launch
+    counted there) or, on CPU tensors, its plain version."""
+    if tx.dtype == torch.float64:
+        return order_by_cell(cell, None, 1, 0, rows, tx, None, ty, None)
+    return order_by_cell(cell, None, 1, 0, rows, tx, ty, None, None)
 
 
 order_by_cell.launches = 0

@@ -1,21 +1,30 @@
-"""The f32/f64 2-D tails on the packed cell-row tables: R2b, R2c, R2d, R2n.
+"""The f32/f64 2-D tails: R2b and R2g (bilinear), R2c, R2d, R2n (bicubic).
 
 Counterpart of the 2-D part of ``ndarray_interp_tpu.ops.pallas_tail``
 (``bilinear_gathered_eval``, ``bicubic_gathered_eval``,
 ``bicubic_mxu_tail``) and of the nested tail of its ``Bicubic`` strategy.
-Each wrapper takes the table, the flat cell of each query (from
+Each wrapper takes the flat cell of each query (from
 ``eval_kernels.fused_cell_index``, R1) and its fractions or coordinates;
-its CUDA kernel (``csrc/cell2d_kernels.cu``) fetches the query's row
+its CUDA kernel (``csrc/cell2d_kernels.cu``) fetches what the query needs
 itself, so the gathered rows are never written:
 
 * :func:`bilinear_gathered_eval` (R2b): three ``calc_frac`` lerps on the
   corner rows of ``bilinear.pack_corner_rows`` (width ``4r + 4``);
+* :func:`bilinear_grid_eval` (R2g): the same lerps on the grid itself, the
+  ``(nx, ny, r)`` data and the two axes: the four corner blocks are two runs
+  of ``2r`` values of the grid, which the L2 holds where the corner-row
+  table (four times the grid) does not fit it.  ``Bilinear`` runs it;
 * :func:`bicubic_gathered_eval` (R2c): the weight form on the cell rows of
   ``bicubic.pack_bicubic_rows`` (width ``16r``), summed in block order;
 * :func:`bicubic_tree_tail` (R2d): the same products summed by the halving
   tree of ``bicubic_mxu_tail``;
 * :func:`bicubic_nested_tail` (R2n): the nested scaled-Hermite order of
-  :func:`_cell_tail_nested`, the one the ``Bicubic`` strategy runs.
+  :func:`_cell_tail_nested`, the one the ``Bicubic`` strategy runs.  A large
+  batch is first ordered by cell (``cell_order.order_by_flat_cell``, at the
+  rule of the f64-grade bicubic tails, ``eval_kernels_df2d._orders``), so
+  that the queries of one cell share its row; the kernel on the ordered
+  records writes each result to its query's slot, bit for bit the result of
+  the unordered body.
 
 Each has its plain PyTorch version here (an ``index_select`` of the rows,
 clamped to the table as the kernels clamp, and the form).  A CPU tensor
@@ -31,6 +40,8 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from .cell_order import order_by_flat_cell, record_fields
+from .eval_kernels_df2d import _ORDER_MIN_ROW_BYTES, _orders
 from .lerp import calc_frac
 
 def _rows(rows_tbl, cell):
@@ -43,6 +54,32 @@ def _bilinear_plain(rows_tbl, cell, qx, qy, r):
     g = _rows(rows_tbl, cell)
     z11, z12, z21, z22 = (g[:, i * r : (i + 1) * r] for i in range(4))
     x1, x2, y1, y2 = (g[:, 4 * r + i : 4 * r + i + 1] for i in range(4))
+    qxe, qye = qx[:, None], qy[:, None]
+    # the lerp composition and order of bilinear.rs:88-97
+    z1 = calc_frac(x1, z11, x2, z21, qxe)
+    z2 = calc_frac(x1, z12, x2, z22, qxe)
+    return calc_frac(y1, z1, y2, z2, qye)
+
+
+def _grid_cell(data, cell):
+    """``(xi, yi)`` of each flat cell ``xi·(ny-1) + yi`` of the grid ``data``,
+    the cell clamped to the ``(nx-1)(ny-1)`` cells."""
+    ny1 = data.shape[1] - 1
+    c = cell.long().clamp(0, (data.shape[0] - 1) * ny1 - 1)
+    xi = c // ny1
+    return xi, c - xi * ny1
+
+
+def _bilinear_grid_plain(data, x, y, cell, qx, qy):
+    """Plain version of R2g: :func:`_bilinear_plain`'s lerps on the grid
+    ``data`` (nx, ny, r) and the axes, bit for bit :func:`_bilinear_plain` on
+    ``pack_corner_rows(x, y, data)``."""
+    xi, yi = _grid_cell(data, cell)
+    x, y = x.to(data.dtype), y.to(data.dtype)
+    z11, z12 = data[xi, yi], data[xi, yi + 1]
+    z21, z22 = data[xi + 1, yi], data[xi + 1, yi + 1]
+    x1, x2 = x[xi][:, None], x[xi + 1][:, None]
+    y1, y2 = y[yi][:, None], y[yi + 1][:, None]
     qxe, qye = qx[:, None], qy[:, None]
     # the lerp composition and order of bilinear.rs:88-97
     z1 = calc_frac(x1, z11, x2, z21, qxe)
@@ -132,7 +169,29 @@ def _bicubic_nested_plain(rows_tbl, cell, tx, ty, r):
     return _cell_tail_nested(_rows(rows_tbl, cell), tx[:, None], ty[:, None], r)
 
 
+def _bicubic_nested_ordered_plain(rows_tbl, records, r):
+    """Plain version of R2n on the records of
+    :func:`~.cell_order.order_by_flat_cell`: the rows of the records' cells,
+    :func:`_cell_tail_nested` at their fractions, each result put back at
+    its query's slot."""
+    cell, qid, frac = record_fields(records, rows_tbl.dtype)
+    got = _bicubic_nested_plain(rows_tbl, cell, frac[:, 0], frac[:, 1], r)
+    out = torch.empty_like(got)
+    out[qid.long()] = got
+    return out
+
+
 # -- the kernels -------------------------------------------------------------------------
+# R2n orders a batch by cell first at the rule of K12 (eval_kernels_df2d._orders
+# on its 16 r values of row a query, 1 KiB at r = 16 in f32).  Measured on an
+# H100 80GB HBM3 at 700 W (tools/tail2d_phases.py --sweeps, ordered with the
+# ordering included / unordered body, ms): at r = 16 the ordered branch ties at
+# 2^18 queries (0.0928 / 0.0902) and wins from 2^19 (0.1428 / 0.1757; NS3b's
+# 1M: 0.2198 / 0.3309), as K12 and R4c do; 8 channels (512 B of rows, below the
+# rule) tie at 1M (0.1521 / 0.1550) and lose below.  So the shared rule holds.
+_ORDERED = {"ndi_bicubic_nested_tail": "ndi_bicubic_nested_tail_ordered"}
+
+
 def _launch(name, symbol, width, rows_tbl, cell, a, b, r):
     """Check the operands of one tail kernel and launch it: ``width(r)`` is
     the least row width its blocks need."""
@@ -149,10 +208,46 @@ def _launch(name, symbol, width, rows_tbl, cell, a, b, r):
     nq = cell.shape[0]
     out = torch.empty((nq, r), dtype=dtype, device=a.device)
     rows_tbl = rows_tbl.contiguous()
+    ordered = _ORDERED.get(symbol)
+    if ordered is not None and _orders(nq, width(r) * rows_tbl.element_size(),
+                                       _ORDER_MIN_ROW_BYTES):
+        records = order_by_flat_cell(cell, rows_tbl.shape[0], a, b)
+        _cuda.launch(
+            ordered, dtype, a.device,
+            rows_tbl, rows_tbl.shape[0], rows_tbl.shape[1], r, records, out, nq,
+        )
+        return out
     _cuda.launch(
         symbol, dtype, a.device,
         rows_tbl, rows_tbl.shape[0], rows_tbl.shape[1], r,
         cell.contiguous(), a.contiguous(), b.contiguous(), out, nq,
+    )
+    return out
+
+
+def _launch_grid(data, x, y, cell, qx, qy):
+    """Check the operands of R2g and launch it."""
+    name = "bilinear_grid_eval"
+    dtype = _cuda.float_operands(name, data, x, y, qx, qy)
+    if cell.dtype != torch.int32 or cell.device != qx.device:
+        raise TypeError(f"{name}: cell must be torch.int32 on {qx.device}")
+    if data.ndim != 3 or data.shape[0] < 2 or data.shape[1] < 2:
+        raise ValueError(f"{name}: data must have shape (nx >= 2, ny >= 2, r), got "
+                         f"{tuple(data.shape)}")
+    nx, ny, r = data.shape
+    if x.shape != (nx,) or y.shape != (ny,):
+        raise ValueError(f"{name}: the axes must have shapes ({nx},) and ({ny},), got "
+                         f"{tuple(x.shape)} and {tuple(y.shape)}")
+    if (nx - 1) * (ny - 1) >= 2**31:
+        raise ValueError(f"{name}: {nx} x {ny} knots; the cells are int32")
+    if cell.ndim != 1 or qx.shape != cell.shape or qy.shape != cell.shape:
+        raise ValueError(f"{name}: cell and its two query operands must be flat and of one length")
+    nq = cell.shape[0]
+    out = torch.empty((nq, r), dtype=dtype, device=qx.device)
+    _cuda.launch(
+        "ndi_bilinear_grid_tail", dtype, qx.device,
+        data.contiguous(), x.contiguous(), y.contiguous(), nx, ny, r,
+        cell.contiguous(), qx.contiguous(), qy.contiguous(), out, nq,
     )
     return out
 
@@ -191,6 +286,28 @@ class _Tail(torch.autograd.Function):
         return None, gr, None, ga, gb, None
 
 
+class _GridTail(torch.autograd.Function):
+    """Forward: R2g.  Backward: autograd of :func:`_bilinear_grid_plain`
+    with ``cell`` fixed: gradients for ``data``, the axes and the queries."""
+
+    @staticmethod
+    def forward(ctx, data, x, y, cell, qx, qy):
+        ctx.save_for_backward(data, x, y, cell, qx, qy)
+        out = _launch_grid(data, x, y, cell, qx, qy)
+        bilinear_grid_eval.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        data, x, y, cell, qx, qy = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        gd, gx, gy, ga, gb = _cuda.plain_vjp(
+            lambda d, x_, y_, a, b: _bilinear_grid_plain(d, x_, y_, cell, a, b),
+            (data, x, y, qx, qy), (need[0], need[1], need[2], need[4], need[5]), g,
+        )
+        return gd, gx, gy, None, ga, gb
+
+
 def _tail(wrapper, rows_tbl, cell, a, b, r):
     name = _TAILS[wrapper][0]
     if _cuda.kernel_device(name, a) == "cpu":
@@ -204,6 +321,17 @@ def bilinear_gathered_eval(rows_tbl, cell, qx, qy, r):
     ``cell`` int32 and the coordinates ``qx``, ``qy`` flat.  Returns
     (Q, r).  CPU: :func:`_bilinear_plain`; CUDA: R2b."""
     return _tail(bilinear_gathered_eval, rows_tbl, cell, qx, qy, r)
+
+
+def bilinear_grid_eval(data, x, y, cell, qx, qy):
+    """Bilinear on the grid (R2g): ``data`` (nx, ny, r), the axes ``x``
+    (nx,) and ``y`` (ny,), ``cell`` int32 (R1's flat cells, clamped to the
+    grid's cells) and the coordinates ``qx``, ``qy`` flat.  Returns (Q, r),
+    bit for bit :func:`bilinear_gathered_eval` on ``pack_corner_rows(x, y,
+    data)``.  CPU: :func:`_bilinear_grid_plain`; CUDA: R2g."""
+    if _cuda.kernel_device("bilinear_grid_eval", qx) == "cpu":
+        return _bilinear_grid_plain(data, x, y, cell, qx, qy)
+    return _GridTail.apply(data, x, y, cell, qx, qy)
 
 
 def bicubic_gathered_eval(rows_tbl, cell, tx, ty, r):
@@ -223,7 +351,8 @@ def bicubic_tree_tail(rows_tbl, cell, tx, ty, r):
 def bicubic_nested_tail(rows_tbl, cell, tx, ty, r):
     """The ``Bicubic`` strategy's nested scaled-Hermite tail on the cell row
     ``cell`` of each query (R2n).  CPU: :func:`_bicubic_nested_plain`;
-    CUDA: R2n."""
+    CUDA: R2n, on the queries ordered by cell when the batch is large (the
+    ordering counted in ``order_by_cell.launches``)."""
     return _tail(bicubic_nested_tail, rows_tbl, cell, tx, ty, r)
 
 
@@ -241,3 +370,4 @@ _TAILS = {
 for _w in _TAILS:
     _w.launches = 0
 del _w
+bilinear_grid_eval.launches = 0

@@ -1,20 +1,24 @@
-"""The ordering of a batch by cell ahead of K12, K13, K14 and R4c, and by
-interval ahead of K8 (``ops/cell_order.py``), and the plain tails on ordered
-records, on the CPU.
+"""The ordering of a batch by cell ahead of K12, K13, K14 and R4c, by R1's
+flat cell ahead of R2n (f32 and f64), and by interval ahead of K8
+(``ops/cell_order.py``), and the plain tails on ordered records, on the CPU.
 
 The ordering has no JAX twin: the JAX routes evaluate in query order.  So
 the plain ordering is checked for what the ordered tails rely on (a
 permutation of the queries, non-decreasing bucket keys, each 32-byte record
 its query's row value and fraction halves; K8's 1-D records have no y
-part), and the plain tails on the ordered records, put back at their
+part; R2n's carry its fractions in their own dtype), and the plain tails on
+the ordered records, put back at their
 queries' slots, are held bit for bit against the direct plain tails and,
 with the same numpy inputs, against the JAX package's XLA tails (4e-12
 scale-relative, as ``test_torch_df2d.py``; K13's also against its Pallas
 tail in interpret mode within 1e-5, which degrades the error-free
 transforms; R4c's against the weight-form record tail
 ``df_records._df_bicubic_weight_tail`` within 4e-12 of the largest value, as
-``test_torch_records.py``).  The kernels themselves run in ``test_torch_kernels.py`` on
-the card.
+``test_torch_records.py``; R2n's against the JAX strategy's
+``_cell_tail_nested`` on the rows in query order, bit for bit and within
+``rtol=2e-5, atol=1e-6`` of the largest value as ``test_torch_tail2d.py``
+holds the unordered tail).  The kernels themselves run in
+``test_torch_kernels.py`` on the card.
 """
 
 import numpy as np
@@ -26,12 +30,14 @@ import jax.numpy as jnp
 
 from ndarray_interp_tpu.ops import df as jdf
 from ndarray_interp_tpu.ops import df_records as jrec
+from ndarray_interp_tpu.models.strategies.bicubic import _cell_tail_nested as j_nested
 from ndarray_interp_tpu.ops import pallas_eval_df as jp
 from ndarray_interp_tpu_torch.ops import cell_order as co
 from ndarray_interp_tpu_torch.ops import df as tdf
 from ndarray_interp_tpu_torch.ops import eval_kernels_df as t1
 from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as tp
 from ndarray_interp_tpu_torch.ops import kernel_wrappers
+from ndarray_interp_tpu_torch.ops import tail2d as t2
 
 
 def jpair(v):
@@ -80,14 +86,22 @@ def ints(v):
 
 
 # (row_step, lo) of each kind's ordering; K8's is 1-D (no yi, no y halves:
-# the key is the interval, row_step 1, lo 0)
+# the key is the interval, row_step 1, lo 0); R2n's is keyed on R1's flat
+# cell xi (ny - 1) + yi the same way, its fractions in the tail's dtype
 KINDS = {"K8": None, "K12": lambda ny: (ny - 1, 0), "K13": lambda ny: (ny - 1, 0),
-         "K14": lambda ny: (ny, -(ny + 1)), "R4c": lambda ny: (ny - 1, 0)}
+         "K14": lambda ny: (ny, -(ny + 1)), "R4c": lambda ny: (ny - 1, 0),
+         "R2n f32": None, "R2n f64": None}
+R2N = {"R2n f32": torch.float32, "R2n f64": torch.float64}
 
 
 def order_args(kind, xi, yi, nx, ny, t):
     """The ordering's arguments for ``kind`` on an ``nx`` x ``ny`` grid (K8:
     the ``nx - 1`` intervals of the x axis)."""
+    if kind in R2N:
+        cell = ints(np.asarray(xi, np.int64) * (ny - 1) + np.asarray(yi))
+        tx, ty = (torch.as_tensor(v, dtype=R2N[kind]) for v in t)
+        fracs = (tx, None, ty, None) if kind == "R2n f64" else (tx, ty, None, None)
+        return (cell, None, 1, 0, (nx - 1) * (ny - 1), *fracs)
     (txh, txl), (tyh, tyl) = tpair(t[0]), tpair(t[1])
     if kind == "K8":
         return (ints(xi), None, 1, 0, nx - 1, txh, txl, None, None)
@@ -107,8 +121,9 @@ def test_plain_order_is_a_permutation_in_bucket_order(kind, case):
     xi, yi, row_step, lo, rows, txh, txl, tyh, tyl = args
     records = co.order_by_cell(*args)
     assert records.dtype == torch.int32 and tuple(records.shape) == (nq, 8)
-    v, qid, frac = co.record_fields(records)
-    assert frac.dtype == torch.float32 and tuple(frac.shape) == (nq, 4)
+    dtype = R2N.get(kind, torch.float32)
+    v, qid, frac = co.record_fields(records, dtype)
+    assert frac.dtype == dtype and tuple(frac.shape) == (nq, 16 // dtype.itemsize)
     assert not bool(records[:, 6:].any())
     qid = qid.long()
     assert torch.equal(torch.sort(qid).values, torch.arange(nq))
@@ -117,11 +132,17 @@ def test_plain_order_is_a_permutation_in_bucket_order(kind, case):
     assert bool((values <= rows - 1).all()) and bool((values >= lo).all())
     keys = co.bucket_keys(v.long(), rows)
     assert bool((keys[1:] >= keys[:-1]).all())
-    if kind == "K8":  # the 1-D records: the y halves are zero bits
-        tyh = tyl = torch.zeros_like(txh)
-        assert torch.equal(records, co.order_by_interval(xi, rows, txh, txl))
-    want = torch.stack([txh, txl, tyh, tyl], dim=1)[qid]
-    np.testing.assert_array_equal(bits(frac), bits(want))
+    if kind in R2N:  # the fractions bit-copied in their dtype, zero bits after them
+        tx, ty = args[5], args[6] if kind == "R2n f32" else args[7]
+        assert torch.equal(records, co.order_by_flat_cell(xi, rows, tx, ty))
+        np.testing.assert_array_equal(bits(frac[:, :2]), bits(torch.stack([tx, ty], dim=1)[qid]))
+        assert not bool(records[:, 2 + dtype.itemsize // 2:].any())
+    else:
+        if kind == "K8":  # the 1-D records: the y halves are zero bits
+            tyh = tyl = torch.zeros_like(txh)
+            assert torch.equal(records, co.order_by_interval(xi, rows, txh, txl))
+        want = torch.stack([txh, txl, tyh, tyl], dim=1)[qid]
+        np.testing.assert_array_equal(bits(frac), bits(want))
     # the plain version is stable: within a bucket the queries keep their order
     same = keys[1:] == keys[:-1]
     assert bool((qid[1:][same] > qid[:-1][same]).all())
@@ -197,9 +218,21 @@ def node_case(r, case, seed, nq=700, nx=11, ny=9):
     return nodes, packed, xi, yi, t, ny
 
 
+def nested_case(kind, r, case, seed, nq=700, nx=11, ny=9):
+    """An R2n cell table of ``r`` channels in the kind's dtype, K7-like
+    interval indices (their flat cell is R1's) and fractions."""
+    rng = np.random.default_rng(seed)
+    rows = torch.as_tensor(rng.normal(size=((nx - 1) * (ny - 1), 16 * r)), dtype=R2N[kind])
+    xi, yi = indices(case, nx, ny, nq, rng)
+    t = fractions(rng, nq)
+    return rows, rows, xi, yi, t, ny
+
+
 def make_case(kind, r, case, seed, **kw):
     """The table and inputs of ``kind``'s tail at ``r`` channels (K8: a bank
     of ``r`` columns)."""
+    if kind in R2N:
+        return nested_case(kind, r, case, seed, **kw)
     if kind == "K8":
         return bank_case(r, case, seed, **kw)
     if kind == "K14":
@@ -215,6 +248,10 @@ def ordered_and_direct(kind, packed, xi, yi, ny, t, r):
     the direct plain tail on the same inputs."""
     args = order_args(kind, xi, yi, NX, ny, t)
     records = co.order_by_cell(*args)
+    if kind in R2N:
+        cell, tx, ty = args[0], args[5], args[6] if kind == "R2n f32" else args[7]
+        return ((t2._bicubic_nested_ordered_plain(packed, records, r),),
+                (t2._bicubic_nested_plain(packed, cell, tx, ty, r),))
     if kind == "K8":
         return (t1._df_tail_ordered_plain(packed, records, r),
                 t1._df_tail_plain(packed, args[0], args[5], args[6], r))
@@ -257,8 +294,19 @@ def test_ordered_plain_tails_match_the_jax_tails(kind, r):
     4e-12 of the largest value."""
     src, packed, xi, yi, t, ny = make_case(kind, r, "random", seed=40 + r, nq=512)
     t = np.random.default_rng(r).uniform(-0.5, 1.5, (2, 512))
-    records = co.order_by_cell(*order_args(kind, xi, yi, NX, ny, t))
+    args = order_args(kind, xi, yi, NX, ny, t)
+    records = co.order_by_cell(*args)
     jt = [v[:, None] for v in jpair(t[0]) + jpair(t[1])]
+    if kind in R2N:  # the unordered tail's JAX twin, on the same rows and fractions
+        got = t2._bicubic_nested_ordered_plain(src, records, r).numpy()
+        tx = args[5].numpy()
+        ty = (args[6] if kind == "R2n f32" else args[7]).numpy()
+        jr = jnp.take(jnp.asarray(src.numpy()), jnp.asarray(args[0].numpy()), axis=0)
+        want = np.asarray(j_nested(jr, jnp.asarray(tx)[:, None], jnp.asarray(ty)[:, None], r))
+        np.testing.assert_array_equal(got, want)
+        scale = np.abs(want).max()
+        np.testing.assert_allclose(got / scale, want / scale, rtol=2e-5, atol=1e-6)
+        return
     if kind == "K8":
         jpk = jp.pack_bank_rows_df(*(h for v in src for h in jpair(v)))
         rows = jnp.take(jpk, jnp.asarray(xi), axis=0)
@@ -307,7 +355,16 @@ def test_cpu_wrappers_run_the_plain_tail_at_any_batch(kind, monkeypatch):
     batch size, in both output forms: no ordering and no launch."""
     monkeypatch.setattr(tp, "_orders", lambda *_: True)
     monkeypatch.setattr(t1, "_orders", lambda nq, bank: True)
+    monkeypatch.setattr(t2, "_orders", lambda *_: True)
     _, packed, xi, yi, t, ny = make_case(kind, 3, "random", seed=5)
+    before = {k: w.launches for k, w in kernel_wrappers().items()}
+    if kind in R2N:
+        a = order_args(kind, xi, yi, NX, ny, t)
+        args = (packed, a[0], a[5], a[6] if kind == "R2n f32" else a[7], 3)
+        got = t2.bicubic_nested_tail(*args)
+        np.testing.assert_array_equal(bits(got), bits(t2._bicubic_nested_plain(*args)))
+        assert {k: w.launches for k, w in kernel_wrappers().items()} == before
+        return
     if kind == "K8":
         args = (packed, ints(xi), *tpair(t[0]), 3)
     else:

@@ -460,13 +460,15 @@ def ordered_tail(kind):
 
 
 def force_branch(monkeypatch, ordered):
-    """Make the K8, K12, K13 and K14 wrappers take one branch whatever the
-    batch."""
+    """Make the K8, K12, K13, K14 and R2n wrappers take one branch whatever
+    the batch."""
     from ndarray_interp_tpu_torch.ops import eval_kernels_df as e1
     from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as ek
+    from ndarray_interp_tpu_torch.ops import tail2d as t2
 
     monkeypatch.setattr(ek, "_orders", lambda *_: ordered)
     monkeypatch.setattr(e1, "_orders", lambda nq, bank: ordered)
+    monkeypatch.setattr(t2, "_orders", lambda *_: ordered)
 
 
 def launched_by(fn):
@@ -1444,6 +1446,7 @@ def cell_route_case(nx, ny, r, nq, dtype, dev, seed):
     T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     z = T(rng.normal(size=(nx, ny, r)).astype(dtype))
     tables = {
+        "grid": z,
         "bilinear": pack_corner_rows(T(x), T(y), z),
         "bicubic": T(rng.normal(size=((nx - 1) * (ny - 1), 16 * r)).astype(dtype)),
     }
@@ -1476,7 +1479,7 @@ def test_cell_route_kernels_match_plain(dev, dtype, r, nq):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("kid", ["R1", "R2b", "R2c", "R2d", "R2n"])
+@pytest.mark.parametrize("kid", ["R1", "R2b", "R2g", "R2c", "R2d", "R2n"])
 def test_cell_route_gradients_match_autograd_of_plain(dev, kid):
     from ndarray_interp_tpu_torch.ops import eval_kernels as ek
     from ndarray_interp_tpu_torch.ops import tail2d as t2
@@ -1491,6 +1494,10 @@ def test_cell_route_gradients_match_autograd_of_plain(dev, kid):
         args = (tables["bilinear"], qx, qy)
         pair_ = tuple(lambda t, a, b, f=f: f(t, cell, a, b, 3)
                       for f in (t2.bilinear_gathered_eval, t2._bilinear_plain))
+    elif kid == "R2g":
+        args = (tables["grid"], x, y, qx, qy)
+        pair_ = tuple(lambda d, x_, y_, a, b, f=f: f(d, x_, y_, cell, a, b)
+                      for f in (t2.bilinear_grid_eval, t2._bilinear_grid_plain))
     else:
         fns = {"R2c": (t2.bicubic_gathered_eval, t2._bicubic_weight_plain),
                "R2d": (t2.bicubic_tree_tail, t2._bicubic_tree_plain),
@@ -1511,9 +1518,10 @@ def test_cell_route_gradients_match_autograd_of_plain(dev, kid):
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_interp2d_cell_routes_launch_r1_and_a_tail(dev, dtype):
     """``Bilinear`` (packed) and ``Bicubic`` (cell layout; not-a-knot and
-    periodic in y) built on the card launch R1 + R2b / R1 + R2n once a call
+    periodic in y) built on the card launch R1 + R2g / R1 + R2n once a call
     and no K2 or K3; each equals the same interpolator run on the CPU, bit
-    for bit, and the plain versions of R1 and its tail on the card."""
+    for bit, and the plain versions of R1 and its tail on the card (R2b's
+    on the corner rows for ``Bilinear``)."""
     from ndarray_interp_tpu_torch.interp2d import Bicubic, Bilinear, Interp2D
     from ndarray_interp_tpu_torch.ops import eval_kernels as ek
     from ndarray_interp_tpu_torch.ops import kernel_wrappers
@@ -1535,7 +1543,7 @@ def test_interp2d_cell_routes_launch_r1_and_a_tail(dev, dtype):
         return t2._bicubic_nested_plain(rows, cell, tx, ty, 4)
 
     cases = (
-        (Bilinear().extrapolate(True), {"R1": 1, "R2b": 1}, bilinear_plain),
+        (Bilinear().extrapolate(True), {"R1": 1, "R2g": 1}, bilinear_plain),
         (Bicubic().extrapolate(True), {"R1": 1, "R2n": 1}, nested_plain),
         (Bicubic().boundary("not_a_knot", "periodic").extrapolate(True), {"R1": 1, "R2n": 1},
          nested_plain),
@@ -1551,6 +1559,8 @@ def test_interp2d_cell_routes_launch_r1_and_a_tail(dev, dtype):
         s = itp.strategy
         cpu_strat = type(s).__new__(type(s))
         cpu_strat.__dict__.update(s.__dict__, rows=s.rows.cpu())
+        if getattr(s, "grid", None) is not None:
+            cpu_strat.grid = s.grid.cpu()
         on_cpu = Interp2D.new_unchecked(itp.x.cpu(), itp.y.cpu(), itp.data.cpu(), cpu_strat)
         assert same(got.cpu(), on_cpu(qx, qy))
         qy_w = qy_d
@@ -1558,6 +1568,153 @@ def test_interp2d_cell_routes_launch_r1_and_a_tail(dev, dtype):
             qy_w = torch.remainder(qy_d - itp.y[0], itp.y[-1] - itp.y[0]) + itp.y[0]
         cell, tx, ty = ek._cell_index_plain(itp.x, itp.y, qx_d, qy_w)
         assert same(got, tail_plain(s.rows, cell, tx, ty, qx_d, qy_w))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("r", [1, 3, 4, 16, 17])
+@pytest.mark.parametrize("nq", [0, 1, 1000, 300_001])
+def test_grid_tail_matches_both_plain_versions(dev, dtype, r, nq):
+    """R2g bit for bit against ``_bilinear_grid_plain`` and against R2b's
+    plain version on ``pack_corner_rows`` of the same grid, on R1's cells
+    and on cells far outside the grid (clamped alike), 16-byte lanes (r of
+    4 and 16; f64 also 2 channels a lane at r = 4, 16) and a channel a lane
+    (r of 1, 3, 17, and a grid copied one element off 16-byte alignment);
+    R2b's kernel on the corner rows too."""
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+    from ndarray_interp_tpu_torch.ops import tail2d as t2
+
+    x, y, qx, qy, tables = cell_route_case(37, 210, r, nq, dtype, dev, 7 * r + nq % 89)
+    cell = ek.fused_cell_index(x, y, qx, qy)[0]
+    grid, rows = tables["grid"], tables["bilinear"]
+    rng = np.random.default_rng(r)
+    far = torch.as_tensor(rng.integers(-5 * 36 * 209, 5 * 36 * 209, nq), dtype=torch.int32,
+                          device=dev)
+    buf = torch.empty(grid.numel() + 1, dtype=grid.dtype, device=dev)
+    off = buf[1:].view(grid.shape).copy_(grid)
+    for c in (cell, far):
+        want = t2._bilinear_plain(rows, c, qx, qy, r)
+        for g in (grid, off):
+            got, launched = launched_by(lambda g=g, c=c: t2.bilinear_grid_eval(g, x, y, c, qx, qy))
+            assert launched == {"R2g": 1}
+            assert tuple(got.shape) == (nq, r)
+            assert same(got, want)
+            assert same(got, t2._bilinear_grid_plain(g, x, y, c, qx, qy))
+        assert same(t2.bilinear_gathered_eval(rows, c, qx, qy, r), want)
+
+
+# -- R2n on queries ordered by cell (ORD's flat-cell form) -------------------------------
+def nested_case(case, nq, dtype, dev, seed, r=16, nx=60, ny=45):
+    """A cell table of ``r`` channels and the wrapper's arguments: R1's cells
+    of uniform queries, all in one cell, already in cell order, every query
+    of a table of one cell, or a table past 2^22 rows (buckets of two rows:
+    ``r`` 1); fractions with NaN, +-inf and huge ones."""
+    rng = np.random.default_rng(seed)
+    if case == "one cell":
+        nx = ny = 2
+    if case == "shifted":
+        nx, ny, r = 2**11 + 2, 2**11 + 3, 1
+    cells = (nx - 1) * (ny - 1)
+    rows = torch.as_tensor(rng.normal(size=(cells, 16 * r)).astype(dtype), device=dev)
+    cell = rng.integers(0, cells, nq)
+    if case == "hot":
+        cell[:] = cells // 3
+    elif case == "sorted":
+        cell.sort()
+    t = order_fractions(rng, nq).astype(dtype)
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return rows, T(cell.astype(np.int32)), T(t[0]), T(t[1]), r
+
+
+NESTED_CASES = ["random", "hot", "sorted", "one cell", "shifted"]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case,form", [(c, f) for c in NESTED_CASES for f in ("shared", "global")
+                                       if (c, f) != ("shifted", "shared")])
+def test_nested_tail_ordered_branch_matches_plain(dev, dtype, case, form, monkeypatch):
+    """R2n's ordered branch, on the records of either form of the ordering
+    (the shared one on tables of up to its bucket limit), bit for bit
+    against ``_bicubic_nested_plain``: the ordering once, the tail once."""
+    from ndarray_interp_tpu_torch.ops import cell_order as co
+    from ndarray_interp_tpu_torch.ops import tail2d as t2
+
+    monkeypatch.setattr(co, "_form", lambda buckets: order_form(form))
+    force_branch(monkeypatch, True)
+    args = nested_case(case, 200_000, dtype, dev, len(case) + len(form))
+    got, launched = launched_by(lambda: t2.bicubic_nested_tail(*args))
+    assert launched == {"ORD": 1, "R2n": 1}
+    assert same(got, t2._bicubic_nested_plain(*args))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("r", [1, 3, 4, 16, 17, 40])
+def test_nested_tail_ordered_kernel_on_records_of_the_plain_ordering(dev, dtype, r):
+    """R2n's ordered kernel alone on the records of the plain flat-cell
+    ordering against ``_bicubic_nested_ordered_plain``, at 16-byte lanes
+    (r of 4, 16, 40) and a channel a lane (1, 3, 17, and a table off
+    16-byte alignment), a query's chunks past 32 lanes looped (r = 40)."""
+    from ndarray_interp_tpu_torch.ops import _cuda
+    from ndarray_interp_tpu_torch.ops import cell_order as co
+    from ndarray_interp_tpu_torch.ops import tail2d as t2
+
+    rows, cell, tx, ty, r = nested_case("random", 20_000, dtype, dev, r, r=r)
+    records = co._order_plain(cell, None, 1, 0, rows.shape[0],
+                              *((tx, None, ty, None) if dtype == np.float64 else
+                                (tx, ty, None, None)))
+    want = t2._bicubic_nested_ordered_plain(rows, records, r)
+    assert same(want, t2._bicubic_nested_plain(rows, cell, tx, ty, r))
+    buf = torch.empty(rows.numel() + 1, dtype=rows.dtype, device=dev)
+    for tbl in (rows, buf[1:].view(rows.shape).copy_(rows)):
+        out = torch.empty((cell.shape[0], r), dtype=rows.dtype, device=dev)
+        _cuda.launch("ndi_bicubic_nested_tail_ordered", rows.dtype, dev, tbl, tbl.shape[0],
+                     tbl.shape[1], r, records, out, cell.shape[0])
+        torch.cuda.synchronize()
+        assert same(out, want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("nq", [0, 1])
+@pytest.mark.parametrize("ordered", [True, False])
+def test_nested_tail_takes_empty_and_single_query_batches(dev, dtype, nq, ordered, monkeypatch):
+    from ndarray_interp_tpu_torch.ops import tail2d as t2
+
+    force_branch(monkeypatch, ordered)
+    args = nested_case("random", nq, dtype, dev, 3)
+    got, launched = launched_by(lambda: t2.bicubic_nested_tail(*args))
+    assert tuple(got.shape) == (nq, 16) and same(got, t2._bicubic_nested_plain(*args))
+    assert launched == ({"ORD": 1, "R2n": 1} if ordered and nq else {"R2n": 1})
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("form,rows,nq", [
+    (f, rows, nq) for f in ("shared", "global")
+    for rows, nq in ((1, 5000), (1000, 1), (1000, 0), (32_768, 300_000), (261_121, 300_000),
+                     (2**22 + 3, 300_000))
+    if f == "global" or rows <= 32_768])
+def test_flat_cell_order_matches_plain(dev, dtype, form, rows, nq):
+    """ORD's flat-cell form in either form of the sort against the plain
+    ordering: the same bucket keys in order, a permutation, and each
+    query's record (its clamped cell and the bits of its fractions in their
+    own dtype) bit for bit."""
+    from ndarray_interp_tpu_torch.ops import cell_order as co
+
+    rng = np.random.default_rng(rows % 1000 + nq)
+    cell = torch.as_tensor(rng.integers(-3, rows + 3, nq), dtype=torch.int32, device=dev)
+    tx, ty = (torch.as_tensor(v.astype(dtype), device=dev) for v in order_fractions(rng, nq))
+    wide = dtype == np.float64
+    args = (cell, None, 1, 0, rows, *((tx, None, ty, None) if wide else (tx, ty, None, None)))
+    records = co._order_kernel(args, order_form(form))
+    want = co._order_plain(*args)
+    torch.cuda.synchronize()
+    if nq <= 1:
+        assert torch.equal(records, co.order_by_flat_cell(cell, rows, tx, ty))
+    keys = co.bucket_keys(records[:, 0].long(), rows)
+    assert torch.equal(keys, co.bucket_keys(want[:, 0].long(), rows))
+    qid = records[:, 1].long()
+    assert torch.equal(torch.sort(qid).values, torch.arange(nq, device=dev))
+    assert torch.equal(records[qid.argsort()], want[want[:, 1].long().argsort()])
+    _, _, frac = co.record_fields(records, tx.dtype)
+    assert same(frac[:, :2], torch.stack([tx, ty], dim=1)[qid])
 
 
 def test_cell_route_wrappers_check_their_inputs(dev):
@@ -1582,6 +1739,17 @@ def test_cell_route_wrappers_check_their_inputs(dev):
     with pytest.raises(TypeError, match="int32"):
         t2.bicubic_nested_tail(rows, cell.cpu(), t, t, 3)
     k = torch.linspace(0.0, 1.0, 9, device=dev)
+    grid = torch.zeros((9, 9, 3), device=dev)
+    with pytest.raises(TypeError, match="int32"):
+        t2.bilinear_grid_eval(grid, k, k, cell.long(), t, t)
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        t2.bilinear_grid_eval(grid.double(), k, k, cell, t, t)
+    with pytest.raises(ValueError, match="nx >= 2"):
+        t2.bilinear_grid_eval(grid[:1], k[:1], k, cell, t, t)
+    with pytest.raises(ValueError, match="axes"):
+        t2.bilinear_grid_eval(grid, k[:8], k, cell, t, t)
+    with pytest.raises(ValueError, match="flat"):
+        t2.bilinear_grid_eval(grid, k, k, cell[:4], t, t)
     with pytest.raises(ValueError, match="tensors on"):
         ek.fused_cell_index(k.cpu(), k, t, t)
     with pytest.raises(TypeError, match="torch.int64"):

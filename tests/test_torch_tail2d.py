@@ -1,5 +1,5 @@
 """The port's f32/f64 2-D cell route (``ops/eval_kernels.py`` R1
-``fused_cell_index``, ``ops/tail2d.py`` R2b, R2c, R2d, R2n, and the
+``fused_cell_index``, ``ops/tail2d.py`` R2b, R2g, R2c, R2d, R2n, and the
 ``Bilinear`` / ``Bicubic`` cell dispatch onto them) against the JAX
 package's, on the CPU.
 
@@ -9,14 +9,16 @@ counterparts, which run their kernels' plain PyTorch versions on CPU
 tensors.
 
 Tolerances: R1's cell and fractions exactly (``tests/test_pallas_eval.py:
-129-159`` holds the JAX kernel to numpy exactly); R2b at the JAX test's
-``rtol = atol = 1e-5`` (``tests/test_pallas_tail.py:168``); R2c at ``2e-5``
+129-159`` holds the JAX kernel to numpy exactly); R2b and R2g at the JAX
+test's ``rtol = atol = 1e-5`` (``tests/test_pallas_tail.py:168``), R2g
+also bit for bit against R2b's plain version on ``pack_corner_rows``; R2c
+at ``2e-5``
 of the largest |value| (``:283``; the interpret-mode kernel and the XLA form
 it is tested against differ by ~1.5e-7 of it); R2d and R2n exactly, the
 JAX forms' results being equal to the port's on these inputs; R2n against
 the JAX strategy's tail at the bicubic twin tolerance (``rtol=2e-5,
 atol=1e-6`` of the largest |value|, ``tests/test_torch_bicubic.py``);
-gradients at ``1e-5`` (R1, R2b) and ``1e-4`` (the bicubic tails), as
+gradients at ``1e-5`` (R1, R2b, R2g) and ``1e-4`` (the bicubic tails), as
 ``tests/test_pallas_tail.py:214`` and ``:349``.  The strategies' cell
 route equals, bit for bit, the route they took before it: a search per
 axis, a row gather and the PyTorch tail.
@@ -175,6 +177,109 @@ def test_bilinear_tail_matches_jax(nq):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+# -- R2g ------------------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("r", [1, 3, 5, 16])
+def test_grid_tail_plain_is_r2b_on_the_corner_rows(dtype, r):
+    """``_bilinear_grid_plain`` on the grid equals ``_bilinear_plain`` on
+    ``pack_corner_rows`` of it bit for bit: on R1's cells (NaN and +-inf
+    queries among them, whose cells R1 puts at an axis's last interval),
+    on cells far outside the table (clamped alike) and on the edge cells;
+    the wrapper on CPU tensors is the plain version and launches nothing."""
+    x, y, data, _, qx, qy = bl_case(nx=17, ny=13, r=r, nq=600, seed=r)
+    x, y, data, qx, qy = (T(v.astype(dtype)) for v in (x, y, data, qx, qy))
+    qx[:3], qy[3:5], qx[7], qy[8] = float("nan"), float("nan"), float("inf"), -float("inf")
+    rows = t_bilinear.pack_corner_rows(x, y, data)
+    rng = np.random.default_rng(r)
+    cells = 16 * 12
+    for cell in (ek.fused_cell_index(x, y, qx, qy)[0],
+                 T(rng.integers(-3 * cells, 3 * cells, 600).astype(np.int32)),
+                 T(np.array([0, cells - 1, cells, -1, 11, 12], np.int32))):
+        a, b = qx[: cell.shape[0]], qy[: cell.shape[0]]
+        want = t2._bilinear_plain(rows, cell, a, b, r)
+        got = t2._bilinear_grid_plain(data, x, y, cell, a, b)
+        assert got.dtype == want.dtype and tuple(got.shape) == (cell.shape[0], r)
+        np.testing.assert_array_equal(got.numpy().view(np.uint8), want.numpy().view(np.uint8))
+        before = t2.bilinear_grid_eval.launches
+        assert torch.equal(t2.bilinear_grid_eval(data, x, y, cell, a, b).isnan(), want.isnan())
+        assert t2.bilinear_grid_eval.launches == before
+
+
+@pytest.mark.parametrize("nq", [1024, 1000, 1])
+def test_grid_tail_matches_jax(nq):
+    """R2g (its plain version) against the JAX ``bilinear_gathered_eval``'s
+    Pallas kernel in interpret mode and its XLA form on the corner rows of
+    the same grid."""
+    x, y, data, rows, qx, qy = bl_case(nq=nq)
+    r = data.shape[2]
+    cell = ek.fused_cell_index(T(x), T(y), T(qx), T(qy))[0]
+    got = t2.bilinear_grid_eval(T(data), T(x), T(y), cell, T(qx), T(qy))
+    assert tuple(got.shape) == (nq, r) and got.dtype == torch.float32
+    jrows = j_pack(jnp.asarray(x), jnp.asarray(y), jnp.asarray(data)).reshape(rows.shape)
+    jargs = (jrows, jnp.asarray(cell.numpy()), jnp.asarray(qx), jnp.asarray(qy))
+    for want in (j_tail._bilinear_gathered_impl(*jargs, r, interpret=True),
+                 j_tail._bilinear_xla_form(*jargs, r)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kernel", [False, True])
+def test_grid_tail_gradients_match_autograd_through_the_corner_rows(kernel):
+    """The gradients of R2g for the grid, both axes and the queries against
+    autograd through ``pack_corner_rows`` and ``_bilinear_plain`` (``1e-5``,
+    and the JAX ``_bl_bwd`` for the queries); ``kernel``: through its
+    autograd Function, the launch replaced by the plain version."""
+    x, y, data, rows, qx, qy = bl_case(nq=128)
+    x, y, data, qx, qy = (v.astype(np.float64) for v in (x, y, data, qx, qy))
+    r = data.shape[2]
+    cell = ek.fused_cell_index(T(x), T(y), T(qx), T(qy))[0]
+    ref = [T(v).requires_grad_(True) for v in (data, x, y, qx, qy)]
+    out = t2._bilinear_plain(t_bilinear.pack_corner_rows(ref[1], ref[2], ref[0]), cell,
+                             ref[3], ref[4], r)
+    (out**2).sum().backward()
+    leaves = [T(v).requires_grad_(True) for v in (data, x, y, qx, qy)]
+    with pytest.MonkeyPatch.context() as mp:
+        if kernel:
+            as_kernel(mp)
+            before = t2.bilinear_grid_eval.launches
+        got = t2.bilinear_grid_eval(leaves[0], leaves[1], leaves[2], cell, leaves[3], leaves[4])
+        if kernel:
+            assert t2.bilinear_grid_eval.launches == before + 1
+    (got**2).sum().backward()
+    for leaf, want in zip(leaves, ref):
+        np.testing.assert_allclose(leaf.grad.numpy(), want.grad.numpy(), rtol=1e-5, atol=1e-5)
+    jargs = (jnp.asarray(t_bilinear.pack_corner_rows(T(x), T(y), T(data)).numpy()),
+             jnp.asarray(cell.numpy()), jnp.asarray(qx), jnp.asarray(qy))
+    _, _, gx, gy = j_tail._bl_bwd(r, jargs, 2.0 * j_tail._bilinear_xla_form(*jargs, r))
+    for leaf, w in zip(leaves[3:], (gx, gy)):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_bilinear_through_the_grid_tail_equals_jax(dtype):
+    """``Interp2D`` with ``Bilinear`` runs R1 and R2g on the grid it keeps at
+    build (a view of the data, no copy) and equals the JAX package's
+    ``BilinearPacked`` on the same inputs (``rtol = atol = 1e-5`` in f32,
+    ``1e-12`` in f64, scaled by the largest value)."""
+    from ndarray_interp_tpu.interp2d import Bilinear as JBilinear
+    from ndarray_interp_tpu.interp2d import Interp2D as JInterp2D
+
+    x, y, z, qx, qy = grid(dtype)
+    itp = build("Bilinear", x, y, z)
+    assert itp.strategy.grid.data_ptr() == itp.data.data_ptr()
+    assert tuple(itp.strategy.grid.shape) == (14, 11, 3)
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        spied(mp, t_bilinear, ("fused_cell_index", "bilinear_grid_eval"), calls)
+        got = itp(qx, qy).numpy()
+    assert calls == ["fused_cell_index", "bilinear_grid_eval"]
+    j = JInterp2D.builder(jnp.asarray(z)).x(jnp.asarray(x)).y(jnp.asarray(y)).strategy(
+        JBilinear().extrapolate(True)).build()
+    want = np.asarray(j(jnp.asarray(qx), jnp.asarray(qy)))
+    tol = 1e-5 if dtype == np.float32 else 1e-12
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got / scale, want / scale, rtol=tol, atol=tol)
+
+
 # -- R2c, R2d, R2n -------------------------------------------------------------------------
 @pytest.mark.parametrize("r", [8, 5])
 def test_bicubic_weight_tail_matches_jax(r):
@@ -229,6 +334,7 @@ def as_kernel(mp):
     mp.setattr(ek, "_launch_cell_index", ek._cell_index_plain)
     plain = {v[1]: v[3] for v in t2._TAILS.values()}
     mp.setattr(t2, "_launch", lambda name, symbol, width, *args: plain[symbol](*args))
+    mp.setattr(t2, "_launch_grid", t2._bilinear_grid_plain)
 
 
 @pytest.mark.parametrize("kernel", [False, True])
@@ -375,10 +481,10 @@ def test_routed_composition_equals_the_strategy_bit_for_bit(kind, periodic, dtyp
     module = t_bilinear if kind == "Bilinear" else t_bicubic
     calls = []
     with pytest.MonkeyPatch.context() as mp:
-        spied(mp, module, ("fused_cell_index", "bilinear_gathered_eval", "bicubic_nested_tail",
+        spied(mp, module, ("fused_cell_index", "bilinear_grid_eval", "bicubic_nested_tail",
                            "lower_index_fast", "_index_frac"), calls)
         got = itp(qx, qy)
-    tail = "bilinear_gathered_eval" if kind == "Bilinear" else "bicubic_nested_tail"
+    tail = "bilinear_grid_eval" if kind == "Bilinear" else "bicubic_nested_tail"
     assert calls == ["fused_cell_index", tail]
     assert tuple(got.shape) == (700, 3) and bool(torch.isfinite(got).all())
     assert torch.equal(got, search_gather_route(kind, itp, T(qx), T(qy)))
@@ -412,7 +518,7 @@ def test_cpu_tensors_keep_the_plain_route_and_launch_nothing():
     for fn, _ in TAILS.values():
         fn(T(rows), T(cell), T(tx), T(ty), 8)
     assert {kid: w.launches for kid, w in kernel_wrappers().items()} == before
-    assert {"R1", "R2b", "R2c", "R2d", "R2n"} <= set(before)
+    assert {"R1", "R2b", "R2g", "R2c", "R2d", "R2n"} <= set(before)
 
 
 @pytest.mark.parametrize("case", ["integer Bilinear", "unpacked Bilinear", "node Bicubic"])
