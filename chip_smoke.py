@@ -110,12 +110,21 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    K3 likewise: at 2,048 knots on 2, 262,144 and 1,000,000 queries and at
    64 to 70,001 knots on 1,000,000, in f32 and f64, at the wrapper's 32 KB
    tree, at one knot (every level global, the first design's search) and
-   as leaders, beside ``torch.searchsorted``.  R2a at NS2b (10,240 x 64,
+   as leaders, beside ``torch.searchsorted``.  K1 (``k1_phase``) on 2,
+   2,048 and 70,001 knots at 2, 1,024 and 1,000,000 queries, f32 and f64,
+   at the wrapper's budget, at one knot and as leaders, each in its three
+   row reads on a cubic and a linear table, held bit for bit and timed
+   beside the first design (one knot, six scalar loads a row), at NS1's
+   shape in every row read; R1 (``r1_phase``) on 2 x 2, NS3's 512 x 512
+   and 70,001 x 33 knots (either way round) the same way, at 512 x 512
+   also against K3's index and K2's fractions.  R2a at NS2b (10,240 x 64,
    1,000,000 queries) and at the bank eval's shape: its 16-byte lanes
    against the first design's column a lane (on a table off 16-byte
    alignment), held bit for bit and timed in turn.  ``--sweeps`` adds the
    design sweeps behind those choices: K3's tree from 16 to 128 KB and the
-   tree against the global search on batches of 2 to 65,536; R2a with
+   tree against the global search on batches of 2 to 65,536; K1's tree
+   from 16 to 64 KB at 70,001 and 262,144 knots; R1's budget from 16 to
+   128 KB at 8,192 x 8,192 and 70,001 x 33 knots; R2a with
    every query in one interval and in interval order (the diagnosis), in
    f64, and on prefixes of 2^12 to 2^20 queries at banks 8, 64 and 256.
    Every kernel's launches are summed over every path.
@@ -824,6 +833,7 @@ def timing(state, card, rec, sweeps):
     times["K3"]["library_ms"] = lib[0]
     print(f"  K3 library call torch.searchsorted: {fmt(lib)}", flush=True)
     times["K3"].update(k3_phase(q3.device, card, rec, sweeps))
+    times["K1"].update(k1_phase(q3.device, card, rec, sweeps))
     label, args = systems["K4"][1]
     tk_, tp_ = device_ms(lambda: tk.thomas_solve_fast(*args), 3), device_ms(
         lambda: thomas_solve(*args), 1)
@@ -923,6 +933,194 @@ def k3_phase(dev, card, rec, sweeps):
     torch.cuda.synchronize()
     shape = "float32, 2,048 knots, 1,000,000 queries"
     return {"global_search_ms": out[shape]["global_ms"], "shapes": out}
+
+
+def phase_queries(kn, nq, dtype, rng):
+    """``make_queries`` where the batch holds the axis, else its first ``nq``
+    of NaN, +inf, -inf, +-1e38, +-0, far extrapolation, knots themselves
+    and uniform queries (2 queries: NaN and +inf)."""
+    if nq >= kn.size + 64:
+        return rng.permutation(make_queries(kn, nq, dtype, rng))
+    lo, hi = float(kn[0]), float(kn[-1])
+    span = hi - lo
+    special = np.array([np.nan, np.inf, -np.inf, 1e38, -1e38, 0.0, -0.0, lo - 1e6 * span,
+                        hi + 1e6 * span], dtype)
+    body = rng.uniform(lo - 0.1 * span, hi + 0.1 * span, nq).astype(dtype)
+    return np.concatenate([special, rng.choice(kn, nq // 2), body])[:nq]
+
+
+# K1's row reads (csrc/eval_kernels.cu RowRead) and, with --sweeps, its trees
+# on axes past the whole tree
+K1_ROW_READS = {"six scalar loads": 0, "three 2-element loads": 1, "rows in shared memory": 2}
+K1_TREE_SWEEP = (16 << 10, 32 << 10, 64 << 10)
+
+
+def k1_phase(dev, card, rec, sweeps):
+    """K1 on 2 knots at 1,000,000 queries, 2,048 knots at 2, 1,024 and
+    1,000,000, and 70,001 knots at 1,000,000, in f32 and f64: each at the
+    wrapper's shared-memory budget (the whole axis up to 8,191 f32 / 4,095 f64
+    knots, 70,001 as leaders), at one knot (every level of the search on the
+    global axis) and as leaders (every 16th knot staged), each in every row
+    read, on a cubic and a linear table (+-inf), held bit for bit against
+    ``_eval_plain`` on queries with NaN, +-inf, +-1e38, the knots and far
+    extrapolation; timed at the wrapper's row read, beside the first design
+    (one knot, six scalar loads) and, at 2,048 knots x 1M, in every row read.
+    With ``sweeps``, also the tree's size at 70,001 and 262,144 knots.
+    Returns the keys the kernels line adds."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+
+    rng = np.random.default_rng(55)
+    default, read0 = ek._K1_TREE_BYTES, ek._K1_ROW_READ
+    cases = [(2, 1_000_000), (2048, 2), (2048, 1024), (2048, 1_000_000), (70_001, 1_000_000)]
+    if sweeps:
+        cases.append((262_144, 1_000_000))
+    out = {}
+    print(f"K1 by shared-memory budget and row read (one knot: every level global; the "
+          f"wrapper's tree {default:,} B, row read f32 {read0[torch.float32]}, f64 "
+          f"{read0[torch.float64]}), ms (median [min, max] of {RUNS} runs by CUDA events; "
+          f"card: {card}):", flush=True)
+
+    def run(knots_staged, read, k, tbl, q):
+        ek._K1_TREE_BYTES = (knots_staged + 1) * k.element_size()
+        ek._K1_ROW_READ = {**read0, k.dtype: read}
+        return ek.fused_eval_1d(k, tbl, q)
+
+    try:
+        for np_dt in (np.float32, np.float64):
+            tag, size = np.dtype(np_dt).name, np.dtype(np_dt).itemsize
+            for n, nq in cases:
+                if n > 70_001 and np_dt is np.float64:
+                    continue
+                kn = make_knots(n, "nonuniform", np_dt, rng)
+                d, a, b = (rng.normal(size=m).astype(np_dt) for m in (n, n - 1, n - 1))
+                k, q = torch.as_tensor(kn, device=dev), torch.as_tensor(
+                    phase_queries(kn, nq, np_dt, rng), device=dev)
+                d, a, b = (torch.as_tensor(v, device=dev) for v in (d, a, b))
+                tables = {"cubic": ek.make_interval_table(k, d, a, b),
+                          "linear": ek.make_interval_table(k, d)}
+                want = {name: ek._eval_plain(k, tbl, q) for name, tbl in tables.items()}
+                label = f"{tag}, {n:,} knots, {nq:,} queries"
+                budgets = {"wrapper": default // size - 1, "global": 1,
+                           "leaders": max(2, n // 16)}
+                ok = True
+                for b_ in budgets.values():
+                    for read in K1_ROW_READS.values():
+                        for name, tbl in tables.items():
+                            ok &= rec.add("K1", f"{label}, {b_} knots staged, row read {read}, "
+                                          f"{name} table", run(b_, read, k, tbl, q), want[name])
+                cubic = tables["cubic"]
+                read = read0[k.dtype]
+                got = {name: device_ms(lambda b_=b_, r_=r_: run(b_, r_, k, cubic, q), 50)
+                       for name, (b_, r_) in {
+                           "wrapper": (budgets["wrapper"], read),
+                           "first design": (1, K1_ROW_READS["six scalar loads"]),
+                           "leaders": (budgets["leaders"], read)}.items()}
+                if n == 2048 and nq == 1_000_000:
+                    for name, read in K1_ROW_READS.items():
+                        got[name] = device_ms(lambda r_=read: run(budgets["wrapper"], r_, k,
+                                                                  cubic, q), 50)
+                if sweeps and n > 10_000:
+                    for t_ in K1_TREE_SWEEP:
+                        got[f"tree {t_ >> 10} KB"] = device_ms(
+                            lambda b_=t_ // size - 1: run(b_, read, k, cubic, q), 50)
+                bound_ms = bound("K1", (k, cubic, q))[0]
+                print(f"  K1 {label} (every budget and row read, cubic and linear tables: "
+                      f"{'bit-identical' if ok else 'MISMATCH'}); bound {bound_ms:.4f}:",
+                      flush=True)
+                for name, t_ in got.items():
+                    print(f"    {name}: {fmt(t_)}", flush=True)
+                out[label] = {"ms": got["wrapper"][0], "first_design_ms": got["first design"][0],
+                              "leader_ms": got["leaders"][0], "bound_ms": bound_ms,
+                              **{f"{name} ms": t_[0] for name, t_ in got.items()
+                                 if name not in ("wrapper", "first design", "leaders")}}
+                del k, q, d, a, b, tables, want, cubic
+    finally:
+        ek._K1_TREE_BYTES, ek._K1_ROW_READ = default, read0
+    torch.cuda.synchronize()
+    shape = "float32, 2,048 knots, 1,000,000 queries"
+    return {"first_design_ms": out[shape]["first_design_ms"],
+            "row_read_ms": {tag: {name: out[f"{tag}, 2,048 knots, 1,000,000 queries"][
+                f"{name} ms"] for name in K1_ROW_READS} for tag in ("float32", "float64")},
+            "shapes": out}
+
+
+# R1's per-axis trees, with --sweeps: the budget at two axes past a 16 KB tree
+R1_TREE_SWEEP = (16 << 10, 32 << 10, 64 << 10, 128 << 10)
+
+
+def r1_phase(dev, card, rec, sweeps):
+    """R1 on 2 x 2 knots at 1,000,000 queries, 512 x 512 (NS3's axes) at 2,
+    1,024 and 1,000,000, and 70,001 x 33 and 33 x 70,001 at 1,000,000, in f32
+    and f64: each at the wrapper's budget (half of it a tree for each axis),
+    at one knot an axis (every level of both searches on the global axes,
+    the first design's search) and as leaders (every 16th knot of each axis
+    staged), held bit for bit against ``_cell_index_plain`` (cell, tx, ty) on
+    queries with NaN, +-inf, +-1e38, the knots and far extrapolation, at
+    512 x 512 also against K3's index of each axis and K2's fractions; timed
+    in each.  With ``sweeps``, also the budget at 8,192 x 8,192 and 70,001 x
+    33.  Returns the keys the kernels line adds."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+
+    rng = np.random.default_rng(56)
+    default = ek._R1_TREE_BYTES
+    cases = [(2, 2, 1_000_000), (512, 512, 2), (512, 512, 1024), (512, 512, 1_000_000),
+             (70_001, 33, 1_000_000), (33, 70_001, 1_000_000)]
+    if sweeps:
+        cases.append((8192, 8192, 1_000_000))
+    out = {}
+    print(f"R1 by shared-memory budget (each axis half of the wrapper's {default:,} B; one "
+          f"knot: every level of both searches global, the first design's search), ms (median "
+          f"[min, max] of {RUNS} runs by CUDA events; card: {card}):", flush=True)
+
+    def run(knots_staged, x, y, qx, qy):
+        ek._R1_TREE_BYTES = 2 * (knots_staged + 1) * x.element_size()
+        return ek.fused_cell_index(x, y, qx, qy)
+
+    try:
+        for np_dt in (np.float32, np.float64):
+            tag, size = np.dtype(np_dt).name, np.dtype(np_dt).itemsize
+            for nx, ny, nq in cases:
+                kx = make_knots(nx, "nonuniform", np_dt, rng)
+                ky = make_knots(ny, "log" if ny < 10_000 else "nonuniform", np_dt, rng)
+                x, y = torch.as_tensor(kx, device=dev), torch.as_tensor(ky, device=dev)
+                qx = torch.as_tensor(phase_queries(kx, nq, np_dt, rng), device=dev)
+                qy = torch.as_tensor(phase_queries(ky, nq, np_dt, rng)[::-1].copy(), device=dev)
+                want = ek._cell_index_plain(x, y, qx, qy)
+                label = f"{tag}, {nx:,} x {ny:,} knots, {nq:,} queries"
+                budgets = {"wrapper": default // 2 // size - 1, "global": 1,
+                           "leaders": max(2, max(nx, ny) // 16)}
+                if sweeps and max(nx, ny) > 4096:
+                    budgets |= {f"budget {t_ >> 10} KB": t_ // 2 // size - 1
+                                for t_ in R1_TREE_SWEEP}
+                ok = all([rec.add_pair("R1", f"{label}, {b_} knots staged an axis",
+                                       run(b_, x, y, qx, qy), want) for b_ in budgets.values()])
+                if nx == ny == 512:
+                    cell, tx, ty = run(budgets["wrapper"], x, y, qx, qy)
+                    ok &= rec.add("R1", f"{label} against K3", cell, ek.fused_lower_index(x, qx)
+                                  * (ny - 1) + ek.fused_lower_index(y, qy))
+                    ok &= rec.add_pair("R1", f"{label} against K2", (tx, ty), (
+                        ek.fused_index_frac(x, qx)[1], ek.fused_index_frac(y, qy)[1]))
+                got = {name: device_ms(lambda b_=b_: run(b_, x, y, qx, qy), 50)
+                       for name, b_ in budgets.items()}
+                bound_ms = bound("R1", (x, y, qx, qy))[0]
+                print(f"  R1 {label} ({'bit-identical' if ok else 'MISMATCH'}); bound "
+                      f"{bound_ms:.4f}:", flush=True)
+                for name, t_ in got.items():
+                    print(f"    {name} ({budgets[name]:,} knots an axis): {fmt(t_)}", flush=True)
+                out[label] = {"ms": got["wrapper"][0], "first_design_ms": got["global"][0],
+                              "leader_ms": got["leaders"][0], "bound_ms": bound_ms,
+                              **{f"{name} ms": t_[0] for name, t_ in got.items()
+                                 if name.startswith("budget")}}
+                del x, y, qx, qy, want
+    finally:
+        ek._R1_TREE_BYTES = default
+    torch.cuda.synchronize()
+    shape = "float32, 512 x 512 knots, 1,000,000 queries"
+    return {"first_design_ms": out[shape]["first_design_ms"], "shapes": out}
 
 
 def time_kernels(pairs, systems, card):
@@ -2079,6 +2277,7 @@ def timing2d(state, card, rec, sweeps):
         print(f"  {kid} {label}: {'bit-identical' if ok else 'MISMATCH'}", flush=True)
     timed = ("R1", "R2b", "R2g", "R2c", "R2d", "R2n", "K10", "K11", "K12", "K13")
     times = time_kernels({k: pairs[k] for k in timed}, systems, card)
+    times["R1"].update(r1_phase(qxd.device, card, rec, sweeps))
     times["R2b"]["row_floor_ms"] = row_floor_ms("R2b", systems["R2b"][0][1])
     print(f"  R2b row-read floor {times['R2b']['row_floor_ms']:.4f} (each query's own corner "
           f"row from HBM)", flush=True)
@@ -3359,8 +3558,8 @@ def main():
 
     ap = argparse.ArgumentParser(description="On-card check of the PyTorch port.")
     ap.add_argument("--sweeps", action="store_true",
-                    help="also run the design sweeps behind K3's tree budget, R2a's body, the "
-                         "ordered branches' crossovers and ORD's forms")
+                    help="also run the design sweeps behind K3's, K1's and R1's tree budgets, "
+                         "R2a's body, the ordered branches' crossovers and ORD's forms")
     sweeps = ap.parse_args().sweeps
     import torch
 

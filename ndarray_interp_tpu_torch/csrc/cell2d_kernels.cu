@@ -23,34 +23,43 @@
 //                         by cell (nested_ordered_kernel).
 //
 // What the TPU kernels did and these do not.  R1's Pallas body searched a
-// two-level window with one-hot bf16 split matrix products (_axis_search); a GPU
-// thread runs the plain binary search through L2, as K3 does, and loads the two
-// endpoints.  The Pallas tails took rows that XLA had already gathered, so the
-// gathered (Q, 4r + 4) or (Q, 16r) intermediate was written and read again; here
-// each thread fetches its own row from the packed table, as K8-K14 and R2a do, so
-// that intermediate never exists.  The corner-row table itself was a TPU device:
-// a gather a query was the cost there, so one row held all a query needed.  Here
-// R2g reads the grid, which the L2 holds, where the table (four times the grid)
-// does not fit it.  R2d's one-hot MXU build of the weight row (exact at
-// Precision.HIGHEST) was a TPU relayout trick: here each weight is the one
-// product Ax * Ay it stands for.  Neither the TPU's block multiples of the
-// query count nor its r % 8 == 0 apply.
+// two-level window with one-hot bf16 split matrix products (_axis_search); here
+// each block stages both axes once in shared memory, each as K3's breadth-first
+// tree (search.cuh), and a thread walks both trees in one loop and reads the two
+// endpoints of each axis from its tree.  The Pallas tails took rows that XLA had
+// already gathered, so the gathered (Q, 4r + 4) or (Q, 16r) intermediate was
+// written and read again; here each thread fetches its own row from the packed
+// table, as K8-K14 and R2a do, so that intermediate never exists.  The
+// corner-row table itself was a TPU device: a gather a query was the cost there,
+// so one row held all a query needed.  Here R2g reads the grid, which the L2
+// holds, where the table (four times the grid) does not fit it.  R2d's one-hot
+// MXU build of the weight row (exact at Precision.HIGHEST) was a TPU relayout
+// trick: here each weight is the one product Ax * Ay it stands for.  Neither the
+// TPU's block multiples of the query count nor its r % 8 == 0 apply.
 //
-// What bounds them on this card.  R1 reads 8 bytes a query and writes 12 (f32);
-// its two searches of 9 steps on a 512-knot axis hit L1/L2, so it is latency
-// bound like K3.  The tails write 4r bytes a query (f32).  R2b reads one corner
-// row a query at an address the cell selects, 272 B at r = 16: 272 MB at 1M
-// queries from a 71 MB table at 512 x 512 x 16, past the 50 MB L2.  R2g reads
-// the same values from the 16.8 MB grid, two runs of 2r contiguous values
-// (data[xi, yi:yi+2], data[xi+1, yi:yi+2]) and four axis values, all from L2;
-// only the cells, queries and outputs (76 MB) cross HBM.  At NS3's 1M queries
-// (an H100 80GB HBM3 at 700 W, tools/tail2d_phases.py): R2g 0.0562 ms, R2b on
-// 16-byte lanes 0.0994 (its row-read floor 0.104), a channel a lane 0.1215, the
-// first design (a thread an element, a 64-bit division each) 0.1281; on a
-// 2048 x 2048 x 16 grid past the L2, R2g 0.1212 against R2b's 0.1384.  Both take
-// W channels a lane with 16-byte loads and stores (f32 4, f64 2) where r and the
-// base allow them, one channel a lane else, up to 32 lanes a query and as many
-// queries as fill a block: no per-element division.
+// What bounds them on this card.  R1 reads 8 bytes a query and writes 12 (f32):
+// 20 MB and 0.0060 ms at 1M queries.  Its two searches of 10 levels on NS3's
+// 512-knot axes are shared-memory loads at addresses that spread over the banks
+// below the fifth level: 0.0152 ms at NS3's 1M queries (an H100 80GB HBM3 at
+// 700 W, tools/search_phases.py), against 0.0266 with every level on the global
+// axes (the first design's search, at a budget of one knot) and 0.0171 with the
+// two searches one after the other and no query loaded early.  Keeping the last
+// knot <= q and > q of each walk in registers, to spare the four endpoint loads,
+// took 0.0176: two more selects a level cost more than the loads.
+//
+// The tails write 4r bytes a query (f32).  R2b reads one corner row a query at
+// an address the cell selects, 272 B at r = 16: 272 MB at 1M queries from a
+// 71 MB table at 512 x 512 x 16, past the 50 MB L2.  R2g reads the same values from
+// the 16.8 MB grid, two runs of 2r contiguous values (data[xi, yi:yi+2],
+// data[xi+1, yi:yi+2]) and four axis values, all from L2; only the cells,
+// queries and outputs (76 MB) cross HBM.  At NS3's 1M queries (an H100 80GB HBM3
+// at 700 W, tools/tail2d_phases.py): R2g 0.0562 ms, R2b on 16-byte lanes 0.0994
+// (its row-read floor 0.104), a channel a lane 0.1215, the first design (a
+// thread an element, a 64-bit division each) 0.1281; on a 2048 x 2048 x 16 grid
+// past the L2, R2g 0.1212 against R2b's 0.1384.  Both take W channels a lane
+// with 16-byte loads and stores (f32 4, f64 2) where r and the base allow them,
+// one channel a lane else, up to 32 lanes a query and as many queries as fill a
+// block: no per-element division.
 //
 // R2c, R2d and R2n read a 1 KiB cell row a query (r = 16, f32): 1.07 GB at 1M
 // queries from a 267 MB table.  In query order each query's row comes from HBM,
@@ -78,7 +87,7 @@
 #include <stdint.h>
 
 #include "df_common.cuh"  // kThreads, Vec, wide_lanes, lane_grid, Slot, slot_of, ordered_blocks
-#include "search.cuh"     // lower_index
+#include "search.cuh"     // the staged search (R1)
 
 namespace {
 
@@ -118,24 +127,75 @@ __device__ __forceinline__ void basis(T t, T w[4]) {
   w[3] = -(p * t);
 }
 
+// One axis of R1 staged in shared memory: knot j w, j < c, in a tree of the
+// kernel's h levels (search.cuh)
 template <typename T>
-__global__ void cell_index_kernel(const T* __restrict__ x, int nx, const T* __restrict__ y,
-                                  int ny, const T* __restrict__ qx, const T* __restrict__ qy,
-                                  int32_t* __restrict__ cell, T* __restrict__ tx,
-                                  T* __restrict__ ty, int64_t nq) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= nq) return;
-  const T qxi = qx[i];
-  const T qyi = qy[i];
-  const int xi = lower_index(x, nx, qxi);
-  const int yi = lower_index(y, ny, qyi);
-  const T x_l = __ldg(x + xi);
-  const T x_r = __ldg(x + xi + 1);
-  const T y_l = __ldg(y + yi);
-  const T y_r = __ldg(y + yi + 1);
-  cell[i] = xi * (ny - 1) + yi;  // < 2^31: the wrapper checks the cell count
-  tx[i] = (qxi - x_l) / (x_r - x_l);
-  ty[i] = (qyi - y_l) / (y_r - y_l);
+struct StagedAxis {
+  const T* knots;
+  int n;
+  int64_t w;
+  int c;
+  T* tree;
+
+  __device__ __forceinline__ T knot(int64_t m) const { return __ldg(knots + m); }
+
+  // the clamped lower index of q from the slot s that h steps down the tree
+  // reached; NaN gives n-2, as lower_index (the tree's compares would all be
+  // false)
+  template <bool kWhole>
+  __device__ __forceinline__ int index(int s, int h, T q) const {
+    const auto at = [&](int64_t m) { return knot(m); };
+    return q == q ? clamp_index(leader_count<kWhole>(s, h, c, w, n, at, q), n) : n - 2;
+  }
+
+  // K2's fraction of q in interval i, the endpoints from the tree where it
+  // holds the whole axis
+  template <bool kWhole>
+  __device__ __forceinline__ T frac(T q, int i, int h) const {
+    const T l = kWhole ? tree[slot_of_rank(i, h)] : knot(i);
+    const T r = kWhole ? tree[slot_of_rank(i + 1, h)] : knot(i + 1);
+    return (q - l) / (r - l);
+  }
+};
+
+// R1 on two staged trees of h levels each, x's then y's in the block's shared
+// memory (kWhole: both hold their whole axis).  Both searches step down their
+// trees in one loop, two independent shared loads a level, and each thread
+// loads its next queries before it searches the present ones.
+template <typename T, bool kWhole>
+__global__ void __launch_bounds__(kSearchThreads)
+    staged_cell_index_kernel(StagedAxis<T> ax, StagedAxis<T> ay, int h,
+                             const T* __restrict__ qx, const T* __restrict__ qy,
+                             int32_t* __restrict__ cell, T* __restrict__ tx,
+                             T* __restrict__ ty, int64_t nq) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  ax.tree = reinterpret_cast<T*>(smem);
+  ay.tree = ax.tree + (1 << h);
+  stage_tree(ax.tree, [&](int64_t m) { return ax.knot(m); }, ax.w, ax.c, h);
+  stage_tree(ay.tree, [&](int64_t m) { return ay.knot(m); }, ay.w, ay.c, h);
+  __syncthreads();
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  T qxi = i < nq ? qx[i] : T(0);
+  T qyi = i < nq ? qy[i] : T(0);
+#pragma unroll 1
+  for (; i < nq; i += stride) {
+    const bool more = i + stride < nq;
+    const T qx_next = more ? qx[i + stride] : T(0);
+    const T qy_next = more ? qy[i + stride] : T(0);
+    int sx = 1, sy = 1;
+    for (int l = 0; l < h; ++l) {
+      sx = 2 * sx + (ax.tree[sx] <= qxi);
+      sy = 2 * sy + (ay.tree[sy] <= qyi);
+    }
+    const int xi = ax.template index<kWhole>(sx, h, qxi);
+    const int yi = ay.template index<kWhole>(sy, h, qyi);
+    cell[i] = xi * (ay.n - 1) + yi;  // < 2^31: the wrapper checks the cell count
+    tx[i] = ax.template frac<kWhole>(qxi, xi, h);
+    ty[i] = ay.template frac<kWhole>(qyi, yi, h);
+    qxi = qx_next;
+    qyi = qy_next;
+  }
 }
 
 // A (query, channel chunk) lane of the tails on W-wide lanes: threadIdx.y the
@@ -332,16 +392,54 @@ inline unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
 
+// an axis of n knots staged as at most `budget` of them: every w-th knot
 template <typename T>
-int cell_index(const void* x, int64_t nx, const void* y, int64_t ny, const void* qx,
-               const void* qy, void* cell, void* tx, void* ty, int64_t nq, void* stream) {
-  if (nq > 0) {
-    cell_index_kernel<T><<<blocks_for(nq), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(x), static_cast<int>(nx), static_cast<const T*>(y),
-        static_cast<int>(ny), static_cast<const T*>(qx), static_cast<const T*>(qy),
-        static_cast<int32_t*>(cell), static_cast<T*>(tx), static_cast<T*>(ty), nq);
-  }
-  return static_cast<int>(cudaGetLastError());
+StagedAxis<T> staged_axis(const void* knots, int64_t n, int64_t budget) {
+  const int64_t w = (n + budget - 1) / budget;
+  return {static_cast<const T*>(knots), static_cast<int>(n), w,
+          static_cast<int>((n + w - 1) / w), nullptr};
+}
+
+template <typename T, bool kWhole>
+cudaError_t staged_cell_index(const StagedAxis<T>& ax, const StagedAxis<T>& ay, const T* qx,
+                              const T* qy, int32_t* cell, T* tx, T* ty, int64_t nq,
+                              cudaStream_t s) {
+  auto kernel = staged_cell_index_kernel<T, kWhole>;
+  // one depth for both trees, the larger axis's: the smaller tree's extra
+  // levels are +inf slots, walked beside the larger tree's
+  const int hx = tree_levels(ax.c), hy = tree_levels(ay.c);
+  const int h = hx > hy ? hx : hy;
+  const size_t smem = (static_cast<size_t>(2) << h) * sizeof(T);
+  const int threads = kWhole ? kSearchThreads : kSearchThreads / 2;
+  unsigned int blocks = 0;
+  const cudaError_t err = staged_grid(kernel, threads, smem, nq, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, threads, smem, s>>>(ax, ay, h, qx, qy, cell, tx, ty, nq);
+  return cudaGetLastError();
+}
+
+// R1 with each axis on a tree of at most shared_knots knots (capped at the
+// largest of two trees a block holds; at least 1)
+template <typename T>
+int cell_index(const void* x, int64_t nx, const void* y, int64_t ny, int64_t shared_knots,
+               const void* qx, const void* qy, void* cell, void* tx, void* ty, int64_t nq,
+               void* stream) {
+  if (nq <= 0) return static_cast<int>(cudaGetLastError());
+  int64_t budget = 1;
+  cudaError_t err = tree_budget(shared_knots, sizeof(T), &budget, 2);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const StagedAxis<T> ax = staged_axis<T>(x, nx, budget);
+  const StagedAxis<T> ay = staged_axis<T>(y, ny, budget);
+  const T* qxx = static_cast<const T*>(qx);
+  const T* qyy = static_cast<const T*>(qy);
+  int32_t* c = static_cast<int32_t*>(cell);
+  T* txx = static_cast<T*>(tx);
+  T* tyy = static_cast<T*>(ty);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = ax.w == 1 && ay.w == 1
+            ? staged_cell_index<T, true>(ax, ay, qxx, qyy, c, txx, tyy, nq, s)
+            : staged_cell_index<T, false>(ax, ay, qxx, qyy, c, txx, tyy, nq, s);
+  return static_cast<int>(err);
 }
 
 // R2b: 16-byte lanes where the rows allow them, one channel a lane else
@@ -430,16 +528,18 @@ int nested_ordered(const void* tbl, int64_t ch, int64_t r, const void* rec, void
 
 extern "C" {
 
-int ndi_cell_index_f32(const void* x, int64_t nx, const void* y, int64_t ny, const void* qx,
-                       const void* qy, void* cell, void* tx, void* ty, int64_t nq,
-                       void* stream) {
-  return cell_index<float>(x, nx, y, ny, qx, qy, cell, tx, ty, nq, stream);
+// R1: x, nx, y, ny, shared_knots (the most knots a block stages of each axis;
+// 1: every level of both searches on the global axes), qx, qy, cell, tx, ty, nq
+int ndi_cell_index_f32(const void* x, int64_t nx, const void* y, int64_t ny,
+                       int64_t shared_knots, const void* qx, const void* qy, void* cell,
+                       void* tx, void* ty, int64_t nq, void* stream) {
+  return cell_index<float>(x, nx, y, ny, shared_knots, qx, qy, cell, tx, ty, nq, stream);
 }
 
-int ndi_cell_index_f64(const void* x, int64_t nx, const void* y, int64_t ny, const void* qx,
-                       const void* qy, void* cell, void* tx, void* ty, int64_t nq,
-                       void* stream) {
-  return cell_index<double>(x, nx, y, ny, qx, qy, cell, tx, ty, nq, stream);
+int ndi_cell_index_f64(const void* x, int64_t nx, const void* y, int64_t ny,
+                       int64_t shared_knots, const void* qx, const void* qy, void* cell,
+                       void* tx, void* ty, int64_t nq, void* stream) {
+  return cell_index<double>(x, nx, y, ny, shared_knots, qx, qy, cell, tx, ty, nq, stream);
 }
 
 #define NDI_CELL_TAIL(name, body)                                                         \

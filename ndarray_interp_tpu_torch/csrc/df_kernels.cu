@@ -150,10 +150,10 @@ __global__ void df_eval1d_kernel(const float* __restrict__ xh, const float* __re
 }
 
 // -- K7 ------------------------------------------------------------------------------
-// Threads a block: a block that holds the whole axis (up to 128 KB) is alone
-// on its SM, so it brings the warps; a leader search launches half as many,
-// which at 70,001 knots took 0.053 ms against 0.070 with 1,024.
-constexpr int kSearchThreads = 1024;
+// Threads a block (search.cuh's kSearchThreads, 1,024): a block that holds
+// the whole axis (up to 128 KB) is alone on its SM, so it brings the warps; a
+// leader search launches half as many, which at 70,001 knots took 0.053 ms
+// against 0.070 with 1,024.
 
 // Shared memory holds c widened knots, knot j w for j < c, as the tree of
 // search.cuh.  kWhole (w = 1): the whole axis, and the search and x_l, x_r

@@ -7,13 +7,13 @@
 // torch does (every comparison with NaN is false, so it is explicit here).
 // The axis is read through the read-only path (__ldg): one dependent global
 // load a level, and below the first levels the 32 lanes of a warp read 32
-// different lines.
+// different lines.  Only K2 still searches so.
 //
-// The staged search (K3, and K7 on its widened pairs) reads a copy of the
-// axis that each block stages once in shared memory, in breadth-first
-// (Eytzinger) order: slot 1 the middle knot, slots 2k and 2k + 1 the middles
-// of the halves below slot k, a perfect tree of 2^h - 1 slots, those past the
-// c staged knots +inf.  A search step is then s = 2s + (tree[s] <= q): one
+// The staged search (K1, K3, R1 on each of its two axes, and K7 on its
+// widened pairs) reads a copy of the axis that each block stages once in
+// shared memory, in breadth-first (Eytzinger) order: slot 1 the middle knot,
+// slots 2k and 2k + 1 the middles of the halves below slot k, a perfect tree
+// of 2^h - 1 slots, those past the c staged knots +inf.  A search step is then s = 2s + (tree[s] <= q): one
 // shared load, a compare and a shift-add on the dependent chain, and after h
 // steps s - 2^h is the count of staged knots <= q (the path's bits; +inf
 // passes the +inf slots, so the count is clamped to c).  The probes of level L
@@ -37,6 +37,11 @@
 #include <utility>
 
 namespace {
+
+// Threads a block of a staged search whose tree holds the whole axis; a
+// leader search runs half as many (its last levels leave the shared tree for
+// the global axis).
+constexpr int kSearchThreads = 1024;
 
 // Clamped lower-interval index of q on the strictly rising axis knots[0..n).
 template <typename T>
@@ -111,17 +116,25 @@ __device__ __forceinline__ void stage_tree(T* tree, Knot knot, int64_t w, int c,
 }
 
 // The count of knots <= q (q not NaN) of an axis of n knots whose knots j w,
-// j < c, are staged in tree: the tree's count, then, unless the tree holds
-// the whole axis, the search between two leaders on knot(m).
+// j < c, are staged in a tree of h levels, from the slot s that h steps down
+// the tree reached: the tree's count, then, unless the tree holds the whole
+// axis, the search between two leaders on knot(m).
+template <bool kWhole, typename T, class Knot>
+__device__ __forceinline__ int64_t leader_count(int s, int h, int c, int64_t w, int64_t n,
+                                                Knot knot, T q) {
+  const int count = s - (1 << h) < c ? s - (1 << h) : c;  // +inf passes the +inf slots
+  if (kWhole || count == 0) return count;
+  const int64_t base = (count - 1) * w;  // knot base <= q < knot base + w, where it exists
+  return upper_bound(knot, base + 1, base + w < n ? base + w : n, q);
+}
+
+// The same count, h steps down tree from its root first.
 template <bool kWhole, typename T, class Knot>
 __device__ __forceinline__ int64_t staged_count(const T* tree, int h, int c, int64_t w, int64_t n,
                                                 Knot knot, T q) {
   int s = 1;
   for (int l = 0; l < h; ++l) s = 2 * s + (tree[s] <= q);
-  const int count = s - (1 << h) < c ? s - (1 << h) : c;  // +inf passes the +inf slots
-  if (kWhole || count == 0) return count;
-  const int64_t base = (count - 1) * w;  // knot base <= q < knot base + w, where it exists
-  return upper_bound(knot, base + 1, base + w < n ? base + w : n, q);
+  return leader_count<kWhole>(s, h, c, w, n, knot, q);
 }
 
 // a count of knots <= q minus one, clamped to [0, n-2]
@@ -148,26 +161,33 @@ inline StagedLaunches& staged_launches() {
   return kept;
 }
 
-// The most knots a tree of elements of `size` bytes holds in a block's shared
-// memory, capped at `budget` (at least 1).
-inline cudaError_t tree_budget(int64_t budget, size_t size, int64_t* out) {
+// The shared memory a block of the current device may take, in bytes.
+inline cudaError_t block_optin(int* out) {
   int dev = 0;
   const cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   StagedLaunches& kept = staged_launches();
-  int optin = 48 * 1024;
-  {
-    const std::lock_guard<std::mutex> lock(kept.mu);
-    const auto it = kept.optin.find(dev);
-    if (it != kept.optin.end()) {
-      optin = it->second;
-    } else {
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-      kept.optin.emplace(dev, optin);
-    }
+  const std::lock_guard<std::mutex> lock(kept.mu);
+  const auto it = kept.optin.find(dev);
+  if (it != kept.optin.end()) {
+    *out = it->second;
+  } else {
+    int optin = 48 * 1024;
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    kept.optin.emplace(dev, optin);
+    *out = optin;
   }
+  return cudaSuccess;
+}
+
+// The most knots a tree of elements of `size` bytes holds in 1 / `trees` of a
+// block's shared memory, capped at `budget` (at least 1).
+inline cudaError_t tree_budget(int64_t budget, size_t size, int64_t* out, int trees = 1) {
+  int optin = 0;
+  const cudaError_t err = block_optin(&optin);
+  if (err != cudaSuccess) return err;
   int64_t most = 1;
-  while ((most + 1) * 2 * static_cast<int64_t>(size) <= optin) most = 2 * most + 1;
+  while ((most + 1) * 2 * static_cast<int64_t>(size) * trees <= optin) most = 2 * most + 1;
   *out = budget < 1 ? 1 : (budget < most ? budget : most);
   return cudaSuccess;
 }

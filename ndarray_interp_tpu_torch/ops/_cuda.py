@@ -67,7 +67,8 @@ _CELL_TAIL_F = ((_P, _I, _I, _I, _P, _P, _P, _P, _I, _P), _BOTH)
 # argument types of each entry point, stream last, and the dtypes it has a
 # symbol for: <name>_f32, <name>_f64
 _SIGNATURES = {
-    "ndi_eval1d": ((_P, _I, _P, _I, _P, _P, _I, _P), _BOTH),
+    # knots, n, tbl, ch, shared_knots, row_read, q, out, nq
+    "ndi_eval1d": ((_P, _I, _P, _I, _I, _I, _P, _P, _I, _P), _BOTH),
     "ndi_index_frac": ((_P, _I, _P, _P, _P, _I, _P), _BOTH),
     # knots, n, shared_knots, q, idx, nq
     "ndi_lower_index": ((_P, _I, _I, _P, _P, _I, _P), _BOTH),
@@ -80,8 +81,8 @@ _SIGNATURES = {
     "ndi_big_eval": ((_P, _I, _P, _P, _P, _P, _P, _I, _P), _BOTH),
     # knots, n, q, idx, t, nq
     "ndi_big_index_frac": ((_P, _I, _P, _P, _P, _I, _P), _BOTH),
-    # x, nx, y, ny, qx, qy, cell, tx, ty, nq
-    "ndi_cell_index": ((_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P), _BOTH),
+    # x, nx, y, ny, shared_knots (each axis), qx, qy, cell, tx, ty, nq
+    "ndi_cell_index": ((_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P), _BOTH),
     "ndi_bilinear_tail": _CELL_TAIL_F,
     "ndi_bicubic_seq_tail": _CELL_TAIL_F,
     "ndi_bicubic_tree_tail": _CELL_TAIL_F,

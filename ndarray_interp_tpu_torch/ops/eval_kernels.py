@@ -4,14 +4,22 @@ Counterpart of ``ndarray_interp_tpu.ops.pallas_eval``.  The CUDA kernels
 are in ``csrc/eval_kernels.cu`` and, for R1, ``csrc/cell2d_kernels.cu``:
 
 * :func:`fused_eval_1d` (K1): bucketize, interval-row fetch and the
-  symmetric Hermite form in one pass, for scalar data;
+  symmetric Hermite form in one pass, for scalar data; the search on the
+  axis staged in shared memory as a breadth-first tree (``_K1_TREE_BYTES``),
+  the row read in the form ``_K1_ROW_READ`` names for the dtype;
 * :func:`fused_index_frac` (K2): the search emitting ``(idx, t)``, which
-  feeds the bank-data eval;
+  feeds the bank-data eval, on the axis in global memory;
 * :func:`fused_lower_index` (K3): the search emitting ``idx``, on the axis
-  staged in shared memory as a breadth-first tree (``_K3_TREE_BYTES``);
-* :func:`fused_cell_index` (R1): both 2-D axis searches in one pass,
-  emitting the flat cell and both fractions, which feed the 2-D tails of
+  staged as K1's (``_K3_TREE_BYTES``);
+* :func:`fused_cell_index` (R1): both 2-D axis searches in one pass, each
+  axis on its own staged tree (half of ``_R1_TREE_BYTES`` each), emitting
+  the flat cell and both fractions, which feed the 2-D tails of
   :mod:`.tail2d`.
+
+On an H100 80GB HBM3 at 700 W (``tools/search_phases.py``): K1 at 2,048 knots x 1M
+f32 queries 0.0124 ms against the first design's 0.0244 (every level of the
+search on the global axis, six scalar loads a row); R1 at 512 + 512 knots x
+1M f32 0.0152 against 0.0266.
 
 Each has its plain PyTorch version here (:func:`_eval_plain`, the
 counterpart of the JAX package's ``_eval_xla``; :func:`_index_frac_plain`;
@@ -79,6 +87,27 @@ def _flat_queries(name, knots, q):
     return q.reshape(-1).contiguous()
 
 
+# K1's shared-memory budget, as K3's: the axis staged whole up to 8,191 f32 /
+# 4,095 f64 knots, every w-th knot above it with the last levels of the
+# search on the global axis; at one knot every level runs on the global axis
+# (the first design's search).  Measured on an H100 80GB HBM3 at 700 W
+# (tools/search_phases.py --sweeps, 1M queries), trees of 16 / 32 / 64 KB:
+# f32 at 70,001 knots 0.0431 / 0.0396 / 0.0429 ms (one knot 0.0390), at
+# 262,144 0.0544 / 0.0527 / 0.0586 (one knot 0.0660); f64 at 70,001 0.0502 /
+# 0.0483 / 0.0502 (one knot 0.0509).  At 2,048 knots (NS1) the tree is the
+# whole axis at any of them: 0.0124 against 0.0244 at one knot.
+_K1_TREE_BYTES = 32 << 10
+# K1's row read by dtype (csrc/eval_kernels.cu RowRead): 0 six scalar loads,
+# 1 three 2-element loads where the table allows them, 2 the rows staged in
+# shared memory beside a whole tree where both fit (else as 1).  At 2,048
+# knots x 1M queries on the same card, scalar / 2-element / shared: f32
+# 0.0151 / 0.0124 / 0.0135 ms, f64 0.0217 / 0.0180 / 0.0171 (a second run
+# 0.0153 / 0.0126 / 0.0137 and 0.0217 / 0.0181 / 0.0172).  Staging 49 KB of
+# f32 rows a block costs more than the 2-element loads save; 98 KB of f64
+# rows win over 48-byte rows read as three 16-byte loads.
+_K1_ROW_READ = {torch.float32: 1, torch.float64: 2}
+
+
 def _launch_eval(knots, tbl, q):
     dtype = _cuda.float_operands("fused_eval_1d", q, knots, tbl)
     qf = _flat_queries("fused_eval_1d", knots, q)
@@ -92,7 +121,8 @@ def _launch_eval(knots, tbl, q):
     out = torch.empty_like(qf)
     _cuda.launch(
         "ndi_eval1d", dtype, q.device,
-        knots, n, tbl, tbl.shape[1], qf, out, qf.shape[0],
+        knots, n, tbl, tbl.shape[1], _K1_TREE_BYTES // qf.element_size() - 1,
+        _K1_ROW_READ[dtype], qf, out, qf.shape[0],
     )
     fused_eval_1d.launches += 1
     return out.reshape(q.shape)
@@ -157,6 +187,21 @@ def _check_cell_axes(x, y, qx, qy):
         raise ValueError("fused_cell_index: the int32 cell index takes fewer than 2^31 cells")
 
 
+# R1's shared-memory budget for its two trees, split in halves: each axis a
+# tree of 16 KB, whole up to 4,095 f32 / 2,047 f64 knots, leaders above; the
+# kernel gives both trees the larger one's depth, so that both searches step
+# down in one loop.  Halves because a tree is a power of two of slots: no other
+# split gives either axis a larger tree unless the other gets none, and both
+# axes are searched once a query.  Measured on an H100 80GB HBM3 at 700 W
+# (chip_smoke.py --sweeps, 1M queries), budgets of 16 / 32 / 64 / 128 KB: f32
+# at 70,001 x 33 knots 0.0380 / 0.0319 / 0.0437 / 0.0433 ms (one knot an axis
+# 0.0357), at 33 x 70,001 0.0390 / 0.0329 / 0.0496 / 0.0427, at 8,192 x 8,192
+# 0.0265 / 0.0267 / 0.0292 / 0.0226 (two whole trees; one knot 0.0471); f64 at
+# 70,001 x 33 0.0492 / 0.0462 / 0.0518 / 0.0466.  NS3's 512-knot axes are whole
+# at any of them: 0.0149 against 0.0266 at one knot.
+_R1_TREE_BYTES = 32 << 10
+
+
 def _launch_cell_index(x, y, qx, qy):
     dtype = _cuda.float_operands("fused_cell_index", qx, qy, x, y)
     qxf, qyf = qx.reshape(-1).contiguous(), qy.reshape(-1).contiguous()
@@ -165,7 +210,8 @@ def _launch_cell_index(x, y, qx, qy):
     tx, ty = torch.empty_like(qxf), torch.empty_like(qyf)
     _cuda.launch(
         "ndi_cell_index", dtype, qx.device,
-        x, x.shape[0], y, y.shape[0], qxf, qyf, cell, tx, ty, qxf.shape[0],
+        x, x.shape[0], y, y.shape[0], _R1_TREE_BYTES // 2 // qxf.element_size() - 1,
+        qxf, qyf, cell, tx, ty, qxf.shape[0],
     )
     return cell.reshape(qx.shape), tx.reshape(qx.shape), ty.reshape(qx.shape)
 

@@ -1428,6 +1428,78 @@ def test_lower_index_kernel_matches_plain_at_every_budget(dev, dtype, n, shared,
     assert got[-9].item() == n - 2 and got[-8].item() == n - 2 and got[-7].item() == 0
 
 
+# -- K1 on the staged tree, in each row read ----------------------------------------------
+@pytest.mark.parametrize("read", [0, 1, 2])
+@pytest.mark.parametrize("shared", [None, 1, 2, 7, 63, 40_000])
+@pytest.mark.parametrize("n", [2, 3, 33, 2048, 70_001])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_eval_kernel_matches_plain_at_every_budget_and_row_read(dev, dtype, n, shared, read,
+                                                                 monkeypatch):
+    """K1 at the wrapper's budget (``None``: a 32 KB tree), at one knot
+    (every level of the search on the global axis), as leaders and past the
+    largest tree a block holds, in each row read (six scalar loads, three
+    2-element loads, the rows in shared memory where they fit), on a cubic
+    and a linear table, a table of 7 columns off 2-element alignment (the
+    scalar loads whatever the read asks), and 0, 1, 2 and 1,000,000 queries
+    with NaN, +-inf, +-1e38, the knots and far extrapolation: bit for bit
+    ``_eval_plain``."""
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+
+    if shared is not None:
+        monkeypatch.setattr(ek, "_K1_TREE_BYTES", (shared + 1) * np.dtype(dtype).itemsize)
+    monkeypatch.setattr(ek, "_K1_ROW_READ", {torch.float32: read, torch.float64: read})
+    rng = np.random.default_rng(n + 11)
+    kn = knots(n, dtype, n + 7)
+    k = torch.as_tensor(kn, device=dev)
+    d, a, b = (torch.as_tensor(rng.normal(size=m).astype(dtype), device=dev)
+               for m in (n, n - 1, n - 1))
+    cubic = ek.make_interval_table(k, d, a, b)
+    wide = torch.cat([cubic, torch.zeros_like(cubic[:, :1])], 1)
+    off = torch.empty(wide.numel() + 1, dtype=k.dtype, device=dev)[1:].view(n - 1, 7)
+    off.copy_(wide)
+    body = queries(kn, dtype, n, count=1_000_000 - n - 9)
+    for q in (body[:0], body[-9:-8], body[-9:-7], body):  # 0, NaN, NaN and +inf, 1M
+        q = torch.as_tensor(q, device=dev)
+        for tbl in (cubic, ek.make_interval_table(k, d), off):
+            got, launched = launched_by(lambda: ek.fused_eval_1d(k, tbl, q))
+            assert launched == {"K1": 1}
+            assert same(got, ek._eval_plain(k, tbl, q)), (q.numel(), shared, tbl.shape)
+    torch.cuda.synchronize()
+
+
+# -- R1 on two staged trees ----------------------------------------------------------------
+@pytest.mark.parametrize("shared", [None, 1, 2, 7, 63, 40_000])
+@pytest.mark.parametrize("nx,ny", [(2, 2), (3, 37), (512, 512), (70_001, 33), (33, 70_001)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cell_index_kernel_matches_plain_at_every_budget(dev, dtype, nx, ny, shared, monkeypatch):
+    """R1 with each axis on a tree of half the wrapper's budget (``None``),
+    at one knot an axis (every level of both searches on the global axes),
+    as leaders and past the largest two trees a block holds, on 0, 1, 2 and
+    1,000,000 queries with NaN, +-inf, +-1e38, the knots and far
+    extrapolation on both axes: the cell and both fractions bit for bit
+    ``_cell_index_plain``, the cell K3's and the fractions K2's."""
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+
+    if shared is not None:
+        monkeypatch.setattr(ek, "_R1_TREE_BYTES", 2 * (shared + 1) * np.dtype(dtype).itemsize)
+    rng = np.random.default_rng(nx + 3 * ny)
+    x = torch.as_tensor(knots(nx, dtype, nx), device=dev)
+    y = torch.as_tensor(knots(ny, dtype, ny + 1), device=dev)
+    bx = queries(x.cpu().numpy(), dtype, nx, count=1_000_000 - nx - 9)
+    by = queries(y.cpu().numpy(), dtype, ny, count=1_000_000 - ny - 9)
+    by[:-9] = rng.permutation(by[:-9])  # the special values stay last, in step with bx's
+    for part in (slice(0), slice(-9, -8), slice(-9, -7), slice(None)):  # 0, NaN, +inf, 1M
+        qx, qy = torch.as_tensor(bx[part], device=dev), torch.as_tensor(by[part], device=dev)
+        got, launched = launched_by(lambda: ek.fused_cell_index(x, y, qx, qy))
+        assert launched == {"R1": 1}
+        want = ek._cell_index_plain(x, y, qx, qy)
+        assert all(same(g, w) for g, w in zip(got, want)), (qx.numel(), shared)
+    cell, tx, ty = got
+    assert same(cell, ek.fused_lower_index(x, qx) * (ny - 1) + ek.fused_lower_index(y, qy))
+    assert same(tx, ek.fused_index_frac(x, qx)[1]) and same(ty, ek.fused_index_frac(y, qy)[1])
+    torch.cuda.synchronize()
+
+
 # -- the f32/f64 2-D cell route: R1, R2b, R2c, R2d, R2n ---------------------------------
 def cell_route_case(nx, ny, r, nq, dtype, dev, seed):
     """Axes, queries (NaN, +-inf, +-1e38, the knots themselves and far

@@ -1,0 +1,66 @@
+"""K1's and R1's designs on the staged search, on one card.
+
+Runs ``chip_smoke.py``'s two search phases alone: ``k1_phase`` (the fused
+1-D eval on 2 to 70,001 knots and 2 to 1,000,000 queries, by shared-memory
+budget and by row read, beside the first design: one knot staged, every
+level of the search on the global axis, six scalar loads a row) and
+``r1_phase`` (the 2-D cell search on 2 x 2 to 70,001 x 33 knots, by budget,
+beside the first design), f32 and f64, every output held bit for bit
+against its plain version.
+
+    python3 tools/search_phases.py [--sweeps]
+
+``--sweeps`` adds K1's tree from 16 to 64 KB at 70,001 and 262,144 knots
+and R1's budget at 8,192 x 8,192 and 70,001 x 33 knots: the data behind
+the wrappers' budgets.  Needs one CUDA card; exits non-zero on a mismatch.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sweeps", action="store_true")
+    args = ap.parse_args()
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs  # its helpers import the port only when called
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("search_phases: no CUDA card")
+    from ndarray_interp_tpu_torch.ops import _cuda
+
+    card = cs.card_line()
+    t0 = time.perf_counter()
+    _cuda.library()
+    print(f"card {card}; kernel build {time.perf_counter() - t0:.1f} s", flush=True)
+    dev = torch.device("cuda", 0)
+    rec = cs.Record()
+    # a yardstick across calls: K3 at NS1's shape, code no design here touches
+    import numpy as np
+
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+
+    rng = np.random.default_rng(57)
+    kn = cs.make_knots(2048, "nonuniform", np.float32, rng)
+    k = torch.as_tensor(kn, device=dev)
+    q = torch.as_tensor(rng.permutation(cs.make_queries(kn, 1_000_000, np.float32, rng)),
+                        device=dev)
+    print(f"K3 at 2,048 knots x 1,000,000 f32 (the wrapper's tree): "
+          f"{cs.fmt(cs.device_ms(lambda: ek.fused_lower_index(k, q), 50))}", flush=True)
+    cs.k1_phase(dev, card, rec, args.sweeps)
+    cs.r1_phase(dev, card, rec, args.sweeps)
+    if cs.failures:
+        sys.exit(f"search_phases: {len(cs.failures)} failure(s)")
+    print(f"search_phases: all bit-identical; {time.perf_counter() - t0:.0f} s", flush=True)
+
+
+if __name__ == "__main__":
+    main()
