@@ -117,14 +117,23 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    beside the first design (one knot, six scalar loads a row), at NS1's
    shape in every row read; R1 (``r1_phase``) on 2 x 2, NS3's 512 x 512
    and 70,001 x 33 knots (either way round) the same way, at 512 x 512
-   also against K3's index and K2's fractions.  R2a at NS2b (10,240 x 64,
+   also against K3's index and K2's fractions.  K2 (``k2_phase``) at the
+   paths' shapes (64, 256 and 512 knots x 1,000,000, 10,000 x 262,144,
+   10,240 x 1,000,000, 64 x 256) and at 2 and 70,001 knots, f32 and f64,
+   at the wrapper's budget, in its first design (budget 0), at one knot and
+   as leaders, idx and t bit for bit ``_index_frac_plain``; R3
+   (``r3_phase``) at 65,537, 262,144 (NS1b) and 8,388,480 knots on
+   1,000,000 queries (f64 too at the first two) the same way, cubic and
+   linear tables, bit for bit ``_big_eval_plain`` and K1's ``_eval_plain``.
+   R2a at NS2b (10,240 x 64,
    1,000,000 queries) and at the bank eval's shape: its 16-byte lanes
    against the first design's column a lane (on a table off 16-byte
    alignment), held bit for bit and timed in turn.  ``--sweeps`` adds the
    design sweeps behind those choices: K3's tree from 16 to 128 KB and the
    tree against the global search on batches of 2 to 65,536; K1's tree
    from 16 to 64 KB at 70,001 and 262,144 knots; R1's budget from 16 to
-   128 KB at 8,192 x 8,192 and 70,001 x 33 knots; R2a with
+   128 KB at 8,192 x 8,192 and 70,001 x 33 knots; K2's tree from 16 to 128
+   KB past 8,191 knots, R3's at 262,144 and 8,388,480 knots; R2a with
    every query in one interval and in interval order (the diagnosis), in
    f64, and on prefixes of 2^12 to 2^20 queries at banks 8, 64 and 256.
    Every kernel's launches are summed over every path.
@@ -800,7 +809,8 @@ def main_path_systems(state):
 def timing(state, card, rec, sweeps):
     """Hold each kernel, through its public wrapper, against its plain version
     on the inputs the main path gave it; then time both at the main path's
-    float32 shape, and K3 by its budgets (``k3_phase``)."""
+    float32 shape, and K3, K1 and K2 by their budgets (``k3_phase``,
+    ``k1_phase``, ``k2_phase``)."""
     import torch
 
     from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
@@ -834,6 +844,7 @@ def timing(state, card, rec, sweeps):
     print(f"  K3 library call torch.searchsorted: {fmt(lib)}", flush=True)
     times["K3"].update(k3_phase(q3.device, card, rec, sweeps))
     times["K1"].update(k1_phase(q3.device, card, rec, sweeps))
+    times["K2"].update(k2_phase(q3.device, card, rec, sweeps))
     label, args = systems["K4"][1]
     tk_, tp_ = device_ms(lambda: tk.thomas_solve_fast(*args), 3), device_ms(
         lambda: thomas_solve(*args), 1)
@@ -1121,6 +1132,167 @@ def r1_phase(dev, card, rec, sweeps):
     torch.cuda.synchronize()
     shape = "float32, 512 x 512 knots, 1,000,000 queries"
     return {"first_design_ms": out[shape]["first_design_ms"], "shapes": out}
+
+
+# K2's and R3's trees with --sweeps: K2 at axes past its whole 16 KB f32 tree,
+# R3 at NS1b's 262,144 knots and MAX_BIG_KNOTS
+K2_TREE_SWEEP = (16 << 10, 32 << 10, 64 << 10, 128 << 10)
+R3_TREE_SWEEP = (16 << 10, 32 << 10, 64 << 10, 128 << 10)
+
+
+def k2_phase(dev, card, rec, sweeps):
+    """K2 at the paths' shapes (64 and 256 knots x 1,000,000: the N-D axes;
+    512 x 1,000,000: NS3b's calculus axes; 10,000 x 262,144: the bank eval;
+    10,240 x 1,000,000: NS2b; 64 x 256: NS5b) and at 2 and 70,001 knots x
+    1,000,000, in f32 and f64: each as the wrapper runs it (its rule: the
+    first design or its tree), in its first design (0: a thread a query on
+    the global search), at one knot (every level of the search on the
+    global axis), as leaders (every 16th knot staged) and on the wrapper's
+    tree, held bit for bit against ``_index_frac_plain`` (idx and t) on
+    queries with NaN, +-inf, +-1e38, the knots and far extrapolation, and
+    timed in each.  With ``sweeps``, also trees of 16 to 128 KB past 4,095
+    knots, and the shapes where the rule turns (32 and 128 knots x
+    1,000,000; 10,000 knots x 2^17 to 2^20).  Returns the keys the kernels
+    line adds."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+
+    rng = np.random.default_rng(58)
+    default = ek._K2_TREE_BYTES
+    cases = [(64, 1_000_000), (256, 1_000_000), (512, 1_000_000), (10_000, 262_144),
+             (10_240, 1_000_000), (64, 256), (2, 1_000_000), (70_001, 1_000_000)]
+    out = {}
+    print(f"K2 by shared-memory budget (the wrapper: its rule, the first design below "
+          f"{ek._K2_QUERIES_A_KNOT} queries a knot or on an axis of at most "
+          f"{ek._K2_SMALL_AXIS_BYTES} B, else its tree of {default:,} B; 0: the first design; "
+          f"one knot: every level global), ms (median [min, max] of {RUNS} runs by CUDA "
+          f"events; card: {card}):", flush=True)
+
+    def run(knots_staged, k, q):
+        ek._k2_budget = rule if knots_staged is None else lambda n, nq, size: knots_staged
+        return ek.fused_index_frac(k, q)
+
+    rule = ek._k2_budget
+    if sweeps:  # where the wrapper's rule turns: axis bytes and queries a knot
+        cases += [(n, 1_000_000) for n in (32, 128)] + [
+            (10_000, nq) for nq in (131_072, 524_288, 1_048_576)]
+    try:
+        for np_dt in (np.float32, np.float64):
+            tag, size = np.dtype(np_dt).name, np.dtype(np_dt).itemsize
+            for n, nq in cases:
+                kn = make_knots(n, "nonuniform", np_dt, rng)
+                k = torch.as_tensor(kn, device=dev)
+                q = torch.as_tensor(phase_queries(kn, nq, np_dt, rng), device=dev)
+                want = ek._index_frac_plain(k, q)
+                label = f"{tag}, {n:,} knots, {nq:,} queries"
+                budgets = {"wrapper": None, "first design": 0, "global": 1,
+                           "leaders": max(2, n // 16), "tree": default // size - 1}
+                if sweeps and n > 4095:
+                    budgets |= {f"tree {t_ >> 10} KB": t_ // size - 1 for t_ in K2_TREE_SWEEP}
+                ok = all([rec.add_pair("K2", f"{label}, {b_} knots staged", run(b_, k, q), want)
+                          for b_ in budgets.values()])
+                got = {name: device_ms(lambda b_=b_: run(b_, k, q), 50)
+                       for name, b_ in budgets.items()}
+                bound_ms = bound("K2", (k, q))[0]
+                print(f"  K2 {label} (idx and t at every budget: "
+                      f"{'bit-identical' if ok else 'MISMATCH'}); bound {bound_ms:.4f}:",
+                      flush=True)
+                staged = rule(n, nq, size)
+                for name, t_ in got.items():
+                    b_ = staged if budgets[name] is None else budgets[name]
+                    print(f"    {name} ({b_:,} knots staged): {fmt(t_)}", flush=True)
+                out[label] = {"ms": got["wrapper"][0], "knots_staged": staged,
+                              "first_design_ms": got["first design"][0],
+                              "tree_ms": got["tree"][0], "global_ms": got["global"][0],
+                              "leader_ms": got["leaders"][0], "bound_ms": bound_ms,
+                              **{f"{name} ms": t_[0] for name, t_ in got.items()
+                                 if name.startswith("tree")}}
+                del k, q, want
+    finally:
+        ek._k2_budget = rule
+    torch.cuda.synchronize()
+    shape = "float32, 10,000 knots, 262,144 queries"
+    return {"first_design_ms": out[shape]["first_design_ms"], "shapes": out}
+
+
+def r3_phase(dev, card, rec, sweeps):
+    """R3 on 65,537 knots (the route's shortest axis), NS1b's 262,144 and
+    ``MAX_BIG_KNOTS`` (8,388,480) at 1,000,000 float32 queries, and the
+    first two in float64: each at the wrapper's budget, in its first design
+    (0: 512 sorted f32 leaders in 2 KB), at one knot (every level global)
+    and as leaders of every 16th knot (capped at the largest tree a block
+    holds), on a cubic and a linear table (+-inf), held bit for bit against
+    ``_big_eval_plain`` and K1's ``_eval_plain`` on queries with NaN,
+    +-inf, +-1e38, about 100,000 knots themselves and far extrapolation
+    (non-uniform axes, the longest on the integers);
+    timed on the cubic table in each.  With ``sweeps``, also trees of 16 to
+    128 KB at 262,144 and 8,388,480 knots.  Returns the kernels line's
+    ``shapes``."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops import bigknots as bk
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+
+    rng = np.random.default_rng(59)
+    default = bk._R3_TREE_BYTES
+    cases = [(65_537, np.float32), (N_NS1B, np.float32), (bk.MAX_BIG_KNOTS, np.float32),
+             (65_537, np.float64), (N_NS1B, np.float64)]
+    out = {}
+    print(f"R3 by shared-memory budget (0: the first design; one knot: every level global; "
+          f"the wrapper's tree {default:,} B), ms (median [min, max] of {RUNS} runs by CUDA "
+          f"events; card: {card}):", flush=True)
+
+    def run(knots_staged, *args):
+        bk._R3_TREE_BYTES = (knots_staged + 1) * args[0].element_size()
+        return bk.big_eval_1d(*args)
+
+    try:
+        for n, np_dt in cases:
+            tag, size = np.dtype(np_dt).name, np.dtype(np_dt).itemsize
+            # float32 values, exact in float64; integers past 2^23 (float32
+            # rounds a non-uniform axis's gaps there)
+            kn = big_knots(n, "integer" if n > 1 << 22 else "nonuniform", rng)
+            q = torch.as_tensor(big_queries(kn, NQ_BIG, rng).astype(np_dt), device=dev)
+            k = torch.as_tensor(kn.astype(np_dt), device=dev)
+            d, a, b = (torch.as_tensor(rng.normal(size=m).astype(np_dt), device=dev)
+                       for m in (n, n - 1, n - 1))
+            z = torch.zeros_like(a)
+            tables = {"cubic": (d, a, b), "linear": (d, z, z)}
+            want = {name: bk._big_eval_plain(k, *t_, q) for name, t_ in tables.items()}
+            k1_plain = {name: ek._eval_plain(k, ek.make_interval_table(k, *t_), q)
+                        for name, t_ in tables.items()}
+            label = f"{tag}, {n:,} knots, {NQ_BIG:,} queries"
+            budgets = {"wrapper": default // size - 1, "first design": 0, "global": 1,
+                       "leaders": max(2, n // 16)}
+            if sweeps and n >= N_NS1B:
+                budgets |= {f"tree {t_ >> 10} KB": t_ // size - 1 for t_ in R3_TREE_SWEEP}
+            ok = True
+            for b_ in budgets.values():
+                for name, t_ in tables.items():
+                    got = run(b_, k, *t_, q)
+                    ok &= rec.add("R3", f"{label}, {b_} knots staged, {name} table", got,
+                                  want[name])
+                    ok &= rec.add("R3", f"{label}, {b_} knots staged, {name} table, K1's plain "
+                                  f"version", got, k1_plain[name])
+            got = {name: device_ms(lambda b_=b_: run(b_, k, d, a, b, q), 50)
+                   for name, b_ in budgets.items()}
+            bound_ms = bound("R3", (k, d, a, b, q))[0]
+            print(f"  R3 {label} (every budget, cubic and linear tables, against its plain "
+                  f"version and K1's: {'bit-identical' if ok else 'MISMATCH'}); bound "
+                  f"{bound_ms:.4f}:", flush=True)
+            for name, t_ in got.items():
+                print(f"    {name} ({budgets[name]:,} knots staged): {fmt(t_)}", flush=True)
+            out[label] = {"ms": got["wrapper"][0], "first_design_ms": got["first design"][0],
+                          "global_ms": got["global"][0], "leader_ms": got["leaders"][0],
+                          "bound_ms": bound_ms,
+                          **{f"{name} ms": t_[0] for name, t_ in got.items()
+                             if name.startswith("tree")}}
+            del k, q, d, a, b, z, tables, want, k1_plain
+            torch.cuda.synchronize()
+    finally:
+        bk._R3_TREE_BYTES = default
+    return {"shapes": out}
 
 
 def time_kernels(pairs, systems, card):
@@ -3095,9 +3267,11 @@ def r2a_phase(system, bank_eval, card, rec, sweeps):
 
 def timing_big(state, bank_eval, card, rec, sweeps):
     """Hold K5, R2a, R3 and R3idx, through their wrappers, against their
-    plain versions on the paths' own inputs; time both there, with K1 at
-    NS1b beside R3, and R2a's two bodies (``r2a_phase``, also at the bank
-    eval's shape ``bank_eval``); then time the slice's calls end to end."""
+    plain versions on the paths' own inputs; time both there, with K1 and
+    R3's first design at NS1b beside R3, R3 by its budgets (``r3_phase``) and
+    R2a's two bodies (``r2a_phase``, also at the bank eval's shape
+    ``bank_eval``); then time the slice's calls end to end, and those on R2a
+    and R3 also by CUDA events."""
     import torch
 
     from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
@@ -3146,6 +3320,7 @@ def timing_big(state, bank_eval, card, rec, sweeps):
                  s.b, qb), ek._eval_plain(itpb.x, tbl, qb))
     print(f"  R3 NS1b against K1's plain version: {'bit-identical' if ok else 'MISMATCH'}")
     times = time_kernels(pairs, systems, card)
+    times["R3"].update(r3_phase(qb.device, card, rec, sweeps))
     print("R2a's bodies at NS2b's table and queries:", flush=True)
     times["R2a"].update(r2a_phase(systems["R2a"][0], bank_eval, card, rec, sweeps))
     kern, plain, _, (nk, npl) = pairs["K5"]
@@ -3170,8 +3345,16 @@ def timing_big(state, bank_eval, card, rec, sweeps):
     args = (itpb.x, tbl, qb)
     tk_ = device_ms(lambda: ek.fused_eval_1d(*args), 50)
     bound_ms, bound_by = bound("K1", args)
+    default = bk._R3_TREE_BYTES
+    bk._R3_TREE_BYTES = qb.element_size()  # budget 0: R3's first design
+    try:
+        first = device_ms(lambda: bk.big_eval_1d(*systems["R3"][0][1]), 50)
+    finally:
+        bk._R3_TREE_BYTES = default
+    times["R3"]["first_design_ms"] = first[0]
     print(f"  K1 beside R3, NS1b {N_NS1B:,} knots, {nq}: kernel {fmt(tk_)}, bound "
-          f"{bound_ms:.4f} ({bound_by}); R3 {times['R3']['ms']:.4f}", flush=True)
+          f"{bound_ms:.4f} ({bound_by}); R3 {times['R3']['ms']:.4f}, R3's first design "
+          f"{fmt(first)}", flush=True)
     del systems, args, tbl
 
     spline = CubicSpline().extrapolate(True)
@@ -3189,16 +3372,19 @@ def timing_big(state, bank_eval, card, rec, sweeps):
         f"NS4 Akima itp(q), {N_NS1B:,} knots at {nq}": (
             lambda: state["NS4", "Akima big"](qb), 20),
     }, "wide-bank and long-axis slice", card)
-    # the calls on R2a by CUDA events too (they make no host sync, so with the
-    # queue held full this is their busy time): the profiler has lost some of
-    # their records
-    print(f"R2a's calls by CUDA events (device ms per call, median [min, max] of {RUNS} runs, "
-          f"queue held full; card: {card}):", flush=True)
+    # the calls on R2a and R3 by CUDA events too (they make no host sync, so
+    # with the queue held full this is their busy time): the profiler has lost
+    # some of their records
+    print(f"the calls on R2a and R3 by CUDA events (device ms per call, median [min, max] of "
+          f"{RUNS} runs, queue held full; card: {card}):", flush=True)
     itp_b, q_b = bank_eval
     for label, fn in (
         (f"bank eval itp(q), 10,000 x 64 at {q_b.numel():,}", lambda: itp_b(q_b)),
         (f"NS2b itp(q), 10,240 x 64 at {nq}", lambda: itp10(q10)),
         (f"NS1b bank itp(q), {N_NS1B:,} x 8 at {nq}", lambda: bankb(qb)),
+        (f"NS1b itp(q), {N_NS1B:,} knots at {nq}", lambda: itpb(qb)),
+        (f"NS1b Linear itp(q), {N_NS1B:,} knots at {nq}", lambda: linb(qb)),
+        (f"NS4 Akima itp(q), {N_NS1B:,} knots at {nq}", lambda: state["NS4", "Akima big"](qb)),
     ):
         print(f"  {label}: {fmt(device_ms(fn, 5))}", flush=True)
     return times
@@ -3558,8 +3744,8 @@ def main():
 
     ap = argparse.ArgumentParser(description="On-card check of the PyTorch port.")
     ap.add_argument("--sweeps", action="store_true",
-                    help="also run the design sweeps behind K3's, K1's and R1's tree budgets, "
-                         "R2a's body, the ordered branches' crossovers and ORD's forms")
+                    help="also run the design sweeps behind K3's, K1's, R1's, K2's and R3's tree "
+                         "budgets, R2a's body, the ordered branches' crossovers and ORD's forms")
     sweeps = ap.parse_args().sweeps
     import torch
 

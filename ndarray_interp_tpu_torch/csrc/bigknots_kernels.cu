@@ -13,26 +13,33 @@
 // every W), an XLA gather of the block's packed row [knots | data | a | b]
 // (C, 4W+2), and a refine that counts the block's knots <= q and selects the
 // interval's values with one-hot masks.  On this card one launch does all of
-// it: a block stages the leader vector knots[0], knots[W], knots[2W], ...
-// (at most kLeaderBytes: 512 f32 leaders) in shared memory once, then its
-// threads stride over the queries; each binary-searches the leaders in shared
-// memory, then the W knots of its block in the knot array (L2), then reads the
-// interval's two knots, two data values and a, b straight from the 1-D arrays.
-// No packed row table is built.  The kernel picks its own W, the smallest
-// power of two >= 16 whose leader vector fits kLeaderBytes (W = 512 at 262,144
-// knots, 16,384 at the 8,388,480 of MAX_BIG_KNOTS): the result does not depend
-// on W.  The grid is kBlocksPerSm blocks per SM (full occupancy), so the
-// leader vector is staged once per block, not once per 256 queries.
+// it, and no packed row table is built: R3 runs K1's body (staged_eval1d.cuh)
+// with a row source that reads the interval's two knots, two data values and
+// a, b straight from the four 1-D arrays.  Each block stages every w-th knot
+// as search.cuh's breadth-first tree in shared memory (the route's axes, past
+// 65,536 knots, never fit whole), its threads stride over the queries, walk
+// the tree, and end the search between two leaders on the knot array (L2).
+// w is the least power of two that fits the wrapper's budget, so the knots
+// between two leaders lie in one aligned run (64 bytes at NS1b: every 16th of
+// 262,144 f32 knots in a 128 KB tree of 16,384 leaders).
 //
-// What bounds it: each query is a chain of dependent loads (log2 C shared-
-// memory steps, log2 W L2 steps, then the row), so the kernel is bound by that
-// latency, hidden by the warps in flight, and not by the 12 bytes a query
-// (f32: q in, value out, 4 for the search's share of the knots) that stream.
-// On the H100 a larger leader vector was slower, not faster: the first
-// design, 8,192 leaders at 4 blocks per SM, took 0.1226 ms at 262,144 knots x
-// 1,000,000 queries where K1 takes 0.0732 (chip_smoke.py): the strided
-// staging and the bank conflicts of a random search in shared memory cost
-// more than the L2 steps they save.  This design's time is in PERF.md.
+// What bounds it: each query is a chain of dependent loads (15 shared-memory
+// levels, log2 w L2 steps, then the six row values), so the kernel is bound by
+// that latency, hidden by the warps in flight, and not by the 12 bytes a
+// query (f32: q in, value out, 4 for the search's share of the knots) that
+// stream.  On an H100 80GB HBM3 at 700 W (tools/search_phases.py --sweeps,
+// 1M f32 queries, ms), the 128 KB tree against the first design (kept at
+// budget 0: a block stages the 512 leaders knots[0], knots[W], ... of 2 KB
+// once, big_lower_index binary-searches them, then the W knots of the block;
+// W = 512 at 262,144 knots): 65,537 knots 0.0450 / 0.0583, 262,144 0.0509 /
+// 0.0772, 8,388,480 0.1672 / 0.1685 (134 MB of arrays, past the L2); f64
+// 0.0468 / 0.0681 and 0.0569 / 0.0898.  At 262,144 the trees of 16, 32 and
+// 64 KB (every 128th, 64th and 32nd knot) took 0.0791, 0.0785 and 0.0802;
+// in an earlier run the 128 KB tree strided by the budget alone (every 9th
+// knot, 29,128 leaders) took 0.0549 where every 16th took 0.0504: the
+// 15-level tree and the power-of-two stride both pay.  The design before the
+// first, 8,192 leaders at 4 blocks per SM, took 0.1226.
+// R3idx keeps the first design's search (big_lower_index).
 //
 // Numerics.  The index is the global upper bound minus one, clamped to
 // [0, n-2], exactly torch.searchsorted(right=True) - 1 as in K1-K3: the leader
@@ -47,6 +54,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "staged_eval1d.cuh"  // R3 on K1's body and the staged search
 
 namespace {
 
@@ -107,6 +116,8 @@ __device__ __forceinline__ int64_t big_lower_index(const T* __restrict__ knots, 
   return idx > n - 2 ? n - 2 : idx;
 }
 
+// R3's first design: the sorted leaders, big_lower_index; kept so that every
+// run times it beside the staged kernel (shared_knots = 0)
 template <typename T>
 __global__ void big_eval_kernel(const T* __restrict__ knots, int64_t n, int64_t w, int c,
                                 const T* __restrict__ data, const T* __restrict__ a,
@@ -164,18 +175,62 @@ inline unsigned int grid_for(int64_t nq) {
   return static_cast<unsigned int>(need < most ? need : most);
 }
 
+// R3's rows: the interval's values read from the four 1-D arrays, as the
+// first design reads them
+template <typename T>
+struct ArrayRows {
+  const T* knots;
+  const T* data;
+  const T* a;
+  const T* b;
+
+  static size_t staged_bytes(int) { return 0; }
+
+  __device__ __forceinline__ void stage(T*, int) {}
+
+  __device__ __forceinline__ void load(int k, T v[6]) const {
+    v[0] = __ldg(knots + k);
+    v[1] = __ldg(knots + k + 1);
+    v[2] = __ldg(data + k);
+    v[3] = __ldg(data + k + 1);
+    v[4] = __ldg(a + k);
+    v[5] = __ldg(b + k);
+  }
+};
+
+// R3 on K1's body, its axis on a tree of at most shared_knots knots (capped
+// at the largest a block holds; at least 1: every level on the global axis),
+// every w-th knot for the least power of two w that fits; at shared_knots = 0
+// the first design
 template <typename T>
 int big_eval(const void* knots, int64_t n, const void* data, const void* a, const void* b,
-             const void* q, void* out, int64_t nq, void* stream) {
-  if (nq > 0) {
+             int64_t shared_knots, const void* q, void* out, int64_t nq, void* stream) {
+  if (nq <= 0) return static_cast<int>(cudaGetLastError());
+  const T* qq = static_cast<const T*>(q);
+  T* o = static_cast<T*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* k = static_cast<const T*>(knots);
+  const T* d = static_cast<const T*>(data);
+  const T* aa = static_cast<const T*>(a);
+  const T* bb = static_cast<const T*>(b);
+  if (shared_knots == 0) {
     const Geometry g = geometry(n, sizeof(T));
-    big_eval_kernel<T><<<grid_for(nq), kThreads, g.c * sizeof(T),
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(knots), n, g.w, static_cast<int>(g.c), static_cast<const T*>(data),
-        static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const T*>(q),
-        static_cast<T*>(out), nq);
+    big_eval_kernel<T><<<grid_for(nq), kThreads, g.c * sizeof(T), s>>>(
+        k, n, g.w, static_cast<int>(g.c), d, aa, bb, qq, o, nq);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  int64_t budget = 1;
+  cudaError_t err = tree_budget(shared_knots, sizeof(T), &budget);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the stride between leaders rounded up to a power of two: the knots
+  // between two leaders then lie in one aligned run of w elements
+  int64_t w = 1;
+  while (w * budget < n) w *= 2;
+  const StagedAxis<T> ax{k, static_cast<int>(n), w, static_cast<int>((n + w - 1) / w), nullptr};
+  const ArrayRows<T> rows{k, d, aa, bb};
+  err = ax.w == 1 ? staged_eval1d<T, true>(ax, rows, qq, o, nq, s)
+                  : staged_eval1d<T, false>(ax, rows, qq, o, nq, s);
+  return static_cast<int>(err);
 }
 
 template <typename T>
@@ -195,14 +250,16 @@ int big_index_frac(const void* knots, int64_t n, const void* q, void* idx, void*
 
 extern "C" {
 
+// R3: knots, n, data, a, b, shared_knots (the most knots a block stages; 1:
+// every level of the search on the global axis; 0: the first design), q, out, nq
 int ndi_big_eval_f32(const void* knots, int64_t n, const void* data, const void* a, const void* b,
-                     const void* q, void* out, int64_t nq, void* stream) {
-  return big_eval<float>(knots, n, data, a, b, q, out, nq, stream);
+                     int64_t shared_knots, const void* q, void* out, int64_t nq, void* stream) {
+  return big_eval<float>(knots, n, data, a, b, shared_knots, q, out, nq, stream);
 }
 
 int ndi_big_eval_f64(const void* knots, int64_t n, const void* data, const void* a, const void* b,
-                     const void* q, void* out, int64_t nq, void* stream) {
-  return big_eval<double>(knots, n, data, a, b, q, out, nq, stream);
+                     int64_t shared_knots, const void* q, void* out, int64_t nq, void* stream) {
+  return big_eval<double>(knots, n, data, a, b, shared_knots, q, out, nq, stream);
 }
 
 int ndi_big_index_frac_f32(const void* knots, int64_t n, const void* q, void* idx, void* t,

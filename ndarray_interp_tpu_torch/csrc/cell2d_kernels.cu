@@ -87,7 +87,7 @@
 #include <stdint.h>
 
 #include "df_common.cuh"  // kThreads, Vec, wide_lanes, lane_grid, Slot, slot_of, ordered_blocks
-#include "search.cuh"     // the staged search (R1)
+#include "search.cuh"     // the staged search, StagedAxis (R1)
 
 namespace {
 
@@ -127,37 +127,6 @@ __device__ __forceinline__ void basis(T t, T w[4]) {
   w[3] = -(p * t);
 }
 
-// One axis of R1 staged in shared memory: knot j w, j < c, in a tree of the
-// kernel's h levels (search.cuh)
-template <typename T>
-struct StagedAxis {
-  const T* knots;
-  int n;
-  int64_t w;
-  int c;
-  T* tree;
-
-  __device__ __forceinline__ T knot(int64_t m) const { return __ldg(knots + m); }
-
-  // the clamped lower index of q from the slot s that h steps down the tree
-  // reached; NaN gives n-2, as lower_index (the tree's compares would all be
-  // false)
-  template <bool kWhole>
-  __device__ __forceinline__ int index(int s, int h, T q) const {
-    const auto at = [&](int64_t m) { return knot(m); };
-    return q == q ? clamp_index(leader_count<kWhole>(s, h, c, w, n, at, q), n) : n - 2;
-  }
-
-  // K2's fraction of q in interval i, the endpoints from the tree where it
-  // holds the whole axis
-  template <bool kWhole>
-  __device__ __forceinline__ T frac(T q, int i, int h) const {
-    const T l = kWhole ? tree[slot_of_rank(i, h)] : knot(i);
-    const T r = kWhole ? tree[slot_of_rank(i + 1, h)] : knot(i + 1);
-    return (q - l) / (r - l);
-  }
-};
-
 // R1 on two staged trees of h levels each, x's then y's in the block's shared
 // memory (kWhole: both hold their whole axis).  Both searches step down their
 // trees in one loop, two independent shared loads a level, and each thread
@@ -171,8 +140,8 @@ __global__ void __launch_bounds__(kSearchThreads)
   extern __shared__ __align__(16) unsigned char smem[];
   ax.tree = reinterpret_cast<T*>(smem);
   ay.tree = ax.tree + (1 << h);
-  stage_tree(ax.tree, [&](int64_t m) { return ax.knot(m); }, ax.w, ax.c, h);
-  stage_tree(ay.tree, [&](int64_t m) { return ay.knot(m); }, ay.w, ay.c, h);
+  ax.stage(h);
+  ay.stage(h);
   __syncthreads();
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
@@ -390,14 +359,6 @@ __global__ void __launch_bounds__(kThreads)
 
 inline unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
-}
-
-// an axis of n knots staged as at most `budget` of them: every w-th knot
-template <typename T>
-StagedAxis<T> staged_axis(const void* knots, int64_t n, int64_t budget) {
-  const int64_t w = (n + budget - 1) / budget;
-  return {static_cast<const T*>(knots), static_cast<int>(n), w,
-          static_cast<int>((n + w - 1) / w), nullptr};
 }
 
 template <typename T, bool kWhole>

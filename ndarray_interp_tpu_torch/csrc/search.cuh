@@ -1,5 +1,6 @@
 // The interval searches shared by the search kernels (K1-K3 in
-// eval_kernels.cu, R1 in cell2d_kernels.cu, K7 in df_kernels.cu).
+// eval_kernels.cu, R1 in cell2d_kernels.cu, K7 in df_kernels.cu, R3 in
+// bigknots_kernels.cu).
 //
 // lower_index(knots, n, q) is the count of knots <= q minus one, clamped to
 // [0, n-2]: exactly torch.searchsorted(right=True) - 1 clamped, as
@@ -7,10 +8,11 @@
 // torch does (every comparison with NaN is false, so it is explicit here).
 // The axis is read through the read-only path (__ldg): one dependent global
 // load a level, and below the first levels the 32 lanes of a warp read 32
-// different lines.  Only K2 still searches so.
+// different lines.  Only K2's first design still searches so: its wrapper
+// keeps it where a staged tree does not pay (ops/eval_kernels.py _k2_budget).
 //
-// The staged search (K1, K3, R1 on each of its two axes, and K7 on its
-// widened pairs) reads a copy of the axis that each block stages once in
+// The staged search (K1, K2, K3, R1 on each of its two axes, R3, and K7 on
+// its widened pairs) reads a copy of the axis that each block stages once in
 // shared memory, in breadth-first (Eytzinger) order: slot 1 the middle knot,
 // slots 2k and 2k + 1 the middles of the halves below slot k, a perfect tree
 // of 2^h - 1 slots, those past the c staged knots +inf.  A search step is then s = 2s + (tree[s] <= q): one
@@ -24,7 +26,8 @@
 // w-th knot (the leaders), and the count of leaders <= q then puts q between
 // knot (count-1) w and knot count w, where the search ends on the global
 // axis.  The comparisons are those of the plain searchsorted on the same
-// values, so the result does not depend on the budget.
+// values, so the result does not depend on the budget.  StagedAxis bundles
+// one staged axis (K1, K2, K3, R1's two, R3).
 
 #pragma once
 
@@ -141,6 +144,58 @@ __device__ __forceinline__ int64_t staged_count(const T* tree, int h, int c, int
 __device__ __forceinline__ int clamp_index(int64_t count, int64_t n) {
   const int64_t idx = count - 1;
   return static_cast<int>(idx < 0 ? 0 : (idx > n - 2 ? n - 2 : idx));
+}
+
+// One axis staged in shared memory: knot j w, j < c, in a tree of the
+// kernel's h levels, at tree (set by the kernel)
+template <typename T>
+struct StagedAxis {
+  const T* knots;
+  int n;
+  int64_t w;
+  int c;
+  T* tree;
+
+  __device__ __forceinline__ T knot(int64_t m) const { return __ldg(knots + m); }
+
+  // the block stages the tree; the caller synchronises the block after it
+  __device__ __forceinline__ void stage(int h) const {
+    stage_tree(tree, [&](int64_t m) { return knot(m); }, w, c, h);
+  }
+
+  // the clamped lower index of q from the slot s that h steps down the tree
+  // reached; NaN gives n-2, as lower_index (the tree's compares would all be
+  // false)
+  template <bool kWhole>
+  __device__ __forceinline__ int index(int s, int h, T q) const {
+    const auto at = [&](int64_t m) { return knot(m); };
+    return q == q ? clamp_index(leader_count<kWhole>(s, h, c, w, n, at, q), n) : n - 2;
+  }
+
+  // the clamped lower index of q: h steps down the tree, then index
+  template <bool kWhole>
+  __device__ __forceinline__ int lower(T q, int h) const {
+    int s = 1;
+    for (int l = 0; l < h; ++l) s = 2 * s + (tree[s] <= q);
+    return index<kWhole>(s, h, q);
+  }
+
+  // K2's fraction of q in interval i, the endpoints from the tree where it
+  // holds the whole axis
+  template <bool kWhole>
+  __device__ __forceinline__ T frac(T q, int i, int h) const {
+    const T l = kWhole ? tree[slot_of_rank(i, h)] : knot(i);
+    const T r = kWhole ? tree[slot_of_rank(i + 1, h)] : knot(i + 1);
+    return (q - l) / (r - l);
+  }
+};
+
+// an axis of n knots staged as at most `budget` of them: every w-th knot
+template <typename T>
+StagedAxis<T> staged_axis(const void* knots, int64_t n, int64_t budget) {
+  const int64_t w = (n + budget - 1) / budget;
+  return {static_cast<const T*>(knots), static_cast<int>(n), w,
+          static_cast<int>((n + w - 1) / w), nullptr};
 }
 
 // A staged search's launch figures are properties of the device and the

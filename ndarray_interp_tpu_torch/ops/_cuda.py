@@ -69,7 +69,8 @@ _CELL_TAIL_F = ((_P, _I, _I, _I, _P, _P, _P, _P, _I, _P), _BOTH)
 _SIGNATURES = {
     # knots, n, tbl, ch, shared_knots, row_read, q, out, nq
     "ndi_eval1d": ((_P, _I, _P, _I, _I, _I, _P, _P, _I, _P), _BOTH),
-    "ndi_index_frac": ((_P, _I, _P, _P, _P, _I, _P), _BOTH),
+    # knots, n, shared_knots, q, idx, t, nq
+    "ndi_index_frac": ((_P, _I, _I, _P, _P, _P, _I, _P), _BOTH),
     # knots, n, shared_knots, q, idx, nq
     "ndi_lower_index": ((_P, _I, _I, _P, _P, _I, _P), _BOTH),
     "ndi_thomas": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _P), _BOTH),
@@ -77,8 +78,8 @@ _SIGNATURES = {
     "ndi_banked_eval": ((_P, _P, _P, _I, _I, _P, _P, _P, _I, _P), _BOTH),
     # packed, rows, ch, bp, bank, idx, t, out, nq
     "ndi_bank_tail": ((_P, _I, _I, _I, _I, _P, _P, _P, _I, _P), _BOTH),
-    # knots, n, data, a, b, q, out, nq
-    "ndi_big_eval": ((_P, _I, _P, _P, _P, _P, _P, _I, _P), _BOTH),
+    # knots, n, data, a, b, shared_knots, q, out, nq
+    "ndi_big_eval": ((_P, _I, _P, _P, _P, _I, _P, _P, _I, _P), _BOTH),
     # knots, n, q, idx, t, nq
     "ndi_big_index_frac": ((_P, _I, _P, _P, _P, _I, _P), _BOTH),
     # x, nx, y, ny, shared_knots (each axis), qx, qy, cell, tx, ty, nq

@@ -5,7 +5,10 @@ Counterpart of ``ndarray_interp_tpu.ops.bigknots``.  The JAX package splits
 the search in two (the block of W knots from a search of the block leaders,
 then a refine inside the block's packed row) because its one-pass kernels
 stop at 65,536 knots.  The CUDA kernels (``csrc/bigknots_kernels.cu``) do
-the same two-level search, the row reads and the Hermite form in one launch:
+a two-level search, the row reads and the Hermite form in one launch (R3 on
+every w-th knot staged as a breadth-first tree of ``_R3_TREE_BYTES``, K1's
+body reading its rows from the four 1-D arrays; R3idx on 512 sorted
+leaders):
 
 * :func:`big_eval_1d` (R3): the value, bit-identical to K1's plain version
   ``eval_kernels._eval_plain``;
@@ -117,6 +120,19 @@ def _check(name, knots, q, *tables):
     return dtype
 
 
+# R3's shared-memory budget: the axis staged as a breadth-first tree of every
+# w-th knot in at most _R3_TREE_BYTES (past 65,536 knots never whole; w the
+# least power of two that fits), the search ending between two leaders on the
+# global axis; at one knot every level runs on the global axis, at zero the
+# first design (512 sorted f32 leaders in 2 KB, big_lower_index).  On an H100
+# 80GB HBM3 at 700 W (tools/search_phases.py --sweeps, 1M f32 queries), trees
+# of 16 / 32 / 64 / 128 KB at 262,144 knots 0.0791 / 0.0785 / 0.0802 / 0.0509
+# ms (first design 0.0772), at 8,388,480 0.1691 / 0.1694 / 0.1797 / 0.1672
+# (0.1685).  128 KB is the largest f32 tree tree_budget lets a block hold
+# (32,767 knots), so neither it nor this budget had to change to reach it.
+_R3_TREE_BYTES = 128 << 10
+
+
 def _launch_eval(knots, data, a, b, q):
     dtype = _check("big_eval_1d", knots, q, data, a, b)
     n = knots.shape[0]
@@ -130,7 +146,7 @@ def _launch_eval(knots, data, a, b, q):
     _cuda.launch(
         "ndi_big_eval", dtype, q.device,
         knots.contiguous(), knots.shape[0], data.contiguous(), a.contiguous(),
-        b.contiguous(), qf, out, qf.shape[0],
+        b.contiguous(), _R3_TREE_BYTES // qf.element_size() - 1, qf, out, qf.shape[0],
     )
     big_eval_1d.launches += 1
     return out.reshape(q.shape)

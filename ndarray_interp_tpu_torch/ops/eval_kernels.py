@@ -8,7 +8,8 @@ are in ``csrc/eval_kernels.cu`` and, for R1, ``csrc/cell2d_kernels.cu``:
   axis staged in shared memory as a breadth-first tree (``_K1_TREE_BYTES``),
   the row read in the form ``_K1_ROW_READ`` names for the dtype;
 * :func:`fused_index_frac` (K2): the search emitting ``(idx, t)``, which
-  feeds the bank-data eval, on the axis in global memory;
+  feeds the bank-data eval, on the axis staged as K3's (``_K2_TREE_BYTES``),
+  the fraction's endpoints read from the tree where it holds the whole axis;
 * :func:`fused_lower_index` (K3): the search emitting ``idx``, on the axis
   staged as K1's (``_K3_TREE_BYTES``);
 * :func:`fused_cell_index` (R1): both 2-D axis searches in one pass, each
@@ -19,7 +20,9 @@ are in ``csrc/eval_kernels.cu`` and, for R1, ``csrc/cell2d_kernels.cu``:
 On an H100 80GB HBM3 at 700 W (``tools/search_phases.py``): K1 at 2,048 knots x 1M
 f32 queries 0.0124 ms against the first design's 0.0244 (every level of the
 search on the global axis, six scalar loads a row); R1 at 512 + 512 knots x
-1M f32 0.0152 against 0.0266.
+1M f32 0.0152 against 0.0266; K2 at 512 knots x 1M f32 0.0097 against its
+first design's 0.0123, which it keeps where its tree does not pay
+(:func:`_k2_budget`).
 
 Each has its plain PyTorch version here (:func:`_eval_plain`, the
 counterpart of the JAX package's ``_eval_xla``; :func:`_index_frac_plain`;
@@ -128,6 +131,31 @@ def _launch_eval(knots, tbl, q):
     return out.reshape(q.shape)
 
 
+# K2's shared-memory budget, as K3's convention: the axis staged whole up to
+# the budget (4,095 f32 / 2,047 f64 knots in 16 KB), every w-th knot above it
+# with the last levels of the search on the global axis; at one knot every
+# level runs on the global axis (the first design's search), at zero the first
+# design itself (a thread a query on the global search).  _k2_budget keeps the
+# first design where the tree does not pay.  Measured: see the K2 paragraph of
+# csrc/eval_kernels.cu.
+_K2_TREE_BYTES = 16 << 10
+# the batches K2 stages its tree for: at least this many queries a knot, on an
+# axis of more than this many bytes (two 128-byte lines, which the L1 serves
+# as fast as shared memory)
+_K2_QUERIES_A_KNOT = 64
+_K2_SMALL_AXIS_BYTES = 256
+
+
+def _k2_budget(n, nq, size):
+    """The knots K2 stages for ``nq`` queries on ``n`` knots of ``size``
+    bytes: 0 (the first design) below ``_K2_QUERIES_A_KNOT`` queries a knot
+    or on an axis of at most ``_K2_SMALL_AXIS_BYTES``, else the tree of
+    ``_K2_TREE_BYTES``."""
+    if nq < _K2_QUERIES_A_KNOT * n or n * size <= _K2_SMALL_AXIS_BYTES:
+        return 0
+    return _K2_TREE_BYTES // size - 1
+
+
 def _launch_index_frac(knots, q):
     dtype = _cuda.float_operands("fused_index_frac", q, knots)
     qf = _flat_queries("fused_index_frac", knots, q)
@@ -136,7 +164,8 @@ def _launch_index_frac(knots, q):
     t = torch.empty_like(qf)
     _cuda.launch(
         "ndi_index_frac", dtype, q.device,
-        knots, knots.shape[0], qf, idx, t, qf.shape[0],
+        knots, knots.shape[0], _k2_budget(knots.shape[0], qf.shape[0], qf.element_size()),
+        qf, idx, t, qf.shape[0],
     )
     fused_index_frac.launches += 1
     return idx.reshape(q.shape), t.reshape(q.shape)

@@ -1428,6 +1428,77 @@ def test_lower_index_kernel_matches_plain_at_every_budget(dev, dtype, n, shared,
     assert got[-9].item() == n - 2 and got[-8].item() == n - 2 and got[-7].item() == 0
 
 
+# -- K2 on the staged tree, whole or as leaders, and its first design ---------------------
+@pytest.mark.parametrize("shared", [None, 0, 1, 2, 7, 63, 8191, 40_000])
+@pytest.mark.parametrize("n", [2, 3, 64, 256, 512, 10_000, 10_240, 70_001])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_index_frac_kernel_matches_plain_at_every_budget(dev, dtype, n, shared, monkeypatch):
+    """K2 at the wrapper's budget (``None``: its rule, the first design
+    below 64 queries a knot), in its first design (0: a
+    thread a query on the global search), at one knot (every level of the
+    search on the global axis), as leaders (at most 2, 7 or 63 staged
+    knots), a 32 KB f32 tree (8,191 knots: the bank's 10,000 and NS2b's
+    10,240 as leaders of every second knot) and past the largest tree a
+    block holds (40,000: capped), at the paths' knot counts (64 and 256 the
+    N-D axes, 512 NS3b's, 10,000 the bank's, 10,240 NS2b's), on 0, 1, 2 and
+    1,000,000 queries with NaN (``n-2``, t NaN), +-inf, +-1e38, the knots and
+    far extrapolation: idx and t bit for bit ``_index_frac_plain``."""
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+
+    if shared is not None:
+        monkeypatch.setattr(ek, "_k2_budget", lambda n, nq, size: shared)
+    kn = knots(n, dtype, n + 9)
+    k = torch.as_tensor(kn, device=dev)
+    body = queries(kn, dtype, n, count=1_000_000 - n - 9)
+    for q in (body[:0], body[-9:-8], body[-9:-7], body):  # 0, NaN, NaN and +inf, 1M
+        q = torch.as_tensor(q, device=dev)
+        got, launched = launched_by(lambda: ek.fused_index_frac(k, q))
+        assert launched == {"K2": 1}
+        want = ek._index_frac_plain(k, q)
+        assert same(got[0], want[0]) and same(got[1], want[1]), (q.numel(), shared)
+    idx, t = got
+    assert idx[-9].item() == n - 2 and idx[-8].item() == n - 2 and idx[-7].item() == 0
+    assert torch.isnan(t[-9]).item()
+
+
+# -- R3 on the staged leader tree, and its first design -----------------------------------
+@pytest.mark.parametrize("shared", [None, 0, 1, 2, 63, 4095, 32_767, 40_000])
+@pytest.mark.parametrize("n", [2, 65_537, 262_144, 8_388_480])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_big_eval_kernel_matches_plain_at_every_budget(dev, dtype, n, shared, monkeypatch):
+    """R3 at the wrapper's budget (``None``), in its first design (0: 512
+    sorted f32 leaders), at one knot (every level of the search on the
+    global axis), as leaders of 2, 63 and 4,095 knots (a 32 KB f32 tree),
+    32,767 (a 128 KB f32 tree) and past the largest tree a block holds
+    (40,000: capped), on 2 knots and the route's 65,537, NS1b's 262,144 and
+    ``MAX_BIG_KNOTS`` (8,388,480), on a cubic and a linear table (+-inf), 0,
+    1, 2 and 1,000,000 queries with NaN, +-inf, +-1e38, knots and far
+    extrapolation: bit for bit ``_big_eval_plain`` and K1's ``_eval_plain``."""
+    from ndarray_interp_tpu_torch.ops import bigknots as bk
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+
+    assert n <= bk.MAX_BIG_KNOTS
+    if shared is not None:
+        monkeypatch.setattr(bk, "_R3_TREE_BYTES", (shared + 1) * np.dtype(dtype).itemsize)
+    rng = np.random.default_rng(n + 13)
+    kn = knots(n, dtype, n + 11)
+    k = torch.as_tensor(kn, device=dev)
+    d, a, b = (torch.as_tensor(rng.normal(size=m).astype(dtype), device=dev)
+               for m in (n, n - 1, n - 1))
+    z = torch.zeros_like(a)
+    own = kn[:: max(1, n // 100_000)]
+    body = queries(own, dtype, n, count=1_000_000 - own.size - 9)
+    for q in (body[:0], body[-9:-8], body[-9:-7], body):  # 0, NaN, NaN and +inf, 1M
+        q = torch.as_tensor(q, device=dev)
+        for aa, bb in ((a, b), (z, z)):
+            got, launched = launched_by(lambda: bk.big_eval_1d(k, d, aa, bb, q))
+            assert launched == {"R3": 1}
+            assert same(got, bk._big_eval_plain(k, d, aa, bb, q)), (q.numel(), shared)
+            assert same(got, ek._eval_plain(k, ek.make_interval_table(k, d, aa, bb), q))
+    assert torch.isnan(got[-9]).item() and torch.isinf(got[-8]).item()
+    torch.cuda.synchronize()
+
+
 # -- K1 on the staged tree, in each row read ----------------------------------------------
 @pytest.mark.parametrize("read", [0, 1, 2])
 @pytest.mark.parametrize("shared", [None, 1, 2, 7, 63, 40_000])

@@ -1,6 +1,6 @@
 """A plain model of the staged interval search of ``csrc/search.cuh`` (K1,
-K3, R1 on each of its axes, and K7 on its widened pairs) against the port's
-``get_lower_index`` and the JAX package's searches, on the CPU.
+K2, K3, R1 on each of its axes, R3, and K7 on its widened pairs) against the
+port's ``get_lower_index`` and the JAX package's searches, on the CPU.
 
 The kernel cannot run here, so its design is checked as numpy: the
 breadth-first slot maps, the tree a block stages (knot ``j·w`` for
@@ -10,19 +10,26 @@ pad slots), the split at the leaders with the search ending on the axis
 between two of them, and the NaN rule (``n - 2``, which the tree's compares
 alone would not give).  The model must equal the plain search index for
 index; K1's model (the staged index, the row, the Hermite form in the
-kernel's operation order) must equal ``_eval_plain`` bit for bit, and R1's
+kernel's operation order) must equal ``_eval_plain`` bit for bit, R1's
 (each axis on a tree of half the wrapper's budget) ``_cell_index_plain``
-cell for cell.  The kernels themselves are held at every budget on the card
-by ``tests/test_torch_kernels.py``.
+cell for cell, K2's (the index, and the fraction with its endpoints read
+from the tree where it holds the whole axis) ``_index_frac_plain``, and
+R3's (the index on a leader tree, the row from four 1-D arrays, K1's
+Hermite form) ``bigknots._big_eval_plain`` and ``_eval_plain``.  The
+kernels themselves are held at every budget on the card by
+``tests/test_torch_kernels.py``.
 
-Tolerance: none (indices; K1's and R1's models against the port's plain
-versions, which compute in the same order).  Against the JAX package's
-``_eval_xla`` the K1 model is held within ``tests/test_torch_interp1d.py``'s
-tolerance (f32 ``rtol=2e-5``, ``atol=1e-6`` scaled; f64 ``1e-12``: XLA may
-contract operations).  The JAX Pallas kernels give 0 for a NaN query where
-the XLA form and the port give ``n - 2`` (``tests/test_torch_ops.py``), so
-those comparisons mask the NaN rows; their plan stops at 65,536 knots, so
-the 70,001-knot axis is held against the JAX XLA search only.
+Tolerance: none (indices; the models against the port's plain versions,
+which compute in the same order).  Against the JAX package's ``_eval_xla``
+the K1 model is held within ``tests/test_torch_interp1d.py``'s tolerance
+(f32 ``rtol=2e-5``, ``atol=1e-6`` scaled; f64 ``1e-12``: XLA may contract
+operations), the K2 model's fraction within ``tests/test_torch_ops.py``'s
+(``rtol=2e-5``, ``atol=1e-6``) and the R3 model within
+``tests/test_torch_bigknots.py``'s (``rtol = atol = 1e-6``).  The JAX
+Pallas kernels give 0 for a NaN query where the XLA form and the port give
+``n - 2`` (``tests/test_torch_ops.py``), so those comparisons mask the NaN
+rows; their plan stops at 65,536 knots, so the 70,001-knot axis is held
+against the JAX XLA search only.
 """
 
 import numpy as np
@@ -31,8 +38,10 @@ import torch
 
 import jax.numpy as jnp
 
+from ndarray_interp_tpu.ops import bigknots as j_bk
 from ndarray_interp_tpu.ops import pallas_eval as j_pe
 from ndarray_interp_tpu.ops import searchsorted as j_ss
+from ndarray_interp_tpu_torch.ops import bigknots as t_bk
 from ndarray_interp_tpu_torch.ops import eval_kernels as t_ek
 from ndarray_interp_tpu_torch.ops.searchsorted import get_lower_index
 
@@ -72,11 +81,22 @@ def stage_tree(knots, w, c, h):
     return tree
 
 
-def staged_lower_index(knots, budget, q):
+def stride(n, budget, pow2=False):
+    """The stride between staged knots: ``ceil(n / budget)``, or (R3) the
+    least power of two with ``w · budget >= n``."""
+    if not pow2:
+        return -(-n // budget)
+    w = 1
+    while w * budget < n:
+        w *= 2
+    return w
+
+
+def staged_lower_index(knots, budget, q, pow2=False):
     """The kernel's index at a budget of ``budget`` staged knots (>= 1):
-    ``w = ceil(n / budget)``, ``c = ceil(n / w)``."""
+    ``w = stride(n, budget)``, ``c = ceil(n / w)``."""
     n = knots.size
-    w = -(-n // budget)
+    w = stride(n, budget, pow2)
     c = -(-n // w)
     h = tree_levels(c)
     tree = stage_tree(knots, w, c, h)
@@ -343,3 +363,189 @@ def test_the_r1_budget_split():
         assert tree_levels(512) == 10 and (1 << tree_levels(512)) * size == ns3_bytes
         assert 2 * (1 << tree_levels(knots)) * size == t_ek._R1_TREE_BYTES
         assert -(-70_001 // knots) > 1
+
+
+# -- K2: the staged index and the fraction -------------------------------------------------
+def k2_budget(size):
+    """The knots K2's wrapper stages in a tree of ``_K2_TREE_BYTES``."""
+    return t_ek._K2_TREE_BYTES // size - 1
+
+
+def staged_index_frac(knots, budget, q):
+    """K2's model: the staged index at ``budget`` knots and ``t = (q - x_l) /
+    (x_r - x_l)`` in the kernel's order, the endpoints read from the tree
+    where it holds the whole axis (``slot_of_rank``), else from the axis."""
+    n = knots.size
+    idx = staged_lower_index(knots, budget, q)
+    w = -(-n // budget)
+    c = -(-n // w)
+    h = tree_levels(c)
+    if w == 1:
+        tree = stage_tree(knots, w, c, h)
+        x_l, x_r = tree[slot_of_rank(idx, h)], tree[slot_of_rank(idx + 1, h)]
+    else:
+        x_l, x_r = knots[idx], knots[idx + 1]
+    with np.errstate(all="ignore"):
+        return idx, (q - x_l) / (x_r - x_l)
+
+
+def assert_bits(got, want, msg=""):
+    """Equal values, NaN positions and signs of zero."""
+    assert got.dtype == want.dtype, msg
+    np.testing.assert_array_equal(got, want, err_msg=msg)
+    np.testing.assert_array_equal(np.signbit(got), np.signbit(want), err_msg=msg)
+
+
+@pytest.mark.parametrize("n", [2, 3, 33, 2048, 10_000, 70_001])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_k2_model_equals_index_frac_plain_at_every_budget(n, dtype):
+    """At one knot (every level on the axis: the first design's search), as
+    leaders (2, 7 and 63 knots), at the wrapper's budget (the whole axis up
+    to 8,191 f32 / 4,095 f64 knots, leaders above) and whole (16,383
+    knots): idx for idx and t bit for bit ``_index_frac_plain``, NaN on
+    ``n - 2`` with t NaN, +-inf on the edge intervals, each knot its own
+    interval's start (t = 0, the last knot t = 1)."""
+    kn = axis(n, dtype, n + 6)
+    q = queries(kn, dtype, n + 7)
+    want_idx, want_t = (v.numpy() for v in t_ek._index_frac_plain(torch.as_tensor(kn),
+                                                                  torch.as_tensor(q)))
+    for budget in (1, 2, 7, 63, k2_budget(np.dtype(dtype).itemsize), 16_383):
+        idx, t = staged_index_frac(kn, budget, q)
+        np.testing.assert_array_equal(idx, want_idx, err_msg=f"budget {budget}")
+        assert_bits(t, want_t, f"budget {budget}")
+    assert want_idx[-9] == n - 2 and np.isnan(want_t[-9])
+    assert want_idx[-8] == n - 2 and want_idx[-7] == 0
+    knots_at = slice(-9 - (n - 1) - n, -9 - (n - 1))  # the knots in the batch
+    np.testing.assert_array_equal(want_t[knots_at][:-1], 0)
+    assert want_t[knots_at][-1] == 1
+
+
+@pytest.mark.parametrize("n", [4, 33, 2048, 10_000])
+def test_k2_model_matches_the_jax_pallas_kernel(n):
+    """The K2 model at one knot, as leaders and at the wrapper's budget
+    against the JAX ``fused_index_frac`` in interpret mode (f32), as
+    ``tests/test_torch_ops.py::test_index_frac_matches_pallas_kernel`` runs
+    it: the index exactly and t within that test's tolerance (``rtol=2e-5,
+    atol=1e-6``), the NaN rows masked (the Pallas kernel gives index 0 for a
+    NaN query, the port ``n - 2``; t is NaN in both)."""
+    kn = axis(n, np.float32, n + 8)
+    q = queries(kn, np.float32, n + 9, count=500)
+    j_idx, j_t = (np.asarray(v) for v in j_pe._index_frac_impl(jnp.asarray(kn), jnp.asarray(q),
+                                                               interpret=True))
+    real = ~np.isnan(q)
+    for budget in (1, 7, k2_budget(4)):
+        idx, t = staged_index_frac(kn, budget, q)
+        np.testing.assert_array_equal(idx[real], j_idx[real])
+        np.testing.assert_array_equal(np.isnan(t), np.isnan(j_t))
+        fin = ~np.isnan(t)
+        np.testing.assert_allclose(t[fin], j_t[fin], rtol=2e-5, atol=1e-6)
+    assert idx[np.isnan(q)].tolist() == [n - 2] and j_idx[np.isnan(q)].tolist() == [0]
+
+
+def test_the_k2_budget_is_a_16_kb_tree_where_it_pays():
+    """K2 stages a tree of ``_K2_TREE_BYTES`` (4,095 f32 / 2,047 f64 knots
+    whole: the N-D axes' 64 and 256 knots and NS3b's 512) where a batch has
+    at least 64 queries a knot and the axis more than 256 bytes, else runs
+    its first design (budget 0): the bank eval's 10,000 knots x 262,144
+    queries (26 a knot) and a 64-knot f32 axis take the first design, NS2b's
+    10,240 x 1,000,000 leaders of every third knot."""
+    assert t_ek._K2_TREE_BYTES == 16 << 10
+    assert (t_ek._K2_QUERIES_A_KNOT, t_ek._K2_SMALL_AXIS_BYTES) == (64, 256)
+    budget = t_ek._k2_budget
+    for size, knots in ((4, 4095), (8, 2047)):
+        assert k2_budget(size) == knots
+        assert budget(512, 1_000_000, size) == budget(256, 1_000_000, size) == knots
+        assert budget(10_000, 262_144, size) == 0 and budget(10_240, 1_000_000, size) == knots
+    assert budget(64, 1_000_000, 4) == 0 and budget(64, 1_000_000, 8) == 2047
+    assert -(-10_240 // k2_budget(4)) == 3
+
+
+# -- R3: the staged leader tree and K1's body on four 1-D arrays ----------------------------
+def r3_budget(size):
+    """The knots R3's wrapper stages in a tree of ``_R3_TREE_BYTES``."""
+    return t_bk._R3_TREE_BYTES // size - 1
+
+
+def staged_big_eval(knots, data, a, b, budget, q):
+    """R3's model: the staged index at ``budget`` knots, every w-th knot for
+    the least power of two w that fits (past 65,536 knots always leaders),
+    the interval's ``x_l, x_r, y_l, y_r, a, b`` from the four arrays, and K1's
+    Hermite form in its operation order, with the linear table's +-inf
+    lerp."""
+    idx = staged_lower_index(knots, budget, q, pow2=True)
+    x_l, x_r, y_l, y_r, ga, gb = (knots[idx], knots[idx + 1], data[idx], data[idx + 1],
+                                  a[idx], b[idx])
+    one = q.dtype.type(1)
+    with np.errstate(all="ignore"):
+        t = (q - x_l) / (x_r - x_l)
+        base = (one - t) * y_l + t * y_r + t * (one - t) * (ga * (one - t) + gb * t)
+        lin_inf = np.isinf(t) & (ga == 0) & (gb == 0)
+        return np.where(lin_inf, y_l + t * (y_r - y_l), base)
+
+
+def big_case(n, seed):
+    """A long f32 axis of gaps 0.5 to 1.5, data, slopes and 4,000 queries:
+    uniform with extrapolation, knots, NaN, +-inf, +-1e38."""
+    rng = np.random.default_rng(seed)
+    kn = np.cumsum(rng.uniform(0.5, 1.5, n)).astype(np.float32)
+    assert np.all(np.diff(kn) > 0)
+    d, a, b = (rng.normal(size=m).astype(np.float32) for m in (n, n - 1, n - 1))
+    lo, hi = float(kn[0]), float(kn[-1])
+    q = np.r_[rng.uniform(lo - 2, hi + 2, 3000), kn[rng.integers(0, n, 991)],
+              [np.nan, np.inf, -np.inf, 1e38, -1e38, lo, hi, kn[1], kn[-2]]].astype(np.float32)
+    return kn, d, a, b, q
+
+
+@pytest.mark.parametrize("n", [65_537, 262_144])
+@pytest.mark.parametrize("table", ["cubic", "linear"])
+def test_r3_model_equals_big_eval_plain_at_every_budget(n, table):
+    """At one knot, as leaders (2, 63, 4,095 and 16,384 knots: every 16th of
+    262,144) and at the wrapper's budget (a 128 KB f32 tree of 32,767
+    knots): bit for bit ``bk._big_eval_plain`` and K1's ``_eval_plain``, on
+    a cubic and a linear table (+-inf lerps), NaN queries NaN."""
+    kn, d, a, b, q = big_case(n, n)
+    if table == "linear":
+        a, b = np.zeros_like(a), np.zeros_like(b)
+    tk, td, ta, tb, tq = (torch.as_tensor(v) for v in (kn, d, a, b, q))
+    want = t_bk._big_eval_plain(tk, td, ta, tb, tq).numpy()
+    assert_bits(t_ek._eval_plain(tk, t_ek.make_interval_table(tk, td, ta, tb), tq).numpy(), want)
+    for budget in (1, 2, 63, 4095, 16_384, r3_budget(4)):
+        assert_bits(staged_big_eval(kn, d, a, b, budget, q), want, f"budget {budget}")
+    assert np.isnan(want[-9])
+    if table == "linear":
+        assert np.isinf(want[-8]) and np.isinf(want[-7])
+
+
+@pytest.mark.parametrize("table", ["cubic", "linear"])
+def test_r3_model_matches_the_jax_big_eval(table):
+    """The R3 model at the wrapper's budget and at one knot against the JAX
+    ``big_eval_1d`` off the TPU (its XLA search and refine, ``pallas=False``)
+    within ``tests/test_torch_bigknots.py``'s tolerance (``rtol = atol =
+    1e-6``), on the finite queries: the JAX refine's mask-sum takes no
+    +-inf lerp, and a NaN query takes its index 0 where the port takes
+    ``n - 2`` (both NaN)."""
+    kn, d, a, b, q = big_case(70_001, 3)
+    if table == "linear":
+        a, b = np.zeros_like(a), np.zeros_like(b)
+    want = np.asarray(j_bk._big_eval_impl(*(jnp.asarray(v) for v in (kn, d, a, b, q)),
+                                          pallas=False))
+    fin = np.isfinite(q) & (np.abs(q) < 1e30)
+    for budget in (1, r3_budget(4)):
+        got = staged_big_eval(kn, d, a, b, budget, q)
+        np.testing.assert_allclose(got[fin], want[fin], rtol=1e-6, atol=1e-6)
+    assert np.isnan(got[np.isnan(q)]).all() and np.isnan(want[np.isnan(q)]).all()
+
+
+def test_the_r3_budget_is_a_128_kb_tree():
+    """R3 stages a tree of ``_R3_TREE_BYTES``: at most 32,767 f32 knots (a
+    15-level tree, the largest ``tree_budget`` lets a block hold in f32), so
+    every axis of the route (65,537 to ``MAX_BIG_KNOTS`` knots) is staged as
+    leaders strided by a power of two: every 4th knot at 65,537, every 16th
+    at NS1b's 262,144 (16,384 leaders), every 512th at 8,388,480."""
+    assert t_bk._R3_TREE_BYTES == 128 << 10
+    budget = r3_budget(4)
+    assert budget == 32_767 and tree_levels(budget) == 15
+    assert (1 << tree_levels(budget)) * 4 == t_bk._R3_TREE_BYTES
+    ns = (65_537, 262_144, t_bk.MAX_BIG_KNOTS)
+    assert [stride(n, budget, pow2=True) for n in ns] == [4, 16, 512]
+    assert all(tree_levels(-(-n // stride(n, budget, pow2=True))) <= 15 for n in ns)

@@ -1,18 +1,24 @@
-"""K1's and R1's designs on the staged search, on one card.
+"""The designs of K1, R1, K2 and R3 on the staged search, on one card.
 
-Runs ``chip_smoke.py``'s two search phases alone: ``k1_phase`` (the fused
-1-D eval on 2 to 70,001 knots and 2 to 1,000,000 queries, by shared-memory
+Runs ``chip_smoke.py``'s search phases alone: ``k1_phase`` (the fused 1-D
+eval on 2 to 70,001 knots and 2 to 1,000,000 queries, by shared-memory
 budget and by row read, beside the first design: one knot staged, every
-level of the search on the global axis, six scalar loads a row) and
+level of the search on the global axis, six scalar loads a row),
 ``r1_phase`` (the 2-D cell search on 2 x 2 to 70,001 x 33 knots, by budget,
-beside the first design), f32 and f64, every output held bit for bit
-against its plain version.
+beside the first design), ``k2_phase`` (the ``(idx, t)`` search at the
+paths' shapes, 64 to 10,240 knots, and at 2 and 70,001, by budget, beside
+its first design, a thread a query on the global search) and ``r3_phase``
+(the long-axis eval at 65,537, 262,144 and 8,388,480 knots, by budget,
+beside its first design, 512 sorted leaders), f32 and f64, every output
+held bit for bit against its plain version.
 
-    python3 tools/search_phases.py [--sweeps]
+    python3 tools/search_phases.py [--sweeps] [--phases k1,r1,k2,r3]
 
-``--sweeps`` adds K1's tree from 16 to 64 KB at 70,001 and 262,144 knots
-and R1's budget at 8,192 x 8,192 and 70,001 x 33 knots: the data behind
-the wrappers' budgets.  Needs one CUDA card; exits non-zero on a mismatch.
+``--sweeps`` adds K1's tree from 16 to 64 KB at 70,001 and 262,144 knots,
+R1's budget at 8,192 x 8,192 and 70,001 x 33 knots, K2's tree from 16 to
+128 KB past 8,191 knots and R3's at 262,144 and 8,388,480 knots: the data
+behind the wrappers' budgets.  ``--phases`` runs only the phases named.
+Needs one CUDA card; exits non-zero on a mismatch.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ HERE = Path(__file__).resolve().parent.parent
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweeps", action="store_true")
+    ap.add_argument("--phases", default="k1,r1,k2,r3")
     args = ap.parse_args()
     sys.path.insert(0, str(HERE))
     import chip_smoke as cs  # its helpers import the port only when called
@@ -55,8 +62,9 @@ def main():
                         device=dev)
     print(f"K3 at 2,048 knots x 1,000,000 f32 (the wrapper's tree): "
           f"{cs.fmt(cs.device_ms(lambda: ek.fused_lower_index(k, q), 50))}", flush=True)
-    cs.k1_phase(dev, card, rec, args.sweeps)
-    cs.r1_phase(dev, card, rec, args.sweeps)
+    phases = {"k1": cs.k1_phase, "r1": cs.r1_phase, "k2": cs.k2_phase, "r3": cs.r3_phase}
+    for name in args.phases.split(","):
+        phases[name](dev, card, rec, args.sweeps)
     if cs.failures:
         sys.exit(f"search_phases: {len(cs.failures)} failure(s)")
     print(f"search_phases: all bit-identical; {time.perf_counter() - t0:.0f} s", flush=True)
