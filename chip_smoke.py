@@ -21,7 +21,8 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    (1024, 256) with per-column diagonals, bit-identical to the plain
    reference-order loop; K1's gradient against autograd of its plain
    version; a NaN datum changing only the queries of its two intervals;
-   K6-K9 (double-float 1-D) on non-uniform and float32-colliding knots;
+   K6-K9 (double-float 1-D) on non-uniform and float32-colliding knots, K6
+   also in its float64 store form and its first design;
    K10-K13 and R4c (double-float 2-D tails; R4c the weight form, also held
    within 1e-13 of K12) on grids up to 512 x 512 at 1, 3, 16 and 20
    channels, at the indices and fractions K7 gives for 1,000,000 queries
@@ -124,7 +125,17 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    as leaders, idx and t bit for bit ``_index_frac_plain``; R3
    (``r3_phase``) at 65,537, 262,144 (NS1b) and 8,388,480 knots on
    1,000,000 queries (f64 too at the first two) the same way, cubic and
-   linear tables, bit for bit ``_big_eval_plain`` and K1's ``_eval_plain``.
+   linear tables, bit for bit ``_big_eval_plain`` and K1's ``_eval_plain``;
+   R3idx (``r3idx_phase``) at R3's shapes the same way, idx and t bit for
+   bit ``_big_index_frac_plain`` and K2's ``_index_frac_plain``, and beside
+   its first design on NS1b's own inputs.  K6 (``k6_phase``) on 4,096 knots
+   (the scalar serving spline: the whole axis staged, its rows widened
+   beside it), 20,000 and 70,001 (leaders) at 2^20 queries: at the
+   wrapper's budget, in its first design (0), at one knot and as leaders, cubic and linear tables (and
+   knots that collide in float32), each in both store forms bit for bit
+   ``eval_xla_df`` and ``df_to_f64`` of it, timed in each; the scalar
+   ``DoubleFloatEvaluator`` on K6 and on K6's first design by CUDA events,
+   in turns, its output bit for bit ``df_to_f64`` of K6's pair.
    R2a at NS2b (10,240 x 64,
    1,000,000 queries) and at the bank eval's shape: its 16-byte lanes
    against the first design's column a lane (on a table off 16-byte
@@ -133,7 +144,8 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    tree against the global search on batches of 2 to 65,536; K1's tree
    from 16 to 64 KB at 70,001 and 262,144 knots; R1's budget from 16 to
    128 KB at 8,192 x 8,192 and 70,001 x 33 knots; K2's tree from 16 to 128
-   KB past 8,191 knots, R3's at 262,144 and 8,388,480 knots; R2a with
+   KB past 8,191 knots, R3's and R3idx's at 262,144 and 8,388,480 knots,
+   K6's leaders at 4,096 knots; R2a with
    every query in one interval and in interval order (the diagnosis), in
    f64, and on prefixes of 2^12 to 2^20 queries at banks 8, 64 and 256.
    Every kernel's launches are summed over every path.
@@ -415,11 +427,12 @@ def rep(v):
 
 
 def df_kernel_phases(dev, rec):
-    """K6-K9 against their plain versions on the card, on the same inputs."""
+    """K6-K9 against their plain versions on the card, on the same inputs
+    (K6 also in its float64 store form and its first design)."""
     import torch
 
     from ndarray_interp_tpu_torch.ops import eval_kernels_df as ek
-    from ndarray_interp_tpu_torch.ops.df import df_from_f64
+    from ndarray_interp_tpu_torch.ops.df import df_from_f64, df_to_f64
 
     rng = np.random.default_rng(1)
 
@@ -442,12 +455,20 @@ def df_kernel_phases(dev, rec):
                 ("linear", (2.0 * kn + 1.0, np.zeros(n - 1), np.zeros(n - 1))),
             ):
                 args = (*x, *(h for v in dab for h in pair(v)), *qp)
-                ok &= rec.add_pair("K6", f"{label} {tname}", ek.fused_eval_1d_df(*args),
-                                   ek.eval_xla_df(*args))
+                want = ek.eval_xla_df(*args)
+                ok &= rec.add_pair("K6", f"{label} {tname}", ek.fused_eval_1d_df(*args), want)
+                ok &= rec.add("K6", f"{label} {tname}, float64 store form",
+                              ek._fused_eval_1d_df_f64(*args), df_to_f64(*want))
+                budget, ek._K6_SHARED_KNOTS = ek._K6_SHARED_KNOTS, 0  # the first design
+                try:
+                    ok &= rec.add_pair("K6", f"{label} {tname}, first design",
+                                       ek.fused_eval_1d_df(*args), want)
+                finally:
+                    ek._K6_SHARED_KNOTS = budget
             ok &= rec.add_pair("K7", label, ek.fused_index_frac_df(*x, *qp),
                                ek._df_index_frac_xla(*x, *qp))
-            print(f"  {label}: K6 (cubic and linear), K7 (idx, t_hi, t_lo) "
-                  f"{'bit-identical' if ok else 'MISMATCH'}", flush=True)
+            print(f"  {label}: K6 (cubic and linear, both store forms, and its first design), "
+                  f"K7 (idx, t_hi, t_lo) {'bit-identical' if ok else 'MISMATCH'}", flush=True)
     torch.cuda.synchronize()
 
     for n, bank in ((10_240, 64), (1_000, 300)):
@@ -628,6 +649,7 @@ def serving_path(dev, state, rng):
     from ndarray_interp_tpu_torch import OutOfBoundsError
     from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
     from ndarray_interp_tpu_torch.ops import eval_kernels_df as ek
+    from ndarray_interp_tpu_torch.ops.df import df_from_f64, df_to_f64
     from ndarray_interp_tpu_torch.serving import DoubleFloatEvaluator, Evaluator
 
     drive, total = counted_calls()
@@ -665,6 +687,12 @@ def serving_path(dev, state, rng):
     got = drive(f"scalar DoubleFloatEvaluator at {nq:,} f64 queries", ["K6"], lambda: ev(qs_d))
     gate(f"df scalar 4,096 knots at {nq:,} queries", got, si.CubicSpline(xs, vals)(qs), 1e-12,
          (nq,))
+    # K6's float64 store form: bit for bit the pair it returned before, recombined
+    same = bit_compare(got, df_to_f64(*ek.fused_eval_1d_df(*ev._run.args, *df_from_f64(qs_d))))[0]
+    print(f"  scalar DoubleFloatEvaluator on K6's float64 store form against df_to_f64 of K6's "
+          f"pair: {'bit-identical' if same else 'MISMATCH'}", flush=True)
+    if not same:
+        fail("the scalar DoubleFloatEvaluator differs from df_to_f64 of K6's pair")
     out["scalar"] = (ev, qs_d)
 
     # the f32 Evaluator: equal bit for bit to itp(q) at every request size
@@ -1204,7 +1232,7 @@ def k2_phase(dev, card, rec, sweeps):
                     print(f"    {name} ({b_:,} knots staged): {fmt(t_)}", flush=True)
                 out[label] = {"ms": got["wrapper"][0], "knots_staged": staged,
                               "first_design_ms": got["first design"][0],
-                              "tree_ms": got["tree"][0], "global_ms": got["global"][0],
+                              "global_ms": got["global"][0],
                               "leader_ms": got["leaders"][0], "bound_ms": bound_ms,
                               **{f"{name} ms": t_[0] for name, t_ in got.items()
                                  if name.startswith("tree")}}
@@ -1294,6 +1322,88 @@ def r3_phase(dev, card, rec, sweeps):
         bk._R3_TREE_BYTES = default
     return {"shapes": out}
 
+
+
+# --sweeps: R3idx's float32 axes between 65,537 and 262,144 knots, where its
+# first design and R3's tree trade places
+R3IDX_CROSSOVER = (98_304, 131_072, 196_608)
+
+
+def r3idx_phase(dev, card, rec, sweeps):
+    """R3idx at R3's shapes: 65,537 knots, NS1b's 262,144 and
+    ``MAX_BIG_KNOTS`` (8,388,480) at 1,000,000 float32 queries, and the
+    first two in float64: each as the wrapper runs it (R3's 128 KB tree), in
+    its first design (0: 512 sorted f32 leaders), at one knot (every level
+    global) and as leaders of every 16th knot (capped at the largest tree a
+    block holds), idx and t held bit for bit against
+    ``_big_index_frac_plain`` and K2's ``_index_frac_plain`` on queries with
+    NaN, +-inf, +-1e38, about 100,000 knots themselves and far
+    extrapolation, and timed in each.  With ``sweeps``, also trees of 16 to
+    128 KB at every shape and the float32 axes of ``R3IDX_CROSSOVER``
+    knots.  Returns the kernels line's
+    ``first_design_ms`` (NS1b's shape) and ``shapes``."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops import bigknots as bk
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+
+    rng = np.random.default_rng(61)
+    default = bk._R3_TREE_BYTES
+    cases = [(65_537, np.float32), (N_NS1B, np.float32), (bk.MAX_BIG_KNOTS, np.float32),
+             (65_537, np.float64), (N_NS1B, np.float64)]
+    if sweeps:  # between the route's shortest axis and NS1b's, where the tree starts to pay
+        cases += [(n, np.float32) for n in R3IDX_CROSSOVER]
+    out = {}
+    print(f"R3idx by shared-memory budget (the wrapper: R3's tree of {default:,} B; 0: the "
+          f"first design; one knot: every level global), ms (median [min, max] of {RUNS} runs "
+          f"by CUDA events; card: {card}):", flush=True)
+
+    def run(knots_staged, k, q):
+        bk._R3_TREE_BYTES = (default if knots_staged is None
+                             else (knots_staged + 1) * k.element_size())
+        return bk.big_lower_index_frac(k, q)
+
+    try:
+        for n, np_dt in cases:
+            tag, size = np.dtype(np_dt).name, np.dtype(np_dt).itemsize
+            kn = big_knots(n, "integer" if n > 1 << 22 else "nonuniform", rng)
+            q = torch.as_tensor(big_queries(kn, NQ_BIG, rng).astype(np_dt), device=dev)
+            k = torch.as_tensor(kn.astype(np_dt), device=dev)
+            want = bk._big_index_frac_plain(k, q)
+            k2_plain = ek._index_frac_plain(k, q)
+            label = f"{tag}, {n:,} knots, {NQ_BIG:,} queries"
+            budgets = {"wrapper": None, "first design": 0, "global": 1,
+                       "leaders": max(2, n // 16)}
+            if sweeps:
+                budgets |= {f"tree {t_ >> 10} KB": t_ // size - 1 for t_ in R3_TREE_SWEEP[:-1]}
+            ok = True
+            for b_ in budgets.values():
+                got = run(b_, k, q)
+                ok &= rec.add_pair("R3idx", f"{label}, {b_} knots staged", got, want)
+                ok &= rec.add_pair("R3idx", f"{label}, {b_} knots staged, K2's plain version",
+                                   got, k2_plain)
+            got = {name: device_ms(lambda b_=b_: run(b_, k, q), 50)
+                   for name, b_ in budgets.items()}
+            bound_ms = bound("R3idx", (k, q))[0]
+            print(f"  R3idx {label} (idx and t at every budget, against its plain version and "
+                  f"K2's: {'bit-identical' if ok else 'MISMATCH'}); bound {bound_ms:.4f}:",
+                  flush=True)
+            staged = default // size - 1
+            for name, t_ in got.items():
+                b_ = staged if budgets[name] is None else budgets[name]
+                print(f"    {name} ({b_:,} knots staged): {fmt(t_)}", flush=True)
+            out[label] = {"ms": got["wrapper"][0], "knots_staged": staged,
+                          "first_design_ms": got["first design"][0],
+                          "global_ms": got["global"][0],
+                          "leader_ms": got["leaders"][0], "bound_ms": bound_ms,
+                          **{f"{name} ms": t_[0] for name, t_ in got.items()
+                             if name.startswith("tree ")}}
+            del k, q, want, k2_plain
+            torch.cuda.synchronize()
+    finally:
+        bk._R3_TREE_BYTES = default
+    shape = f"float32, {N_NS1B:,} knots, {NQ_BIG:,} queries"
+    return {"first_design_ms": out[shape]["first_design_ms"], "shapes": out}
 
 def time_kernels(pairs, systems, card):
     """Device time of each kernel and its plain version on the first input
@@ -1783,6 +1893,102 @@ def k7_phase(x, qbp, card, rec):
     return {"global_search_ms": out[cases[0][0]]["global_ms"], "shapes": out}
 
 
+
+# K6's shapes: the scalar serving spline's 4,096 knots (the whole axis staged,
+# its rows widened beside it) and axes past the whole tree's 16,383 knots
+# (leaders), at the serving path's 2^20 queries
+K6_KNOTS = (4096, 20_000, 70_001)
+
+
+def k6_phase(dev, card, rec, sweeps):
+    """K6 on ``K6_KNOTS`` non-uniform knots at 2^20 queries: at the
+    wrapper's budget (K7's: the whole axis up to 16,383 knots, its rows
+    widened into shared memory where they fit, leaders above), in its first
+    design (0: a thread a query on the global pairs), at one knot (every level global) and as leaders of every
+    16th knot, on a cubic and a linear table (+-inf) and, at 4,096 knots,
+    on knots that collide in float32; each held bit for bit against
+    ``eval_xla_df`` (NaN on index 0, +-inf, +-1e300, the knots, the
+    midpoints) and, in the float64 store form, against ``df_to_f64`` of it;
+    timed on the cubic table in each, the store forms at the wrapper's
+    budget and in the first design.  With ``sweeps``, also the whole tree
+    against leaders at 4,096 knots (budgets 1,023 and 4,095).  Returns the
+    kernels line's ``first_design_ms``, ``f64_ms``, ``f64_first_design_ms``
+    (the serving shape) and ``shapes``."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df as ek
+    from ndarray_interp_tpu_torch.ops.df import df_from_f64, df_to_f64
+
+    rng = np.random.default_rng(60)
+    default = ek._K6_SHARED_KNOTS
+    nq = 1 << 20
+    out = {}
+    print(f"K6 by shared-knot budget (0: the first design; one knot: every level on the global "
+          f"pairs; the wrapper's budget {default:,}), ms (median [min, max] of {RUNS} runs by "
+          f"CUDA events; card: {card}):", flush=True)
+
+    def pair(v):
+        return df_from_f64(torch.as_tensor(np.asarray(v, np.float64), device=dev))
+
+    def run(budget, args, f64=False):
+        ek._K6_SHARED_KNOTS = budget
+        return (ek._fused_eval_1d_df_f64 if f64 else ek.fused_eval_1d_df)(*args)
+
+    try:
+        for n in K6_KNOTS:
+            xs = rep(np.cumsum(rng.uniform(0.1, 1.0, n)))
+            vals, a, b = (rep(rng.normal(size=m)) for m in (n, n - 1, n - 1))
+            q = rep(rng.uniform(xs[0], xs[-1], nq - 2 * n - 7))
+            q = rng.permutation(np.r_[q, xs, (xs[:-1] + xs[1:]) / 2,
+                                      [np.nan, np.inf, -np.inf, 1e300, -1e300, -1e6, 1e9]])
+            qp = pair(q)
+            label = f"{n:,} knots, {nq:,} queries"
+            budgets = {"wrapper": default, "first design": 0, "global": 1,
+                       "leaders": max(2, n // 16)}
+            if sweeps and n == K6_KNOTS[0]:
+                budgets |= {f"leaders, budget {b_:,}": b_ for b_ in (1023, 4095)}
+            tables = {"cubic": (vals, a, b), "linear": (2.0 * xs + 1.0, 0 * a, 0 * b)}
+            if n == K6_KNOTS[0]:
+                xc = rep(np.cumsum(rng.uniform(1e-9, 1e-7, n)) + 1.0)
+                tables["collide, linear"] = (2.0 * xc + 1.0, 0 * a, 0 * b)
+            ok = True
+            for tname, (d, ta, tb) in tables.items():
+                kn = xc if tname.startswith("collide") else xs
+                args = (*pair(kn), *(h for v in (d, ta, tb) for h in pair(v)), *qp)
+                want = ek.eval_xla_df(*args)
+                want64 = df_to_f64(*want)
+                for name, b_ in budgets.items():
+                    ok &= rec.add_pair("K6", f"{label} {tname}, {name}", run(b_, args), want)
+                    ok &= rec.add("K6", f"{label} {tname}, {name}, float64 store form",
+                                  run(b_, args, True), want64)
+                del want, want64
+            args = (*pair(xs), *(h for v in (vals, a, b) for h in pair(v)), *qp)
+            got = {name: device_ms(lambda b_=b_: run(b_, args), 50)
+                   for name, b_ in budgets.items()}
+            f64 = {name: device_ms(lambda: run(budgets[name], args, True), 50)
+                   for name in ("wrapper", "first design")}
+            bound_ms = bound("K6", args)[0]
+            print(f"  K6 {label} (every budget, cubic and linear tables, both "
+                  f"store forms: {'bit-identical' if ok else 'MISMATCH'}); bound "
+                  f"{bound_ms:.4f}:", flush=True)
+            for name, t_ in got.items():
+                print(f"    {name} (budget {budgets[name]:,}): {fmt(t_)}", flush=True)
+            for name, t_ in f64.items():
+                print(f"    {name}, float64 store form: {fmt(t_)}", flush=True)
+            out[label] = {"ms": got["wrapper"][0], "first_design_ms": got["first design"][0],
+                          "global_ms": got["global"][0], "leader_ms": got["leaders"][0],
+                          "f64_ms": f64["wrapper"][0],
+                          "f64_first_design_ms": f64["first design"][0], "bound_ms": bound_ms,
+                          **{f"{name} ms": t_[0] for name, t_ in got.items()
+                             if name.startswith("leaders, ")}}
+            del args, qp
+            torch.cuda.synchronize()
+    finally:
+        ek._K6_SHARED_KNOTS = default
+    head = out[f"{K6_KNOTS[0]:,} knots, {nq:,} queries"]
+    return {key: head[key] for key in ("first_design_ms", "f64_ms", "f64_first_design_ms")} | {
+        "shapes": out}
+
 # --sweeps: ORD's forms by bucket count, the data behind SHARED_MAX_BUCKETS
 ORD_BUCKETS = (1024, 4096, 8192, 16_384, 24_576, 32_768, 49_152)
 
@@ -1824,10 +2030,12 @@ def ord_form_sweep(dev, card):
 def df_timing(serving, card, rec, sweeps):
     """Hold K6-K9, through their wrappers, against their plain versions on
     the serving path's own tables and queries; time both there; K7 by its
-    shared-knot budget (``k7_phase``); K8's and K9's ordering by interval
-    and both of their branches in both store forms (``ordered_phase``);
-    then time each evaluator call end to end with its eight largest
-    kernels."""
+    shared-knot budget (``k7_phase``), K6 by its budget and store form
+    (``k6_phase``); K8's and K9's ordering by interval and both of their
+    branches in both store forms (``ordered_phase``); the scalar evaluator
+    on K6 and on K6's first design in turns, its device busy time and its
+    synchronised host wall; then time each evaluator call end to end with
+    its eight largest kernels."""
     import torch
 
     from ndarray_interp_tpu_torch.ops import eval_kernels_df as ek
@@ -1860,6 +2068,7 @@ def df_timing(serving, card, rec, sweeps):
         print(f"  {kid} {label}: {'bit-identical' if ok else 'MISMATCH'}", flush=True)
     times = time_kernels(pairs, systems, card)
     times["K7"].update(k7_phase(x, qbp, card, rec))
+    times["K6"].update(k6_phase(qb.device, card, rec, sweeps))
 
     # K8 and K9 at the serving path's tables and queries, ordered by interval
     # and unordered, and on banks of 8, 256 (the table past the L2) and 63
@@ -1884,6 +2093,35 @@ def df_timing(serving, card, rec, sweeps):
         del extra
     if sweeps:
         ord_form_sweep(qb.device, card)
+
+    # the scalar evaluator on K6 at the wrapper's budget and in its first
+    # design, in turns (A B B A): device busy from the profiler (the call's
+    # eager NaN check syncs the host, so CUDA events around it would time
+    # the host too) and the host wall of a synchronised loop, what a caller
+    # waits for
+    print(f"scalar DoubleFloatEvaluator, 4,096 knots at {nq}, in turns: device busy per call "
+          f"from the profiler, host wall per call (median [min, max] of {RUNS} runs of a "
+          f"synchronised loop of 10 calls; card: {card}):", flush=True)
+    default = ek._K6_SHARED_KNOTS
+    want = ev_s(qs)
+    turns = {default: [], 0: []}
+    try:
+        for budget in (default, 0, 0, default):
+            ek._K6_SHARED_KNOTS = budget
+            if not bit_compare(ev_s(qs), want)[0]:
+                fail(f"the scalar DoubleFloatEvaluator on K6 at budget {budget} differs")
+            turns[budget].append((*busy_ms(lambda: ev_s(qs), 10, top=1),
+                                  wall_ms(lambda: ev_s(qs), 10)))
+    finally:
+        ek._K6_SHARED_KNOTS = default
+    for budget, name in ((default, "K6 at the wrapper's budget"), (0, "K6's first design")):
+        print(f"  {name}: " + "; ".join(
+            f"busy {b:.4f}" + (f" (largest: {top[0][1]:.4f} {top[0][0][:60]})" if top else "")
+            + f", host wall {fmt(w)}" for b, top, w in turns[budget]), flush=True)
+    for key, budget in (("scalar_serving", default), ("scalar_serving_first_design", 0)):
+        times["K6"][f"{key}_busy_ms"] = float(np.mean([b for b, _, _ in turns[budget]]))
+        times["K6"][f"{key}_wall_ms"] = float(np.mean([w[0] for _, _, w in turns[budget]]))
+    del want
 
     ev1, q1 = serving["K1"]
     end_to_end({
@@ -3268,7 +3506,8 @@ def r2a_phase(system, bank_eval, card, rec, sweeps):
 def timing_big(state, bank_eval, card, rec, sweeps):
     """Hold K5, R2a, R3 and R3idx, through their wrappers, against their
     plain versions on the paths' own inputs; time both there, with K1 and
-    R3's first design at NS1b beside R3, R3 by its budgets (``r3_phase``) and
+    R3's first design at NS1b beside R3 (and R3idx's beside R3idx), R3 and
+    R3idx by their budgets (``r3_phase``, ``r3idx_phase``) and
     R2a's two bodies (``r2a_phase``, also at the bank eval's shape
     ``bank_eval``); then time the slice's calls end to end, and those on R2a
     and R3 also by CUDA events."""
@@ -3321,6 +3560,7 @@ def timing_big(state, bank_eval, card, rec, sweeps):
     print(f"  R3 NS1b against K1's plain version: {'bit-identical' if ok else 'MISMATCH'}")
     times = time_kernels(pairs, systems, card)
     times["R3"].update(r3_phase(qb.device, card, rec, sweeps))
+    times["R3idx"].update(r3idx_phase(qb.device, card, rec, sweeps))
     print("R2a's bodies at NS2b's table and queries:", flush=True)
     times["R2a"].update(r2a_phase(systems["R2a"][0], bank_eval, card, rec, sweeps))
     kern, plain, _, (nk, npl) = pairs["K5"]
@@ -3346,15 +3586,18 @@ def timing_big(state, bank_eval, card, rec, sweeps):
     tk_ = device_ms(lambda: ek.fused_eval_1d(*args), 50)
     bound_ms, bound_by = bound("K1", args)
     default = bk._R3_TREE_BYTES
-    bk._R3_TREE_BYTES = qb.element_size()  # budget 0: R3's first design
+    bk._R3_TREE_BYTES = qb.element_size()  # budget 0: R3's and R3idx's first designs
     try:
         first = device_ms(lambda: bk.big_eval_1d(*systems["R3"][0][1]), 50)
+        first_idx = device_ms(lambda: bk.big_lower_index_frac(*systems["R3idx"][0][1]), 50)
     finally:
         bk._R3_TREE_BYTES = default
     times["R3"]["first_design_ms"] = first[0]
+    times["R3idx"]["ns1b_first_design_ms"] = first_idx[0]
     print(f"  K1 beside R3, NS1b {N_NS1B:,} knots, {nq}: kernel {fmt(tk_)}, bound "
           f"{bound_ms:.4f} ({bound_by}); R3 {times['R3']['ms']:.4f}, R3's first design "
-          f"{fmt(first)}", flush=True)
+          f"{fmt(first)}; R3idx {times['R3idx']['ms']:.4f}, R3idx's first design "
+          f"{fmt(first_idx)}", flush=True)
     del systems, args, tbl
 
     spline = CubicSpline().extrapolate(True)
@@ -3378,10 +3621,23 @@ def timing_big(state, bank_eval, card, rec, sweeps):
     print(f"the calls on R2a and R3 by CUDA events (device ms per call, median [min, max] of "
           f"{RUNS} runs, queue held full; card: {card}):", flush=True)
     itp_b, q_b = bank_eval
+    turns = {"R3idx at the wrapper's budget": [], "R3idx's first design": []}
+    try:  # NS1b bank on R3idx and on its first design, in turns (A B B A)
+        for name in (*turns, *reversed(turns)):
+            bk._R3_TREE_BYTES = default if name.startswith("R3idx at") else qb.element_size()
+            turns[name].append(device_ms(lambda: bankb(qb), 5))
+    finally:
+        bk._R3_TREE_BYTES = default
+    for name, t_ in turns.items():
+        print(f"  NS1b bank itp(q), {N_NS1B:,} x 8 at {nq}, {name}: "
+              + ", ".join(fmt(t) for t in t_), flush=True)
+    times["R3idx"]["ns1b_bank_ms"] = float(np.mean([t[0] for t in turns["R3idx at the wrapper's "
+                                                                         "budget"]]))
+    times["R3idx"]["ns1b_bank_first_design_ms"] = float(np.mean([t[0] for t in
+                                                                 turns["R3idx's first design"]]))
     for label, fn in (
         (f"bank eval itp(q), 10,000 x 64 at {q_b.numel():,}", lambda: itp_b(q_b)),
         (f"NS2b itp(q), 10,240 x 64 at {nq}", lambda: itp10(q10)),
-        (f"NS1b bank itp(q), {N_NS1B:,} x 8 at {nq}", lambda: bankb(qb)),
         (f"NS1b itp(q), {N_NS1B:,} knots at {nq}", lambda: itpb(qb)),
         (f"NS1b Linear itp(q), {N_NS1B:,} knots at {nq}", lambda: linb(qb)),
         (f"NS4 Akima itp(q), {N_NS1B:,} knots at {nq}", lambda: state["NS4", "Akima big"](qb)),
@@ -3744,8 +4000,9 @@ def main():
 
     ap = argparse.ArgumentParser(description="On-card check of the PyTorch port.")
     ap.add_argument("--sweeps", action="store_true",
-                    help="also run the design sweeps behind K3's, K1's, R1's, K2's and R3's tree "
-                         "budgets, R2a's body, the ordered branches' crossovers and ORD's forms")
+                    help="also run the design sweeps behind K3's, K1's, R1's, K2's, R3's, "
+                         "R3idx's and K6's tree budgets, R2a's body, the ordered branches' "
+                         "crossovers and ORD's forms")
     sweeps = ap.parse_args().sweeps
     import torch
 

@@ -7,7 +7,8 @@
 //                        its interval's row, and the symmetric Hermite form with the
 //                        +-inf lerp of linear tables.
 // R3idx  big_index_frac  the same search emitting (idx, t) (big_lower_index_frac),
-//                        which feeds the banked routes.
+//                        which feeds the banked routes: K2's staged kernel
+//                        (staged_index.cuh) on R3's leader tree.
 //
 // The TPU route is three passes: a search of the block leaders (one knot of
 // every W), an XLA gather of the block's packed row [knots | data | a | b]
@@ -39,7 +40,16 @@
 // knot, 29,128 leaders) took 0.0549 where every 16th took 0.0504: the
 // 15-level tree and the power-of-two stride both pay.  The design before the
 // first, 8,192 leaders at 4 blocks per SM, took 0.1226.
-// R3idx keeps the first design's search (big_lower_index).
+//
+// R3idx is the same search without the four row loads: K2's staged kernel
+// (staged_index_kernel<T, false, true>) on R3's tree, the same power-of-two
+// stride (staged_axis with pow2), t's endpoints read from the knot array
+// (the tree holds only leaders).  It writes 8 bytes a query (idx, t) where
+// R3 writes 4.  Its first design, the 512 sorted leaders and
+// big_lower_index, stays beside it at budget 0 for timing: at 65,537 f32
+// knots x 1M it took 0.0290 ms against the tree's 0.0350, at 262,144 0.0519
+// against 0.0416 (tools/search_phases.py, H100 80GB HBM3, 700 W); the wrapper
+// stages the tree at every length (ops/bigknots.py).
 //
 // Numerics.  The index is the global upper bound minus one, clamped to
 // [0, n-2], exactly torch.searchsorted(right=True) - 1 as in K1-K3: the leader
@@ -56,6 +66,7 @@
 #include <stdint.h>
 
 #include "staged_eval1d.cuh"  // R3 on K1's body and the staged search
+#include "staged_index.cuh"   // R3idx on K2's staged kernel
 
 namespace {
 
@@ -146,6 +157,7 @@ __global__ void big_eval_kernel(const T* __restrict__ knots, int64_t n, int64_t 
   }
 }
 
+// R3idx's first design: the sorted leaders, big_lower_index (shared_knots = 0)
 template <typename T>
 __global__ void big_index_frac_kernel(const T* __restrict__ knots, int64_t n, int64_t w, int c,
                                       const T* __restrict__ q, int32_t* __restrict__ idx_out,
@@ -198,10 +210,18 @@ struct ArrayRows {
   }
 };
 
-// R3 on K1's body, its axis on a tree of at most shared_knots knots (capped
-// at the largest a block holds; at least 1: every level on the global axis),
-// every w-th knot for the least power of two w that fits; at shared_knots = 0
-// the first design
+// R3's and R3idx's axis on a tree of at most shared_knots knots (capped at the
+// largest a block holds; at least 1: every level on the global axis), every
+// w-th knot for the least power of two w that fits
+template <typename T>
+cudaError_t big_axis(const void* knots, int64_t n, int64_t shared_knots, StagedAxis<T>* ax) {
+  int64_t budget = 1;
+  const cudaError_t err = tree_budget(shared_knots, sizeof(T), &budget);
+  if (err == cudaSuccess) *ax = staged_axis<T>(knots, n, budget, true);
+  return err;
+}
+
+// R3 on K1's body on that tree; at shared_knots = 0 the first design
 template <typename T>
 int big_eval(const void* knots, int64_t n, const void* data, const void* a, const void* b,
              int64_t shared_knots, const void* q, void* out, int64_t nq, void* stream) {
@@ -219,31 +239,36 @@ int big_eval(const void* knots, int64_t n, const void* data, const void* a, cons
         k, n, g.w, static_cast<int>(g.c), d, aa, bb, qq, o, nq);
     return static_cast<int>(cudaGetLastError());
   }
-  int64_t budget = 1;
-  cudaError_t err = tree_budget(shared_knots, sizeof(T), &budget);
+  StagedAxis<T> ax;
+  cudaError_t err = big_axis(knots, n, shared_knots, &ax);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // the stride between leaders rounded up to a power of two: the knots
-  // between two leaders then lie in one aligned run of w elements
-  int64_t w = 1;
-  while (w * budget < n) w *= 2;
-  const StagedAxis<T> ax{k, static_cast<int>(n), w, static_cast<int>((n + w - 1) / w), nullptr};
   const ArrayRows<T> rows{k, d, aa, bb};
   err = ax.w == 1 ? staged_eval1d<T, true>(ax, rows, qq, o, nq, s)
                   : staged_eval1d<T, false>(ax, rows, qq, o, nq, s);
   return static_cast<int>(err);
 }
 
+// R3idx on K2's staged kernel on that tree; at shared_knots = 0 the first design
 template <typename T>
-int big_index_frac(const void* knots, int64_t n, const void* q, void* idx, void* t, int64_t nq,
-                   void* stream) {
-  if (nq > 0) {
+int big_index_frac(const void* knots, int64_t n, int64_t shared_knots, const void* q, void* idx,
+                   void* t, int64_t nq, void* stream) {
+  if (nq <= 0) return static_cast<int>(cudaGetLastError());
+  const T* qq = static_cast<const T*>(q);
+  int32_t* ix = static_cast<int32_t*>(idx);
+  T* tt = static_cast<T*>(t);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (shared_knots == 0) {
     const Geometry g = geometry(n, sizeof(T));
-    big_index_frac_kernel<T><<<grid_for(nq), kThreads, g.c * sizeof(T),
-                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(knots), n, g.w, static_cast<int>(g.c), static_cast<const T*>(q),
-        static_cast<int32_t*>(idx), static_cast<T*>(t), nq);
+    big_index_frac_kernel<T><<<grid_for(nq), kThreads, g.c * sizeof(T), s>>>(
+        static_cast<const T*>(knots), n, g.w, static_cast<int>(g.c), qq, ix, tt, nq);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  StagedAxis<T> ax;
+  cudaError_t err = big_axis(knots, n, shared_knots, &ax);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = ax.w == 1 ? staged_index<T, true, true>(ax, qq, ix, tt, nq, s)
+                  : staged_index<T, false, true>(ax, qq, ix, tt, nq, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -262,14 +287,15 @@ int ndi_big_eval_f64(const void* knots, int64_t n, const void* data, const void*
   return big_eval<double>(knots, n, data, a, b, shared_knots, q, out, nq, stream);
 }
 
-int ndi_big_index_frac_f32(const void* knots, int64_t n, const void* q, void* idx, void* t,
-                           int64_t nq, void* stream) {
-  return big_index_frac<float>(knots, n, q, idx, t, nq, stream);
+// R3idx: knots, n, shared_knots (as R3's), q, idx, t, nq
+int ndi_big_index_frac_f32(const void* knots, int64_t n, int64_t shared_knots, const void* q,
+                           void* idx, void* t, int64_t nq, void* stream) {
+  return big_index_frac<float>(knots, n, shared_knots, q, idx, t, nq, stream);
 }
 
-int ndi_big_index_frac_f64(const void* knots, int64_t n, const void* q, void* idx, void* t,
-                           int64_t nq, void* stream) {
-  return big_index_frac<double>(knots, n, q, idx, t, nq, stream);
+int ndi_big_index_frac_f64(const void* knots, int64_t n, int64_t shared_knots, const void* q,
+                           void* idx, void* t, int64_t nq, void* stream) {
+  return big_index_frac<double>(knots, n, shared_knots, q, idx, t, nq, stream);
 }
 
 }  // extern "C"

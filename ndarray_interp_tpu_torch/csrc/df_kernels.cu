@@ -43,6 +43,23 @@
 // comparisons are those of the plain searchsorted on the same float64
 // values, so the result does not depend on the budget.
 //
+// K6 searches K7's tree (the first design, a thread a query on
+// df_lower_index, paid K7's old cost: at 4,096 knots 12 levels of two
+// scattered 4-byte loads and two FP64 conversions each, then twelve scalar
+// loads).  Its wrapper passes K7's budget; with the whole axis staged, x_l and
+// x_r come from the tree's slots, and where the tree and the widened d, a and
+// b fit a block and each block has as many queries as rows, the rows are
+// widened once a block after the tree (4,096 knots: a 64 KB tree and 96 KB of
+// rows).  The halves a, b of the linear escape and the hi halves of its
+// float32 fraction are read only on a segment whose widened a and b are 0.
+// K6 also has the float64 store form of df_common.cuh (out_lo null), which
+// the scalar DoubleFloatEvaluator takes.  The first design stays at budget 0.
+// On an H100 80GB HBM3 at 700 W (tools/search_phases.py, 2^20 queries): at
+// 4,096 knots 0.0192 ms (rows from the global pairs 0.0240, the first design
+// 0.0529; float64 store form 0.0193); past the whole tree the rows' scattered
+// loads from the L2 bound it: 20,000 knots 0.0960 against 0.0999, 70,001
+// 0.1143 against 0.1502.
+//
 // K8 and K9 write 8 bytes per (query, bank column) and read one packed row per
 // query (8 or 6 floats per column): the output (537 MB at 1M queries x 64) is
 // the memory bound.  The row gather is fused in: the gathered (Q, 8 bp)
@@ -117,36 +134,183 @@ __device__ __forceinline__ void bank_result(double base, float tn, float y_lh, f
   }
 }
 
-__global__ void df_eval1d_kernel(const float* __restrict__ xh, const float* __restrict__ xl,
-                                 int n, const float* __restrict__ dh,
-                                 const float* __restrict__ dl, const float* __restrict__ ah,
-                                 const float* __restrict__ al, const float* __restrict__ bh,
-                                 const float* __restrict__ bl, const float* __restrict__ qh,
-                                 const float* __restrict__ ql, float* __restrict__ out_hi,
-                                 float* __restrict__ out_lo, int64_t nq) {
+// -- K6 ------------------------------------------------------------------------------
+inline unsigned int blocks_for(int64_t nq) {
+  return static_cast<unsigned int>((nq + kThreads - 1) / kThreads);
+}
+
+// A scalar spline's pairs: knots x, data d (n), coefficients a, b (n - 1)
+struct DfSpline {
+  const float *xh, *xl, *dh, *dl, *ah, *al, *bh, *bl;
+  int n;
+
+  __device__ __forceinline__ double knot(int64_t m) const { return load_pair(xh, xl, m); }
+
+  // the widened y_l, y_r, a, b of interval k from the global pairs
+  __device__ __forceinline__ void row(int k, double v[4]) const {
+    v[0] = load_pair(dh, dl, k);
+    v[1] = load_pair(dh, dl, k + 1);
+    v[2] = load_pair(ah, al, k);
+    v[3] = load_pair(bh, bl, k);
+  }
+
+  // The rows widened once into shared memory: d at [0, n), a at [n, 2n - 1),
+  // b at [2n - 1, 3n - 2); the caller synchronises the block after it
+  __device__ __forceinline__ void stage_rows(double* rows) const {
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      rows[e] = load_pair(dh, dl, e);
+      if (e < n - 1) {
+        rows[n + e] = load_pair(ah, al, e);
+        rows[2 * n - 1 + e] = load_pair(bh, bl, e);
+      }
+    }
+  }
+
+  // The result pair of base, the Hermite form of interval k whose widened a
+  // and b are a, b, at the query whose hi half is q_h: the escape of
+  // bank_result on a linear segment.  Only a segment whose widened a and b
+  // are 0 can be linear (both halves of each 0), so the halves are read only
+  // there; the float32 fraction tn is taken of the knots' hi halves, as the
+  // plain version takes it for any pair (the widened knots rounded to float32
+  // equal them only for pairs that df_from_f64 made).
+  __device__ __forceinline__ void result(double base, double a, double b, int k, float q_h,
+                                         float& h, float& l) const {
+    if (a == 0.0 && b == 0.0 &&
+        linear_segment(__ldg(ah + k), __ldg(al + k), __ldg(bh + k), __ldg(bl + k))) {
+      const float x_lh = __ldg(xh + k);
+      const float x_rh = __ldg(xh + k + 1);
+      bank_result(base, (q_h - x_lh) / (x_rh - x_lh), __ldg(dh + k), __ldg(dh + k + 1), true,
+                  h, l);
+    } else {
+      h = static_cast<float>(base);
+      l = split_lo(base, h);
+    }
+  }
+};
+
+// K6's first design (shared_knots = 0): a thread a query, df_lower_index on
+// the global pairs, then the interval's twelve halves; the result in either
+// store form
+template <class Out>
+__global__ void df_eval1d_kernel(DfSpline sp, const float* __restrict__ qh,
+                                 const float* __restrict__ ql, Out out, int64_t nq) {
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= nq) return;
   const float q_h = qh[i];
   const double q = widen(q_h, ql[i]);
-  const int k = df_lower_index(xh, xl, n, q);
-  const float x_lh = __ldg(xh + k);
-  const float x_rh = __ldg(xh + k + 1);
-  const float y_lh = __ldg(dh + k);
-  const float y_rh = __ldg(dh + k + 1);
-  const float a_h = __ldg(ah + k);
-  const float a_l = __ldg(al + k);
-  const float b_h = __ldg(bh + k);
-  const float b_l = __ldg(bl + k);
-  const double x_l = widen(x_lh, __ldg(xl + k));
-  const double x_r = widen(x_rh, __ldg(xl + k + 1));
+  const int k = df_lower_index(sp.xh, sp.xl, sp.n, q);
+  const float x_lh = __ldg(sp.xh + k);
+  const float x_rh = __ldg(sp.xh + k + 1);
+  const float y_lh = __ldg(sp.dh + k);
+  const float y_rh = __ldg(sp.dh + k + 1);
+  const float a_h = __ldg(sp.ah + k);
+  const float a_l = __ldg(sp.al + k);
+  const float b_h = __ldg(sp.bh + k);
+  const float b_l = __ldg(sp.bl + k);
+  const double x_l = widen(x_lh, __ldg(sp.xl + k));
+  const double x_r = widen(x_rh, __ldg(sp.xl + k + 1));
   const double t = (q - x_l) / (x_r - x_l);
-  const double base = hermite(widen(y_lh, __ldg(dl + k)), widen(y_rh, __ldg(dl + k + 1)),
+  const double base = hermite(widen(y_lh, __ldg(sp.dl + k)), widen(y_rh, __ldg(sp.dl + k + 1)),
                               widen(a_h, a_l), widen(b_h, b_l), t);
   const float tn = (q_h - x_lh) / (x_rh - x_lh);
   float h, l;
   bank_result(base, tn, y_lh, y_rh, linear_segment(a_h, a_l, b_h, b_l), h, l);
-  out_hi[i] = h;
-  out_lo[i] = l;
+  out.template put<1>(i, &h, &l);
+}
+
+// K6 on K7's tree: the knots widened once a block into shared memory, knot
+// j w, j < c, in h levels (kWhole: w = 1, the whole axis, and x_l, x_r read
+// from the tree), with kRows also d, a and b widened after it; blocks stride
+// over the queries.  The index is K7's (NaN gives 0); the arithmetic is the
+// first design's in its order.
+template <bool kWhole, bool kRows, class Out>
+__global__ void __launch_bounds__(kSearchThreads)
+    df_eval1d_staged_kernel(DfSpline sp, int64_t w, int c, int h, const float* __restrict__ qh,
+                            const float* __restrict__ ql, Out out, int64_t nq) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* tree = reinterpret_cast<double*>(smem);
+  double* rows = tree + (1 << h);
+  const int n = sp.n;
+  const auto knot = [&](int64_t m) { return sp.knot(m); };
+  stage_tree(tree, knot, w, c, h);
+  if (kRows) sp.stage_rows(rows);
+  __syncthreads();
+#pragma unroll 1
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < nq;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const float q_h = qh[i];
+    const double q = widen(q_h, ql[i]);
+    const int k = q == q ? clamp_index(staged_count<kWhole>(tree, h, c, w, n, knot, q), n) : 0;
+    const double x_l = kWhole ? tree[slot_of_rank(k, h)] : sp.knot(k);
+    const double x_r = kWhole ? tree[slot_of_rank(k + 1, h)] : sp.knot(k + 1);
+    double v[4];
+    if (kRows) {
+      v[0] = rows[k];
+      v[1] = rows[k + 1];
+      v[2] = rows[n + k];
+      v[3] = rows[2 * n - 1 + k];
+    } else {
+      sp.row(k, v);
+    }
+    const double base = hermite(v[0], v[1], v[2], v[3], (q - x_l) / (x_r - x_l));
+    float hv, lv;
+    sp.result(base, v[2], v[3], k, q_h, hv, lv);
+    out.template put<1>(i, &hv, &lv);
+  }
+}
+
+template <bool kWhole, bool kRows, class Out>
+cudaError_t df_eval1d_staged(const DfSpline& sp, int64_t w, int c, const float* qh,
+                             const float* ql, Out out, int64_t nq, cudaStream_t s) {
+  auto kernel = df_eval1d_staged_kernel<kWhole, kRows, Out>;
+  const int h = tree_levels(c);
+  const size_t smem =
+      ((static_cast<size_t>(1) << h) + (kRows ? 3 * static_cast<size_t>(sp.n) - 2 : 0)) *
+      sizeof(double);
+  const int threads = kWhole ? kSearchThreads : kSearchThreads / 2;
+  unsigned int blocks = 0;
+  const cudaError_t err = staged_grid(kernel, threads, smem, nq, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, threads, smem, s>>>(sp, w, c, h, qh, ql, out, nq);
+  return cudaGetLastError();
+}
+
+// K6 on a tree of at most shared_knots widened knots (capped at the largest a
+// block holds; at least 1: every level on the global pairs); at shared_knots
+// = 0 the first design.  Its rows are d, a and b widened once a block into
+// shared memory after the tree where the tree is the whole axis, the tree and
+// the rows fit a block and each block of the grid that fills the card has at
+// least as many queries as rows to widen; else the interval's halves from the
+// global pairs.  On an H100 80GB HBM3 at 700 W, 4,096 knots x 2^20 queries:
+// 0.0192 ms with the rows in shared memory, 0.0240 with them read from the
+// global pairs (equal at 20,000 and 70,001 knots, where only leaders fit).
+template <class Out>
+cudaError_t df_eval1d(const DfSpline& sp, int64_t shared_knots, const float* qh,
+                      const float* ql, Out out, int64_t nq, cudaStream_t s) {
+  if (shared_knots == 0) {
+    df_eval1d_kernel<<<blocks_for(nq), kThreads, 0, s>>>(sp, qh, ql, out, nq);
+    return cudaGetLastError();
+  }
+  int64_t budget = 1;
+  cudaError_t err = tree_budget(shared_knots, sizeof(double), &budget);
+  if (err != cudaSuccess) return err;
+  const int64_t n = sp.n;
+  const int64_t w = (n + budget - 1) / budget;  // the stride between staged knots
+  const int c = static_cast<int>((n + w - 1) / w);
+  if (w > 1) return df_eval1d_staged<false, false>(sp, w, c, qh, ql, out, nq, s);
+  int optin = 0;
+  err = block_optin(&optin);
+  if (err != cudaSuccess) return err;
+  const size_t smem = ((static_cast<size_t>(1) << tree_levels(c)) + 3 * n - 2) * sizeof(double);
+  if (smem <= static_cast<size_t>(optin)) {
+    unsigned int blocks = 0;
+    err = staged_grid(df_eval1d_staged_kernel<true, true, Out>, kSearchThreads, smem, nq,
+                      &blocks);
+    if (err != cudaSuccess) return err;
+    if (nq >= static_cast<int64_t>(blocks) * (n - 1))
+      return df_eval1d_staged<true, true>(sp, w, c, qh, ql, out, nq, s);
+  }
+  return df_eval1d_staged<true, false>(sp, w, c, qh, ql, out, nq, s);
 }
 
 // -- K7 ------------------------------------------------------------------------------
@@ -337,10 +501,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-inline unsigned int blocks_for(int64_t nq) {
-  return static_cast<unsigned int>((nq + kThreads - 1) / kThreads);
-}
-
 // the query-order tail in the store form out_lo selects (null: float64 in out_hi)
 template <class Rows>
 int bank_tail(const void* packed, int64_t rows, int64_t ch, int64_t bp, int64_t bank,
@@ -404,20 +564,24 @@ int bank_tail_ordered(const void* packed, int64_t ch, int64_t bp, int64_t bank, 
 
 extern "C" {
 
+// K6: xh, xl, n, dh, dl, ah, al, bh, bl, shared_knots (the most widened
+// knots a block stages; 1: every level on the global pairs; 0: the first
+// design), qh, ql, out_hi, out_lo (null: the float64 store form, out_hi
+// then float64), nq
 int ndi_df_eval1d_f32(const void* xh, const void* xl, int64_t n, const void* dh, const void* dl,
                       const void* ah, const void* al, const void* bh, const void* bl,
-                      const void* qh, const void* ql, void* out_hi, void* out_lo, int64_t nq,
-                      void* stream) {
-  if (nq > 0) {
-    df_eval1d_kernel<<<blocks_for(nq), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(xh), static_cast<const float*>(xl), static_cast<int>(n),
-        static_cast<const float*>(dh), static_cast<const float*>(dl),
-        static_cast<const float*>(ah), static_cast<const float*>(al),
-        static_cast<const float*>(bh), static_cast<const float*>(bl),
-        static_cast<const float*>(qh), static_cast<const float*>(ql),
-        static_cast<float*>(out_hi), static_cast<float*>(out_lo), nq);
-  }
-  return static_cast<int>(cudaGetLastError());
+                      int64_t shared_knots, const void* qh, const void* ql,
+                      void* out_hi, void* out_lo, int64_t nq, void* stream) {
+  if (nq <= 0) return static_cast<int>(cudaGetLastError());
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const DfSpline sp{f(xh), f(xl), f(dh), f(dl), f(ah), f(al), f(bh), f(bl), static_cast<int>(n)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      out_lo ? df_eval1d(sp, shared_knots, f(qh), f(ql),
+                         PairOut{static_cast<float*>(out_hi), static_cast<float*>(out_lo)}, nq, s)
+             : df_eval1d(sp, shared_knots, f(qh), f(ql),
+                         F64Out{static_cast<double*>(out_hi)}, nq, s);
+  return static_cast<int>(err);
 }
 
 // K7: xh, xl, n, shared_knots (the most widened knots a block stages), qh, ql,

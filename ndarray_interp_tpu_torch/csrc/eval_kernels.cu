@@ -69,6 +69,7 @@
 
 #include "search.cuh"         // lower_index (K2's first design), StagedAxis (K1-K3)
 #include "staged_eval1d.cuh"  // K1's body on the staged search, its row forms
+#include "staged_index.cuh"   // K2's and K3's staged kernel, which R3idx shares
 
 namespace {
 
@@ -88,42 +89,6 @@ __global__ void index_frac_kernel(const T* __restrict__ knots, int n,
   const T x_r = __ldg(knots + idx + 1);
   idx_out[i] = idx;
   t_out[i] = (qi - x_l) / (x_r - x_l);
-}
-
-// K3 (idx) and, with kFrac, K2 (idx and t) on the staged tree of ax: knot
-// j w, j < c, in h levels of shared memory (kWhole: w = 1, the whole axis,
-// and t's endpoints read from the tree)
-template <typename T, bool kWhole, bool kFrac>
-__global__ void __launch_bounds__(kSearchThreads)
-    staged_index_kernel(StagedAxis<T> ax, int h, const T* __restrict__ q,
-                        int32_t* __restrict__ idx_out, T* __restrict__ t_out, int64_t nq) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  ax.tree = reinterpret_cast<T*>(smem);
-  ax.stage(h);
-  __syncthreads();
-#pragma unroll 1
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < nq;
-       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const T qi = q[i];
-    // NaN gives n-2, as lower_index (the tree's compares would all be false)
-    const int idx = ax.template lower<kWhole>(qi, h);
-    idx_out[i] = idx;
-    if (kFrac) t_out[i] = ax.template frac<kWhole>(qi, idx, h);
-  }
-}
-
-template <typename T, bool kWhole, bool kFrac>
-cudaError_t staged_index(const StagedAxis<T>& ax, const T* q, int32_t* idx, T* t, int64_t nq,
-                         cudaStream_t s) {
-  auto kernel = staged_index_kernel<T, kWhole, kFrac>;
-  const int h = tree_levels(ax.c);
-  const size_t smem = (static_cast<size_t>(1) << h) * sizeof(T);
-  const int threads = kWhole ? kSearchThreads : kSearchThreads / 2;
-  unsigned int blocks = 0;
-  const cudaError_t err = staged_grid(kernel, threads, smem, nq, &blocks);
-  if (err != cudaSuccess) return err;
-  kernel<<<blocks, threads, smem, s>>>(ax, h, q, idx, t, nq);
-  return cudaGetLastError();
 }
 
 // K3 (t null) or K2 on a tree of at most shared_knots knots (capped at the

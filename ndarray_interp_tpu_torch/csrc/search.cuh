@@ -1,6 +1,6 @@
 // The interval searches shared by the search kernels (K1-K3 in
-// eval_kernels.cu, R1 in cell2d_kernels.cu, K7 in df_kernels.cu, R3 in
-// bigknots_kernels.cu).
+// eval_kernels.cu, R1 in cell2d_kernels.cu, K6 and K7 in df_kernels.cu, R3
+// and R3idx in bigknots_kernels.cu).
 //
 // lower_index(knots, n, q) is the count of knots <= q minus one, clamped to
 // [0, n-2]: exactly torch.searchsorted(right=True) - 1 clamped, as
@@ -11,8 +11,8 @@
 // different lines.  Only K2's first design still searches so: its wrapper
 // keeps it where a staged tree does not pay (ops/eval_kernels.py _k2_budget).
 //
-// The staged search (K1, K2, K3, R1 on each of its two axes, R3, and K7 on
-// its widened pairs) reads a copy of the axis that each block stages once in
+// The staged search (K1, K2, K3, R1 on each of its two axes, R3, R3idx, and
+// K6 and K7 on their widened pairs) reads a copy of the axis that each block stages once in
 // shared memory, in breadth-first (Eytzinger) order: slot 1 the middle knot,
 // slots 2k and 2k + 1 the middles of the halves below slot k, a perfect tree
 // of 2^h - 1 slots, those past the c staged knots +inf.  A search step is then s = 2s + (tree[s] <= q): one
@@ -27,7 +27,7 @@
 // knot (count-1) w and knot count w, where the search ends on the global
 // axis.  The comparisons are those of the plain searchsorted on the same
 // values, so the result does not depend on the budget.  StagedAxis bundles
-// one staged axis (K1, K2, K3, R1's two, R3).
+// one staged axis (K1, K2, K3, R1's two, R3, R3idx).
 
 #pragma once
 
@@ -190,10 +190,16 @@ struct StagedAxis {
   }
 };
 
-// an axis of n knots staged as at most `budget` of them: every w-th knot
+// an axis of n knots staged as at most `budget` of them: every w-th knot,
+// w = ceil(n / budget), or with pow2 (R3, R3idx) the least power of two that
+// fits, so that the knots between two leaders lie in one aligned run of w
 template <typename T>
-StagedAxis<T> staged_axis(const void* knots, int64_t n, int64_t budget) {
-  const int64_t w = (n + budget - 1) / budget;
+StagedAxis<T> staged_axis(const void* knots, int64_t n, int64_t budget, bool pow2 = false) {
+  int64_t w = (n + budget - 1) / budget;
+  if (pow2) {
+    w = 1;
+    while (w * budget < n) w *= 2;
+  }
   return {static_cast<const T*>(knots), static_cast<int>(n), w,
           static_cast<int>((n + w - 1) / w), nullptr};
 }

@@ -80,8 +80,8 @@ _SIGNATURES = {
     "ndi_bank_tail": ((_P, _I, _I, _I, _I, _P, _P, _P, _I, _P), _BOTH),
     # knots, n, data, a, b, shared_knots, q, out, nq
     "ndi_big_eval": ((_P, _I, _P, _P, _P, _I, _P, _P, _I, _P), _BOTH),
-    # knots, n, q, idx, t, nq
-    "ndi_big_index_frac": ((_P, _I, _P, _P, _P, _I, _P), _BOTH),
+    # knots, n, shared_knots, q, idx, t, nq
+    "ndi_big_index_frac": ((_P, _I, _I, _P, _P, _P, _I, _P), _BOTH),
     # x, nx, y, ny, shared_knots (each axis), qx, qy, cell, tx, ty, nq
     "ndi_cell_index": ((_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P), _BOTH),
     "ndi_bilinear_tail": _CELL_TAIL_F,
@@ -92,7 +92,10 @@ _SIGNATURES = {
     "ndi_bilinear_grid_tail": ((_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P), _BOTH),
     # tbl, rows, ch, r, records, out, nq
     "ndi_bicubic_nested_tail_ordered": ((_P, _I, _I, _I, _P, _P, _I, _P), _BOTH),
-    "ndi_df_eval1d": ((_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P), _PAIRS),
+    # xh, xl, n, dh, dl, ah, al, bh, bl, shared_knots, qh, ql, out_hi, out_lo
+    # (null: out_hi float64, the store form of csrc/df_common.cuh), nq
+    "ndi_df_eval1d": ((_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P),
+                      _PAIRS),
     # xh, xl, n, shared_knots, qh, ql, idx, t_hi, t_lo, nq
     "ndi_df_index_frac": ((_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P), _PAIRS),
     # packed, rows, ch, bp, bank, idx, t_hi, t_lo, out_hi, out_lo (null: out_hi

@@ -5,10 +5,10 @@ Counterpart of ``ndarray_interp_tpu.ops.bigknots``.  The JAX package splits
 the search in two (the block of W knots from a search of the block leaders,
 then a refine inside the block's packed row) because its one-pass kernels
 stop at 65,536 knots.  The CUDA kernels (``csrc/bigknots_kernels.cu``) do
-a two-level search, the row reads and the Hermite form in one launch (R3 on
-every w-th knot staged as a breadth-first tree of ``_R3_TREE_BYTES``, K1's
-body reading its rows from the four 1-D arrays; R3idx on 512 sorted
-leaders):
+a two-level search, the row reads and the Hermite form in one launch, both
+on every w-th knot staged as a breadth-first tree of ``_R3_TREE_BYTES``
+(R3: K1's body reading its rows from the four 1-D arrays; R3idx: K2's
+staged kernel, its fraction's endpoints from the knot array):
 
 * :func:`big_eval_1d` (R3): the value, bit-identical to K1's plain version
   ``eval_kernels._eval_plain``;
@@ -132,6 +132,17 @@ def _check(name, knots, q, *tables):
 # (32,767 knots), so neither it nor this budget had to change to reach it.
 _R3_TREE_BYTES = 128 << 10
 
+# R3idx (big_lower_index_frac) stages the same tree at every length; budget 0
+# runs its first design (the sorted leaders in 2 KB, big_lower_index), kept
+# for timing.  On an H100 80GB HBM3 at 700 W (tools/search_phases.py --phases
+# r3idx --sweeps, 1M queries, ms, first design / 128 KB tree): f32 65,537
+# knots 0.0290 / 0.0350, 98,304 0.0327 / 0.0386, 131,072 0.0396 / 0.0378,
+# 196,608 0.0455 / 0.0418, 262,144 0.0519 / 0.0416, 8,388,480 0.0998 /
+# 0.0923; f64 65,537 0.0432 / 0.0364, 262,144 0.0651 / 0.0445.  The first
+# design wins only on f32 axes of at most 384 KB, which no path measured end
+# to end sends R3idx (NS1b's bank has 262,144 knots), so one design serves
+# every length; trees of 16-64 KB lost everywhere.
+
 
 def _launch_eval(knots, data, a, b, q):
     dtype = _check("big_eval_1d", knots, q, data, a, b)
@@ -159,7 +170,8 @@ def _launch_index_frac(knots, q):
     t = torch.empty_like(qf)
     _cuda.launch(
         "ndi_big_index_frac", dtype, q.device,
-        knots.contiguous(), knots.shape[0], qf, idx, t, qf.shape[0],
+        knots.contiguous(), knots.shape[0], _R3_TREE_BYTES // qf.element_size() - 1, qf, idx,
+        t, qf.shape[0],
     )
     big_lower_index_frac.launches += 1
     return idx.reshape(q.shape), t.reshape(q.shape)

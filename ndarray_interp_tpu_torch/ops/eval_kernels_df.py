@@ -8,7 +8,8 @@ computes natively in FP64, where the TPU kernels carried error-free
 transforms on float32:
 
 * :func:`fused_eval_1d_df` (K6): search and symmetric Hermite form, for
-  scalar data;
+  scalar data, on K7's tree of widened knots (``_K6_SHARED_KNOTS``), the
+  rows widened beside a whole tree where they fit;
 * :func:`fused_index_frac_df` (K7): the search emitting ``(idx, t_hi, t_lo)``,
   on the knots widened once into shared memory (all of them up to
   ``_K7_SHARED_KNOTS``), in breadth-first order;
@@ -20,12 +21,13 @@ transforms on float32:
   the ordered records, :func:`_orders`), so that the queries of one row
   share its widening; each result still goes to its query's own slot.
 
-:func:`_gathered_df_tail_f64`, :func:`_gathered_f48_tail_f64` and the routes
+:func:`_fused_eval_1d_df_f64`, :func:`_gathered_df_tail_f64`,
+:func:`_gathered_f48_tail_f64` and the routes
 :func:`_gathered_bank_eval_df_packed_f64` and
-:func:`_gathered_bank_eval_f48_packed_f64` take K8's and K9's float64 store
-form: the kernel writes ``df_to_f64`` of its result pair, bit for bit, into
-one float64 array, which ``DoubleFloatEvaluator`` returns without widening
-and adding the pair itself.
+:func:`_gathered_bank_eval_f48_packed_f64` take K6's, K8's and K9's float64
+store form: the kernel writes ``df_to_f64`` of its result pair, bit for
+bit, into one float64 array, which ``DoubleFloatEvaluator`` returns without
+widening and adding the pair itself.
 
 Each kernel's plain version is here, in PyTorch float64 and the kernel's
 operation order: :func:`eval_xla_df` (K6), :func:`_df_index_frac_xla` (K7),
@@ -283,7 +285,10 @@ def _check_knots(name, x_hi, x_lo):
         raise ValueError(f"{name}: knots must be 1-D (hi, lo) halves of at least 2 entries")
 
 
-def _launch_eval(x_hi, x_lo, d_hi, d_lo, a_hi, a_lo, b_hi, b_lo, q_hi, q_lo):
+def _launch_eval(x_hi, x_lo, d_hi, d_lo, a_hi, a_lo, b_hi, b_lo, q_hi, q_lo, f64=False):
+    """Check the operands and launch K6: the result pair shaped like ``q``,
+    or with ``f64`` the kernel's float64 store form (the pair's ``hi +
+    lo``)."""
     name = "fused_eval_1d_df"
     args = (x_hi, x_lo, d_hi, d_lo, a_hi, a_lo, b_hi, b_lo)
     _cuda.pair_operands(name, q_hi, q_lo, *args)
@@ -293,15 +298,22 @@ def _launch_eval(x_hi, x_lo, d_hi, d_lo, a_hi, a_lo, b_hi, b_lo, q_hi, q_lo):
                        ("a", a_lo, n - 1), ("b", b_hi, n - 1), ("b", b_lo, n - 1)):
         if tuple(v.shape) != (m,):
             raise ValueError(f"{name}: {what} must have shape ({m},), got {tuple(v.shape)}")
+    if n >= 2**31:
+        raise ValueError(f"{name}: {n} knots; the index is int32")
     qh, ql = _flat_pair(name, q_hi, q_lo)
-    out_hi, out_lo = torch.empty_like(qh), torch.empty_like(qh)
+    if f64:  # the kernel's float64 store form: one output, out_lo null
+        out = (torch.empty(qh.shape, dtype=torch.float64, device=qh.device), None)
+    else:
+        out = (torch.empty_like(qh), torch.empty_like(qh))
     _cuda.launch(
         "ndi_df_eval1d", torch.float32, q_hi.device,
         *(v.contiguous() for v in args[:2]), n, *(v.contiguous() for v in args[2:]),
-        qh, ql, out_hi, out_lo, qh.shape[0],
+        _K6_SHARED_KNOTS, qh, ql, *out, qh.shape[0],
     )
     fused_eval_1d_df.launches += 1
-    return out_hi.reshape(q_hi.shape), out_lo.reshape(q_hi.shape)
+    if f64:
+        return out[0].reshape(q_hi.shape)
+    return out[0].reshape(q_hi.shape), out[1].reshape(q_hi.shape)
 
 
 # The most knots a block of K7 widens into shared memory (the kernel caps it
@@ -314,6 +326,19 @@ def _launch_eval(x_hi, x_lo, d_hi, d_lo, a_hi, a_lo, b_hi, b_lo, q_hi, q_lo):
 # the global levels); 12,288 0.0188 (the axis whole) / 0.0529; 16,383 0.0188
 # / 0.0530.
 _K7_SHARED_KNOTS = 16_383
+
+# K6 searches K7's tree (csrc/df_kernels.cu df_eval1d_staged_kernel): the
+# whole axis up to 16,383 knots, leaders above; 0 runs its first design, a
+# thread a query on the global pairs.  Its rows are widened once a block
+# into shared memory after a whole tree where both fit a block and each block
+# has as many queries as rows (the kernel decides), else read from the global
+# pairs.  On an H100 80GB HBM3 at 700 W (tools/search_phases.py --phases k6
+# --sweeps, 2^20 queries, ms): 4,096 knots, rows in shared memory 0.0192,
+# from the global pairs 0.0240, the first design 0.0529, leaders of 1,023 /
+# 4,095 knots 0.0303 / 0.0393; 20,000 knots (leaders) 0.0960 against 0.0999,
+# 70,001 0.1143 against 0.1502, where the rows' ten scattered loads from the
+# L2 dominate.
+_K6_SHARED_KNOTS = _K7_SHARED_KNOTS
 
 
 def _launch_index_frac(x_hi, x_lo, q_hi, q_lo):
@@ -409,11 +434,24 @@ def fused_eval_1d_df(x_hi, x_lo, d_hi, d_lo, a_hi, a_lo, b_hi, b_lo, q_hi, q_lo)
 
     Semantics of the JAX package's ``fused_eval_1d_df``: clamp to
     ``[0, n-2]`` including ±inf, NaN queries give NaN, knots that collide in
-    float32 are told apart.  CPU tensors: :func:`eval_xla_df`; CUDA: K6."""
+    float32 are told apart.  CPU tensors: :func:`eval_xla_df`; CUDA: K6, on
+    the knots widened once a block into shared memory."""
     args = (x_hi, x_lo, d_hi, d_lo, a_hi, a_lo, b_hi, b_lo, q_hi, q_lo)
     if _cuda.kernel_device("fused_eval_1d_df", q_hi) == "cpu":
         return eval_xla_df(*args)
     return _launch_eval(*args)
+
+
+def _fused_eval_1d_df_f64(x_hi, x_lo, d_hi, d_lo, a_hi, a_lo, b_hi, b_lo, q_hi, q_lo):
+    """:func:`fused_eval_1d_df` recombined to float64 (``df_to_f64`` of the
+    pair, bit for bit), which K6 writes itself on CUDA (its float64 store
+    form, counted in ``fused_eval_1d_df.launches``; the linear escape's
+    ``(h, 0)`` becomes ``(double)h``).  CPU tensors: the plain version's
+    pair, recombined."""
+    args = (x_hi, x_lo, d_hi, d_lo, a_hi, a_lo, b_hi, b_lo, q_hi, q_lo)
+    if _cuda.kernel_device("fused_eval_1d_df", q_hi) == "cpu":
+        return df_to_f64(*eval_xla_df(*args))
+    return _launch_eval(*args, f64=True)
 
 
 def fused_index_frac_df(x_hi, x_lo, q_hi, q_lo):

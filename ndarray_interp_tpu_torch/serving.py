@@ -38,9 +38,9 @@ from .models.interpnd import pack_corner_rows_nd
 from .models.strategies.bicubic import BicubicStrategy
 from .ops.df import df_from_f64, df_to_f64
 from .ops.eval_kernels_df import (
+    _fused_eval_1d_df_f64,
     _gathered_bank_eval_df_packed_f64,
     _gathered_bank_eval_f48_packed_f64,
-    fused_eval_1d_df,
     pack_bank_rows_df,
     pack_bank_rows_f48,
 )
@@ -131,7 +131,7 @@ class _BucketedEvaluator:
         of the bucket of their count, the last one padded with ``pad``;
         each chunk split into pairs and run.  ``run`` returns the result
         pair, recombined here to float64, or (the routes whose kernel has a
-        float64 store form: K8-K11, K13) that float64 result itself.  ``axes``
+        float64 store form: K6, K8-K11, K13) that float64 result itself.  ``axes``
         holds one ``(flat queries, pad)`` per axis."""
         n = axes[0][0].shape[0]
         bsz = self._bucket(n)
@@ -250,7 +250,7 @@ class DoubleFloatEvaluator(_BucketedEvaluator):
     once.  Queries are float64 in, float64 out: each bucket of queries is
     split into pairs, evaluated by K6 (scalar data) or by K7 and the K8 tail
     (``grade="df"``) or the K9 tail (``grade="f48"``) for bank data, and
-    recombined; K8 and K9 write the recombined float64 themselves (their
+    recombined; K6, K8 and K9 write the recombined float64 themselves (their
     float64 store form, bit for bit the recombination).  On CPU tensors the
     kernels' plain versions run.
 
@@ -307,7 +307,7 @@ class DoubleFloatEvaluator(_BucketedEvaluator):
             self._packed = pack(*pairs)
             self._run = functools.partial(route, *x_pair, self._packed, bank)
         else:
-            self._run = functools.partial(fused_eval_1d_df, *x_pair, *pairs)
+            self._run = functools.partial(_fused_eval_1d_df_f64, *x_pair, *pairs)
 
     def warmup(self):
         """Evaluate every bucket once (kernel build, allocator blocks)."""

@@ -1499,6 +1499,121 @@ def test_big_eval_kernel_matches_plain_at_every_budget(dev, dtype, n, shared, mo
     torch.cuda.synchronize()
 
 
+
+# -- R3idx on R3's staged leader tree, and its first design --------------------------------
+@pytest.mark.parametrize("shared", [None, 0, 1, 2, 63, 4095, 32_767, 40_000])
+@pytest.mark.parametrize("n", [2, 65_537, 262_144, 8_388_480])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_big_index_frac_kernel_matches_plain_at_every_budget(dev, dtype, n, shared, monkeypatch):
+    """R3idx at the wrapper's budget (``None``: R3's 128 KB tree), in its first design
+    (0: 512 sorted f32 leaders), at one knot (every level of the search on
+    the global axis), as leaders of 2, 63 and 4,095 knots, 32,767 (a 128 KB
+    f32 tree) and past the largest tree a block holds (40,000: capped), on 2
+    knots and the route's 65,537, NS1b's 262,144 and ``MAX_BIG_KNOTS``, on
+    0, 1, 2 and 1,000,000 queries with NaN (``n-2``, t NaN), +-inf, +-1e38,
+    knots and far extrapolation: idx and t bit for bit
+    ``_big_index_frac_plain`` and K2's ``_index_frac_plain``."""
+    from ndarray_interp_tpu_torch.ops import bigknots as bk
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+
+    if shared is not None:
+        monkeypatch.setattr(bk, "_R3_TREE_BYTES", (shared + 1) * np.dtype(dtype).itemsize)
+    kn = knots(n, dtype, n + 17)
+    k = torch.as_tensor(kn, device=dev)
+    own = kn[:: max(1, n // 100_000)]
+    body = queries(own, dtype, n + 1, count=1_000_000 - own.size - 9)
+    for q in (body[:0], body[-9:-8], body[-9:-7], body):  # 0, NaN, NaN and +inf, 1M
+        q = torch.as_tensor(q, device=dev)
+        got, launched = launched_by(lambda: bk.big_lower_index_frac(k, q))
+        assert launched == {"R3idx": 1}
+        for want in (bk._big_index_frac_plain(k, q), ek._index_frac_plain(k, q)):
+            assert same(got[0], want[0]) and same(got[1], want[1]), (q.numel(), shared)
+    idx, t = got
+    assert idx[-9].item() == n - 2 and idx[-8].item() == n - 2 and idx[-7].item() == 0
+    assert torch.isnan(t[-9]).item()
+    torch.cuda.synchronize()
+
+
+# -- K6 on K7's tree of widened knots, its rows, both store forms ---------------------------
+def df_scalar_case(n, spacing, table, seed, dev, shifted=False):
+    """K6's operands as pairs on ``dev``: ``df_knots``, a cubic table or a
+    linear one (a = b = 0), ``df_queries``; with ``shifted`` the pairs of
+    every other knot not normalised (the hi half one float32 step up, the
+    lo half the rest), so the escape's fraction must read the hi halves."""
+    from ndarray_interp_tpu_torch.ops.df import df_from_f64
+
+    rng = np.random.default_rng(seed)
+    kn = df_knots(n, spacing, seed)
+    d = rng.normal(size=n)
+    a, b = ((np.zeros(n - 1), np.zeros(n - 1)) if table == "linear" else
+            (rng.normal(size=n - 1), rng.normal(size=n - 1)))
+    x = pair(kn, dev)
+    if shifted:
+        xh = x[0].clone()
+        xh[1::2] = torch.nextafter(xh[1::2], torch.full_like(xh[1::2], float("inf")))
+        x = (xh, (torch.as_tensor(kn, device=dev) - xh.double()).float())
+    q = df_queries(kn, seed, count=1_000_000)  # enough a block for 4,096 rows widened
+    return (*x, *(h for v in (d, a, b) for h in pair(v, dev)), *pair(q, dev))
+
+
+@pytest.mark.parametrize("shared", [None, 0, 1, 2, 63, 16_383, 40_000])
+@pytest.mark.parametrize("spacing", ["nonuniform", "collide"])
+@pytest.mark.parametrize("n", [2, 33, 4096, 20_000])
+def test_df_eval_kernel_matches_plain_at_every_budget(dev, n, spacing, shared, monkeypatch):
+    """K6 at the wrapper's budget (``None``: K7's, the whole axis up to
+    16,383 knots, 20,000 as leaders), in its first design (0: a thread a
+    query on the global pairs), at one knot (every level global), as leaders
+    (2 and 63 knots), whole (16,383) and capped (40,000), its rows widened
+    into shared memory where they fit and each block has as many queries as
+    rows (at 4,096 knots the 1M-query batch), else read from the global
+    pairs (the 0-, 1- and 2-query batches), on knots that collide in
+    float32 or not, cubic and linear tables, pairs normalised or not (every
+    other knot's hi half shifted), on 0, 1, 2 and all queries (NaN on index
+    0, +-inf, +-1e38, +-1e300, the knots, the midpoints): the pair bit for
+    bit ``eval_xla_df``, the float64 store form bit for bit ``df_to_f64``
+    of it."""
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df as ek
+    from ndarray_interp_tpu_torch.ops.df import df_to_f64
+
+    if shared is not None:
+        monkeypatch.setattr(ek, "_K6_SHARED_KNOTS", shared)
+    for table, shifted in (("cubic", False), ("linear", False), ("linear", True)):
+        *spline, qh, ql = df_scalar_case(n, spacing, table, n + 3, dev, shifted)
+        for m in (0, 1, 2, qh.numel()):
+            args = (*spline, qh[-m:] if m else qh[:0], ql[-m:] if m else ql[:0])
+            got, launched = launched_by(lambda: ek.fused_eval_1d_df(*args))
+            assert launched == {"K6": 1}
+            want = ek.eval_xla_df(*args)
+            assert same_pair(got, want), (table, shifted, m, shared)
+            got64, launched = launched_by(lambda: ek._fused_eval_1d_df_f64(*args))
+            assert launched == {"K6": 1}
+            assert got64.dtype == torch.float64 and same(got64, df_to_f64(*want))
+    torch.cuda.synchronize()
+
+
+def test_scalar_df_evaluator_takes_k6s_float64_form_without_recombining(dev, monkeypatch):
+    """The scalar ``DoubleFloatEvaluator`` launches K6 once a bucket and
+    never recombines a pair itself (``serving.df_to_f64`` is not called): bit
+    for bit ``df_to_f64`` of K6's pair on the same chunk."""
+    from ndarray_interp_tpu_torch import serving
+    from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df as ek
+    from ndarray_interp_tpu_torch.ops.df import df_from_f64, df_to_f64
+
+    rng = np.random.default_rng(38)
+    x = np.cumsum(rng.uniform(0.1, 1.0, 4096))
+    itp = Interp1D.builder(rng.normal(size=4096), device=dev).x(x).strategy(
+        CubicSpline().extrapolate(True)).build()
+    ev = serving.DoubleFloatEvaluator(itp)
+    nq = 1 << 20
+    qd = torch.as_tensor(rng.uniform(x[0] - 1, x[-1] + 1, nq), device=dev)
+    recombined = []
+    monkeypatch.setattr(serving, "df_to_f64", lambda *a: recombined.append(a) or df_to_f64(*a))
+    got, launched = launched_by(lambda: ev(qd))
+    assert launched == {"K6": 1} and not recombined
+    want = df_to_f64(*ek.fused_eval_1d_df(*ev._run.args, *df_from_f64(qd)))
+    assert got.dtype == torch.float64 and same(got, want)
+
 # -- K1 on the staged tree, in each row read ----------------------------------------------
 @pytest.mark.parametrize("read", [0, 1, 2])
 @pytest.mark.parametrize("shared", [None, 1, 2, 7, 63, 40_000])

@@ -1,6 +1,7 @@
 """A plain model of the staged interval search of ``csrc/search.cuh`` (K1,
-K2, K3, R1 on each of its axes, R3, and K7 on its widened pairs) against the
-port's ``get_lower_index`` and the JAX package's searches, on the CPU.
+K2, K3, R1 on each of its axes, R3, R3idx, and K6 and K7 on their widened
+pairs) against the port's ``get_lower_index`` and the JAX package's
+searches, on the CPU.
 
 The kernel cannot run here, so its design is checked as numpy: the
 breadth-first slot maps, the tree a block stages (knot ``j·w`` for
@@ -15,9 +16,13 @@ kernel's operation order) must equal ``_eval_plain`` bit for bit, R1's
 cell for cell, K2's (the index, and the fraction with its endpoints read
 from the tree where it holds the whole axis) ``_index_frac_plain``, and
 R3's (the index on a leader tree, the row from four 1-D arrays, K1's
-Hermite form) ``bigknots._big_eval_plain`` and ``_eval_plain``.  The
-kernels themselves are held at every budget on the card by
-``tests/test_torch_kernels.py``.
+Hermite form) ``bigknots._big_eval_plain`` and ``_eval_plain``, R3idx's
+(K2's fraction on R3's tree, and its first design's 512 sorted leaders)
+``bigknots._big_index_frac_plain`` and ``_index_frac_plain``, and K6's (the
+widened pairs on K7's tree, NaN on index 0, the rows widened, the linear
+escape's float32 fraction of the knots' hi halves) ``eval_xla_df`` and, in
+the float64 store form, ``df_to_f64`` of it.  The kernels themselves are
+held at every budget on the card by ``tests/test_torch_kernels.py``.
 
 Tolerance: none (indices; the models against the port's plain versions,
 which compute in the same order).  Against the JAX package's ``_eval_xla``
@@ -25,7 +30,9 @@ the K1 model is held within ``tests/test_torch_interp1d.py``'s tolerance
 (f32 ``rtol=2e-5``, ``atol=1e-6`` scaled; f64 ``1e-12``: XLA may contract
 operations), the K2 model's fraction within ``tests/test_torch_ops.py``'s
 (``rtol=2e-5``, ``atol=1e-6``) and the R3 model within
-``tests/test_torch_bigknots.py``'s (``rtol = atol = 1e-6``).  The JAX
+``tests/test_torch_bigknots.py``'s (``rtol = atol = 1e-6``; R3idx's index
+and fraction exactly, as that file holds them), and the K6 model within
+``tests/test_torch_df.py``'s 1e-12 scaled of the JAX ``eval_xla_df``.  The JAX
 Pallas kernels give 0 for a NaN query where the XLA form and the port give
 ``n - 2`` (``tests/test_torch_ops.py``), so those comparisons mask the NaN
 rows; their plan stops at 65,536 knots, so the 70,001-knot axis is held
@@ -36,13 +43,18 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from ndarray_interp_tpu.ops import bigknots as j_bk
+from ndarray_interp_tpu.ops import df as j_df
 from ndarray_interp_tpu.ops import pallas_eval as j_pe
+from ndarray_interp_tpu.ops import pallas_eval_df as j_pd
 from ndarray_interp_tpu.ops import searchsorted as j_ss
 from ndarray_interp_tpu_torch.ops import bigknots as t_bk
 from ndarray_interp_tpu_torch.ops import eval_kernels as t_ek
+from ndarray_interp_tpu_torch.ops import eval_kernels_df as t_ed
+from ndarray_interp_tpu_torch.ops.df import df_from_f64, df_to_f64
 from ndarray_interp_tpu_torch.ops.searchsorted import get_lower_index
 
 
@@ -92,9 +104,10 @@ def stride(n, budget, pow2=False):
     return w
 
 
-def staged_lower_index(knots, budget, q, pow2=False):
+def staged_lower_index(knots, budget, q, pow2=False, nan_index=None):
     """The kernel's index at a budget of ``budget`` staged knots (>= 1):
-    ``w = stride(n, budget)``, ``c = ceil(n / w)``."""
+    ``w = stride(n, budget)``, ``c = ceil(n / w)``; a NaN query gets
+    ``nan_index`` (``n - 2`` unless given: K6 and K7 give 0)."""
     n = knots.size
     w = stride(n, budget, pow2)
     c = -(-n // w)
@@ -115,7 +128,7 @@ def staged_lower_index(knots, budget, q, pow2=False):
             hi = np.where(go & ~le, mid, hi)
         count = lo
     idx = np.clip(count - 1, 0, n - 2)
-    return np.where(np.isnan(q), n - 2, idx).astype(np.int32)
+    return np.where(np.isnan(q), n - 2 if nan_index is None else nan_index, idx).astype(np.int32)
 
 
 # -- inputs ----------------------------------------------------------------------------
@@ -549,3 +562,276 @@ def test_the_r3_budget_is_a_128_kb_tree():
     ns = (65_537, 262_144, t_bk.MAX_BIG_KNOTS)
     assert [stride(n, budget, pow2=True) for n in ns] == [4, 16, 512]
     assert all(tree_levels(-(-n // stride(n, budget, pow2=True))) <= 15 for n in ns)
+
+
+# -- R3idx: K2's staged kernel on R3's leader tree, and its first design --------------------
+def first_design_lower_index(knots, q):
+    """R3idx's first design (``big_lower_index``): the leaders ``knots[j·W]``
+    for the least power of two ``W >= 16`` whose leaders fit 2 KB, searched
+    in sorted order, then the search inside the leader's block of ``W``
+    knots; NaN gives ``n - 2``."""
+    n = knots.size
+    cap = 2048 // knots.itemsize
+    w = 16
+    while -(-n // w) > cap:
+        w *= 2
+    lead = knots[::w]
+    lo = np.searchsorted(lead, q, side="right")  # leaders <= q (NaN: none)
+    base = np.maximum(lo - 1, 0) * w
+    hi = np.minimum(base + w, n)
+    count = np.array([b + np.searchsorted(knots[b + 1:h], v, side="right") + 1
+                      for b, h, v in zip(base, hi, q)])
+    idx = np.clip(np.where(lo == 0, 0, count - 1), 0, n - 2)
+    return np.where(np.isnan(q), n - 2, idx).astype(np.int32)
+
+
+def staged_big_index_frac(knots, budget, q):
+    """R3idx's model: at budget 0 the first design's index, else K2's staged
+    index on R3's tree (every w-th knot, w the least power of two that fits
+    ``budget``), and ``t = (q - x_l) / (x_r - x_l)`` in K2's order, the
+    endpoints from the tree where it holds the whole axis (w = 1), else from
+    the knots."""
+    n = knots.size
+    if budget == 0:
+        idx = first_design_lower_index(knots, q)
+        x_l, x_r = knots[idx], knots[idx + 1]
+    else:
+        idx = staged_lower_index(knots, budget, q, pow2=True)
+        w = stride(n, budget, pow2=True)
+        c = -(-n // w)
+        h = tree_levels(c)
+        if w == 1:
+            tree = stage_tree(knots, w, c, h)
+            x_l, x_r = tree[slot_of_rank(idx, h)], tree[slot_of_rank(idx + 1, h)]
+        else:
+            x_l, x_r = knots[idx], knots[idx + 1]
+    with np.errstate(all="ignore"):
+        return idx, (q - x_l) / (x_r - x_l)
+
+
+@pytest.mark.parametrize("n", [65_537, 262_144])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_r3idx_model_equals_index_frac_plain_at_every_budget(n, dtype):
+    """In its first design (0), at one knot, as leaders (2, 63, 4,095 knots),
+    at the wrapper's budget (a 128 KB tree: 32,767 f32 / 16,383 f64 knots;
+    every 4th or 8th knot at 65,537, every 16th or 32nd at 262,144) and
+    whole (``n`` knots): idx for idx and t bit for bit
+    ``bigknots._big_index_frac_plain`` and K2's ``_index_frac_plain``, NaN on
+    ``n - 2`` with t NaN, +inf on ``n - 2``, -inf on 0, each knot its own
+    interval's start (t = 0, the last knot t = 1)."""
+    kn, _, _, _, q = big_case(n, n + 1)
+    kn, q = kn.astype(dtype), q.astype(dtype)
+    tk, tq = torch.as_tensor(kn), torch.as_tensor(q)
+    want_idx, want_t = (v.numpy() for v in t_bk._big_index_frac_plain(tk, tq))
+    k2_idx, k2_t = (v.numpy() for v in t_ek._index_frac_plain(tk, tq))
+    np.testing.assert_array_equal(want_idx, k2_idx)
+    assert_bits(want_t, k2_t)
+    for budget in (0, 1, 2, 63, 4095, r3_budget(np.dtype(dtype).itemsize), n):
+        idx, t = staged_big_index_frac(kn, budget, q)
+        np.testing.assert_array_equal(idx, want_idx, err_msg=f"budget {budget}")
+        assert_bits(t, want_t, f"budget {budget}")
+    assert want_idx[-9] == n - 2 and np.isnan(want_t[-9])
+    assert want_idx[-8] == n - 2 and want_idx[-7] == 0
+    on_knots = slice(3000, 3991)  # the queries that are knots
+    np.testing.assert_array_equal(kn[want_idx[on_knots]] <= q[on_knots], True)
+    exact = q[on_knots] < kn[-1]
+    np.testing.assert_array_equal(want_t[on_knots][exact], 0)
+    assert want_t[-3] == 1 and want_t[-4] == 0  # the last knot, the first
+
+
+def test_r3idx_model_matches_the_jax_big_lower_index_frac():
+    """The R3idx model in its first design, at one knot and at the wrapper's
+    budget against the JAX ``big_lower_index_frac`` off the TPU (its XLA
+    search, ``pallas=False``): idx and t exactly, as
+    ``tests/test_torch_bigknots.py`` holds them, the NaN row masked (the JAX
+    search gives 0 there, the port ``n - 2``:
+    ``test_torch_bigknots.py::test_nan_query_index_diverges_from_jax``)."""
+    kn, _, _, _, q = big_case(70_001, 5)
+    j_idx, j_t = (np.asarray(v) for v in j_bk.big_lower_index_frac(jnp.asarray(kn),
+                                                                  jnp.asarray(q), pallas=False))
+    real = ~np.isnan(q)
+    for budget in (0, 1, r3_budget(4)):
+        idx, t = staged_big_index_frac(kn, budget, q)
+        np.testing.assert_array_equal(idx[real], j_idx[real])
+        assert_bits(t[real], j_t[real], f"budget {budget}")
+    assert idx[~real].tolist() == [70_001 - 2] and j_idx[~real].tolist() == [0]
+
+
+def test_the_r3idx_budget_is_r3s_tree_past_384_kb(monkeypatch):
+    """R3idx stages R3's 128 KB tree (32,767 f32 / 16,383 f64 knots) at
+    every length of the route, past 384 KB of axis as below it: the wrapper
+    hands the kernel R3's budget, every 16th knot at NS1b's 262,144 f32
+    knots, every 4th at the route's shortest, 65,537."""
+    launched = []
+    monkeypatch.setattr(t_bk._cuda, "launch", lambda *a: launched.append(a))
+    for n, dtype in ((65_537, torch.float32), (98_304, torch.float32),
+                     (262_144, torch.float32), (65_537, torch.float64)):
+        k = torch.arange(n, dtype=dtype)
+        t_bk._launch_index_frac(k, k[:3])
+    assert [a[0] for a in launched] == ["ndi_big_index_frac"] * 4
+    budgets = [a[5] for a in launched]
+    assert budgets == [r3_budget(4)] * 3 + [r3_budget(8)] == [32_767] * 3 + [16_383]
+    assert stride(262_144, budgets[2], pow2=True) == 16
+    assert stride(65_537, budgets[0], pow2=True) == 4
+
+
+# -- K6: the widened pairs on K7's tree, the rows, the linear escape -------------------------
+def k6_budget():
+    """The widened knots K6's wrapper stages: K7's budget, 16,383."""
+    return t_ed._K6_SHARED_KNOTS
+
+
+def staged_df_eval(x, d, a, b, q, budget, f64=False):
+    """K6's model on pairs ``(hi, lo)`` of float32 numpy arrays: the knots
+    widened on a tree of ``budget`` knots (K7's stride), NaN on index 0,
+    x_l and x_r from the tree where it holds the whole axis, the rows
+    widened, the Hermite form in float64 in the kernel's order, and the
+    result pair; the linear escape only on a segment whose widened a and b
+    are 0 and whose four halves are 0, its float32 fraction of the knots' hi
+    halves.  With ``f64`` the float64 store form ``hi + lo``."""
+    wide = lambda p: p[0].astype(np.float64) + p[1].astype(np.float64)  # noqa: E731
+    xw, qw = wide(x), wide(q)
+    n = xw.size
+    k = staged_lower_index(xw, budget, qw, nan_index=0)
+    w = stride(n, budget)
+    c = -(-n // w)
+    h = tree_levels(c)
+    if w == 1:
+        tree = stage_tree(xw, w, c, h)
+        x_l, x_r = tree[slot_of_rank(k, h)], tree[slot_of_rank(k + 1, h)]
+    else:
+        x_l, x_r = xw[k], xw[k + 1]
+    dw, aw, bw = wide(d), wide(a), wide(b)
+    with np.errstate(all="ignore"):
+        t = (qw - x_l) / (x_r - x_l)
+        omt = 1.0 - t
+        base = (omt * dw[k] + t * dw[k + 1]) + (t * omt) * (aw[k] * omt + bw[k] * t)
+        hi = base.astype(np.float32)
+        lo = np.where(np.isfinite(hi), (base - hi.astype(np.float64)).astype(np.float32),
+                      np.float32(0))
+        linear = ((aw[k] == 0) & (bw[k] == 0) & (a[0][k] == 0) & (a[1][k] == 0)
+                  & (b[0][k] == 0) & (b[1][k] == 0))
+        x_lh, x_rh = x[0][k], x[0][k + 1]
+        tn = (q[0] - x_lh) / (x_rh - x_lh)
+        escape = linear & np.isinf(tn)
+        y_lh, y_rh = d[0][k], d[0][k + 1]
+        hi = np.where(escape, y_lh + tn * (y_rh - y_lh), hi)
+        lo = np.where(escape, np.float32(0), lo)
+    if f64:
+        return hi.astype(np.float64) + lo.astype(np.float64)
+    return hi, lo
+
+
+def np_pair(v):
+    return tuple(h.numpy() for h in df_from_f64(torch.as_tensor(np.asarray(v, np.float64))))
+
+
+def df_case(n, spacing, table, seed, shifted=False):
+    """K6's inputs as float32 pairs: knots of gaps 0.5 to 1.5, or (``collide``)
+    1e-9 to 1e-7 apart near 1.0, most of them equal in float32; a cubic table
+    or a linear one (a = b = 0); queries uniform with extrapolation, the
+    knots, the midpoints, NaN, +-inf, +-1e300 and far extrapolation.  With
+    ``shifted`` the pairs of every other knot are not normalised: the hi half
+    moved one float32 step up and the lo half taken from the rest, so the
+    widened knot rounded to float32 is not its hi half (on collided knots the
+    hi halves of two neighbours then differ where the widened ones round
+    alike)."""
+    rng = np.random.default_rng(seed)
+    if spacing == "collide":
+        kn = np.cumsum(rng.uniform(1e-9, 1e-7, n)) + 1.0
+    else:
+        kn = np.concatenate([[0.0], np.cumsum(rng.uniform(0.5, 1.5, n - 1))])
+    d = rng.normal(size=n)
+    a, b = ((np.zeros(n - 1), np.zeros(n - 1)) if table == "linear" else
+            (rng.normal(size=n - 1), rng.normal(size=n - 1)))
+    lo, hi = kn[0], kn[-1]
+    span = hi - lo
+    q = np.concatenate([rng.uniform(lo - 0.2 * span, hi + 0.2 * span, 3000), kn,
+                        (kn[:-1] + kn[1:]) / 2,
+                        [np.nan, np.inf, -np.inf, 1e300, -1e300, lo - 1e6 * span,
+                         hi + 1e6 * span]])
+    x = np_pair(kn)
+    if shifted:
+        xh = x[0].copy()
+        xh[1::2] = np.nextafter(xh[1::2], np.float32(np.inf))
+        x = (xh, (kn - xh.astype(np.float64)).astype(np.float32))
+        assert np.any(x[0] != np_pair(x[0].astype(np.float64) + x[1].astype(np.float64))[0])
+    return x, np_pair(d), np_pair(a), np_pair(b), np_pair(q)
+
+
+K6_CASES = [(2, "nonuniform", "cubic", False), (3, "nonuniform", "linear", False),
+            (33, "collide", "cubic", False), (33, "collide", "linear", False),
+            (4096, "nonuniform", "cubic", False), (4096, "nonuniform", "linear", True),
+            (4096, "collide", "linear", False), (4096, "collide", "linear", True),
+            (20_000, "nonuniform", "cubic", True),
+            (20_000, "collide", "linear", False)]
+
+
+@pytest.mark.parametrize("n,spacing,table,shifted", K6_CASES)
+def test_k6_model_equals_eval_xla_df_at_every_budget(n, spacing, table, shifted):
+    """In both store forms, at one knot (every level on the global pairs),
+    as leaders (2, 7 and 63 knots), at the wrapper's budget (16,383 knots:
+    4,096 whole, 20,000 as leaders of every second knot) and whole: bit for
+    bit ``eval_xla_df``'s pair and ``df_to_f64`` of it; NaN queries on index
+    0 (NaN), +-inf on a linear table the float32 lerp of the hi halves
+    (+-inf), knots that collide in float32 told apart, and pairs that are
+    not normalised read through their hi halves for the escape's
+    fraction."""
+    args = df_case(n, spacing, table, n + len(spacing), shifted)
+    x, d, a, b, q = args
+    t_args = [torch.as_tensor(h) for p in args for h in p]
+    want = tuple(v.numpy() for v in t_ed.eval_xla_df(*t_args))
+    want64 = df_to_f64(*t_ed.eval_xla_df(*t_args)).numpy()
+    for budget in (1, 2, 7, 63, k6_budget(), n):
+        got = staged_df_eval(x, d, a, b, q, budget)
+        assert_bits(got[0], want[0], f"hi, budget {budget}")
+        assert_bits(got[1], want[1], f"lo, budget {budget}")
+        assert_bits(staged_df_eval(x, d, a, b, q, budget, f64=True), want64,
+                    f"float64 store form, budget {budget}")
+    nan_at = -7
+    assert np.isnan(want64[nan_at])
+    if table == "linear":
+        assert np.isinf(want64[nan_at + 1]) and np.isinf(want64[nan_at + 2])
+        assert want[1][nan_at + 1] == 0 and want[1][nan_at + 2] == 0
+
+
+def test_k6_model_index_gives_nan_queries_index_0():
+    """K6's and K7's NaN rule: index 0, where the float32 searches give
+    ``n - 2``; equal to the plain ``_df_lower_index`` at every budget."""
+    x, _, _, _, q = df_case(4096, "collide", "cubic", 9)
+    xw = x[0].astype(np.float64) + x[1].astype(np.float64)
+    qw = q[0].astype(np.float64) + q[1].astype(np.float64)
+    want = t_ed._df_lower_index(*(torch.as_tensor(v) for v in (*x, *q)), 4096).numpy()
+    for budget in (1, 7, k6_budget()):
+        got = staged_lower_index(xw, budget, qw, nan_index=0)
+        np.testing.assert_array_equal(got, want)
+        assert got[np.isnan(qw)].tolist() == [0]
+
+
+@pytest.mark.parametrize("spacing", ["nonuniform", "collide"])
+@pytest.mark.parametrize("table", ["cubic", "linear"])
+def test_k6_model_matches_the_jax_eval_xla_df(spacing, table):
+    """The K6 model at the wrapper's budget and at one knot against the JAX
+    ``eval_xla_df`` on the same pairs, within ``tests/test_torch_df.py``'s
+    1e-12 scaled (its scalar test, ``:234``), on the queries whose result
+    is finite in both, NaN positions equal."""
+    x, d, a, b, q = df_case(2048, spacing, table, 21)
+    jargs = [jnp.asarray(h) for p in (x, d, a, b, q) for h in p]
+    want = np.asarray(j_df.df_to_f64(*jax.jit(j_pd.eval_xla_df)(*jargs)))
+    scale = np.abs(d[0].astype(np.float64)).max()
+    for budget in (1, k6_budget()):
+        got = staged_df_eval(x, d, a, b, q, budget, f64=True)
+        fin = np.isfinite(got) & np.isfinite(want)
+        np.testing.assert_array_equal(np.isnan(got[:-7]), np.isnan(want[:-7]))
+        err = np.abs(got[fin] - want[fin]) / np.maximum(np.abs(want[fin]), 0.01 * scale)
+        assert float(err.max()) <= 1e-12, budget
+
+
+def test_the_k6_budget_is_k7s_and_reads_its_rows_widened():
+    """K6 stages K7's budget (16,383 knots whole: the serving spline's
+    4,096 knots in a 13-level tree of 64 KB, its rows 96 KB after it, so
+    that the kernel widens them into shared memory beside the tree)."""
+    assert t_ed._K6_SHARED_KNOTS == t_ed._K7_SHARED_KNOTS == 16_383
+    assert tree_levels(4096) == 13 and (1 << 13) * 8 == 64 << 10
+    assert (3 * 4096 - 2) * 8 <= 96 << 10
+    assert (1 << tree_levels(16_383)) * 8 == 128 << 10
