@@ -36,7 +36,7 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    MAX_BIG_KNOTS on 1,000,000 such queries, cubic and linear tables; R1
    (the 2-D cell search) and the 2-D cell tails R2b and R2g (bilinear, on
    the corner rows and on the grid), R2c, R2d and R2n (bicubic: sequential,
-   halving-tree and nested sums; R2n in both branches) in f32 and f64 on
+   halving-tree and nested sums; each in both branches) in f32 and f64 on
    grids up to 512 x 512 at 1, 3, 16 and 20 channels, on 1,000,000 queries
    per axis with NaN, +-inf, the knots and far extrapolation, R1 also
    against K3's index and K2's fractions, R2g also against R2b's plain
@@ -95,14 +95,14 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    x 64), NS1's one column (its chain floor), NS3b's three solves, NS5b's
    64 x 1,000,000 and with per-column diagonals, beside
    ``torch.linalg.solve_ex`` on the dense matrix (10,000 x 64, 512 x 8,192);
-   K10-K15, R2b and R2n beside the floor of their rows' bytes.  R2b's
-   designs at NS3 in one run: the grid tail R2g (the path's), the corner
-   rows on 16-byte lanes and a channel a lane (a table off 16-byte
+   K10-K15, R2b, R2c, R2d and R2n beside the floor of their rows' bytes.
+   R2b's designs at NS3 in one run: the grid tail R2g (the path's), the
+   corner rows on 16-byte lanes and a channel a lane (a table off 16-byte
    alignment; ``--sweeps``: also on a 2048 x 2048 x 16 grid past the L2);
-   R2n's phases at NS3b: the present body in query order, on every query's
-   row from one cell (the compute floor), ORD's flat-cell form beside its
-   2-D form on R1's cells, the ordered kernel alone and with ORD; then R2n
-   through ``ordered_phase`` as K12 below, in f32 and f64.  K7 is
+   R2c's, R2d's and R2n's phases at NS3b: the body in query order, on every
+   query's row from one cell (the compute floor), ORD's flat-cell form
+   beside its 2-D form on R1's cells, the ordered kernel alone and with ORD;
+   then each through ``ordered_phase`` as K12 below, in f32 and f64.  K7 is
    timed at the serving axis (10,240 knots, 2^20 queries, also with every
    query in one interval), at the 2-D and N-D paths' axis widths (512 and 64
    knots, 1,000,000 queries) and on 70,001 knots, each at the wrapper's
@@ -599,7 +599,10 @@ def gate(label, got, ref, tol, shape, oracle="SciPy f64"):
 # the tails that order their batch first (ORD); a call's orderings are those
 # of the one of them it launched (K10 and K11 never order: a call of theirs
 # that launches ORD fails)
-ORDERED_TAILS = ("K8", "K9", "K12", "K13", "K14", "R4c", "R2n")
+ORDERED_TAILS = ("K8", "K9", "K12", "K13", "K14", "R4c", "R2c", "R2d", "R2n")
+# the f32/f64 bicubic cell tails: R1's flat cell and fractions, ordered by
+# that cell (ORD's flat-cell form) above the shared rule
+CELL_TAILS = ("R2c", "R2d", "R2n")
 
 
 def counted_calls():
@@ -1509,7 +1512,7 @@ def bound(kid, args):
         # calc_frac lerps (6 operations each) an element
         nbytes = _nbytes(data, x, y, cell, qx, qy) + width * elems
         ops = 18 * elems
-    elif kid in ("R2b", "R2c", "R2d", "R2n"):  # rows_tbl, cell, qx | tx, qy | ty, r
+    elif kid in ("R2b",) + CELL_TAILS:  # rows_tbl, cell, qx | tx, qy | ty, r
         tbl, cell, a, b, r = args
         elems, width = cell.numel() * r, a.element_size()
         nbytes = _nbytes(tbl, cell, a, b) + width * elems
@@ -1581,10 +1584,10 @@ CELL_BLOCKS = {"K10": 8, "K11": 6, "K12": 32, "K13": 24, "R4c": 32}
 def row_floor_ms(kid, args):
     """The floor of a design that reads each query's own rows from HBM, as
     queries in random order do: its rows (K15 one cell row, K10-K13 and R4c
-    one cell row, K14 four node rows, R2b one corner row, R2n one cell row),
-    its idx and t pairs (R2b: its coordinates) and its output (pair), at
-    the HBM rate.  The rows are read as whole 32-byte sectors."""
-    if kid in ("R2b", "R2n"):  # rows_tbl, cell, qx | tx, qy | ty, r
+    one cell row, K14 four node rows, R2b one corner row, R2c, R2d and R2n
+    one cell row), its idx and t pairs (R2b: its coordinates) and its output
+    (pair), at the HBM rate.  The rows are read as whole 32-byte sectors."""
+    if kid in ("R2b",) + CELL_TAILS:  # rows_tbl, cell, qx | tx, qy | ty, r
         tbl, cell, a, b, r = args
         used = (4 * r + 4 if kid == "R2b" else 16 * r) * tbl.element_size()
         per_query = -(-used // 32) * 32 + r * a.element_size()
@@ -1612,8 +1615,9 @@ BANK_SWEEP = (4096, 16_384, 65_536, 131_072, 262_144, 524_288, 1_048_576)
 
 def ordered_tail(kid):
     """``(module, wrapper, plain, f64 entry)`` of a tail that orders its
-    batch: K8 and K9 (1-D, by interval), K12, K13, K14 and R4c (by cell), R2n
-    (by R1's flat cell); the module holds the wrapper's ``_orders``."""
+    batch: K8 and K9 (1-D, by interval), K12, K13, K14 and R4c (by cell), R2c,
+    R2d and R2n (by R1's flat cell); the module holds the wrapper's
+    ``_orders``."""
     from ndarray_interp_tpu_torch.ops import eval_kernels_df as e1
     from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as e2
     from ndarray_interp_tpu_torch.ops import tail2d as t2
@@ -1626,6 +1630,8 @@ def ordered_tail(kid):
                 e2._gathered_bicubic_f48_tail_f64),
         "K14": (e2, e2.gathered_bicubic_node_df_tail, e2._bicubic_node_df_tail_plain, None),
         "R4c": (e2, e2.gathered_bicubic_df_weight_tail, e2._bicubic_df_weight_tail_plain, None),
+        "R2c": (t2, t2.bicubic_gathered_eval, t2._bicubic_weight_plain, None),
+        "R2d": (t2, t2.bicubic_tree_tail, t2._bicubic_tree_plain, None),
         "R2n": (t2, t2.bicubic_nested_tail, t2._bicubic_nested_plain, None),
     }[kid]
 
@@ -1637,7 +1643,7 @@ def wrapper_orders(kid, args):
     mod, kern, _, _ = ordered_tail(kid)
     if kid in ("K8", "K9"):
         return mod._orders(args[1].shape[0], args[-1])
-    if kid == "R2n":  # rows_tbl, cell, tx, ty, r: 16 r values of row a query
+    if kid in CELL_TAILS:  # rows_tbl, cell, tx, ty, r: 16 r values of row a query
         rows, cell, _, _, r = args
         return mod._orders(cell.shape[0], 16 * r * rows.element_size(), mod._ORDER_MIN_ROW_BYTES)
     fetched = 4 * args[0].shape[1] * (4 if kid == "K14" else 1)
@@ -1646,12 +1652,12 @@ def wrapper_orders(kid, args):
 
 def order_args(kid, args):
     """The ordering's arguments for a tail's ``args``: K8's and K9's 1-D form
-    (no yi, no y halves), R2n's flat-cell form, the cell (K12, K13, R4c) or
-    the base node (K14)."""
+    (no yi, no y halves), the flat-cell form (R2c, R2d, R2n), the cell (K12,
+    K13, R4c) or the base node (K14)."""
     if kid in ("K8", "K9"):
         packed, idx, th, tl, _ = args
         return (idx, None, 1, 0, packed.shape[0], th, tl, None, None)
-    if kid == "R2n":  # order_by_flat_cell's arguments: the fractions in the tail's dtype
+    if kid in CELL_TAILS:  # order_by_flat_cell's arguments: the fractions in the tail's dtype
         import torch
 
         rows, cell, tx, ty, _ = args
@@ -1664,9 +1670,10 @@ def order_args(kid, args):
 
 
 def ordered_phase(kid, system, card, rec, sweeps, extra=(), sweep=ORDER_SWEEP):
-    """K8, K9, K12, K13, K14, R4c or R2n on a path's table and queries
-    ``system``: the ordering (by interval for K8 and K9, by cell else; R2n's
-    keyed on R1's flat cell, its fractions in the tail's dtype) in the form the
+    """K8, K9, K12, K13, K14, R4c, R2c, R2d or R2n on a path's table and
+    queries ``system``: the ordering (by interval for K8 and K9, by cell else;
+    R2c's, R2d's and R2n's keyed on R1's flat cell, its fractions in the
+    tail's dtype) in the form the
     wrapper picks for the table held against its plain version (the same
     bucket keys, a permutation of the queries, and each query's record, its
     row value and fraction halves, bit for bit the plain one's) and timed
@@ -1691,7 +1698,7 @@ def ordered_phase(kid, system, card, rec, sweeps, extra=(), sweep=ORDER_SWEEP):
     oargs = order_args(kid, args)
     rows, nq = packed.shape[0], oargs[0].shape[0]
     one_d = kid in ("K8", "K9")
-    flat = one_d or kid == "R2n"  # args (table, key, two fraction operands, width)
+    flat = one_d or kid in CELL_TAILS  # args (table, key, two fraction operands, width)
     key = "interval" if one_d else "cell"
     form = co._form(co.bucket_count(rows))
 
@@ -1754,7 +1761,7 @@ def ordered_phase(kid, system, card, rec, sweeps, extra=(), sweep=ORDER_SWEEP):
                 mod._orders = lambda *_, ordered=ordered: ordered
                 if check and not res[ordered]:
                     name = "ordered" if ordered else "unordered"
-                    add = rec.add if kid == "R2n" else rec.add_pair
+                    add = rec.add if kid in CELL_TAILS else rec.add_pair
                     ok &= add(kid, f"{what}, {name}", kern(*a), want)
                     if kern64 is not None:
                         ok &= rec.add(kid, f"{what}, {name}, float64 store form", kern64(*a),
@@ -1766,7 +1773,7 @@ def ordered_phase(kid, system, card, rec, sweeps, extra=(), sweep=ORDER_SWEEP):
             mod._orders = orders
         got = {k: float(np.median(v)) for k, v in res.items()}
         n = a[1].shape[0]
-        per_query = (16 * a[4] * a[0].element_size() if kid == "R2n" else
+        per_query = (16 * a[4] * a[0].element_size() if kid in CELL_TAILS else
                      4 * a[0].shape[1] * (4 if kid == "K14" else 1))
         forms = " (both store forms)" if kern64 is not None else ""
         verdict = ("both bit-identical to" if ok else "MISMATCH against") if check else (
@@ -2211,8 +2218,8 @@ def tail2d_kernel_phases(dev, rec):
     themselves and far extrapolation, so fractions far outside [0, 1]) on
     grids up to 512 x 512 at r in {1, 3, 16, 20} channels; R1 also against
     K3's index of each axis and K2's fractions; R2g also against R2b's plain
-    version on ``pack_corner_rows`` of its grid; R2n in both branches (the
-    wrapper's, and the other forced)."""
+    version on ``pack_corner_rows`` of its grid; R2c, R2d and R2n each in
+    both branches (the wrapper's, and the other forced)."""
     import torch
 
     from ndarray_interp_tpu_torch.models.strategies.bilinear import pack_corner_rows
@@ -2246,23 +2253,21 @@ def tail2d_kernel_phases(dev, rec):
             ok &= rec.add("R2g", f"{label} against R2b's plain version", got, want)
             del corners, grid, got, want
             rows = T(rng.normal(size=((nx - 1) * (ny - 1), 16 * r)).astype(np_dt))
-            for kid, kernel, plain in (
-                ("R2c", t2.bicubic_gathered_eval, t2._bicubic_weight_plain),
-                ("R2d", t2.bicubic_tree_tail, t2._bicubic_tree_plain),
-                ("R2n", t2.bicubic_nested_tail, t2._bicubic_nested_plain),
-            ):
-                ok &= rec.add(kid, label, kernel(rows, cell, tx, ty, r), plain(rows, cell, tx, ty, r))
             orders = t2._orders
             picks = orders(NQ2D, 16 * r * rows.element_size(), t2._ORDER_MIN_ROW_BYTES)
-            t2._orders = lambda *_: not picks  # R2n's other branch
-            try:
-                ok &= rec.add("R2n", f"{label}, {'un' if picks else ''}ordered branch",
-                              t2.bicubic_nested_tail(rows, cell, tx, ty, r),
-                              t2._bicubic_nested_plain(rows, cell, tx, ty, r))
-            finally:
-                t2._orders = orders
+            for kid in CELL_TAILS:
+                _, kernel, plain, _ = ordered_tail(kid)
+                want = plain(rows, cell, tx, ty, r)
+                ok &= rec.add(kid, label, kernel(rows, cell, tx, ty, r), want)
+                t2._orders = lambda *_: not picks  # the other branch
+                try:
+                    ok &= rec.add(kid, f"{label}, {'un' if picks else ''}ordered branch",
+                                  kernel(rows, cell, tx, ty, r), want)
+                finally:
+                    t2._orders = orders
+                del want
             print(f"  {label}: R1 (also against K3 and K2), R2b, R2g (also against R2b's plain "
-                  f"version), R2c, R2d, R2n (both branches) "
+                  f"version), R2c, R2d, R2n (each in both branches) "
                   f"{'bit-identical' if ok else 'MISMATCH'}", flush=True)
             del rows, cell, tx, ty, qx, qy
             torch.cuda.synchronize()
@@ -2551,13 +2556,13 @@ def bilinear_designs(dev, bil, qx, qy, card, rec, sweeps):
     return out
 
 
-def nested_designs(bic, qx, qy, card, rec):
-    """R2n's phases at NS3b in one run: the present body in query order
-    (the first design), the same on every query's row from one cell (the
-    compute floor with the row traffic gone), the present 2-D ORD on R1's
-    cells beside ORD's flat-cell form, and the ordered kernel alone on the
-    records and with the ordering; each result held bit for bit against
-    ``_bicubic_nested_plain``.  Returns ``{key: ms}``."""
+def cell_tail_designs(kid, bic, qx, qy, card, rec):
+    """R2c's, R2d's or R2n's phases at NS3b in one run: the body in query
+    order, the same on every query's row from one cell (the compute floor
+    with the row traffic gone), the ordered kernel alone on the records and
+    with the ordering, and ORD's flat-cell form beside the 2-D form on R1's
+    cells; each result held bit for bit against the plain version.  Returns
+    ``{key: ms}``."""
     import torch
 
     from ndarray_interp_tpu_torch.ops import _cuda
@@ -2565,47 +2570,48 @@ def nested_designs(bic, qx, qy, card, rec):
     from ndarray_interp_tpu_torch.ops import eval_kernels as ek
     from ndarray_interp_tpu_torch.ops import tail2d as t2
 
+    _, kernel, plain, _ = ordered_tail(kid)
     cell, tx, ty = ek.fused_cell_index(bic.x, bic.y, qx, qy)
     rows = bic.strategy.rows
     r, ny1, nrows = rows.shape[1] // 16, bic.y.shape[0] - 1, rows.shape[0]
-    want = t2._bicubic_nested_plain(rows, cell, tx, ty, r)
+    want = plain(rows, cell, tx, ty, r)
     hot = torch.full_like(cell, int(cell[0]))
     xi = torch.div(cell, ny1, rounding_mode="floor")
     zero = torch.zeros_like(tx)
     records = co.order_by_flat_cell(cell, nrows, tx, ty)
     orders = t2._orders
+    entry = t2._ORDERED[t2._TAILS[kernel][1]]
 
     def ordered_alone():
         out = torch.empty((cell.shape[0], r), dtype=rows.dtype, device=rows.device)
-        _cuda.launch("ndi_bicubic_nested_tail_ordered", rows.dtype, rows.device, rows, nrows,
-                     rows.shape[1], r, records, out, cell.shape[0])
+        _cuda.launch(entry, rows.dtype, rows.device, rows, nrows, rows.shape[1], r, records, out,
+                     cell.shape[0])
         return out
 
     def branch(ordered, c=cell):
         def fn():
             t2._orders = lambda *_: ordered
             try:
-                return t2.bicubic_nested_tail(rows, c, tx, ty, r)
+                return kernel(rows, c, tx, ty, r)
             finally:
                 t2._orders = orders
         return fn
 
-    print(f"  R2n phases at NS3b ({nrows:,} cells x {rows.shape[1] * rows.element_size():,} B "
+    print(f"  {kid} phases at NS3b ({nrows:,} cells x {rows.shape[1] * rows.element_size():,} B "
           f"rows f32, {cell.numel():,} queries; card {card}):", flush=True)
-    out = timed_designs("R2n at NS3b", want, {
-        "the present body in query order (the first design)": ("R2n", branch(False)),
-        "ordered, the ordering included": ("R2n", branch(True)),
-        "the ordered kernel alone": ("R2n", ordered_alone),
+    out = timed_designs(f"{kid} at NS3b", want, {
+        "the body in query order": (kid, branch(False)),
+        "ordered, the ordering included": (kid, branch(True)),
+        "the ordered kernel alone": (kid, ordered_alone),
     }, 5, rec)
-    rec.add("R2n", "every query on one cell", branch(False, hot)(),
-            t2._bicubic_nested_plain(rows, hot, tx, ty, r))
+    rec.add(kid, "every query on one cell", branch(False, hot)(), plain(rows, hot, tx, ty, r))
     out["one cell"] = device_ms(branch(False, hot), 5)[0]
     out["ORD flat"] = device_ms(lambda: co.order_by_flat_cell(cell, nrows, tx, ty), 10)[0]
     out["ORD 2-D"] = device_ms(lambda: co.order_by_cell(
         xi, cell - xi * ny1, ny1, 0, nrows, tx, zero, ty, zero), 10)[0]
-    print(f"    the present body on every query's row from one cell (compute floor): "
-          f"{out['one cell']:.4f} ms; ORD, the flat-cell form: {out['ORD flat']:.4f}, the present "
-          f"2-D form on R1's cells: {out['ORD 2-D']:.4f} ms", flush=True)
+    print(f"    the body in query order on every query's row from one cell (compute floor): "
+          f"{out['one cell']:.4f} ms; ORD, the flat-cell form: {out['ORD flat']:.4f}, the 2-D "
+          f"form on R1's cells: {out['ORD 2-D']:.4f} ms", flush=True)
     return out
 
 
@@ -2613,7 +2619,8 @@ def timing2d(state, card, rec, sweeps):
     """Hold the kernels of the 2-D path, through their wrappers, against
     their plain versions on the path's own inputs; time R1, R2b-R2n, R2g,
     K10-K13 and the per-column-diagonal K4 against their plain versions;
-    R2b's designs and R2n's phases and both branches (f32 and f64); then
+    R2b's designs and R2c's, R2d's and R2n's phases and both branches (f32
+    and f64); then
     time the 2-D calls end to end (``Evaluator2D`` and
     ``eval_into_donated_2d`` too), NS3 and NS3b also as the plain versions
     of R1 and their tails."""
@@ -2656,7 +2663,7 @@ def timing2d(state, card, rec, sweeps):
                                  _NOT_A_KNOT, 0.0))],
         "K7": [(f"NS3c f64 queries: {knots}, {nq}", (*x_pair, *df_from_f64(dqx)))],
     }
-    for kid in ("R2c", "R2d", "R2n"):
+    for kid in CELL_TAILS:
         systems[kid] = [(f"NS3b cell table {shape} f32, {nq}",
                          (bic.strategy.rows, cell, tx, ty, r))]
     for kid, kind, grade in (("K10", "Bilinear", "df"), ("K11", "Bilinear", "f48"),
@@ -2692,27 +2699,30 @@ def timing2d(state, card, rec, sweeps):
     print(f"  R2b row-read floor {times['R2b']['row_floor_ms']:.4f} (each query's own corner "
           f"row from HBM)", flush=True)
     # R2b's designs at NS3: the grid tail R2g (the path's), the corner rows on
-    # 16-byte lanes and a channel a lane; R2n's phases at NS3b, then both of its
-    # branches (ordered by cell, and the unordered body) in f32 and f64
-    print("R2b's designs and R2n's phases, each in one run:", flush=True)
+    # 16-byte lanes and a channel a lane; R2c's, R2d's and R2n's phases at NS3b,
+    # then both of their branches (ordered by cell, and the body in query
+    # order) in f32 and f64
+    print("R2b's designs and R2c's, R2d's and R2n's phases, each in one run:", flush=True)
     designs = bilinear_designs(qxd.device, bil, qxd, qyd, card, rec, sweeps)
     times["R2b"]["first_design_ms"] = designs[
         "corner rows, a channel a lane (table off 16-byte alignment)"]
     times["R2g"]["corner_rows_ms"] = designs["corner rows, 16-byte lanes (R2b)"]
-    phases = nested_designs(bic, qxd, qyd, card, rec)
-    times["R2n"] |= {"one_cell_ms": phases["one cell"], "order_2d_form_ms": phases["ORD 2-D"],
-                     "ordered_alone_ms": phases["the ordered kernel alone"]}
-    print("R2n at NS3b's table and queries, ordered by cell and unordered:", flush=True)
+    bic64, qx64, qy64 = state["float64"][1], state["float64"][2], state["float64"][3]
+    c64, tx64, ty64 = ek.fused_cell_index(bic64.x, bic64.y, qx64, qy64)
     extra = [(f"cell table {GRID2D[0]}x{GRID2D[1]}x8 f32", (
         torch.randn(((GRID2D[0] - 1) * (GRID2D[1] - 1), 16 * 8), device=qxd.device), cell, tx, ty,
         8), ORDER_SWEEP)] if sweeps else []
-    times["R2n"].update(ordered_phase("R2n", systems["R2n"][0], card, rec, sweeps, extra))
-    bic64, qx64, qy64 = state["float64"][1], state["float64"][2], state["float64"][3]
-    c64, tx64, ty64 = ek.fused_cell_index(bic64.x, bic64.y, qx64, qy64)
-    f64 = ordered_phase("R2n", (f"NS3b cell table {shape} f64, {nq}",
-                                (bic64.strategy.rows, c64, tx64, ty64, r)), card, rec, False)
-    times["R2n"] |= {"f64_ms": f64["ordered_ms"], "unordered_f64_ms": f64["unordered_ms"],
-                     "f64_row_floor_ms": f64["row_floor_ms"]}
+    for kid in CELL_TAILS:
+        phases = cell_tail_designs(kid, bic, qxd, qyd, card, rec)
+        times[kid] |= {"one_cell_ms": phases["one cell"], "order_2d_form_ms": phases["ORD 2-D"],
+                       "ordered_alone_ms": phases["the ordered kernel alone"]}
+        print(f"{kid} at NS3b's table and queries, ordered by cell and in query order:",
+              flush=True)
+        times[kid].update(ordered_phase(kid, systems[kid][0], card, rec, sweeps, extra))
+        f64 = ordered_phase(kid, (f"NS3b cell table {shape} f64, {nq}",
+                                  (bic64.strategy.rows, c64, tx64, ty64, r)), card, rec, False)
+        times[kid] |= {"f64_ms": f64["ordered_ms"], "unordered_f64_ms": f64["unordered_ms"],
+                       "f64_row_floor_ms": f64["row_floor_ms"]}
     del cell, tx, ty, extra, c64, tx64, ty64
     # K10's and K11's float64 store form at NS3c's and NS3g's inputs: held
     # against df_to_f64 of the plain pair and timed beside the pair form

@@ -18,9 +18,10 @@
 //                         then + b+4, b+2, b+1).
 // R2n  bicubic nested     the nested scaled-Hermite order of the strategy's tail
 //                         (models/strategies/bicubic.py _cell_tail_nested; XLA, not
-//                         Pallas, in the JAX package): the order the Bicubic route takes,
-//                         in query order (bicubic_cell_tail_kernel) or on records ordered
-//                         by cell (nested_ordered_kernel).
+//                         Pallas, in the JAX package): the order the Bicubic route takes.
+// R2c, R2d and R2n share their forms (CellForm) and, on records ordered by cell,
+// one kernel (cell_tail_ordered_kernel); in query order R2c and R2d run on R2b's
+// lanes (cell_tail_kernel), R2n a thread an element (nested_tail_kernel).
 //
 // What the TPU kernels did and these do not.  R1's Pallas body searched a
 // two-level window with one-hot bf16 split matrix products (_axis_search); here
@@ -62,16 +63,24 @@
 // block: no per-element division.
 //
 // R2c, R2d and R2n read a 1 KiB cell row a query (r = 16, f32): 1.07 GB at 1M
-// queries from a 267 MB table.  In query order each query's row comes from HBM,
-// R2n's body 0.3309 ms at NS3b against its row-read floor 0.3284 and 0.1153 on
-// every query's row from one cell (the compute floor).  Above a batch size
-// (eval_kernels_df2d._orders, K12's rule) the wrapper first orders the queries
-// by cell (cell_order.cu's flat-cell form, 0.0580) and runs nested_ordered_kernel
-// on the records: 0.1593 alone, 0.2198 with the ordering.  A lane keeping its
-// channels of a cell's 16 blocks for the run of records on the cell (K13's row
-// cache, 8 records a slot) took 0.2203: in f32 nothing is widened, so it saved
-// loads the L1 already served, and was not kept.  R2c and R2d keep the body in
-// query order: no path runs them.
+// queries from a 267 MB table.  In query order each query's row comes from HBM:
+// at NS3b (an H100 80GB HBM3 at 700 W, tools/tail2d_phases.py) R2c 0.3212 ms,
+// R2d 0.3334, R2n 0.3240 against the row-read floor 0.3284; the first design (a
+// thread an element, the 16 weights built again for each, a 64-bit division)
+// read 0.3268 / 0.3297 / 0.3316.  Above a batch size (eval_kernels_df2d._orders,
+// K12's rule) the wrapper first orders the queries by cell (cell_order.cu's
+// flat-cell form, 0.058) and runs cell_tail_ordered_kernel on the records: R2c
+// 0.1329 alone, 0.1936 with the ordering; R2d 0.1527 / 0.2134; R2n 0.1339 /
+// 0.1947.  The weight forms build their 16 weights once a record (a lane) and
+// spend 16 products and 15 adds a channel.  Their registers bound them: without
+// a register target ptxas gave the block-order sum 32 registers, which
+// serialised its loads (R2c 0.3632 in query order, 0.5453 ordered in f64), and
+// the halving tree 88, two blocks an SM (R2d ordered 0.1933); min_blocks below
+// sets the target.  R2n's form on the lanes read 3% slower than a thread an
+// element at 2^17 queries, so R2n keeps that body in query order.  A lane keeping
+// its channels of a cell's 16 blocks for the run of records on the cell (K13's
+// row cache, 8 records a slot) took 0.2203 for R2n against 0.2198 without it: in
+// f32 nothing is widened, so it saved loads the L1 already served.
 //
 // Numerics: every form is written in its plain PyTorch version's operation order
 // (ops/eval_kernels.py _cell_index_plain, ops/tail2d.py _bilinear_plain,
@@ -244,81 +253,140 @@ __global__ void __launch_bounds__(kThreads)
   Vec<W>::store(out + l.q * r + l.c, o);
 }
 
-// R2c / R2d / R2n.  tbl (rows, ch), ch >= 16r: block b = 4 i + c of the row
-// (quantity i in [f, kx*dx, ky*dy, kxy*dx*dy], corner c in [11, 12, 21, 22])
-// holds columns [b r, (b + 1) r).  out (nq, r); n = nq * r elements.
+// The three forms of one channel of R2c / R2d / R2n from its 16 blocks v[b] of
+// the cell row (block b = 4 i + c: quantity i in [f, kx*dx, ky*dy, kxy*dx*dy],
+// corner c in [11, 12, 21, 22]) at the query's fractions (t, s).  A form is
+// built once a query and applied to each of its channels: the weight forms
+// hold their 16 weights, the nested form its fractions.
 template <typename T, int kOrder>
-__global__ void bicubic_cell_tail_kernel(const T* __restrict__ tbl, int64_t rows, int64_t ch,
-                                         int64_t r, const int32_t* __restrict__ cell,
-                                         const T* __restrict__ tx, const T* __restrict__ ty,
-                                         T* __restrict__ out, int64_t n) {
-  const int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (e >= n) return;
-  const int64_t q = e / r;
-  const int64_t c = e - q * r;
-  const T* v = tbl + clamp_cell(__ldg(cell + q), rows) * ch + c;  // block b at v[b * r]
-  const T t = __ldg(tx + q);
-  const T s = __ldg(ty + q);
-  if (kOrder == kNested) {
-    // f and ky*dy along x at both bracketing y-knots, then along y
-    const T f_y1 = hermite_scaled(__ldg(v), __ldg(v + 2 * r), __ldg(v + 4 * r),
-                                  __ldg(v + 6 * r), t);
-    const T f_y2 = hermite_scaled(__ldg(v + r), __ldg(v + 3 * r), __ldg(v + 5 * r),
-                                  __ldg(v + 7 * r), t);
-    const T g_y1 = hermite_scaled(__ldg(v + 8 * r), __ldg(v + 10 * r), __ldg(v + 12 * r),
-                                  __ldg(v + 14 * r), t);
-    const T g_y2 = hermite_scaled(__ldg(v + 9 * r), __ldg(v + 11 * r), __ldg(v + 13 * r),
-                                  __ldg(v + 15 * r), t);
-    out[e] = hermite_scaled(f_y1, f_y2, g_y1, g_y2, s);
-    return;
-  }
-  T bx[4], by[4];
-  basis(t, bx);
-  basis(s, by);
-  // W[4 i + c] = Ax[i][c >> 1] * Ay[i][c & 1] (pallas_tail._bicubic_weights):
-  // f and ky take the value bases along x, kx and kxy the derivative bases;
-  // f and kx take the value bases along y, ky and kxy the derivative bases
-  T p[16];
+struct CellForm {  // kSeq, kTree
+  T w[16];
+  __device__ __forceinline__ CellForm(T t, T s) {
+    T bx[4], by[4];
+    basis(t, bx);
+    basis(s, by);
+    // W[4 i + c] = Ax[i][c >> 1] * Ay[i][c & 1] (pallas_tail._bicubic_weights):
+    // f and ky take the value bases along x, kx and kxy the derivative bases;
+    // f and kx take the value bases along y, ky and kxy the derivative bases
 #pragma unroll
-  for (int b = 0; b < 16; ++b) {
-    const int i = b >> 2;
-    const T w = bx[(i & 1) * 2 + ((b & 3) >> 1)] * by[(i >> 1) * 2 + (b & 1)];
-    p[b] = w * __ldg(v + b * r);
+    for (int b = 0; b < 16; ++b) {
+      const int i = b >> 2;
+      w[b] = bx[(i & 1) * 2 + ((b & 3) >> 1)] * by[(i >> 1) * 2 + (b & 1)];
+    }
   }
-  if (kOrder == kSeq) {
-    T acc = p[0];
+  __device__ __forceinline__ T operator()(const T (&v)[16]) const {
+    T p[16];
 #pragma unroll
-    for (int b = 1; b < 16; ++b) acc = acc + p[b];
-    out[e] = acc;
-  } else {  // the halving tree, one level at a time (constant bounds: p stays in registers)
+    for (int b = 0; b < 16; ++b) p[b] = w[b] * v[b];
+    if (kOrder == kSeq) {
+      T acc = p[0];
+#pragma unroll
+      for (int b = 1; b < 16; ++b) acc = acc + p[b];
+      return acc;
+    }
+    // the halving tree, one level at a time (constant bounds: p stays in registers)
 #pragma unroll
     for (int b = 0; b < 8; ++b) p[b] = p[b] + p[b + 8];
 #pragma unroll
     for (int b = 0; b < 4; ++b) p[b] = p[b] + p[b + 4];
 #pragma unroll
     for (int b = 0; b < 2; ++b) p[b] = p[b] + p[b + 2];
-    out[e] = p[0] + p[1];
+    return p[0] + p[1];
   }
+};
+
+template <typename T>
+struct CellForm<T, kNested> {
+  T t, s;
+  __device__ __forceinline__ CellForm(T t_, T s_) : t(t_), s(s_) {}
+  // f and ky*dy along x at both bracketing y-knots, then along y
+  __device__ __forceinline__ T operator()(const T (&v)[16]) const {
+    const T f_y1 = hermite_scaled(v[0], v[2], v[4], v[6], t);
+    const T f_y2 = hermite_scaled(v[1], v[3], v[5], v[7], t);
+    const T g_y1 = hermite_scaled(v[8], v[10], v[12], v[14], t);
+    const T g_y2 = hermite_scaled(v[9], v[11], v[13], v[15], t);
+    return hermite_scaled(f_y1, f_y2, g_y1, g_y2, s);
+  }
+};
+
+// W channels of one query: the 16 blocks at `blocks` (block b at blocks + b r)
+// read as W-wide loads, the form applied to each channel, W results to dst
+template <typename T, int W, int kOrder>
+__device__ __forceinline__ void cell_chunk(const T* __restrict__ blocks, int64_t r,
+                                           const CellForm<T, kOrder>& form, T* __restrict__ dst) {
+  T v[16][W], o[W];
+#pragma unroll
+  for (int b = 0; b < 16; ++b) Vec<W>::load(blocks + b * r, v[b]);
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    T col[16];
+#pragma unroll
+    for (int b = 0; b < 16; ++b) col[b] = v[b][j];
+    o[j] = form(col);
+  }
+  Vec<W>::store(dst, o);
 }
 
-// -- R2n on queries ordered by cell --------------------------------------------------------
+// The blocks an SM the bicubic tails' launch bounds ask for: four (64
+// registers a thread) keep the most warps in flight; the f64 weight forms,
+// whose 16 weights take 32 registers, spill or wait on their loads below
+// 128 registers, so they take two.
+template <typename T, int kOrder>
+__host__ __device__ constexpr int min_blocks() {
+  return sizeof(T) == 8 && kOrder != kNested ? 2 : 4;
+}
+
+// R2c / R2d in query order.  tbl (rows, ch), ch >= 16r: block b holds columns
+// [b r, (b + 1) r); out (nq, r).  A lane takes W channels of one query (R2b's
+// lanes), its 16 weights built once.
+template <typename T, int W, int kOrder>
+__global__ void __launch_bounds__(kThreads, (min_blocks<T, kOrder>()))
+    cell_tail_kernel(const T* __restrict__ tbl, int64_t rows, int64_t ch, int64_t r,
+                     const int32_t* __restrict__ cell, const T* __restrict__ tx,
+                     const T* __restrict__ ty, T* __restrict__ out, int64_t nq) {
+  const Lane l = lane_of<W>(r, nq);
+  if (l.q < 0) return;
+  const T* row = tbl + clamp_cell(__ldg(cell + l.q), rows) * ch;
+  const CellForm<T, kOrder> form(__ldg(tx + l.q), __ldg(ty + l.q));
+  cell_chunk<T, W, kOrder>(row + l.c, r, form, out + l.q * r + l.c);
+}
+
+// R2n in query order: a thread an element e = q r + c of out (nq, r), n = nq r.
+// The lane body above, on R2n's form, read rows 3% slower at 2^17 queries
+// and 2% at 1M (tools/tail2d_phases.py), so R2n keeps this body.
+template <typename T>
+__global__ void nested_tail_kernel(const T* __restrict__ tbl, int64_t rows, int64_t ch,
+                                   int64_t r, const int32_t* __restrict__ cell,
+                                   const T* __restrict__ tx, const T* __restrict__ ty,
+                                   T* __restrict__ out, int64_t n) {
+  const int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (e >= n) return;
+  const int64_t q = e / r;
+  const T* v = tbl + clamp_cell(__ldg(cell + q), rows) * ch + (e - q * r);  // block b at v[b r]
+  T col[16];
+#pragma unroll
+  for (int b = 0; b < 16; ++b) col[b] = __ldg(v + b * r);
+  out[e] = CellForm<T, kNested>(__ldg(tx + q), __ldg(ty + q))(col);
+}
+
+// -- R2c / R2d / R2n on queries ordered by cell ------------------------------------------
 // The records come from csrc/cell_order.cu's form keyed on the flat cell, 32
 // bytes each: [v, qid, tx, ty, ...], v the cell clamped to the table and the
 // fractions' bits in the tail's dtype (f32 one word each, f64 two).
 template <typename T>
-struct NestedRecord {
+struct CellRecord {
   int32_t v, qid;
   T tx, ty;
 };
 
 __device__ __forceinline__ void record_at(const int4* __restrict__ rec, int64_t i,
-                                          NestedRecord<float>* q) {
+                                          CellRecord<float>* q) {
   const int4 a = __ldg(rec + 2 * i);
   *q = {a.x, a.y, __int_as_float(a.z), __int_as_float(a.w)};
 }
 
 __device__ __forceinline__ void record_at(const int4* __restrict__ rec, int64_t i,
-                                          NestedRecord<double>* q) {
+                                          CellRecord<double>* q) {
   const int4 a = __ldg(rec + 2 * i);
   const int4 b = __ldg(rec + 2 * i + 1);
   *q = {a.x, a.y, __hiloint2double(a.w, a.z), __hiloint2double(b.y, b.x)};
@@ -328,37 +396,23 @@ __device__ __forceinline__ void record_at(const int4* __restrict__ rec, int64_t 
 // at most 32; slot_of in df_common.cuh), each slot one record, each lane W
 // channels of one chunk at a time: float4 (double2) where the blocks are
 // 16-byte aligned, one value else.  Neighbouring slots mostly share a cell, so
-// one load instruction fetches their blocks once.  Each result is the
-// unordered body's five hermite_scaled calls in _cell_tail_nested's order,
-// written to its query's slot (qid, c).
-template <typename T, int W>
-__global__ void __launch_bounds__(kThreads)
-    nested_ordered_kernel(const T* __restrict__ tbl, int64_t ch, int64_t r,
-                          const int4* __restrict__ rec, T* __restrict__ out, int64_t n) {
+// one load instruction fetches their blocks once.  Each lane builds the
+// record's form once (the weight forms' 16 weights) and writes each result to
+// its query's slot (qid, c): the query-order body's values.
+template <typename T, int W, int kOrder>
+__global__ void __launch_bounds__(kThreads, (min_blocks<T, kOrder>()))
+    cell_tail_ordered_kernel(const T* __restrict__ tbl, int64_t ch, int64_t r,
+                             const int4* __restrict__ rec, T* __restrict__ out, int64_t n) {
   const int64_t chunks = r / W;
   const Slot s = slot_of(chunks, n);
   if (!s.valid) return;
-  NestedRecord<T> q;
+  CellRecord<T> q;
   record_at(rec, s.q, &q);
   const T* row = tbl + static_cast<int64_t>(q.v) * ch;
-  for (int64_t k = s.sub; k < chunks; k += s.size) {
-    T v[16][W], o[W];
-#pragma unroll
-    for (int b = 0; b < 16; ++b) Vec<W>::load(row + b * r + k * W, v[b]);
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      const T f_y1 = hermite_scaled(v[0][j], v[2][j], v[4][j], v[6][j], q.tx);
-      const T f_y2 = hermite_scaled(v[1][j], v[3][j], v[5][j], v[7][j], q.tx);
-      const T g_y1 = hermite_scaled(v[8][j], v[10][j], v[12][j], v[14][j], q.tx);
-      const T g_y2 = hermite_scaled(v[9][j], v[11][j], v[13][j], v[15][j], q.tx);
-      o[j] = hermite_scaled(f_y1, f_y2, g_y1, g_y2, q.ty);
-    }
-    Vec<W>::store(out + static_cast<int64_t>(q.qid) * r + k * W, o);
-  }
-}
-
-inline unsigned int blocks_for(int64_t n) {
-  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
+  T* dst = out + static_cast<int64_t>(q.qid) * r;
+  const CellForm<T, kOrder> form(q.tx, q.ty);
+  for (int64_t k = s.sub; k < chunks; k += s.size)
+    cell_chunk<T, W, kOrder>(row + k * W, r, form, dst + k * W);
 }
 
 template <typename T, bool kWhole>
@@ -452,24 +506,38 @@ int bilinear_grid(const void* data, const void* x, const void* y, int64_t nx, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// R2c / R2d in query order: 16-byte lanes where the rows allow them, one
+// channel a lane else; R2n a thread an element
 template <typename T, int kOrder>
 int bicubic_tail(const void* tbl, int64_t rows, int64_t ch, int64_t r, const void* cell,
                  const void* tx, const void* ty, void* out, int64_t nq, void* stream) {
-  const int64_t n = nq * r;
-  if (n > 0) {
-    bicubic_cell_tail_kernel<T, kOrder>
-        <<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const T*>(tbl), rows, ch, r, static_cast<const int32_t*>(cell),
-            static_cast<const T*>(tx), static_cast<const T*>(ty), static_cast<T*>(out), n);
+  if (nq > 0 && r > 0) {
+    constexpr int W = 16 / sizeof(T);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const T* p = static_cast<const T*>(tbl);
+    const int32_t* c = static_cast<const int32_t*>(cell);
+    const T* a = static_cast<const T*>(tx);
+    const T* b = static_cast<const T*>(ty);
+    T* o = static_cast<T*>(out);
+    if constexpr (kOrder == kNested) {
+      const int64_t n = nq * r;
+      nested_tail_kernel<T><<<static_cast<unsigned int>((n + kThreads - 1) / kThreads), kThreads,
+                              0, s>>>(p, rows, ch, r, c, a, b, o, n);
+    } else if (wide_lanes<W>(tbl, r, ch)) {
+      const LaneGrid g = lane_grid(r / W, nq);
+      cell_tail_kernel<T, W, kOrder><<<g.grid, g.block, 0, s>>>(p, rows, ch, r, c, a, b, o, nq);
+    } else {
+      const LaneGrid g = lane_grid(r, nq);
+      cell_tail_kernel<T, 1, kOrder><<<g.grid, g.block, 0, s>>>(p, rows, ch, r, c, a, b, o, nq);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// R2n on ordered records: 16-byte lanes where the rows allow them, one channel
-// a lane else
-template <typename T>
-int nested_ordered(const void* tbl, int64_t ch, int64_t r, const void* rec, void* out,
-                   int64_t nq, void* stream) {
+// R2c / R2d / R2n on ordered records: the same lanes
+template <typename T, int kOrder>
+int bicubic_tail_ordered(const void* tbl, int64_t, int64_t ch, int64_t r, const void* rec,
+                         void* out, int64_t nq, void* stream) {
   if (nq > 0 && r > 0) {
     constexpr int W = 16 / sizeof(T);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -477,10 +545,11 @@ int nested_ordered(const void* tbl, int64_t ch, int64_t r, const void* rec, void
     const int4* q = static_cast<const int4*>(rec);
     T* o = static_cast<T*>(out);
     if (wide_lanes<W>(tbl, r, ch))
-      nested_ordered_kernel<T, W><<<ordered_blocks(r / W, nq), kThreads, 0, s>>>(p, ch, r, q, o,
-                                                                                 nq);
+      cell_tail_ordered_kernel<T, W, kOrder>
+          <<<ordered_blocks(r / W, nq), kThreads, 0, s>>>(p, ch, r, q, o, nq);
     else
-      nested_ordered_kernel<T, 1><<<ordered_blocks(r, nq), kThreads, 0, s>>>(p, ch, r, q, o, nq);
+      cell_tail_ordered_kernel<T, 1, kOrder>
+          <<<ordered_blocks(r, nq), kThreads, 0, s>>>(p, ch, r, q, o, nq);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -533,16 +602,23 @@ int ndi_bilinear_grid_tail_f64(const void* data, const void* x, const void* y, i
   return bilinear_grid<double>(data, x, y, nx, ny, r, cell, qx, qy, out, nq, stream);
 }
 
-// R2n on the records of csrc/cell_order.cu keyed on the flat cell: tbl (rows,
-// ch), ch >= 16 r, rec (nq, 8) int32, out (nq, r)
-int ndi_bicubic_nested_tail_ordered_f32(const void* tbl, int64_t, int64_t ch, int64_t r,
-                                        const void* rec, void* out, int64_t nq, void* stream) {
-  return nested_ordered<float>(tbl, ch, r, rec, out, nq, stream);
-}
+// R2c, R2d and R2n on the records of csrc/cell_order.cu keyed on the flat cell:
+// tbl (rows, ch), ch >= 16 r, rec (nq, 8) int32, out (nq, r)
+#define NDI_CELL_TAIL_ORDERED(name, body)                                                 \
+  int name(const void* tbl, int64_t rows, int64_t ch, int64_t r, const void* rec,         \
+           void* out, int64_t nq, void* stream) {                                         \
+    return body(tbl, rows, ch, r, rec, out, nq, stream);                                  \
+  }
 
-int ndi_bicubic_nested_tail_ordered_f64(const void* tbl, int64_t, int64_t ch, int64_t r,
-                                        const void* rec, void* out, int64_t nq, void* stream) {
-  return nested_ordered<double>(tbl, ch, r, rec, out, nq, stream);
-}
+NDI_CELL_TAIL_ORDERED(ndi_bicubic_seq_tail_ordered_f32, (bicubic_tail_ordered<float, kSeq>))
+NDI_CELL_TAIL_ORDERED(ndi_bicubic_seq_tail_ordered_f64, (bicubic_tail_ordered<double, kSeq>))
+NDI_CELL_TAIL_ORDERED(ndi_bicubic_tree_tail_ordered_f32, (bicubic_tail_ordered<float, kTree>))
+NDI_CELL_TAIL_ORDERED(ndi_bicubic_tree_tail_ordered_f64, (bicubic_tail_ordered<double, kTree>))
+NDI_CELL_TAIL_ORDERED(ndi_bicubic_nested_tail_ordered_f32,
+                      (bicubic_tail_ordered<float, kNested>))
+NDI_CELL_TAIL_ORDERED(ndi_bicubic_nested_tail_ordered_f64,
+                      (bicubic_tail_ordered<double, kNested>))
+
+#undef NDI_CELL_TAIL_ORDERED
 
 }  // extern "C"

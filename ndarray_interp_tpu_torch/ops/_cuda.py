@@ -64,6 +64,8 @@ class NdStrides(ctypes.Structure):
 _ND_TAIL = ((_P, _I, _I, _I, _I, _I, _P, NdStrides, _P, _P, _P, _P, _I, _P), _PAIRS)
 # tbl, rows, ch, r, cell, qx | tx, qy | ty, out, nq
 _CELL_TAIL_F = ((_P, _I, _I, _I, _P, _P, _P, _P, _I, _P), _BOTH)
+# tbl, rows, ch, r, records, out, nq
+_CELL_TAIL_ORDERED = ((_P, _I, _I, _I, _P, _P, _I, _P), _BOTH)
 # argument types of each entry point, stream last, and the dtypes it has a
 # symbol for: <name>_f32, <name>_f64
 _SIGNATURES = {
@@ -90,8 +92,9 @@ _SIGNATURES = {
     "ndi_bicubic_nested_tail": _CELL_TAIL_F,
     # data, x, y, nx, ny, r, cell, qx, qy, out, nq
     "ndi_bilinear_grid_tail": ((_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P), _BOTH),
-    # tbl, rows, ch, r, records, out, nq
-    "ndi_bicubic_nested_tail_ordered": ((_P, _I, _I, _I, _P, _P, _I, _P), _BOTH),
+    "ndi_bicubic_seq_tail_ordered": _CELL_TAIL_ORDERED,
+    "ndi_bicubic_tree_tail_ordered": _CELL_TAIL_ORDERED,
+    "ndi_bicubic_nested_tail_ordered": _CELL_TAIL_ORDERED,
     # xh, xl, n, dh, dl, ah, al, bh, bl, shared_knots, qh, ql, out_hi, out_lo
     # (null: out_hi float64, the store form of csrc/df_common.cuh), nq
     "ndi_df_eval1d": ((_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P),

@@ -19,12 +19,15 @@ itself, so the gathered rows are never written:
 * :func:`bicubic_tree_tail` (R2d): the same products summed by the halving
   tree of ``bicubic_mxu_tail``;
 * :func:`bicubic_nested_tail` (R2n): the nested scaled-Hermite order of
-  :func:`_cell_tail_nested`, the one the ``Bicubic`` strategy runs.  A large
-  batch is first ordered by cell (``cell_order.order_by_flat_cell``, at the
-  rule of the f64-grade bicubic tails, ``eval_kernels_df2d._orders``), so
-  that the queries of one cell share its row; the kernel on the ordered
-  records writes each result to its query's slot, bit for bit the result of
-  the unordered body.
+  :func:`_cell_tail_nested`, the one the ``Bicubic`` strategy runs.
+
+The three bicubic tails share their kernels' lanes (W channels of a query a
+lane, its weights or fractions taken once) and their branches: a large
+batch is first ordered by cell (``cell_order.order_by_flat_cell``, at the
+rule of the f64-grade bicubic tails, ``eval_kernels_df2d._orders``), so
+that the queries of one cell share its row; the kernel on the ordered
+records writes each result to its query's slot, bit for bit the result of
+the kernel in query order, which smaller batches run.
 
 Each has its plain PyTorch version here (an ``index_select`` of the rows,
 clamped to the table as the kernels clamp, and the form).  A CPU tensor
@@ -169,27 +172,48 @@ def _bicubic_nested_plain(rows_tbl, cell, tx, ty, r):
     return _cell_tail_nested(_rows(rows_tbl, cell), tx[:, None], ty[:, None], r)
 
 
-def _bicubic_nested_ordered_plain(rows_tbl, records, r):
-    """Plain version of R2n on the records of
-    :func:`~.cell_order.order_by_flat_cell`: the rows of the records' cells,
-    :func:`_cell_tail_nested` at their fractions, each result put back at
-    its query's slot."""
+def _on_records(plain, rows_tbl, records, r):
+    """``plain`` on the records of :func:`~.cell_order.order_by_flat_cell`:
+    the rows of the records' cells at their fractions, each result put back
+    at its query's slot."""
     cell, qid, frac = record_fields(records, rows_tbl.dtype)
-    got = _bicubic_nested_plain(rows_tbl, cell, frac[:, 0], frac[:, 1], r)
+    got = plain(rows_tbl, cell, frac[:, 0], frac[:, 1], r)
     out = torch.empty_like(got)
     out[qid.long()] = got
     return out
 
 
+def _bicubic_weight_ordered_plain(rows_tbl, records, r):
+    """Plain version of R2c on ordered records: :func:`_bicubic_weight_plain`
+    by :func:`_on_records`."""
+    return _on_records(_bicubic_weight_plain, rows_tbl, records, r)
+
+
+def _bicubic_tree_ordered_plain(rows_tbl, records, r):
+    """Plain version of R2d on ordered records: :func:`_bicubic_tree_plain`
+    by :func:`_on_records`."""
+    return _on_records(_bicubic_tree_plain, rows_tbl, records, r)
+
+
+def _bicubic_nested_ordered_plain(rows_tbl, records, r):
+    """Plain version of R2n on ordered records: :func:`_bicubic_nested_plain`
+    by :func:`_on_records`."""
+    return _on_records(_bicubic_nested_plain, rows_tbl, records, r)
+
+
 # -- the kernels -------------------------------------------------------------------------
-# R2n orders a batch by cell first at the rule of K12 (eval_kernels_df2d._orders
-# on its 16 r values of row a query, 1 KiB at r = 16 in f32).  Measured on an
-# H100 80GB HBM3 at 700 W (tools/tail2d_phases.py --sweeps, ordered with the
-# ordering included / unordered body, ms): at r = 16 the ordered branch ties at
-# 2^18 queries (0.0928 / 0.0902) and wins from 2^19 (0.1428 / 0.1757; NS3b's
-# 1M: 0.2198 / 0.3309), as K12 and R4c do; 8 channels (512 B of rows, below the
-# rule) tie at 1M (0.1521 / 0.1550) and lose below.  So the shared rule holds.
-_ORDERED = {"ndi_bicubic_nested_tail": "ndi_bicubic_nested_tail_ordered"}
+# R2c, R2d and R2n order a batch by cell first at the rule of K12
+# (eval_kernels_df2d._orders on their 16 r values of row a query, 1 KiB at r = 16
+# in f32).  Measured on an H100 80GB HBM3 at 700 W (tools/tail2d_phases.py
+# --sweeps, ordered with the ordering included / in query order, ms): at r = 16
+# the ordered branch ties at 2^18 queries (R2c 0.0926 / 0.0882, R2d 0.0941 /
+# 0.0923, R2n 0.0929 / 0.0885) and wins from 2^19 (0.1338 / 0.1713, 0.1383 /
+# 0.1774, 0.1340 / 0.1725; NS3b's 1M: 0.1936 / 0.3214, 0.2134 / 0.3333, 0.1947 /
+# 0.3243); 8 channels (512 B of rows, below the rule) tie at 2^19 and win at 1M
+# (0.1376 / 0.1690, 0.1503 / 0.1799, 0.1393 / 0.1567), which the rule leaves to
+# the query-order branch.
+_ORDERED = {f"ndi_bicubic_{o}_tail": f"ndi_bicubic_{o}_tail_ordered"
+            for o in ("seq", "tree", "nested")}
 
 
 def _launch(name, symbol, width, rows_tbl, cell, a, b, r):
@@ -338,13 +362,15 @@ def bicubic_gathered_eval(rows_tbl, cell, tx, ty, r):
     """The weight-form bicubic on the cell row ``cell`` of each query (R2c,
     summed in block order): ``rows_tbl`` ((nx-1)(ny-1), >= 16r) from
     ``pack_bicubic_rows``, ``cell`` int32 and the fractions flat.  Returns
-    (Q, r).  CPU: :func:`_bicubic_weight_plain`; CUDA: R2c."""
+    (Q, r).  CPU: :func:`_bicubic_weight_plain`; CUDA: R2c, on the queries
+    ordered by cell when the batch is large (as :func:`bicubic_nested_tail`)."""
     return _tail(bicubic_gathered_eval, rows_tbl, cell, tx, ty, r)
 
 
 def bicubic_tree_tail(rows_tbl, cell, tx, ty, r):
     """:func:`bicubic_gathered_eval` summed by the halving tree (R2d).
-    CPU: :func:`_bicubic_tree_plain`; CUDA: R2d."""
+    CPU: :func:`_bicubic_tree_plain`; CUDA: R2d, on the queries ordered by
+    cell when the batch is large (as :func:`bicubic_nested_tail`)."""
     return _tail(bicubic_tree_tail, rows_tbl, cell, tx, ty, r)
 
 

@@ -1,12 +1,12 @@
 """The ordering of a batch by cell ahead of K12, K13, K14 and R4c, by R1's
-flat cell ahead of R2n (f32 and f64), and by interval ahead of K8
+flat cell ahead of R2c, R2d and R2n (f32 and f64), and by interval ahead of K8
 (``ops/cell_order.py``), and the plain tails on ordered records, on the CPU.
 
 The ordering has no JAX twin: the JAX routes evaluate in query order.  So
 the plain ordering is checked for what the ordered tails rely on (a
 permutation of the queries, non-decreasing bucket keys, each 32-byte record
 its query's row value and fraction halves; K8's 1-D records have no y
-part; R2n's carry its fractions in their own dtype), and the plain tails on
+part; R1's flat-cell records carry its fractions in their own dtype), and the plain tails on
 the ordered records, put back at their
 queries' slots, are held bit for bit against the direct plain tails and,
 with the same numpy inputs, against the JAX package's XLA tails (4e-12
@@ -17,7 +17,13 @@ transforms; R4c's against the weight-form record tail
 ``test_torch_records.py``; R2n's against the JAX strategy's
 ``_cell_tail_nested`` on the rows in query order, bit for bit and within
 ``rtol=2e-5, atol=1e-6`` of the largest value as ``test_torch_tail2d.py``
-holds the unordered tail).  The kernels themselves run in
+holds the unordered tail; R2c's against ``_bicubic_weight_xla`` and, in f32,
+the Pallas ``bicubic_weight_tail`` in interpret mode within 2e-5 of the
+largest value, R2d's bit for bit against the Pallas ``bicubic_mxu_tail`` in
+interpret mode in f32, as ``test_torch_tail2d.py`` holds the unordered tails;
+in f64, where the Pallas tails are f32 only, both within 1e-12 of the largest
+value of ``_bicubic_weight_xla``, R2d's halving tree summing in another
+order).  The kernels themselves run in
 ``test_torch_kernels.py`` on the card.
 """
 
@@ -28,6 +34,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import ndarray_interp_tpu.ops.pallas_tail as j_tail
 from ndarray_interp_tpu.ops import df as jdf
 from ndarray_interp_tpu.ops import df_records as jrec
 from ndarray_interp_tpu.models.strategies.bicubic import _cell_tail_nested as j_nested
@@ -50,6 +57,15 @@ def tpair(v):
 
 def bits(v):
     return v.numpy().view(np.int32)
+
+
+def scaled(got, want, rtol, atol):
+    """``got`` within ``rtol``/``atol`` of ``want``, both divided by the
+    largest ``|want|`` (``test_torch_tail2d.py``'s measure)."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got / scale, want / scale, rtol=rtol, atol=atol)
 
 
 def scaled_err(got, want):
@@ -86,21 +102,40 @@ def ints(v):
 
 
 # (row_step, lo) of each kind's ordering; K8's is 1-D (no yi, no y halves:
-# the key is the interval, row_step 1, lo 0); R2n's is keyed on R1's flat
-# cell xi (ny - 1) + yi the same way, its fractions in the tail's dtype
+# the key is the interval, row_step 1, lo 0); R2c's, R2d's and R2n's is keyed
+# on R1's flat cell xi (ny - 1) + yi the same way, its fractions in the tail's
+# dtype
 KINDS = {"K8": None, "K12": lambda ny: (ny - 1, 0), "K13": lambda ny: (ny - 1, 0),
-         "K14": lambda ny: (ny, -(ny + 1)), "R4c": lambda ny: (ny - 1, 0),
-         "R2n f32": None, "R2n f64": None}
-R2N = {"R2n f32": torch.float32, "R2n f64": torch.float64}
+         "K14": lambda ny: (ny, -(ny + 1)), "R4c": lambda ny: (ny - 1, 0)}
+# the f32/f64 tails on R1's flat cells: (plain on ordered records, direct
+# plain, wrapper) of each sum order
+FLAT_TAILS = {
+    "R2c": (t2._bicubic_weight_ordered_plain, t2._bicubic_weight_plain,
+            t2.bicubic_gathered_eval),
+    "R2d": (t2._bicubic_tree_ordered_plain, t2._bicubic_tree_plain, t2.bicubic_tree_tail),
+    "R2n": (t2._bicubic_nested_ordered_plain, t2._bicubic_nested_plain,
+            t2.bicubic_nested_tail),
+}
+FLAT = {f"{kid} {tag}": dtype for kid in FLAT_TAILS
+        for tag, dtype in (("f32", torch.float32), ("f64", torch.float64))}
+KINDS |= dict.fromkeys(FLAT)
+# R2c and R2d order their batches as R2n does: the ordering is checked on R2n's
+ORDERINGS = sorted(k for k in KINDS if k[:3] not in ("R2c", "R2d"))
+
+
+def flat_fracs(kind, args):
+    """The fractions ``(tx, ty)`` among a flat-cell kind's ordering
+    arguments (f32 ``tx, ty, None, None``; f64 ``tx, None, ty, None``)."""
+    return args[5], args[6] if FLAT[kind] == torch.float32 else args[7]
 
 
 def order_args(kind, xi, yi, nx, ny, t):
     """The ordering's arguments for ``kind`` on an ``nx`` x ``ny`` grid (K8:
     the ``nx - 1`` intervals of the x axis)."""
-    if kind in R2N:
+    if kind in FLAT:
         cell = ints(np.asarray(xi, np.int64) * (ny - 1) + np.asarray(yi))
-        tx, ty = (torch.as_tensor(v, dtype=R2N[kind]) for v in t)
-        fracs = (tx, None, ty, None) if kind == "R2n f64" else (tx, ty, None, None)
+        tx, ty = (torch.as_tensor(v, dtype=FLAT[kind]) for v in t)
+        fracs = (tx, ty, None, None) if FLAT[kind] == torch.float32 else (tx, None, ty, None)
         return (cell, None, 1, 0, (nx - 1) * (ny - 1), *fracs)
     (txh, txl), (tyh, tyl) = tpair(t[0]), tpair(t[1])
     if kind == "K8":
@@ -110,7 +145,7 @@ def order_args(kind, xi, yi, nx, ny, t):
     return (ints(xi), ints(yi), row_step, lo, rows, txh, txl, tyh, tyl)
 
 
-@pytest.mark.parametrize("kind", sorted(KINDS))
+@pytest.mark.parametrize("kind", ORDERINGS)
 @pytest.mark.parametrize("case", ["random", "one cell", "sorted", "out of range", "empty"])
 def test_plain_order_is_a_permutation_in_bucket_order(kind, case):
     rng = np.random.default_rng(len(case))
@@ -121,7 +156,7 @@ def test_plain_order_is_a_permutation_in_bucket_order(kind, case):
     xi, yi, row_step, lo, rows, txh, txl, tyh, tyl = args
     records = co.order_by_cell(*args)
     assert records.dtype == torch.int32 and tuple(records.shape) == (nq, 8)
-    dtype = R2N.get(kind, torch.float32)
+    dtype = FLAT.get(kind, torch.float32)
     v, qid, frac = co.record_fields(records, dtype)
     assert frac.dtype == dtype and tuple(frac.shape) == (nq, 16 // dtype.itemsize)
     assert not bool(records[:, 6:].any())
@@ -132,8 +167,8 @@ def test_plain_order_is_a_permutation_in_bucket_order(kind, case):
     assert bool((values <= rows - 1).all()) and bool((values >= lo).all())
     keys = co.bucket_keys(v.long(), rows)
     assert bool((keys[1:] >= keys[:-1]).all())
-    if kind in R2N:  # the fractions bit-copied in their dtype, zero bits after them
-        tx, ty = args[5], args[6] if kind == "R2n f32" else args[7]
+    if kind in FLAT:  # the fractions bit-copied in their dtype, zero bits after them
+        tx, ty = flat_fracs(kind, args)
         assert torch.equal(records, co.order_by_flat_cell(xi, rows, tx, ty))
         np.testing.assert_array_equal(bits(frac[:, :2]), bits(torch.stack([tx, ty], dim=1)[qid]))
         assert not bool(records[:, 2 + dtype.itemsize // 2:].any())
@@ -219,10 +254,10 @@ def node_case(r, case, seed, nq=700, nx=11, ny=9):
 
 
 def nested_case(kind, r, case, seed, nq=700, nx=11, ny=9):
-    """An R2n cell table of ``r`` channels in the kind's dtype, K7-like
-    interval indices (their flat cell is R1's) and fractions."""
+    """An R2c, R2d or R2n cell table of ``r`` channels in the kind's dtype,
+    K7-like interval indices (their flat cell is R1's) and fractions."""
     rng = np.random.default_rng(seed)
-    rows = torch.as_tensor(rng.normal(size=((nx - 1) * (ny - 1), 16 * r)), dtype=R2N[kind])
+    rows = torch.as_tensor(rng.normal(size=((nx - 1) * (ny - 1), 16 * r)), dtype=FLAT[kind])
     xi, yi = indices(case, nx, ny, nq, rng)
     t = fractions(rng, nq)
     return rows, rows, xi, yi, t, ny
@@ -231,7 +266,7 @@ def nested_case(kind, r, case, seed, nq=700, nx=11, ny=9):
 def make_case(kind, r, case, seed, **kw):
     """The table and inputs of ``kind``'s tail at ``r`` channels (K8: a bank
     of ``r`` columns)."""
-    if kind in R2N:
+    if kind in FLAT:
         return nested_case(kind, r, case, seed, **kw)
     if kind == "K8":
         return bank_case(r, case, seed, **kw)
@@ -248,10 +283,10 @@ def ordered_and_direct(kind, packed, xi, yi, ny, t, r):
     the direct plain tail on the same inputs."""
     args = order_args(kind, xi, yi, NX, ny, t)
     records = co.order_by_cell(*args)
-    if kind in R2N:
-        cell, tx, ty = args[0], args[5], args[6] if kind == "R2n f32" else args[7]
-        return ((t2._bicubic_nested_ordered_plain(packed, records, r),),
-                (t2._bicubic_nested_plain(packed, cell, tx, ty, r),))
+    if kind in FLAT:
+        on_records, direct, _ = FLAT_TAILS[kind[:3]]
+        return ((on_records(packed, records, r),),
+                (direct(packed, args[0], *flat_fracs(kind, args), r),))
     if kind == "K8":
         return (t1._df_tail_ordered_plain(packed, records, r),
                 t1._df_tail_plain(packed, args[0], args[5], args[6], r))
@@ -297,15 +332,24 @@ def test_ordered_plain_tails_match_the_jax_tails(kind, r):
     args = order_args(kind, xi, yi, NX, ny, t)
     records = co.order_by_cell(*args)
     jt = [v[:, None] for v in jpair(t[0]) + jpair(t[1])]
-    if kind in R2N:  # the unordered tail's JAX twin, on the same rows and fractions
-        got = t2._bicubic_nested_ordered_plain(src, records, r).numpy()
-        tx = args[5].numpy()
-        ty = (args[6] if kind == "R2n f32" else args[7]).numpy()
+    if kind in FLAT:  # the unordered tail's JAX twins, on the same rows and fractions
+        kid, f32 = kind[:3], FLAT[kind] == torch.float32
+        got = FLAT_TAILS[kid][0](src, records, r).numpy()
+        jtx, jty = (jnp.asarray(v.numpy()) for v in flat_fracs(kind, args))
         jr = jnp.take(jnp.asarray(src.numpy()), jnp.asarray(args[0].numpy()), axis=0)
-        want = np.asarray(j_nested(jr, jnp.asarray(tx)[:, None], jnp.asarray(ty)[:, None], r))
-        np.testing.assert_array_equal(got, want)
-        scale = np.abs(want).max()
-        np.testing.assert_allclose(got / scale, want / scale, rtol=2e-5, atol=1e-6)
+        weight = np.asarray(j_tail._bicubic_weight_xla(jr, jtx, jty, r))
+        if kid == "R2n":
+            want = np.asarray(j_nested(jr, jtx[:, None], jty[:, None], r))
+            np.testing.assert_array_equal(got, want)
+            scaled(got, want, 2e-5, 1e-6)
+        elif not f32:  # the Pallas tails are f32 only
+            scaled(got, weight, 1e-12, 1e-12)
+        elif kid == "R2c":
+            for want in (weight, j_tail.bicubic_weight_tail(jr, jtx, jty, r, interpret=True)):
+                scaled(got, want, 2e-5, 2e-5)
+        else:
+            want = j_tail.bicubic_mxu_tail(jr, jtx, jty, interpret=True, bq=512)
+            np.testing.assert_array_equal(got, np.asarray(want))
         return
     if kind == "K8":
         jpk = jp.pack_bank_rows_df(*(h for v in src for h in jpair(v)))
@@ -358,11 +402,11 @@ def test_cpu_wrappers_run_the_plain_tail_at_any_batch(kind, monkeypatch):
     monkeypatch.setattr(t2, "_orders", lambda *_: True)
     _, packed, xi, yi, t, ny = make_case(kind, 3, "random", seed=5)
     before = {k: w.launches for k, w in kernel_wrappers().items()}
-    if kind in R2N:
+    if kind in FLAT:
+        _, plain, wrapper = FLAT_TAILS[kind[:3]]
         a = order_args(kind, xi, yi, NX, ny, t)
-        args = (packed, a[0], a[5], a[6] if kind == "R2n f32" else a[7], 3)
-        got = t2.bicubic_nested_tail(*args)
-        np.testing.assert_array_equal(bits(got), bits(t2._bicubic_nested_plain(*args)))
+        args = (packed, a[0], *flat_fracs(kind, a), 3)
+        np.testing.assert_array_equal(bits(wrapper(*args)), bits(plain(*args)))
         assert {k: w.launches for k, w in kernel_wrappers().items()} == before
         return
     if kind == "K8":

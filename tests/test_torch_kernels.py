@@ -460,8 +460,8 @@ def ordered_tail(kind):
 
 
 def force_branch(monkeypatch, ordered):
-    """Make the K8, K12, K13, K14 and R2n wrappers take one branch whatever
-    the batch."""
+    """Make the K8, K12, K13, K14, R2c, R2d and R2n wrappers take one branch
+    whatever the batch."""
     from ndarray_interp_tpu_torch.ops import eval_kernels_df as e1
     from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as ek
     from ndarray_interp_tpu_torch.ops import tail2d as t2
@@ -1860,7 +1860,26 @@ def test_grid_tail_matches_both_plain_versions(dev, dtype, r, nq):
         assert same(t2.bilinear_gathered_eval(rows, c, qx, qy, r), want)
 
 
-# -- R2n on queries ordered by cell (ORD's flat-cell form) -------------------------------
+# -- R2c, R2d and R2n in query order and on queries ordered by cell (ORD's flat-cell form)
+def bicubic_tail(kid):
+    """``(wrapper, plain, plain on ordered records, ordered entry)`` of the
+    bicubic cell tail ``kid``: R2c (block-order sum), R2d (halving tree) or
+    R2n (nested)."""
+    from ndarray_interp_tpu_torch.ops import tail2d as t2
+
+    return {
+        "R2c": (t2.bicubic_gathered_eval, t2._bicubic_weight_plain,
+                t2._bicubic_weight_ordered_plain, "ndi_bicubic_seq_tail_ordered"),
+        "R2d": (t2.bicubic_tree_tail, t2._bicubic_tree_plain, t2._bicubic_tree_ordered_plain,
+                "ndi_bicubic_tree_tail_ordered"),
+        "R2n": (t2.bicubic_nested_tail, t2._bicubic_nested_plain,
+                t2._bicubic_nested_ordered_plain, "ndi_bicubic_nested_tail_ordered"),
+    }[kid]
+
+
+BICUBIC_TAILS = ["R2c", "R2d", "R2n"]
+
+
 def nested_case(case, nq, dtype, dev, seed, r=16, nx=60, ny=45):
     """A cell table of ``r`` channels and the wrapper's arguments: R1's cells
     of uniform queries, all in one cell, already in cell order, every query
@@ -1886,61 +1905,98 @@ def nested_case(case, nq, dtype, dev, seed, r=16, nx=60, ny=45):
 NESTED_CASES = ["random", "hot", "sorted", "one cell", "shifted"]
 
 
+@pytest.mark.parametrize("kid", BICUBIC_TAILS)
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("case,form", [(c, f) for c in NESTED_CASES for f in ("shared", "global")
                                        if (c, f) != ("shifted", "shared")])
-def test_nested_tail_ordered_branch_matches_plain(dev, dtype, case, form, monkeypatch):
-    """R2n's ordered branch, on the records of either form of the ordering
-    (the shared one on tables of up to its bucket limit), bit for bit
-    against ``_bicubic_nested_plain``: the ordering once, the tail once."""
+def test_nested_tail_ordered_branch_matches_plain(dev, kid, dtype, case, form, monkeypatch):
+    """R2c's, R2d's and R2n's ordered branch, on the records of either form
+    of the ordering (the shared one on tables of up to its bucket limit),
+    bit for bit against the plain version: the ordering once, the tail
+    once."""
     from ndarray_interp_tpu_torch.ops import cell_order as co
-    from ndarray_interp_tpu_torch.ops import tail2d as t2
 
+    wrapper, plain, _, _ = bicubic_tail(kid)
     monkeypatch.setattr(co, "_form", lambda buckets: order_form(form))
     force_branch(monkeypatch, True)
     args = nested_case(case, 200_000, dtype, dev, len(case) + len(form))
-    got, launched = launched_by(lambda: t2.bicubic_nested_tail(*args))
-    assert launched == {"ORD": 1, "R2n": 1}
-    assert same(got, t2._bicubic_nested_plain(*args))
+    got, launched = launched_by(lambda: wrapper(*args))
+    assert launched == {"ORD": 1, kid: 1}
+    assert same(got, plain(*args))
 
 
+@pytest.mark.parametrize("kid", BICUBIC_TAILS)
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("r", [1, 3, 4, 16, 17, 40])
-def test_nested_tail_ordered_kernel_on_records_of_the_plain_ordering(dev, dtype, r):
-    """R2n's ordered kernel alone on the records of the plain flat-cell
-    ordering against ``_bicubic_nested_ordered_plain``, at 16-byte lanes
-    (r of 4, 16, 40) and a channel a lane (1, 3, 17, and a table off
-    16-byte alignment), a query's chunks past 32 lanes looped (r = 40)."""
+def test_nested_tail_ordered_kernel_on_records_of_the_plain_ordering(dev, kid, dtype, r):
+    """R2c's, R2d's and R2n's ordered kernel alone on the records of the
+    plain flat-cell ordering against its plain version on the records, at
+    16-byte lanes (r of 4, 16, 40) and a channel a lane (1, 3, 17, and a
+    table off 16-byte alignment), a query's chunks past 32 lanes looped
+    (r = 40)."""
     from ndarray_interp_tpu_torch.ops import _cuda
     from ndarray_interp_tpu_torch.ops import cell_order as co
-    from ndarray_interp_tpu_torch.ops import tail2d as t2
 
+    _, plain, on_records, entry = bicubic_tail(kid)
     rows, cell, tx, ty, r = nested_case("random", 20_000, dtype, dev, r, r=r)
     records = co._order_plain(cell, None, 1, 0, rows.shape[0],
                               *((tx, None, ty, None) if dtype == np.float64 else
                                 (tx, ty, None, None)))
-    want = t2._bicubic_nested_ordered_plain(rows, records, r)
-    assert same(want, t2._bicubic_nested_plain(rows, cell, tx, ty, r))
+    want = on_records(rows, records, r)
+    assert same(want, plain(rows, cell, tx, ty, r))
     buf = torch.empty(rows.numel() + 1, dtype=rows.dtype, device=dev)
     for tbl in (rows, buf[1:].view(rows.shape).copy_(rows)):
         out = torch.empty((cell.shape[0], r), dtype=rows.dtype, device=dev)
-        _cuda.launch("ndi_bicubic_nested_tail_ordered", rows.dtype, dev, tbl, tbl.shape[0],
-                     tbl.shape[1], r, records, out, cell.shape[0])
+        _cuda.launch(entry, rows.dtype, dev, tbl, tbl.shape[0], tbl.shape[1], r, records, out,
+                     cell.shape[0])
         torch.cuda.synchronize()
         assert same(out, want)
 
 
+@pytest.mark.parametrize("kid", BICUBIC_TAILS)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("r", [1, 3, 5, 8, 16])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_bicubic_tails_in_query_order_match_plain(dev, kid, dtype, r, aligned, monkeypatch):
+    """R2c's, R2d's and R2n's body in query order (the branch small batches
+    take) bit for bit against the plain version: W channels a lane on
+    16-byte loads where r, the row width and the table's base allow them (r
+    of 8 and 16 on the packed table), a channel a lane else (r of 1, 3, 5, a
+    row of 16r + 3 values, a table copied one element off 16-byte
+    alignment); on uniform cells, on cells far outside the table (clamped
+    alike) and on every query in one cell."""
+    wrapper, plain, _, _ = bicubic_tail(kid)
+    force_branch(monkeypatch, False)
+    rows, cell, tx, ty, r = nested_case("random", 50_000, dtype, dev, 10 * r + aligned, r=r)
+    wide = torch.as_tensor(np.random.default_rng(r).normal(size=(rows.shape[0], 16 * r + 3))
+                           .astype(dtype), device=dev)
+    wide[:, :16 * r] = rows
+    far = torch.as_tensor(np.random.default_rng(r).integers(-5 * rows.shape[0],
+                                                            5 * rows.shape[0], cell.shape[0]),
+                          dtype=torch.int32, device=dev)
+    for tbl in (rows, wide):
+        if not aligned:
+            buf = torch.empty(tbl.numel() + 1, dtype=tbl.dtype, device=dev)
+            tbl = buf[1:].view(tbl.shape).copy_(tbl)
+        for c in (cell, far, torch.full_like(cell, rows.shape[0] // 2)):
+            got, launched = launched_by(lambda t=tbl, c=c: wrapper(t, c, tx, ty, r))
+            assert launched == {kid: 1}
+            assert tuple(got.shape) == (cell.shape[0], r)
+            assert same(got, plain(tbl, c, tx, ty, r))
+
+
+@pytest.mark.parametrize("kid", BICUBIC_TAILS)
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("nq", [0, 1])
 @pytest.mark.parametrize("ordered", [True, False])
-def test_nested_tail_takes_empty_and_single_query_batches(dev, dtype, nq, ordered, monkeypatch):
-    from ndarray_interp_tpu_torch.ops import tail2d as t2
-
+def test_nested_tail_takes_empty_and_single_query_batches(dev, kid, dtype, nq, ordered,
+                                                          monkeypatch):
+    wrapper, plain, _, _ = bicubic_tail(kid)
     force_branch(monkeypatch, ordered)
     args = nested_case("random", nq, dtype, dev, 3)
-    got, launched = launched_by(lambda: t2.bicubic_nested_tail(*args))
-    assert tuple(got.shape) == (nq, 16) and same(got, t2._bicubic_nested_plain(*args))
-    assert launched == ({"ORD": 1, "R2n": 1} if ordered and nq else {"R2n": 1})
+    got, launched = launched_by(lambda: wrapper(*args))
+    assert tuple(got.shape) == (nq, 16) and same(got, plain(*args))
+    assert launched == ({"ORD": 1, kid: 1} if ordered and nq else {kid: 1})
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
