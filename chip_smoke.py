@@ -86,12 +86,25 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    bank (``integrate`` over 4,096 bound pairs) and the NS3b ``Bicubic`` in f64
    (``derivative``, ``integrate`` over 4,096 boxes) against SciPy's
    ``CubicSpline`` and ``RectBivariateSpline`` (K2, K3, K4);
+5e. drives N-D calculus and checkpoints the same way at ND2's width (a
+   64^3 grid on linspace(0, 1, 64) axes, 1,000,000 queries): ``InterpND``
+   cubic in f64 on the cell layout (a 128 MB table), ``derivative`` at
+   orders (1,0,0), (0,1,1), (2,1,0), (3,0,0) against the sequential SciPy
+   oracle on a 2,048-query prefix (1e-10 of the scale), the node layout
+   against the cell layout on every query, order 1 on each axis (linear and
+   cubic) against ``torch.autograd.grad`` of ``__call__`` on 4,096 queries,
+   the f32 derivative against the f64 one, ``integrate`` over 16 boxes
+   against sequential ``CubicSpline.integrate``; ``utils.checkpoint``'s
+   ``save`` and ``load`` onto the card of the NS1 ``CubicSpline``, the NS3b
+   ``Bicubic`` and the ND1/ND2 ``InterpND``, each reload equal to the
+   original bit for bit; it fails unless K2 and K4 launched;
 6. holds every kernel, through its public wrapper, against its plain version
    on the inputs the paths gave it, bit for bit; then times kernel and
    plain version at the paths' shapes with CUDA events (median, min and
    max of 7 runs after 2 warm-ups), and the paths' calls end to end: host
    wall time, and device busy time, idle share and the largest kernels
-   from a ``torch.profiler`` trace.  K4 is timed at the bank build (10,000
+   from a ``torch.profiler`` trace (the N-D derivative at 1,000,000 queries
+   in f64 and f32 and one N-D ``integrate`` among them).  K4 is timed at the bank build (10,000
    x 64), NS1's one column (its chain floor), NS3b's three solves, NS5b's
    64 x 1,000,000 and with per-column diagonals, beside
    ``torch.linalg.solve_ex`` on the dense matrix (10,000 x 64, 512 x 8,192);
@@ -2828,26 +2841,44 @@ NQ_BIG_ORACLE = 256
 GRID_NS3E = (1024, 1024, 16)
 
 
-def seq_spline_oracle(axes, data, pts, m):
+def seq_spline_oracle(axes, data, pts, m, orders=None):
     """The exact tensor-product not-a-knot spline at the first ``m`` points,
     by sequential 1-D SciPy solves (``tests/test_interpnd.py:397``): the last
     axis's spline for all points at once; then, axis by axis in reverse
     order, one spline over every point's slice, of which each point takes its
     own interval's polynomial (``CubicSpline.c``, extrapolating with the end
-    intervals as ``CubicSpline`` does)."""
+    intervals as ``CubicSpline`` does).  ``orders`` (one int an axis) gives
+    the mixed partial instead: each axis's spline differentiated that many
+    times (the tensor-product spline is linear in the data along each
+    axis)."""
     import scipy.interpolate as si
 
     k = len(axes)
+    orders = orders or (0,) * k
     pts = [np.asarray(p[:m], np.float64) for p in pts]
-    g = si.CubicSpline(axes[-1], data, axis=k - 1)(pts[-1])  # (n_0..n_{k-2}, m, *trailing)
+    g = si.CubicSpline(axes[-1], data, axis=k - 1)(pts[-1], orders[-1])  # (n_0..n_{k-2}, m, ...)
     for d in reversed(range(k - 1)):
         x, q = axes[d], pts[d]
         i = np.clip(np.searchsorted(x, q, side="right") - 1, 0, x.size - 2)
         c = si.CubicSpline(x, g, axis=d).c  # (4, n_d - 1, n_0..n_{d-1}, m, *trailing)
         c = np.moveaxis(c, (1, 2 + d), (0, 1))[i, np.arange(q.size)]  # (m, 4, ...)
         h = (q - x[i]).reshape((-1,) + (1,) * (c.ndim - 2))
-        g = np.moveaxis(((c[:, 0] * h + c[:, 1]) * h + c[:, 2]) * h + c[:, 3], 0, d)
+        g = np.moveaxis(poly_d(c, h, orders[d]), 0, d)
     return g
+
+
+def poly_d(c, h, nu):
+    """The ``nu``-th derivative in ``h`` of ``c[:, 0] h^3 + c[:, 1] h^2 +
+    c[:, 2] h + c[:, 3]``."""
+    if nu == 0:
+        return ((c[:, 0] * h + c[:, 1]) * h + c[:, 2]) * h + c[:, 3]
+    if nu == 1:
+        return (3 * c[:, 0] * h + 2 * c[:, 1]) * h + c[:, 2]
+    if nu == 2:
+        return 6 * c[:, 0] * h + 2 * c[:, 1]
+    if nu == 3:
+        return 6 * c[:, 0] + 0 * h
+    return np.zeros_like(c[:, 0] * h)
 
 
 def f32(v):
@@ -3928,6 +3959,169 @@ def timing_tails_step_calculus(tails_args, steps, calc, state2d, card, rec, swee
     return times
 
 
+# -- N-D calculus and checkpoints --------------------------------------------------------
+# ND2's width (benches/run_benches.py:741-782): a 64^3 grid on linspace(0, 1, 64) axes, one
+# channel, 1,000,000 queries, built on the card in f64 (the cell layout: a 128 MB table; and
+# forced to the node layout) and in f32.  The twins' tolerances: derivatives against the
+# sequential SciPy oracle within 1e-10 of the scale (tests/test_interpnd.py:640, the
+# Bicubic twin's), the node layout against the cell layout the same (:675), autograd within
+# rtol 1e-10 (:640), box integrals within 1e-12 of the scale (:711).
+CALCND_ORDERS = ((1, 0, 0), (0, 1, 1), (2, 1, 0), (3, 0, 0))
+CALCND_TOL = 1e-10
+NQ_CALCND_GRAD = 4096
+N_BOXES_ND = 16
+
+
+def calculus_nd_path(dev, state, state2d, rng):
+    """``InterpND.derivative`` and ``integrate`` at ND2's width, and
+    checkpoints saved and loaded on the card, through the public API; each
+    call with the launch counts set to 0 just before it and read just
+    after.  Derivatives at each order of ``CALCND_ORDERS`` (f64, cell
+    layout) against the sequential SciPy oracle on a 2,048-query prefix; the
+    node layout against the cell layout on every query; order 1 on each
+    axis, linear and cubic, against ``torch.autograd.grad`` of ``__call__``
+    on a 4,096-query prefix; 16 boxes against sequential
+    ``CubicSpline.integrate``; the NS1 ``CubicSpline`` (f32 and f64), the
+    NS3b ``Bicubic`` (f32) and the ND2 ``InterpND`` (f64 cubic and linear)
+    through ``save`` and ``load`` onto the card, each reloaded interpolator
+    equal to the original bit for bit at its 1,000,000 queries.  Returns
+    what the timing reuses and the launches of each kernel summed over the
+    calls."""
+    import tempfile
+
+    import scipy.interpolate as si
+    import torch
+
+    from ndarray_interp_tpu_torch.interpnd import InterpND
+    from ndarray_interp_tpu_torch.utils import checkpoint
+
+    drive, total = counted_calls()
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    shape = "x".join(map(str, GRIDND))
+    axes = [np.linspace(0.0, 1.0, n) for n in GRIDND]
+    data = rng.normal(size=GRIDND)
+    qs = [rng.uniform(0.0, 1.0, NQND) for _ in GRIDND]
+    ax_d, q_d = [T(a) for a in axes], [T(q) for q in qs]
+
+    def nd(method, dt=torch.float64, layout=None):
+        b = InterpND.builder(T(data).to(dt)).points(*(a.to(dt) for a in ax_d)).method(method)
+        return (b if layout is None else b.layout(layout)).build()
+
+    cub = drive(f"ND2 InterpND cubic f64 build {shape} (cell layout)", ["K4"], lambda: nd("cubic"))
+    if cub.layout != "cell":
+        fail(f"ND2 f64: the builder chose layout {cub.layout!r}, not 'cell'")
+    print(f"    cell table {tuple(cub.table.shape)} f64, {cub.table.numel() * 8 / 1e6:.1f} MB",
+          flush=True)
+    node = drive(f"ND2 InterpND cubic f64 build {shape}, layout 'node'", ["K4"],
+                 lambda: nd("cubic", layout="node"))
+    lin = drive(f"ND1 InterpND linear f64 build {shape}", [], lambda: nd("linear"))
+    cells = {}
+    for orders in CALCND_ORDERS:
+        t0 = time.perf_counter()
+        ref = seq_spline_oracle(axes, data, qs, NQ_ND_ORACLE, orders)
+        host = time.perf_counter() - t0
+        got = drive(f"ND2 f64 derivative(orders={orders}) at {NQND:,} queries", ["K2"],
+                    lambda: cub.derivative(*q_d, orders=orders))
+        allclose_gate(f"ND2 f64 derivative(orders={orders}) against the sequential SciPy oracle "
+                      f"(first {NQ_ND_ORACLE:,}; {host:.1f} s on the host)", got[:NQ_ND_ORACLE],
+                      ref, 0.0, CALCND_TOL * max(1.0, float(np.abs(ref).max())))
+        cells[orders] = got
+    for orders in CALCND_ORDERS[:3]:
+        got = drive(f"ND2 f64 node layout derivative(orders={orders}) at {NQND:,} queries", ["K2"],
+                    lambda: node.derivative(*q_d, orders=orders))
+        ref = cells[orders].cpu().numpy()
+        allclose_gate(f"ND2 f64 node layout derivative(orders={orders}) against the cell layout, "
+                      f"all {NQND:,}", got, ref, 0.0,
+                      CALCND_TOL * max(1.0, float(np.abs(ref).max())))
+    del cells, got
+
+    sub = slice(0, NQ_CALCND_GRAD)
+    for method, itp in (("cubic", cub), ("linear", lin)):
+        leaves = [q[sub].clone().requires_grad_(True) for q in q_d]
+        grads = drive(f"ND2 {method} f64 torch.autograd.grad of itp(*qs), {NQ_CALCND_GRAD:,} "
+                      "queries", ["K2"], lambda: torch.autograd.grad(itp(*leaves).sum(), leaves))
+        for d, g in enumerate(grads):
+            orders = tuple(int(e == d) for e in range(3))
+            want = drive(f"ND2 {method} f64 derivative(orders={orders}), {NQ_CALCND_GRAD:,} "
+                         "queries", ["K2"], lambda: itp.derivative(*(q[sub] for q in q_d),
+                                                                   orders=orders))
+            ref = want.cpu().numpy()
+            allclose_gate(f"ND2 {method} autograd axis {d} against derivative(orders={orders})",
+                          g, ref, 1e-10, 1e-12 * float(np.abs(ref).max()))
+
+    boxes = rng.uniform(0.0, 1.0, (N_BOXES_ND, 3, 2))  # lo > hi on about half the axes: signed
+    got = drive(f"ND2 f64 integrate over {N_BOXES_ND} boxes", ["K4"], lambda: torch.stack(
+        [cub.integrate(*(tuple(b) for b in box)) for box in boxes]))
+    ref = []
+    for box in boxes:
+        g = data
+        for d in reversed(range(3)):
+            g = si.CubicSpline(axes[d], g, axis=d).integrate(*box[d])
+        ref.append(float(g))
+    ref = np.array(ref)
+    allclose_gate(f"ND2 f64 integrate against sequential CubicSpline.integrate, {N_BOXES_ND} "
+                  "boxes", got, ref, 0.0, 1e-12 * max(1.0, float(np.abs(ref).max())))
+
+    f32 = drive(f"ND2 InterpND cubic f32 build {shape}", ["K4"], lambda: nd("cubic", torch.float32))
+    q32 = [q.float() for q in q_d]
+    got = drive(f"ND2 f32 derivative(orders=(1, 0, 0)) at {NQND:,} queries", ["K2"],
+                lambda: f32.derivative(*q32, orders=(1, 0, 0)))
+    check_close(f"ND2 f32 derivative(orders=(1, 0, 0)) against the f64 build on f32-rounded "
+                f"queries, all {NQND:,}", got, cub.derivative(
+                    *(q.double() for q in q32), orders=(1, 0, 0)).cpu().numpy(),
+                F32_TOL, (NQND,), torch.float32)
+
+    print("  checkpoints: save from the card, load onto it; each reload against the original "
+          "bit for bit", flush=True)
+    itp1, q1 = state["float32"]
+    itp1d, q1d = state["float64"]
+    _, bic, qx, qy, _ = state2d["float32"]
+    saved = (("NS1 CubicSpline f32", itp1, (q1,), ["K1"]),
+             ("NS1 CubicSpline f64", itp1d, (q1d,), ["K1"]),
+             ("NS3b Bicubic f32", bic, (qx, qy), ["R1", "R2n"]),
+             (f"ND2 InterpND cubic f64 {shape}", cub, q_d, ["K2"]),
+             (f"ND1 InterpND linear f64 {shape}", lin, q_d, ["K2"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, itp, args, expect) in enumerate(saved):
+            path = Path(tmp) / f"{i}.npz"
+            t0 = time.perf_counter()
+            checkpoint.save(path, itp)
+            t_save = time.perf_counter() - t0
+            back = drive(f"{name}: load ({path.stat().st_size / 1e6:.1f} MB)",
+                         ["K4"] if "cubic" in name and "InterpND" in name else [],
+                         lambda: checkpoint.load(path))
+            if back.data.device != itp.data.device:
+                fail(f"{name}: reloaded onto {back.data.device}, not {itp.data.device}")
+            got = drive(f"{name} reloaded, at {args[0].numel():,} queries", expect,
+                        lambda: back(*args))
+            same, err = bit_compare(got, itp(*args))
+            print(f"    {name}: save {t_save:.2f} s; reloaded against the original: "
+                  f"{'bit for bit' if same else 'DIFFERENT'} (max abs err {err})", flush=True)
+            if not same:
+                fail(f"{name}: the reloaded interpolator differs (max abs err {err})")
+            del back, got
+    return {"cubic": cub, "node": node, "f32": f32, "queries": q_d, "q32": q32,
+            "box": tuple(tuple(b) for b in boxes[0])}, total
+
+
+def timing_calculus_nd(calc_nd, card):
+    """The N-D derivative (f64 and f32, cell layout; f64 on the node layout)
+    at 1,000,000 queries and one ``integrate`` call, end to end."""
+    shape = "x".join(map(str, GRIDND))
+    cub, node, f32 = calc_nd["cubic"], calc_nd["node"], calc_nd["f32"]
+    q, q32 = calc_nd["queries"], calc_nd["q32"]
+    calls = {
+        f"ND2 f64 derivative(orders=(1, 0, 0)), cell layout, {shape} at {NQND:,} queries": (
+            lambda: cub.derivative(*q, orders=(1, 0, 0)), 5),
+        f"ND2 f32 derivative(orders=(1, 0, 0)), cell layout, {shape} at {NQND:,} queries": (
+            lambda: f32.derivative(*q32, orders=(1, 0, 0)), 5),
+        f"ND2 f64 derivative(orders=(1, 0, 0)), node layout, {shape} at {NQND:,} queries": (
+            lambda: node.derivative(*q, orders=(1, 0, 0)), 3),
+        f"ND2 f64 integrate over one box, {shape}": (lambda: cub.integrate(*calc_nd["box"]), 5),
+    }
+    end_to_end(calls, "N-D calculus", card, top=8)
+
+
 KERNELS = {
     "K1": ("fused_eval_1d", "ndarray_interp_tpu_torch/csrc/eval_kernels.cu",
            "ndarray_interp_tpu/ops/pallas_eval.py:119"),
@@ -4112,21 +4306,29 @@ def main():
           "counts set to 0 before each call):", flush=True)
     calc, launched_calc = calculus_path(dev, state, state2d, np.random.default_rng(50))
     print(f"  launches during the calculus path: {launched_calc}")
+    print("N-D calculus and checkpoints (InterpND derivative and integrate at 64^3 and 1,000,000 "
+          "queries; save and load on the card; public API, device='cuda'; counts set to 0 "
+          "before each call):", flush=True)
+    calc_nd, launched_calc_nd = calculus_nd_path(dev, state, state2d, np.random.default_rng(51))
+    print(f"  launches during the N-D calculus and checkpoint path: {launched_calc_nd}")
+    for kid in ("K2", "K4"):
+        if launched_calc_nd[kid] <= 0:
+            fail(f"{kid} was not launched by the N-D calculus and checkpoint path")
     # every kernel's launches summed over every path, and the orderings of
     # each tail that orders its batch (the main path orders none)
     paths = (served, launched2d, launched_nd, launched_big, launched_tails, launched_steps,
-             launched_calc)
+             launched_calc, launched_calc_nd)
     launches = {kid: main_launches[kid] + sum(path[kid] for path in paths) for kid in wrappers}
     order_launches = {kid: sum(path[f"ORD:{kid}"] for path in paths) for kid in ORDERED_TAILS}
     print(f"  launches over every path (main + serving + 2-D + N-D + wide-bank + tails + step "
-          f"+ calculus): {launches}; orderings by tail: {order_launches}")
+          f"+ calculus + N-D calculus): {launches}; orderings by tail: {order_launches}")
     for kid, total in launches.items():
         parts = " + ".join(str(n) for n in (main_launches[kid], *(path[kid] for path in paths)))
         print(f"  {kid} launches over every path: {total} = {parts}")
     for kid in ("K2", "K3", "K4"):
         if launched_calc[kid] <= 0:
             fail(f"{kid} was not launched by the calculus path")
-    elapsed("tails, step and calculus paths")
+    elapsed("tails, step, calculus and N-D calculus paths")
 
     times = timing(state, card, rec, sweeps)
     times.update(df_timing(serving, card, rec, sweeps))
@@ -4137,6 +4339,8 @@ def main():
     times.update(timing_big(state_big, (itp10, q10), card, rec, sweeps))
     del state_big
     times.update(timing_tails_step_calculus(tails_args, steps, calc, state2d, card, rec, sweeps))
+    timing_calculus_nd(calc_nd, card)
+    del calc_nd
     times["ORD"] = ord_times(times)
     torch.cuda.synchronize()
     elapsed("timing")

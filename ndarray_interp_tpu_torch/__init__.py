@@ -7,11 +7,13 @@ and long knot axes and wide banks), the 2-D path (``Interp2D`` with
 ``Bilinear``, ``Bicubic`` and ``Nearest2D``), both with calculus
 (``derivative``, ``integrate``; ``solve``, ``roots`` in 1-D) and the
 pointwise strategy adapters, the N-D path (``InterpND``: linear, nearest,
-cubic), and their
+cubic, with ``derivative`` and ``integrate``), and their
 serving layer (``serving``: ``Evaluator``, ``Evaluator2D``, ``EvaluatorND``
 and the f64-grade ``DoubleFloatEvaluator``, ``DoubleFloatEvaluator2D`` and
 ``DoubleFloatEvaluatorND``), whose GPU kernels are hand-written CUDA for
-Hopper (``csrc/``, built at first use).  Tensors stay on the
+Hopper (``csrc/``, built at first use); ``utils.checkpoint`` (save and
+load, in the JAX package's file format), ``utils.profiling`` and ``config``
+(the layout caps).  Tensors stay on the
 device they are given; numpy or list inputs go to the GPU unless the
 caller names ``device="cpu"`` (without a CUDA device and with none named,
 the entry points raise).  On the CPU every kernel's plain PyTorch version

@@ -1,7 +1,7 @@
 """N-dimensional rectilinear-grid interpolation.
 
-Counterpart of ``ndarray_interp_tpu.models.interpnd`` (evaluation; the
-calculus waits).  Interpolation over the leading ``k`` axes of ``data``,
+Counterpart of ``ndarray_interp_tpu.models.interpnd``: evaluation and
+calculus.  Interpolation over the leading ``k`` axes of ``data``,
 with SciPy's ``RegularGridInterpolator`` methods ``"linear"``,
 ``"nearest"`` and ``"cubic"`` (the tensor-product C² spline with per-axis
 boundary families).  The 1-D/2-D call conventions carry over: query dims
@@ -16,7 +16,7 @@ packed table and a weighted sum, in plain PyTorch, as they are XLA (not
 Pallas) in the JAX package:
 
 * ``"linear"``: the ``2^k`` corner blocks of each cell in one row
-  (:func:`pack_corner_rows_nd`), up to :data:`INTERPND_PACK_MAX_ELEMS`
+  (:func:`pack_corner_rows_nd`), up to ``config.interpnd_pack_max_elems``
   table elements; above that the ``2^k`` corner values are gathered from
   the data;
 * ``"cubic"``, layout ``"cell"``: the ``4^k`` pre-scaled corner quantities
@@ -31,11 +31,15 @@ Devices as in :mod:`.interp1d`: tensors keep their device, numpy arrays
 and lists land on the builder's ``device`` (the GPU unless named).
 Autograd flows through evaluation.
 
-The exact box quadrature (:func:`integrate_box`, the antiderivative
-weights) serves the 2-D strategies' ``integrate``.  Not ported yet:
-``InterpND.derivative`` and ``integrate`` with their other helpers (the
-t-derivative bases, ``_dx_chain_factor``), the checkpoint codec and the
-pytree protocol, which PyTorch does not need.
+Calculus: :meth:`InterpND.derivative` evaluates a mixed partial with the
+per-axis t-derivatives of the bases (:func:`_linear_basis_d`,
+:func:`_cubic_basis`) and the ``1/dx`` chain factors
+(:func:`_dx_chain_factor`) on the same gathers as the value, so it runs K2
+on each axis; :meth:`InterpND.integrate` is the exact box quadrature
+:func:`integrate_box`, which the 2-D strategies' ``integrate`` also uses and
+whose cubic node grids come from the spline solves again (K4).  The
+checkpoint codec is in :mod:`..utils.checkpoint`; the pytree protocol is
+not ported, PyTorch does not need it.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import math
 
 import torch
 
+from .. import config
 from ..errors import MonotonicError, NotEnoughDataError, OutOfBoundsError, ShapeError
 from ..ops.searchsorted import is_in_range
 from ..utils.device import default_device
@@ -54,10 +59,6 @@ from .strategies.bicubic import _AXIS_KINDS, _index_frac, _solve_axis0
 
 _METHODS = ("linear", "nearest", "cubic")
 _BCS = tuple(_AXIS_KINDS)  # not_a_knot / natural / clamped / periodic
-
-#: the packed tables are built up to this many elements; above it linear
-#: gathers from the data and cubic takes a node layout (``config.py:76``)
-INTERPND_PACK_MAX_ELEMS = 128 * 1024 * 1024
 
 # pairing degree m per cubic table layout (gathers per query = 2^(k-m))
 _NODE_PAIRS = {"node": 0, "node2": 1, "node4": 2}
@@ -89,15 +90,26 @@ def pack_corner_rows_nd(data, k):
     return torch.stack(blocks, dim=k).reshape(math.prod(cells), (2**k) * r)
 
 
-def _linear_basis(t):
-    """The multilinear basis ``[1-t, t]`` of one axis."""
-    return [1 - t, t]
+def _linear_basis_d(t, order):
+    """The multilinear basis ``[w_left, w_right]`` of one axis at
+    t-derivative ``order``: ``[1-t, t]``, ``[-1, 1]``, zeros from order 2
+    (the blend is affine in each cell)."""
+    if order == 0:
+        return [1 - t, t]
+    if order == 1:
+        one = torch.ones_like(t)
+        return [-one, one]
+    z = torch.zeros_like(t)
+    return [z, z]
 
 
-def _corner_weights(ts, k):
+def _corner_weights(ts, k, orders=None):
     """(Q, 2^k) multilinear weights in ``itertools.product`` corner order
-    (the block order of :func:`pack_corner_rows_nd`)."""
-    bases = [_linear_basis(t) for t in ts]
+    (the block order of :func:`pack_corner_rows_nd`); ``orders`` selects each
+    axis's basis t-derivative (the caller applies the ``1/dx`` chain
+    factors)."""
+    orders = orders or (0,) * k
+    bases = [_linear_basis_d(t, o) for t, o in zip(ts, orders)]
     w = []
     for c in itertools.product((0, 1), repeat=k):
         wc = bases[0][c[0]]
@@ -105,6 +117,19 @@ def _corner_weights(ts, k):
             wc = wc * bases[d][c[d]]
         w.append(wc)
     return torch.stack(w, dim=-1)
+
+
+def _dx_chain_factor(axes, idx, orders, dtype):
+    """``prod_d dx_d^(-o_d)`` a query, the chain-rule factor that turns
+    t-derivatives into x-derivatives, the widths in ``dtype`` (the
+    weights'); ``None`` when every order is 0."""
+    f = None
+    for d, o in enumerate(orders):
+        if o:
+            i = idx[d].long()
+            g = (axes[d][i + 1] - axes[d][i]).to(dtype) ** (-o)
+            f = g if f is None else f * g
+    return f
 
 
 def interpnd_node_grids(axes, data, k, bcs):
@@ -251,34 +276,53 @@ def integrate_box(axes, data, los, his, method, bcs, extrapolate):
     return out
 
 
-def _cubic_basis(t):
+def _cubic_basis(t, order=0):
     """(Q, 4) Hermite basis ``[h00, h01, h10, h11]`` for pre-scaled
-    derivatives (``K = k·dx``): the symmetric reference Hermite
+    derivatives (``K = k·dx``), or its ``order``-th t-derivative (orders
+    0-3; zero above): the symmetric reference Hermite
     (``cubic_spline.rs:818-828``) expanded in the corner state."""
-    omt = 1 - t
-    return torch.stack(
-        [omt * omt * (1 + 2 * t), t * t * (3 - 2 * t), t * omt * omt, -t * t * omt], dim=-1
-    )
+    if order == 0:
+        omt = 1 - t
+        cols = (omt * omt * (1 + 2 * t), t * t * (3 - 2 * t), t * omt * omt, -t * t * omt)
+    elif order == 1:
+        cols = (6 * t * t - 6 * t, 6 * t - 6 * t * t, 3 * t * t - 4 * t + 1, 3 * t * t - 2 * t)
+    elif order == 2:
+        cols = (12 * t - 6, 6 - 12 * t, 6 * t - 4, 6 * t - 2)
+    elif order == 3:
+        z12 = torch.full_like(t, 12.0)
+        cols = (z12, -z12, torch.full_like(t, 6.0), torch.full_like(t, 6.0))
+    else:
+        z = torch.zeros_like(t)
+        cols = (z, z, z, z)
+    return torch.stack(cols, dim=-1)
 
 
-def _cubic_weights(ts):
+def _cubic_weights(ts, k, orders=None):
     """(Q, 4^k) tensor-product Hermite weights in
-    :func:`_cubic_digit_channels` order."""
+    :func:`_cubic_digit_channels` order; ``orders`` selects each axis's basis
+    t-derivative (the caller applies the ``1/dx`` chain factors)."""
+    orders = orders or (0,) * k
     w = torch.ones(ts[0].shape + (1,), dtype=ts[0].dtype, device=ts[0].device)
-    for t in ts:
-        b = _cubic_basis(t)
+    for t, o in zip(ts, orders):
+        b = _cubic_basis(t, o)
         w = (w[:, :, None] * b[:, None, :]).reshape(w.shape[0], -1)
     return w
 
 
-def _eval_cubic(interp, idx, ts, trailing):
+def _eval_cubic(interp, idx, ts, trailing, orders=None):
     """Tensor-product cubic at per-axis ``(idx, t)``: one cell-row gather
-    (cell layout) or ``2^(k-m)`` node-row gathers (node layouts)."""
+    (cell layout) or ``2^(k-m)`` node-row gathers (node layouts).  ``orders``
+    evaluates the mixed partial ``d^(sum o) / prod dx_d^(o_d)`` instead (the
+    bases' t-derivatives and the ``1/dx`` chain factors)."""
     k = interp.k
     grid = tuple(interp.data.shape[:k])
     r = math.prod(trailing)
     q = idx[0].shape[0]
-    w = _cubic_weights(ts)  # (Q, 4^k)
+    w = _cubic_weights(ts, k, orders)  # (Q, 4^k)
+    if orders is not None:
+        f = _dx_chain_factor(interp.axes, idx, orders, w.dtype)
+        if f is not None:
+            w = w * f[:, None]
     if interp.layout == "cell":
         cell = _flat_index(idx, tuple(n - 1 for n in grid))
         rows = interp.table.index_select(0, cell).reshape(q, 4**k, r)
@@ -322,8 +366,9 @@ def _eval_cubic(interp, idx, ts, trailing):
     return out.reshape((q,) + trailing)
 
 
-def _eval_core(interp, flats):
-    """Evaluate at flat query vectors, one per interpolated axis."""
+def _eval_core(interp, flats, orders=None):
+    """Evaluate at flat query vectors, one per interpolated axis; ``orders``
+    (per-axis ints) evaluates the mixed partial instead of the value."""
     data = interp.data
     k = interp.k
     grid = tuple(data.shape[:k])
@@ -337,7 +382,7 @@ def _eval_core(interp, flats):
         ts.append(t)
 
     if interp.method == "cubic":
-        return _eval_cubic(interp, idx, ts, trailing)
+        return _eval_cubic(interp, idx, ts, trailing, orders)
 
     if interp.method == "nearest":
         # per-axis nearest node, ties toward the lower node; the clamped
@@ -345,7 +390,11 @@ def _eval_core(interp, flats):
         near = [torch.where(t <= 0.5, i, i + 1) for i, t in zip(idx, ts)]
         return data.reshape((-1,) + trailing).index_select(0, _flat_index(near, grid))
 
-    w = _corner_weights(ts, k)  # (Q, 2^k)
+    w = _corner_weights(ts, k, orders)  # (Q, 2^k)
+    if orders is not None:
+        f = _dx_chain_factor(interp.axes, idx, orders, w.dtype)
+        if f is not None:
+            w = w * f[:, None]
     if interp.table is not None:
         # packed route: one row gather and a weighted sum over the corners
         cell = _flat_index(idx, tuple(n - 1 for n in grid))
@@ -431,7 +480,7 @@ class InterpND:
         """The derived packed state ``(table, layout)``.
 
         ``linear``: the ``2^k``-corner cell table up to
-        :data:`INTERPND_PACK_MAX_ELEMS` elements (else ``(None, None)``, the
+        ``config.interpnd_pack_max_elems`` elements (else ``(None, None)``, the
         unpacked route).  ``cubic``: the mixed-derivative solves
         (:func:`interpnd_node_grids`) packed per ``layout``: forced when
         given, else the cheapest by :meth:`route_cost_ns` among the layouts
@@ -440,7 +489,7 @@ class InterpND:
         if method == "linear":
             if not data.is_floating_point():
                 return None, None
-            if data.numel() * (2**k) > INTERPND_PACK_MAX_ELEMS:
+            if data.numel() * (2**k) > config.interpnd_pack_max_elems:
                 return None, None
             return pack_corner_rows_nd(data, k), None
         if method != "cubic":
@@ -452,9 +501,10 @@ class InterpND:
         if layout is None:
             fits = {"node"}
             for cand, m in _NODE_PAIRS.items():
-                if 0 < m < k and nnodes * ((2**m) * (2**k) * r + k + m) <= INTERPND_PACK_MAX_ELEMS:
+                row = (2**m) * (2**k) * r + k + m
+                if 0 < m < k and nnodes * row <= config.interpnd_pack_max_elems:
                     fits.add(cand)
-            if cells * (4**k) * r <= INTERPND_PACK_MAX_ELEMS:
+            if cells * (4**k) * r <= config.interpnd_pack_max_elems:
                 fits.add("cell")
             layout = min(
                 sorted(fits), key=lambda lo: InterpND.route_cost_ns(k, data.shape[:k], r, lo)
@@ -522,6 +572,68 @@ class InterpND:
         self._check_arity(arrs)
         _check_buffer(buffer, self.get_buffer_shape(arrs[0].shape))
         return _write(buffer, self.interp_array(*arrs))
+
+    def derivative(self, *coords, orders):
+        """Mixed partial ``d^(sum o) f / prod dx_d^(o_d)`` at the query
+        points, the analytic derivative of the interpolant
+        (``Interp2D.derivative`` for ``k`` axes).  ``orders``: one
+        non-negative int per axis (keyword-only); ``"cubic"`` has orders 0-3
+        on each axis (higher give zero), ``"linear"`` 0-1 (higher give exact
+        zeros), ``"nearest"`` raises ``TypeError``.  Output dims
+        ``M + N - k``; an out-of-range query raises unless extrapolating.
+        Autograd flows through it as through evaluation."""
+        if self.method == "nearest":
+            raise TypeError("nearest does not support derivative()")
+        orders = tuple(int(o) for o in orders)
+        if len(orders) != self.k:
+            raise ValueError(
+                f"expected {self.k} derivative orders (one per axis), got {len(orders)}"
+            )
+        if any(o < 0 for o in orders):
+            raise ValueError("derivative orders must be non-negative")
+        coords = self._as_query(coords)
+        flats = self._flats(coords)
+        self._check_queries(flats)
+        out = _eval_core(self, flats, orders)
+        return out.reshape(tuple(coords[0].shape) + tuple(self.data.shape[self.k :]))
+
+    def integrate(self, *bounds):
+        """The exact integral of the interpolant over the box
+        ``prod_d [lo_d, hi_d]``, one ``(lo, hi)`` pair an axis, shape
+        ``data.shape[k:]`` (``Interp1D.integrate`` for ``k`` axes; SciPy's
+        ``RectBivariateSpline.integral`` at ``k = 2``): per-cell polynomial
+        quadrature, no sampling (:func:`integrate_box`).  Signed per axis
+        (``lo > hi`` negates); out-of-range bounds raise
+        ``OutOfBoundsError`` unless extrapolating (then the edge cells
+        extend).  ``"cubic"`` and ``"linear"`` only; periodic axes raise
+        ``ValueError`` (a box that wraps is ambiguous)."""
+        if self.method == "nearest":
+            raise TypeError("nearest does not support integrate()")
+        if len(bounds) != self.k:
+            raise ValueError(
+                f"expected {self.k} (lo, hi) bound pairs (one per axis), got {len(bounds)}"
+            )
+        if any(self.wraps_axis(d) for d in range(self.k)):
+            raise ValueError("integrate() does not support periodic axes")
+        sign = 1.0
+        los, his = [], []
+        for d, ((lo, hi), ax) in enumerate(zip(bounds, self.axes)):
+            flo, fhi = float(lo), float(hi)
+            if flo > fhi:
+                lo, hi, flo, fhi = hi, lo, fhi, flo
+                sign = -sign
+            if not self.extrapolates:
+                a0, a1 = self._range_host()[d]
+                if flo < a0 or fhi > a1:
+                    raise OutOfBoundsError(
+                        f"axis {d}: integration bounds [{flo}, {fhi}] are not in range"
+                    )
+            los.append(_to_tensor(lo, ax.device).to(ax.dtype))
+            his.append(_to_tensor(hi, ax.device).to(ax.dtype))
+        bcs = self.bcs or (("not_a_knot",) * self.k if self.method == "cubic" else None)
+        out = integrate_box(self.axes, self.data, torch.stack(los), torch.stack(his),
+                            self.method, bcs, self.extrapolates)
+        return sign * out
 
     def get_buffer_shape(self, query_shape) -> tuple:
         return tuple(query_shape) + tuple(self.data.shape[self.k :])

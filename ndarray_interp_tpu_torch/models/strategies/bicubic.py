@@ -18,7 +18,7 @@ Evaluation is three 1-D Hermite evaluations in the symmetric form of the
 bracketing y-knots (with ``kx`` and ``kxy`` as their x-derivatives), then
 along y.
 
-Two table layouts, chosen at build by :data:`BICUBIC_PACK_MAX_ELEMS`:
+Two table layouts, chosen at build by ``config.bicubic_pack_max_elems``:
 
 * ``"cell"``: one row of 16r values per cell, the derivatives pre-scaled by
   the cell's widths, so a query fetches one row;
@@ -43,6 +43,7 @@ import math
 
 import torch
 
+from ... import config
 from ...ops.eval_kernels import fused_cell_index, fused_index_frac
 from ...ops.tail2d import bicubic_nested_tail
 from .base2d import Interp2DStrategy, Interp2DStrategyBuilder
@@ -65,11 +66,6 @@ _AXIS_KINDS = {
     "clamped": (_FIRST_DERIV, 0.0),
     "periodic": None,
 }
-
-#: the cell layout is built up to this many table elements
-#: ((nx-1)(ny-1)·16r), the node layout above it (``config.py:32``)
-BICUBIC_PACK_MAX_ELEMS = 128 * 1024 * 1024
-
 
 def _solve_axis0(x, grid, bc, validate=False):
     """Spline derivative solve along axis 0 with a named boundary kind; the
@@ -244,7 +240,7 @@ class Bicubic(Interp2DStrategyBuilder):
         ky = _solve_axis1(y, data, self.bc_y, validate=True)
         kxy = _solve_axis1(y, kx, self.bc_y)
         cell_elems = (data.shape[0] - 1) * (data.shape[1] - 1) * 16 * math.prod(data.shape[2:])
-        if cell_elems <= BICUBIC_PACK_MAX_ELEMS:
+        if cell_elems <= config.bicubic_pack_max_elems:
             rows, layout = pack_bicubic_rows(x, y, data, kx, ky, kxy), "cell"
         else:
             rows, layout = pack_bicubic_nodes(x, y, data, kx, ky, kxy), "node"

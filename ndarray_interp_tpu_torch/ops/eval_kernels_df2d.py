@@ -728,7 +728,7 @@ def gathered_bicubic_nodes_eval_df(x_hi, x_lo, y_hi, y_lo, packed, qx_hi, qx_lo,
     """The double-float bicubic route from the memory-frugal node table
     (:func:`pack_bicubic_nodes_df`): K7 twice, then K14.  Flat queries;
     returns the ``(nq, r)`` result pair.  The f64-grade route for grids whose
-    cell table is over ``BICUBIC_PACK_MAX_ELEMS``."""
+    cell table is over ``config.bicubic_pack_max_elems``."""
     if packed.shape[1] != 8 * r + 4:
         raise ValueError(f"a node table of r = {r} channels has {8 * r + 4} columns, "
                          f"got {packed.shape[1]}")

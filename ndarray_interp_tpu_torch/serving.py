@@ -357,7 +357,7 @@ class DoubleFloatEvaluator2D(_BucketedEvaluator):
     refuses NaN and wraps in float64 on the device; extrapolating
     strategies raise ``ValueError`` on NaN queries.
 
-    A bicubic grid above ``BICUBIC_PACK_MAX_ELEMS`` cell elements has the
+    A bicubic grid above ``config.bicubic_pack_max_elems`` cell elements has the
     node layout: its table is packed with
     :func:`~.ops.eval_kernels_df2d.pack_bicubic_nodes_df` (about the grid's
     float64 memory, a quarter of the DF cell table) and evaluated by K7 and
@@ -483,6 +483,8 @@ class DoubleFloatEvaluatorND(_BucketedEvaluator):
         r = math.prod(self._trailing)
         if interp.method == "cubic":
             if interp.layout != "cell":
+                # the JAX package's message word for word; the port's cap is
+                # ndarray_interp_tpu_torch.config.interpnd_pack_max_elems
                 raise ValueError(
                     "DoubleFloatEvaluatorND supports the cubic CELL layout only (one packed "
                     "row gather); this grid packed as NODE layout — raise "

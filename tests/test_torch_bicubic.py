@@ -1,8 +1,8 @@
 """The port's ``Bicubic`` against the JAX package's, and against SciPy, on
 the CPU.
 
-The twins of ``tests/test_bicubic.py`` (the checkpoint cases wait for the
-port's checkpoint codecs).  Oracle: the sequential per-axis SciPy
+The twins of ``tests/test_bicubic.py`` (its checkpoint cases are twinned in
+``tests/test_torch_aux.py``, with the checkpoint module).  Oracle: the sequential per-axis SciPy
 ``CubicSpline``, the defining construction of the tensor-product spline.
 The same numpy inputs go to both packages (the port's with
 ``device="cpu"``, where the Thomas kernel's plain loop builds the spline).
@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 import ndarray_interp_tpu.interp2d as j2
 import ndarray_interp_tpu_torch.interp2d as t2
+from ndarray_interp_tpu_torch import config as tconfig
 from ndarray_interp_tpu_torch import errors as terr
 from ndarray_interp_tpu_torch.models.strategies import bicubic as tb
 from ndarray_interp_tpu_torch.ops import kernel_wrappers
@@ -254,7 +255,7 @@ def test_node_layout_matches_cell_and_jax(monkeypatch):
     qy = rng.uniform(y[0] - 1, y[-1] + 1, 300)
     cell = build("torch", x, y, z)
     assert cell.strategy.layout == "cell"
-    monkeypatch.setattr(tb, "BICUBIC_PACK_MAX_ELEMS", 10)
+    monkeypatch.setattr(tconfig, "bicubic_pack_max_elems", 10)
     monkeypatch.setattr(config, "bicubic_pack_max_elems", 10)
     node, jnode = build("torch", x, y, z), build("jax", x, y, z)
     assert node.strategy.layout == jnode.strategy.layout == "node"
@@ -267,7 +268,7 @@ def test_node_layout_matches_cell_and_jax(monkeypatch):
 
 
 def test_node_layout_matches_scipy(monkeypatch):
-    monkeypatch.setattr(tb, "BICUBIC_PACK_MAX_ELEMS", 10)
+    monkeypatch.setattr(tconfig, "bicubic_pack_max_elems", 10)
     x, y, z, rng = fixture(seed=22)
     t = build("torch", x, y, z)
     assert t.strategy.layout == "node"

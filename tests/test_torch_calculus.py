@@ -27,8 +27,8 @@ from ndarray_interp_tpu.errors import OutOfBoundsError as JOutOfBounds
 from ndarray_interp_tpu.interp1d.cubic_spline import BoundaryCondition as JBC
 from ndarray_interp_tpu.ops import cubicroots as jroots
 from ndarray_interp_tpu_torch import OutOfBoundsError
+from ndarray_interp_tpu_torch import config as tconfig
 from ndarray_interp_tpu_torch.interp1d.cubic_spline import BoundaryCondition as TBC
-from ndarray_interp_tpu_torch.models.strategies import bicubic as tbicubic
 from ndarray_interp_tpu_torch.ops import cubicroots as troots
 
 BCS = ["not-a-knot", "natural", "clamped", "periodic"]
@@ -527,7 +527,7 @@ def test_derivative2d_node_layout_matches_cell(monkeypatch):
     x, y, z, qx, qy = grid(seed=52)
     _, cell = build2(x, y, z, "Bicubic")
     assert cell.strategy.layout == "cell"
-    monkeypatch.setattr(tbicubic, "BICUBIC_PACK_MAX_ELEMS", 10)
+    monkeypatch.setattr(tconfig, "bicubic_pack_max_elems", 10)
     monkeypatch.setattr(jconfig, "bicubic_pack_max_elems", 10)
     jnode, node = build2(x, y, z, "Bicubic")
     assert node.strategy.layout == jnode.strategy.layout == "node"

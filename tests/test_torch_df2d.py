@@ -404,7 +404,7 @@ def test_df_evaluator2d_grades_and_layouts(monkeypatch):
     """TestF48BicubicTier::test_serving_grade_kwarg: f48 tables are 3/4 of
     the DF tables; a bad grade raises as in JAX.  The bicubic node layout:
     f48 raises JAX's ValueError, df takes the node route (K14)."""
-    from ndarray_interp_tpu_torch.models.strategies import bicubic as tb
+    from ndarray_interp_tpu_torch import config as tconfig
 
     x, y, rng = axes(seed=41)
     z = rng.normal(size=(20, 16, 2))
@@ -415,7 +415,7 @@ def test_df_evaluator2d_grades_and_layouts(monkeypatch):
         assert ev48._packed.shape[1] * 4 == evdf._packed.shape[1] * 3
         with pytest.raises(ValueError, match="grade must be"):
             ts.DoubleFloatEvaluator2D(t, grade="f24")
-    monkeypatch.setattr(tb, "BICUBIC_PACK_MAX_ELEMS", 1)
+    monkeypatch.setattr(tconfig, "bicubic_pack_max_elems", 1)
     node = t2.Interp2D.builder(np.ones((8, 8)), device="cpu").strategy(t2.Bicubic()).build()
     assert node.strategy.layout == "node"
     with pytest.raises(ValueError, match="cell layout and bilinear"):

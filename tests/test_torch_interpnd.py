@@ -1,10 +1,11 @@
 """The port's ``InterpND`` (``models/interpnd.py``) and ``EvaluatorND``
 against the JAX package's, on the CPU.
 
-The twin of ``tests/test_interpnd.py`` without the parts that wait or do
-not apply (derivative, integrate, the checkpoint codec, mesh sharding,
-jit/vmap/pytree).  The same numpy inputs, made from seeds, go through both
-packages (JAX on the CPU in x64) and SciPy.
+The twin of ``tests/test_interpnd.py`` without the parts that do not apply
+(mesh sharding, jit/vmap/pytree); its checkpoint cases are twinned in
+``tests/test_torch_aux.py``, with the checkpoint module.  The same numpy
+inputs, made from seeds, go through both packages (JAX on the CPU in x64)
+and SciPy.
 
 Tolerances: float64 against SciPy and against the JAX values within 1e-12
 of the value scale (``test_interpnd.py:58`` holds 1e-12 absolute on values
@@ -31,6 +32,7 @@ import ndarray_interp_tpu_torch.models.interpnd as tm
 import ndarray_interp_tpu_torch.serving as ts
 from ndarray_interp_tpu import config
 from ndarray_interp_tpu.interpnd import InterpND as JND
+from ndarray_interp_tpu_torch import config as tconfig
 from ndarray_interp_tpu_torch.errors import OutOfBoundsError
 from ndarray_interp_tpu_torch.interop import interpnd_from_numpy
 from ndarray_interp_tpu_torch.interpnd import InterpND, InterpNDBuilder
@@ -280,7 +282,7 @@ def test_packed_route_matches_unpacked(monkeypatch):
     axes, data, rng = grid_case(3, trailing=(2,), seed=41)
     _, packed = both(data, axes)
     assert tuple(packed.table.shape) == (4 * 3 * 5, 8 * 2)
-    monkeypatch.setattr(tm, "INTERPND_PACK_MAX_ELEMS", 0)
+    monkeypatch.setattr(tconfig, "interpnd_pack_max_elems", 0)
     monkeypatch.setattr(config, "interpnd_pack_max_elems", 0)
     j, unpacked = both(data, axes)
     assert unpacked.table is None and j.table is None
@@ -459,7 +461,7 @@ def test_route_cost_ns_matches_jax():
 @pytest.mark.parametrize("k,trailing", [(2, ()), (3, ()), (3, (3,)), (4, ())])
 def test_layout_dispatch_matches_jax(monkeypatch, cap, k, trailing):
     if cap is not None:
-        monkeypatch.setattr(tm, "INTERPND_PACK_MAX_ELEMS", cap)
+        monkeypatch.setattr(tconfig, "interpnd_pack_max_elems", cap)
         monkeypatch.setattr(config, "interpnd_pack_max_elems", cap)
     axes, data, _ = grid_case(k, trailing, seed=77, sizes=[9, 8, 7, 5][:k])
     j, t = both(data, axes, "cubic")
@@ -548,3 +550,282 @@ def test_cpu_tensors_launch_no_kernel():
         _, t = both(data, axes, method)
         ts.EvaluatorND(t, max_batch=256)(*queries(axes, rng, n=40))
     assert {kid: w.launches for kid, w in kernel_wrappers().items()} == before
+
+
+# -- calculus: derivative --------------------------------------------------------------
+# The twins of test_interpnd.py:615-821.  Each holds the port to the JAX test's
+# oracle at its tolerance and to the JAX result on the same inputs: float64
+# within 1e-12 of the value scale, float32 within 1e-5.  A mixed partial of
+# order 3 on two or more axes cancels terms ~dx^-3 times larger than itself,
+# where the packages' different summation orders part at ~2e-12: those are
+# held at the JAX test's own 1e-10 of the scale.
+def deriv_tol(orders):
+    return 1e-10 if sum(o >= 3 for o in orders) >= 2 else 1e-12
+
+
+def test_derivative_cubic_matches_bicubic():
+    from ndarray_interp_tpu_torch.interp2d import Bicubic, Interp2D
+
+    rng = np.random.default_rng(61)
+    axes = [np.sort(rng.uniform(0, 5, 8)), np.sort(rng.uniform(-2, 2, 7))]
+    data = rng.normal(size=(8, 7))
+    j, t = both(data, axes, "cubic")
+    b2 = Interp2D.builder(data, device="cpu").x(axes[0]).y(axes[1]).strategy(Bicubic()).build()
+    qx, qy = [rng.uniform(a[0], a[-1], 50) for a in axes]
+    for dx, dy in [(1, 0), (0, 1), (1, 1), (2, 0), (2, 1), (3, 3)]:
+        a = t.derivative(qx, qy, orders=(dx, dy))
+        b = b2.derivative(qx, qy, dx=dx, dy=dy).numpy()
+        scale = max(1.0, np.abs(b).max())
+        np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=1e-10 * scale)
+        assert scaled(a, j.derivative(qx, qy, orders=(dx, dy))) <= deriv_tol((dx, dy))
+
+
+@pytest.mark.parametrize("method", ["cubic", "linear"])
+def test_derivative_matches_autograd(method):
+    """test_derivative_matches_grad: ``torch.autograd`` of ``__call__``
+    equals the order-1 derivative on each axis (rtol 1e-10)."""
+    rng = np.random.default_rng(62)
+    axes = [np.sort(rng.uniform(0, 1, 6)) for _ in range(3)]
+    lo = max(a[0] for a in axes) + 0.01
+    hi = min(a[-1] for a in axes) - 0.01
+    data = rng.normal(size=(6, 6, 6))
+    pt = rng.uniform(lo, hi, 3)
+    j, t = both(data, axes, method)
+    leaves = [torch.tensor([p], requires_grad=True) for p in pt]
+    grads = torch.autograd.grad(t(*leaves).sum(), leaves)
+    for g, o in zip(grads, [(1, 0, 0), (0, 1, 0), (0, 0, 1)]):
+        di = t.derivative(*(np.array([p]) for p in pt), orders=o)
+        np.testing.assert_allclose(float(g), float(di[0]), rtol=1e-10)
+        assert scaled(di, j.derivative(*(np.array([p]) for p in pt), orders=o)) <= 1e-12
+
+
+def test_derivative_keeps_autograd():
+    """The derivative itself is differentiable in the queries: the gradient
+    of the order-1 partial along an axis is the order-2 partial."""
+    rng = np.random.default_rng(65)
+    axes = [np.sort(rng.uniform(0, 1, 7)) for _ in range(2)]
+    _, t = both(rng.normal(size=(7, 7)), axes, "cubic")
+    q = [torch.as_tensor(rng.uniform(0.1, 0.9, 20)).requires_grad_() for _ in range(2)]
+    (gx,) = torch.autograd.grad(t.derivative(*q, orders=(1, 0)).sum(), [q[0]])
+    np.testing.assert_allclose(gx.numpy(), t.derivative(*q, orders=(2, 0)).detach().numpy(),
+                               rtol=1e-10, atol=1e-12)
+
+
+def test_derivative_linear_higher_orders_zero():
+    rng = np.random.default_rng(63)
+    axes, data, _ = grid_case(2, seed=63)
+    j, t = both(data, axes)
+    qs = queries(axes, rng, n=20)
+    for orders in [(2, 0), (0, 3), (2, 2)]:
+        got = t.derivative(*qs, orders=orders)
+        np.testing.assert_array_equal(got.numpy(), 0.0)
+        np.testing.assert_array_equal(np.asarray(j.derivative(*qs, orders=orders)), 0.0)
+
+
+@pytest.mark.parametrize("layout", ["node", "node2", "node4"])
+def test_derivative_node_layout_and_trailing(monkeypatch, layout):
+    """The node layout from the cap (the JAX test's route) and forced, and
+    the paired node layouts: each within 1e-10 of the scale of the cell
+    layout's, and of JAX's on the same layout."""
+    rng = np.random.default_rng(64)
+    axes = [np.sort(rng.uniform(0, 1, n)) for n in (6, 5, 7)]
+    data = rng.normal(size=(6, 5, 7, 2))
+    jcell, cell = both(data, axes, "cubic")
+    assert cell.layout == "cell"
+    if layout == "node":
+        monkeypatch.setattr(tconfig, "interpnd_pack_max_elems", 0)
+        monkeypatch.setattr(config, "interpnd_pack_max_elems", 0)
+        jnode, node = both(data, axes, "cubic")
+    else:
+        jnode, node = both(data, axes, "cubic", layout=layout)
+    assert node.layout == jnode.layout == layout
+    qs = queries(axes, rng, n=30)
+    for orders in [(1, 0, 0), (0, 1, 1), (2, 1, 0), (3, 0, 2)]:
+        a = cell.derivative(*qs, orders=orders).numpy()
+        b = node.derivative(*qs, orders=orders)
+        assert a.shape == tuple(b.shape) == (30, 2)
+        scale = max(1.0, np.abs(a).max())
+        np.testing.assert_allclose(a, b.numpy(), rtol=0, atol=1e-10 * scale)
+        assert scaled(b, jnode.derivative(*qs, orders=orders)) <= 1e-12
+        assert scaled(a, jcell.derivative(*qs, orders=orders)) <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("method", ["linear", "cubic"])
+def test_derivative_matches_jax(method, dtype):
+    """Orders 0-4 on each axis of a 3-axis grid with trailing dims (total
+    order up to 6 in float64, 3 in float32), queries of shape (4, 10)
+    (output ``M + N - k`` dims), extrapolating: within 1e-12 (float64) or
+    1e-5 (float32) of the scale of JAX's.  The grid and queries are
+    ``test_cubic_matches_jax``'s; a float32 partial of higher total order
+    loses about a digit an order to cancellation in both packages alike
+    (order (2, 3, 1): JAX 1.3e-5 of the scale from the float64 value, the
+    port 6.6e-6)."""
+    rng = np.random.default_rng(66)
+    axes = [np.cumsum(rng.uniform(0.5, 1.5, n)) / n for n in (7, 6, 5)]
+    data = rng.normal(size=tuple(a.size for a in axes) + (3,))
+    j, t = both(data, axes, method, extrapolate=True, dtype=dtype)
+    qs = [rng.uniform(a[0] - 0.1, a[-1] + 0.1, (4, 10)).astype(dtype) for a in axes]
+    for orders in itertools.product(range(5), repeat=3):
+        if sum(orders) > (6 if dtype == np.float64 else 3):
+            continue
+        got = t.derivative(*qs, orders=orders)
+        want = np.asarray(j.derivative(*qs, orders=orders))
+        assert tuple(got.shape) == want.shape == (4, 10, 3)
+        assert got.dtype == t.data.dtype
+        if not np.abs(want).max():
+            np.testing.assert_array_equal(got.numpy(), 0.0)
+            continue
+        tol = 1e-5 if dtype == np.float32 else deriv_tol(orders)
+        assert scaled(got, want) <= tol, orders
+
+
+def test_derivative_order0_is_the_value_and_cpu_launches_nothing():
+    axes, data, rng = grid_case(3, seed=67)
+    before = {kid: w.launches for kid, w in kernel_wrappers().items()}
+    for method in ("linear", "cubic"):
+        _, t = both(data, axes, method)
+        qs = queries(axes, rng, n=50)
+        torch.testing.assert_close(t.derivative(*qs, orders=(0, 0, 0)), t.interp_array(*qs),
+                                   rtol=0, atol=0)
+    assert {kid: w.launches for kid, w in kernel_wrappers().items()} == before
+
+
+def test_derivative_errors():
+    axes, data, _ = grid_case(2)
+    jlin, lin = both(data, axes)
+    q = [np.zeros(2) + axes[0][1], np.zeros(2) + axes[1][1]]
+    for orders in [(1,), (-1, 0)]:
+        same_error(lambda: jlin.derivative(*q, orders=orders),
+                   lambda: lin.derivative(*q, orders=orders))
+    jnear, near = both(data, axes, "nearest")
+    same_error(lambda: jnear.derivative(np.zeros(1), np.zeros(1), orders=(1, 0)),
+               lambda: near.derivative(np.zeros(1), np.zeros(1), orders=(1, 0)))
+    with pytest.raises(TypeError, match="nearest does not support"):
+        near.derivative(np.zeros(1), np.zeros(1), orders=(1, 0))
+    # out of range raises eagerly (the axis and value as JAX says them); NaN first
+    bad = [np.array([axes[0][0], axes[0][-1] + 1.0]), np.array([axes[1][0]] * 2)]
+    same_error(lambda: jlin.derivative(*bad, orders=(1, 0)),
+               lambda: lin.derivative(*bad, orders=(1, 0)))
+    with pytest.raises(OutOfBoundsError):
+        lin.derivative(*bad, orders=(1, 0))
+    nan = [np.array([np.nan]), np.array([axes[1][1]])]
+    same_error(lambda: jlin.derivative(*nan, orders=(1, 0)),
+               lambda: lin.derivative(*nan, orders=(1, 0)))
+    same_error(lambda: jlin.derivative(np.zeros(2), np.zeros(3), orders=(1, 0)),
+               lambda: lin.derivative(np.zeros(2), np.zeros(3), orders=(1, 0)))
+
+
+# -- calculus: integrate ---------------------------------------------------------------
+def test_integrate_cubic_matches_sequential_scipy():
+    rng = np.random.default_rng(81)
+    for k in (1, 2, 3):
+        axes = [np.sort(rng.uniform(0, 1, n)) for n in (6, 7, 5)[:k]]
+        data = rng.normal(size=tuple(a.shape[0] for a in axes))
+        j, t = both(data, axes, "cubic")
+        box = [(a[0] + 0.05, a[-1] - 0.07) for a in axes]
+        # sequential 1-D spline integration, axis k-1 inward
+        g = data
+        for d in reversed(range(k)):
+            g = si.CubicSpline(axes[d], g, axis=d).integrate(*box[d])
+        got = t.integrate(*box)
+        assert tuple(got.shape) == () and got.dtype == torch.float64
+        np.testing.assert_allclose(float(got), float(g), rtol=0, atol=1e-12)
+        np.testing.assert_allclose(float(got), float(j.integrate(*box)), rtol=0, atol=1e-12)
+
+
+def test_integrate_trailing_and_signed():
+    rng = np.random.default_rng(82)
+    axes = [np.sort(rng.uniform(0, 1, 6)), np.sort(rng.uniform(0, 1, 7))]
+    data = rng.normal(size=(6, 7, 2))
+    j, t = both(data, axes, "cubic")
+    box = [(axes[0][0] + 0.02, axes[0][-1] - 0.02), (axes[1][0] + 0.03, axes[1][-1] - 0.01)]
+    g = si.CubicSpline(axes[1], data, axis=1).integrate(*box[1])
+    ref = si.CubicSpline(axes[0], g, axis=0).integrate(*box[0])
+    got = t.integrate(*box)
+    assert tuple(got.shape) == (2,)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-12)
+    assert scaled(got, j.integrate(*box)) <= 1e-12
+    # swapping one axis's bounds negates
+    flipped = t.integrate((box[0][1], box[0][0]), box[1])
+    np.testing.assert_allclose(flipped.numpy(), -got.numpy(), rtol=0, atol=1e-13)
+    assert scaled(flipped, j.integrate((box[0][1], box[0][0]), box[1])) <= 1e-12
+
+
+def test_integrate_linear_exact_on_plane():
+    ax = [np.array([0.0, 1.0, 3.0]), np.array([0.0, 2.0])]
+    x, y = np.meshgrid(*ax, indexing="ij")
+    data = 2.0 * x + 3.0 * y + 1.0
+    j, t = both(data, ax)
+    got = float(t.integrate((0.0, 3.0), (0.0, 2.0)))
+    np.testing.assert_allclose(got, 42.0, atol=1e-12)
+    np.testing.assert_allclose(got, float(j.integrate((0.0, 3.0), (0.0, 2.0))), atol=1e-12)
+
+
+@pytest.mark.parametrize("method", ["cubic", "linear"])
+def test_integrate_extrapolated_bounds(method):
+    rng = np.random.default_rng(83)
+    x = np.sort(rng.uniform(0, 10, 8))
+    y = rng.normal(size=8)
+    j, t = both(y, [x], method, extrapolate=True)
+    lo, hi = x[0] - 2.0, x[-1] + 1.0
+    got = float(t.integrate((lo, hi)))
+    if method == "cubic":
+        np.testing.assert_allclose(got, si.CubicSpline(x, y).integrate(lo, hi), rtol=0,
+                                   atol=1e-10)
+    np.testing.assert_allclose(got, float(j.integrate((lo, hi))), rtol=0, atol=1e-12)
+
+
+def test_integrate_matches_interp1d():
+    """Two of these knots lie 2.7e-4 apart, so the integral is -5,618: the
+    JAX test's absolute 1e-12 is under one ulp of it there, and is held here
+    as 1e-12 of the value scale (the port's ``Interp1D`` and JAX's 4 and 3
+    ulps away)."""
+    from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
+
+    rng = np.random.default_rng(84)
+    x = np.sort(rng.uniform(0, 10, 9))
+    y = rng.normal(size=9)
+    j, nd = both(y, [x], "cubic")
+    i1 = Interp1D.builder(y, device="cpu").x(x).strategy(CubicSpline()).build()
+    lo, hi = x[0] + 0.5, x[-1] - 0.5
+    got = float(nd.integrate((lo, hi)))
+    want = float(i1.integrate(lo, hi))
+    atol = 1e-12 * max(1.0, abs(want))
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+    np.testing.assert_allclose(got, float(j.integrate((lo, hi))), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("bounds", ["python floats", "float32 tensors", "numpy float32"])
+def test_integrate_float32_and_tensor_bounds(bounds):
+    """A float32 grid integrates in float32 within 1e-5 of the scale of
+    JAX's; bounds may be tensors or numpy scalars."""
+    axes, data, rng = grid_case(2, trailing=(2,), seed=86)
+    j, t = both(data, axes, "cubic", dtype=np.float32)
+    box = [(float(a[1]) + 0.1, float(a[-2])) for a in axes]
+    conv = {"python floats": float, "numpy float32": np.float32,
+            "float32 tensors": lambda v: torch.tensor(v, dtype=torch.float32)}[bounds]
+    got = t.integrate(*[(conv(lo), conv(hi)) for lo, hi in box])
+    assert got.dtype == torch.float32
+    assert scaled(got, j.integrate(*box)) <= 1e-5
+
+
+def test_integrate_errors():
+    rng = np.random.default_rng(85)
+    axes = [np.sort(rng.uniform(0, 1, 6)), np.sort(rng.uniform(0, 1, 6))]
+    data = rng.normal(size=(6, 6))
+    j, t = both(data, axes, "cubic")
+    for bounds in [((axes[0][0] - 1.0, axes[0][-1]), (0.5, 0.6)), ((0.1, 0.2),),
+                   ((0.5, 0.6), (0.2, axes[1][-1] + 0.5))]:
+        same_error(lambda: j.integrate(*bounds), lambda: t.integrate(*bounds))
+    with pytest.raises(OutOfBoundsError, match="bounds"):
+        t.integrate((axes[0][0] - 1.0, axes[0][-1]), (0.5, 0.6))
+    jn, near = both(data, axes, "nearest")
+    same_error(lambda: jn.integrate((0.1, 0.2), (0.1, 0.2)),
+               lambda: near.integrate((0.1, 0.2), (0.1, 0.2)))
+    per = np.concatenate([data[:-1], data[:1]], axis=0)
+    jp, tp = both(per, axes, "cubic", bcs=("periodic", "natural"))
+    same_error(lambda: jp.integrate((0.1, 0.2), (0.1, 0.2)),
+               lambda: tp.integrate((0.1, 0.2), (0.1, 0.2)))
+    with pytest.raises(ValueError, match="periodic"):
+        tp.integrate((0.1, 0.2), (0.1, 0.2))

@@ -1149,7 +1149,7 @@ def test_nd_tail_raises_above_its_axis_limit(dev):
 def test_nd_and_node_routes_count_launches_and_match_plain(dev, monkeypatch):
     from ndarray_interp_tpu_torch.interp2d import Bicubic, Interp2D
     from ndarray_interp_tpu_torch.interpnd import InterpND
-    from ndarray_interp_tpu_torch.models.strategies import bicubic
+    from ndarray_interp_tpu_torch import config as tconfig
     from ndarray_interp_tpu_torch.ops import kernel_wrappers
     from ndarray_interp_tpu_torch.serving import DoubleFloatEvaluator2D, DoubleFloatEvaluatorND
 
@@ -1169,7 +1169,7 @@ def test_nd_and_node_routes_count_launches_and_match_plain(dev, monkeypatch):
         assert after["K2"] == before["K2"]  # the DF route does not use the f32 search
         want = DoubleFloatEvaluatorND(builds[1], grade=grade)(*qs)
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-12, atol=1e-12)
-    monkeypatch.setattr(bicubic, "BICUBIC_PACK_MAX_ELEMS", 1)
+    monkeypatch.setattr(tconfig, "bicubic_pack_max_elems", 1)
     builds = [Interp2D.builder(data[:, :, 0], device=d).x(axes[0]).y(axes[1])
               .strategy(Bicubic()).build() for d in (dev, "cpu")]
     assert builds[0].strategy.layout == "node"

@@ -37,6 +37,7 @@ from ndarray_interp_tpu.models.strategies.bicubic import Bicubic as JBicubic
 from ndarray_interp_tpu.models.strategies.bicubic import _cell_tail_nested as j_nested
 from ndarray_interp_tpu.models.strategies.bilinear import pack_corner_rows as j_pack
 from ndarray_interp_tpu_torch.interp2d import Bicubic, Bilinear, Interp2D
+from ndarray_interp_tpu_torch import config as tconfig
 from ndarray_interp_tpu_torch.models.strategies import bicubic as t_bicubic
 from ndarray_interp_tpu_torch.models.strategies import bilinear as t_bilinear
 from ndarray_interp_tpu_torch.ops import _cuda, kernel_wrappers
@@ -532,7 +533,7 @@ def test_tables_off_the_cell_route_keep_a_search_per_axis(case, monkeypatch):
     elif case == "unpacked Bilinear":
         monkeypatch.setattr(t_bilinear, "_PACK_MAX_ELEMS", 10)
     else:
-        monkeypatch.setattr(t_bicubic, "BICUBIC_PACK_MAX_ELEMS", 10)
+        monkeypatch.setattr(tconfig, "bicubic_pack_max_elems", 10)
     kind = case.split()[1]
     itp = build(kind, x, y, z)
     assert type(itp.strategy).__name__ == "Bilinear" or itp.strategy.layout == "node"
