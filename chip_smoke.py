@@ -3,7 +3,8 @@
 2-D path with its fused f32/f64 cell route, the N-D path with the f64-grade
 bicubic node route, the 1-D wide-bank and long-knot-axis routes with
 Akima, Makima and Pchip, the f64-grade bicubic route's three tails, the step
-family and 1-D/2-D calculus.
+family, 1-D/2-D calculus, the build routes, the native host runtime and
+``eval_checked`` under graph capture.
 
     python3 chip_smoke.py [--sweeps]
 
@@ -98,6 +99,21 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    ``save`` and ``load`` onto the card of the NS1 ``CubicSpline``, the NS3b
    ``Bicubic`` and the ND1/ND2 ``InterpND``, each reload equal to the
    original bit for bit; it fails unless K2 and K4 launched;
+5f. the single-device remainder: the build routes (K4 with the rhs assembly,
+   PCR and the dense-operator build of a not-a-knot f32 bank at (64,
+   1,000,000), (256, 16,384), (512, 8,192), (2,048, 4,096), (10,000, 64)
+   and (64, 65,536), (64, 262,144), (256, 262,144), and the per-axis solves
+   of NS3b and ND2: each route's ``a, b`` against K4's at the JAX tolerances,
+   host wall in turns A B C C B A and busy, the route the port takes, the
+   dense product's bits with TF32 enabled, and NS3b's ``Bicubic`` and ND2's
+   cubic whole builds by route); the native host runtime (``HAVE_NATIVE``
+   must hold; ``interp_scalar`` of a 1-D f64 cubic and a 512 x 512 f64
+   ``Bicubic`` built on the card from numpy, native against the card with
+   ``use_native_host`` off: values, host wall per call, no CUDA launch in a
+   profiler trace of the native calls); ``eval_checked`` on NS1's knots
+   without extrapolation in a captured CUDA graph, one replay in range and
+   one out of range (``.throw()`` raises only for the second, the values
+   ``eval_unchecked``'s bit for bit);
 6. holds every kernel, through its public wrapper, against its plain version
    on the inputs the paths gave it, bit for bit; then times kernel and
    plain version at the paths' shapes with CUDA events (median, min and
@@ -4187,6 +4203,347 @@ ORD_SHAPES = (("K8/K9: 2^20 queries over 10,239 intervals", "K8"),
               ("K14 (NS3e): 1,000,000 queries over 1,048,576 base nodes", "K14"))
 
 
+# -- the single-device remainder: build routes, native host runtime, eval_checked --
+# (knots, bank) of the build-route phase: NS5b, NS5's bank, 512 x 8,192, the
+# JAX package's PCR shape and the bank build; then the banks between them at
+# 64 and 256 knots, where the dense build's turn lies
+BUILD_SHAPES = (("NS5b", 64, 1_000_000), ("NS5", 256, 16_384), ("512 x 8,192", 512, 8_192),
+                ("JAX PCR shape", 2048, 4096), ("bank build", 10_000, 64),
+                ("64 x 65,536", 64, 65_536), ("64 x 262,144", 64, 262_144),
+                ("256 x 262,144", 256, 262_144))
+# the per-axis solves of NS3b's Bicubic (512 knots, 512 x 16 columns) and
+# ND2's cubic (64 knots, 64 x 64 columns): cubic._dense_k against the solve
+AXIS_SHAPES = (("NS3b axis solve", 512, 8_192), ("ND2 axis solve", 64, 4_096))
+# a, b of PCR and the dense build against the Thomas kernel's, scaled by the
+# largest |a|: the f32 tolerances of tests/test_pcr.py (2e-5) and
+# tests/test_dense_build.py (1e-5)
+ROUTE_TOL = {"PCR": 2e-5, "dense": 1e-5}
+NATIVE_CALLS = 20_000  # interp_scalar calls a native timing run
+CARD_CALLS = 200  # interp_scalar calls a timing run on the card
+
+
+def build_routes(x, y):
+    """The three builds of ``(a, b)`` for a not-a-knot bank ``y`` on ``x``:
+    the rhs assembly, the Thomas kernel K4 and the coefficient pass; the same
+    with PCR in K4's place; the dense operator (probe and product)."""
+    from ndarray_interp_tpu_torch.models.strategies.cubic import (
+        _NOT_A_KNOT,
+        _ab_from_k,
+        _assemble_system,
+        _dense_ab,
+    )
+    from ndarray_interp_tpu_torch.ops.pcr import pcr_solve
+    from ndarray_interp_tpu_torch.ops.thomas_kernel import _ThomasKernel
+
+    nak = (_NOT_A_KNOT, 0.0, _NOT_A_KNOT, 0.0)
+    return {
+        "K4": lambda: _ab_from_k(x, y, _ThomasKernel.apply(*_assemble_system(x, y, *nak))),
+        "PCR": lambda: _ab_from_k(x, y, pcr_solve(*_assemble_system(x, y, *nak))),
+        "dense": lambda: _dense_ab(x, y, _NOT_A_KNOT, False),
+    }
+
+
+def axis_routes(x, y):
+    """The per-axis knot-derivative solve of ``bicubic._solve_axis0`` by
+    each route: the assembly and K4, and ``cubic._dense_k``."""
+    from ndarray_interp_tpu_torch.models.strategies.cubic import (
+        _NOT_A_KNOT,
+        _assemble_system,
+        _dense_k,
+    )
+    from ndarray_interp_tpu_torch.ops.thomas_kernel import _ThomasKernel
+
+    nak = (_NOT_A_KNOT, 0.0, _NOT_A_KNOT, 0.0)
+    return {
+        "K4": lambda: (_ThomasKernel.apply(*_assemble_system(x, y, *nak)),),
+        "dense": lambda: (_dense_k(x, y, _NOT_A_KNOT, False),),
+    }
+
+
+def interleaved(routes):
+    """Host wall and device busy of each route: walls by ``wall_ms`` in turns,
+    the routes in order and then reversed (A B C C B A), pooled as median of
+    the two medians, the least min and the largest max; busy from a
+    ``torch.profiler`` trace of 3 calls."""
+    walls = {name: [] for name in routes}
+    for order in (list(routes), list(routes)[::-1]):
+        for name in order:
+            walls[name].append(wall_ms(routes[name], 1))
+    out = {}
+    for name, runs in walls.items():
+        wall = (float(np.median([r[0] for r in runs])), min(r[1] for r in runs),
+                max(r[2] for r in runs))
+        out[name] = {"wall": wall, "busy": busy_ms(routes[name], 3)[0]}
+    return out
+
+
+def route_taken(n, bank, y):
+    """The route the port's build takes for this shape."""
+    from ndarray_interp_tpu_torch.models.strategies.cubic import _dense_build_ok
+
+    return "dense" if _dense_build_ok(n, bank, y, "not_a_knot") else "K4"
+
+
+def build_route_phase(dev, card, rng):
+    """Time K4 plus the assembly, PCR and the dense build at ``BUILD_SHAPES``
+    and the two per-axis solves at ``AXIS_SHAPES`` (host wall in turns and
+    device busy, ``interleaved``), hold PCR's and the dense build's ``a, b``
+    to K4's, check that TF32 enabled process-wide leaves the dense product's
+    bits alone, time the public ``CubicSpline`` build at each of
+    ``BUILD_SHAPES`` with the dense route forced on and forced off, in turns,
+    and the whole builds of NS3b's ``Bicubic`` and ND2's 64^3 cubic on the
+    route the port takes (K4: their per-axis solves).  Every bank and axis is
+    float32."""
+    import torch
+
+    from ndarray_interp_tpu_torch import config
+    from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
+    from ndarray_interp_tpu_torch.interp2d import Bicubic, Interp2D
+    from ndarray_interp_tpu_torch.interpnd import InterpND
+    from ndarray_interp_tpu_torch.models.strategies import cubic
+
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    saved = config.dense_build_max_n, cubic._DENSE_MIN_ELEMS
+
+    def forced(max_n, min_elems, fn):
+        """``fn`` with the dense route's bounds set, then put back."""
+        def call():
+            config.dense_build_max_n, cubic._DENSE_MIN_ELEMS = max_n, min_elems
+            try:
+                return fn()
+            finally:
+                config.dense_build_max_n, cubic._DENSE_MIN_ELEMS = saved
+        return call
+
+    print(f"build routes, f32 not-a-knot banks: host wall ms (median [min, max], {RUNS} runs a "
+          f"turn, the routes in turns A B C C B A) and device busy ms (profiler); card: {card}",
+          flush=True)
+    rows = {}
+    shapes = [(label, n, bank, build_routes) for label, n, bank in BUILD_SHAPES]
+    shapes += [(label, n, bank, axis_routes) for label, n, bank in AXIS_SHAPES]
+    for label, n, bank, make in shapes:
+        x = T(make_knots(n, "nonuniform", np.float32, rng))
+        y = T(rng.standard_normal((n, bank), dtype=np.float32))
+        routes = make(x, y)
+        ref = routes["K4"]()
+        scale = float(ref[0].abs().max())
+        for name, fn in routes.items():
+            if name != "K4":
+                err = max(float((g - r).abs().max()) for g, r in zip(fn(), ref)) / scale
+                ok = err <= ROUTE_TOL[name]
+                print(f"  {label} ({n:,} x {bank:,}) {name}: within {err:.2e} of K4's (scaled; "
+                      f"tolerance {ROUTE_TOL[name]:g}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"build route {name} at {n} x {bank}: {err:.2e} from K4's")
+        del ref
+        times = interleaved(routes)
+        for name, t in times.items():
+            print(f"  {label} ({n:,} x {bank:,}) {name}: host wall {fmt(t['wall'])}, busy "
+                  f"{t['busy']:.4f}", flush=True)
+        rows[label] = {"n": n, "bank": bank, **times}
+        if make is build_routes:
+            # the public build, the dense route forced off and on, in turns
+            build = lambda: Interp1D.builder(y).x(x).strategy(CubicSpline()).build()  # noqa: E731
+            whole = interleaved({"K4": forced(0, saved[1], build),
+                                 "dense": forced(1 << 30, 0, build)})
+            for name, t in whole.items():
+                print(f"  {label} ({n:,} x {bank:,}) whole CubicSpline build, {name}: host wall "
+                      f"{fmt(t['wall'])}, busy {t['busy']:.4f}", flush=True)
+            rows[label]["whole"] = whole
+            rows[label]["taken"] = route_taken(n, bank, y)
+            print(f"  {label} ({n:,} x {bank:,}): the port's build takes {rows[label]['taken']}",
+                  flush=True)
+        if label == "NS5b":
+            tf32_check(routes["dense"])
+        del x, y, routes
+        torch.cuda.empty_cache()
+
+    # the whole builds at NS3b (512 x 512 x 16 f32 Bicubic) and ND2 (64^3 f32 cubic)
+    x2 = T(make_knots(GRID2D[0], "nonuniform", np.float32, rng))
+    y2 = T(make_knots(GRID2D[1], "nonuniform", np.float32, rng))
+    z2 = T(rng.standard_normal(GRID2D, dtype=np.float32))
+    axes = [T(np.linspace(0.0, 1.0, n, dtype=np.float32)) for n in GRIDND]
+    g3 = T(rng.standard_normal(GRIDND, dtype=np.float32))
+    for label, fn in (
+        ("NS3b Bicubic build", lambda: Interp2D.builder(z2).x(x2).y(y2).strategy(Bicubic())
+         .build()),
+        ("ND2 cubic build", lambda: InterpND.builder(g3).points(*axes).method("cubic").build()),
+    ):
+        times = interleaved({"the port's route (K4)": fn})
+        for route, t in times.items():
+            print(f"  {label}, {route}: host wall {fmt(t['wall'])}, busy {t['busy']:.4f}",
+                  flush=True)
+        rows[label] = times
+    return rows
+
+
+def tf32_check(dense):
+    """The dense product's bits with TF32 enabled process-wide
+    (``torch.set_float32_matmul_precision("high")``) against the default."""
+    import torch
+
+    before = torch.get_float32_matmul_precision()
+    a0, b0 = dense()
+    torch.set_float32_matmul_precision("high")
+    try:
+        a1, b1 = dense()
+    finally:
+        torch.set_float32_matmul_precision(before)
+    same = torch.equal(a0, a1) and torch.equal(b0, b1)
+    print(f"  dense build with TF32 enabled process-wide: {'the same bits' if same else 'DIFFERS'}",
+          flush=True)
+    if not same:
+        fail("the dense build's product changed with TF32 enabled")
+
+
+def per_call(loop, calls):
+    """``wall_ms`` of a loop of ``calls`` calls, per call."""
+    return tuple(t / calls for t in wall_ms(loop, 1))
+
+
+def native_phase(dev, card, rng):
+    """The native host runtime: ``interp_scalar`` of a 1-D f64 cubic (NS1's
+    2,048 knots) and of a 512 x 512 f64 ``Bicubic``, both built on the card
+    from numpy inputs, with ``config.use_native_host`` on (the host) and off
+    (the card): host wall per call, the two routes' values against each
+    other, and no CUDA launch on the native route (launch counts and a
+    profiler trace)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ndarray_interp_tpu_torch import config, native
+    from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
+    from ndarray_interp_tpu_torch.interp2d import Bicubic, Interp2D
+
+    print(f"native host runtime: HAVE_NATIVE = {native.HAVE_NATIVE} (the library built into "
+          f"ndarray_interp_tpu_torch/_build/ from native/src/ndi_native.cpp)", flush=True)
+    if not native.HAVE_NATIVE:
+        fail("the native host runtime is not built (HAVE_NATIVE is false)")
+        return {}
+    drive, launched = counted_calls()
+    kn = np.sort(rng.uniform(0.0, 100.0, 2048))
+    v = rng.normal(size=2048)
+    x2 = make_knots(512, "nonuniform", np.float64, rng)
+    y2 = make_knots(512, "nonuniform", np.float64, rng)
+    z2 = rng.normal(size=(512, 512))
+    q1 = rng.uniform(kn[0], kn[-1], NATIVE_CALLS).tolist()
+    q2 = list(zip(rng.uniform(x2[0], x2[-1], NATIVE_CALLS).tolist(),
+                  rng.uniform(y2[0], y2[-1], NATIVE_CALLS).tolist()))
+    # the tolerances of tests/test_native.py: the Hermite form 1e-13 relative
+    # (here 1e-12 of the scale), the bicubic node form 1e-10
+    cases = {
+        "1-D f64 CubicSpline, 2,048 knots": (
+            lambda: Interp1D.builder(v, device=dev).x(kn)
+            .strategy(CubicSpline().extrapolate(True)).build(),
+            lambda itp, q: itp.interp_scalar(q), q1, 1e-12),
+        "2-D f64 Bicubic, 512 x 512": (
+            lambda: Interp2D.builder(z2, device=dev).x(x2).y(y2).strategy(Bicubic()).build(),
+            lambda itp, q: itp.interp_scalar(*q), q2, 1e-10),
+    }
+    out = {}
+    saved = config.use_native_host
+    for label, (make, call, qs, tol) in cases.items():
+        itp_host = make()
+        config.use_native_host = False
+        try:
+            itp_card = make()
+            card_vals = [float(call(itp_card, q)) for q in qs[:CARD_CALLS]]  # read at first use
+        finally:
+            config.use_native_host = saved
+        host_vals = drive(f"{label}, native interp_scalar x {NATIVE_CALLS:,}", (),
+                          lambda: [call(itp_host, q) for q in qs])
+        if not all(isinstance(h, float) for h in host_vals):
+            fail(f"{label}: the native route did not serve interp_scalar")
+        if any(launched.values()):
+            fail(f"{label}: the native route launched {launched}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for q in qs[:CARD_CALLS]:
+                call(itp_host, q)
+            torch.cuda.synchronize()
+        kernels = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        print(f"  {label}: CUDA kernels in a profiler trace of {CARD_CALLS} native calls: "
+              f"{kernels}", flush=True)
+        if kernels:
+            fail(f"{label}: the native route launched {kernels} CUDA kernels")
+        h = np.array(host_vals[:CARD_CALLS])
+        c = np.array(card_vals)
+        err = float(np.max(np.abs(h - c)) / np.max(np.abs(c)))
+        ok = err <= tol
+        print(f"  {label}: native against the card on {CARD_CALLS} queries: scaled max "
+              f"difference {err:.2e} (tolerance {tol:g}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"{label}: native and card interp_scalar differ by {err:.2e}")
+        host_t = per_call(lambda: [call(itp_host, q) for q in qs], len(qs))
+        card_t = per_call(lambda: [float(call(itp_card, q)) for q in qs[:CARD_CALLS]],
+                          CARD_CALLS)
+        print(f"  {label}: interp_scalar host wall per call, ms: native {fmt(host_t)}, on the "
+              f"card (use_native_host off) {fmt(card_t)}; card: {card}", flush=True)
+        out[label] = {"native_ms": host_t[0], "card_ms": card_t[0], "max_scaled_diff": err}
+    return out
+
+
+def eval_checked_phase(dev, card, rng):
+    """``Interp1D.eval_checked`` inside a captured CUDA graph on NS1's
+    knots and data (2,048 f32, not-a-knot, without extrapolation, so the
+    range check applies) at 1,000,000 queries: one replay on a batch in range
+    and one with a query out of range; ``.throw()`` must raise for the
+    second only, and the values must equal ``eval_unchecked``'s bit for
+    bit."""
+    import torch
+
+    from ndarray_interp_tpu_torch import OutOfBoundsError
+    from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
+
+    drive, total = counted_calls()
+    kn = np.linspace(0.0, 100.0, 2048).astype(np.float32)
+    itp = Interp1D.builder(rng.normal(size=2048).astype(np.float32), device=dev).x(kn) \
+        .strategy(CubicSpline()).build()
+    inside = torch.as_tensor(rng.uniform(0.0, 100.0, 1_000_000).astype(np.float32), device=dev)
+    outside = inside.clone()
+    outside[123_456] = 100.5
+    static = inside.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            itp.eval_checked(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+
+    def capture():
+        with torch.cuda.graph(graph):
+            return itp.eval_checked(static)
+
+    err, vals = drive("eval_checked captured in a CUDA graph (NS1 f32, 1M queries)", ("K1",),
+                      capture)
+    out = {}
+    for label, batch, raises in (("in range", inside, False), ("one query out of range",
+                                                                 outside, True)):
+        static.copy_(batch)
+        graph.replay()
+        torch.cuda.synchronize()
+        try:
+            err.throw()
+            raised = False
+        except OutOfBoundsError as e:
+            raised = True
+            print(f"  replay, {label}: throw() raised OutOfBoundsError: {e}")
+        same, diff = bit_compare(vals, itp.eval_unchecked(batch))
+        ok = raised == raises and same
+        print(f"  replay, {label}: raised {raised} (expected {raises}), values bit for bit "
+              f"eval_unchecked's: {same} (max abs err {diff}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail(f"eval_checked under graph capture, {label}: raised {raised}, values equal {same}")
+    replay_t = device_ms(graph.replay, 1)
+    plain_t = device_ms(lambda: itp.eval_unchecked(static), 1)
+    print(f"  eval_checked graph replay {fmt(replay_t)} ms against eval_unchecked {fmt(plain_t)} "
+          f"(device, CUDA events); card: {card}", flush=True)
+    out["replay_ms"], out["eval_unchecked_ms"] = replay_t[0], plain_t[0]
+    return out, total
+
+
 def ord_times(times):
     """ORD's entry of the kernels line: its times at K8's shape, the DF bank
     serving's (the most launches), and at every shape beside them."""
@@ -4314,14 +4671,24 @@ def main():
     for kid in ("K2", "K4"):
         if launched_calc_nd[kid] <= 0:
             fail(f"{kid} was not launched by the N-D calculus and checkpoint path")
+    print("the single-device remainder: build routes, the native host runtime, eval_checked "
+          "(counts set to 0 before each driven call):", flush=True)
+    routes = build_route_phase(dev, card, np.random.default_rng(52))
+    native_walls = native_phase(dev, card, np.random.default_rng(53))
+    checked, launched_checked = eval_checked_phase(dev, card, np.random.default_rng(54))
+    print(f"  launches during eval_checked's capture: "
+          f"{({k: c for k, c in launched_checked.items() if c})}")
+    print("  single-device remainder record: " + json.dumps(
+        {"build_routes": routes, "native": native_walls, "eval_checked": checked}), flush=True)
     # every kernel's launches summed over every path, and the orderings of
     # each tail that orders its batch (the main path orders none)
     paths = (served, launched2d, launched_nd, launched_big, launched_tails, launched_steps,
-             launched_calc, launched_calc_nd)
+             launched_calc, launched_calc_nd, launched_checked)
     launches = {kid: main_launches[kid] + sum(path[kid] for path in paths) for kid in wrappers}
     order_launches = {kid: sum(path[f"ORD:{kid}"] for path in paths) for kid in ORDERED_TAILS}
     print(f"  launches over every path (main + serving + 2-D + N-D + wide-bank + tails + step "
-          f"+ calculus + N-D calculus): {launches}; orderings by tail: {order_launches}")
+          f"+ calculus + N-D calculus + eval_checked): {launches}; orderings by tail: "
+          f"{order_launches}")
     for kid, total in launches.items():
         parts = " + ".join(str(n) for n in (main_launches[kid], *(path[kid] for path in paths)))
         print(f"  {kid} launches over every path: {total} = {parts}")

@@ -12,8 +12,12 @@ serving layer (``serving``: ``Evaluator``, ``Evaluator2D``, ``EvaluatorND``
 and the f64-grade ``DoubleFloatEvaluator``, ``DoubleFloatEvaluator2D`` and
 ``DoubleFloatEvaluatorND``), whose GPU kernels are hand-written CUDA for
 Hopper (``csrc/``, built at first use); ``utils.checkpoint`` (save and
-load, in the JAX package's file format), ``utils.profiling`` and ``config``
-(the layout caps).  Tensors stay on the
+load, in the JAX package's file format), ``utils.profiling``, ``config``
+(the layout caps, ``use_native_host``, ``dense_build_max_n``), ``native``
+(the JAX package's C++ host runtime, built with ``g++`` at first import,
+which serves the eager entry points' numpy and float queries) and
+``eval_checked`` (a range check as device flags, ``CheckError``, that runs
+inside a captured CUDA graph).  Tensors stay on the
 device they are given; numpy or list inputs go to the GPU unless the
 caller names ``device="cpu"`` (without a CUDA device and with none named,
 the entry points raise).  On the CPU every kernel's plain PyTorch version
@@ -53,6 +57,7 @@ N-D usage::
 
 from .errors import (
     BuilderError,
+    CheckError,
     BuilderValueError,
     InterpolateError,
     MonotonicError,
@@ -66,6 +71,7 @@ __version__ = "0.1.0"
 __all__ = [
     "BuilderError",
     "BuilderValueError",
+    "CheckError",
     "InterpolateError",
     "MonotonicError",
     "NotEnoughDataError",

@@ -13,7 +13,9 @@ messages are the JAX package's, word for word.
 These exceptions come from the eager entry points only (``interp``,
 ``interp_array``, the builder's ``build()``).  ``Interp1D.__call__`` masks
 out-of-range results to NaN instead, so it never synchronises with the
-device.
+device; ``eval_checked`` returns a :class:`CheckError`, the port's form of
+the JAX package's ``checkify`` error, whose flags stay on the device until
+it is read.
 """
 
 from __future__ import annotations
@@ -45,3 +47,40 @@ class InterpolateError(Exception):
 
 class OutOfBoundsError(InterpolateError):
     """A query point lies outside the knot range and extrapolation is off."""
+
+
+class CheckError:
+    """The error half of ``eval_checked``'s ``(error, values)``: the port's
+    form of a ``jax.experimental.checkify`` error.
+
+    It holds, in the order they were checked, ``(flag, message)`` pairs
+    whose flag is a device ``bool`` tensor set where the check failed.
+    Making it reads nothing back, so ``eval_checked`` runs inside a captured
+    CUDA graph; after a replay the same object reads the replay's flags.
+    """
+
+    def __init__(self, checks=()):
+        self._checks = tuple(checks)
+
+    def get(self):
+        """The message of the first failed check, or ``None`` (one copy of
+        the flags to the host)."""
+        if not self._checks:
+            return None
+        import torch
+
+        failed = torch.stack([flag.reshape(()) for flag, _ in self._checks]).tolist()
+        for bad, (_, message) in zip(failed, self._checks):
+            if bad:
+                return message
+        return None
+
+    def throw(self):
+        """Raise ``OutOfBoundsError`` with the first failed check's message;
+        nothing when every check held."""
+        message = self.get()
+        if message is not None:
+            raise OutOfBoundsError(message)
+
+    def __repr__(self):
+        return f"CheckError({len(self._checks)} check(s))"

@@ -20,9 +20,26 @@ Devices: the interpolator's tensors live on one device.  Tensors given to
 the builder keep theirs; numpy arrays and lists land on the builder's
 ``device``, which is the GPU unless named (``device="cpu"`` for the CPU;
 without a CUDA device and with none named the builder raises).  Queries
-that are not tensors land on the interpolator's device.  ``__call__``
-never synchronises with the device; the eager methods check their queries
-first, which costs one copy of a flag to the host.
+that are tensors stay on their path; ``__call__`` never synchronises with
+the device, ``eval_checked`` returns its range check as a device flag, and
+the eager methods check their queries first, which costs one copy of a flag
+to the host.
+
+The native host runtime (``native/``, as in the JAX package): numpy and
+float queries of the eager methods (``interp_scalar``, ``interp_into``,
+``interp_array`` on float64 data up to 1,000,000 values,
+``interp_array_into``) are served on the host by C++ and come back as numpy
+(a float from ``interp_scalar`` on float64 data), for the strategies with a
+host form (``Linear``, ``CubicSpline``, ``Akima``, ``Makima``, ``Pchip``)
+and while ``config.use_native_host`` is on.  A CPU interpolator's own
+tensors are its host view.  For an interpolator on the card the builder
+copies host inputs (``_host_inputs``) when it copies them to the card, so the
+host route and the card answer from the same data and the eager methods
+never copy back from the card; it rebuilds ``a, b`` on the host (natively
+for the uniform cubic boundaries, else on CPU tensors) once, at the first
+such call.
+Without the runtime (``native.HAVE_NATIVE`` false) every query takes the
+tensor path.
 """
 
 from __future__ import annotations
@@ -31,6 +48,7 @@ import numpy as np
 import torch
 
 from ..errors import (
+    CheckError,
     MonotonicError,
     NotEnoughDataError,
     OutOfBoundsError,
@@ -57,11 +75,67 @@ def _to_tensor(value, device, copy=False):
 
 
 def _write(buffer, result):
+    """Copy ``result`` (a tensor, or numpy from the native runtime) into a
+    tensor or numpy ``buffer``."""
     if isinstance(buffer, torch.Tensor):
-        buffer.copy_(result)
-    else:
+        buffer.copy_(torch.as_tensor(result))
+    elif isinstance(result, torch.Tensor):
         buffer[...] = result.detach().cpu().numpy()
+    else:
+        buffer[...] = result
     return buffer
+
+
+_NP_FLOAT = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _host_view(value):
+    """``value`` as numpy without touching a device: numpy arrays as they
+    are (a reference, not a copy), lists and scalars through numpy, a CPU
+    tensor's own memory; ``None`` for a CUDA tensor or one that needs its
+    gradient (the native runtime would drop it)."""
+    if value is None:
+        return None
+    if isinstance(value, torch.Tensor):
+        if value.device.type != "cpu" or value.requires_grad or value.dtype not in _NP_FLOAT:
+            return None
+        return value.numpy()
+    return np.asarray(value)
+
+
+def _host_copy(value, device):
+    """A numpy copy of ``value`` for the native runtime of an interpolator
+    on ``device``, taken when the value is copied to the card, so that a
+    later write to the caller's array changes neither; ``None`` on the CPU,
+    where the interpolator's own tensors are the host view, and for values
+    with no host view."""
+    if device.type == "cpu":
+        return None
+    view = _host_view(value)
+    return None if view is None else np.array(view, copy=True)
+
+
+def _is_host_query(q):
+    """A query the native runtime may serve: not a tensor."""
+    return not isinstance(q, torch.Tensor)
+
+
+def _native_state(itp):
+    """``itp``'s host state for the native runtime, made once by its
+    ``_build_native_state`` (``None``: no host form); ``None`` without it
+    while ``config.use_native_host`` is off or the runtime is not built (its
+    first import builds it)."""
+    cached = getattr(itp, "_host_cache", None)
+    if cached is None:
+        from .. import config
+
+        state = None
+        if config.use_native_host:
+            from ..native import HAVE_NATIVE
+
+            state = itp._build_native_state() if HAVE_NATIVE else None
+        itp._host_cache = cached = () if state is None else state
+    return cached or None
 
 
 def _calculus(strategy, name, what):
@@ -155,6 +229,21 @@ class Interp1D:
         out = self._eval_flat(xs.reshape(-1))
         return out.reshape(tuple(xs.shape) + tuple(self.data.shape[1:]))
 
+    def eval_checked(self, xs):
+        """Checked evaluation that never synchronises with the device, so it
+        can run inside a captured CUDA graph: the JAX package's
+        ``checkify`` form.  Returns ``(error, values)``: ``values`` as
+        :meth:`eval_unchecked`, ``error`` a :class:`CheckError` whose flag
+        is set on the device when a query is out of range and the strategy
+        does not extrapolate (``error.throw()`` raises ``OutOfBoundsError``
+        with JAX's message, ``error.get()`` returns it or ``None``)."""
+        xs = self._queries(xs)
+        checks = []
+        if not self.strategy.extrapolates:
+            ok = is_in_range(self.x, self._promote(xs.reshape(-1)))
+            checks.append((~ok.all(), "a query point is not in range"))
+        return CheckError(checks), self.eval_unchecked(xs)
+
     # -- helpers available to strategies (mod.rs:367-386) --------------------
     def index_point(self, index):
         """``(x, data)`` at the given index."""
@@ -184,13 +273,110 @@ class Interp1D:
         elif xs_flat.is_floating_point() and bool(torch.isnan(xs_flat).any()):
             raise ValueError("failed to convert NaN to an index")
 
+    # -- native host runtime ---------------------------------------------------
+    def _native_state(self):
+        return _native_state(self)
+
+    def _build_native_state(self):
+        """``("linear", x, data, extrapolate)`` or ``("hermite", x, data, a, b,
+        mode)`` as numpy, or ``None`` when the strategy or dtype has no host
+        form (the tensor path then serves every query)."""
+        from .strategies.cubic import CubicSpline, CubicSplineStrategy
+
+        if self.data.dtype not in _NP_FLOAT:
+            return None
+        hi = getattr(self, "_host_inputs", None)
+        if hi is not None:
+            x_np, d_np, builder = hi
+        else:
+            x_np, d_np, builder = _host_view(self.x), _host_view(self.data), None
+        if x_np is None or d_np is None:
+            return None
+        if isinstance(self.strategy, Linear):
+            return ("linear", x_np, d_np, bool(self.strategy.extrapolates))
+        if not isinstance(self.strategy, CubicSplineStrategy):
+            return None
+        mode = {"no": 0, "yes": 1, "periodic": 2}[self.strategy.mode]
+        a_np, b_np = _host_view(self.strategy.a), _host_view(self.strategy.b)
+        if (a_np is None or b_np is None) and builder is not None:
+            # the coefficients live on the card: build them again on the host
+            # rather than copy them back, natively for the uniform boundaries
+            kinds = {"not_a_knot": 0, "clamped": 1, "natural": 2}
+            if isinstance(builder, CubicSpline) and builder._boundary.kind in kinds:
+                from ..native import cubic_build
+
+                kind = kinds[builder._boundary.kind]
+                a_np, b_np = cubic_build(x_np, d_np, kind, 0.0, kind, 0.0)
+            else:
+                host = builder.build(torch.tensor(x_np), torch.tensor(d_np))
+                a_np, b_np = host.a.numpy(), host.b.numpy()
+        if a_np is None or b_np is None:
+            return None
+        return ("hermite", x_np, d_np, a_np, b_np, mode)
+
+    def _native_eval(self, xs):
+        """``xs`` evaluated by the native runtime as numpy, with the eager
+        methods' errors; ``None`` when it is not eligible."""
+        state = self._native_state()
+        if state is None:
+            return None
+        from ..native import eval_hermite, eval_linear
+
+        xs_np = np.asarray(xs, dtype=state[1].dtype)
+        if np.isnan(xs_np).any():
+            extrap = state[3] if state[0] == "linear" else state[5] != 0
+            if extrap:
+                raise ValueError("failed to convert NaN to an index")
+            raise OutOfBoundsError(f"x = {xs_np[np.isnan(xs_np)][0]} is not in range")
+        if state[0] == "linear":
+            _, x_np, d_np, extrap = state
+            out, rc = eval_linear(x_np, d_np, xs_np, extrap)
+        else:
+            _, x_np, d_np, a_np, b_np, mode = state
+            out, rc = eval_hermite(x_np, d_np, a_np, b_np, xs_np, mode)
+        if rc != 0:
+            raise OutOfBoundsError(f"x = {xs_np.reshape(-1)[rc - 1]} is not in range")
+        return out
+
+    def _scalar_evaluator(self):
+        """The prebound C scalar evaluator (float64 1-D data only: float32
+        stays on the batch form, whose arithmetic is in float32), made once."""
+        fast = getattr(self, "_scalar_eval", None)
+        if fast is None:
+            fast = False
+            state = self._native_state()
+            if state is not None and state[1].dtype == np.float64:
+                from ..native import ScalarEval1D
+
+                if state[0] == "linear":
+                    _, x_np, d_np, extrap = state
+                    fast = ScalarEval1D(x_np, d_np, mode=int(extrap))
+                else:
+                    _, x_np, d_np, a_np, b_np, mode = state
+                    fast = ScalarEval1D(x_np, d_np, a_np, b_np, mode=mode)
+            self._scalar_eval = fast
+        return fast or None
+
     def interp_scalar(self, x):
-        """Interpolate one point of 1-D data, returning a 0-d tensor
-        (``mod.rs:108-114``)."""
+        """Interpolate one point of 1-D data (``mod.rs:108-114``): a float
+        from the native runtime for a float on float64 data, a numpy scalar
+        for other host queries it serves, else a 0-d tensor."""
         if self.data.ndim != 1:
             raise ShapeError(
                 "interp_scalar requires 1-D data; use interp() instead"
             )
+        if _is_host_query(x):
+            fast = self._scalar_evaluator()
+            if fast is not None and isinstance(x, (int, float)):
+                v, err = fast(float(x))
+                if err == 0:
+                    return v
+                if err == 2 and self.strategy.extrapolates:
+                    raise ValueError("failed to convert NaN to an index")
+                raise OutOfBoundsError(f"x = {x} is not in range")
+            out = self._native_eval(x)
+            if out is not None:
+                return out[()]
         return self.interp(x)[()]
 
     def interp(self, x):
@@ -205,21 +391,40 @@ class Interp1D:
         array) (``mod.rs:169-175``).  A wrong shape raises ``ValueError``,
         the reference's panic contract (``mod.rs:167``)."""
         _check_buffer(buffer, self.data.shape[1:])
+        if _is_host_query(x):
+            out = self._native_eval(x)
+            if out is not None:
+                return _write(buffer, out)
         return _write(buffer, self.interp(x))
 
     def interp_array(self, xs):
         """Interpolated values at all points in ``xs``; output dims
-        ``M + N - 1`` with query dims leading (``mod.rs:197-211``)."""
+        ``M + N - 1`` with query dims leading (``mod.rs:197-211``).  Numpy
+        or list queries on float64 data, up to 1,000,000 values in all, are
+        served by the native runtime and come back as numpy (large host
+        batches are better off on the card)."""
+        if (
+            _is_host_query(xs)
+            and self.data.dtype == torch.float64
+            and np.size(xs) * self.data[0].numel() <= 1_000_000
+        ):
+            out = self._native_eval(xs)
+            if out is not None:
+                return out
         xs = self._queries(xs)
         self._check_queries(xs.reshape(-1))
         return self.eval_unchecked(xs)
 
     def interp_array_into(self, xs, buffer):
         """``interp_array`` into a caller-provided buffer (a tensor or a
-        numpy array) (``mod.rs:272-324``)."""
-        xs = self._queries(xs)
-        _check_buffer(buffer, self.get_buffer_shape(xs.shape))
-        return _write(buffer, self.interp_array(xs))
+        numpy array) (``mod.rs:272-324``); numpy queries on the native
+        runtime where it serves them."""
+        _check_buffer(buffer, self.get_buffer_shape(np.shape(xs)))
+        if _is_host_query(xs):
+            out = self._native_eval(xs)
+            if out is not None:
+                return _write(buffer, out)
+        return _write(buffer, self.interp_array(self._queries(xs)))
 
     def get_buffer_shape(self, query_shape) -> tuple:
         """Required buffer shape for ``interp_array_into``
@@ -286,6 +491,7 @@ class Interp1DBuilder:
 
     def __init__(self, data, device=None):
         self._device = default_device(data, device)
+        self._data_host = _host_copy(data, self._device)
         data = _to_tensor(data, self._device, copy=True)
         self._data = data
         n = data.shape[0] if data.ndim >= 1 else 0
@@ -295,11 +501,13 @@ class Interp1DBuilder:
             if data.ndim >= 1
             else None
         )
+        self._x_host = _host_copy(np.arange(n), self._device) if data.ndim >= 1 else None
         self._strategy = Linear()
 
     def x(self, x) -> "Interp1DBuilder":
         """Set a custom x axis; must be strictly monotonic rising and match
         the data's axis-0 length (``mod.rs:424-430``)."""
+        self._x_host = _host_copy(x, self._device)
         self._x = _to_tensor(x, self._device, copy=True)
         return self
 
@@ -342,4 +550,10 @@ class Interp1DBuilder:
         ct = torch.promote_types(x.dtype, data.dtype)
         x = x.to(ct)
         data = data.to(ct)
-        return Interp1D(x, data, strat.build(x, data))
+        interp = Interp1D(x, data, strat.build(x, data))
+        # host copies for the native runtime of a card interpolator: the
+        # eager methods never copy back from the card
+        views = (self._x_host, self._data_host)
+        if ct in _NP_FLOAT and data.device.type != "cpu" and all(v is not None for v in views):
+            interp._host_inputs = (*(v.astype(_NP_FLOAT[ct], copy=False) for v in views), strat)
+        return interp

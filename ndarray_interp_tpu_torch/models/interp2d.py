@@ -15,25 +15,45 @@ Counterpart of ``ndarray_interp_tpu.models.interp2d``.  Reference:
 
 Devices as in :mod:`.interp1d`: tensors keep their device, numpy arrays
 and lists land on the builder's ``device`` (the GPU unless named).
-``__call__`` never synchronises with the device; the eager methods check
-their queries first, one flag copied to the host per axis.
+``__call__`` never synchronises with the device, nor does ``eval_checked``
+(its range checks stay device flags, x before y, a wrapping axis exempt);
+the eager methods check their queries first, one flag copied to the host per
+axis.  Numpy and float queries of the eager methods are served by the native
+host runtime as in :mod:`.interp1d`, for ``Bilinear`` (as in the JAX
+package) and for ``Bicubic`` without a periodic axis (its node grids solved
+once on the host from the builder's numpy inputs, ``native.eval_bicubic``).
 
 Beyond the reference, as in the JAX package: ``derivative`` (SciPy's
 ``RectBivariateSpline.ev(xs, ys, dx, dy)``) and ``integrate`` (its
-``.integral``) for ``Bilinear`` and ``Bicubic``.  Not ported: the JAX
-package's native host paths (``_native_*``, ``ScalarEval2D``) and
-``eval_checked``.
+``.integral``) for ``Bilinear`` and ``Bicubic``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..errors import MonotonicError, NotEnoughDataError, OutOfBoundsError, ShapeError
+from ..errors import (
+    CheckError,
+    MonotonicError,
+    NotEnoughDataError,
+    OutOfBoundsError,
+    ShapeError,
+)
 from ..ops.searchsorted import get_lower_index, is_in_range
 from ..utils.device import default_device
 from ..utils.monotonic import monotonic_prop
-from .interp1d import _calculus, _check_buffer, _to_tensor, _write
+from .interp1d import (
+    _NP_FLOAT,
+    _calculus,
+    _check_buffer,
+    _host_copy,
+    _host_view,
+    _is_host_query,
+    _native_state,
+    _to_tensor,
+    _write,
+)
 from .strategies.base2d import Interp2DStrategyBuilder
 from .strategies.bilinear import Bilinear
 from .strategies.cubic import _scalars
@@ -124,6 +144,22 @@ class Interp2D:
         )
         return out.reshape(self._out_shape(xs))
 
+    def eval_checked(self, xs, ys):
+        """Checked evaluation that never synchronises with the device (it
+        runs inside a captured CUDA graph), the JAX package's ``checkify``
+        form: ``(error, values)`` as ``Interp1D.eval_checked``, the x check
+        before the y check, a wrapping axis never out of range."""
+        xs, ys = self._queries(xs, ys)
+        checks = []
+        if not self.strategy.extrapolates:
+            wraps = self._wraps()
+            axes = (("an x", self.x, xs, wraps[0]), ("a y", self.y, ys, wraps[1]))
+            for name, knots, q, wrap in axes:
+                if not wrap:
+                    ok = is_in_range(knots, self._promote(q.reshape(-1)))
+                    checks.append((~ok.all(), f"{name} query point is not in range"))
+        return CheckError(checks), self.eval_unchecked(xs, ys)
+
     # -- strategy helpers (mod.rs:344-379) ------------------------------------
     def index_point(self, x_idx, y_idx):
         """``(x, y, data)`` at the given index pair."""
@@ -160,11 +196,98 @@ class Interp2D:
                 bad = q[~ok][0].detach().cpu().numpy()[()]
                 raise OutOfBoundsError(f"{name} = {bad} is not in range")
 
+    # -- native host runtime ---------------------------------------------------
+    def _native_state(self):
+        return _native_state(self)
+
+    def _build_native_state(self):
+        """``("bilinear", x, y, data, extrapolate)`` or ``("bicubic", x, y,
+        data, kx, ky, kxy, extrapolate)`` as numpy, or ``None`` when the
+        strategy (a periodic ``Bicubic`` axis included) or dtype has no host
+        form."""
+        from .strategies.bicubic import BicubicStrategy, bicubic_node_grids
+
+        if self.data.dtype not in _NP_FLOAT:
+            return None
+        hi = getattr(self, "_host_inputs", None)
+        views = hi if hi is not None else tuple(_host_view(t) for t in (self.x, self.y, self.data))
+        if any(v is None for v in views):
+            return None
+        x_np, y_np, d_np = views
+        extrap = bool(self.strategy.extrapolates)
+        if isinstance(self.strategy, Bilinear):
+            return ("bilinear", x_np, y_np, d_np, extrap)
+        if isinstance(self.strategy, BicubicStrategy) and not any(self._wraps()):
+            # the node grids, solved again on the host from the host inputs
+            grids = bicubic_node_grids(
+                *(torch.tensor(v) for v in views), self.strategy.bc_x, self.strategy.bc_y
+            )
+            return ("bicubic", x_np, y_np, d_np, *(g.numpy() for g in grids), extrap)
+        return None
+
+    def _native_eval(self, x, y):
+        """``(x, y)`` evaluated by the native runtime as numpy, with the
+        eager methods' errors; ``None`` when it is not eligible."""
+        state = self._native_state()
+        if state is None:
+            return None
+        from ..native import eval_bicubic, eval_bilinear
+
+        x_np = state[1]
+        qx = np.asarray(x, dtype=x_np.dtype)
+        qy = np.asarray(y, dtype=x_np.dtype)
+        for name, q in (("x", qx), ("y", qy)):
+            if np.isnan(q).any():
+                if state[-1]:
+                    raise ValueError("failed to convert NaN to an index")
+                raise OutOfBoundsError(f"{name} = nan is not in range")
+        if state[0] == "bilinear":
+            out, rc = eval_bilinear(*state[1:4], qx, qy, state[-1])
+        else:
+            out, rc = eval_bicubic(*state[1:7], qx, qy, state[-1])
+        if rc > 0:
+            raise OutOfBoundsError(f"x = {qx.reshape(-1)[rc - 1]} is not in range")
+        if rc < 0:
+            raise OutOfBoundsError(f"y = {qy.reshape(-1)[-rc - 1]} is not in range")
+        return out
+
+    def _scalar_evaluator(self):
+        """The prebound C scalar evaluator (float64 2-D data only), made
+        once."""
+        fast = getattr(self, "_scalar_eval", None)
+        if fast is None:
+            fast = False
+            state = self._native_state()
+            if state is not None and state[1].dtype == np.float64:
+                from ..native import ScalarEval2D
+
+                grids = state[4:7] if state[0] == "bicubic" else ()
+                fast = ScalarEval2D(*state[1:4], state[-1], *grids)
+            self._scalar_eval = fast
+        return fast or None
+
     def interp_scalar(self, x, y):
-        """Interpolate one point of 2-D data, returning a 0-d tensor
-        (``mod.rs:107-113``)."""
+        """Interpolate one point of 2-D data (``mod.rs:107-113``): a float
+        from the native runtime for floats on float64 data, a numpy scalar
+        for other host queries it serves, else a 0-d tensor."""
         if self.data.ndim != 2:
             raise ShapeError("interp_scalar requires 2-D data; use interp() instead")
+        if _is_host_query(x) and _is_host_query(y):
+            fast = self._scalar_evaluator()
+            if fast is not None and isinstance(x, (int, float)) and isinstance(y, (int, float)):
+                v, err = fast(float(x), float(y))
+                if err == 0:
+                    return v
+                if err == 2:
+                    if self.strategy.extrapolates:
+                        raise ValueError("failed to convert NaN to an index")
+                    raise OutOfBoundsError(f"{'x' if x != x else 'y'} = nan is not in range")
+                if err == 1:
+                    raise OutOfBoundsError(f"x = {x} is not in range")
+                raise OutOfBoundsError(f"y = {y} is not in range")
+            out = self._native_eval(x, y)
+            if out is not None:
+                return out[()]
         return self.interp(x, y)[()]
 
     def interp(self, x, y):
@@ -179,11 +302,28 @@ class Interp2D:
         """``interp`` into a caller-provided buffer (a tensor or a numpy
         array) (``mod.rs:160-167``).  A wrong shape raises ``ValueError``."""
         _check_buffer(buffer, self.data.shape[2:])
+        if _is_host_query(x) and _is_host_query(y):
+            out = self._native_eval(x, y)
+            if out is not None:
+                return _write(buffer, out)
         return _write(buffer, self.interp(x, y))
 
     def interp_array(self, xs, ys):
         """Interpolated values at all points ``(xs, ys)``; output dims
-        ``M + N - 2`` with query dims leading (``mod.rs:175-196``)."""
+        ``M + N - 2`` with query dims leading (``mod.rs:175-196``).  Numpy
+        or list queries on float64 data, up to 1,000,000 values in all, are
+        served by the native runtime and come back as numpy."""
+        if np.shape(xs) != np.shape(ys):
+            raise ValueError(_SHAPES_DIFFER)
+        if (
+            _is_host_query(xs)
+            and _is_host_query(ys)
+            and self.data.dtype == torch.float64
+            and np.size(xs) * self.data[0, 0].numel() <= 1_000_000
+        ):
+            out = self._native_eval(xs, ys)
+            if out is not None:
+                return out
         xs, ys = self._queries(xs, ys)
         self._check_queries(xs.reshape(-1), ys.reshape(-1))
         return self.eval_unchecked(xs, ys)
@@ -192,9 +332,14 @@ class Interp2D:
         """``interp_array`` into a caller-provided buffer (a tensor or a
         numpy array) (``mod.rs:215-285``); the buffer's shape is checked
         first, then the queries'."""
-        xs = _to_tensor(xs, self.x.device)
-        _check_buffer(buffer, self.get_buffer_shape(xs.shape))
-        return _write(buffer, self.interp_array(xs, ys))
+        _check_buffer(buffer, self.get_buffer_shape(np.shape(xs)))
+        if np.shape(xs) != np.shape(ys):
+            raise ValueError(_SHAPES_DIFFER)
+        if _is_host_query(xs) and _is_host_query(ys):
+            out = self._native_eval(xs, ys)
+            if out is not None:
+                return _write(buffer, out)
+        return _write(buffer, self.interp_array(*self._queries(xs, ys)))
 
     def get_buffer_shape(self, query_shape) -> tuple:
         """Query dims ++ data dims[2:] (``mod.rs:310-321``)."""
@@ -248,24 +393,30 @@ class Interp2DBuilder:
 
     def __init__(self, data, device=None):
         self._device = default_device(data, device)
+        self._data_host = _host_copy(data, self._device)
         data = _to_tensor(data, self._device, copy=True)
         self._data = data
         if data.ndim >= 2:
             self._x = torch.arange(data.shape[0], device=data.device).to(data.dtype)
             self._y = torch.arange(data.shape[1], device=data.device).to(data.dtype)
+            self._x_host, self._y_host = (
+                _host_copy(np.arange(m), self._device) for m in data.shape[:2]
+            )
         else:
-            self._x = self._y = None
+            self._x = self._y = self._x_host = self._y_host = None
         self._strategy = Bilinear()
 
     def x(self, x) -> "Interp2DBuilder":
         """Set a custom x axis (strictly monotonic rising, length
         ``data.shape[0]``)."""
+        self._x_host = _host_copy(x, self._device)
         self._x = _to_tensor(x, self._device, copy=True)
         return self
 
     def y(self, y) -> "Interp2DBuilder":
         """Set a custom y axis (strictly monotonic rising, length
         ``data.shape[1]``)."""
+        self._y_host = _host_copy(y, self._device)
         self._y = _to_tensor(y, self._device, copy=True)
         return self
 
@@ -308,4 +459,9 @@ class Interp2DBuilder:
         # one dtype for all three (jnp.result_type in the JAX package)
         ct = torch.promote_types(torch.promote_types(x.dtype, y.dtype), data.dtype)
         x, y, data = x.to(ct), y.to(ct), data.to(ct)
-        return Interp2D(x, y, data, strat.build(x, y, data))
+        interp = Interp2D(x, y, data, strat.build(x, y, data))
+        # host copies for the native runtime of a card interpolator (as in 1-D)
+        views = (self._x_host, self._y_host, self._data_host)
+        if ct in _NP_FLOAT and data.device.type != "cpu" and all(v is not None for v in views):
+            interp._host_inputs = tuple(v.astype(_NP_FLOAT[ct], copy=False) for v in views)
+        return interp

@@ -32,8 +32,8 @@ query's row itself, on a large batch after ordering it by cell
 (``cell_order.order_by_flat_cell``): kernels on the GPU, their plain
 versions on the CPU.  The node layout runs the search kernel K2 on each axis and its tail
 after an ``index_select`` is plain PyTorch, as it is XLA (not Pallas) in
-the JAX package.  Not ported: the TPU's dense-operator build
-(``bicubic.py:79-87``), whose worth on this card is an open question.
+the JAX package.  The node grids' solves are the Thomas kernel K4 on the
+card (``_solve_axis0``): the dense-operator build did not beat it there.
 Integer data raises ``TypeError`` (the spline solve needs a floating dtype).
 """
 
@@ -69,7 +69,11 @@ _AXIS_KINDS = {
 
 def _solve_axis0(x, grid, bc, validate=False):
     """Spline derivative solve along axis 0 with a named boundary kind; the
-    trailing axes are solved as one bank."""
+    trailing axes are solved as one bank (``InterpND``'s per-axis solves
+    come through here too).  On the card this is the Thomas kernel: the
+    dense operator (``cubic._dense_k``) did not beat it in ``chip_smoke.py``'s
+    build-route phase at the per-axis solves of NS3b's ``Bicubic`` and ND2's
+    cubic (``cubic._dense_build_ok`` gives the numbers)."""
     periodic = bc == "periodic"
     if periodic and validate:
         _validate_periodic_data(grid)

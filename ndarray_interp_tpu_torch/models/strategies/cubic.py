@@ -21,7 +21,10 @@ with four boundary-condition families plus per-row/per-side mixing:
 One batched solve builds the whole spline bank: per-row boundaries become
 kind/value arrays selected with ``torch.where``, the diagonals become
 batched, and one Thomas solve (``thomas_solve_fast``: the plain loop on the
-CPU, the Thomas kernel on the GPU) solves every row at once.
+CPU, the Thomas kernel on the GPU) solves every row at once.  On the card a
+wide float32 not-a-knot bank takes the dense-operator build (the build probed
+once on an identity bank, then one matrix product) where ``_dense_build_ok``
+says it measured faster, as the JAX package does on the TPU.
 
 Eval routes, the JAX package's dispatch (``cubic.py:726-888`` there):
 
@@ -427,6 +430,108 @@ def _ab_from_k(x, data, k):
     return c_a, c_b
 
 
+# ---------------------------------------------------------------------------
+# dense-operator build (the wide-bank route on the card)
+# ---------------------------------------------------------------------------
+# For ONE shared knot axis and a uniform boundary family (zero derivative
+# payloads: the named families and every per-axis 2-D/N-D solve) the whole
+# build is LINEAR in the bank: the rhs assembly (cubic_spline.rs:456-471 and
+# each boundary row with payload 0), the tridiagonal solve, the periodic
+# condensed solve with its correction (rhs2 and the correction's denominator
+# depend on x only) and the (a, b) pass.  So the operator is probed once on
+# an identity bank (an (n, n) solve) and applied to the bank as one matrix
+# product.  Results differ from the reference order by rounding only; a CPU
+# tensor never takes this route, so CPU builds stay bit for bit the
+# reference-order loop (cubic_spline.rs:678-721).
+
+
+def _dense_matmul(op, y):
+    """Apply a probed ``(m, n)`` build operator to a ``(n, *trailing)``
+    bank: ``torch.matmul``, as the JAX package's ``dot_general`` at
+    ``Precision.HIGHEST``.  A float32 product runs in float64 and is rounded
+    once: cuBLAS's float64 product never takes TF32, so the result is full
+    float32 (and the same bits) whatever the process-wide TF32 setting
+    (``torch.set_float32_matmul_precision``,
+    ``torch.backends.cuda.matmul.allow_tf32``), and no global flag is
+    touched."""
+    flat = y.reshape(y.shape[0], -1)
+    out = torch.matmul(op.to(torch.float64), flat.to(torch.float64)).to(y.dtype)
+    return out.reshape((op.shape[0],) + tuple(y.shape[1:]))
+
+
+def _probe(x, n, dtype, kind, periodic):
+    """The knot-derivative solve of an identity bank: ``K`` with ``k = K @ y``."""
+    eye = torch.eye(n, dtype=dtype, device=x.device)
+    if periodic:
+        return eye, _solve_periodic_core(x, eye)
+    return eye, _solve_for_k(x, eye, kind, 0.0, kind, 0.0)
+
+
+def _dense_k(x, y, kind, periodic):
+    """The knot-derivative solve as a probed dense operator: ``k = K @ y``."""
+    _, k_op = _probe(x, x.shape[0], y.dtype, kind, periodic)
+    return _dense_matmul(k_op, y)
+
+
+def _dense_ab(x, y, kind, periodic):
+    """The whole build as one probed operator: ``(a; b) = F @ y``, the
+    k-solve composed with ``_ab_from_k`` (linear in ``(k, y)`` too), so the
+    bank is read once and no ``(n, bank)`` intermediate is made."""
+    n = x.shape[0]
+    eye, k_cols = _probe(x, n, y.dtype, kind, periodic)
+    a_cols, b_cols = _ab_from_k(x, eye, k_cols)
+    ab = _dense_matmul(torch.cat([a_cols, b_cols]), y)  # (2(n-1), *trailing)
+    return ab[: n - 1], ab[n - 1 :]
+
+
+def _periodic_ab(x, y):
+    """The periodic build map on the solver (the non-dense route)."""
+    return _ab_from_k(x, y, _solve_periodic_core(x, y))
+
+
+def _uniform_ab(x, y, kind):
+    """The uniform-boundary build map on the solver (the non-dense route)."""
+    return _ab_from_k(x, y, _solve_for_k(x, y, kind, 0.0, kind, 0.0))
+
+
+# the smallest bank, in elements (knots x splines), that takes the dense build
+_DENSE_MIN_ELEMS = 1 << 25
+
+
+def _dense_build_ok(n, trailing_size, y, bc_kind):
+    """Whether a build of ``n`` knots and ``trailing_size`` splines on the
+    tensor ``y`` with the boundary family ``bc_kind`` takes the dense route:
+    a float32 CUDA tensor, the not-a-knot family,
+    ``n <= config.dense_build_max_n`` (64) and a bank of at least
+    ``_DENSE_MIN_ELEMS`` (2^25) values.  A CPU tensor never does.
+
+    The rule covers what ``chip_smoke.py``'s build-route phase measures, the
+    float32 not-a-knot build; float64 banks and the other families keep the
+    Thomas kernel until it measures them.  Its numbers, from one run of the
+    phase (NVIDIA H100 80GB HBM3, 700.00 W; the public build with the dense
+    route forced on and forced off, in turns; host wall, median [min, max] of
+    14 runs, and device busy, ms): the dense build won beyond the spread only
+    at 64 x 1,000,000 (NS5b: 3.18 [3.08, 3.36] against 3.81 [3.70, 5.79];
+    busy 1.60 against 3.24).  It tied at 256 x 262,144 (4.20 [3.77, 4.73]
+    against 4.06 [3.91, 4.56]; busy 2.39 against 3.45) and at 256 x 16,384
+    (1.90 [1.73, 2.19] against 2.07 [1.43, 3.87]), and lost at 64 x 262,144
+    (3.04 against 2.71), 64 x 65,536 (2.61 against 2.45), 512 x 8,192 (2.81
+    against 2.47), 2,048 x 4,096 (4.20 against 2.60) and 10,000 x 64 (10.08
+    against 2.80).  ``_dense_k`` lost in the same run at the per-axis solves
+    of NS3b's ``Bicubic`` (512 x 8,192: 1.68 against 1.48, busy 0.38 against
+    0.28) and ND2's cubic (64 x 4,096: 2.06 against 1.92), so
+    ``bicubic._solve_axis0`` keeps the Thomas kernel."""
+    from ... import config
+
+    return (
+        y.device.type == "cuda"
+        and y.dtype == torch.float32
+        and bc_kind == "not_a_knot"
+        and n <= config.dense_build_max_n
+        and n * trailing_size >= _DENSE_MIN_ELEMS
+    )
+
+
 def _dtype_name(dtype):
     return str(dtype).removeprefix("torch.")
 
@@ -475,14 +580,15 @@ class CubicSpline(Interp1DStrategyBuilder):
     def _calc_coefficients(self, x, data):
         """Knot-derivative solve + per-interval ``a``/``b``
         (``cubic_spline.rs:310-368``).  A multi-dim bank solves as one
-        flattened bank axis and is reshaped back."""
+        flattened bank axis and is reshaped back; a bank on the card takes
+        the dense-operator build where ``_dense_build_ok`` says it pays."""
         bc = self._boundary
         trailing = tuple(data.shape[1:])
         flat = len(trailing) > 1
         y = data.reshape(data.shape[0], -1) if flat else data
         if bc.kind == "periodic":
             _validate_periodic_data(y)
-            k = _solve_periodic_core(x, y)
+            c_a, c_b = _periodic_ab(x, y)
         elif bc.kind == "individual":
             expected = (1,) + trailing
             if tuple(bc.rows.shape) != expected:
@@ -493,7 +599,7 @@ class CubicSpline(Interp1DStrategyBuilder):
             lk, lv, rk, rv = _compile_rows(bc.rows.reshape(trailing))
             if flat:
                 lk, lv, rk, rv = (v.reshape(-1) for v in (lk, lv, rk, rv))
-            k = _solve_for_k(x, y, lk, lv, rk, rv)
+            c_a, c_b = _ab_from_k(x, y, _solve_for_k(x, y, lk, lv, rk, rv))
         elif bc.kind == "individual_arrays":
             arrays = [
                 v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
@@ -509,16 +615,16 @@ class CubicSpline(Interp1DStrategyBuilder):
                     )
             if flat:
                 arrays = [v.reshape(-1) for v in arrays]
-            k = _solve_for_k(x, y, *arrays)
+            c_a, c_b = _ab_from_k(x, y, _solve_for_k(x, y, *arrays))
         else:
             kind = {
                 "not_a_knot": _NOT_A_KNOT,
                 "natural": _SECOND_DERIV,
                 "clamped": _FIRST_DERIV,
             }[bc.kind]
-            k = _solve_for_k(x, y, kind, 0.0, kind, 0.0)
+            dense = _dense_build_ok(x.shape[0], y.shape[1] if y.ndim == 2 else 0, y, bc.kind)
+            c_a, c_b = _dense_ab(x, y, kind, False) if dense else _uniform_ab(x, y, kind)
 
-        c_a, c_b = _ab_from_k(x, y, k)
         if flat:
             c_a = c_a.reshape((c_a.shape[0],) + trailing)
             c_b = c_b.reshape((c_b.shape[0],) + trailing)

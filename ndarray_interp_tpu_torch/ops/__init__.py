@@ -1,4 +1,5 @@
-"""Primitive operations: search, lerp, gather, tridiagonal solve, the
+"""Primitive operations: search, lerp, gather, tridiagonal solve (the
+reference-order loop, the Thomas kernel's wrapper and PCR), the
 double-float pairs (``df``), and the wrappers of the CUDA kernels
 (``eval_kernels``, ``tail2d``, ``bank_eval``, ``bank_tail``, ``bigknots``,
 ``thomas_kernel``, ``eval_kernels_df``, ``eval_kernels_df2d``,
@@ -32,6 +33,7 @@ from .eval_kernels_df2d import (
 )
 from .eval_kernels_df_nd import nd_df_tail, nd_f48_tail
 from .lerp import calc_frac
+from .pcr import pcr_solve
 from .searchsorted import get_lower_index, is_in_range, lower_index_fast
 from .tail2d import (
     bicubic_gathered_eval,
@@ -79,6 +81,7 @@ __all__ = [
     "nd_df_tail",
     "nd_f48_tail",
     "order_by_cell",
+    "pcr_solve",
     "thomas_solve",
     "thomas_solve_fast",
 ]

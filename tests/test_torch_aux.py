@@ -16,6 +16,7 @@ the packages the parity tolerance of the existing twins: float64 within
 1e-12 of the value scale, the step family equal.
 """
 
+import inspect
 import json
 import sys
 import textwrap
@@ -39,6 +40,21 @@ from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D, Linear
 from ndarray_interp_tpu_torch.interp2d import Interp2D
 from ndarray_interp_tpu_torch.interpnd import InterpND
 from ndarray_interp_tpu_torch.utils import checkpoint
+
+
+@pytest.fixture(autouse=True)
+def native_host(request, monkeypatch):
+    """The route of numpy and float queries: the tensor path (on the CPU the
+    kernels' plain versions), and in the cases marked ``BOTH_ROUTES`` also the
+    native host runtime, the default, on the same inputs and tolerances."""
+    on = getattr(request, "param", False)
+    monkeypatch.setattr(tconfig, "use_native_host", on)
+    return on
+
+
+BOTH_ROUTES = pytest.mark.parametrize(
+    "native_host", [False, True], ids=["tensor", "native"], indirect=True
+)
 
 
 def np_of(v):
@@ -141,19 +157,22 @@ def test_aliases_importable():
 
 
 def test_config_flags_exist():
-    """The flags that mean something on the GPU, at the JAX defaults and
-    read at build time.  Not ported (``config.py``'s docstring says why):
-    ``use_fused_kernel`` (the tensor's device picks the kernel),
-    ``use_native_host`` and ``dense_build_max_n`` (ROADMAP Queue 1 items 6
-    and 7), ``jit_const_cap_bytes`` and ``route_hygiene`` (hygiene, item
-    10)."""
+    """The flags that mean something on the GPU, read at build time: the
+    layout caps at the JAX defaults, ``use_native_host`` on by default as in
+    JAX, ``dense_build_max_n`` the card's choice.  Not ported
+    (``config.py``'s docstring says why): ``use_fused_kernel`` (the tensor's
+    device picks the kernel), ``jit_const_cap_bytes`` and ``route_hygiene``
+    (hygiene, item 10)."""
     from ndarray_interp_tpu import config as jconfig
 
     for flag in ("bicubic_pack_max_elems", "interpnd_pack_max_elems"):
         assert isinstance(getattr(tconfig, flag), int)
         assert getattr(tconfig, flag) == getattr(jconfig, flag) == 128 * 1024 * 1024
-    for flag in ("use_fused_kernel", "use_native_host", "dense_build_max_n",
-                 "jit_const_cap_bytes", "route_hygiene"):
+    # the default as the module sets it (this file's fixture turns it off)
+    assert "use_native_host: bool = True" in inspect.getsource(tconfig)
+    assert isinstance(tconfig.use_native_host, bool) and hasattr(jconfig, "use_native_host")
+    assert isinstance(tconfig.dense_build_max_n, int) and hasattr(jconfig, "dense_build_max_n")
+    for flag in ("use_fused_kernel", "jit_const_cap_bytes", "route_hygiene"):
         assert hasattr(jconfig, flag) and not hasattr(tconfig, flag)
         assert flag in tconfig.__doc__
 
@@ -440,6 +459,7 @@ def legacy_bicubic_file(tmp_path, x, y, z):
     return p
 
 
+@BOTH_ROUTES
 def test_legacy_checkpoint_rows_convert(tmp_path):
     """Rows of the older ``(cells, 16r + 4)`` format convert exactly to the
     pre-scaled ``16r`` rows on load, in both packages alike."""
@@ -450,8 +470,8 @@ def test_legacy_checkpoint_rows_convert(tmp_path):
     jback = jcheckpoint.load(p)
     assert back.strategy.rows.shape[1] == 16 * 2
     qx, qy = rng.uniform(x[0], x[-1], 50), rng.uniform(y[0], y[-1], 50)
-    got = back.interp_array(qx, qy).numpy()
-    np.testing.assert_allclose(got, itp.interp_array(qx, qy).numpy(), rtol=1e-12, atol=1e-12)
+    got = np_of(back.interp_array(qx, qy))
+    np.testing.assert_allclose(got, np_of(itp.interp_array(qx, qy)), rtol=1e-12, atol=1e-12)
     equal(back.strategy.rows, np.asarray(jback.strategy.rows))
     assert scaled(got, jback.interp_array(qx, qy)) <= 1e-12
 

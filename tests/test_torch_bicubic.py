@@ -26,6 +26,22 @@ from ndarray_interp_tpu_torch import errors as terr
 from ndarray_interp_tpu_torch.models.strategies import bicubic as tb
 from ndarray_interp_tpu_torch.ops import kernel_wrappers
 
+
+@pytest.fixture(autouse=True)
+def native_host(request, monkeypatch):
+    """The route of numpy and float queries: the tensor path (on the CPU the
+    kernels' plain versions), and in the cases marked ``BOTH_ROUTES`` also the
+    native host runtime, the default, on the same inputs and tolerances."""
+    on = getattr(request, "param", False)
+    monkeypatch.setattr(tconfig, "use_native_host", on)
+    return on
+
+
+BOTH_ROUTES = pytest.mark.parametrize(
+    "native_host", [False, True], ids=["tensor", "native"], indirect=True
+)
+
+
 KINDS = ["not_a_knot", "natural", "clamped", "periodic"]
 _SCIPY_BC = {"not_a_knot": "not-a-knot", "natural": "natural", "clamped": "clamped",
              "periodic": "periodic"}
@@ -130,38 +146,42 @@ def test_periodic_wrap_and_range_check_match_jax():
 
 
 # -- the JAX package's own tests (tests/test_bicubic.py twins) --------------------------------
+@BOTH_ROUTES
 def test_matches_sequential_scipy_oracle():
     x, y, z, rng = fixture()
     t = build("torch", x, y, z)
     qx, qy = rng.uniform(x[0], x[-1], 400), rng.uniform(y[0], y[-1], 400)
-    np.testing.assert_allclose(t.interp_array(qx, qy).numpy(), tensor_oracle(x, y, z, qx, qy),
+    np.testing.assert_allclose(np.asarray(t.interp_array(qx, qy)), tensor_oracle(x, y, z, qx, qy),
                                rtol=1e-10, atol=1e-12)
 
 
+@BOTH_ROUTES
 def test_knot_exactness():
     x, y, z, _ = fixture()
     t = build("torch", x, y, z)
     xi, yi = np.meshgrid(x, y, indexing="ij")
-    np.testing.assert_allclose(t.interp_array(xi.ravel(), yi.ravel()).numpy(), z.ravel(),
+    np.testing.assert_allclose(np.asarray(t.interp_array(xi.ravel(), yi.ravel())), z.ravel(),
                                rtol=1e-12, atol=1e-12)
 
 
+@BOTH_ROUTES
 def test_trailing_dims():
     x, y, z, rng = fixture(trailing=(3,))
     t = build("torch", x, y, z)
     qx, qy = rng.uniform(x[0], x[-1], 50), rng.uniform(y[0], y[-1], 50)
     got = t.interp_array(qx, qy)
     assert tuple(got.shape) == (50, 3)
-    np.testing.assert_allclose(got.numpy(), tensor_oracle(x, y, z, qx, qy),
+    np.testing.assert_allclose(np.asarray(got), tensor_oracle(x, y, z, qx, qy),
                                rtol=1e-10, atol=1e-12)
 
 
+@BOTH_ROUTES
 def test_extrapolation_continues_edge_patch():
     x, y, z, _ = fixture()
     j, t = build("jax", x, y, z), build("torch", x, y, z)
     qx, qy = np.asarray([x[0] - 0.5, x[-1] + 0.5]), np.asarray([y[0] - 0.3, y[-1] + 0.3])
     got = t.interp_array(qx, qy)
-    assert bool(torch.isfinite(got).all())
+    assert np.isfinite(np.asarray(got)).all()
     scaled(got, j.interp_array(qx, qy), 1e-12)
 
 
@@ -181,6 +201,7 @@ def test_min_points_enforced():
     assert isinstance(terr_, terr.NotEnoughDataError) and str(terr_) == str(jerr)
 
 
+@BOTH_ROUTES
 def test_smooth_function_convergence():
     """On a smooth function the bicubic error is orders below bilinear's."""
     x = np.linspace(0, np.pi, 24)
@@ -189,8 +210,8 @@ def test_smooth_function_convergence():
     rng = np.random.default_rng(5)
     qx, qy = rng.uniform(0, np.pi, 500), rng.uniform(0, np.pi, 500)
     truth = np.sin(qx) * np.cos(qy)
-    cubic = build("torch", x, y, z).interp_array(qx, qy).numpy()
-    lin = t2.Interp2D.builder(z, device="cpu").x(x).y(y).build().interp_array(qx, qy).numpy()
+    cubic = np.asarray(build("torch", x, y, z).interp_array(qx, qy))
+    lin = np.asarray(t2.Interp2D.builder(z, device="cpu").x(x).y(y).build().interp_array(qx, qy))
     assert np.abs(cubic - truth).max() < 1e-4
     assert np.abs(cubic - truth).max() < np.abs(lin - truth).max() / 50
 
@@ -198,11 +219,12 @@ def test_smooth_function_convergence():
 @pytest.mark.parametrize("bcx,bcy", [("natural", "natural"), ("clamped", "clamped"),
                                      ("natural", "clamped"), ("clamped", "not_a_knot"),
                                      ("not_a_knot", "natural")])
+@BOTH_ROUTES
 def test_boundaries_match_scipy_oracle(bcx, bcy):
     x, y, z, rng = fixture(seed=len(bcx) * 10 + len(bcy))
     t = build("torch", x, y, z, bc=(bcx, bcy))
     qx, qy = rng.uniform(x[0], x[-1], 300), rng.uniform(y[0], y[-1], 300)
-    np.testing.assert_allclose(t.interp_array(qx, qy).numpy(),
+    np.testing.assert_allclose(np.asarray(t.interp_array(qx, qy)),
                                tensor_oracle(x, y, z, qx, qy, bcx, bcy), rtol=1e-9, atol=1e-11)
 
 
@@ -244,6 +266,7 @@ def test_integer_data_is_refused():
 
 
 # -- layouts -----------------------------------------------------------------------------------
+@BOTH_ROUTES
 def test_node_layout_matches_cell_and_jax(monkeypatch):
     """The port's threshold patched low gives the node layout: its table
     matches the JAX node table, and its values the cell layout's and the
@@ -262,18 +285,19 @@ def test_node_layout_matches_cell_and_jax(monkeypatch):
     assert node.strategy.rows.numel() < cell.strategy.rows.numel() / 2.5
     scaled(node.strategy.rows, jnode.strategy.rows, 1e-12)
     got = node.interp_array(qx, qy)
-    np.testing.assert_allclose(got.numpy(), cell.interp_array(qx, qy).numpy(),
+    np.testing.assert_allclose(np.asarray(got), np.asarray(cell.interp_array(qx, qy)),
                                rtol=1e-9, atol=1e-11)
     scaled(got, jnode.interp_array(qx, qy), 1e-12)
 
 
+@BOTH_ROUTES
 def test_node_layout_matches_scipy(monkeypatch):
     monkeypatch.setattr(tconfig, "bicubic_pack_max_elems", 10)
     x, y, z, rng = fixture(seed=22)
     t = build("torch", x, y, z)
     assert t.strategy.layout == "node"
     qx, qy = rng.uniform(x[0], x[-1], 200), rng.uniform(y[0], y[-1], 200)
-    np.testing.assert_allclose(t.interp_array(qx, qy).numpy(), tensor_oracle(x, y, z, qx, qy),
+    np.testing.assert_allclose(np.asarray(t.interp_array(qx, qy)), tensor_oracle(x, y, z, qx, qy),
                                rtol=1e-10, atol=1e-12)
 
 

@@ -32,10 +32,26 @@ import ndarray_interp_tpu_torch.interp2d as t2
 import ndarray_interp_tpu_torch.serving as ts
 from ndarray_interp_tpu.ops import df as jdf
 from ndarray_interp_tpu.ops import pallas_eval_df as jp
+from ndarray_interp_tpu_torch import config as tconfig
 from ndarray_interp_tpu_torch.interop import interp2d_from_numpy
 from ndarray_interp_tpu_torch.ops import df as tdf
 from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as tp
 from ndarray_interp_tpu_torch.ops import kernel_wrappers
+
+
+@pytest.fixture(autouse=True)
+def native_host(request, monkeypatch):
+    """The route of numpy and float queries: the tensor path (on the CPU the
+    kernels' plain versions), and in the cases marked ``BOTH_ROUTES`` also the
+    native host runtime, the default, on the same inputs and tolerances."""
+    on = getattr(request, "param", False)
+    monkeypatch.setattr(tconfig, "use_native_host", on)
+    return on
+
+
+BOTH_ROUTES = pytest.mark.parametrize(
+    "native_host", [False, True], ids=["tensor", "native"], indirect=True
+)
 
 
 def jpair(v):
@@ -658,6 +674,7 @@ def test_node_tail_matches_jax_node_tail(r):
 
 
 @pytest.mark.parametrize("trailing", [(), (3,)])
+@BOTH_ROUTES
 def test_node_route_matches_jax_and_the_f64_strategy(trailing, monkeypatch):
     """TestDFBicubicNodeRoute::test_route_matches_f64_strategy: in range,
     and extrapolating a quarter span past x (test_extrapolation_matches_strategy)."""
@@ -678,7 +695,7 @@ def test_node_route_matches_jax_and_the_f64_strategy(trailing, monkeypatch):
     assert scaled_err(got, want.reshape(400, r)) <= 4e-12
     strategy = np.asarray(j.interp_array(qx, qy)).reshape(400, r)
     assert scaled_err(got, strategy) < 1e-9
-    assert scaled_err(got, t.interp_array(qx, qy).numpy().reshape(400, r)) < 1e-9
+    assert scaled_err(got, np.asarray(t.interp_array(qx, qy)).reshape(400, r)) < 1e-9
     with pytest.raises(ValueError, match="columns"):
         tp.gathered_bicubic_nodes_eval_df(*tpair(x), *tpair(y), tp.pack_bicubic_nodes_df(
             *tpair(rows64)), *tpair(qx), *tpair(qy), r=r + 1)

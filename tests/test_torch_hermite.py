@@ -31,6 +31,23 @@ import ndarray_interp_tpu_torch.interp1d as t1
 import ndarray_interp_tpu_torch.models.strategies.cubic as t_cubic
 from ndarray_interp_tpu_torch.interop import interp1d_from_numpy
 from ndarray_interp_tpu_torch.models.strategies.cubic import CubicSplineStrategy
+from ndarray_interp_tpu_torch import config as tconfig
+
+
+@pytest.fixture(autouse=True)
+def native_host(request, monkeypatch):
+    """The route of numpy and float queries: the tensor path (on the CPU the
+    kernels' plain versions), and in the cases marked ``BOTH_ROUTES`` also the
+    native host runtime, the default, on the same inputs and tolerances."""
+    on = getattr(request, "param", False)
+    monkeypatch.setattr(tconfig, "use_native_host", on)
+    return on
+
+
+BOTH_ROUTES = pytest.mark.parametrize(
+    "native_host", [False, True], ids=["tensor", "native"], indirect=True
+)
+
 
 NAMES = ("Akima", "Makima", "Pchip")
 TOL = {np.float32: (2e-5, 1e-6), np.float64: (1e-12, 1e-12)}
@@ -88,27 +105,30 @@ def test_coefficients_match_jax(name, bank, dtype):
 
 
 @pytest.mark.parametrize("name", NAMES)
+@BOTH_ROUTES
 def test_matches_scipy(name):
     x, y, q = case(seed={"Akima": 5, "Makima": 9, "Pchip": 6}[name])
     itp = build("torch", name, x, y)
-    np.testing.assert_allclose(itp.interp_array(q).numpy(), scipy_of(name, x, y)(q), atol=1e-13)
+    np.testing.assert_allclose(np.asarray(itp.interp_array(q)), scipy_of(name, x, y)(q), atol=1e-13)
 
 
 @pytest.mark.parametrize("name", NAMES)
+@BOTH_ROUTES
 def test_bank_matches_scipy_per_column(name):
     x, y, q = case(bank=5, seed=10)
-    got = build("torch", name, x, y).interp_array(q).numpy()
+    got = np.asarray(build("torch", name, x, y).interp_array(q))
     ref = np.stack([scipy_of(name, x, y[:, j])(q) for j in range(5)], -1)
     np.testing.assert_allclose(got, ref, atol=1e-13)
 
 
 @pytest.mark.parametrize("name", NAMES)
+@BOTH_ROUTES
 def test_extrapolate_and_oob(name):
     x, y, _ = case(seed=11)
     with pytest.raises(t_err.OutOfBoundsError):
         build("torch", name, x, y).interp(x[0] - 1.0)
     q = np.array([x[0] - 0.5, x[-1] + 0.5])
-    got = build("torch", name, x, y, extrapolate=True).interp_array(q).numpy()
+    got = np.asarray(build("torch", name, x, y, extrapolate=True).interp_array(q))
     np.testing.assert_allclose(got, scipy_of(name, x, y, extrapolate=True)(q), atol=1e-11)
     # without extrapolation __call__ masks out-of-range queries to NaN
     assert np.isnan(build("torch", name, x, y)(torch.as_tensor(q)).numpy()).all()
@@ -136,6 +156,7 @@ def test_min_points_and_dtype_errors_match_jax(name):
     assert str(t_info.value) == str(j_info.value)
 
 
+@BOTH_ROUTES
 def test_makima_differs_from_akima_on_flat_ties():
     """``tests/test_strategies.py:106-131``: on a flat run, classic Akima's
     0/0 tie takes the average slope, makima's weights pull toward the flat
@@ -143,19 +164,20 @@ def test_makima_differs_from_akima_on_flat_ties():
     x = np.arange(10.0)
     y = np.array([0.0, 0, 0, 0, 1, 1, 2, 4, 8, 16])
     q = np.linspace(0, 9, 91)
-    mk = build("torch", "Makima", x, y).interp_array(q).numpy()
-    ak = build("torch", "Akima", x, y).interp_array(q).numpy()
+    mk = np.asarray(build("torch", "Makima", x, y).interp_array(q))
+    ak = np.asarray(build("torch", "Akima", x, y).interp_array(q))
     np.testing.assert_allclose(mk, scipy_of("Makima", x, y)(q), atol=1e-13)
     np.testing.assert_allclose(ak, scipy_of("Akima", x, y)(q), atol=1e-13)
     assert np.abs(mk - ak).max() > 1e-3
 
 
+@BOTH_ROUTES
 def test_pchip_preserves_monotonicity():
     rng = np.random.default_rng(9)
     x = np.sort(rng.uniform(0, 10, 25))
     y = np.cumsum(rng.uniform(0, 1, 25))
     q = np.linspace(x[0], x[-1], 500)
-    r = build("torch", "Pchip", x, y).interp_array(q).numpy()
+    r = np.asarray(build("torch", "Pchip", x, y).interp_array(q))
     assert (np.diff(r) >= -1e-12).all()
     np.testing.assert_allclose(r, si.PchipInterpolator(x, y)(q), atol=1e-13)
 

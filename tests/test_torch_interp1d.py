@@ -28,6 +28,23 @@ import ndarray_interp_tpu_torch.interp1d as t1
 import ndarray_interp_tpu_torch.interp1d.cubic_spline as t_cs
 from ndarray_interp_tpu_torch.interop import interp1d_from_numpy
 from ndarray_interp_tpu_torch.ops import kernel_wrappers
+from ndarray_interp_tpu_torch import config as tconfig
+
+
+@pytest.fixture(autouse=True)
+def native_host(request, monkeypatch):
+    """The route of numpy and float queries: the tensor path (on the CPU the
+    kernels' plain versions), and in the cases marked ``BOTH_ROUTES`` also the
+    native host runtime, the default, on the same inputs and tolerances."""
+    on = getattr(request, "param", False)
+    monkeypatch.setattr(tconfig, "use_native_host", on)
+    return on
+
+
+BOTH_ROUTES = pytest.mark.parametrize(
+    "native_host", [False, True], ids=["tensor", "native"], indirect=True
+)
+
 
 PKG = {"jax": (j1, j_cs, jnp.asarray), "torch": (t1, t_cs, torch.as_tensor)}
 TOL = {np.float32: (2e-5, 1e-6), np.float64: (1e-12, 1e-12)}
@@ -211,14 +228,15 @@ def test_integer_linear_matches_jax(q):
 
 
 # -- eager API -------------------------------------------------------------------
+@BOTH_ROUTES
 def test_interp_family_and_buffers():
     x, data = case("not_a_knot", (), np.float64)
     j = build("jax", "not_a_knot", x, data)
     t = build("torch", "not_a_knot", x, data)
     s = t.interp_scalar(3.7)
-    assert s.ndim == 0
-    np.testing.assert_allclose(s.item(), float(j.interp_scalar(3.7)), rtol=1e-12)
-    np.testing.assert_allclose(t.interp(3.7).item(), float(np.asarray(j.interp(3.7))), rtol=1e-12)
+    assert np.ndim(s) == 0
+    np.testing.assert_allclose(float(s), float(j.interp_scalar(3.7)), rtol=1e-12)
+    np.testing.assert_allclose(float(t.interp(3.7)), float(np.asarray(j.interp(3.7))), rtol=1e-12)
 
     xb, bank = case("not_a_knot", (2, 3), np.float64)
     jb = build("jax", "not_a_knot", xb, bank)

@@ -26,6 +26,23 @@ from ndarray_interp_tpu.errors import OutOfBoundsError as JOOB
 from ndarray_interp_tpu_torch import errors as terr
 from ndarray_interp_tpu_torch.interop import interp2d_from_numpy
 from ndarray_interp_tpu_torch.ops import kernel_wrappers
+from ndarray_interp_tpu_torch import config as tconfig
+
+
+@pytest.fixture(autouse=True)
+def native_host(request, monkeypatch):
+    """The route of numpy and float queries: the tensor path (on the CPU the
+    kernels' plain versions), and in the cases marked ``BOTH_ROUTES`` also the
+    native host runtime, the default, on the same inputs and tolerances."""
+    on = getattr(request, "param", False)
+    monkeypatch.setattr(tconfig, "use_native_host", on)
+    return on
+
+
+BOTH_ROUTES = pytest.mark.parametrize(
+    "native_host", [False, True], ids=["tensor", "native"], indirect=True
+)
+
 
 TOL = {np.float32: dict(rtol=2e-5, atol=1e-6), np.float64: dict(rtol=1e-12, atol=1e-12)}
 
@@ -140,14 +157,16 @@ def data_f64():
     return data_i64().astype(np.float64)
 
 
+@BOTH_ROUTES
 def test_crate_doctest_2d():
     data = np.array([[1.0, 2.0, 2.5], [3.0, 4.0, 3.5]])
     j, t = both(data)
-    assert t.interp_scalar(0.0, 0.5).item() == 1.5 == float(j.interp_scalar(0.0, 0.5))
+    assert float(t.interp_scalar(0.0, 0.5)) == 1.5 == float(j.interp_scalar(0.0, 0.5))
     got = t.interp_array(np.array([0.0, 1.0]), np.array([0.5, 2.0]))
-    np.testing.assert_array_equal(got.numpy(), [1.5, 3.5])
+    np.testing.assert_array_equal(np.asarray(got), [1.5, 3.5])
 
 
+@BOTH_ROUTES
 def test_crate_doctest_2d_multidim():
     data = np.array([
         [[1.0, -1.0], [2.0, -2.0], [3.0, -3.0]],
@@ -156,14 +175,15 @@ def test_crate_doctest_2d_multidim():
         [[7.5, -7.5], [8.5, -8.5], [9.5, -9.5]],
     ])
     t = build("torch", data, [1.0, 2.0, 3.0, 4.0], [1.0, 2.0, 3.0])
-    np.testing.assert_array_equal(t.interp(1.5, 2.0).numpy(), [3.5, -3.5])
+    np.testing.assert_array_equal(np.asarray(t.interp(1.5, 2.0)), [3.5, -3.5])
     np.testing.assert_array_equal(
-        t.interp_array(np.array([1.5, 1.5]), np.array([2.0, 2.5])).numpy(),
+        np.asarray(t.interp_array(np.array([1.5, 1.5]), np.array([2.0, 2.5]))),
         [[3.5, -3.5], [4.0, -4.0]],
     )
 
 
 @pytest.mark.parametrize("axes", ["none", "x", "y"])
+@BOTH_ROUTES
 def test_corners_only(axes):
     """tests/interp2d.rs:26-60: integer data with the default axes or a
     custom x, float data with a custom y; the corners come back exactly."""
@@ -176,7 +196,7 @@ def test_corners_only(axes):
         pts = [((x0, 0), 1), ((x0 + 2, 3), 12), ((x0 + 2, 0), 9), ((x0, 3), 4)]
     for (qx, qy), want in pts:
         got = t.interp_scalar(qx, qy)
-        assert got.ndim == 0 and got.item() == want
+        assert np.ndim(got) == 0 and float(got) == want
 
 
 def test_integer_bilinear_matches_jax():
@@ -195,6 +215,7 @@ def test_extrapolate_errors(q):
     same_error(lambda: j.interp(*q), lambda: t.interp(*q))
 
 
+@BOTH_ROUTES
 def test_interpolate_array_meshgrid():
     """tests/interp2d.rs:84-238: a plane, where bilinear is exact."""
     data = np.linspace(0.0, 8.0, 9).reshape(3, 3)
@@ -202,22 +223,23 @@ def test_interpolate_array_meshgrid():
     n = 11
     qx = np.repeat(np.linspace(1.0, 3.0, n), n).reshape(n, n)
     qy = np.tile(np.linspace(4.0, 6.0, n), n).reshape(n, n)
-    res = t.interp_array(qx, qy).numpy()
+    res = np.asarray(t.interp_array(qx, qy))
     np.testing.assert_allclose(res, 3.0 * (qx - 1.0) + (qy - 4.0), atol=4.5e-15)
     assert abs(res[0, 0]) < 1e-15 and abs(res[10, 10] - 8.0) < 1e-14
 
 
+@BOTH_ROUTES
 def test_interp_nd_data():
     data = np.array([
         [[[1.0, 10.0], [-1.0, -10.0]], [[2.0, 20.0], [-2.0, -20.0]]],
         [[[3.0, 30.0], [-3.0, -30.0]], [[5.0, 50.0], [-5.0, -50.0]]],
     ])
     t = t2.Interp2DBuilder(data, device="cpu").build()
-    np.testing.assert_allclose(t.interp(0.0, 0.5).numpy(), [[1.5, 15.0], [-1.5, -15.0]],
+    np.testing.assert_allclose(np.asarray(t.interp(0.0, 0.5)), [[1.5, 15.0], [-1.5, -15.0]],
                                atol=1e-15)
     expect = [[[1.5, 15.0], [-1.5, -15.0]], [[3.5, 35.0], [-3.5, -35.0]]]
     got = t.interp_array(np.array([0.0, 0.5]), np.array([0.5, 1.0]))
-    np.testing.assert_allclose(got.numpy(), expect, atol=1e-15)
+    np.testing.assert_allclose(np.asarray(got), expect, atol=1e-15)
 
 
 def test_interp_array_with_unmatched_axis():
@@ -278,29 +300,34 @@ def rand_arr(shape, seed=64):
 
 
 @pytest.mark.parametrize("ndim", [2, 3, 4, 5, 6, 7, 8])
+@BOTH_ROUTES
 def test_dim_sweep(ndim):
     """src/interp2d/mod.rs:541-576, against the JAX values."""
     j, t = both(rand_arr((4,) * ndim))
-    res = t.interp(2.2, 2.2)
+    res = np.asarray(t.interp(2.2, 2.2))
     assert res.ndim == ndim - 2
-    np.testing.assert_allclose(res.numpy(), np.asarray(j.interp(2.2, 2.2)), atol=1e-15)
+    np.testing.assert_allclose(res, np.asarray(j.interp(2.2, 2.2)), atol=1e-15)
     buf = np.zeros(tuple(res.shape))
     t.interp_into(2.2, 2.2, buf)
-    np.testing.assert_allclose(buf, res.numpy(), atol=2.3e-16)
+    np.testing.assert_allclose(buf, res, atol=2.3e-16)
     xq = np.array([[0.5, 1.0], [1.5, 2.0]])
     yq = np.array([[1.5, 2.0], [2.5, 3.0]])
-    res = t.interp_array(xq, yq)
+    res = np.asarray(t.interp_array(xq, yq))
     assert res.ndim == ndim - 2 + xq.ndim
-    np.testing.assert_allclose(res.numpy(), np.asarray(j.interp_array(xq, yq)), atol=1e-15)
+    np.testing.assert_allclose(res, np.asarray(j.interp_array(xq, yq)), atol=1e-15)
     buf = torch.zeros(tuple(res.shape), dtype=torch.float64)
     assert t.interp_array_into(xq, yq, buf) is buf
-    np.testing.assert_allclose(buf.numpy(), res.numpy(), atol=2.3e-16)
+    np.testing.assert_allclose(buf.numpy(), res, atol=2.3e-16)
 
 
-def test_interp2d_2d_scalar_type():
+@BOTH_ROUTES
+def test_interp2d_2d_scalar_type(native_host):
     t = build("torch", rand_arr((4, 4)))
     out = t.interp_scalar(2.2, 2.2)
-    assert isinstance(out, torch.Tensor) and out.shape == ()
+    if native_host:  # float64 data on the native runtime: a float, as in JAX
+        assert isinstance(out, float)
+    else:
+        assert isinstance(out, torch.Tensor) and out.shape == ()
     with pytest.raises(terr.ShapeError, match="interp_scalar requires 2-D data"):
         build("torch", rand_arr((4, 4, 2))).interp_scalar(1.0, 1.0)
 

@@ -39,6 +39,21 @@ from ndarray_interp_tpu_torch.interpnd import InterpND, InterpNDBuilder
 from ndarray_interp_tpu_torch.ops import kernel_wrappers
 
 
+@pytest.fixture(autouse=True)
+def native_host(request, monkeypatch):
+    """The route of numpy and float queries: the tensor path (on the CPU the
+    kernels' plain versions), and in the cases marked ``BOTH_ROUTES`` also the
+    native host runtime, the default, on the same inputs and tolerances."""
+    on = getattr(request, "param", False)
+    monkeypatch.setattr(tconfig, "use_native_host", on)
+    return on
+
+
+BOTH_ROUTES = pytest.mark.parametrize(
+    "native_host", [False, True], ids=["tensor", "native"], indirect=True
+)
+
+
 def grid_case(k, trailing=(), seed=0, sizes=None):
     rng = np.random.default_rng(seed)
     sizes = sizes or [5, 4, 6, 3, 4][:k]
@@ -113,6 +128,7 @@ def test_scipy_oracle_trailing_dims(k):
     assert scaled(got, si.RegularGridInterpolator(axes, data)(np.stack(qs, axis=-1))) <= 1e-12
 
 
+@BOTH_ROUTES
 def test_matches_interp2d_bilinear():
     from ndarray_interp_tpu_torch.interp2d import Interp2D
 
@@ -120,7 +136,7 @@ def test_matches_interp2d_bilinear():
     _, nd = both(data, axes)
     i2 = Interp2D.builder(data, device="cpu").x(axes[0]).y(axes[1]).build()
     xs, ys = queries(axes, rng, n=32)
-    np.testing.assert_allclose(nd.interp_array(xs, ys).numpy(), i2.interp_array(xs, ys).numpy(),
+    np.testing.assert_allclose(nd.interp_array(xs, ys).numpy(), np.asarray(i2.interp_array(xs, ys)),
                                rtol=0, atol=1e-13)
 
 
@@ -325,6 +341,7 @@ def test_cubic_k1_matches_scipy(bc):
     assert scaled(t.interp_array(q), si.CubicSpline(x, y, bc_type=BC_SCIPY[bc])(q)) <= 1e-12
 
 
+@BOTH_ROUTES
 def test_cubic_k2_matches_bicubic():
     from ndarray_interp_tpu_torch.interp2d import Bicubic, Interp2D
 
@@ -334,7 +351,7 @@ def test_cubic_k2_matches_bicubic():
     _, nd = both(data, axes, "cubic")
     b2 = Interp2D.builder(data, device="cpu").x(axes[0]).y(axes[1]).strategy(Bicubic()).build()
     qx, qy = [rng.uniform(a[0], a[-1], 60) for a in axes]
-    assert scaled(nd.interp_array(qx, qy), b2.interp_array(qx, qy).numpy()) <= 1e-12
+    assert scaled(nd.interp_array(qx, qy), np.asarray(b2.interp_array(qx, qy))) <= 1e-12
 
 
 @pytest.mark.parametrize("bcs", [("not_a_knot",) * 3, ("natural",) * 3,

@@ -2069,3 +2069,140 @@ def test_cell_route_wrappers_check_their_inputs(dev):
     with pytest.raises(TypeError, match="torch.int64"):
         ek.fused_cell_index(torch.arange(9, device=dev), torch.arange(9, device=dev),
                             torch.arange(5, device=dev), torch.arange(5, device=dev))
+
+
+# -- the single-device remainder: build routes, native runtime, eval_checked ----------
+@pytest.mark.parametrize("n, bank", [(64, 4096), (256, 1024), (512, 600), (2048, 64)])
+def test_build_routes_match_the_thomas_kernel(dev, n, bank):
+    """PCR and the dense build on the card hold the Thomas kernel's ``a, b``
+    at the JAX tolerances (f32: 2e-5 and 1e-5 of the scale), and the
+    builder takes the route the rules give."""
+    from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
+    from ndarray_interp_tpu_torch.models.strategies.cubic import (
+        _NOT_A_KNOT,
+        _ab_from_k,
+        _assemble_system,
+        _dense_ab,
+        _dense_build_ok,
+    )
+    from ndarray_interp_tpu_torch.ops.pcr import pcr_solve
+    from ndarray_interp_tpu_torch.ops.thomas_kernel import _ThomasKernel
+
+    g = torch.Generator().manual_seed(n)
+    x = torch.cumsum(torch.rand(n, generator=g) + 0.5, 0).to(dev)
+    y = torch.randn(n, bank, generator=g).to(dev)
+    nak = (_NOT_A_KNOT, 0.0, _NOT_A_KNOT, 0.0)
+    a4, b4 = _ab_from_k(x, y, _ThomasKernel.apply(*_assemble_system(x, y, *nak)))
+    scale = float(a4.abs().max())
+    for (a, b), tol in ((_ab_from_k(x, y, pcr_solve(*_assemble_system(x, y, *nak))), 2e-5),
+                        (_dense_ab(x, y, _NOT_A_KNOT, False), 1e-5)):
+        assert float((a - a4).abs().max()) / scale <= tol
+        assert float((b - b4).abs().max()) / scale <= tol
+    itp = Interp1D.builder(y).x(x).strategy(CubicSpline()).build()
+    want = _dense_ab(x, y, _NOT_A_KNOT, False) if _dense_build_ok(n, bank, y, "not_a_knot") else (a4, b4)
+    assert float((itp.strategy.a - want[0]).abs().max()) / scale <= 1e-5
+
+
+def test_dense_product_ignores_tf32(dev):
+    """The dense build gives the same bits with TF32 enabled process-wide."""
+    from ndarray_interp_tpu_torch.models.strategies.cubic import _NOT_A_KNOT, _dense_ab
+
+    x = torch.linspace(0.0, 1.0, 64, device=dev)
+    y = torch.randn(64, 8192, device=dev)
+    before = torch.get_float32_matmul_precision()
+    a0, b0 = _dense_ab(x, y, _NOT_A_KNOT, False)
+    torch.set_float32_matmul_precision("high")
+    try:
+        a1, b1 = _dense_ab(x, y, _NOT_A_KNOT, False)
+    finally:
+        torch.set_float32_matmul_precision(before)
+    assert torch.equal(a0, a1) and torch.equal(b0, b1)
+
+
+def test_native_route_on_a_card_interpolator(dev):
+    """An interpolator built on the card from numpy serves float and numpy
+    queries on the host (no launch) and agrees with the card's route."""
+    from ndarray_interp_tpu_torch import config, native
+    from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
+    from ndarray_interp_tpu_torch.interp2d import Bicubic, Interp2D
+    from ndarray_interp_tpu_torch.ops import kernel_wrappers
+
+    assert native.HAVE_NATIVE
+    rng = np.random.default_rng(0)
+    x, v = np.sort(rng.uniform(0, 10, 64)), rng.normal(size=64)
+    z = rng.normal(size=(20, 16))
+    itps = (Interp1D.builder(v, device=dev).x(x).strategy(CubicSpline().extrapolate(True)).build(),
+            Interp2D.builder(z, device=dev).strategy(Bicubic()).build())
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    host = (itps[0].interp_scalar(3.3), itps[1].interp_scalar(4.5, 7.25),
+            itps[0].interp_array(np.array([1.0, 2.0])))
+    assert isinstance(host[0], float) and isinstance(host[1], float)
+    assert isinstance(host[2], np.ndarray)
+    assert not any(w.launches for w in wrappers.values())
+    card = (float(itps[0](torch.tensor(3.3, dtype=torch.float64, device=dev))),
+            float(itps[1](torch.tensor(4.5, dtype=torch.float64, device=dev),
+                          torch.tensor(7.25, dtype=torch.float64, device=dev))))
+    assert abs(host[0] - card[0]) <= 1e-12 * np.abs(v).max()
+    assert abs(host[1] - card[1]) <= 1e-10 * np.abs(z).max()
+    config_before = config.use_native_host
+    try:
+        config.use_native_host = False
+        off = Interp1D.builder(v, device=dev).x(x).strategy(CubicSpline().extrapolate(True)).build()
+        assert off.interp_scalar(3.3).device.type == "cuda"
+    finally:
+        config.use_native_host = config_before
+
+
+def test_card_interpolator_host_copies_ignore_later_writes(dev):
+    """A card interpolator built from numpy keeps its own host copies: a
+    write to the caller's arrays after the build changes neither the native
+    route nor the card's answers, and the two agree."""
+    from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
+    from ndarray_interp_tpu_torch.interp2d import Bicubic, Interp2D
+
+    rng = np.random.default_rng(3)
+    x, v = np.sort(rng.uniform(0, 10, 64)), rng.normal(size=64)
+    z = rng.normal(size=(20, 16))
+    itp1 = Interp1D.builder(v, device=dev).x(x).strategy(CubicSpline()).build()
+    itp2 = Interp2D.builder(z, device=dev).strategy(Bicubic()).build()
+    scale1, scale2 = np.abs(v).max(), np.abs(z).max()
+    v[:], x[:], z[:] = 0.0, np.arange(64.0), 0.0
+    q = torch.tensor(3.3, dtype=torch.float64, device=dev)
+    qx, qy = (torch.tensor(t, dtype=torch.float64, device=dev) for t in (4.5, 7.25))
+    assert abs(itp1.interp_scalar(3.3) - float(itp1(q))) <= 1e-12 * scale1
+    assert abs(itp2.interp_scalar(4.5, 7.25) - float(itp2(qx, qy))) <= 1e-10 * scale2
+
+
+def test_eval_checked_under_graph_capture(dev):
+    """``eval_checked`` captured in a CUDA graph: a replay in range does not
+    throw, one with a query out of range does; the values are
+    ``eval_unchecked``'s bit for bit."""
+    from ndarray_interp_tpu_torch import OutOfBoundsError
+    from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
+
+    x = torch.linspace(0.0, 10.0, 128, device=dev)
+    itp = Interp1D.builder(torch.sin(x)).x(x).strategy(CubicSpline()).build()
+    inside = torch.linspace(0.5, 9.5, 4096, device=dev)
+    outside = inside.clone()
+    outside[7] = 10.5
+    static = inside.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        itp.eval_checked(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        err, vals = itp.eval_checked(static)
+    for batch, raises in ((inside, False), (outside, True)):
+        static.copy_(batch)
+        graph.replay()
+        torch.cuda.synchronize()
+        if raises:
+            with pytest.raises(OutOfBoundsError, match="a query point is not in range"):
+                err.throw()
+        else:
+            err.throw()
+        assert torch.equal(vals, itp.eval_unchecked(batch))
