@@ -4699,10 +4699,103 @@ def scaleout_rank(url, world, rank, outdir):
         res["wall_ms"][f"d_{name}"] = (time.perf_counter() - t0) * 1e3
         res["digests"][f"d_{name}"] = digest(out)
         res["bytes"][f"d_{name}"] = ev.table_bytes_per_device()
+    res["dtensor"] = dtensor_cases(dev, mesh)
     res["launches"] = {kid: w.launches for kid, w in wrappers.items()}
     with open(Path(outdir) / f"rank{rank}.json", "w") as f:
         json.dump(res, f)
     dist.destroy_process_group()
+
+
+NQ_DF_BANK = 1 << 20  # NS2c's queries
+
+
+def dtensor_cases(dev, mesh2):
+    """The kernels' placement rules (``ops/partition.py``) on this rank of
+    the gloo world: NS1's ``itp(q)`` on a query DTensor ``Shard(0)`` over a
+    1-D mesh of the world (K1 on the local shard); the bank eval (10,000 x
+    64 at 262,144 queries: K2's ``(idx, t)``, then K5 by
+    ``sharded_banked_eval``) on the (query 2, bank 2) mesh, tables
+    ``Shard(1)`` on ``bank``; the DF bank route at NS2c's 10,240 x 64 and
+    2^20 queries (``sharded_df_banked_packed``: K7, K8) with its queries
+    ``Shard(0)`` over the 1-D mesh.  Each case: the collectives issued while
+    the rule ran (``CommDebugMode``), whether each output's local shard
+    equals the unsharded call's slice bit for bit, its placements and the
+    host wall of the sharded call."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
+    from ndarray_interp_tpu_torch.ops import banked_eval, fused_index_frac
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df as edf
+    from ndarray_interp_tpu_torch.ops import partition as part
+    from ndarray_interp_tpu_torch.ops.df import df_from_f64
+    from ndarray_interp_tpu_torch.parallel import make_mesh
+    from ndarray_interp_tpu_torch.utils.mesh import chunk
+
+    mesh1 = make_mesh(axis_names=("query",))
+
+    def cut(t, mesh, placements):
+        for i, p in enumerate(placements):
+            if isinstance(p, Shard):
+                sl = chunk(t.shape[p.dim], mesh.size(i), mesh.get_local_rank(i))
+                t = t[(slice(None),) * p.dim + (sl,)]
+        return t
+
+    def dt(t, mesh, placements):
+        return DTensor.from_local(cut(t, mesh, placements), mesh, placements, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+
+    def run(rule, whole, mesh):
+        torch.cuda.synchronize()
+        with CommDebugMode() as comm:
+            t0 = time.perf_counter()
+            out = rule()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        outs, wholes = (out, whole) if isinstance(out, tuple) else ((out,), (whole,))
+        return {"comms": comm.get_total_counts(), "wall_ms": wall,
+                "placements": [str(o.placements) for o in outs],
+                "same": all(bit_compare(o.to_local(), cut(w, mesh, o.placements))[0]
+                            for o, w in zip(outs, wholes))}
+
+    got = {}
+    rng = np.random.default_rng(42)
+    kn = torch.as_tensor(np.linspace(0.0, 100.0, 2048).astype(np.float32), device=dev)
+    vals = torch.as_tensor(rng.normal(size=2048).astype(np.float32), device=dev)
+    q = torch.as_tensor(rng.uniform(-1.0, 101.0, 1_000_000).astype(np.float32), device=dev)
+    itp = Interp1D.builder(vals).x(kn).strategy(CubicSpline().extrapolate(True)).build()
+    qs = dt(q, mesh1, [Shard(0)])
+    itp(qs)  # warm
+    got["NS1 itp(q) Shard(0)"] = run(lambda: itp(qs), itp(q), mesh1)
+    del itp, q, qs
+
+    x = torch.as_tensor(np.linspace(0.0, 1.0, 10_000).astype(np.float32), device=dev)
+    bank = torch.as_tensor(rng.normal(size=(10_000, 64)).astype(np.float32), device=dev)
+    s = CubicSpline().extrapolate(True).build(x, bank)
+    q = torch.as_tensor(rng.uniform(0.0, 1.0, 262_144).astype(np.float32), device=dev)
+    idx, t = fused_index_frac(x, q)
+    tb, qp = [Replicate(), Shard(1)], [Shard(0), Replicate()]
+    args = [dt(v, mesh2, tb) for v in (bank, s.a, s.b)] + [dt(v, mesh2, qp) for v in (idx, t)]
+    rule = part.sharded_banked_eval()
+    rule(*args)
+    got["bank eval K5 (query 2, bank 2)"] = run(lambda: rule(*args), banked_eval(bank, s.a, s.b,
+                                                                                 idx, t), mesh2)
+    del bank, s, q, idx, t, args
+
+    x64 = torch.as_tensor(np.linspace(0.0, 1.0, 10_240), device=dev)
+    b64 = torch.as_tensor(rng.normal(size=(10_240, 64)), device=dev)
+    s = CubicSpline().extrapolate(True).build(x64, b64)
+    xh, xl = df_from_f64(x64)
+    packed = edf.pack_bank_rows_df(*df_from_f64(b64), *df_from_f64(s.a), *df_from_f64(s.b))
+    qh, ql = df_from_f64(torch.as_tensor(rng.uniform(0.0, 1.0, NQ_DF_BANK), device=dev))
+    qd = [dt(v, mesh1, [Shard(0)]) for v in (qh, ql)]
+    rule = part.sharded_df_banked_packed(64)
+    rule(xh, xl, packed, *qd)
+    got["DF bank K7 + K8 Shard(0)"] = run(lambda: rule(xh, xl, packed, *qd),
+                                          edf.gathered_bank_eval_df_packed(xh, xl, packed, 64,
+                                                                           qh, ql), mesh1)
+    return got
 
 
 def scaleout_world(out):
@@ -4751,6 +4844,14 @@ def scaleout_world(out):
               f"of {NQ_SCALE:,} f32 {res['combine_ms']:.3f} ms ({GLOO_NOTE})", flush=True)
     if not any(f.startswith("scale-out world") for f in failures):
         print("  world: every rank's outputs bit for bit run 1's", flush=True)
+    for r, res in enumerate(ranks):
+        for label, got in res["dtensor"].items():
+            print(f"  world rank {r} DTensor {label}: placements {got['placements']}, "
+                  f"collectives {got['comms']}, shard {'bit for bit' if got['same'] else 'DIFFERS from'} "
+                  f"the unsharded call's slice; host wall {got['wall_ms']:.3f} ms", flush=True)
+            if got["comms"] or not got["same"]:
+                fail(f"scale-out world rank {r}: DTensor {label}: {got['comms']} collectives, "
+                     f"bit for bit {got['same']}")
     launches = {}
     for res in ranks:
         for kid, c in res["launches"].items():
@@ -5691,6 +5792,105 @@ def examples_path():
     return total
 
 
+VMAP_ROWS = 16  # the query rows of each query-batched vmap
+N_BUILDS = 64  # the builds of the vmap over builds, each on its own 2,048-knot axis
+NQ_BUILDS = 4096
+
+
+def transforms_phase(dev, state, state2d, state_nd):
+    """The kernels under ``torch.func`` at full width, each call with every
+    launch count set to 0 just before it and read just after: ``vmap`` of
+    NS1's ``itp`` over 16 query rows (K1 once, bit for bit ``itp(q)``),
+    ``vmap(grad(itp))`` on NS1 in f64 (K1 once, bit for bit autograd of
+    ``itp(q).sum()``), the bank eval's ``vmap`` (K2 and K5 once), NS3's
+    ``Bilinear`` and NS3b's ``Bicubic`` (R1 and the tail once), ND2 (K2 once
+    an axis), a ``vmap`` over 64 builds on their own 2,048-knot axes (one K4
+    launch, per-column diagonals; the evaluation on batched tables, no K1;
+    bit for bit the loop of builds) and a table-batched ``vmap`` of
+    ``fused_eval_1d`` (no K1).  Prints each case's host wall and NS1's
+    ``itp(q)`` host wall per call.  Returns the launches."""
+    import torch
+
+    from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek
+
+    total = {}
+    vmap = torch.func.vmap
+
+    def rows(*qs):
+        return [q.reshape(VMAP_ROWS, -1) for q in qs]
+
+    def case(label, want_launches, fn, want):
+        got, counts = launched(fn)
+        for kid, c in counts.items():
+            total[kid] = total.get(kid, 0) + c
+        tails = [kid for kid in ORDERED_TAILS if kid in counts]
+        if "ORD" in counts and len(tails) == 1:
+            total[f"ORD:{tails[0]}"] = total.get(f"ORD:{tails[0]}", 0) + counts["ORD"]
+        if counts != want_launches:
+            fail(f"{label}: launches {counts}, expected {want_launches}")
+        same, err = bit_compare(got.reshape(want.shape), want)
+        if not same:
+            fail(f"{label}: differs from the unbatched call (max abs err {err})")
+        wall = wall_ms(fn, 3)
+        print(f"  {label}: launches {counts}; {'bit for bit' if same else 'DIFFERS from'} "
+              f"the unbatched result; host wall {fmt(wall)} ms a call", flush=True)
+        return wall
+
+    itp, q = state["float32"]
+    want = itp(q)
+    ns1 = wall_ms(lambda: itp(q), 20)
+    print(f"  NS1 itp(q), 2,048 knots x {q.numel():,} f32, the plain call: host wall "
+          f"{fmt(ns1)} ms a call", flush=True)
+    walls = {"NS1 itp(q)": ns1}
+    walls["NS1 vmap"] = case(f"NS1 vmap(itp) over {VMAP_ROWS} rows", {"K1": 1},
+                             lambda: vmap(itp)(*rows(q)), want)
+    itp64, q64 = state["float64"]
+    qg = q64.detach().clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(itp64(qg).sum(), qg)
+    walls["NS1 vmap(grad)"] = case("NS1 f64 vmap(grad(itp)) against autograd of itp(q).sum()",
+                                   {"K1": 1}, lambda: vmap(torch.func.grad(itp64))(q64), want)
+    itp10, _, _, q10 = state["bank"]
+    walls["bank vmap"] = case(f"bank eval 10,000 x 64 vmap(itp) over {VMAP_ROWS} rows",
+                              {"K2": 1, "K5": 1}, lambda: vmap(itp10)(*rows(q10)), itp10(q10))
+    bil, bic, qx, qy, _ = state2d["float32"]
+    for name, itp2, tail in (("NS3 Bilinear", bil, {"R2g": 1}),
+                             ("NS3b Bicubic", bic, {"R2n": 1, "ORD": 1})):
+        walls[name] = case(f"{name} vmap(itp) over {VMAP_ROWS} rows", {"R1": 1, **tail},
+                           lambda itp2=itp2: vmap(itp2)(*rows(qx, qy)), itp2(qx, qy))
+    nd2, qs = state_nd["cubic", "float32"], state_nd["queries", "float32"]
+    walls["ND2"] = case(f"ND2 cubic 64^3 vmap(itp) over {VMAP_ROWS} rows", {"K2": 3},
+                        lambda: vmap(nd2)(*rows(*qs)), nd2(*qs))
+
+    rng = np.random.default_rng(55)
+    xs = torch.as_tensor(np.sort(rng.uniform(0.0, 100.0, (N_BUILDS, 2048)), axis=1)
+                         .astype(np.float32), device=dev)
+    ys = torch.as_tensor(rng.normal(size=(N_BUILDS, 2048)).astype(np.float32), device=dev)
+    qb = torch.as_tensor(rng.uniform(1.0, 99.0, NQ_BUILDS).astype(np.float32), device=dev)
+    strat = CubicSpline().extrapolate(True)
+
+    def one(x, y):
+        s = strat.build(x, y)
+        return torch.cat([s.a, s.b, Interp1D.new_unchecked(x, y, s)(qb)])
+
+    loop, counts = launched(lambda: torch.stack([one(x, y) for x, y in zip(xs, ys)]))
+    print(f"  the loop of {N_BUILDS} builds: launches {counts}", flush=True)
+    walls["loop of builds"] = wall_ms(lambda: torch.stack([one(x, y) for x, y in zip(xs, ys)]), 1)
+    walls["vmap builds"] = case(f"vmap over {N_BUILDS} builds of 2,048 knots (a, b and "
+                                f"{NQ_BUILDS:,} queries each)", {"K4": 1}, lambda: vmap(one)(xs, ys),
+                                loop)
+    print(f"  the loop of builds: host wall {fmt(walls['loop of builds'])} ms", flush=True)
+    x = itp.x
+    tbl = ek.make_interval_table(x, itp.data, itp.strategy.a, itp.strategy.b)
+    tbls = torch.stack([tbl, tbl * 2.0])
+    want = torch.stack([ek._eval_plain(x, t, q) for t in tbls])
+    walls["table-batched"] = case("NS1 vmap of fused_eval_1d over 2 tables (the plain version)",
+                                  {}, lambda: vmap(ek.fused_eval_1d, in_dims=(None, 0, None))(
+                                      x, tbls, q), want)
+    print("  transforms record: " + json.dumps({k: v[0] for k, v in walls.items()}), flush=True)
+    return total
+
+
 def ord_times(times):
     """ORD's entry of the kernels line: its times at K8's shape, the DF bank
     serving's (the most launches), and at every shape beside them."""
@@ -5846,16 +6046,22 @@ def main():
     print("examples (double_float_serving, interpnd_volume; main() on the card; counts set "
           "to 0 before each):", flush=True)
     launched_examples = examples_path()
+    print("transforms (torch.func: vmap, grad, vmap(grad) at full width; counts set to 0 "
+          "before each call):", flush=True)
+    launched_transforms = transforms_phase(dev, state, state2d, state_nd)
+    launched_transforms = (dict.fromkeys(wrappers, 0)
+                           | {f"ORD:{kid}": 0 for kid in ORDERED_TAILS} | launched_transforms)
+    elapsed("transforms")
     # every kernel's launches summed over every path, and the orderings of
     # each tail that orders its batch (the main path orders none)
     paths = (served, launched2d, launched_nd, launched_big, launched_tails, launched_steps,
              launched_calc, launched_calc_nd, launched_checked, launched_scale, launched_world,
-             launched_examples)
+             launched_examples, launched_transforms)
     launches = {kid: main_launches[kid] + sum(path[kid] for path in paths) for kid in wrappers}
     order_launches = {kid: sum(path[f"ORD:{kid}"] for path in paths) for kid in ORDERED_TAILS}
     print(f"  launches over every path (main + serving + 2-D + N-D + wide-bank + tails + step "
           f"+ calculus + N-D calculus + eval_checked + scale-out + scale-out world + "
-          f"examples): "
+          f"examples + transforms): "
           f"{launches}; orderings by tail: "
           f"{order_launches}")
     for kid, total in launches.items():

@@ -54,6 +54,8 @@ from ..errors import (
     OutOfBoundsError,
     ShapeError,
 )
+from ..ops._cuda import traced
+from ..ops.partition import is_dtensor, local_call
 from ..ops.searchsorted import get_lower_index, is_in_range
 from ..utils.device import default_device
 from ..utils.monotonic import monotonic_prop
@@ -216,8 +218,12 @@ class Interp1D:
         Returns shape ``xs.shape + data.shape[1:]``.  When the strategy does
         not extrapolate, out-of-range results are masked to NaN (floating
         dtypes only) — the synchronisation-free stand-in for the reference's
-        ``Err(OutOfBounds)``.
+        ``Err(OutOfBounds)``.  A DTensor query runs on each rank's local
+        shard and gives a DTensor with its placements
+        (:func:`~ndarray_interp_tpu_torch.ops.partition.local_call`).
         """
+        if is_dtensor(xs):
+            return local_call(self.__call__, xs)
         xs = self._queries(xs)
         out = self._eval_flat_masked(xs.reshape(-1))
         return out.reshape(tuple(xs.shape) + tuple(self.data.shape[1:]))
@@ -264,7 +270,11 @@ class Interp1D:
         """Reference error contract: OutOfBounds unless extrapolating
         (``linear.rs:80-84``); NaN queries are rejected like the
         reference's NaN-cast panic (``vector_extensions.rs:267-271``).
-        One flag crosses to the host; the offending value only on error."""
+        One flag crosses to the host; the offending value only on error.
+        Skipped under a ``torch.func`` transform, as the JAX package skips
+        it on tracers."""
+        if traced(xs_flat):
+            return
         if not self.strategy.extrapolates:
             ok = is_in_range(self.x, xs_flat)
             if not bool(ok.all()):

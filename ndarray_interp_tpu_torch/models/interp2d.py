@@ -40,6 +40,8 @@ from ..errors import (
     OutOfBoundsError,
     ShapeError,
 )
+from ..ops._cuda import traced
+from ..ops.partition import is_dtensor, local_call
 from ..ops.searchsorted import get_lower_index, is_in_range
 from ..utils.device import default_device
 from ..utils.monotonic import monotonic_prop
@@ -116,7 +118,10 @@ class Interp2D:
         When the strategy does not extrapolate, results out of range on a
         non-wrapping axis are masked to NaN (floating dtypes only), the
         synchronisation-free stand-in for the reference's
-        ``Err(OutOfBounds)``."""
+        ``Err(OutOfBounds)``.  DTensor queries run on each rank's local
+        shards and give a DTensor with their placements."""
+        if is_dtensor(xs) or is_dtensor(ys):
+            return local_call(self.__call__, xs, ys)
         xs, ys = self._queries(xs, ys)
         xf = self._promote(xs.reshape(-1))
         yf = self._promote(ys.reshape(-1))
@@ -180,7 +185,10 @@ class Interp2D:
     def _check_queries(self, xs_flat, ys_flat):
         """x then y: ``OutOfBoundsError`` on the first value out of range
         unless the strategy extrapolates; a wrapping axis is never out of
-        range.  NaN refuses to index where no range check catches it."""
+        range.  NaN refuses to index where no range check catches it.
+        Skipped under a ``torch.func`` transform (the JAX package's tracers)."""
+        if traced(xs_flat) or traced(ys_flat):
+            return
         wraps = self._wraps()
         axes = (("x", xs_flat, self.x, wraps[0]), ("y", ys_flat, self.y, wraps[1]))
         if self.strategy.extrapolates or all(wraps):

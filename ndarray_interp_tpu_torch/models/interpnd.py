@@ -53,6 +53,8 @@ import torch
 
 from .. import config
 from ..errors import MonotonicError, NotEnoughDataError, OutOfBoundsError, ShapeError
+from ..ops._cuda import traced
+from ..ops.partition import is_dtensor, local_call
 from ..ops.searchsorted import is_in_range
 from ..utils.device import default_device
 from ..utils.monotonic import monotonic_prop
@@ -553,7 +555,10 @@ class InterpND:
     def __call__(self, *coords):
         """Evaluate at ``k`` coordinate arrays of one common shape.  Never
         synchronises; out-of-range results are NaN unless extrapolating
-        (periodic axes are never out of range)."""
+        (periodic axes are never out of range).  DTensor queries run on each
+        rank's local shards and give a DTensor with their placements."""
+        if any(is_dtensor(c) for c in coords):
+            return local_call(self.__call__, *coords)
         coords = self._as_query(coords)
         flats = self._flats(coords)
         out = _eval_core(self, flats)
@@ -686,7 +691,10 @@ class InterpND:
     def _check_queries(self, flats):
         """NaN on any axis raises ``ValueError`` first; then, unless
         extrapolating, the first axis with a value out of range raises
-        ``OutOfBoundsError`` (one flag copied to the host per axis)."""
+        ``OutOfBoundsError`` (one flag copied to the host per axis).
+        Skipped under a ``torch.func`` transform (the JAX package's tracers)."""
+        if any(traced(q) for q in flats):
+            return
         for q in flats:
             if q.is_floating_point() and bool(torch.isnan(q).any()):
                 raise ValueError("failed to convert NaN to an index")

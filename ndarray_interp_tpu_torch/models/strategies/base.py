@@ -68,9 +68,10 @@ class PointwiseStrategy(Interp1DStrategy, Interp1DStrategyBuilder):
     adapter vectorizes it with ``torch.func.vmap``.
 
     Under ``vmap`` a query is a batched tensor without a data pointer, so
-    ``eval_point`` must stay in plain PyTorch operations (the helpers are:
-    ``torch.searchsorted`` and indexing; no kernel wrapper runs there) and
-    branch with ``torch.where``, not with Python ``if`` on values."""
+    ``eval_point`` must stay in operations that batch: plain PyTorch (the
+    helpers are ``torch.searchsorted`` and indexing) or the kernel
+    wrappers, whose ``vmap`` rules flatten the batch into one launch.  It
+    branches with ``torch.where``, not with Python ``if`` on values."""
 
     def build(self, x, data):
         return self

@@ -4,7 +4,9 @@ double-float pairs (``df``), and the wrappers of the CUDA kernels
 (``eval_kernels``, ``tail2d``, ``bank_eval``, ``bank_tail``, ``bigknots``,
 ``thomas_kernel``, ``eval_kernels_df``, ``eval_kernels_df2d``,
 ``eval_kernels_df_nd``, and ``cell_order``, the ordering ahead of K8, K9, K12,
-K13 and K14)."""
+K13 and K14), and ``partition``: the wrappers' placement rules over DTensor.
+Every wrapper composes with ``torch.func`` (``vmap``, ``grad``) on both
+devices."""
 
 from .bank_eval import banked_eval, can_use_banked
 from .bank_tail import banked_hermite_tail, gathered_bank_eval

@@ -28,6 +28,7 @@ import threading
 from pathlib import Path
 
 import torch
+from torch._functorch.utils import unwrap_dead_wrappers
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -261,16 +262,95 @@ def pair_operands(name, *tensors):
         )
 
 
+def traced(t) -> bool:
+    """Whether ``t`` is a tensor under a ``torch.func`` transform (``vmap``,
+    ``grad``, ``jacrev``), where its values are not the host's to read: the
+    counterpart of the JAX package's ``_is_traced``.  The eager methods skip
+    their value checks on such tensors, as the JAX package skips them on
+    tracers, and never synchronise there."""
+    return isinstance(t, torch.Tensor) and torch._C._functorch.is_functorch_wrapped_tensor(t)
+
+
+def run(name, t, launch, plain, *args):
+    """The forward of every kernel Function: ``launch(*args)`` (the kernel)
+    when ``t`` is a CUDA tensor, ``plain(*args)`` (its plain version) when it
+    is a CPU tensor.  One seam for both devices, so a Function's batching and
+    differentiation rules are one piece of code on each, and the CPU tests
+    run them."""
+    if kernel_device(name, t) == "cpu":
+        return plain(*args)
+    return launch(*args)
+
+
+def apply(function, *args):
+    """``function.apply(*args)`` for a kernel Function, whose forward takes
+    its arguments by position and has no defaults.  Outside a ``torch.func``
+    transform the call goes straight to autograd's C++ ``apply``, as
+    ``Function.apply`` itself does there, but without binding the forward's
+    signature, which ``Function.apply`` does first for every Function with
+    a ``setup_context``: on an H100 80GB HBM3 host (700 W,
+    ``tools/call_wall.py``, parent and change in turns) NS1's ``itp(q)``
+    spent 0.1791 and 0.1592 ms of host wall a call through it against the
+    old-style Function's 0.1217 and 0.1207.  Under a transform:
+    ``Function.apply``."""
+    if torch._C._are_functorch_transforms_active():
+        return function.apply(*args)
+    return super(torch.autograd.Function, function).apply(*unwrap_dead_wrappers(args))
+
+
 def plain_vjp(fn, inputs, needs_grad, g):
     """Gradients of ``fn(*inputs)`` against the cotangent ``g`` for the
     inputs whose ``needs_grad`` is set (``None`` for the others): the
-    backward of a kernel wrapper is autograd of the kernel's plain version."""
-    with torch.enable_grad():
-        inputs = [t.detach().requires_grad_(w) for t, w in zip(inputs, needs_grad)]
-        out = fn(*inputs)
-        wrt = [t for t, w in zip(inputs, needs_grad) if w]
-        grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
+    backward of a kernel Function is the VJP of the kernel's plain version.
+    ``torch.func.vjp`` takes it, so the backward composes with the
+    ``torch.func`` transforms (``vmap(grad(...))``, ``jacrev``) and is
+    itself differentiable."""
+    wrt = [i for i, w in enumerate(needs_grad) if w]
+    if not wrt:
+        return (None,) * len(inputs)
+
+    def part(*diff):
+        full = list(inputs)
+        for i, d in zip(wrt, diff):
+            full[i] = d
+        return fn(*full)
+
+    _, pullback = torch.func.vjp(part, *(inputs[i] for i in wrt))
+    grads = iter(pullback(g))
     return tuple(next(grads) if w else None for w in needs_grad)
+
+
+def _batch_first(outs):
+    return tuple(0 for _ in outs) if isinstance(outs, tuple) else 0
+
+
+def vmap_queries(apply, plain, info, in_dims, args, queries):
+    """The batching rule of a kernel Function elementwise in its query
+    operands, the positions ``queries`` of ``args`` (every other tensor is a
+    table; each query operand of one shape).  With only queries batched they
+    flatten into the kernel's query axis, an unbatched one broadcast first,
+    ``apply`` launches once, and its outputs take the batch back as their dim
+    0.  With a table batched the plain version runs under ``torch.func.vmap``
+    (the JAX package's ``custom_vmap`` rule, ``ops/partition.py:97-104``:
+    there is no kernel for a batch of tables).  Returns ``(outputs,
+    out_dims)``: the ``vmap`` staticmethod of an ``autograd.Function``."""
+    if any(d is not None for i, d in enumerate(in_dims) if i not in queries):
+        outs = torch.func.vmap(plain, in_dims=tuple(in_dims), randomness=info.randomness)(*args)
+        return outs, _batch_first(outs)
+    size = info.batch_size
+    args = list(args)
+    moved = {i: args[i].movedim(in_dims[i], 0) for i in queries if in_dims[i] is not None}
+    shape = next(iter(moved.values())).shape[1:]
+    for i in queries:
+        q = moved[i] if i in moved else args[i].expand((size,) + tuple(args[i].shape))
+        args[i] = q.reshape(-1)
+    outs = apply(*args)
+
+    def back(o):
+        return o.reshape((size,) + tuple(shape) + tuple(o.shape[1:]))
+
+    outs = tuple(back(o) for o in outs) if isinstance(outs, tuple) else back(outs)
+    return outs, _batch_first(outs)
 
 
 def launch(name, dtype, device, *args):

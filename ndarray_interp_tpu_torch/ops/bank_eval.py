@@ -4,10 +4,9 @@ Counterpart of ``ndarray_interp_tpu.ops.pallas_bank``.  The CUDA kernel is
 in ``csrc/bank_kernels.cu``; :func:`_gather_form` is its plain PyTorch
 version (the JAX package's gather formulation, ``pallas_bank.py:169-179``).
 A CPU tensor takes the plain version, a CUDA tensor launches K5; the two are
-bit-identical.  ``banked_eval.launches`` counts the kernel's launches.
-
-Not ported: the JAX package's sharding wrapper (``ops/partition.py``).  The
-TPU kernel's one-hot select poisons a whole bank lane on one NaN datum
+bit-identical.  ``banked_eval.launches`` counts the kernel's launches.  Its
+``vmap`` and placement rules are the JAX package's (``ops/partition.py``).
+The TPU kernel's one-hot select poisons a whole bank lane on one NaN datum
 (``pallas_bank.py:22-25``); K5 loads its rows, so NaN stays in the intervals
 that touch it, and the JAX package's ``finite`` hint has no counterpart.
 """
@@ -97,14 +96,20 @@ def _launch(data, a, b, idx, t):
 
 
 class _BankedEval(torch.autograd.Function):
-    """Forward: K5.  Backward: autograd of :func:`_gather_form`, as the JAX
-    package's ``_bwd`` (``pallas_bank.py:186-196``) is its VJP; ``idx`` has
-    no gradient."""
+    """Forward: K5 (:func:`_gather_form` on the CPU).  Backward: the VJP of
+    :func:`_gather_form`, as the JAX package's ``_bwd``
+    (``pallas_bank.py:186-196``); ``idx`` has no gradient.  Under ``vmap``
+    batched ``idx``/``t`` flatten into one launch (the unbatched one
+    broadcast, as the JAX package's ``partition.py:370-374`` does); batched
+    tables take the plain version."""
 
     @staticmethod
-    def forward(ctx, data, a, b, idx, t):
-        ctx.save_for_backward(data, a, b, idx, t)
-        return _launch(data, a, b, idx, t)
+    def forward(data, a, b, idx, t):
+        return _cuda.run("banked_eval", t, _launch, _gather_form, data, a, b, idx, t)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, g):
@@ -116,15 +121,18 @@ class _BankedEval(torch.autograd.Function):
         )
         return gd, ga, gb, None, gt
 
+    @staticmethod
+    def vmap(info, in_dims, data, a, b, idx, t):
+        return _cuda.vmap_queries(_BankedEval.apply, _gather_form, info, in_dims,
+                                  (data, a, b, idx, t), (3, 4))
+
 
 def banked_eval(data, a, b, idx, t):
     """The symmetric Hermite form of a spline bank at per-query interval
     ``idx`` (int32) and fraction ``t``: data (n, *bank), a/b (n-1, *bank),
     idx/t (Q,).  Returns (Q, *bank).  CPU tensors: :func:`_gather_form`;
     CUDA: K5 (float32 or float64)."""
-    if _cuda.kernel_device("banked_eval", t) == "cpu":
-        return _gather_form(data, a, b, idx, t)
-    return _BankedEval.apply(data, a, b, idx, t)
+    return _cuda.apply(_BankedEval, data, a, b, idx, t)
 
 
 banked_eval.launches = 0

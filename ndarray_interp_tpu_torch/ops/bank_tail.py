@@ -91,15 +91,29 @@ def _gather_form_2d(d2, a2, b2, idx, t):
     return (1 - te) * y_l + te * y_r + te * (1 - te) * (ga * (1 - te) + gb * te)
 
 
+def _launch_gathered(data2, a2, b2, idx, t):
+    return _launch_tail(pack_bank_rows(data2, a2, b2), idx, t, data2.shape[1])
+
+
+def _gathered_plain(data2, a2, b2, idx, t):
+    """Plain version of the packed route: the table, then :func:`_tail_plain`."""
+    return _tail_plain(pack_bank_rows(data2, a2, b2), idx, t, data2.shape[1])
+
+
 class _GatheredBankEval(torch.autograd.Function):
-    """Forward: the packed table and R2a.  Backward: autograd of
-    :func:`_gather_form_2d`, as the JAX package's ``_bwd``
-    (``pallas_tail.py:545-555``); ``idx`` has no gradient."""
+    """Forward: the packed table and R2a (:func:`_gathered_plain` on the
+    CPU).  Backward: the VJP of :func:`_gather_form_2d`, as the JAX
+    package's ``_bwd`` (``pallas_tail.py:545-555``); ``idx`` has no
+    gradient.  ``vmap`` as K5's (``bank_eval._BankedEval``)."""
 
     @staticmethod
-    def forward(ctx, data2, a2, b2, idx, t):
-        ctx.save_for_backward(data2, a2, b2, idx, t)
-        return banked_hermite_tail(pack_bank_rows(data2, a2, b2), idx, t, data2.shape[1])
+    def forward(data2, a2, b2, idx, t):
+        return _cuda.run("gathered_bank_eval", t, _launch_gathered, _gathered_plain,
+                         data2, a2, b2, idx, t)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, g):
@@ -111,14 +125,16 @@ class _GatheredBankEval(torch.autograd.Function):
         )
         return gd, ga, gb, None, gt
 
+    @staticmethod
+    def vmap(info, in_dims, data2, a2, b2, idx, t):
+        return _cuda.vmap_queries(_GatheredBankEval.apply, _gathered_plain, info, in_dims,
+                                  (data2, a2, b2, idx, t), (3, 4))
+
 
 def gathered_bank_eval(data2, a2, b2, idx, t):
     """Banked Hermite evaluation at flat ``(idx, t)`` (from
     ``fused_index_frac`` or ``big_lower_index_frac``): one packed-row table,
     then :func:`banked_hermite_tail`.  data2 (n, bank), a2/b2 (n-1, bank);
-    returns (Q, bank).  On the CPU autograd differentiates the plain tail
-    directly; on the GPU the backward is autograd of
-    :func:`_gather_form_2d`."""
-    if _cuda.kernel_device("gathered_bank_eval", t) == "cpu":
-        return _tail_plain(pack_bank_rows(data2, a2, b2), idx, t, data2.shape[1])
-    return _GatheredBankEval.apply(data2, a2, b2, idx, t)
+    returns (Q, bank).  The backward is the VJP of :func:`_gather_form_2d`
+    on both devices."""
+    return _cuda.apply(_GatheredBankEval, data2, a2, b2, idx, t)

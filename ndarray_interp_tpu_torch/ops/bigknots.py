@@ -200,30 +200,43 @@ def _interval_form(knots, data, a, b, q):
 
 
 class _BigEval1D(torch.autograd.Function):
-    """Forward: R3.  Backward: autograd of K1's plain version on the
-    interval table, as the JAX package's ``_be_bwd`` (``bigknots.py:233-242``)
-    is the VJP of its gather formulation."""
+    """Forward: R3 (:func:`_big_eval_plain` on the CPU).  Backward: the VJP
+    of K1's plain version on the interval table, as the JAX package's
+    ``_be_bwd`` (``bigknots.py:233-242``) is the VJP of its gather
+    formulation.  Under ``vmap`` batched queries flatten into one launch;
+    batched tables take the plain version."""
 
     @staticmethod
-    def forward(ctx, knots, data, a, b, q):
-        ctx.save_for_backward(knots, data, a, b, q)
-        return _launch_eval(knots, data, a, b, q)
+    def forward(knots, data, a, b, q):
+        return _cuda.run("big_eval_1d", q, _launch_eval, _big_eval_plain, knots, data, a, b, q)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, g):
         return _cuda.plain_vjp(_interval_form, ctx.saved_tensors, ctx.needs_input_grad, g)
 
+    @staticmethod
+    def vmap(info, in_dims, knots, data, a, b, q):
+        return _cuda.vmap_queries(_BigEval1D.apply, _big_eval_plain, info, in_dims,
+                                  (knots, data, a, b, q), (4,))
+
 
 class _BigIndexFrac(torch.autograd.Function):
-    """Forward: R3idx.  Backward: autograd of the fraction with the interval
+    """Forward: R3idx.  Backward: the VJP of the fraction with the interval
     fixed, as K2's; the index has no gradient."""
 
     @staticmethod
-    def forward(ctx, knots, q):
-        idx, t = _launch_index_frac(knots, q)
-        ctx.mark_non_differentiable(idx)
-        ctx.save_for_backward(knots, q, idx)
-        return idx, t
+    def forward(knots, q):
+        return _cuda.run("big_lower_index_frac", q, _launch_index_frac, _big_index_frac_plain,
+                         knots, q)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output[0])
+        ctx.save_for_backward(*inputs, output[0])
 
     @staticmethod
     def backward(ctx, g_idx, g_t):
@@ -232,23 +245,24 @@ class _BigIndexFrac(torch.autograd.Function):
             lambda k, q_: _frac(k, q_, idx), (knots, q), ctx.needs_input_grad, g_t
         )
 
+    @staticmethod
+    def vmap(info, in_dims, knots, q):
+        return _cuda.vmap_queries(_BigIndexFrac.apply, _big_index_frac_plain, info, in_dims,
+                                  (knots, q), (1,))
+
 
 def big_eval_1d(knots, data, a, b, q):
     """Hermite evaluation of a scalar spline on a long knot axis: knots and
     data (n,), a and b (n-1,) (zeros for a linear table), q any shape.
     CPU tensors: :func:`_big_eval_plain`; CUDA: R3."""
-    if _cuda.kernel_device("big_eval_1d", q) == "cpu":
-        return _big_eval_plain(knots, data, a, b, q)
-    return _BigEval1D.apply(knots, data, a, b, q)
+    return _cuda.apply(_BigEval1D, knots, data, a, b, q)
 
 
 def big_lower_index_frac(knots, q):
     """``(idx, t)`` of the queries on a long knot axis: idx int32 in
     ``[0, n-2]`` (NaN -> n-2), ``t = (q - x_l) / (x_r - x_l)``.  CPU
     tensors: :func:`_big_index_frac_plain`; CUDA: R3idx."""
-    if _cuda.kernel_device("big_lower_index_frac", q) == "cpu":
-        return _big_index_frac_plain(knots, q)
-    return _BigIndexFrac.apply(knots, q)
+    return _cuda.apply(_BigIndexFrac, knots, q)
 
 
 big_eval_1d.launches = 0

@@ -28,8 +28,10 @@ Each has its plain PyTorch version here (:func:`_eval_plain`, the
 counterpart of the JAX package's ``_eval_xla``; :func:`_index_frac_plain`;
 :func:`.searchsorted.get_lower_index`; :func:`_cell_index_plain`).  A
 wrapper takes the plain version for a CPU tensor and launches its kernel
-for a CUDA tensor; each kernel is held to its plain version bit for bit.  ``launches`` on each wrapper counts
-its kernel's launches.
+for a CUDA tensor, both through one ``autograd.Function`` (``_cuda.run``) whose
+backward is the VJP of the plain version and whose ``vmap`` rule flattens
+batched queries into one launch; each kernel is held to its plain version
+bit for bit.  ``launches`` on each wrapper counts its kernel's launches.
 """
 
 from __future__ import annotations
@@ -245,31 +247,57 @@ def _launch_cell_index(x, y, qx, qy):
     return cell.reshape(qx.shape), tx.reshape(qx.shape), ty.reshape(qx.shape)
 
 
+def _launch_cell_index_counted(x, y, qx, qy):
+    out = _launch_cell_index(x, y, qx, qy)
+    fused_cell_index.launches += 1
+    return out
+
+
+def _cell_fracs(x, y, qx, qy, cell):
+    """R1's fractions with the cell fixed: the function its backward
+    differentiates (``_cell_index_bwd``, ``pallas_eval.py:562``)."""
+    ny1 = y.shape[0] - 1
+    xi = torch.div(cell, ny1, rounding_mode="floor")
+    return _frac(x, qx, xi), _frac(y, qy, cell - xi * ny1)
+
+
 class _FusedEval1D(torch.autograd.Function):
-    """Forward: K1.  Backward: autograd of :func:`_eval_plain`, as the JAX
-    package's ``_fused_bwd`` (``pallas_eval.py:351``) does."""
+    """Forward: K1 (its plain version on the CPU).  Backward: the VJP of
+    :func:`_eval_plain`, as the JAX package's ``_fused_bwd``
+    (``pallas_eval.py:351``).  Under ``vmap`` batched queries flatten into
+    one launch; batched tables take the plain version."""
 
     @staticmethod
-    def forward(ctx, knots, tbl, q):
-        ctx.save_for_backward(knots, tbl, q)
-        return _launch_eval(knots, tbl, q)
+    def forward(knots, tbl, q):
+        return _cuda.run("fused_eval_1d", q, _launch_eval, _eval_plain, knots, tbl, q)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, g):
         return _cuda.plain_vjp(_eval_plain, ctx.saved_tensors, ctx.needs_input_grad, g)
 
+    @staticmethod
+    def vmap(info, in_dims, knots, tbl, q):
+        return _cuda.vmap_queries(_FusedEval1D.apply, _eval_plain, info, in_dims,
+                                  (knots, tbl, q), (2,))
+
 
 class _FusedIndexFrac(torch.autograd.Function):
-    """Forward: K2.  Backward: autograd of the fraction with the interval
-    fixed, as ``_index_frac_bwd`` (``pallas_eval.py:448``) does; the index
-    has no gradient."""
+    """Forward: K2.  Backward: the VJP of the fraction with the interval
+    fixed, as ``_index_frac_bwd`` (``pallas_eval.py:448``); the index has
+    no gradient."""
 
     @staticmethod
-    def forward(ctx, knots, q):
-        idx, t = _launch_index_frac(knots, q)
-        ctx.mark_non_differentiable(idx)
-        ctx.save_for_backward(knots, q, idx)
-        return idx, t
+    def forward(knots, q):
+        return _cuda.run("fused_index_frac", q, _launch_index_frac, _index_frac_plain, knots, q)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output[0])
+        ctx.save_for_backward(*inputs, output[0])
 
     @staticmethod
     def backward(ctx, g_idx, g_t):
@@ -278,31 +306,58 @@ class _FusedIndexFrac(torch.autograd.Function):
             lambda k, q_: _frac(k, q_, idx), (knots, q), ctx.needs_input_grad, g_t
         )
 
+    @staticmethod
+    def vmap(info, in_dims, knots, q):
+        return _cuda.vmap_queries(_FusedIndexFrac.apply, _index_frac_plain, info, in_dims,
+                                  (knots, q), (1,))
 
-class _FusedCellIndex(torch.autograd.Function):
-    """Forward: R1.  Backward: autograd of the fractions with the cell
-    fixed, as ``_cell_index_bwd`` (``pallas_eval.py:562``) does; the cell
-    has no gradient."""
+
+class _FusedLowerIndex(torch.autograd.Function):
+    """Forward: K3.  Its output, an index, is not differentiable."""
 
     @staticmethod
-    def forward(ctx, x, y, qx, qy):
-        cell, tx, ty = _launch_cell_index(x, y, qx, qy)
-        fused_cell_index.launches += 1
-        ctx.mark_non_differentiable(cell)
-        ctx.save_for_backward(x, y, qx, qy, cell)
-        return cell, tx, ty
+    def forward(knots, q):
+        return _cuda.run("fused_lower_index", q, _launch_lower_index, get_lower_index, knots, q)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None
+
+    @staticmethod
+    def vmap(info, in_dims, knots, q):
+        return _cuda.vmap_queries(_FusedLowerIndex.apply, get_lower_index, info, in_dims,
+                                  (knots, q), (1,))
+
+
+class _FusedCellIndex(torch.autograd.Function):
+    """Forward: R1.  Backward: the VJP of the fractions with the cell fixed
+    (:func:`_cell_fracs`); the cell has no gradient."""
+
+    @staticmethod
+    def forward(x, y, qx, qy):
+        return _cuda.run("fused_cell_index", qx, _launch_cell_index_counted, _cell_index_plain,
+                         x, y, qx, qy)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output[0])
+        ctx.save_for_backward(*inputs, output[0])
 
     @staticmethod
     def backward(ctx, g_cell, g_tx, g_ty):
         x, y, qx, qy, cell = ctx.saved_tensors
-        ny1 = y.shape[0] - 1
-        xi = torch.div(cell, ny1, rounding_mode="floor")
-        yi = cell - xi * ny1
+        return _cuda.plain_vjp(
+            lambda *a: _cell_fracs(*a, cell), (x, y, qx, qy), ctx.needs_input_grad, (g_tx, g_ty)
+        )
 
-        def fracs(x_, y_, qx_, qy_):
-            return _frac(x_, qx_, xi), _frac(y_, qy_, yi)
-
-        return _cuda.plain_vjp(fracs, (x, y, qx, qy), ctx.needs_input_grad, (g_tx, g_ty))
+    @staticmethod
+    def vmap(info, in_dims, x, y, qx, qy):
+        return _cuda.vmap_queries(_FusedCellIndex.apply, _cell_index_plain, info, in_dims,
+                                  (x, y, qx, qy), (2, 3))
 
 
 def fused_eval_1d(knots, tbl, q):
@@ -311,26 +366,21 @@ def fused_eval_1d(knots, tbl, q):
 
     knots (n,), n >= 2; tbl (n-1, >=6); q any shape, same dtype.  A CPU
     tensor takes :func:`_eval_plain`; a CUDA tensor launches K1 (float32 or
-    float64; other dtypes raise ``TypeError``)."""
-    if _cuda.kernel_device("fused_eval_1d", q) == "cpu":
-        return _eval_plain(knots, tbl, q)
-    return _FusedEval1D.apply(knots, tbl, q)
+    float64; other dtypes raise ``TypeError``).  Composes with
+    ``torch.func`` (``vmap``, ``grad``) on both devices."""
+    return _cuda.apply(_FusedEval1D, knots, tbl, q)
 
 
 def fused_index_frac(knots, q):
     """``(get_lower_index(knots, q), t)`` with ``t = (q - x_l) / (x_r - x_l)``;
     idx is int32.  CPU: :func:`_index_frac_plain`; CUDA: K2."""
-    if _cuda.kernel_device("fused_index_frac", q) == "cpu":
-        return _index_frac_plain(knots, q)
-    return _FusedIndexFrac.apply(knots, q)
+    return _cuda.apply(_FusedIndexFrac, knots, q)
 
 
 def fused_lower_index(knots, q):
     """``get_lower_index(knots, q)`` (int32).  CPU: the plain search;
     CUDA: K3."""
-    if _cuda.kernel_device("fused_lower_index", q) == "cpu":
-        return get_lower_index(knots, q)
-    return _launch_lower_index(knots, q)
+    return _cuda.apply(_FusedLowerIndex, knots, q)
 
 
 def fused_cell_index(x, y, qx, qy):
@@ -342,9 +392,7 @@ def fused_cell_index(x, y, qx, qy):
     shape.  ``tx``/``ty`` are differentiable in ``x, y, qx, qy``, ``cell``
     is not.  CPU: :func:`_cell_index_plain`; CUDA: R1."""
     _check_cell_axes(x, y, qx, qy)
-    if _cuda.kernel_device("fused_cell_index", qx) == "cpu":
-        return _cell_index_plain(x, y, qx, qy)
-    return _FusedCellIndex.apply(x, y, qx, qy)
+    return _cuda.apply(_FusedCellIndex, x, y, qx, qy)
 
 
 fused_eval_1d.launches = 0

@@ -37,7 +37,9 @@ rows; on ordered records :func:`_df_tail_ordered_plain`) and
 ordered records :func:`_f48_tail_ordered_plain`).  A wrapper runs the plain version for CPU tensors
 and launches its kernel for CUDA tensors; the kernels are bit-identical to
 the plain versions.  ``launches`` on each wrapper counts its kernel's
-launches.
+launches.  The routes' placement rules over DTensor (K6, K7 + K8 / K9) are
+in :mod:`.partition`.  These wrappers have no ``vmap`` rule: on the card a
+tensor batched by ``torch.func.vmap`` raises (ROADMAP Queue 3).
 
 Semantics, and where they differ from the JAX package:
 

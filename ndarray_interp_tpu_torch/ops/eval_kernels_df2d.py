@@ -57,7 +57,9 @@ operation order: :func:`_df_bilinear_xla_tail` (on rows gathered with
 :func:`_bicubic_df_weight_tail_ordered_plain`), :func:`_df_node_tail` for K14.  A
 wrapper runs the plain version for CPU tensors and launches its
 kernel for CUDA tensors; the kernels are bit-identical to the plain
-versions.  ``launches`` on each wrapper counts its kernel's launches.
+versions.  ``launches`` on each wrapper counts its kernel's launches.  The
+routes' placement rules over DTensor (K7 twice + K10-K14) are in
+:mod:`.partition`; the wrappers have no ``vmap`` rule (ROADMAP Queue 3).
 
 Not ported: the JAX node route's ``chunk`` option, which bounds XLA's
 memory for the intermediates of its tail (the kernel keeps none), and its

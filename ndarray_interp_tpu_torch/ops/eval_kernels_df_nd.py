@@ -25,6 +25,9 @@ block, and the ``nbasis^k`` products are summed by the halving tree
 ``p[:h] + p[h:]``.  A wrapper runs the plain version for CPU tensors and
 launches the kernel for CUDA tensors; the kernel is bit-identical to the
 plain version.  ``launches`` on each wrapper counts its kernel's launches.
+The route's placement rule over DTensor is :mod:`.partition`'s
+``sharded_df_nd_packed``; the wrappers have no ``vmap`` rule (ROADMAP
+Queue 3).
 
 As in 1-D and 2-D the fraction is computed in float64: a ±inf query gives
 ``t = ±inf`` where the JAX double-float fraction is NaN.

@@ -33,9 +33,9 @@ Each has its plain PyTorch version here (an ``index_select`` of the rows,
 clamped to the table as the kernels clamp, and the form).  A CPU tensor
 takes the plain version, a CUDA tensor launches the kernel or raises; the
 two are bit-identical.  ``launches`` on each wrapper counts its launches.
-On the GPU the backward is autograd of the plain version with ``cell``
-fixed (the JAX package's ``_bl_bwd`` / ``_bc_bwd``); on the CPU autograd
-differentiates the plain version directly.
+On both devices the backward is the VJP of the plain version with ``cell``
+fixed (the JAX package's ``_bl_bwd`` / ``_bc_bwd``), and ``torch.func.vmap``
+flattens batched queries into one launch.
 """
 
 from __future__ import annotations
@@ -284,19 +284,35 @@ def _width_bicubic(r):
     return 16 * r
 
 
+def _tail_launch(wrapper, rows_tbl, cell, a, b, r):
+    name, symbol, width, _ = _TAILS[wrapper]
+    out = _launch(name, symbol, width, rows_tbl, cell, a, b, r)
+    wrapper.launches += 1
+    return out
+
+
+def _tail_plain(wrapper, rows_tbl, cell, a, b, r):
+    return _TAILS[wrapper][3](rows_tbl, cell, a, b, r)
+
+
 class _Tail(torch.autograd.Function):
-    """Forward: a tail kernel.  Backward: autograd of its plain version with
-    ``cell`` fixed (``_bl_bwd`` ``pallas_tail.py:213``, ``_bc_bwd`` ``:357``):
-    gradients for ``rows_tbl`` and the two query operands."""
+    """Forward: a tail kernel (its plain version on the CPU).  Backward: the
+    VJP of its plain version with ``cell`` fixed (``_bl_bwd``
+    ``pallas_tail.py:213``, ``_bc_bwd`` ``:357``): gradients for
+    ``rows_tbl`` and the two query operands.  Under ``vmap`` batched
+    ``cell`` and query operands flatten into one launch (one ordering where
+    the flattened batch orders); a batched table takes the plain version."""
 
     @staticmethod
-    def forward(ctx, wrapper, rows_tbl, cell, a, b, r):
+    def forward(wrapper, rows_tbl, cell, a, b, r):
+        return _cuda.run(_TAILS[wrapper][0], a, _tail_launch, _tail_plain,
+                         wrapper, rows_tbl, cell, a, b, r)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        wrapper, rows_tbl, cell, a, b, r = inputs
         ctx.wrapper, ctx.r = wrapper, r
         ctx.save_for_backward(rows_tbl, cell, a, b)
-        name, symbol, width, _ = _TAILS[wrapper]
-        out = _launch(name, symbol, width, rows_tbl, cell, a, b, r)
-        wrapper.launches += 1
-        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -309,17 +325,31 @@ class _Tail(torch.autograd.Function):
         )
         return None, gr, None, ga, gb, None
 
+    @staticmethod
+    def vmap(info, in_dims, wrapper, rows_tbl, cell, a, b, r):
+        return _cuda.vmap_queries(_Tail.apply, _tail_plain, info, in_dims,
+                                  (wrapper, rows_tbl, cell, a, b, r), (2, 3, 4))
+
+
+def _launch_grid_counted(data, x, y, cell, qx, qy):
+    out = _launch_grid(data, x, y, cell, qx, qy)
+    bilinear_grid_eval.launches += 1
+    return out
+
 
 class _GridTail(torch.autograd.Function):
-    """Forward: R2g.  Backward: autograd of :func:`_bilinear_grid_plain`
-    with ``cell`` fixed: gradients for ``data``, the axes and the queries."""
+    """Forward: R2g (:func:`_bilinear_grid_plain` on the CPU).  Backward:
+    the VJP of :func:`_bilinear_grid_plain` with ``cell`` fixed: gradients
+    for ``data``, the axes and the queries.  ``vmap`` as :class:`_Tail`'s."""
 
     @staticmethod
-    def forward(ctx, data, x, y, cell, qx, qy):
-        ctx.save_for_backward(data, x, y, cell, qx, qy)
-        out = _launch_grid(data, x, y, cell, qx, qy)
-        bilinear_grid_eval.launches += 1
-        return out
+    def forward(data, x, y, cell, qx, qy):
+        return _cuda.run("bilinear_grid_eval", qx, _launch_grid_counted, _bilinear_grid_plain,
+                         data, x, y, cell, qx, qy)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, g):
@@ -331,12 +361,14 @@ class _GridTail(torch.autograd.Function):
         )
         return gd, gx, gy, None, ga, gb
 
+    @staticmethod
+    def vmap(info, in_dims, data, x, y, cell, qx, qy):
+        return _cuda.vmap_queries(_GridTail.apply, _bilinear_grid_plain, info, in_dims,
+                                  (data, x, y, cell, qx, qy), (3, 4, 5))
+
 
 def _tail(wrapper, rows_tbl, cell, a, b, r):
-    name = _TAILS[wrapper][0]
-    if _cuda.kernel_device(name, a) == "cpu":
-        return _TAILS[wrapper][3](rows_tbl, cell, a, b, r)
-    return _Tail.apply(wrapper, rows_tbl, cell, a, b, r)
+    return _cuda.apply(_Tail, wrapper, rows_tbl, cell, a, b, r)
 
 
 def bilinear_gathered_eval(rows_tbl, cell, qx, qy, r):
@@ -353,9 +385,7 @@ def bilinear_grid_eval(data, x, y, cell, qx, qy):
     grid's cells) and the coordinates ``qx``, ``qy`` flat.  Returns (Q, r),
     bit for bit :func:`bilinear_gathered_eval` on ``pack_corner_rows(x, y,
     data)``.  CPU: :func:`_bilinear_grid_plain`; CUDA: R2g."""
-    if _cuda.kernel_device("bilinear_grid_eval", qx) == "cpu":
-        return _bilinear_grid_plain(data, x, y, cell, qx, qy)
-    return _GridTail.apply(data, x, y, cell, qx, qy)
+    return _cuda.apply(_GridTail, data, x, y, cell, qx, qy)
 
 
 def bicubic_gathered_eval(rows_tbl, cell, tx, ty, r):

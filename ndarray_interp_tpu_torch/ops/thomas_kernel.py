@@ -62,28 +62,54 @@ def _launch(a_up, a_mid, a_low, rhs):
 
 
 class _ThomasKernel(torch.autograd.Function):
-    """Forward: the kernel.  Backward: autograd of the plain loop, as the
-    JAX package's ``_bwd`` (``pallas_thomas.py:216``) takes the VJP of its
-    scan solver."""
+    """Forward: the kernel (the plain loop on the CPU).  Backward: the VJP
+    of the plain loop, as the JAX package's ``_bwd``
+    (``pallas_thomas.py:216``) takes the VJP of its scan solver.  Under
+    ``vmap`` the batch becomes more columns of one launch (:func:`_vmap`)."""
 
     @staticmethod
-    def forward(ctx, a_up, a_mid, a_low, rhs):
-        ctx.save_for_backward(a_up, a_mid, a_low, rhs)
-        return _launch(a_up, a_mid, a_low, rhs)
+    def forward(a_up, a_mid, a_low, rhs):
+        return _cuda.run("thomas_solve_fast", rhs, _launch, thomas_solve, a_up, a_mid, a_low, rhs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, g):
         return _cuda.plain_vjp(thomas_solve, ctx.saved_tensors, ctx.needs_input_grad, g)
+
+    @staticmethod
+    def vmap(info, in_dims, a_up, a_mid, a_low, rhs):
+        return _vmap(info.batch_size, in_dims, (a_up, a_mid, a_low), rhs)
+
+
+def _vmap(size, in_dims, diags, rhs):
+    """The batch of ``vmap`` as the trailing axis of the columns, one
+    launch: with the diagonals shared a batched right-hand side is more
+    columns of the shared-diagonal form; a batched diagonal takes the
+    per-column-diagonal form (``pallas_thomas.py:48``), the others
+    broadcast to it.  The solution keeps the batch last."""
+    *diag_dims, rhs_dim = in_dims
+    ndim = rhs.ndim - (rhs_dim is not None)  # a sample's rhs dims
+    rhs = rhs.movedim(rhs_dim, -1) if rhs_dim is not None else rhs.unsqueeze(-1)
+    rhs = rhs.expand(tuple(rhs.shape[:-1]) + (size,))
+    if any(d is not None for d in diag_dims):
+        def column(d, bd):
+            d = d.movedim(bd, -1) if bd is not None else d.unsqueeze(-1)
+            return d.reshape(tuple(d.shape[:-1]) + (1,) * (ndim - d.ndim + 1) + (d.shape[-1],))
+
+        diags = [column(d, bd) for d, bd in zip(diags, diag_dims)]
+    return _ThomasKernel.apply(*diags, rhs), ndim
 
 
 def thomas_solve_fast(a_up, a_mid, a_low, rhs):
     """Solve ``A k = rhs`` along axis 0 (shapes as :func:`.thomas.thomas_solve`).
 
     A CPU tensor takes the plain loop; a CUDA tensor launches the Thomas
-    kernel (float32 or float64; other dtypes raise ``TypeError``)."""
-    if _cuda.kernel_device("thomas_solve_fast", rhs) == "cpu":
-        return thomas_solve(a_up, a_mid, a_low, rhs)
-    return _ThomasKernel.apply(a_up, a_mid, a_low, rhs)
+    kernel (float32 or float64; other dtypes raise ``TypeError``).  Under
+    ``torch.func.vmap`` the batch is solved in one launch."""
+    return _cuda.apply(_ThomasKernel, a_up, a_mid, a_low, rhs)
 
 
 thomas_solve_fast.launches = 0

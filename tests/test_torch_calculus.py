@@ -6,8 +6,9 @@ Twins of every test of ``tests/test_calculus.py``: the same seeded numpy
 inputs go through the JAX interpolator (float64, x64) and the port's (on the
 CPU), each held to the JAX test's SciPy oracle at the JAX test's tolerance,
 and the port also to the JAX result at that tolerance.  ``jax.grad`` becomes
-``torch.autograd``; ``jax.jit`` and ``vmap`` become checks that a reshaped
-or repeated call gives the same values.
+``torch.autograd`` and ``torch.func.vmap(torch.func.grad(...))``;
+``jax.jit`` a check that a repeated call gives the same values; ``vmap``
+``torch.func.vmap`` beside a loop or a reshaped call.
 """
 
 import numpy as np
@@ -131,6 +132,21 @@ def test_derivative_matches_autograd():
     (ad,) = torch.autograd.grad(t(qt).sum(), qt)
     close(t.derivative(q), ad, rtol=1e-8, atol=1e-10)
     close(ad, jax.vmap(jax.grad(lambda p: j(p)))(jnp.asarray(q)), rtol=1e-8, atol=1e-10)
+
+
+def test_derivative_matches_torch_func_vmap_grad():
+    """test_matches_autodiff with ``torch.func.vmap(torch.func.grad(itp))``,
+    JAX's transform pair: the analytic derivative and JAX's within its
+    tolerance, autograd's gradient bit for bit."""
+    x, y, q = case(seed=10)
+    j, t = build(x, y, cubic(extrapolate=True))
+    qt = torch.as_tensor(q)
+    ad = torch.func.vmap(torch.func.grad(lambda p: t(p)))(qt)
+    close(t.derivative(q), ad, rtol=1e-8, atol=1e-10)
+    close(ad, jax.vmap(jax.grad(lambda p: j(p)))(jnp.asarray(q)), rtol=1e-8, atol=1e-10)
+    qg = qt.clone().requires_grad_()
+    (want,) = torch.autograd.grad(t(qg).sum(), qg)
+    assert torch.equal(ad, want)
 
 
 def test_derivative_repeat_and_query_dims():
@@ -455,6 +471,19 @@ def test_solve_repeat_and_levels():
         close(t.solve(float(level)), vm[i], rtol=1e-7, atol=1e-8, equal_nan=True)
 
 
+def test_solve_levels_under_torch_func_vmap():
+    """test_jit_and_vmap's ``vmap`` over levels with ``torch.func.vmap``:
+    each row equals the solve at that level and JAX's ``vmap``."""
+    x, y, _ = case(seed=40)
+    j, t = build(x, y, cubic())
+    lv = np.array([0.0, 0.1, 0.2])
+    vm = torch.func.vmap(lambda level: t.solve(level))(torch.as_tensor(lv))
+    jvm = np.asarray(jax.vmap(lambda level: j.solve(level))(jnp.asarray(lv)))
+    for i, level in enumerate(lv):
+        close(vm[i], t.solve(float(level)), rtol=0, atol=0, equal_nan=True)
+        close(vm[i], jvm[i], rtol=1e-7, atol=1e-8, equal_nan=True)
+
+
 def test_solve_solutions_evaluate_to_level():
     """Every reported root satisfies spline(r) = y."""
     x, y, _ = case(n=40, seed=41)
@@ -562,6 +591,25 @@ def test_derivative2d_matches_autograd():
     close(t.derivative(qx, qy, dy=1), gy, rtol=1e-8, atol=1e-10)
     jgx = jax.vmap(jax.grad(lambda a, b: j(a, b), argnums=0))(jnp.asarray(qx), jnp.asarray(qy))
     close(gx, jgx, rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.parametrize("strategy", ["Bicubic", "Bilinear"])
+def test_derivative2d_matches_torch_func_vmap_grad(strategy):
+    """test_matches_autodiff / test_bilinear_partials with JAX's transform
+    pair, ``torch.func.vmap(torch.func.grad(itp, argnums))``: the analytic
+    partials, JAX's, and autograd's bit for bit."""
+    x, y, z, qx, qy = grid(seed=54 if strategy == "Bicubic" else 55)
+    j, t = build2(x, y, z, strategy, extrapolate=strategy == "Bicubic")
+    tol = dict(rtol=1e-8, atol=1e-10) if strategy == "Bicubic" else dict(rtol=1e-12)
+    want = autograd_partials(t, qx, qy)
+    qs = (torch.as_tensor(qx), torch.as_tensor(qy))
+    for argnums, order in ((0, dict(dx=1)), (1, dict(dy=1))):
+        g = torch.func.vmap(torch.func.grad(lambda a, b: t(a, b), argnums=argnums))(*qs)
+        assert torch.equal(g, want[argnums])
+        close(t.derivative(qx, qy, **order), g, **tol)
+        jg = jax.vmap(jax.grad(lambda a, b: j(a, b), argnums=argnums))(jnp.asarray(qx),
+                                                                        jnp.asarray(qy))
+        close(g, jg, **tol)
 
 
 def test_derivative2d_bilinear_partials():

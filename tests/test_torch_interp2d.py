@@ -477,3 +477,25 @@ def test_out_of_bounds_message_matches_jax():
     same_error(lambda: j.interp_array(*q), lambda: t.interp_array(*q))
     err = raised(lambda: t.interp_array(*q))
     assert isinstance(err, terr.OutOfBoundsError) and type(raised(lambda: j.interp_array(*q))) is JOOB
+
+
+@pytest.mark.parametrize("strategy", ["Bilinear", "Bicubic"])
+def test_jit_vmap_2d(strategy):
+    """test_jit_vmap_2d: a second call equals ``interp_array``, and
+    ``torch.func.vmap`` over query rows equals it bit for bit (R1 and the
+    tail run once on the flattened rows) and JAX's ``vmap`` at its
+    tolerance; ``vmap(grad)`` gives the query gradients."""
+    data = np.random.default_rng(64).uniform(0.0, 1.0, size=(8, 8, 3))
+    j, t = both(data, strategy=lambda m: getattr(m, strategy)().extrapolate(True))
+    qx, qy = np.linspace(0.0, 7.0, 32), np.linspace(7.0, 0.0, 32)
+    tx, ty = torch.as_tensor(qx), torch.as_tensor(qy)
+    want = t.interp_array(tx, ty)
+    assert torch.equal(t(tx, ty), want) and torch.equal(t(tx, ty), want)
+    got = torch.func.vmap(t)(tx.reshape(4, 8), ty.reshape(4, 8))
+    assert torch.equal(got, want.reshape(4, 8, 3))
+    jv = jax.vmap(lambda a, b: j(a, b))(jnp.asarray(qx).reshape(4, 8), jnp.asarray(qy).reshape(4, 8))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jv), atol=1e-15)
+    gx = torch.func.vmap(torch.func.grad(lambda a, b: t(a, b).sum()))(tx, ty)
+    ax = tx.clone().requires_grad_(True)
+    (want_gx,) = torch.autograd.grad(t(ax, ty).sum(), ax)
+    assert torch.equal(gx, want_gx)

@@ -869,3 +869,31 @@ def test_integrate_errors():
                lambda: tp.integrate((0.1, 0.2), (0.1, 0.2)))
     with pytest.raises(ValueError, match="periodic"):
         tp.integrate((0.1, 0.2), (0.1, 0.2))
+
+
+def test_jit_vmap_grad():
+    """test_jit_vmap_grad: a second call and ``torch.func.vmap`` equal
+    ``interp_array`` (and JAX's ``vmap`` within 1e-13); ``torch.func.grad``
+    of the piecewise-multilinear surface is its slope, for linear and cubic
+    (K2 on each axis, once a call under ``vmap``)."""
+    axes, data, rng = grid_case(3, seed=11)
+    j, t = both(data, axes)
+    qs = [torch.as_tensor(q) for q in queries(axes, rng, n=16)]
+    want = t.interp_array(*qs)
+    assert torch.equal(t(*qs), want) and torch.equal(t(*qs), want)
+    vm = torch.func.vmap(t)(*(q.reshape(4, 4) for q in qs))
+    assert torch.equal(vm.reshape(-1), want)
+    jv = jax.vmap(lambda a, b, c: j(a, b, c))(*(jnp.asarray(q.numpy()) for q in qs))
+    np.testing.assert_allclose(vm.numpy().ravel(), np.asarray(jv).ravel(), rtol=0, atol=1e-13)
+    _, tc = both(data, axes, method="cubic")
+    assert torch.equal(torch.func.vmap(tc)(*(q.reshape(4, 4) for q in qs)).reshape(-1),
+                       tc.interp_array(*qs))
+    ax = [np.array([0.0, 1.0, 2.0]), np.array([0.0, 2.0])]
+    x, y = np.meshgrid(*ax, indexing="ij")
+    jl, tl = both(2.0 * x + 3.0 * y, ax)
+    g = torch.func.grad(lambda a, b: tl(a.reshape(1), b.reshape(1)).sum(), argnums=(0, 1))(
+        torch.tensor(0.6, dtype=torch.float64), torch.tensor(1.1, dtype=torch.float64))
+    np.testing.assert_allclose([float(g[0]), float(g[1])], [2.0, 3.0], atol=1e-13)
+    jg = jax.grad(lambda a, b: jl(a.reshape(1), b.reshape(1)).sum())(jnp.asarray(0.6),
+                                                                   jnp.asarray(1.1))
+    np.testing.assert_allclose(float(g[0]), float(jg), atol=1e-13)

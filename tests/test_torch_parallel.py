@@ -7,7 +7,7 @@ query sharding exchange nothing, so most cases call the port's public
 functions once for every mesh coordinate in one process, on ``Coords``: a
 stand-in for a ``DeviceMesh`` at one coordinate (the names, shape, device
 type and local rank that ``sharding.py`` reads; no process group), and
-assemble the blocks.  One 4-rank gloo world, started once for the file,
+assemble the blocks.  One 4-rank gloo world, started once a test session,
 runs the same entry points on a real ``(query 2, bank 2)`` mesh, the
 multichip step (``examples/spline_bank_sharded.py:sgd_step``) and the
 example; its outputs must equal the coordinate-wise blocks bit for bit.
@@ -17,21 +17,18 @@ within 1e-5 of the scale, as ``__graft_entry__.dryrun_multichip``).  Where
 the JAX test asks sharded against replicated, the port's sharded blocks must
 equal its unsharded result bit for bit.
 
-Not ported, each resting on what the port does not have: the Pallas kernels
-under GSPMD partition rules, ``custom_vmap`` and the driver's graft entry
-(``test_parallel.py:130-637``: ``test_fused_eval_kernel_under_mesh``,
-``test_fused_lower_index_under_mesh``, ``test_fused_index_frac_under_mesh``,
-``test_banked_kernel_under_mesh``, ``test_fused_eval_vmap_flattens_queries``,
-``test_fused_eval_vmap_batched_tables_falls_back``,
-``test_gathered_route_under_mesh``, ``test_banked_vmap_flattens_queries``,
-``test_graft_entry_compiles``, ``test_df_kernel_under_mesh``,
-``test_gathered_vmap_partial_batching``, ``test_df_gather_routes_under_mesh``,
-``test_df_bicubic_route_under_mesh``, ``test_df_bicubic_node_route_under_mesh``,
-``test_df_nd_route_under_mesh``): ``ops/partition.py`` is not ported
-(ROADMAP Queue 1, Not to port), a rank runs its kernels on its own shard.
+The kernels' placement rules (``test_parallel.py:130-637``, the Pallas
+kernels under GSPMD rules and ``custom_vmap``) are twinned in
+``tests/test_torch_partition.py``; this world runs their mesh cases
+(``partition_cases``), and :func:`bank_world` shares its results with that
+file, once a test session.  Not ported: ``test_graft_entry_compiles`` (the
+graft entry, ``__graft_entry__.py``, ROADMAP Not to port).
 """
 
+import fcntl
 import itertools
+import os
+import shutil
 
 import numpy as np
 import pytest
@@ -82,6 +79,79 @@ def step_arrays(n_knots=256, bank=512, n_q=8192):
     q = np.random.default_rng(1).uniform(0.0, 1.0, n_q).astype(np.float32)
     targets = np.sin(q * np.float32(7.0))[:, None] * np.ones((1, bank), np.float32)
     return x, data, q, targets
+
+
+# the inputs of the kernels' placement rules (tests/test_parallel.py:106-637)
+def fused_arrays(nq=4096, n=256, seed=3):
+    """_fused_fixture's: knots, data, a, b (the interval table's) and queries."""
+    rng = np.random.default_rng(seed)
+    x = np.cumsum(rng.uniform(0.1, 1.0, n)).astype(np.float32)
+    d, a, b = (rng.normal(size=m).astype(np.float32) for m in (n, n - 1, n - 1))
+    q = rng.uniform(float(x[0]) - 1.0, float(x[-1]) + 1.0, nq).astype(np.float32)
+    return x, d, a, b, q
+
+
+def bank_case(seed, n, bank, nq):
+    """The banked signature's operands: d2, a2, b2 (f32), idx (int32), t."""
+    rng = np.random.default_rng(seed)
+    tables = [rng.normal(size=(m, bank)).astype(np.float32) for m in (n, n - 1, n - 1)]
+    idx = rng.integers(0, n - 1, nq).astype(np.int32)
+    return (*tables, idx, rng.uniform(0, 1, nq).astype(np.float32))
+
+
+def df_eval_arrays():
+    """test_df_kernel_under_mesh's float64 knots, data, a, b and queries."""
+    rng = np.random.default_rng(13)
+    n, nq = 128, 2048
+    x64 = np.cumsum(rng.uniform(0.05, 1.0, n))
+    d64, a64, b64 = rng.normal(size=n), rng.normal(size=n - 1), rng.normal(size=n - 1)
+    return x64, d64, a64, b64, rng.uniform(x64[0], x64[-1], nq)
+
+
+def df_gather_arrays():
+    """test_df_gather_routes_under_mesh's bank (x, d, a, b, q) and bilinear
+    grid (x, y, z, qx, qy), float64."""
+    rng = np.random.default_rng(71)
+    n, bank, nq = 64, 16, 2048
+    x64 = np.linspace(0.0, 1.0, n)
+    d64, a64, b64 = (rng.normal(size=(m, bank)) for m in (n, n - 1, n - 1))
+    q64 = rng.uniform(-0.1, 1.1, nq)
+    nx, ny = 48, 40
+    gx, gy = np.cumsum(rng.uniform(0.1, 1.0, nx)), np.cumsum(rng.uniform(0.1, 1.0, ny))
+    z64 = rng.normal(size=(nx, ny))
+    qx, qy = rng.uniform(gx[0], gx[-1], nq), rng.uniform(gy[0], gy[-1], nq)
+    return (x64, d64, a64, b64, q64), (gx, gy, z64, qx, qy)
+
+
+def df_bicubic_arrays():
+    """test_df_bicubic_route_under_mesh's axes, cell rows (r = 3) and queries."""
+    rng = np.random.default_rng(73)
+    nx, ny, r, nq = 40, 32, 3, 2048
+    x64, y64 = np.cumsum(rng.uniform(0.1, 1.0, nx)), np.cumsum(rng.uniform(0.1, 1.0, ny))
+    rows64 = rng.normal(size=((nx - 1) * (ny - 1), 16 * r))
+    return x64, y64, rows64, rng.uniform(x64[0], x64[-1], nq), rng.uniform(y64[0], y64[-1], nq)
+
+
+def df_node_arrays():
+    """test_df_bicubic_node_route_under_mesh's axes, node rows (r = 3) and
+    queries."""
+    rng = np.random.default_rng(74)
+    nx, ny, r, nq = 24, 20, 3, 2048
+    x64, y64 = np.cumsum(rng.uniform(0.1, 1.0, nx)), np.cumsum(rng.uniform(0.1, 1.0, ny))
+    rows64 = rng.normal(size=(nx * ny, 4 * r + 2))
+    rows64[:, 4 * r], rows64[:, 4 * r + 1] = np.repeat(x64, ny), np.tile(y64, nx)
+    return x64, y64, rows64, rng.uniform(x64[0], x64[-1], nq), rng.uniform(y64[0], y64[-1], nq)
+
+
+ND_SIZES, ND_R = (9, 8, 7), 2
+
+
+def df_nd_arrays():
+    """test_df_nd_route_under_mesh's three axes, cubic cell rows and queries."""
+    rng = np.random.default_rng(75)
+    axes64 = [np.cumsum(rng.uniform(0.1, 1.0, n)) for n in ND_SIZES]
+    rows64 = rng.normal(size=(int(np.prod([n - 1 for n in ND_SIZES])), 4**3 * ND_R))
+    return axes64, rows64, [rng.uniform(a[0], a[-1], 2048) for a in axes64]
 '''
 exec(PROBLEMS)  # noqa: S102 - defines bank_arrays, grid_arrays and step_arrays here
 
@@ -96,6 +166,114 @@ from ndarray_interp_tpu_torch.parallel import (
 from ndarray_interp_tpu_torch.parallel.multihost import initialize, shutdown
 from ndarray_interp_tpu_torch.examples import spline_bank_sharded
 from ndarray_interp_tpu_torch.utils.mesh import chunk
+
+
+
+def partition_cases(mesh2, mesh1):
+    """The kernels' placement rules (``ops/partition.py``) on this rank: the
+    twins of tests/test_parallel.py's mesh cases, queries ``Shard(0)`` over
+    the 1-D ``query`` mesh (bank cases: over ``query`` of the (query 2,
+    bank 2) mesh, tables ``Shard(1)`` over ``bank``).  Per case: each
+    output's local shard and placements, the collectives counted while the
+    rule ran, and whether the shard equals the unsharded entry's slice."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from ndarray_interp_tpu_torch.ops import eval_kernels as ek, partition as part
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df as edf, eval_kernels_df2d as e2
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df_nd as end
+    from ndarray_interp_tpu_torch.ops.bank_eval import banked_eval
+    from ndarray_interp_tpu_torch.ops.bank_tail import gathered_bank_eval
+    from ndarray_interp_tpu_torch.ops.df import df_from_f64
+
+    def cut(t, mesh, placements):
+        for i, p in enumerate(placements):
+            if isinstance(p, Shard):
+                t = t[(slice(None),) * p.dim + (chunk(t.shape[p.dim], mesh.size(i),
+                                                      mesh.get_local_rank(i)),)]
+        return t
+
+    def dt(t, mesh, placements):
+        return DTensor.from_local(cut(t, mesh, placements), mesh, placements, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+
+    def same(a, b):
+        try:
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+            return True
+        except AssertionError:
+            return False
+
+    def case(rule, args, whole, mesh):
+        with CommDebugMode() as comm:
+            out = rule(*args)
+        outs, wholes = (out, whole) if isinstance(out, tuple) else ((out,), (whole,))
+        return {"local": [o.to_local() for o in outs], "placements": [str(o.placements) for o in outs],
+                "shapes": [tuple(o.shape) for o in outs], "comms": comm.get_total_counts(),
+                "same": all(same(o.to_local(), cut(w, mesh, o.placements))
+                            for o, w in zip(outs, wholes))}
+
+    def pairs(*arrays):
+        return [h for v in arrays for h in df_from_f64(v)]
+
+    q1 = [Shard(0)]
+    got = {}
+    x, d, a, b, q = (T(v) for v in fused_arrays())
+    tbl = ek.make_interval_table(x, d, a, b)
+    qs = dt(q, mesh1, q1)
+    got["fused_eval"] = case(part.sharded_fused_eval(), (x, tbl, qs), ek.fused_eval_1d(x, tbl, q), mesh1)
+    got["lower_index"] = case(part.sharded_lower_index(), (x, qs), ek.fused_lower_index(x, q), mesh1)
+    got["index_frac"] = case(part.sharded_index_frac(), (x, qs), ek.fused_index_frac(x, q), mesh1)
+    tb, qp = [Replicate(), Shard(1)], [Shard(0), Replicate()]
+    for name, fn, rule, spec in (("banked", banked_eval, part.sharded_banked_eval, (4, 32, 64, 256)),
+                                 ("gathered", gathered_bank_eval, part.sharded_gathered_eval,
+                                  (7, 24, 32, 1024))):
+        ops = [T(v) for v in bank_case(*spec)]
+        args = [dt(v, mesh2, tb) for v in ops[:3]] + [dt(v, mesh2, qp) for v in ops[3:]]
+        got[name] = case(rule(), args, fn(*ops), mesh2)
+    ops = pairs(*df_eval_arrays())
+    args = ops[:8] + [dt(v, mesh1, q1) for v in ops[8:]]
+    got["df_eval"] = case(part.sharded_df_eval(), args, edf.fused_eval_1d_df(*ops), mesh1)
+    (x64, d64, a64, b64, q64), (gx, gy, z64, qx, qy) = df_gather_arrays()
+    p = pairs(x64, d64, a64, b64)
+    qh, ql = df_from_f64(q64)
+    qd = [dt(v, mesh1, q1) for v in (qh, ql)]
+    for tier, pack in (("df", edf.pack_bank_rows_df), ("f48", edf.pack_bank_rows_f48)):
+        packed = pack(*p[2:8])
+        whole = part.sharded_df_banked_packed(16, tier)(p[0], p[1], packed, qh, ql)
+        got[f"df_bank_{tier}"] = case(part.sharded_df_banked_packed(16, tier),
+                                      (p[0], p[1], packed, *qd), whole, mesh1)
+    p2 = pairs(gx, gy, z64)
+    q2 = pairs(qx, qy)
+    q2d = [dt(v, mesh1, q1) for v in q2]
+    for tier, pack in (("df", e2.pack_bilinear_rows_df), ("f48", e2.pack_bilinear_rows_f48)):
+        packed = pack(p2[4], p2[5])
+        rule = part.sharded_df_bilinear_packed(len(gy), 1, tier)
+        got[f"df_bilinear_{tier}"] = case(rule, (*p2[:4], packed, *q2d),
+                                          rule(*p2[:4], packed, *q2), mesh1)
+    x64, y64, rows64, qx, qy = df_bicubic_arrays()
+    axes, rows, q2 = pairs(x64, y64), df_from_f64(rows64), pairs(qx, qy)
+    q2d = [dt(v, mesh1, q1) for v in q2]
+    for tier, pack in (("df", e2.pack_bicubic_rows_df), ("f48", e2.pack_bicubic_rows_f48)):
+        packed = pack(*rows, 3)
+        rule = part.sharded_df_bicubic_packed(3, tier)
+        got[f"df_bicubic_{tier}"] = case(rule, (*axes, packed, *q2d), rule(*axes, packed, *q2),
+                                         mesh1)
+    x64, y64, rows64, qx, qy = df_node_arrays()
+    axes, q2 = pairs(x64, y64), pairs(qx, qy)
+    packed = e2.pack_bicubic_nodes_df(*df_from_f64(rows64))
+    rule = part.sharded_df_bicubic_nodes(3)
+    got["df_node"] = case(rule, (*axes, packed, *[dt(v, mesh1, q1) for v in q2]),
+                          rule(*axes, packed, *q2), mesh1)
+    axes64, rows64, qs64 = df_nd_arrays()
+    axes, qn, rows = pairs(*axes64), pairs(*qs64), df_from_f64(rows64)
+    for tier, pack in (("df", end.pack_rows_nd_df), ("f48", end.pack_rows_nd_f48)):
+        packed = pack(*rows, 4**3, ND_R)
+        rule = part.sharded_df_nd_packed(3, ND_SIZES, ND_R, tier=tier)
+        got[f"df_nd_{tier}"] = case(rule, (*axes, packed, *[dt(v, mesh1, q1) for v in qn]),
+                                    rule(*axes, packed, *qn), mesh1)
+    return got
+
 
 url, world, rank, outdir = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
 initialize(url, world, rank, backend="gloo")
@@ -124,6 +302,12 @@ loss, new, pred = spline_bank_sharded.sgd_step(
     T(x), T(full[:, cs]), T(q[qs]), T(targets[qs, cs]), mesh, targets.size)
 res["step"] = (loss, new, pred)
 res["example_err"] = spline_bank_sharded.main(n_knots=64, bank=512, n_queries=256, device="cpu")
+try:
+    res["partition"] = partition_cases(mesh, make_mesh(axis_names=("query",), device_type="cpu"))
+except Exception:  # the other cases' results stand; the partition twins report this
+    import traceback
+
+    res["partition"] = traceback.format_exc()
 torch.save(res, f"{outdir}/rank{rank}.pt")
 shutdown()
 '''
@@ -131,11 +315,29 @@ shutdown()
 WORLD = 4
 
 
+def bank_world(tmp_path_factory):
+    """The world's results, run once a test session: this file and
+    ``test_torch_partition.py`` read them.  Under xdist the workers of one
+    session share the parent of their temporary directories; the first
+    worker to ask runs the world under a file lock, the others wait for it
+    and read its files."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    outdir = root / "bank_world"
+    with open(root / "bank_world.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not (outdir / "done").exists():
+            shutil.rmtree(outdir, ignore_errors=True)  # a failed run's rendezvous
+            outdir.mkdir()
+            run_world(CHILD, outdir, WORLD)
+            (outdir / "done").touch()
+    return [torch.load(outdir / f"rank{r}.pt") for r in range(WORLD)]
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
-    outdir = tmp_path_factory.mktemp("bank_world")
-    run_world(CHILD, outdir, WORLD)
-    return [torch.load(outdir / f"rank{r}.pt") for r in range(WORLD)]
+    return bank_world(tmp_path_factory)
 
 
 class Coords:

@@ -20,6 +20,7 @@ import pytest
 import scipy.interpolate as si
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import ndarray_interp_tpu.interp1d as j1
@@ -204,6 +205,21 @@ def test_nearest_vmap_and_query_dims():
     qt = torch.as_tensor(q)
     assert torch.equal(torch.func.vmap(t)(qt.reshape(4, -1)).reshape(-1), direct)
     assert torch.equal(t(q.reshape(4, -1)).reshape(-1), direct)
+
+
+@pytest.mark.parametrize("name", ["Akima", "Makima", "Pchip"])
+def test_hermite_vmap_of_itp(name):
+    """The query-row ``vmap`` of test_jit_vmap_and_pytree on the strategies
+    that run K1: ``torch.func.vmap(itp)`` equals the direct call bit for bit
+    (one K1 call on the flattened rows) and JAX's ``vmap``."""
+    x, y, q = case(seed=13)
+    j, t = both1(y, getattr(j1, name)(), getattr(t1, name)(), x)
+    qt = torch.as_tensor(q)
+    direct = t(qt)
+    got = torch.func.vmap(t)(qt.reshape(4, -1))
+    assert torch.equal(got.reshape(-1), direct)
+    jv = jax.vmap(lambda qq: j(qq))(jnp.asarray(q).reshape(4, -1))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jv), rtol=1e-12, atol=1e-12)
 
 
 # -- TestNearest2D --------------------------------------------------------------------
