@@ -75,7 +75,7 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
 5c. drives the wide-bank and long-axis slice the same way, against SciPy:
    NS5 (256 knots x 16,384 splines, 4,096 bf16 queries: K5), NS5b (64 x
    1,000,000 built on the card, 256 queries: K5), NS2b (10,240 x 64 at
-   1,000,000: K5; a bank of 8 on its axis: R2a), NS1b (262,144 knots at
+   1,000,000: K5; a float64 bank of 8 on its axis: R2a), NS1b (262,144 knots at
    1,000,000: R3, also for Linear, and R3idx + K5 for a bank of 8), NS4
    (Akima, Makima, Pchip on 2,048 knots: K1; Akima on 262,144: R3);
 5d. drives this slice the same way: NS3d's double-float bicubic route
@@ -213,13 +213,17 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    R2a at NS2b (10,240 x 64,
    1,000,000 queries) and at the bank eval's shape: its 16-byte lanes
    against the first design's column a lane (on a table off 16-byte
-   alignment), held bit for bit and timed in turn.  ``--sweeps`` adds the
+   alignment), held bit for bit and timed in turn.  K5 (``k5_phase``) at the
+   paths' shapes and the bank route's two corners (10,000 x 8 and 10,000 x
+   1,024 at 1,000,000 queries) beside its bytes bound, and its geometry's
+   edges (banks of 1, 3 and 8, tables off 16-byte alignment, float64) held
+   bit for bit.  ``--sweeps`` adds the
    design sweeps behind those choices: K3's tree from 16 to 128 KB and the
    tree against the global search on batches of 2 to 65,536; K1's tree
    from 16 to 64 KB at 70,001 and 262,144 knots; R1's budget from 16 to
    128 KB at 8,192 x 8,192 and 70,001 x 33 knots; K2's tree from 16 to 128
    KB past 8,191 knots, R3's and R3idx's at 262,144 and 8,388,480 knots,
-   K6's leaders at 4,096 knots; R2a with
+   K6's leaders at 4,096 knots; K5 in one to eight query rounds a block; R2a with
    every query in one interval and in interval order (the diagnosis), in
    f64, and on prefixes of 2^12 to 2^20 queries at banks 8, 64 and 256.
    Every kernel's launches are summed over every path.
@@ -3474,7 +3478,7 @@ def bank_big_path(dev, rng):
     del got
     torch.cuda.empty_cache()
 
-    # NS2b: 10,240 knots x 64 at 1,000,000 queries -> K2 + K5 (bank_eval.banked_pays)
+    # NS2b: 10,240 knots x 64 at 1,000,000 queries -> K2 + K5 (bank_eval.can_use_banked)
     x10 = np.linspace(0.0, 1.0, 10_240).astype(np.float32)
     d10 = rng.normal(size=(10_240, 64)).astype(np.float32)
     q10 = rng.uniform(0.0, 1.0, NQ_BIG).astype(np.float32)
@@ -3488,17 +3492,19 @@ def bank_big_path(dev, rng):
     out["NS2b"] = (itp10, q10_d)
     del got, ref
 
-    # NS2b's axis with a bank of 8 -> K2 + the packed route (R2a): narrow banks
-    # at >= 8 queries a knot take it (bank_eval.banked_pays)
-    d8 = rng.normal(size=(10_240, 8)).astype(np.float32)
-    itp8 = build(T(d8), T(x10), spline, "NS2b axis, bank of 8, build", ["K4"])
-    got = drive(f"NS2b axis, bank of 8, itp(q) at {NQ_BIG:,} queries", ["K2", "R2a"],
-                lambda: itp8(q10_d))
-    ref = si.CubicSpline(x10.astype(np.float64), d8.astype(np.float64), axis=0)(
-        q10.astype(np.float64))
-    check_close(f"NS2b axis, bank of 8, at {NQ_BIG:,} queries", got, ref, F32_TOL, (NQ_BIG, 8),
-                torch.float32)
-    del got, ref, itp8
+    # NS2b's axis with a float64 bank of 8 -> K2 + the packed route (R2a): K5
+    # takes every float32 bank (bank_eval.can_use_banked), float64 banks
+    # take the packed route
+    d8 = rng.normal(size=(10_240, 8))
+    x10_64, q10_64 = x10.astype(np.float64), q10.astype(np.float64)
+    itp8 = build(T(d8), T(x10_64), spline, "NS2b axis, float64 bank of 8, build", ["K4"])
+    q10_d64 = T(q10_64)
+    got = drive(f"NS2b axis, float64 bank of 8, itp(q) at {NQ_BIG:,} queries", ["K2", "R2a"],
+                lambda: itp8(q10_d64))
+    ref = si.CubicSpline(x10_64, d8, axis=0)(q10_64)
+    check_close(f"NS2b axis, float64 bank of 8, at {NQ_BIG:,} queries", got, ref, F64_TOL,
+                (NQ_BIG, 8), torch.float64)
+    del got, ref, itp8, q10_d64
 
     # NS1b: 262,144 knots on linspace(0, 100), 1,000,000 queries -> R3; Linear -> R3;
     # a bank of 8 splines on that axis -> R3idx + K5 (4 queries a knot)
@@ -3643,10 +3649,10 @@ def timing_big(state, bank_eval, card, rec, sweeps):
     """Hold K5, R2a, R3 and R3idx, through their wrappers, against their
     plain versions on the paths' own inputs; time both there, with K1 and
     R3's first design at NS1b beside R3 (and R3idx's beside R3idx), R3 and
-    R3idx by their budgets (``r3_phase``, ``r3idx_phase``) and
+    R3idx by their budgets (``r3_phase``, ``r3idx_phase``),
     R2a's two bodies (``r2a_phase``, also at the bank eval's shape
-    ``bank_eval``); then time the slice's calls end to end, and those on R2a
-    and R3 also by CUDA events."""
+    ``bank_eval``) and K5's designs (``k5_phase``); then time the slice's
+    calls end to end, and those on R2a and R3 also by CUDA events."""
     import torch
 
     from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
@@ -3712,6 +3718,7 @@ def timing_big(state, bank_eval, card, rec, sweeps):
         if key:
             times["K5"].update({f"{key}_ms": tk_[0], f"{key}_plain_ms": tp_[0],
                                 f"{key}_bound_ms": bound_ms})
+    times["K5"].update(k5_phase(qb.device, card, rec, sweeps))
     # K4 at the NS5b build: 64 knots x 1,000,000 columns, the resident slice
     from ndarray_interp_tpu_torch.models.strategies.cubic import _NOT_A_KNOT, _assemble_system
     from ndarray_interp_tpu_torch.ops import thomas_kernel as tk
@@ -3787,6 +3794,120 @@ def timing_big(state, bank_eval, card, rec, sweeps):
     ):
         print(f"  {label}: {fmt(device_ms(fn, 5))}", flush=True)
     return times
+
+
+# K5's designs at the paths' shapes and at the bank route's two corners:
+# (key, label, knots, bank, queries), float32
+K5_SHAPES = (("bank_eval", "the bank eval", 10_000, 64, 262_144),
+             ("ns2b", "NS2b", 10_240, 64, 1_000_000),
+             ("ns1b_bank", "NS1b's bank", 262_144, 8, 1_000_000),
+             ("ns5", "NS5", 256, 16_384, 4096),
+             ("ns5b", "NS5b", 64, 1_000_000, 256),
+             ("narrow_corner", "narrow corner", 10_000, 8, 1_000_000),
+             ("wide_corner", "wide corner", 10_000, 1024, 1_000_000))
+# and the edges of its geometry, held bit for bit: (knots, bank, queries, dtype, offset of the
+# tables from a 16-byte boundary in elements)
+K5_EDGES = ((300, 1, 10_007, "float32", 0), (300, 3, 10_007, "float32", 0),
+            (300, 8, 10_007, "float32", 0), (64, 8, 10_007, "float32", 0),
+            (300, 64, 10_007, "float32", 1), (64, 300, 10_007, "float32", 1),
+            (300, 64, 10_007, "float64", 0), (64, 300, 10_007, "float64", 0),
+            (300, 1, 10_007, "float64", 0), (300, 3, 10_007, "float64", 0),
+            (64, 1024, 4099, "float64", 1), (16, 16_384, 513, "float32", 0))
+
+
+def k5_inputs(dev, n, bank, nq, dtype, seed, offset=0):
+    """A bank's tables (normal, one NaN datum), ``nq`` intervals (uniform, a
+    few outside the table: clamped) and fractions (uniform, NaN and +inf at
+    the end), the tables ``offset`` elements past a 16-byte boundary."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def table(m):
+        buf = torch.randn(m * bank + offset, generator=gen, device=dev, dtype=dtype)
+        return buf[offset:].view(m, bank)
+
+    d, a, b = table(n), table(n - 1), table(n - 1)
+    d[n // 2, bank // 2] = float("nan")
+    idx = torch.randint(0, n - 1, (nq,), generator=gen, device=dev, dtype=torch.int32)
+    idx[:2] = torch.tensor([-5, n + 3], dtype=torch.int32, device=dev)
+    t = torch.rand(nq, generator=gen, device=dev, dtype=dtype)
+    t[-2:] = torch.tensor([float("nan"), float("inf")], dtype=dtype, device=dev)
+    return d, a, b, idx, t
+
+
+def k5_times(dev, card, rec):
+    """K5 through its wrapper at ``K5_SHAPES``, held bit for bit against
+    ``_gather_form`` and timed beside the bytes bound.  It reads only
+    ``banked_eval`` and ``_gather_form``, so it runs on any checkout's port
+    (``tools/bank_phases.py --root``: the parent's design in the same call).
+    Returns ``{f"{key}_design_ms": ms, f"{key}_design_bound_ms": ms}``."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops import bank_eval as be
+
+    print(f"K5 at the paths' shapes and the route's corners (device ms per call, median "
+          f"[min, max] of {RUNS} runs by CUDA events, queue held full; card: {card}):",
+          flush=True)
+    keys = {}
+    for key, label, n, bank, nq in K5_SHAPES:
+        args = k5_inputs(dev, n, bank, nq, torch.float32, n + bank)
+        ok = rec.add("K5", f"{label} {n:,} x {bank:,} at {nq:,}", be.banked_eval(*args),
+                     be._gather_form(*args))
+        fn = lambda args=args: be.banked_eval(*args)  # noqa: E731
+        t_ = device_ms(fn, calls_for(fn))
+        bound_ms, _ = bound("K5", args)
+        print(f"  K5 {label} {n:,} x {bank:,} at {nq:,} ({'bit-identical' if ok else 'MISMATCH'}):"
+              f" {fmt(t_)}; bound {bound_ms:.4f}, bound / kernel {bound_ms / t_[0]:.3f}",
+              flush=True)
+        keys[f"{key}_design_ms"] = t_[0]
+        keys[f"{key}_design_bound_ms"] = bound_ms
+        del args
+        torch.cuda.empty_cache()
+    return keys
+
+
+def k5_phase(dev, card, rec, sweeps):
+    """K5's design (``_k5_geometry``: 16-byte lanes sized to the bank) at
+    the paths' shapes and the bank route's two corners (``k5_times``), then
+    the geometry's edges (``K5_EDGES``: banks of 1, 3 and 8, tables off
+    16-byte alignment, float64) held bit for bit against ``_gather_form``.
+    With ``sweeps`` also one to eight query rounds a block at every shape.
+    Returns the keys the kernels line adds to K5's entry."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops import bank_eval as be
+
+    keys = k5_times(dev, card, rec)
+    geometry = be._k5_geometry
+    for key, label, n, bank, nq in K5_SHAPES if sweeps else ():
+        args = k5_inputs(dev, n, bank, nq, torch.float32, n + bank)
+        want = be._gather_form(*args)
+        g = geometry(bank, 4, True)
+        fn = lambda: be.banked_eval(*args)  # noqa: E731
+        for rounds in (1, 2, 4, 8):
+            geom = g._replace(chunk=256 // g.lanes * rounds)
+            with patched((be, "_k5_geometry", lambda *_, g_=geom: g_)):
+                ok = rec.add("K5", f"{label}, {rounds} rounds", fn(), want)
+                t_ = device_ms(fn, calls_for(fn))
+            print(f"    K5 {label}, {rounds} round(s) a block ({geom}"
+                  f"{', the wrapper' if geom == g else ''}): {fmt(t_)}"
+                  f"{'' if ok else ' MISMATCH'}", flush=True)
+        del args, want
+        torch.cuda.empty_cache()
+    for n, bank, nq, dtype, offset in K5_EDGES:
+        dt = getattr(torch, dtype)
+        args = k5_inputs(dev, n, bank, nq, dt, 7 * n + bank, offset)
+        g = geometry(bank, dt.itemsize, be._aligned(*args[:3]))
+        label = f"{n} x {bank} at {nq:,}, {dtype}, tables {offset} past 16 B"
+        got, counts = launched(lambda: be.banked_eval(*args))
+        ok = rec.add("K5", label, got, be._gather_form(*args)) and counts == {"K5": 1}
+        print(f"  K5 {label} ({g}): {'bit-identical' if ok else 'MISMATCH'}, launches {counts}",
+              flush=True)
+        if counts != {"K5": 1}:
+            fail(f"K5 {label}: launches {counts}")
+    torch.cuda.synchronize()
+    return keys
 
 
 # -- the f64-grade bicubic tails, the step family and calculus -------------------------------
@@ -5466,7 +5587,7 @@ def rule1_bank(dev, shapes, gate, rows):
 
     from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
     from ndarray_interp_tpu_torch.models.strategies import cubic
-    from ndarray_interp_tpu_torch.ops.bank_eval import banked_pays, can_use_banked
+    from ndarray_interp_tpu_torch.ops.bank_eval import can_use_banked
 
     gen = torch.Generator(device=dev).manual_seed(24)
     eligible = lambda x, d: d.dtype == torch.float32 and d.ndim >= 2  # noqa: E731
@@ -5485,10 +5606,9 @@ def rule1_bank(dev, shapes, gate, rows):
                 CubicSpline().extrapolate(True)).build()
         itp = built[n, bank]
         q = torch.rand(nq, generator=gen, device=dev)
-        k5 = can_use_banked(itp.x, itp.data) and banked_pays(n, bank, nq)
-        cands = {"K5": (["K5"], patched((cubic, "can_use_banked", eligible),
-                                       (cubic, "banked_pays", lambda *_: True)), lambda: itp(q)),
-                 "packed": (["R2a"], patched((cubic, "banked_pays", lambda *_: False)),
+        k5 = can_use_banked(itp.x, itp.data)
+        cands = {"K5": (["K5"], patched((cubic, "can_use_banked", eligible)), lambda: itp(q)),
+                 "packed": (["R2a"], patched((cubic, "can_use_banked", lambda *_: False)),
                             lambda: itp(q))}
         judge_routes(1, f"{n} x {bank} at {nq:,}", "K5" if k5 else "packed",
                      lambda: itp(q), cands, gate, rows)
@@ -5909,8 +6029,8 @@ def main():
     ap = argparse.ArgumentParser(description="On-card check of the PyTorch port.")
     ap.add_argument("--sweeps", action="store_true",
                     help="also run the design sweeps behind K3's, K1's, R1's, K2's, R3's, "
-                         "R3idx's and K6's tree budgets, R2a's body, the ordered branches' "
-                         "crossovers and ORD's forms")
+                         "R3idx's and K6's tree budgets, K5's query rounds, R2a's body, the "
+                         "ordered branches' crossovers and ORD's forms")
     sweeps = ap.parse_args().sweeps
     import torch
 

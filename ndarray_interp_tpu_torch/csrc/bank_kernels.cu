@@ -24,13 +24,29 @@
 // the query's idx selects.  The output is the memory bound: 268 MB at 4,096
 // queries x 16,384 splines (K5's tables are 50 MB), 1 GB at 256 x 1,000,000
 // (the tables 768 MB), 67 MB at 262,144 x 64 for R2a (its table 10 MB).
-// K5: threads run along the bank axis, so every table read and every output
-// write of a warp is one 128-byte line (f32); a block owns one tile of
-// kBankTile bank columns and a chunk of kQueryChunk queries, whose idx and t
-// it stages in shared memory; blocks are numbered bank-tile-major (the query
-// chunk is blockIdx.x, the fastest), so the blocks that share a table tile run
-// together and the tile is read from device memory about once and then from
-// L2, as the TPU grid's bank-outer order (pallas_bank.py:138) does for VMEM.
+//
+// K5 reads its four values from the L2, which holds or streams the tables:
+// 16 B of row reads for each 4 B output in f32, 1 GB of them at NS2b's
+// 10,240 x 64 and 1M queries for 256 MB written, so at wide banks the L2's
+// read rate, not device memory, is what the kernel runs into.  Its first
+// design ran a thread a column of a 256-column tile, 32 queries in turn,
+// four 4-byte loads an output: at a bank of 8, 8 of a block's 256 threads
+// worked.  The second design sizes its lanes to the bank, as R2a's below: a
+// lane takes W columns with 16-byte loads and stores (f32 4, f64 2) where the
+// bank is a multiple of W and the three tables and the output start on
+// 16-byte boundaries, one column a lane else; L = min(bank / W, 32) lanes a
+// query, rounded up to a power of two, and 32 / L queries a warp, so every
+// warp of a 256-thread block works (a bank of 8 in f32: 2 lanes a query, 16
+// queries a warp).  A block is one tile of L * W columns and a chunk of
+// consecutive queries its threads take in rounds (two at L >= 16, where a
+// lane's second query overlaps its first's loads; one below), numbered
+// tile-major (the query block is the fastest), so the blocks that share a
+// table tile run together and read it from device memory about once.  The
+// output is stored evict-first (st.global.cs), so the 268 MB or 1 GB written
+// does not push the table tile out of the L2.  ops/bank_eval.py _k5_geometry
+// picks W, L and the chunk.  Staging the tile of the three tables in shared
+// memory (48 to 200 KB a block) and loading the tables L2-only were slower
+// at every shape timed (PERF.md §6, K5's row).
 //
 // R2a reads each query's whole packed row, 4 bp values (1 KiB at bank 64 in
 // f32), from the L2 that holds the table, for bank values of output: at
@@ -62,9 +78,6 @@
 
 namespace {
 
-constexpr int kBankTile = 256;   // K5: bank columns per block, one per thread
-constexpr int kQueryChunk = 32;  // K5: queries per block, idx and t in shared memory
-
 template <typename T>
 __device__ __forceinline__ T hermite(T y_l, T y_r, T a, T b, T t) {
   const T one = T(1);
@@ -75,29 +88,42 @@ __device__ __forceinline__ int64_t clamp_row(int64_t r, int64_t rows) {
   return r < 0 ? 0 : (r >= rows ? rows - 1 : r);
 }
 
-// K5.  rows = n - 1 intervals; data has rows + 1 rows of `bank` columns.
-template <typename T>
-__global__ void banked_eval_kernel(const T* __restrict__ data, const T* __restrict__ a,
-                                   const T* __restrict__ b, int64_t rows, int64_t bank,
-                                   const int32_t* __restrict__ idx, const T* __restrict__ t,
-                                   T* __restrict__ out, int64_t nq) {
-  __shared__ int64_t s_off[kQueryChunk];
-  __shared__ T s_t[kQueryChunk];
-  const int64_t q0 = blockIdx.x * static_cast<int64_t>(kQueryChunk);
-  const int64_t c = blockIdx.y * static_cast<int64_t>(kBankTile) + threadIdx.x;
-  const int64_t m = nq - q0 < kQueryChunk ? nq - q0 : kQueryChunk;
-  if (threadIdx.x < m) {
-    s_off[threadIdx.x] = clamp_row(__ldg(idx + q0 + threadIdx.x), rows) * bank;
-    s_t[threadIdx.x] = __ldg(t + q0 + threadIdx.x);
-  }
-  __syncthreads();
+// The W results of one lane at (row r of the four tables, fraction tq),
+// stored evict-first: the output is written once and never read here.  `yl`
+// points at the lane's columns of data row r, `yr` of row r + 1, `al`/`bl` of
+// a and b row r.
+template <typename T, int W>
+__device__ __forceinline__ void lane_eval(const T* yl, const T* yr, const T* al, const T* bl,
+                                          T tq, T* dst) {
+  T y0[W], y1[W], av[W], bv[W], r[W];
+  Vec<W>::load(yl, y0);
+  Vec<W>::load(yr, y1);
+  Vec<W>::load(al, av);
+  Vec<W>::load(bl, bv);
+#pragma unroll
+  for (int j = 0; j < W; ++j) r[j] = hermite(y0[j], y1[j], av[j], bv[j], tq);
+  Vec<W>::store_cs(dst, r);
+}
+
+// K5.  rows = n - 1 intervals; data has rows + 1 rows of `bank` columns.  A
+// lane (threadIdx.x) takes W columns of a query (threadIdx.y), blockDim.x
+// lanes a query; a block is one tile of blockDim.x * W columns and `chunk`
+// consecutive queries, `qblocks` blocks a tile.
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads)
+banked_eval_kernel(const T* __restrict__ data, const T* __restrict__ a,
+                   const T* __restrict__ b, int64_t rows, int64_t bank,
+                   const int32_t* __restrict__ idx, const T* __restrict__ t,
+                   T* __restrict__ out, int64_t nq, int64_t chunk, int64_t qblocks) {
+  const int64_t tile = blockIdx.x / qblocks;
+  const int64_t q_lo = (blockIdx.x - tile * qblocks) * chunk;
+  const int64_t q_hi = q_lo + chunk < nq ? q_lo + chunk : nq;
+  const int64_t c = (tile * blockDim.x + threadIdx.x) * W;
   if (c >= bank) return;
-  T* dst = out + q0 * bank + c;
-#pragma unroll 4
-  for (int j = 0; j < m; ++j) {
-    const int64_t off = s_off[j] + c;
-    dst[j * bank] = hermite(__ldg(data + off), __ldg(data + off + bank), __ldg(a + off),
-                            __ldg(b + off), s_t[j]);
+  for (int64_t q = q_lo + threadIdx.y; q < q_hi; q += blockDim.y) {
+    const int64_t off = clamp_row(__ldg(idx + q), rows) * bank + c;
+    lane_eval<T, W>(data + off, data + off + bank, a + off, b + off, __ldg(t + q),
+                    out + q * bank + c);
   }
 }
 
@@ -123,18 +149,47 @@ __global__ void bank_tail_kernel(const T* __restrict__ packed, int64_t rows, int
   Vec<W>::store(out + qi * bank + c, r);
 }
 
+template <typename T, int W>
+int banked_launch(const T* data, const T* a, const T* b, int64_t rows, int64_t bank,
+                  const int32_t* idx, const T* t, T* out, int64_t nq, int lanes, int64_t chunk,
+                  cudaStream_t s) {
+  const int64_t tiles = (bank / W + lanes - 1) / lanes;
+  const int64_t qblocks = (nq + chunk - 1) / chunk;
+  if (tiles * qblocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  banked_eval_kernel<T, W><<<static_cast<unsigned int>(tiles * qblocks),
+                             dim3(lanes, kThreads / lanes), 0, s>>>(data, a, b, rows, bank, idx,
+                                                                    t, out, nq, chunk, qblocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5 at the geometry ops/bank_eval.py _k5_geometry chose: w columns a lane
+// (16 / sizeof(T), or 1), `lanes` lanes a query (a power of two up to 32),
+// `chunk` queries a block.  16-byte lanes on a bank that is no multiple of w
+// or on a base off 16-byte alignment are refused, not run.
 template <typename T>
 int banked_eval(const void* data, const void* a, const void* b, int64_t rows, int64_t bank,
-                const void* idx, const void* t, void* out, int64_t nq, void* stream) {
-  if (nq > 0 && bank > 0) {
-    const dim3 grid(static_cast<unsigned int>((nq + kQueryChunk - 1) / kQueryChunk),
-                    static_cast<unsigned int>((bank + kBankTile - 1) / kBankTile));
-    banked_eval_kernel<T><<<grid, kBankTile, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(data), static_cast<const T*>(a), static_cast<const T*>(b), rows,
-        bank, static_cast<const int32_t*>(idx), static_cast<const T*>(t), static_cast<T*>(out),
-        nq);
+                const void* idx, const void* t, void* out, int64_t nq, int64_t w, int64_t lanes,
+                int64_t chunk, void* stream) {
+  if (nq <= 0 || bank <= 0) return static_cast<int>(cudaGetLastError());
+  constexpr int kW = 16 / sizeof(T);
+  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 || chunk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T* d = static_cast<const T*>(data);
+  const T* aa = static_cast<const T*>(a);
+  const T* bb = static_cast<const T*>(b);
+  const int32_t* ix = static_cast<const int32_t*>(idx);
+  const T* tt = static_cast<const T*>(t);
+  T* o = static_cast<T*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int l = static_cast<int>(lanes);
+  if (w == kW) {
+    if (!(wide_lanes<kW>(data, bank, bank) && wide_lanes<kW>(a, bank, bank) &&
+          wide_lanes<kW>(b, bank, bank) && wide_lanes<kW>(out, bank, bank)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return banked_launch<T, kW>(d, aa, bb, rows, bank, ix, tt, o, nq, l, chunk, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (w != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return banked_launch<T, 1>(d, aa, bb, rows, bank, ix, tt, o, nq, l, chunk, s);
 }
 
 template <typename T, int W>
@@ -169,14 +224,14 @@ extern "C" {
 
 int ndi_banked_eval_f32(const void* data, const void* a, const void* b, int64_t rows,
                         int64_t bank, const void* idx, const void* t, void* out, int64_t nq,
-                        void* stream) {
-  return banked_eval<float>(data, a, b, rows, bank, idx, t, out, nq, stream);
+                        int64_t w, int64_t lanes, int64_t chunk, void* stream) {
+  return banked_eval<float>(data, a, b, rows, bank, idx, t, out, nq, w, lanes, chunk, stream);
 }
 
 int ndi_banked_eval_f64(const void* data, const void* a, const void* b, int64_t rows,
                         int64_t bank, const void* idx, const void* t, void* out, int64_t nq,
-                        void* stream) {
-  return banked_eval<double>(data, a, b, rows, bank, idx, t, out, nq, stream);
+                        int64_t w, int64_t lanes, int64_t chunk, void* stream) {
+  return banked_eval<double>(data, a, b, rows, bank, idx, t, out, nq, w, lanes, chunk, stream);
 }
 
 int ndi_bank_tail_f32(const void* packed, int64_t rows, int64_t ch, int64_t bp, int64_t bank,

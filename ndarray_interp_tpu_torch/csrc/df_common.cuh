@@ -1,7 +1,7 @@
 // What the double-float tails share (df_kernels.cu K6-K9, df2d_kernels.cu
 // K10-K14): the widening of a pair, the two store forms of a result, W-wide
 // loads and stores, and the query slots of the tails that run on the
-// ordered records of cell_order.cu (bank_kernels.cu's R2a takes the loads
+// ordered records of cell_order.cu (bank_kernels.cu's K5 and R2a take the loads
 // and stores too).
 //
 // Store forms.  A tail computes its result r in FP64 and splits it into the
@@ -50,6 +50,10 @@ struct Vec<4> {
     reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
     reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
   }
+  // evict-first (st.global.cs): for output the kernel writes once and never reads
+  __device__ static void store_cs(float* __restrict__ p, const float* v) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  }
 };
 template <>
 struct Vec<2> {
@@ -69,6 +73,9 @@ struct Vec<2> {
   __device__ static void store(double* __restrict__ p, const double* v) {
     *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
   }
+  __device__ static void store_cs(double* __restrict__ p, const double* v) {
+    __stcs(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));
+  }
 };
 template <>
 struct Vec<1> {
@@ -76,6 +83,8 @@ struct Vec<1> {
   __device__ static void load(const double* __restrict__ p, double* v) { v[0] = __ldg(p); }
   __device__ static void store(float* __restrict__ p, const float* v) { *p = v[0]; }
   __device__ static void store(double* __restrict__ p, const double* v) { *p = v[0]; }
+  __device__ static void store_cs(float* __restrict__ p, const float* v) { __stcs(p, v[0]); }
+  __device__ static void store_cs(double* __restrict__ p, const double* v) { __stcs(p, v[0]); }
 };
 
 // The pair (h, l) of W results at element i, as two float32 arrays

@@ -34,8 +34,8 @@ divergences):
   float32 data on ``K1_MAX_KNOTS`` < n <= ``MAX_BIG_KNOTS`` knots;
 * bank data → ``(idx, t)`` from ``fused_index_frac`` (K2), or from
   ``big_lower_index_frac`` (R3idx) on the same split; then ``banked_eval``
-  (K5) for float32 banks where ``banked_pays`` says so, else the packed-row
-  route (``ops.bank_tail``, R2a).
+  (K5) for float32 banks (``can_use_banked``), else the packed-row route
+  (``ops.bank_tail``, R2a).
 
 Calculus (SciPy ``CubicSpline`` parity, no reference analogue):
 ``eval_derivative`` (orders 1-3), ``eval_integrate`` (exact per-interval
@@ -54,11 +54,9 @@ import numpy as np
 import torch
 
 from ...errors import BuilderValueError, ShapeError
-from ...ops.bank_eval import banked_eval, banked_pays, can_use_banked
+from ...ops.bank_eval import banked_eval, can_use_banked
 from ...ops.bank_tail import gathered_bank_eval
-from ...ops.bigknots import (
-    MAX_BIG_KNOTS, big_eval_1d, big_lower_index_frac, can_use_big, long_axis,
-)
+from ...ops.bigknots import big_eval_1d, big_lower_index_frac, can_use_big, long_axis
 from ...ops.cubicroots import interval_roots_to_x, real_cubic_roots
 from ...ops.eval_kernels import fused_eval_1d, fused_index_frac, make_interval_table
 from ...ops.gather import gather_rows
@@ -675,7 +673,7 @@ class CubicSplineStrategy(Interp1DStrategy):
 
     def _eval_bank(self, interp, xq):
         """Bank data: ``(idx, t)`` from one search pass, then K5 or the
-        packed-row route, by ``banked_pays``."""
+        packed-row route, by ``can_use_banked``."""
         x, data = interp.x, interp.data
         n = data.shape[0]
         f32 = data.dtype == x.dtype == xq.dtype == torch.float32
@@ -683,9 +681,7 @@ class CubicSplineStrategy(Interp1DStrategy):
             idx, t = big_lower_index_frac(x, xq)
         else:
             idx, t = fused_index_frac(x, xq)
-        bank = data[0].numel()
-        gather_ok = f32 and xq.ndim == 1 and n >= 4 and n <= MAX_BIG_KNOTS
-        if can_use_banked(x, data) and (not gather_ok or banked_pays(n, bank, xq.numel())):
+        if can_use_banked(x, data):
             out = banked_eval(data, self.a, self.b, idx.reshape(-1), t.reshape(-1))
         else:
             out = gathered_bank_eval(

@@ -77,8 +77,8 @@ _SIGNATURES = {
     # knots, n, shared_knots, q, idx, nq
     "ndi_lower_index": ((_P, _I, _I, _P, _P, _I, _P), _BOTH),
     "ndi_thomas": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _P), _BOTH),
-    # data, a, b, rows, bank, idx, t, out, nq
-    "ndi_banked_eval": ((_P, _P, _P, _I, _I, _P, _P, _P, _I, _P), _BOTH),
+    # data, a, b, rows, bank, idx, t, out, nq, w, lanes, chunk
+    "ndi_banked_eval": ((_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P), _BOTH),
     # packed, rows, ch, bp, bank, idx, t, out, nq
     "ndi_bank_tail": ((_P, _I, _I, _I, _I, _P, _P, _P, _I, _P), _BOTH),
     # knots, n, data, a, b, shared_knots, q, out, nq

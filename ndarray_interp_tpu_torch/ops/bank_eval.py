@@ -13,49 +13,32 @@ that touch it, and the JAX package's ``finite`` hint has no counterpart.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import _cuda
 from .bigknots import MAX_BIG_KNOTS
 
-# The bank route's rule, from the card's times (NVIDIA H100 80GB HBM3, 700.00 W;
-# ``tools/route_phases.py --sweeps`` rule 1, PERF.md PR 24): f32 banks of 4 to
-# 262,144 knots x 1 to 1,000,000 splines at 256 to 1,048,576 queries, each
-# route through ``Interp1D`` by CUDA events, 183 shapes.  K5 won wherever the
-# packed route (K2 or R3idx, the per-call pack, R2a) had to pack a table for
-# few queries a knot, so it has no bank bound and no knot bound of its own
-# (the long axis's, ``MAX_BIG_KNOTS``, stays); the packed route won in two
-# corners: narrow banks (under 32 splines, where K5's 256-column tile runs
-# mostly idle) at >= 8 queries a knot and >= 2^20 outputs
-# (10,000 x 8 at 1M queries: 0.0655 against K5's 0.0989 ms), and long, wide
-# banks read by >= 100 queries a knot (10,000 x 1,024 at 1M: 2.99 against 3.76),
-# where R2a's 16-byte rows win once the pack is paid back.  With this rule the
-# pick was within 6% of the faster route at every shape of the sweep.  The JAX
-# package's bounds (2,048 knots, 256 splines, a TPU cost model) put the bank
-# eval's 10,000 x 64 on the packed route (0.0817 against K5's 0.0539 ms).
-_NARROW_BANK = 32  # banks narrower than this take the packed route
-_NARROW_QUERIES_PER_KNOT = 8  # at this many queries a knot
-_NARROW_OUTPUTS = 1 << 20  # and this many (query, spline) outputs
-_PACK_MIN_BANK = 256  # wider banks take it from this width,
-_PACK_MIN_KNOTS = 4096  # on axes of at least this many knots,
-_PACK_MIN_QUERIES_PER_KNOT = 100  # read by at least this many queries a knot
+# The bank route's rule is eligibility alone: K5 takes every float32 bank on
+# 4 to ``MAX_BIG_KNOTS`` knots, and float64 banks take the packed route (K2 or
+# R3idx, the per-call pack, R2a).  From the card's times (NVIDIA H100 80GB
+# HBM3, 700.00 W; ``tools/route_phases.py --sweeps`` rule 1, PERF.md §6):
+# f32 banks of 4 to 262,144 knots x 1 to 1,000,000 splines at 256 to 1,048,576
+# queries, each route through ``Interp1D`` by CUDA events, 183 shapes.  K5 on
+# its 16-byte lanes won at all of them, by 7.9% at the closest (3,000 x 1,024
+# at 1M queries: 2.0379 against 2.1983 ms), the two corners where the packed
+# route beat K5's first design included: narrow banks read by many queries a knot (10,000 x 8 at 1M:
+# 0.0573 against 0.0658) and long, wide banks (4,096 x 1,024 at 1M: 2.0847
+# against 2.2674; 10,000 x 1,024: 2.2278 against 2.9878).  The JAX package's
+# bounds (2,048 knots, 256 splines, a TPU cost model) put the bank eval's
+# 10,000 x 64 on the packed route.
 
 
 def can_use_banked(x, data) -> bool:
-    """Shape and dtype eligibility of the K5 route: float32 banks of any
-    width on 4 to ``MAX_BIG_KNOTS`` knots."""
+    """The bank route's rule: K5 for float32 banks of any width on 4 to
+    ``MAX_BIG_KNOTS`` knots, else the packed route."""
     return data.dtype == torch.float32 and data.ndim >= 2 and 4 <= x.shape[0] <= MAX_BIG_KNOTS
-
-
-def banked_pays(n, bank, nq) -> bool:
-    """Whether K5 beats the packed-row route (K2 or R3idx, the per-call
-    pack and R2a) for an eligible bank of ``n`` knots and ``bank`` splines
-    at ``nq`` queries: everywhere but on narrow banks with many outputs and
-    on long, wide banks whose knots are each read by many queries."""
-    if bank < _NARROW_BANK:
-        return not (nq >= _NARROW_QUERIES_PER_KNOT * n and nq * bank >= _NARROW_OUTPUTS)
-    return not (bank >= _PACK_MIN_BANK and n >= _PACK_MIN_KNOTS
-                and nq >= _PACK_MIN_QUERIES_PER_KNOT * n)
 
 
 def _gather_form(data, a, b, idx, t):
@@ -85,14 +68,55 @@ def _launch(data, a, b, idx, t):
         raise ValueError("banked_eval: idx and t must be flat and of one length")
     bank = data[0].numel()
     nq = idx.shape[0]
+    data, a, b = data.contiguous(), a.contiguous(), b.contiguous()
     out = torch.empty((nq, bank), dtype=dtype, device=t.device)
+    g = _k5_geometry(bank, data.element_size(), _aligned(data, a, b, out))
     _cuda.launch(
-        "ndi_banked_eval", dtype, t.device,
-        data.contiguous(), a.contiguous(), b.contiguous(), n - 1, bank,
-        idx.contiguous(), t.contiguous(), out, nq,
+        "ndi_banked_eval", dtype, t.device, data, a, b, n - 1, bank,
+        idx.contiguous(), t.contiguous(), out, nq, g.w, g.lanes, g.chunk,
     )
     banked_eval.launches += 1
     return out.reshape((nq,) + bank_shape)
+
+
+class K5Geometry(NamedTuple):
+    """K5's launch: ``w`` columns a lane (16-byte loads and stores where it
+    is 4 in float32 or 2 in float64), ``lanes`` lanes a query (a power of
+    two up to 32), so ``per_warp = 32 // lanes`` queries a warp and every
+    warp of a 256-thread block works; ``chunk`` consecutive queries a block,
+    which its threads take in rounds of ``256 // lanes``."""
+
+    w: int
+    lanes: int
+    per_warp: int
+    chunk: int
+
+
+_K5_THREADS = 256
+# A block's queries are its threads' rounds: two at 16 and 32 lanes a query,
+# one below.  The card's times by rounds (one, two, four, eight), NVIDIA H100
+# 80GB HBM3, 700.00 W, ``tools/bank_phases.py --sweeps`` (PERF.md §6): 32
+# lanes, NS5 0.1339, 0.1246, 0.1268, 0.1320 ms and NS5b 0.6824, 0.6538,
+# 0.6586, 0.7633; 16 lanes, NS2b 0.1357, 0.1301, 0.1294, 0.1308 and the bank
+# eval 0.0390, 0.0384, 0.0387, 0.0392; 2 lanes, NS1b's bank 0.0468, 0.0473,
+# 0.0487, 0.0501.
+_K5_WIDE_LANES = 16
+_K5_WIDE_ROUNDS = 2
+
+
+def _k5_geometry(bank, itemsize, aligned) -> K5Geometry:
+    """K5's launch for a bank of ``bank`` columns of ``itemsize`` bytes;
+    ``aligned``: whether the three tables and the output start on 16-byte
+    boundaries."""
+    wide = 16 // itemsize
+    w = wide if aligned and bank % wide == 0 else 1
+    lanes = min(32, 1 << (bank // w - 1).bit_length())
+    rounds = _K5_WIDE_ROUNDS if lanes >= _K5_WIDE_LANES else 1
+    return K5Geometry(w, lanes, 32 // lanes, _K5_THREADS // lanes * rounds)
+
+
+def _aligned(*tensors) -> bool:
+    return all(x.data_ptr() % 16 == 0 for x in tensors)
 
 
 class _BankedEval(torch.autograd.Function):

@@ -138,6 +138,53 @@ def test_banked_eval_kernel_backward_is_autograd_of_gather_form(monkeypatch):
         torch.testing.assert_close(g_fn, g_plain, rtol=1e-12, atol=1e-12)
 
 
+# -- K5's launch geometry (the kernel runs only on the card; its geometry is plain) --
+# bank -> (w, lanes, queries a warp) of the tables read from the L2, aligned
+K5_LAYOUTS = {
+    4: {1: (1, 1, 32), 3: (1, 4, 8), 8: (4, 2, 16), 33: (1, 32, 1), 64: (4, 16, 2),
+        1024: (4, 32, 1), 16_384: (4, 32, 1)},
+    8: {1: (1, 1, 32), 3: (1, 4, 8), 8: (2, 4, 8), 33: (1, 32, 1), 64: (2, 32, 1),
+        1024: (2, 32, 1), 16_384: (2, 32, 1)},
+}
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("bank", sorted(K5_LAYOUTS[4]))
+def test_k5_geometry_sizes_its_lanes_to_the_bank(itemsize, bank):
+    """16-byte lanes (4 f32 / 2 f64 columns) only where the bank is a
+    multiple of them and the bases are aligned, else a column a lane; lanes
+    a power of two up to 32, so that lanes x queries a warp = 32 and every
+    warp of a block works; the expected layout of each bank; a block's
+    queries a whole number of its threads' rounds."""
+    wide = 16 // itemsize
+    g = t_bank._k5_geometry(bank, itemsize, True)
+    assert (g.w, g.lanes, g.per_warp) == K5_LAYOUTS[itemsize][bank]
+    for aligned in (True, False):
+        g = t_bank._k5_geometry(bank, itemsize, aligned)
+        assert g.w == (wide if aligned and bank % wide == 0 else 1)
+        assert g.lanes * g.per_warp == 32 and g.lanes & (g.lanes - 1) == 0
+        assert g.lanes == min(32, 1 << (bank // g.w - 1).bit_length())
+        rounds, rest = divmod(g.chunk, t_bank._K5_THREADS // g.lanes)
+        assert rest == 0 and rounds == (t_bank._K5_WIDE_ROUNDS if g.lanes >= 16 else 1)
+
+
+def test_k5_geometry_takes_one_column_a_lane_off_16_byte_alignment():
+    """A table sliced off a 16-byte boundary (``data[1:]`` of an odd-width
+    bank; a bank of 8 one element past a boundary) takes W = 1."""
+    data = torch.zeros((17, 5))
+    assert t_bank._aligned(data, data[:-1], data[:-1])
+    assert not t_bank._aligned(data[1:], data[:-1], data[:-1])
+    buf = torch.zeros(17 * 8 + 1)
+    shifted = buf[1:].view(17, 8)
+    aligned = torch.zeros((17, 8))
+    assert t_bank._aligned(aligned) and not t_bank._aligned(aligned, shifted)
+    for n, bank, off in ((16, 5, data[1:]), (17, 8, shifted)):
+        ok = t_bank._aligned(off, aligned[:-1], aligned[:-1])
+        g = t_bank._k5_geometry(bank, 4, ok)
+        assert not ok and g.w == 1 and g.lanes * g.per_warp == 32
+    assert t_bank._k5_geometry(8, 4, True).w == 4
+
+
 # the cases where the port's card-derived bounds (any knot count and bank
 # width) admit K5 and the JAX package's TPU bounds (<= 2,048 knots, banks of
 # >= 256) do not: ROADMAP Queue 3, route divergences
@@ -181,7 +228,7 @@ def test_bank_route_matches_jax_where_it_diverges(n, bank):
         j1.CubicSpline().extrapolate(True)).build()
     tit = t1.Interp1D.builder(torch.as_tensor(data)).x(torch.as_tensor(x)).strategy(
         t1.CubicSpline().extrapolate(True)).build()
-    assert t_bank.banked_pays(n, bank, q.size)
+    assert t_bank.can_use_banked(torch.as_tensor(x), torch.as_tensor(data))
     want = np.asarray(jit(jnp.asarray(q)))
     np.testing.assert_allclose(tit(torch.as_tensor(q)).numpy(), want, rtol=2e-5,
                                atol=1e-6 * np.abs(want).max())
@@ -333,8 +380,9 @@ def port_route(monkeypatch, itp, q):
 
 
 # the port's routes where they differ from the JAX package's: K5 at 64
-# queries on 2,048 x 256 and 3,000 x 64 (bank_eval.banked_pays), and K2 (not
-# R3idx) then K5 on 65,600 knots x 3 (bigknots.K1_MAX_KNOTS, banked_pays)
+# queries on 2,048 x 256 and 3,000 x 64 (bank_eval.can_use_banked: every
+# float32 bank), and K2 (not R3idx) then K5 on 65,600 knots x 3
+# (bigknots.K1_MAX_KNOTS)
 PORT_BANK_ROUTES = {2048: {"fused_index_frac", "banked_eval"},
                     3000: {"fused_index_frac", "banked_eval"},
                     65_600: {"fused_index_frac", "banked_eval"}}

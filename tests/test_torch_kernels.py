@@ -1199,6 +1199,92 @@ def test_banked_eval_kernel_matches_plain(dev, dtype, n, bank, nq):
     torch.cuda.synchronize()
 
 
+# K5's geometry (ops/bank_eval.py _k5_geometry): 16-byte lanes where the bank
+# is a multiple of W and the tables are aligned, else a column a lane; a
+# block's queries in the wrapper's rounds or in one.  One NaN datum, intervals
+# outside the table (clamped), fractions with NaN, +inf and 1e30, and a query
+# count that is no multiple of a block's queries.
+def k5_case(bank, n, nq, dtype, dev, seed, offset=0):
+    rng = np.random.default_rng(seed)
+
+    def table(m):
+        buf = torch.empty(m * bank + offset, dtype=torch.float64 if dtype == np.float64
+                          else torch.float32, device=dev)
+        v = buf[offset:].view(m, bank)
+        v.copy_(torch.as_tensor(rng.normal(size=(m, bank)).astype(dtype)))
+        return v
+
+    d, a, b = table(n), table(n - 1), table(n - 1)
+    d[n // 2, bank // 2] = float("nan")
+    idx = torch.as_tensor(rng.integers(-3, n + 3, nq), dtype=torch.int32, device=dev)
+    t = np.r_[rng.uniform(-0.5, 1.5, nq - 3), [np.nan, np.inf, 1e30]].astype(dtype)
+    return d, a, b, idx, torch.as_tensor(t, device=dev)
+
+
+def k5_rounds(monkeypatch, be, one_round):
+    """Force a block's queries into one round (``chunk`` = its threads'
+    queries) or leave the wrapper's chunk."""
+    if one_round:
+        geometry = be._k5_geometry
+        monkeypatch.setattr(be, "_k5_geometry", lambda *a: (lambda g: g._replace(
+            chunk=256 // g.lanes))(geometry(*a)))
+
+
+@pytest.mark.parametrize("one_round", [False, True])
+@pytest.mark.parametrize("bank", [1, 3, 8, 33, 64, 1024, 16_384])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_banked_eval_geometry_matches_plain(dev, monkeypatch, dtype, bank, one_round):
+    from ndarray_interp_tpu_torch.ops import bank_eval as be
+
+    n, nq = 40, 4099
+    args = k5_case(bank, n, nq, dtype, dev, bank)
+    wide = 16 // args[0].element_size()
+    assert be._k5_geometry(bank, args[0].element_size(), True).w == (
+        wide if bank % wide == 0 else 1)
+    k5_rounds(monkeypatch, be, one_round)
+    got, launched = launched_by(lambda: be.banked_eval(*args))
+    assert launched == {"K5": 1}
+    assert same(got, be._gather_form(*args))
+
+
+@pytest.mark.parametrize("one_round", [False, True])
+@pytest.mark.parametrize("bank", [4, 8, 64, 300])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_banked_eval_off_alignment_takes_one_column_a_lane(dev, monkeypatch, dtype, bank,
+                                                           one_round):
+    from ndarray_interp_tpu_torch.ops import bank_eval as be
+
+    n, nq = 33, 1000
+    args = k5_case(bank, n, nq, dtype, dev, 3 * bank, offset=1)
+    assert not be._aligned(*args[:3])
+    assert be._k5_geometry(bank, args[0].element_size(), False).w == 1
+    k5_rounds(monkeypatch, be, one_round)
+    got, launched = launched_by(lambda: be.banked_eval(*args))
+    assert launched == {"K5": 1}
+    assert same(got, be._gather_form(*args))
+
+
+@pytest.mark.parametrize("nq", [0, 1, 31])
+def test_banked_eval_takes_small_batches(dev, nq):
+    from ndarray_interp_tpu_torch.ops import bank_eval as be
+
+    args = k5_case(64, 20, max(nq, 3), np.float32, dev, nq)
+    args = (*args[:3], args[3][:nq], args[4][:nq])
+    got = be.banked_eval(*args)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (nq, 64) and same(got, be._gather_form(*args))
+
+
+def test_banked_eval_refuses_a_geometry_the_tables_do_not_allow(dev, monkeypatch):
+    """16-byte lanes on a table off 16-byte alignment raise; nothing runs."""
+    from ndarray_interp_tpu_torch.ops import bank_eval as be
+
+    args = k5_case(64, 20, 100, np.float32, dev, 5, offset=1)
+    monkeypatch.setattr(be, "_k5_geometry", lambda *_: be.K5Geometry(4, 16, 2, 32))
+    with pytest.raises(RuntimeError, match="ndi_banked_eval"):
+        be.banked_eval(*args)
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("bank", [1, 7, 8, 9, 64, 300])
 def test_bank_tail_kernel_matches_plain(dev, dtype, bank):
@@ -1282,18 +1368,19 @@ def test_bank_and_big_gradients_match_autograd_of_plain(dev, kid):
 
 
 def test_strategy_routes_launch_k5_r2a_r3_r3idx(dev):
-    """The cubic dispatch on the card (the rules of ``bank_eval.banked_pays``
-    and ``bigknots.K1_MAX_KNOTS``): K5 for a f32 bank, R2a for a narrow bank
-    read by many queries a knot, R3idx (here with K5) past the split, R3 for
-    scalar data there (cubic, Akima and Linear), K1 below it; each against
-    the CPU build."""
+    """The cubic dispatch on the card (the rules of ``bank_eval.can_use_banked``
+    and ``bigknots.K1_MAX_KNOTS``): K5 for a f32 bank, narrow ones read by
+    many queries a knot too, R2a for a f64 bank, R3idx (here with K5) past
+    the split, R3 for scalar data there (cubic, Akima and Linear), K1 below
+    it; each against the CPU build."""
     from ndarray_interp_tpu_torch.interp1d import Akima, CubicSpline, Interp1D, Linear
     from ndarray_interp_tpu_torch.ops import kernel_wrappers
 
     rng = np.random.default_rng(21)
     cases = [
         ((64, 300), CubicSpline(), {"K2", "K5"}, 10_000),
-        ((3000, 16), CubicSpline(), {"K2", "R2a"}, 65_536),
+        ((3000, 16), CubicSpline(), {"K2", "K5"}, 65_536),
+        ((3000, 16, "float64"), CubicSpline(), {"K2", "R2a"}, 65_536),
         ((90_001, 4), CubicSpline(), {"R3idx", "K5"}, 10_000),
         ((90_001,), CubicSpline(), {"R3"}, 10_000),
         ((90_001,), Akima(), {"R3"}, 10_000),
@@ -1301,9 +1388,11 @@ def test_strategy_routes_launch_k5_r2a_r3_r3idx(dev):
         ((70_001,), CubicSpline(), {"K1"}, 10_000),
     ]
     for shape, strat, expect, nq in cases:
-        x = np.cumsum(rng.uniform(0.5, 1.5, shape[0])).astype(np.float32)
-        data = rng.normal(size=shape).astype(np.float32)
-        q = rng.uniform(x[0] - 1.0, x[-1] + 1.0, nq).astype(np.float32)
+        dtype = shape[-1] if isinstance(shape[-1], str) else "float32"
+        shape = tuple(v for v in shape if not isinstance(v, str))
+        x = np.cumsum(rng.uniform(0.5, 1.5, shape[0])).astype(dtype)
+        data = rng.normal(size=shape).astype(dtype)
+        q = rng.uniform(x[0] - 1.0, x[-1] + 1.0, nq).astype(dtype)
         strat = strat.extrapolate(True)
         itp = Interp1D.builder(data, device=dev).x(x).strategy(strat).build()
         q_d = torch.as_tensor(q, device=dev)
@@ -2222,13 +2311,14 @@ def launched(fn):
 @pytest.mark.parametrize("n,bank,nq,tail", [
     (10_000, 64, 262_144, "K5"),  # the bank eval
     (1024, 8, 4096, "K5"),
-    (10_000, 8, 262_144, "R2a"),  # a narrow bank read by many queries a knot
-    (10_000, 256, 1_048_576, "R2a"),  # a long, wide bank read by >= 100 queries a knot
+    (10_000, 8, 262_144, "K5"),  # a narrow bank read by many queries a knot (once R2a's)
+    (10_000, 256, 1_048_576, "K5"),  # a long, wide bank read by >= 100 queries a knot (the same)
 ])
 def test_bank_rule_launches_its_pick(dev, n, bank, nq, tail):
-    """Rule 1 (``bank_eval.banked_pays``): the bank eval launches K2 and the
-    pick's tail, not the other one; its values are the other route's bit for
-    bit (K5 and R2a evaluate one Hermite form in one order)."""
+    """Rule 1 (``bank_eval.can_use_banked``): the bank eval launches K2 and
+    the pick's tail, not the other one; its values are the other route's
+    (forced) bit for bit (K5 and R2a evaluate one Hermite form in one
+    order)."""
     from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
     from ndarray_interp_tpu_torch.models.strategies import cubic
 
@@ -2240,12 +2330,12 @@ def test_bank_rule_launches_its_pick(dev, n, bank, nq, tail):
     got, kids = launched(lambda: itp(q))
     other = "R2a" if tail == "K5" else "K5"
     assert {"K2", tail} <= kids and other not in kids
-    pays = cubic.banked_pays
+    eligible = cubic.can_use_banked
     try:
-        cubic.banked_pays = lambda *_: tail == "R2a"
+        cubic.can_use_banked = lambda *_: tail == "R2a"
         want, kids = launched(lambda: itp(q))
     finally:
-        cubic.banked_pays = pays
+        cubic.can_use_banked = eligible
     assert other in kids and same(got, want)
 
 

@@ -76,11 +76,11 @@ def scale_err(got, want):
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
-def bank_state(n, bank, seed):
-    """A float32 bank spline's state, no solve: knots, data, a, b."""
+def bank_state(n, bank, seed, dtype=np.float32):
+    """A bank spline's state, no solve: knots, data, a, b."""
     rng = np.random.default_rng(seed)
-    x = np.cumsum(rng.uniform(0.5, 1.5, n)).astype(np.float32)
-    d, a, b = (rng.normal(size=(m, bank)).astype(np.float32) for m in (n, n - 1, n - 1))
+    x = np.cumsum(rng.uniform(0.5, 1.5, n)).astype(dtype)
+    d, a, b = (rng.normal(size=(m, bank)).astype(dtype) for m in (n, n - 1, n - 1))
     return x, d, a, b, rng
 
 
@@ -94,12 +94,14 @@ def both_banks(x, d, a, b):
 
 
 # -- rule 1: the bank route ------------------------------------------------------------
-def bank_route(n, bank, nq):
-    eligible = t_bank.can_use_banked(meta(n), meta(n, bank))
-    return "K5" if eligible and t_bank.banked_pays(n, bank, nq) else "packed"
+def bank_route(n, bank, nq, dtype=torch.float32):
+    """Rule 1's pick for ``nq`` queries: eligibility alone (the card's K5
+    won at every float32 shape of the sweep, whatever ``nq``)."""
+    return "K5" if t_bank.can_use_banked(meta(n), meta(n, bank, dtype=dtype)) else "packed"
 
 
-# (knots, bank, queries) -> the route the card measured faster (PERF.md PR 24 rule 1)
+# (knots, bank, queries) -> the route the card measured faster (PERF.md §6, rule 1: K5 at
+# every float32 shape, the packed route's two former corners included)
 BANK_CASES = [
     ((10_000, 64, 262_144), "K5"),  # the bank eval (the JAX package: packed)
     ((256, 16_384, 4096), "K5"),  # NS5
@@ -107,21 +109,21 @@ BANK_CASES = [
     ((10_240, 64, 1_000_000), "K5"),  # NS2b (the JAX package: packed)
     ((262_144, 8, 1_000_000), "K5"),  # NS1b's bank of 8: 3.8 queries a knot
     ((4096, 1024, 262_144), "K5"),  # 64 queries a knot
-    ((10_000, 256, 1_048_576), "packed"),
-    ((10_000, 1024, 1_048_576), "packed"),
-    ((4096, 256, 409_600), "packed"),  # 100 queries a knot
+    ((10_000, 256, 1_048_576), "K5"),  # the former wide corner: >= 100 queries a knot
+    ((10_000, 1024, 1_048_576), "K5"),
+    ((4096, 256, 409_600), "K5"),
     ((4096, 256, 409_599), "K5"),
     ((4095, 256, 1_048_576), "K5"),
     ((4096, 255, 1_048_576), "K5"),
-    ((10_000, 32, 1_048_576), "K5"),  # not narrow
-    ((10_000, 31, 1_048_576), "packed"),  # narrow
-    ((10_000, 8, 262_144), "packed"),
-    ((10_000, 8, 131_072), "packed"),  # 2^20 outputs
+    ((10_000, 32, 1_048_576), "K5"),
+    ((10_000, 31, 1_048_576), "K5"),  # the former narrow corner: >= 8 queries a knot, 2^20 outputs
+    ((10_000, 8, 262_144), "K5"),
+    ((10_000, 8, 131_072), "K5"),
     ((10_000, 8, 131_071), "K5"),
-    ((65_537, 8, 524_296), "packed"),  # 8 queries a knot
+    ((65_537, 8, 524_296), "K5"),
     ((65_537, 8, 524_295), "K5"),
     ((1024, 8, 4096), "K5"),
-    ((64, 1, 1_048_576), "packed"),
+    ((64, 1, 1_048_576), "K5"),
     ((64, 1, 262_144), "K5"),
 ]
 
@@ -129,6 +131,15 @@ BANK_CASES = [
 @pytest.mark.parametrize("shape,route", BANK_CASES, ids=[str(c[0]) for c in BANK_CASES])
 def test_bank_rule_at_its_boundaries(shape, route):
     assert bank_route(*shape) == route
+
+
+@pytest.mark.parametrize("n,bank,dtype,route", [
+    (3, 1024, torch.float32, "packed"), (4, 1024, torch.float32, "K5"),
+    (10_000, 64, torch.float64, "packed"), (10_000, 8, torch.float64, "packed"),
+    (64, 1, torch.float64, "packed"),
+])
+def test_bank_rule_leaves_short_axes_and_float64_to_the_packed_route(n, bank, dtype, route):
+    assert bank_route(n, bank, 1_048_576, dtype) == route
 
 
 def test_bank_eligibility_bounds():
@@ -145,25 +156,27 @@ def test_bank_eligibility_bounds():
     assert not t_bank.can_use_banked(meta(64), meta(64))
 
 
-@pytest.mark.parametrize("bank,nq,route", [
-    (8, 512, "packed"), (8, 511, "K5"), (32, 512, "K5"),
-    (t_bank._PACK_MIN_BANK, 6400, "packed"), (t_bank._PACK_MIN_BANK, 6399, "K5"),
+@pytest.mark.parametrize("bank,nq,dtype,route", [
+    (8, 512, np.float32, "K5"), (8, 511, np.float32, "K5"), (32, 512, np.float32, "K5"),
+    (256, 6400, np.float32, "K5"), (256, 6399, np.float32, "K5"),
+    (8, 512, np.float64, "packed"), (256, 6400, np.float64, "packed"),
 ])
-def test_bank_route_through_interp1d_matches_jax(monkeypatch, no_launch, bank, nq, route):
-    """The route the rule picks (its output and knot bounds moved down so
-    that both corners fit the CPU: 4,096 narrow outputs, 64-knot packed
-    axes), and the JAX package's values on the same state."""
-    monkeypatch.setattr(t_bank, "_NARROW_OUTPUTS", 4096)
-    monkeypatch.setattr(t_bank, "_PACK_MIN_KNOTS", 64)
-    x, d, a, b, rng = bank_state(64, bank, seed=bank)
-    assert bank_route(64, bank, nq) == route
-    q = rng.uniform(x[0] - 1, x[-1] + 1, nq).astype(np.float32)
+def test_bank_route_through_interp1d_matches_jax(monkeypatch, no_launch, bank, nq, dtype,
+                                                 route):
+    """The route the rule picks on a 64-knot bank at the packed route's two
+    former corners (narrow banks at >= 8 queries a knot, wide ones at >=
+    100; now K5) and in float64 (the packed route), and the JAX package's
+    values on the same state."""
+    x, d, a, b, rng = bank_state(64, bank, seed=bank, dtype=dtype)
+    assert bank_route(64, bank, nq, torch.float64 if dtype == np.float64 else torch.float32) == route
+    q = rng.uniform(x[0] - 1, x[-1] + 1, nq).astype(dtype)
     jit, tit = both_banks(x, d, a, b)
     calls = spy(monkeypatch, t_cubic, ("banked_eval", "gathered_bank_eval"))
     got = tit(torch.as_tensor(q))
     assert calls == ["banked_eval" if route == "K5" else "gathered_bank_eval"]
-    np.testing.assert_allclose(got.numpy(), np.asarray(jit(jnp.asarray(q))), rtol=1e-6,
-                               atol=1e-6)
+    tol = 1e-6 if dtype == np.float32 else 1e-12
+    np.testing.assert_allclose(got.numpy(), np.asarray(jit(jnp.asarray(q))), rtol=tol,
+                               atol=tol)
 
 
 # -- rule 2: the K1/R3 split -----------------------------------------------------------
