@@ -158,7 +158,20 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    each rule instead, reported without the gate;
 5i. runs the examples ``double_float_serving`` and ``interpnd_volume``
    (``ndarray_interp_tpu_torch/examples/``) on the card, their asserts
-   inside, counts set to 0 before each;
+   inside, counts set to 0 before each; then the kernels under
+   ``torch.func`` (``transforms_phase``);
+5j. the compiled path (``compile_phase``, ``torch.compile`` with inductor,
+   ``fullgraph=True``): ``torch.library.opcheck`` of every kernel op on the
+   card at small sizes; NS1's ``itp(q)``, the bank eval, NS1b (R3), NS3's
+   ``Bilinear`` and NS3b's ``Bicubic`` compiled, each bit for bit its eager
+   call with the same launches, and NS1's build + eval within ``F32_TOL``;
+   each with its first call's seconds and, compiled against eager, host
+   wall and device ms by CUDA events, the queue held full; ``Evaluator`` on
+   NS1 and ``Evaluator2D`` on NS3 through ``warmup()`` and then every bucket
+   under ``torch.compiler.set_stance("fail_on_recompile")``, bit for bit the
+   interpolator, beside the other design (one static program a bucket):
+   both warmups' seconds and host walls; inductor's and Triton's caches go
+   under ``ndarray_interp_tpu_torch/_build/``, compiled in this process;
 6. holds every kernel, through its public wrapper, against its plain version
    on the inputs the paths gave it, bit for bit; then times kernel and
    plain version at the paths' shapes with CUDA events (median, min and
@@ -260,6 +273,7 @@ line is the kernels' JSON record; the last line is the contract line
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2665,7 +2679,8 @@ def cell_tail_designs(kid, bic, qx, qy, card, rec):
     zero = torch.zeros_like(tx)
     records = co.order_by_flat_cell(cell, nrows, tx, ty)
     orders = t2._orders
-    entry = t2._ORDERED[t2._TAILS[kernel][1]]
+    form = next(f for f, w in t2._WRAPPERS.items() if w is kernel)
+    entry = t2._ORDERED[t2._TAILS[form][1]]
 
     def ordered_alone():
         out = torch.empty((cell.shape[0], r), dtype=rows.dtype, device=rows.device)
@@ -5135,11 +5150,11 @@ def build_routes(x, y):
         _dense_ab,
     )
     from ndarray_interp_tpu_torch.ops.pcr import pcr_solve
-    from ndarray_interp_tpu_torch.ops.thomas_kernel import _ThomasKernel
+    from ndarray_interp_tpu_torch.ops.thomas_kernel import _THOMAS
 
     nak = (_NOT_A_KNOT, 0.0, _NOT_A_KNOT, 0.0)
     return {
-        "K4": lambda: _ab_from_k(x, y, _ThomasKernel.apply(*_assemble_system(x, y, *nak))),
+        "K4": lambda: _ab_from_k(x, y, _THOMAS.function.apply(*_assemble_system(x, y, *nak))),
         "PCR": lambda: _ab_from_k(x, y, pcr_solve(*_assemble_system(x, y, *nak))),
         "dense": lambda: _dense_ab(x, y, _NOT_A_KNOT, False),
     }
@@ -5153,11 +5168,11 @@ def axis_routes(x, y):
         _assemble_system,
         _dense_k,
     )
-    from ndarray_interp_tpu_torch.ops.thomas_kernel import _ThomasKernel
+    from ndarray_interp_tpu_torch.ops.thomas_kernel import _THOMAS
 
     nak = (_NOT_A_KNOT, 0.0, _NOT_A_KNOT, 0.0)
     return {
-        "K4": lambda: (_ThomasKernel.apply(*_assemble_system(x, y, *nak)),),
+        "K4": lambda: (_THOMAS.function.apply(*_assemble_system(x, y, *nak)),),
         "dense": lambda: (_dense_k(x, y, _NOT_A_KNOT, False),),
     }
 
@@ -6011,6 +6026,228 @@ def transforms_phase(dev, state, state2d, state_nd):
     return total
 
 
+COMPILE_CALLS = 20  # the calls of each timed run of the compile phase
+# the buckets at which the compile phase times each evaluator's designs
+COMPILE_BUCKETS = (256, 65_536, 1 << 20)
+
+
+def op_samples(dev):
+    """A small float32 sample on the card of every kernel op's arguments,
+    by op name (the R2b-R2n op once a form, K4's op in both forms)."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops.eval_kernels import make_interval_table
+
+    rng = np.random.default_rng(57)
+
+    def T(*shape, lo=None, hi=None):
+        v = rng.normal(size=shape) if lo is None else rng.uniform(lo, hi, shape)
+        return torch.as_tensor(v.astype(np.float32), device=dev)
+
+    def ints(hi, n=64):
+        return torch.as_tensor(rng.integers(0, hi, n), dtype=torch.int32, device=dev)
+
+    x = torch.linspace(0.0, 1.0, 9, device=dev)
+    y = torch.linspace(0.0, 2.0, 7, device=dev)
+    q, qy = T(64, lo=-0.1, hi=1.1), T(64, lo=-0.1, hi=2.1)
+    cells = 8 * 6
+    samples = {
+        "fused_eval_1d": (x, make_interval_table(x, T(9), T(8), T(8)), q),
+        "fused_index_frac": (x, q),
+        "fused_lower_index": (x, q),
+        "fused_cell_index": (x, y, q, qy),
+        "thomas_solve shared": (T(9, lo=0.5, hi=1.0), T(9, lo=4.5, hi=5.0),
+                                T(9, lo=0.5, hi=1.0), T(9, 3)),
+        "thomas_solve per column": (T(9, 3), T(9, 3) + 8.0, T(9, 3), T(9, 3)),
+        "banked_eval": (T(9, 4), T(8, 4), T(8, 4), ints(8), q),
+        "gathered_bank_eval": (T(9, 4), T(8, 4), T(8, 4), ints(8), q),
+        "big_eval_1d": (x, T(9), T(8), T(8), q),
+        "big_lower_index_frac": (x, q),
+        "bilinear_grid_eval": (T(9, 7, 2), x, y, ints(cells), q, qy),
+    }
+    for form, width in (("bilinear", 12), ("seq", 32), ("tree", 32), ("nested", 32)):
+        samples[f"cell_tail {form}"] = (form, T(cells, width), ints(cells), q, qy, 2)
+    return samples
+
+
+def opcheck_phase(dev):
+    """``torch.library.opcheck`` of every kernel op on the card at small
+    sizes (its schema, autograd registration, fake implementation against
+    the launch, AOT dispatch with dynamic shapes): launches that compare,
+    made before the compile path's counts are set to 0."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops import kernel_ops
+
+    ops = kernel_ops()
+    seen = set()
+    for case, args in op_samples(dev).items():
+        name = case.split()[0]
+        seen.add(name)
+        try:
+            torch.library.opcheck(ops[name], args)
+        except Exception as err:  # noqa: BLE001 - every op's failure is reported
+            fail(f"opcheck {case} on the card: {str(err)[:300]}")
+        else:
+            print(f"  opcheck {case} on the card: passed", flush=True)
+    if seen != set(ops):
+        fail(f"opcheck: ops without a sample: {sorted(set(ops) - seen)}")
+
+
+def compiled_case(label, fn, args, expect, tol, total, rec_out):
+    """One full-width call compiled (inductor, ``fullgraph=True``) beside
+    its eager call: the first call's seconds (trace, compile, run), both
+    calls' launches (equal, and ``expect``), the compiled values against
+    the eager ones (bit for bit, or within ``tol`` of the largest |value|),
+    and each form's host wall and device ms by CUDA events (the queue held
+    full)."""
+    import torch
+
+    from ndarray_interp_tpu_torch.serving import compile_program
+
+    program = compile_program(fn, args[0].device)
+    t0 = time.perf_counter()
+    got, counts = launched(lambda: program(*args))
+    first_s = time.perf_counter() - t0
+    want, eager = launched(lambda: fn(*args))
+    for kid, c in counts.items():
+        total[kid] = total.get(kid, 0) + c
+    if counts != eager or counts != expect:
+        fail(f"compiled {label}: launches {counts}, eager {eager}, expected {expect}")
+    if tol is None:
+        ok, err = bit_compare(got, want)
+        how = "bit for bit" if ok else f"DIFFERS (max abs err {err})"
+    else:
+        err = float((got.double() - want.double()).abs().max() / want.double().abs().max())
+        ok = err <= tol
+        how = f"within {err:.3g} of the largest |value| (tolerance {tol:g})"
+    if not ok:
+        fail(f"compiled {label}: {how} against the eager call")
+    walls = {form: wall_ms(f, COMPILE_CALLS) for form, f in (("eager", lambda: fn(*args)),
+                                                           ("compiled", lambda: program(*args)))}
+    dev_ms = {form: device_ms(f, COMPILE_CALLS) for form, f in (("eager", lambda: fn(*args)),
+                                                              ("compiled", lambda: program(*args)))}
+    print(f"  {label}: first compiled call {first_s:.2f} s; launches {counts} (eager "
+          f"{eager}); {how} the eager call; host wall eager {fmt(walls['eager'])}, compiled "
+          f"{fmt(walls['compiled'])} ms a call; device eager {fmt(dev_ms['eager'])}, compiled "
+          f"{fmt(dev_ms['compiled'])} ms a call", flush=True)
+    rec_out[label] = {"first_call_s": first_s, "launches": counts,
+                      "wall_ms": {k: v[0] for k, v in walls.items()},
+                      "device_ms": {k: v[0] for k, v in dev_ms.items()}}
+    del got, want
+
+
+def evaluator_designs(label, itp, make, queries, total, rec_out):
+    """``make(itp)`` (``Evaluator`` or ``Evaluator2D``: one program, the
+    query axis dynamic) through ``warmup()``, then every bucket under
+    ``fail_on_recompile``, each bit for bit ``itp`` on the same queries;
+    beside it the other design, one static program a bucket (each with a
+    code object of its own, under the recompile limit): both warmups'
+    seconds and both designs' host wall at ``COMPILE_BUCKETS``."""
+    import torch
+
+    from ndarray_interp_tpu_torch.serving import compile_program
+
+    class PerBucket(make):
+        def __init__(self, interp):
+            super().__init__(interp)
+            call = (lambda q: interp(q)) if len(queries) == 1 else (lambda a, b: interp(a, b))
+            self._programs = {b: compile_program(call, interp.x.device) for b in self.buckets}
+
+        def _run(self, *padded):
+            return self._programs[padded[0].shape[0]](*padded)
+
+    def at(size):
+        return [torch.cat([q, q])[:size] for q in queries]
+
+    designs, warm = {}, {}
+    for name, cls in (("dynamic", make), ("per bucket", PerBucket)):
+        t0 = time.perf_counter()
+        designs[name] = cls(itp).warmup()
+        torch.cuda.synchronize()
+        warm[name] = time.perf_counter() - t0
+    ev = designs["dynamic"]
+    with torch.compiler.set_stance("fail_on_recompile"):
+        for b in ev.buckets:
+            args = at(b)
+            got, counts = launched(lambda: ev(*args))
+            for kid, c in counts.items():
+                total[kid] = total.get(kid, 0) + c
+            ok, err = bit_compare(got, itp(*args))
+            if not ok:
+                fail(f"{make.__name__} {label} at bucket {b:,}: differs from itp (max abs "
+                     f"err {err})")
+        print(f"  {make.__name__} {label}: every bucket of {ev.buckets[0]:,} to "
+              f"{ev.buckets[-1]:,} after warmup() under fail_on_recompile, bit for bit itp",
+              flush=True)
+        walls = {}
+        for b in COMPILE_BUCKETS:
+            args = at(b)
+            for name, e in designs.items():
+                walls[f"{name} {b}"] = wall_ms(lambda: e(*args), COMPILE_CALLS)
+            walls[f"eager {b}"] = wall_ms(lambda: itp(*args), COMPILE_CALLS)
+    print(f"  {make.__name__} {label}: warmup (compile and every bucket) one program "
+          f"{warm['dynamic']:.2f} s, one program a bucket {warm['per bucket']:.2f} s; host wall "
+          "ms a call, " + "; ".join(f"{k} {fmt(v)}" for k, v in walls.items()), flush=True)
+    rec_out[f"{make.__name__} {label}"] = {
+        "warmup_s": warm, "wall_ms": {k: v[0] for k, v in walls.items()}}
+
+
+def compile_phase(dev, card, state, state2d):
+    """The compiled path (``torch.compile``, the counterpart of
+    ``jax.jit``): ``opcheck`` of every kernel op on the card; then each
+    full-width call compiled by inductor (``fullgraph=True``) beside its
+    eager call (:func:`compiled_case`): NS1's ``itp(q)``, the bank eval,
+    NS1b (R3), NS3's ``Bilinear`` and NS3b's ``Bicubic``, all bit for bit,
+    and NS1's build + eval (the build's arithmetic in inductor's code, within
+    ``F32_TOL``); ``Evaluator`` on NS1 and ``Evaluator2D`` on NS3 through
+    ``warmup()`` and every bucket with no recompile, beside the one program
+    a bucket design (:func:`evaluator_designs`).  Returns the launches."""
+    import torch
+
+    from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
+    from ndarray_interp_tpu_torch.serving import Evaluator, Evaluator2D
+
+    t_phase = time.perf_counter()
+    opcheck_phase(dev)
+    total, rec_out = {}, {}
+    itp, q = state["float32"]
+    itp10, _, _, q10 = state["bank"]
+    bil, bic, qx, qy, _ = state2d["float32"]
+    rng = np.random.default_rng(58)
+    kb = big_knots(262_144, "nonuniform", rng)
+    ns1b = (Interp1D.builder(rng.normal(size=kb.size).astype(np.float32), device=dev).x(kb)
+            .strategy(CubicSpline().extrapolate(True)).build())
+    qb = torch.as_tensor(big_queries(kb, 1_000_000, rng), device=dev)
+    strat, x1 = CubicSpline().extrapolate(True), itp.x
+
+    def build_eval(d, q_):
+        return Interp1D.new_unchecked(x1, d, strat.build(x1, d))(q_)
+
+    for label, fn, args, expect, tol in (
+        ("NS1 itp(q), 2,048 knots x 1,000,000 f32", lambda q_: itp(q_), (q,), {"K1": 1}, None),
+        ("bank eval itp(q), 10,000 x 64 at 262,144 f32", lambda q_: itp10(q_), (q10,),
+         {"K2": 1, "K5": 1}, None),
+        ("NS1b itp(q), 262,144 knots x 1,000,000 f32", lambda q_: ns1b(q_), (qb,), {"R3": 1},
+         None),
+        ("NS3 Bilinear itp(xs, ys), 512 x 512 x 16 at 1,000,000 f32", lambda a, b: bil(a, b),
+         (qx, qy), {"R1": 1, "R2g": 1}, None),
+        ("NS3b Bicubic itp(xs, ys), 512 x 512 x 16 at 1,000,000 f32", lambda a, b: bic(a, b),
+         (qx, qy), {"R1": 1, "R2n": 1, "ORD": 1}, None),
+        ("NS1 build + eval, 2,048 knots x 1,000,000 f32", build_eval, (itp.data, q),
+         {"K4": 1, "K1": 1}, F32_TOL),
+    ):
+        compiled_case(label, fn, args, expect, tol, total, rec_out)
+    if total.get("ORD"):
+        total["ORD:R2n"] = total["ORD"]
+    evaluator_designs("NS1", itp, Evaluator, (q,), total, rec_out)
+    evaluator_designs("NS3 Bilinear", bil, Evaluator2D, (qx, qy), total, rec_out)
+    seconds = time.perf_counter() - t_phase
+    print(f"  the compile phase took {seconds:.1f} s; card {card}", flush=True)
+    print("  compile record: " + json.dumps(rec_out), flush=True)
+    return total
+
+
 def ord_times(times):
     """ORD's entry of the kernels line: its times at K8's shape, the DF bank
     serving's (the most launches), and at every shape beside them."""
@@ -6032,6 +6269,12 @@ def main():
                          "R3idx's and K6's tree budgets, K5's query rounds, R2a's body, the "
                          "ordered branches' crossovers and ORD's forms")
     sweeps = ap.parse_args().sweeps
+    # inductor's and Triton's caches in the checkout's build directory, and its
+    # compiles in this process (no pool of compile workers to stop)
+    build = Path(__file__).resolve().parent / "ndarray_interp_tpu_torch" / "_build"
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(build / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(build / "triton"))
+    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
     import torch
 
     if not torch.cuda.is_available():
@@ -6172,16 +6415,23 @@ def main():
     launched_transforms = (dict.fromkeys(wrappers, 0)
                            | {f"ORD:{kid}": 0 for kid in ORDERED_TAILS} | launched_transforms)
     elapsed("transforms")
+    print("compiled path (torch.compile, inductor, fullgraph=True: opcheck of every kernel op, "
+          "each full-width call against its eager call, Evaluator and Evaluator2D by bucket; "
+          "counts set to 0 before each call):", flush=True)
+    launched_compile = compile_phase(dev, card, state, state2d)
+    launched_compile = (dict.fromkeys(wrappers, 0)
+                        | {f"ORD:{kid}": 0 for kid in ORDERED_TAILS} | launched_compile)
+    elapsed("compiled path")
     # every kernel's launches summed over every path, and the orderings of
     # each tail that orders its batch (the main path orders none)
     paths = (served, launched2d, launched_nd, launched_big, launched_tails, launched_steps,
              launched_calc, launched_calc_nd, launched_checked, launched_scale, launched_world,
-             launched_examples, launched_transforms)
+             launched_examples, launched_transforms, launched_compile)
     launches = {kid: main_launches[kid] + sum(path[kid] for path in paths) for kid in wrappers}
     order_launches = {kid: sum(path[f"ORD:{kid}"] for path in paths) for kid in ORDERED_TAILS}
     print(f"  launches over every path (main + serving + 2-D + N-D + wide-bank + tails + step "
           f"+ calculus + N-D calculus + eval_checked + scale-out + scale-out world + "
-          f"examples + transforms): "
+          f"examples + transforms + compiled): "
           f"{launches}; orderings by tail: "
           f"{order_launches}")
     for kid, total in launches.items():

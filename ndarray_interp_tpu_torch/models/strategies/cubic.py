@@ -56,6 +56,7 @@ import torch
 from ...errors import BuilderValueError, ShapeError
 from ...ops.bank_eval import banked_eval, can_use_banked
 from ...ops.bank_tail import gathered_bank_eval
+from ...ops._cuda import traced
 from ...ops.bigknots import big_eval_1d, big_lower_index_frac, can_use_big, long_axis
 from ...ops.cubicroots import interval_roots_to_x, real_cubic_roots
 from ...ops.eval_kernels import fused_eval_1d, fused_index_frac, make_interval_table
@@ -344,7 +345,12 @@ def _assemble_system(x, y, left_kind, left_val, right_kind, right_val):
 
 def _validate_periodic_data(y):
     """Eager first==last check for the periodic family
-    (``cubic_spline.rs:483-489``); one copy to the host on the GPU."""
+    (``cubic_spline.rs:483-489``); one copy to the host on the GPU.
+    Skipped while ``torch.compile`` traces and under a ``torch.func``
+    transform, as the JAX package skips it under ``jax.jit`` (the caller
+    vouches, as for ``new_unchecked``)."""
+    if traced(y):
+        return
     y0_host = y[0].detach().cpu().numpy()
     ylast_host = y[y.shape[0] - 1].detach().cpu().numpy()
     if not np.array_equal(y0_host, ylast_host):

@@ -6,7 +6,10 @@ double-float pairs (``df``), and the wrappers of the CUDA kernels
 ``eval_kernels_df_nd``, and ``cell_order``, the ordering ahead of K8, K9, K12,
 K13 and K14), and ``partition``: the wrappers' placement rules over DTensor.
 Every wrapper composes with ``torch.func`` (``vmap``, ``grad``) on both
-devices."""
+devices.  The f32/f64 kernels K1-K5, R1, R2a, R2b-R2d with R2n, R2g, R3 and
+R3idx are operators of the ``ndarray_interp`` namespace (:func:`kernel_ops`),
+so ``torch.compile`` traces the wrappers with each kernel one node of its
+graph."""
 
 from .bank_eval import banked_eval, can_use_banked
 from .bank_tail import banked_hermite_tail, gathered_bank_eval
@@ -124,3 +127,21 @@ def kernel_wrappers():
         "R4c": gathered_bicubic_df_weight_tail,
         "ORD": order_by_cell,
     }
+
+
+def kernel_ops():
+    """The operator behind each f32/f64 kernel's wrapper, by the name it has
+    in ``torch.ops.ndarray_interp`` (``_cuda.kernel_op``): K1 ``fused_eval_1d``,
+    K2 ``fused_index_frac``, K3 ``fused_lower_index``, R1
+    ``fused_cell_index``, K4 ``thomas_solve`` (both forms), K5
+    ``banked_eval``, R2a ``gathered_bank_eval`` (the packed route: the table,
+    then R2a), R3 ``big_eval_1d``, R3idx ``big_lower_index_frac``, R2b, R2c,
+    R2d and R2n ``cell_tail`` (its ``form`` argument) and R2g
+    ``bilinear_grid_eval``.  Each value is the ``OpOverload``."""
+    from . import bank_eval, bank_tail, bigknots, eval_kernels, tail2d, thomas_kernel
+
+    kops = (eval_kernels._EVAL_1D, eval_kernels._INDEX_FRAC, eval_kernels._LOWER_INDEX,
+            eval_kernels._CELL_INDEX, thomas_kernel._THOMAS, bank_eval._BANKED,
+            bank_tail._GATHERED, bigknots._BIG_EVAL, bigknots._BIG_INDEX_FRAC, tail2d._TAIL,
+            tail2d._GRID_TAIL)
+    return {k.op._opname: k.op for k in kops}

@@ -28,7 +28,6 @@ import threading
 from pathlib import Path
 
 import torch
-from torch._functorch.utils import unwrap_dead_wrappers
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -263,45 +262,120 @@ def pair_operands(name, *tensors):
 
 
 def traced(t) -> bool:
-    """Whether ``t`` is a tensor under a ``torch.func`` transform (``vmap``,
-    ``grad``, ``jacrev``), where its values are not the host's to read: the
-    counterpart of the JAX package's ``_is_traced``.  The eager methods skip
-    their value checks on such tensors, as the JAX package skips them on
-    tracers, and never synchronise there."""
+    """Whether the values of ``t`` are not the host's to read: while
+    ``torch.compile`` traces (checked first, so that Dynamo never reaches
+    the functorch query), or for a tensor under a ``torch.func`` transform
+    (``vmap``, ``grad``, ``jacrev``).  The counterpart of the JAX package's
+    ``_is_traced``: the eager methods skip their value checks there, as the
+    JAX package skips them on tracers, and never synchronise."""
+    if torch.compiler.is_compiling():
+        return True
     return isinstance(t, torch.Tensor) and torch._C._functorch.is_functorch_wrapped_tensor(t)
 
 
 def run(name, t, launch, plain, *args):
-    """The forward of every kernel Function: ``launch(*args)`` (the kernel)
-    when ``t`` is a CUDA tensor, ``plain(*args)`` (its plain version) when it
-    is a CPU tensor.  One seam for both devices, so a Function's batching and
-    differentiation rules are one piece of code on each, and the CPU tests
-    run them."""
+    """The implementation of every kernel op (:func:`kernel_op`), which the
+    dispatcher reaches for CPU and CUDA tensors only: ``launch(*args)`` (the
+    kernel) when ``t`` is a CUDA tensor, ``plain(*args)`` (its plain
+    version) when it is a CPU tensor.  One seam for both devices, so an op's
+    batching and differentiation rules are one piece of code on each, and
+    the CPU tests run them."""
     if kernel_device(name, t) == "cpu":
         return plain(*args)
     return launch(*args)
 
 
-def apply(function, *args):
-    """``function.apply(*args)`` for a kernel Function, whose forward takes
-    its arguments by position and has no defaults.  Outside a ``torch.func``
-    transform the call goes straight to autograd's C++ ``apply``, as
-    ``Function.apply`` itself does there, but without binding the forward's
-    signature, which ``Function.apply`` does first for every Function with
-    a ``setup_context``: on an H100 80GB HBM3 host (700 W,
-    ``tools/call_wall.py``, parent and change in turns) NS1's ``itp(q)``
-    spent 0.1791 and 0.1592 ms of host wall a call through it against the
-    old-style Function's 0.1217 and 0.1207.  Under a transform:
-    ``Function.apply``."""
-    if torch._C._are_functorch_transforms_active():
-        return function.apply(*args)
-    return super(torch.autograd.Function, function).apply(*unwrap_dead_wrappers(args))
+#: the namespace of the kernel ops: ``torch.ops.ndarray_interp.<name>``
+NAMESPACE = "ndarray_interp"
+_LIB = torch.library.Library(NAMESPACE, "DEF")
+
+
+class KernelOp:
+    """A kernel op and the ``autograd.Function`` around it (see
+    :func:`kernel_op`); calling it calls the op, or the Function under a
+    ``torch.func`` transform."""
+
+    def __init__(self, op, function):
+        self.op = op
+        self.function = function
+
+    def __call__(self, *args):
+        if not torch.compiler.is_compiling() and torch._C._are_functorch_transforms_active():
+            return self.function.apply(*args)
+        return self.op(*args)
+
+
+def kernel_op(name, schema, impl, fake, *, setup_context, backward, vmap):
+    """Define the operator ``ndarray_interp::<name>`` with ``schema`` (its
+    arguments and returns, as ``"(Tensor q, int r) -> Tensor"``): the
+    counterpart of a JAX ``custom_vjp`` / ``custom_vmap`` around a Pallas
+    call, which ``torch.compile`` traces as one node of its graph and calls
+    at run time.
+
+    * ``impl`` runs for CPU and CUDA tensors (:func:`run`: the plain
+      version or the launch, which counts it);
+    * ``fake`` gives the outputs' shapes and dtypes without running, for
+      tracing;
+    * ``setup_context`` and ``backward`` (the VJP of the plain version,
+      :func:`plain_vjp`) are an ``autograd.Function``'s, whose forward is
+      the op below autograd: autograd's C++ ``apply`` of it is the op's
+      autograd kernel;
+    * ``vmap(op, info, in_dims, *args)`` is the batching rule
+      (:func:`vmap_queries`) of both the op and the Function.
+
+    Returns a :class:`KernelOp`.  Under a ``torch.func`` transform it
+    applies the Function, whose ``setup_context`` and ``vmap`` let the
+    transforms compose (``vmap(grad(...))``, ``jacrev``), which an op's own
+    autograd kernel cannot: a transform's layer is already lowered when the
+    dispatcher reaches it."""
+    qualname = f"{NAMESPACE}::{name}"
+    _LIB.define(name + schema)
+    for key in ("CPU", "CUDA"):
+        _LIB.impl(name, impl, key)
+    torch.library.register_fake(qualname, fake, lib=_LIB)
+    op = getattr(getattr(torch.ops, NAMESPACE), name).default
+
+    def rule(info, in_dims, *args):
+        return vmap(op, info, in_dims, *args)
+
+    def forward(*args):
+        with torch._C._AutoDispatchBelowAutograd():
+            return op(*args)
+
+    function = type(f"_{name}", (torch.autograd.Function,), {
+        "forward": staticmethod(forward),
+        "setup_context": staticmethod(setup_context or (lambda ctx, inputs, output: None)),
+        "backward": staticmethod(backward),
+        "vmap": staticmethod(rule),
+    })
+
+    def autograd_kernel(*args):
+        if torch.is_grad_enabled() and torch._C._any_requires_grad(*args):
+            # autograd's C++ apply, as Function.apply calls it outside a
+            # transform, without binding the forward's signature first
+            return super(torch.autograd.Function, function).apply(*args)
+        return forward(*args)
+
+    _LIB.impl(name, autograd_kernel, "Autograd")
+    torch.library.register_vmap(qualname, rule, lib=_LIB)
+    return KernelOp(op, function)
+
+
+def save_inputs(ctx, inputs, output):
+    """The ``setup_context`` of an op whose backward reads its inputs."""
+    ctx.save_for_backward(*inputs)
+
+
+def save_inputs_and_index(ctx, inputs, output):
+    """The ``setup_context`` of an op whose first output is the index its
+    backward holds fixed."""
+    ctx.save_for_backward(*inputs, output[0])
 
 
 def plain_vjp(fn, inputs, needs_grad, g):
     """Gradients of ``fn(*inputs)`` against the cotangent ``g`` for the
     inputs whose ``needs_grad`` is set (``None`` for the others): the
-    backward of a kernel Function is the VJP of the kernel's plain version.
+    backward of a kernel op is the VJP of the kernel's plain version.
     ``torch.func.vjp`` takes it, so the backward composes with the
     ``torch.func`` transforms (``vmap(grad(...))``, ``jacrev``) and is
     itself differentiable."""
@@ -324,16 +398,16 @@ def _batch_first(outs):
     return tuple(0 for _ in outs) if isinstance(outs, tuple) else 0
 
 
-def vmap_queries(apply, plain, info, in_dims, args, queries):
-    """The batching rule of a kernel Function elementwise in its query
+def vmap_queries(op, plain, info, in_dims, args, queries):
+    """The batching rule of a kernel op elementwise in its query
     operands, the positions ``queries`` of ``args`` (every other tensor is a
     table; each query operand of one shape).  With only queries batched they
     flatten into the kernel's query axis, an unbatched one broadcast first,
-    ``apply`` launches once, and its outputs take the batch back as their dim
+    ``op`` launches once, and its outputs take the batch back as their dim
     0.  With a table batched the plain version runs under ``torch.func.vmap``
     (the JAX package's ``custom_vmap`` rule, ``ops/partition.py:97-104``:
     there is no kernel for a batch of tables).  Returns ``(outputs,
-    out_dims)``: the ``vmap`` staticmethod of an ``autograd.Function``."""
+    out_dims)``, as ``torch.library.register_vmap`` takes them."""
     if any(d is not None for i, d in enumerate(in_dims) if i not in queries):
         outs = torch.func.vmap(plain, in_dims=tuple(in_dims), randomness=info.randomness)(*args)
         return outs, _batch_first(outs)
@@ -344,7 +418,7 @@ def vmap_queries(apply, plain, info, in_dims, args, queries):
     for i in queries:
         q = moved[i] if i in moved else args[i].expand((size,) + tuple(args[i].shape))
         args[i] = q.reshape(-1)
-    outs = apply(*args)
+    outs = op(*args)
 
     def back(o):
         return o.reshape((size,) + tuple(shape) + tuple(o.shape[1:]))

@@ -119,36 +119,30 @@ def _aligned(*tensors) -> bool:
     return all(x.data_ptr() % 16 == 0 for x in tensors)
 
 
-class _BankedEval(torch.autograd.Function):
-    """Forward: K5 (:func:`_gather_form` on the CPU).  Backward: the VJP of
-    :func:`_gather_form`, as the JAX package's ``_bwd``
-    (``pallas_bank.py:186-196``); ``idx`` has no gradient.  Under ``vmap``
-    batched ``idx``/``t`` flatten into one launch (the unbatched one
-    broadcast, as the JAX package's ``partition.py:370-374`` does); batched
-    tables take the plain version."""
+def _backward(ctx, g):
+    """The VJP of :func:`_gather_form`, as the JAX package's ``_bwd``
+    (``pallas_bank.py:186-196``); ``idx`` has no gradient."""
+    data, a, b, idx, t = ctx.saved_tensors
+    need = ctx.needs_input_grad
+    gd, ga, gb, gt = _cuda.plain_vjp(
+        lambda d_, a_, b_, t_: _gather_form(d_, a_, b_, idx, t_),
+        (data, a, b, t), (need[0], need[1], need[2], need[4]), g,
+    )
+    return gd, ga, gb, None, gt
 
-    @staticmethod
-    def forward(data, a, b, idx, t):
-        return _cuda.run("banked_eval", t, _launch, _gather_form, data, a, b, idx, t)
 
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs)
-
-    @staticmethod
-    def backward(ctx, g):
-        data, a, b, idx, t = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        gd, ga, gb, gt = _cuda.plain_vjp(
-            lambda d_, a_, b_, t_: _gather_form(d_, a_, b_, idx, t_),
-            (data, a, b, t), (need[0], need[1], need[2], need[4]), g,
-        )
-        return gd, ga, gb, None, gt
-
-    @staticmethod
-    def vmap(info, in_dims, data, a, b, idx, t):
-        return _cuda.vmap_queries(_BankedEval.apply, _gather_form, info, in_dims,
-                                  (data, a, b, idx, t), (3, 4))
+# K5: forward the kernel (_gather_form on the CPU); under vmap batched idx/t
+# flatten into one launch (the unbatched one broadcast, as the JAX package's
+# partition.py:370-374 does), batched tables take the plain version
+_BANKED = _cuda.kernel_op(
+    "banked_eval", "(Tensor data, Tensor a, Tensor b, Tensor idx, Tensor t) -> Tensor",
+    lambda data, a, b, idx, t: _cuda.run("banked_eval", t, _launch, _gather_form,
+                                         data, a, b, idx, t),
+    lambda data, a, b, idx, t: data.new_empty((idx.shape[0],) + tuple(data.shape[1:])),
+    setup_context=_cuda.save_inputs, backward=_backward,
+    vmap=lambda op, info, in_dims, *args: _cuda.vmap_queries(
+        op, _gather_form, info, in_dims, args, (3, 4)),
+)
 
 
 def banked_eval(data, a, b, idx, t):
@@ -156,7 +150,7 @@ def banked_eval(data, a, b, idx, t):
     ``idx`` (int32) and fraction ``t``: data (n, *bank), a/b (n-1, *bank),
     idx/t (Q,).  Returns (Q, *bank).  CPU tensors: :func:`_gather_form`;
     CUDA: K5 (float32 or float64)."""
-    return _cuda.apply(_BankedEval, data, a, b, idx, t)
+    return _BANKED(data, a, b, idx, t)
 
 
 banked_eval.launches = 0

@@ -100,35 +100,29 @@ def _gathered_plain(data2, a2, b2, idx, t):
     return _tail_plain(pack_bank_rows(data2, a2, b2), idx, t, data2.shape[1])
 
 
-class _GatheredBankEval(torch.autograd.Function):
-    """Forward: the packed table and R2a (:func:`_gathered_plain` on the
-    CPU).  Backward: the VJP of :func:`_gather_form_2d`, as the JAX
-    package's ``_bwd`` (``pallas_tail.py:545-555``); ``idx`` has no
-    gradient.  ``vmap`` as K5's (``bank_eval._BankedEval``)."""
+def _backward(ctx, g):
+    """The VJP of :func:`_gather_form_2d`, as the JAX package's ``_bwd``
+    (``pallas_tail.py:545-555``); ``idx`` has no gradient."""
+    data2, a2, b2, idx, t = ctx.saved_tensors
+    need = ctx.needs_input_grad
+    gd, ga, gb, gt = _cuda.plain_vjp(
+        lambda d_, a_, b_, t_: _gather_form_2d(d_, a_, b_, idx, t_),
+        (data2, a2, b2, t), (need[0], need[1], need[2], need[4]), g,
+    )
+    return gd, ga, gb, None, gt
 
-    @staticmethod
-    def forward(data2, a2, b2, idx, t):
-        return _cuda.run("gathered_bank_eval", t, _launch_gathered, _gathered_plain,
-                         data2, a2, b2, idx, t)
 
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs)
-
-    @staticmethod
-    def backward(ctx, g):
-        data2, a2, b2, idx, t = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        gd, ga, gb, gt = _cuda.plain_vjp(
-            lambda d_, a_, b_, t_: _gather_form_2d(d_, a_, b_, idx, t_),
-            (data2, a2, b2, t), (need[0], need[1], need[2], need[4]), g,
-        )
-        return gd, ga, gb, None, gt
-
-    @staticmethod
-    def vmap(info, in_dims, data2, a2, b2, idx, t):
-        return _cuda.vmap_queries(_GatheredBankEval.apply, _gathered_plain, info, in_dims,
-                                  (data2, a2, b2, idx, t), (3, 4))
+# R2a behind its packed table: forward the table and R2a (_gathered_plain on
+# the CPU); vmap as K5's (bank_eval)
+_GATHERED = _cuda.kernel_op(
+    "gathered_bank_eval", "(Tensor data2, Tensor a2, Tensor b2, Tensor idx, Tensor t) -> Tensor",
+    lambda data2, a2, b2, idx, t: _cuda.run("gathered_bank_eval", t, _launch_gathered,
+                                            _gathered_plain, data2, a2, b2, idx, t),
+    lambda data2, a2, b2, idx, t: data2.new_empty((idx.shape[0], data2.shape[1])),
+    setup_context=_cuda.save_inputs, backward=_backward,
+    vmap=lambda op, info, in_dims, *args: _cuda.vmap_queries(
+        op, _gathered_plain, info, in_dims, args, (3, 4)),
+)
 
 
 def gathered_bank_eval(data2, a2, b2, idx, t):
@@ -137,4 +131,4 @@ def gathered_bank_eval(data2, a2, b2, idx, t):
     then :func:`banked_hermite_tail`.  data2 (n, bank), a2/b2 (n-1, bank);
     returns (Q, bank).  The backward is the VJP of :func:`_gather_form_2d`
     on both devices."""
-    return _cuda.apply(_GatheredBankEval, data2, a2, b2, idx, t)
+    return _GATHERED(data2, a2, b2, idx, t)

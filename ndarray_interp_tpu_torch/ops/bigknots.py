@@ -199,70 +199,56 @@ def _interval_form(knots, data, a, b, q):
     return _eval_plain(knots, make_interval_table(knots, data, a, b), q)
 
 
-class _BigEval1D(torch.autograd.Function):
-    """Forward: R3 (:func:`_big_eval_plain` on the CPU).  Backward: the VJP
-    of K1's plain version on the interval table, as the JAX package's
-    ``_be_bwd`` (``bigknots.py:233-242``) is the VJP of its gather
-    formulation.  Under ``vmap`` batched queries flatten into one launch;
-    batched tables take the plain version."""
-
-    @staticmethod
-    def forward(knots, data, a, b, q):
-        return _cuda.run("big_eval_1d", q, _launch_eval, _big_eval_plain, knots, data, a, b, q)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _cuda.plain_vjp(_interval_form, ctx.saved_tensors, ctx.needs_input_grad, g)
-
-    @staticmethod
-    def vmap(info, in_dims, knots, data, a, b, q):
-        return _cuda.vmap_queries(_BigEval1D.apply, _big_eval_plain, info, in_dims,
-                                  (knots, data, a, b, q), (4,))
+def _eval_backward(ctx, g):
+    """The VJP of K1's plain version on the interval table, as the JAX
+    package's ``_be_bwd`` (``bigknots.py:233-242``) is the VJP of its gather
+    formulation."""
+    return _cuda.plain_vjp(_interval_form, ctx.saved_tensors, ctx.needs_input_grad, g)
 
 
-class _BigIndexFrac(torch.autograd.Function):
-    """Forward: R3idx.  Backward: the VJP of the fraction with the interval
-    fixed, as K2's; the index has no gradient."""
+def _index_frac_backward(ctx, g_idx, g_t):
+    """The VJP of the fraction with the interval fixed, as K2's; the index
+    has no gradient."""
+    knots, q, idx = ctx.saved_tensors
+    return _cuda.plain_vjp(lambda k, q_: _frac(k, q_, idx), (knots, q), ctx.needs_input_grad, g_t)
 
-    @staticmethod
-    def forward(knots, q):
-        return _cuda.run("big_lower_index_frac", q, _launch_index_frac, _big_index_frac_plain,
-                         knots, q)
 
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.mark_non_differentiable(output[0])
-        ctx.save_for_backward(*inputs, output[0])
-
-    @staticmethod
-    def backward(ctx, g_idx, g_t):
-        knots, q, idx = ctx.saved_tensors
-        return _cuda.plain_vjp(
-            lambda k, q_: _frac(k, q_, idx), (knots, q), ctx.needs_input_grad, g_t
-        )
-
-    @staticmethod
-    def vmap(info, in_dims, knots, q):
-        return _cuda.vmap_queries(_BigIndexFrac.apply, _big_index_frac_plain, info, in_dims,
-                                  (knots, q), (1,))
+# R3: forward the kernel (_big_eval_plain on the CPU); under vmap batched
+# queries flatten into one launch, batched tables take the plain version
+_BIG_EVAL = _cuda.kernel_op(
+    "big_eval_1d", "(Tensor knots, Tensor data, Tensor a, Tensor b, Tensor q) -> Tensor",
+    lambda knots, data, a, b, q: _cuda.run("big_eval_1d", q, _launch_eval, _big_eval_plain,
+                                           knots, data, a, b, q),
+    lambda knots, data, a, b, q: q.new_empty(q.shape),
+    setup_context=_cuda.save_inputs, backward=_eval_backward,
+    vmap=lambda op, info, in_dims, *args: _cuda.vmap_queries(
+        op, _big_eval_plain, info, in_dims, args, (4,)),
+)
+# R3idx
+_BIG_INDEX_FRAC = _cuda.kernel_op(
+    "big_lower_index_frac", "(Tensor knots, Tensor q) -> (Tensor, Tensor)",
+    lambda knots, q: _cuda.run("big_lower_index_frac", q, _launch_index_frac,
+                               _big_index_frac_plain, knots, q),
+    lambda knots, q: (torch.empty(q.shape, dtype=torch.int32, device=q.device),
+                      q.new_empty(q.shape)),
+    setup_context=_cuda.save_inputs_and_index, backward=_index_frac_backward,
+    vmap=lambda op, info, in_dims, *args: _cuda.vmap_queries(
+        op, _big_index_frac_plain, info, in_dims, args, (1,)),
+)
 
 
 def big_eval_1d(knots, data, a, b, q):
     """Hermite evaluation of a scalar spline on a long knot axis: knots and
     data (n,), a and b (n-1,) (zeros for a linear table), q any shape.
     CPU tensors: :func:`_big_eval_plain`; CUDA: R3."""
-    return _cuda.apply(_BigEval1D, knots, data, a, b, q)
+    return _BIG_EVAL(knots, data, a, b, q)
 
 
 def big_lower_index_frac(knots, q):
     """``(idx, t)`` of the queries on a long knot axis: idx int32 in
     ``[0, n-2]`` (NaN -> n-2), ``t = (q - x_l) / (x_r - x_l)``.  CPU
     tensors: :func:`_big_index_frac_plain`; CUDA: R3idx."""
-    return _cuda.apply(_BigIndexFrac, knots, q)
+    return _BIG_INDEX_FRAC(knots, q)
 
 
 big_eval_1d.launches = 0

@@ -28,10 +28,12 @@ Each has its plain PyTorch version here (:func:`_eval_plain`, the
 counterpart of the JAX package's ``_eval_xla``; :func:`_index_frac_plain`;
 :func:`.searchsorted.get_lower_index`; :func:`_cell_index_plain`).  A
 wrapper takes the plain version for a CPU tensor and launches its kernel
-for a CUDA tensor, both through one ``autograd.Function`` (``_cuda.run``) whose
-backward is the VJP of the plain version and whose ``vmap`` rule flattens
-batched queries into one launch; each kernel is held to its plain version
-bit for bit.  ``launches`` on each wrapper counts its kernel's launches.
+for a CUDA tensor, both through one ``torch.library`` op
+(``ndarray_interp::<wrapper>``, ``_cuda.kernel_op``, implemented by
+``_cuda.run``) whose backward is the VJP of the plain version and whose
+``vmap`` rule flattens batched queries into one launch; ``torch.compile``
+traces each op as one node.  Each kernel is held to its plain version bit
+for bit.  ``launches`` on each wrapper counts its kernel's launches.
 """
 
 from __future__ import annotations
@@ -261,103 +263,78 @@ def _cell_fracs(x, y, qx, qy, cell):
     return _frac(x, qx, xi), _frac(y, qy, cell - xi * ny1)
 
 
-class _FusedEval1D(torch.autograd.Function):
-    """Forward: K1 (its plain version on the CPU).  Backward: the VJP of
-    :func:`_eval_plain`, as the JAX package's ``_fused_bwd``
-    (``pallas_eval.py:351``).  Under ``vmap`` batched queries flatten into
-    one launch; batched tables take the plain version."""
-
-    @staticmethod
-    def forward(knots, tbl, q):
-        return _cuda.run("fused_eval_1d", q, _launch_eval, _eval_plain, knots, tbl, q)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _cuda.plain_vjp(_eval_plain, ctx.saved_tensors, ctx.needs_input_grad, g)
-
-    @staticmethod
-    def vmap(info, in_dims, knots, tbl, q):
-        return _cuda.vmap_queries(_FusedEval1D.apply, _eval_plain, info, in_dims,
-                                  (knots, tbl, q), (2,))
+def _eval_backward(ctx, g):
+    """The VJP of :func:`_eval_plain`, as the JAX package's ``_fused_bwd``
+    (``pallas_eval.py:351``).  The knots reach the value only through the
+    search, so they get no gradient (``None``, as autograd of the plain
+    version gives them), where the VJP would give zeros."""
+    need = (False, *ctx.needs_input_grad[1:])
+    return _cuda.plain_vjp(_eval_plain, ctx.saved_tensors, need, g)
 
 
-class _FusedIndexFrac(torch.autograd.Function):
-    """Forward: K2.  Backward: the VJP of the fraction with the interval
-    fixed, as ``_index_frac_bwd`` (``pallas_eval.py:448``); the index has
-    no gradient."""
-
-    @staticmethod
-    def forward(knots, q):
-        return _cuda.run("fused_index_frac", q, _launch_index_frac, _index_frac_plain, knots, q)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.mark_non_differentiable(output[0])
-        ctx.save_for_backward(*inputs, output[0])
-
-    @staticmethod
-    def backward(ctx, g_idx, g_t):
-        knots, q, idx = ctx.saved_tensors
-        return _cuda.plain_vjp(
-            lambda k, q_: _frac(k, q_, idx), (knots, q), ctx.needs_input_grad, g_t
-        )
-
-    @staticmethod
-    def vmap(info, in_dims, knots, q):
-        return _cuda.vmap_queries(_FusedIndexFrac.apply, _index_frac_plain, info, in_dims,
-                                  (knots, q), (1,))
+def _index_frac_backward(ctx, g_idx, g_t):
+    """The VJP of the fraction with the interval fixed, as
+    ``_index_frac_bwd`` (``pallas_eval.py:448``); the index has no
+    gradient."""
+    knots, q, idx = ctx.saved_tensors
+    return _cuda.plain_vjp(lambda k, q_: _frac(k, q_, idx), (knots, q), ctx.needs_input_grad, g_t)
 
 
-class _FusedLowerIndex(torch.autograd.Function):
-    """Forward: K3.  Its output, an index, is not differentiable."""
-
-    @staticmethod
-    def forward(knots, q):
-        return _cuda.run("fused_lower_index", q, _launch_lower_index, get_lower_index, knots, q)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.mark_non_differentiable(output)
-
-    @staticmethod
-    def backward(ctx, g):
-        return None, None
-
-    @staticmethod
-    def vmap(info, in_dims, knots, q):
-        return _cuda.vmap_queries(_FusedLowerIndex.apply, get_lower_index, info, in_dims,
-                                  (knots, q), (1,))
+def _cell_index_backward(ctx, g_cell, g_tx, g_ty):
+    """The VJP of the fractions with the cell fixed (:func:`_cell_fracs`);
+    the cell has no gradient."""
+    x, y, qx, qy, cell = ctx.saved_tensors
+    return _cuda.plain_vjp(
+        lambda *a: _cell_fracs(*a, cell), (x, y, qx, qy), ctx.needs_input_grad, (g_tx, g_ty)
+    )
 
 
-class _FusedCellIndex(torch.autograd.Function):
-    """Forward: R1.  Backward: the VJP of the fractions with the cell fixed
-    (:func:`_cell_fracs`); the cell has no gradient."""
+def _index_like(q):
+    return torch.empty(q.shape, dtype=torch.int32, device=q.device)
 
-    @staticmethod
-    def forward(x, y, qx, qy):
-        return _cuda.run("fused_cell_index", qx, _launch_cell_index_counted, _cell_index_plain,
-                         x, y, qx, qy)
 
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.mark_non_differentiable(output[0])
-        ctx.save_for_backward(*inputs, output[0])
-
-    @staticmethod
-    def backward(ctx, g_cell, g_tx, g_ty):
-        x, y, qx, qy, cell = ctx.saved_tensors
-        return _cuda.plain_vjp(
-            lambda *a: _cell_fracs(*a, cell), (x, y, qx, qy), ctx.needs_input_grad, (g_tx, g_ty)
-        )
-
-    @staticmethod
-    def vmap(info, in_dims, x, y, qx, qy):
-        return _cuda.vmap_queries(_FusedCellIndex.apply, _cell_index_plain, info, in_dims,
-                                  (x, y, qx, qy), (2, 3))
+# K1: forward the kernel (its plain version on the CPU); under vmap batched
+# queries flatten into one launch, batched tables take the plain version.
+_EVAL_1D = _cuda.kernel_op(
+    "fused_eval_1d", "(Tensor knots, Tensor tbl, Tensor q) -> Tensor",
+    lambda knots, tbl, q: _cuda.run("fused_eval_1d", q, _launch_eval, _eval_plain, knots, tbl, q),
+    lambda knots, tbl, q: q.new_empty(q.shape),
+    setup_context=_cuda.save_inputs, backward=_eval_backward,
+    vmap=lambda op, info, in_dims, *args: _cuda.vmap_queries(
+        op, _eval_plain, info, in_dims, args, (2,)),
+)
+# K2
+_INDEX_FRAC = _cuda.kernel_op(
+    "fused_index_frac", "(Tensor knots, Tensor q) -> (Tensor, Tensor)",
+    lambda knots, q: _cuda.run("fused_index_frac", q, _launch_index_frac, _index_frac_plain,
+                               knots, q),
+    lambda knots, q: (_index_like(q), q.new_empty(q.shape)),
+    setup_context=_cuda.save_inputs_and_index, backward=_index_frac_backward,
+    vmap=lambda op, info, in_dims, *args: _cuda.vmap_queries(
+        op, _index_frac_plain, info, in_dims, args, (1,)),
+)
+# K3: its output, an index, is not differentiable
+_LOWER_INDEX = _cuda.kernel_op(
+    "fused_lower_index", "(Tensor knots, Tensor q) -> Tensor",
+    lambda knots, q: _cuda.run("fused_lower_index", q, _launch_lower_index, get_lower_index,
+                               knots, q),
+    lambda knots, q: _index_like(q),
+    setup_context=None, backward=lambda ctx, g: (None, None),
+    vmap=lambda op, info, in_dims, *args: _cuda.vmap_queries(
+        op, get_lower_index, info, in_dims, args, (1,)),
+)
+# R1
+_CELL_INDEX = _cuda.kernel_op(
+    "fused_cell_index", "(Tensor x, Tensor y, Tensor qx, Tensor qy) -> (Tensor, Tensor, Tensor)",
+    lambda x, y, qx, qy: _cuda.run("fused_cell_index", qx, _launch_cell_index_counted,
+                                   _cell_index_plain, x, y, qx, qy),
+    lambda x, y, qx, qy: (_index_like(qx),
+                          qx.new_empty(qx.shape),
+                          qy.new_empty(qy.shape)),
+    setup_context=_cuda.save_inputs_and_index, backward=_cell_index_backward,
+    vmap=lambda op, info, in_dims, *args: _cuda.vmap_queries(
+        op, _cell_index_plain, info, in_dims, args, (2, 3)),
+)
 
 
 def fused_eval_1d(knots, tbl, q):
@@ -368,19 +345,19 @@ def fused_eval_1d(knots, tbl, q):
     tensor takes :func:`_eval_plain`; a CUDA tensor launches K1 (float32 or
     float64; other dtypes raise ``TypeError``).  Composes with
     ``torch.func`` (``vmap``, ``grad``) on both devices."""
-    return _cuda.apply(_FusedEval1D, knots, tbl, q)
+    return _EVAL_1D(knots, tbl, q)
 
 
 def fused_index_frac(knots, q):
     """``(get_lower_index(knots, q), t)`` with ``t = (q - x_l) / (x_r - x_l)``;
     idx is int32.  CPU: :func:`_index_frac_plain`; CUDA: K2."""
-    return _cuda.apply(_FusedIndexFrac, knots, q)
+    return _INDEX_FRAC(knots, q)
 
 
 def fused_lower_index(knots, q):
     """``get_lower_index(knots, q)`` (int32).  CPU: the plain search;
     CUDA: K3."""
-    return _cuda.apply(_FusedLowerIndex, knots, q)
+    return _LOWER_INDEX(knots, q)
 
 
 def fused_cell_index(x, y, qx, qy):
@@ -392,7 +369,7 @@ def fused_cell_index(x, y, qx, qy):
     shape.  ``tx``/``ty`` are differentiable in ``x, y, qx, qy``, ``cell``
     is not.  CPU: :func:`_cell_index_plain`; CUDA: R1."""
     _check_cell_axes(x, y, qx, qy)
-    return _cuda.apply(_FusedCellIndex, x, y, qx, qy)
+    return _CELL_INDEX(x, y, qx, qy)
 
 
 fused_eval_1d.launches = 0

@@ -19,8 +19,8 @@ math permits:
 A conforming input (queries sharded or replicated, tables replicated or, for
 the bank rule, sharded on the bank axis on another mesh dimension than the
 queries) issues no collective.  The batching half of the JAX module, its
-``custom_vmap`` rules, is the ``vmap`` staticmethod of each kernel's
-``autograd.Function`` (``_cuda.vmap_queries``, ``thomas_kernel._vmap``).
+``custom_vmap`` rules, is the batching rule of each kernel's op
+(``_cuda.kernel_op``: ``_cuda.vmap_queries``, ``thomas_kernel._vmap``).
 
 Each ``sharded_*`` factory returns the entry with its rule; plain tensors
 pass straight through to the entry.  :func:`local_call` is the rule of the

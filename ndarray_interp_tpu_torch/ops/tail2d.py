@@ -284,51 +284,50 @@ def _width_bicubic(r):
     return 16 * r
 
 
-def _tail_launch(wrapper, rows_tbl, cell, a, b, r):
-    name, symbol, width, _ = _TAILS[wrapper]
+def _tail_launch(form, rows_tbl, cell, a, b, r):
+    name, symbol, width, _ = _TAILS[form]
     out = _launch(name, symbol, width, rows_tbl, cell, a, b, r)
-    wrapper.launches += 1
+    _WRAPPERS[form].launches += 1
     return out
 
 
-def _tail_plain(wrapper, rows_tbl, cell, a, b, r):
-    return _TAILS[wrapper][3](rows_tbl, cell, a, b, r)
+def _tail_plain(form, rows_tbl, cell, a, b, r):
+    return _TAILS[form][3](rows_tbl, cell, a, b, r)
 
 
-class _Tail(torch.autograd.Function):
-    """Forward: a tail kernel (its plain version on the CPU).  Backward: the
-    VJP of its plain version with ``cell`` fixed (``_bl_bwd``
+def _save_tail(ctx, inputs, output):
+    form, rows_tbl, cell, a, b, r = inputs
+    ctx.form, ctx.r = form, r
+    ctx.save_for_backward(rows_tbl, cell, a, b)
+
+
+def _tail_backward(ctx, g):
+    """The VJP of the tail's plain version with ``cell`` fixed (``_bl_bwd``
     ``pallas_tail.py:213``, ``_bc_bwd`` ``:357``): gradients for
-    ``rows_tbl`` and the two query operands.  Under ``vmap`` batched
-    ``cell`` and query operands flatten into one launch (one ordering where
-    the flattened batch orders); a batched table takes the plain version."""
+    ``rows_tbl`` and the two query operands."""
+    rows_tbl, cell, a, b = ctx.saved_tensors
+    plain, r = _TAILS[ctx.form][3], ctx.r
+    need = ctx.needs_input_grad
+    gr, ga, gb = _cuda.plain_vjp(
+        lambda rt, a_, b_: plain(rt, cell, a_, b_, r),
+        (rows_tbl, a, b), (need[1], need[3], need[4]), g,
+    )
+    return None, gr, None, ga, gb, None
 
-    @staticmethod
-    def forward(wrapper, rows_tbl, cell, a, b, r):
-        return _cuda.run(_TAILS[wrapper][0], a, _tail_launch, _tail_plain,
-                         wrapper, rows_tbl, cell, a, b, r)
 
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        wrapper, rows_tbl, cell, a, b, r = inputs
-        ctx.wrapper, ctx.r = wrapper, r
-        ctx.save_for_backward(rows_tbl, cell, a, b)
-
-    @staticmethod
-    def backward(ctx, g):
-        rows_tbl, cell, a, b = ctx.saved_tensors
-        plain, r = _TAILS[ctx.wrapper][3], ctx.r
-        need = ctx.needs_input_grad
-        gr, ga, gb = _cuda.plain_vjp(
-            lambda rt, a_, b_: plain(rt, cell, a_, b_, r),
-            (rows_tbl, a, b), (need[1], need[3], need[4]), g,
-        )
-        return None, gr, None, ga, gb, None
-
-    @staticmethod
-    def vmap(info, in_dims, wrapper, rows_tbl, cell, a, b, r):
-        return _cuda.vmap_queries(_Tail.apply, _tail_plain, info, in_dims,
-                                  (wrapper, rows_tbl, cell, a, b, r), (2, 3, 4))
+# R2b, R2c, R2d and R2n, the tail ``form`` of _TAILS: forward its kernel (the
+# plain version on the CPU); under vmap batched cell and query operands
+# flatten into one launch (one ordering where the flattened batch orders), a
+# batched table takes the plain version
+_TAIL = _cuda.kernel_op(
+    "cell_tail", "(str form, Tensor rows_tbl, Tensor cell, Tensor a, Tensor b, int r) -> Tensor",
+    lambda form, rows_tbl, cell, a, b, r: _cuda.run(
+        _TAILS[form][0], a, _tail_launch, _tail_plain, form, rows_tbl, cell, a, b, r),
+    lambda form, rows_tbl, cell, a, b, r: rows_tbl.new_empty((cell.shape[0], r)),
+    setup_context=_save_tail, backward=_tail_backward,
+    vmap=lambda op, info, in_dims, *args: _cuda.vmap_queries(
+        op, _tail_plain, info, in_dims, args, (2, 3, 4)),
+)
 
 
 def _launch_grid_counted(data, x, y, cell, qx, qy):
@@ -337,38 +336,30 @@ def _launch_grid_counted(data, x, y, cell, qx, qy):
     return out
 
 
-class _GridTail(torch.autograd.Function):
-    """Forward: R2g (:func:`_bilinear_grid_plain` on the CPU).  Backward:
-    the VJP of :func:`_bilinear_grid_plain` with ``cell`` fixed: gradients
-    for ``data``, the axes and the queries.  ``vmap`` as :class:`_Tail`'s."""
-
-    @staticmethod
-    def forward(data, x, y, cell, qx, qy):
-        return _cuda.run("bilinear_grid_eval", qx, _launch_grid_counted, _bilinear_grid_plain,
-                         data, x, y, cell, qx, qy)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs)
-
-    @staticmethod
-    def backward(ctx, g):
-        data, x, y, cell, qx, qy = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        gd, gx, gy, ga, gb = _cuda.plain_vjp(
-            lambda d, x_, y_, a, b: _bilinear_grid_plain(d, x_, y_, cell, a, b),
-            (data, x, y, qx, qy), (need[0], need[1], need[2], need[4], need[5]), g,
-        )
-        return gd, gx, gy, None, ga, gb
-
-    @staticmethod
-    def vmap(info, in_dims, data, x, y, cell, qx, qy):
-        return _cuda.vmap_queries(_GridTail.apply, _bilinear_grid_plain, info, in_dims,
-                                  (data, x, y, cell, qx, qy), (3, 4, 5))
+def _grid_backward(ctx, g):
+    """The VJP of :func:`_bilinear_grid_plain` with ``cell`` fixed:
+    gradients for ``data``, the axes and the queries."""
+    data, x, y, cell, qx, qy = ctx.saved_tensors
+    need = ctx.needs_input_grad
+    gd, gx, gy, ga, gb = _cuda.plain_vjp(
+        lambda d, x_, y_, a, b: _bilinear_grid_plain(d, x_, y_, cell, a, b),
+        (data, x, y, qx, qy), (need[0], need[1], need[2], need[4], need[5]), g,
+    )
+    return gd, gx, gy, None, ga, gb
 
 
-def _tail(wrapper, rows_tbl, cell, a, b, r):
-    return _cuda.apply(_Tail, wrapper, rows_tbl, cell, a, b, r)
+# R2g: forward the kernel (_bilinear_grid_plain on the CPU); vmap as _TAIL's
+_GRID_TAIL = _cuda.kernel_op(
+    "bilinear_grid_eval",
+    "(Tensor data, Tensor x, Tensor y, Tensor cell, Tensor qx, Tensor qy) -> Tensor",
+    lambda data, x, y, cell, qx, qy: _cuda.run(
+        "bilinear_grid_eval", qx, _launch_grid_counted, _bilinear_grid_plain,
+        data, x, y, cell, qx, qy),
+    lambda data, x, y, cell, qx, qy: data.new_empty((cell.shape[0], data.shape[2])),
+    setup_context=_cuda.save_inputs, backward=_grid_backward,
+    vmap=lambda op, info, in_dims, *args: _cuda.vmap_queries(
+        op, _bilinear_grid_plain, info, in_dims, args, (3, 4, 5)),
+)
 
 
 def bilinear_gathered_eval(rows_tbl, cell, qx, qy, r):
@@ -376,7 +367,7 @@ def bilinear_gathered_eval(rows_tbl, cell, qx, qy, r):
     ``rows_tbl`` ((nx-1)(ny-1), >= 4r + 4) from ``pack_corner_rows``,
     ``cell`` int32 and the coordinates ``qx``, ``qy`` flat.  Returns
     (Q, r).  CPU: :func:`_bilinear_plain`; CUDA: R2b."""
-    return _tail(bilinear_gathered_eval, rows_tbl, cell, qx, qy, r)
+    return _TAIL("bilinear", rows_tbl, cell, qx, qy, r)
 
 
 def bilinear_grid_eval(data, x, y, cell, qx, qy):
@@ -385,7 +376,7 @@ def bilinear_grid_eval(data, x, y, cell, qx, qy):
     grid's cells) and the coordinates ``qx``, ``qy`` flat.  Returns (Q, r),
     bit for bit :func:`bilinear_gathered_eval` on ``pack_corner_rows(x, y,
     data)``.  CPU: :func:`_bilinear_grid_plain`; CUDA: R2g."""
-    return _cuda.apply(_GridTail, data, x, y, cell, qx, qy)
+    return _GRID_TAIL(data, x, y, cell, qx, qy)
 
 
 def bicubic_gathered_eval(rows_tbl, cell, tx, ty, r):
@@ -394,14 +385,14 @@ def bicubic_gathered_eval(rows_tbl, cell, tx, ty, r):
     ``pack_bicubic_rows``, ``cell`` int32 and the fractions flat.  Returns
     (Q, r).  CPU: :func:`_bicubic_weight_plain`; CUDA: R2c, on the queries
     ordered by cell when the batch is large (as :func:`bicubic_nested_tail`)."""
-    return _tail(bicubic_gathered_eval, rows_tbl, cell, tx, ty, r)
+    return _TAIL("seq", rows_tbl, cell, tx, ty, r)
 
 
 def bicubic_tree_tail(rows_tbl, cell, tx, ty, r):
     """:func:`bicubic_gathered_eval` summed by the halving tree (R2d).
     CPU: :func:`_bicubic_tree_plain`; CUDA: R2d, on the queries ordered by
     cell when the batch is large (as :func:`bicubic_nested_tail`)."""
-    return _tail(bicubic_tree_tail, rows_tbl, cell, tx, ty, r)
+    return _TAIL("tree", rows_tbl, cell, tx, ty, r)
 
 
 def bicubic_nested_tail(rows_tbl, cell, tx, ty, r):
@@ -409,21 +400,22 @@ def bicubic_nested_tail(rows_tbl, cell, tx, ty, r):
     ``cell`` of each query (R2n).  CPU: :func:`_bicubic_nested_plain`;
     CUDA: R2n, on the queries ordered by cell when the batch is large (the
     ordering counted in ``order_by_cell.launches``)."""
-    return _tail(bicubic_nested_tail, rows_tbl, cell, tx, ty, r)
+    return _TAIL("nested", rows_tbl, cell, tx, ty, r)
 
 
-# wrapper: (name in messages, entry point, least row width, plain version)
+# form: (name in messages, entry point, least row width, plain version)
 _TAILS = {
-    bilinear_gathered_eval: ("bilinear_gathered_eval", "ndi_bilinear_tail", _width_bilinear,
-                             _bilinear_plain),
-    bicubic_gathered_eval: ("bicubic_gathered_eval", "ndi_bicubic_seq_tail", _width_bicubic,
-                            _bicubic_weight_plain),
-    bicubic_tree_tail: ("bicubic_tree_tail", "ndi_bicubic_tree_tail", _width_bicubic,
-                        _bicubic_tree_plain),
-    bicubic_nested_tail: ("bicubic_nested_tail", "ndi_bicubic_nested_tail", _width_bicubic,
-                          _bicubic_nested_plain),
+    "bilinear": ("bilinear_gathered_eval", "ndi_bilinear_tail", _width_bilinear, _bilinear_plain),
+    "seq": ("bicubic_gathered_eval", "ndi_bicubic_seq_tail", _width_bicubic,
+            _bicubic_weight_plain),
+    "tree": ("bicubic_tree_tail", "ndi_bicubic_tree_tail", _width_bicubic, _bicubic_tree_plain),
+    "nested": ("bicubic_nested_tail", "ndi_bicubic_nested_tail", _width_bicubic,
+               _bicubic_nested_plain),
 }
-for _w in _TAILS:
+# form: the wrapper whose ``launches`` counts the form's launches
+_WRAPPERS = {"bilinear": bilinear_gathered_eval, "seq": bicubic_gathered_eval,
+             "tree": bicubic_tree_tail, "nested": bicubic_nested_tail}
+for _w in _WRAPPERS.values():
     _w.launches = 0
 del _w
 bilinear_grid_eval.launches = 0

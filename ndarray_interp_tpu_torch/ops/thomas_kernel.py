@@ -61,35 +61,19 @@ def _launch(a_up, a_mid, a_low, rhs):
     return k.reshape(rhs.shape)
 
 
-class _ThomasKernel(torch.autograd.Function):
-    """Forward: the kernel (the plain loop on the CPU).  Backward: the VJP
-    of the plain loop, as the JAX package's ``_bwd``
-    (``pallas_thomas.py:216``) takes the VJP of its scan solver.  Under
-    ``vmap`` the batch becomes more columns of one launch (:func:`_vmap`)."""
-
-    @staticmethod
-    def forward(a_up, a_mid, a_low, rhs):
-        return _cuda.run("thomas_solve_fast", rhs, _launch, thomas_solve, a_up, a_mid, a_low, rhs)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _cuda.plain_vjp(thomas_solve, ctx.saved_tensors, ctx.needs_input_grad, g)
-
-    @staticmethod
-    def vmap(info, in_dims, a_up, a_mid, a_low, rhs):
-        return _vmap(info.batch_size, in_dims, (a_up, a_mid, a_low), rhs)
+def _backward(ctx, g):
+    """The VJP of the plain loop, as the JAX package's ``_bwd``
+    (``pallas_thomas.py:216``) takes the VJP of its scan solver."""
+    return _cuda.plain_vjp(thomas_solve, ctx.saved_tensors, ctx.needs_input_grad, g)
 
 
-def _vmap(size, in_dims, diags, rhs):
-    """The batch of ``vmap`` as the trailing axis of the columns, one
-    launch: with the diagonals shared a batched right-hand side is more
+def _vmap(op, info, in_dims, a_up, a_mid, a_low, rhs):
+    """K4's batching rule: the batch of ``vmap`` as the trailing axis of the
+    columns, one launch of ``op``: with the diagonals shared a batched right-hand side is more
     columns of the shared-diagonal form; a batched diagonal takes the
     per-column-diagonal form (``pallas_thomas.py:48``), the others
     broadcast to it.  The solution keeps the batch last."""
+    size, diags = info.batch_size, (a_up, a_mid, a_low)
     *diag_dims, rhs_dim = in_dims
     ndim = rhs.ndim - (rhs_dim is not None)  # a sample's rhs dims
     rhs = rhs.movedim(rhs_dim, -1) if rhs_dim is not None else rhs.unsqueeze(-1)
@@ -100,7 +84,18 @@ def _vmap(size, in_dims, diags, rhs):
             return d.reshape(tuple(d.shape[:-1]) + (1,) * (ndim - d.ndim + 1) + (d.shape[-1],))
 
         diags = [column(d, bd) for d, bd in zip(diags, diag_dims)]
-    return _ThomasKernel.apply(*diags, rhs), ndim
+    return op(*diags, rhs), ndim
+
+
+# K4: forward the kernel (the plain loop on the CPU); under vmap the batch
+# becomes more columns of one launch (_vmap)
+_THOMAS = _cuda.kernel_op(
+    "thomas_solve", "(Tensor a_up, Tensor a_mid, Tensor a_low, Tensor rhs) -> Tensor",
+    lambda a_up, a_mid, a_low, rhs: _cuda.run("thomas_solve_fast", rhs, _launch, thomas_solve,
+                                              a_up, a_mid, a_low, rhs),
+    lambda a_up, a_mid, a_low, rhs: rhs.new_empty(rhs.shape),
+    setup_context=_cuda.save_inputs, backward=_backward, vmap=_vmap,
+)
 
 
 def thomas_solve_fast(a_up, a_mid, a_low, rhs):
@@ -109,7 +104,7 @@ def thomas_solve_fast(a_up, a_mid, a_low, rhs):
     A CPU tensor takes the plain loop; a CUDA tensor launches the Thomas
     kernel (float32 or float64; other dtypes raise ``TypeError``).  Under
     ``torch.func.vmap`` the batch is solved in one launch."""
-    return _cuda.apply(_ThomasKernel, a_up, a_mid, a_low, rhs)
+    return _THOMAS(a_up, a_mid, a_low, rhs)
 
 
 thomas_solve_fast.launches = 0

@@ -4,17 +4,23 @@ Counterpart of ``ndarray_interp_tpu.serving``.  :class:`Evaluator`,
 :class:`Evaluator2D` and :class:`EvaluatorND` pad each batch of queries up
 to a size bucket (powers of two by default) with the first knot(s),
 evaluate, and slice the padding off; requests longer than ``max_batch`` are
-evaluated in ``max_batch`` chunks.  The JAX package buckets so that one
-compiled program serves every size; PyTorch runs eagerly, and the buckets
-keep the set of kernel and allocation shapes small (the shapes a later CUDA
-graph would capture).  :class:`DoubleFloatEvaluator`,
+evaluated in ``max_batch`` chunks.  As in the JAX package, where a
+``jax.jit`` program serves each bucket, :class:`Evaluator` and
+:class:`Evaluator2D` evaluate through one ``torch.compile`` program
+(``fullgraph=True``: a trace that breaks raises), the interpolator's
+``__call__`` with the kernels as ops of its graph (:func:`compile_program`).
+Its query axis is dynamic, so the one program serves every bucket: after
+:meth:`Evaluator.warmup` no call recompiles.  On the card the program is
+inductor's; on a CPU interpolator, which only tests use, the same graph runs
+on ``aot_eager``.  :class:`EvaluatorND` and the double-float evaluators run
+eagerly.  :class:`DoubleFloatEvaluator`,
 :class:`DoubleFloatEvaluator2D` and :class:`DoubleFloatEvaluatorND` serve
 float64-grade answers through the double-float kernels K6-K15
 (``ops/eval_kernels_df.py``, ``ops/eval_kernels_df2d.py``,
 ``ops/eval_kernels_df_nd.py``).
 
-    ev = Evaluator(interp).warmup()
-    values = ev(queries)
+    ev = Evaluator(interp).warmup()   # compiles, then runs every bucket
+    values = ev(queries)              # any length, no recompile
     ev2 = Evaluator2D(interp2d)
     values = ev2(xs, ys)
 
@@ -29,6 +35,7 @@ from __future__ import annotations
 import bisect
 import functools
 import math
+import types
 
 import torch
 
@@ -66,6 +73,30 @@ def _default_buckets(max_size: int):
         b *= 2
     out.append(max_size)
     return out
+
+
+def compile_program(fn, device):
+    """``torch.compile(fn, fullgraph=True)`` for an interpolator on
+    ``device``: inductor on the card, ``aot_eager`` on the CPU (the same
+    graph, run by PyTorch's own CPU operators; inductor's CPU code takes
+    tens of seconds to build).  The program compiles a copy of ``fn`` with
+    a code object of its own: Dynamo keeps its programs, and counts its
+    recompiles against ``torch._dynamo.config.recompile_limit``, by code
+    object, so each program's count is its own."""
+    own = types.FunctionType(fn.__code__.replace(), fn.__globals__, fn.__name__,
+                             fn.__defaults__, fn.__closure__)
+    backend = "inductor" if device.type == "cuda" else "aot_eager"
+    return torch.compile(own, fullgraph=True, backend=backend)
+
+
+def _dynamic_queries(padded):
+    """Mark the query axis of each padded batch dynamic (a batch of one
+    element stays static: Dynamo specialises sizes 0 and 1), so that the
+    program's one graph serves every bucket."""
+    for p in padded:
+        if p.shape[0] > 1:
+            torch._dynamo.mark_dynamic(p, 0)
+    return padded
 
 
 def _check_in_range(flat, lo, hi, what):
@@ -161,15 +192,25 @@ class Evaluator(_BucketedEvaluator):
       buckets: optional ascending list of batch buckets.
 
     Queries that are not tensors go to the interpolator's device; the
-    result is a tensor there.
+    result is a tensor there.  Each padded batch runs the compiled program
+    ``interp(q)`` (:func:`compile_program`), ``jax.jit(lambda t, q: t(q))``
+    in the JAX package.
     """
 
+    def __init__(self, interp, max_batch: int = 1 << 20, buckets=None):
+        super().__init__(interp, max_batch, buckets)
+        self._program = compile_program(lambda q: interp(q), interp.x.device)
+
+    def _run(self, q):
+        return self._program(*_dynamic_queries((q,)))
+
     def warmup(self):
-        """Evaluate every bucket once, so that the kernel library is built
-        and the caching allocator holds blocks of every bucket size."""
+        """Compile the program and run every bucket once, so that the
+        kernel library is built, no later call compiles, and the caching
+        allocator holds blocks of every bucket size."""
         x0 = self._interp.x[:1]
         for b in self._buckets:
-            self._interp(x0.expand(b).contiguous())
+            self._run(x0.expand(b).contiguous())
         return self
 
     def __call__(self, queries):
@@ -179,7 +220,7 @@ class Evaluator(_BucketedEvaluator):
         shape = tuple(q.shape) + tuple(itp.data.shape[1:])
         if flat.shape[0] == 0:
             return torch.zeros(shape, dtype=itp.data.dtype, device=itp.x.device)
-        out = self._padded_chunks([(flat, itp.x[:1].to(flat.dtype))], itp)
+        out = self._padded_chunks([(flat, itp.x[:1].to(flat.dtype))], self._run)
         return out.reshape(shape)
 
 
@@ -187,13 +228,22 @@ class Evaluator2D(_BucketedEvaluator):
     """Bucketed evaluator over an :class:`Interp2D`: ``ev(xs, ys)`` equals
     ``interp(xs, ys)`` for paired queries of any one shape
     (``xs.shape == ys.shape``, ``interp2d/mod.rs:175-196``), padded with
-    ``(x[0], y[0])``.  Arguments and devices as :class:`Evaluator`."""
+    ``(x[0], y[0])``.  Arguments, devices and the compiled program
+    ``interp(xs, ys)`` as :class:`Evaluator`."""
+
+    def __init__(self, interp, max_batch: int = 1 << 20, buckets=None):
+        super().__init__(interp, max_batch, buckets)
+        self._program = compile_program(lambda qx, qy: interp(qx, qy), interp.x.device)
+
+    def _run(self, qx, qy):
+        return self._program(*_dynamic_queries((qx, qy)))
 
     def warmup(self):
-        """Evaluate every bucket once (kernel build, allocator blocks)."""
+        """Compile the program and run every bucket once (kernel build, no
+        later compile, allocator blocks)."""
         x0, y0 = self._interp.x[:1], self._interp.y[:1]
         for b in self._buckets:
-            self._interp(x0.expand(b).contiguous(), y0.expand(b).contiguous())
+            self._run(x0.expand(b).contiguous(), y0.expand(b).contiguous())
         return self
 
     def __call__(self, xs, ys):
@@ -210,7 +260,7 @@ class Evaluator2D(_BucketedEvaluator):
         if fx.shape[0] == 0:
             return torch.zeros(shape, dtype=itp.data.dtype, device=itp.x.device)
         out = self._padded_chunks(
-            [(fx, itp.x[:1].to(fx.dtype)), (fy, itp.y[:1].to(fy.dtype))], itp
+            [(fx, itp.x[:1].to(fx.dtype)), (fy, itp.y[:1].to(fy.dtype))], self._run
         )
         return out.reshape(shape)
 

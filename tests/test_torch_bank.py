@@ -129,7 +129,7 @@ def test_banked_eval_kernel_backward_is_autograd_of_gather_form(monkeypatch):
     monkeypatch.setattr(t_bank, "_launch", t_bank._gather_form)
     data, a, b, idx, t = make_case(20, (3, 5), 30, seed=4)
     grads = []
-    for fn in (t_bank._BankedEval.apply, t_bank._gather_form):
+    for fn in (t_bank._BANKED.function.apply, t_bank._gather_form):
         leaves = [torch.as_tensor(v).double().requires_grad_(True) for v in (data, a, b, t)]
         out = fn(*leaves[:3], torch.as_tensor(idx), leaves[3])
         (out**2 * torch.linspace(0.5, 2.0, out[0].numel()).reshape(out.shape[1:])).sum().backward()

@@ -131,7 +131,7 @@ def test_backward_matches_jax_be_bwd(monkeypatch):
     want = j_bk._be_bwd((jx, jd, ja, jb, jq), 2.0 * out)
     monkeypatch.setattr(t_bk, "_launch_eval", t_bk._big_eval_plain)
     leaves = [v.requires_grad_(True) for v in T(x, d, a, b, q)]
-    (t_bk._BigEval1D.apply(*leaves) ** 2).sum().backward()
+    (t_bk._BIG_EVAL.function.apply(*leaves) ** 2).sum().backward()
     for leaf, w in zip(leaves[1:], want[1:]):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
     # the CPU route differentiates the plain version itself: the same gradients
@@ -146,7 +146,7 @@ def test_index_frac_backward_is_the_fraction(monkeypatch):
     x, _, _, _, q = fixture(nq=64)
     q = np.clip(q, x[0], x[-1])
     grads = []
-    for fn in (t_bk._BigIndexFrac.apply, t_ek._index_frac_plain):
+    for fn in (t_bk._BIG_INDEX_FRAC.function.apply, t_ek._index_frac_plain):
         leaves = [v.double().requires_grad_(True) for v in T(x, q)]
         (fn(*leaves)[1] ** 2).sum().backward()
         grads.append([v.grad for v in leaves])

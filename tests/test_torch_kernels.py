@@ -2178,13 +2178,13 @@ def test_build_routes_match_the_thomas_kernel(dev, n, bank):
         _dense_build_ok,
     )
     from ndarray_interp_tpu_torch.ops.pcr import pcr_solve
-    from ndarray_interp_tpu_torch.ops.thomas_kernel import _ThomasKernel
+    from ndarray_interp_tpu_torch.ops.thomas_kernel import _THOMAS
 
     g = torch.Generator().manual_seed(n)
     x = torch.cumsum(torch.rand(n, generator=g) + 0.5, 0).to(dev)
     y = torch.randn(n, bank, generator=g).to(dev)
     nak = (_NOT_A_KNOT, 0.0, _NOT_A_KNOT, 0.0)
-    a4, b4 = _ab_from_k(x, y, _ThomasKernel.apply(*_assemble_system(x, y, *nak)))
+    a4, b4 = _ab_from_k(x, y, _THOMAS.function.apply(*_assemble_system(x, y, *nak)))
     scale = float(a4.abs().max())
     for (a, b), tol in ((_ab_from_k(x, y, pcr_solve(*_assemble_system(x, y, *nak))), 2e-5),
                         (_dense_ab(x, y, _NOT_A_KNOT, False), 1e-5)):
