@@ -1746,7 +1746,8 @@ def wrapper_orders(kid, args):
         rows, cell, _, _, r = args
         return mod._orders(cell.shape[0], 16 * r * rows.element_size(), mod._ORDER_MIN_ROW_BYTES)
     fetched = 4 * args[0].shape[1] * (4 if kid == "K14" else 1)
-    return mod._orders(args[1].shape[0], fetched, mod._TAILS[kern.__name__][4])
+    min_row = next(form[4] for form in mod._TAILS.values() if form[5] is kern)
+    return mod._orders(args[1].shape[0], fetched, min_row)
 
 
 def order_args(kid, args):
@@ -5932,7 +5933,7 @@ N_BUILDS = 64  # the builds of the vmap over builds, each on its own 2,048-knot 
 NQ_BUILDS = 4096
 
 
-def transforms_phase(dev, state, state2d, state_nd):
+def transforms_phase(dev, state, state2d, state_nd, serving):
     """The kernels under ``torch.func`` at full width, each call with every
     launch count set to 0 just before it and read just after: ``vmap`` of
     NS1's ``itp`` over 16 query rows (K1 once, bit for bit ``itp(q)``),
@@ -5942,8 +5943,11 @@ def transforms_phase(dev, state, state2d, state_nd):
     an axis), a ``vmap`` over 64 builds on their own 2,048-knot axes (one K4
     launch, per-column diagonals; the evaluation on batched tables, no K1;
     bit for bit the loop of builds) and a table-batched ``vmap`` of
-    ``fused_eval_1d`` (no K1).  Prints each case's host wall and NS1's
-    ``itp(q)`` host wall per call.  Returns the launches."""
+    ``fused_eval_1d`` (no K1); and ``vmap`` of each f64-grade family's route
+    over 16 query rows (the double-float evaluators' bodies at their paths'
+    shapes, NS3d's weight tail: K7 once an axis, the tail and its ordering
+    once, bit for bit the unbatched call).  Prints each case's host wall and
+    NS1's ``itp(q)`` host wall per call.  Returns the launches."""
     import torch
 
     from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
@@ -5957,11 +5961,7 @@ def transforms_phase(dev, state, state2d, state_nd):
 
     def case(label, want_launches, fn, want):
         got, counts = launched(fn)
-        for kid, c in counts.items():
-            total[kid] = total.get(kid, 0) + c
-        tails = [kid for kid in ORDERED_TAILS if kid in counts]
-        if "ORD" in counts and len(tails) == 1:
-            total[f"ORD:{tails[0]}"] = total.get(f"ORD:{tails[0]}", 0) + counts["ORD"]
+        add_launches(total, counts)
         if counts != want_launches:
             fail(f"{label}: launches {counts}, expected {want_launches}")
         same, err = bit_compare(got.reshape(want.shape), want)
@@ -6022,6 +6022,10 @@ def transforms_phase(dev, state, state2d, state_nd):
     walls["table-batched"] = case("NS1 vmap of fused_eval_1d over 2 tables (the plain version)",
                                   {}, lambda: vmap(ek.fused_eval_1d, in_dims=(None, 0, None))(
                                       x, tbls, q), want)
+    for label, fn, args, expect, tol in df_compiled_cases(serving, state2d, state_nd):
+        if tol is None:  # the f64-grade routes (InterpND's is ND2's case above)
+            walls[label] = case(f"{label}: vmap over {VMAP_ROWS} rows", expect,
+                                lambda fn=fn, args=args: vmap(fn)(*rows(*args)), fn(*args))
     print("  transforms record: " + json.dumps({k: v[0] for k, v in walls.items()}), flush=True)
     return total
 
@@ -6067,6 +6071,62 @@ def op_samples(dev):
     }
     for form, width in (("bilinear", 12), ("seq", 32), ("tree", 32), ("nested", 32)):
         samples[f"cell_tail {form}"] = (form, T(cells, width), ints(cells), q, qy, 2)
+    return samples | df_op_samples(dev, rng)
+
+
+def df_op_samples(dev, rng):
+    """A small sample on the card of the f64-grade ops' arguments (float32
+    pairs) and ORD's, by op name and form.  ORD's rows are distinct, so each
+    bucket holds one record and the kernel's order is the plain version's."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df as e1
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as e2
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df_nd as en
+    from ndarray_interp_tpu_torch.ops.df import df_from_f64
+
+    def P(*shape, lo=None, hi=None):
+        v = rng.normal(size=shape) if lo is None else rng.uniform(lo, hi, shape)
+        return list(df_from_f64(torch.as_tensor(v, device=dev)))
+
+    def ints(hi, n=64):
+        return torch.as_tensor(rng.integers(0, hi, n), dtype=torch.int32, device=dev)
+
+    x = list(df_from_f64(torch.linspace(0.0, 1.0, 9, dtype=torch.float64, device=dev)))
+    q, t, ty = P(64, lo=-0.1, hi=1.1), P(64, lo=0.0, hi=1.0), P(64, lo=0.0, hi=1.0)
+    bank, nx, ny, r = 5, 5, 4, 3
+    table = P(9, bank) + P(8, bank) + P(8, bank)
+    cells = (nx - 1) * (ny - 1)
+    z, rows, nodes = P(nx, ny, r), P(cells, 16 * r), P(nx * ny, 4 * r + 2)
+    packed = {"bilinear_df": e2.pack_bilinear_rows_df(*z),
+              "bilinear_f48": e2.pack_bilinear_rows_f48(*z),
+              "bicubic_df": e2.pack_bicubic_rows_df(*rows, r),
+              "bicubic_weight": e2.pack_bicubic_rows_df(*rows, r),
+              "bicubic_f48": e2.pack_bicubic_rows_f48(*rows, r),
+              "bicubic_node": e2.pack_bicubic_nodes_df(*nodes)}
+    eval_args = (*x, *P(9), *P(8), *P(8), *q)
+    samples = {"fused_index_frac_df": (*x, *q), "fused_eval_1d_df": eval_args,
+               "fused_eval_1d_df_f64": eval_args}
+    for grade, pack in (("df", e1.pack_bank_rows_df), ("f48", e1.pack_bank_rows_f48)):
+        for op in ("df_bank_tail", "df_bank_tail_f64"):
+            samples[f"{op} {grade}"] = (grade, pack(*table), ints(8), *t, bank)
+    for form, pk in packed.items():
+        samples[f"df_cell_tail {form}"] = (form, pk, ints(nx - 1), ints(ny - 1), ny, *t, *ty)
+        if form in ("bilinear_df", "bilinear_f48", "bicubic_f48"):
+            samples[f"df_cell_tail_f64 {form}"] = (form, pk, ints(nx - 1), ints(ny - 1), ny,
+                                                   *t, *ty)
+    nd_rows = P(4 * 3, 16 * 2)
+    nd_t = [torch.stack([a, b]) for a, b in zip(P(64, lo=0, hi=1), P(64, lo=0, hi=1))]
+    nd_idx = torch.stack([ints(4), ints(3)])
+    for grade, pack in (("df", en.pack_rows_nd_df), ("f48", en.pack_rows_nd_f48)):
+        samples[f"df_nd_tail {grade}"] = (grade, pack(*nd_rows, 16, 2), nd_idx, *nd_t, [3, 1], 4)
+    perm = torch.as_tensor(rng.permutation(cells), dtype=torch.int32, device=dev)
+    t12, ty12 = [v[:cells] for v in t], [v[:cells] for v in ty]
+    samples["order_by_cell 2-D"] = (perm // (ny - 1), perm % (ny - 1), ny - 1, 0, cells, *t12,
+                                    *ty12)
+    samples["order_by_cell 1-D"] = (perm, None, 1, 0, cells, *t12, None, None)
+    f64 = torch.rand(2, cells, dtype=torch.float64, device=dev)
+    samples["order_by_cell flat f64"] = (perm, None, 1, 0, cells, f64[0], None, f64[1], None)
     return samples
 
 
@@ -6094,6 +6154,16 @@ def opcheck_phase(dev):
         fail(f"opcheck: ops without a sample: {sorted(set(ops) - seen)}")
 
 
+def add_launches(total, counts):
+    """Add a call's launches to ``total``, its orderings also under
+    ``ORD:<tail>`` for the one ordered tail it launched."""
+    for kid, c in counts.items():
+        total[kid] = total.get(kid, 0) + c
+    tails = [kid for kid in ORDERED_TAILS if kid in counts]
+    if "ORD" in counts and len(tails) == 1:
+        total[f"ORD:{tails[0]}"] = total.get(f"ORD:{tails[0]}", 0) + counts["ORD"]
+
+
 def compiled_case(label, fn, args, expect, tol, total, rec_out):
     """One full-width call compiled (inductor, ``fullgraph=True``) beside
     its eager call: the first call's seconds (trace, compile, run), both
@@ -6110,8 +6180,7 @@ def compiled_case(label, fn, args, expect, tol, total, rec_out):
     got, counts = launched(lambda: program(*args))
     first_s = time.perf_counter() - t0
     want, eager = launched(lambda: fn(*args))
-    for kid, c in counts.items():
-        total[kid] = total.get(kid, 0) + c
+    add_launches(total, counts)
     if counts != eager or counts != expect:
         fail(f"compiled {label}: launches {counts}, eager {eager}, expected {expect}")
     if tol is None:
@@ -6171,8 +6240,7 @@ def evaluator_designs(label, itp, make, queries, total, rec_out):
         for b in ev.buckets:
             args = at(b)
             got, counts = launched(lambda: ev(*args))
-            for kid, c in counts.items():
-                total[kid] = total.get(kid, 0) + c
+            add_launches(total, counts)
             ok, err = bit_compare(got, itp(*args))
             if not ok:
                 fail(f"{make.__name__} {label} at bucket {b:,}: differs from itp (max abs "
@@ -6193,20 +6261,146 @@ def evaluator_designs(label, itp, make, queries, total, rec_out):
         "warmup_s": warm, "wall_ms": {k: v[0] for k, v in walls.items()}}
 
 
-def compile_phase(dev, card, state, state2d):
+def df_serve(ev):
+    """The eager body of a double-float evaluator's compiled program
+    (``serving._df_program``): its route on the float64 queries split into
+    pairs, the result recombined to float64 where the tail returns a pair."""
+    import torch
+
+    from ndarray_interp_tpu_torch.ops.df import df_from_f64, df_to_f64
+
+    def serve(*qs):
+        res = ev._run(*(h for q in qs for h in df_from_f64(q)))
+        return res if isinstance(res, torch.Tensor) else df_to_f64(*res)
+
+    return serve
+
+
+def df_compiled_cases(serving, state2d, state_nd):
+    """The f64-grade and N-D calls of the compiled slice at full width, each
+    ``(label, fn, args, expected launches, tolerance)`` for
+    :func:`compiled_case`: the double-float evaluators' bodies
+    (:func:`df_serve`) at their paths' shapes, NS3d's route with
+    ``tail="weight"`` and ``InterpND`` on ND1 and ND2 (``EvaluatorND``'s
+    program), whose plain tails inductor rewrites: within ``F32_TOL`` in
+    f32, ``F64_TOL`` in f64."""
+    from ndarray_interp_tpu_torch.ops import eval_kernels_df2d as e2
+    from ndarray_interp_tpu_torch.ops.df import df_from_f64, df_to_f64
+
+    cases = []
+    for grade, tail in (("df", "K8"), ("f48", "K9")):
+        ev, q = serving[grade]
+        cases.append((f"DoubleFloatEvaluator {grade} bank 10,240 x 64 at {q.numel():,} f64",
+                      df_serve(ev), (q,), {"K7": 1, tail: 1, "ORD": 1}, None))
+    ev, q = serving["scalar"]
+    cases.append((f"scalar DoubleFloatEvaluator 4,096 knots at {q.numel():,} f64", df_serve(ev),
+                  (q,), {"K6": 1}, None))
+    dqx, dqy = state2d["df queries"]
+    shape2d = "x".join(map(str, GRID2D))
+    for kind, grade, cell, tail in (("Bilinear", "df", "NS3c", {"K10": 1}),
+                                    ("Bilinear", "f48", "NS3g", {"K11": 1}),
+                                    ("Bicubic", "df", "NS3d", {"K12": 1, "ORD": 1}),
+                                    ("Bicubic", "f48", "NS3f", {"K13": 1, "ORD": 1})):
+        cases.append((f"{cell} DoubleFloatEvaluator2D {grade} {kind} {shape2d} at {NQ2D:,} f64",
+                      df_serve(state2d[kind, grade]), (dqx, dqy), {"K7": 2, **tail}, None))
+    bic = state2d["Bicubic", "df"]
+
+    def weight(qx, qy):
+        return df_to_f64(*e2.gathered_bicubic_eval_df_packed(
+            *bic._run.args[:4], bic._packed, *df_from_f64(qx), *df_from_f64(qy), r=GRID2D[2],
+            tail="weight"))
+
+    cases.append((f"NS3d route tail='weight' {shape2d} at {NQ2D:,} f64", weight, (dqx, dqy),
+                  {"K7": 2, "R4c": 1, "ORD": 1}, None))
+    ev, qx, qy = state_nd["NS3e"]
+    cases.append((f"NS3e DoubleFloatEvaluator2D df node layout {'x'.join(map(str, GRID_NS3E))} "
+                  f"at {NQ2D:,} f64", df_serve(ev), (qx, qy), {"K7": 2, "K14": 1, "ORD": 1},
+                  None))
+    dq = tuple(state_nd["df queries"])
+    for cell, kid in (("ND3", "K15"), ("ND3b", "K15f48")):
+        cases.append((f"{cell} DoubleFloatEvaluatorND cubic 64^3 at {NQND:,} f64",
+                      df_serve(state_nd[cell]), dq, {"K7": 3, kid: 1}, None))
+    for name, method, tag, tol in (("ND1", "linear", "float32", F32_TOL),
+                                   ("ND2", "cubic", "float32", F32_TOL),
+                                   ("ND2", "cubic", "float64", F64_TOL)):
+        itp = state_nd[method, tag]
+        cases.append((f"{name} InterpND {method} {tag} itp(*qs) 64^3 at {NQND:,}",
+                      lambda *qs, itp=itp: itp(*qs), tuple(state_nd["queries", tag]), {"K2": 3},
+                      tol))
+    return cases
+
+
+def served_by_bucket(label, make, queries, eager, tol, total, rec_out):
+    """``make()``, an evaluator of the slice (one program, the query axis
+    dynamic), through ``warmup()``; then every bucket under
+    ``fail_on_recompile``, each against ``eager`` (the program's body run
+    eagerly) on the same queries (bit for bit, or within ``tol`` of the
+    largest |value|): the warmup's seconds and the host wall at
+    ``COMPILE_BUCKETS`` beside the eager evaluator's, the same evaluator with
+    ``eager`` in place of its program (its checks, padding and chunks too)."""
+    import torch
+
+    def at(size):
+        return [torch.cat([q, q])[:size] for q in queries]
+
+    t0 = time.perf_counter()
+    ev = make().warmup()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    worst = 0.0
+    with torch.compiler.set_stance("fail_on_recompile"):
+        for b in ev.buckets:
+            args = at(b)
+            got, counts = launched(lambda: ev(*args))
+            add_launches(total, counts)
+            want = eager(*args).reshape(got.shape)  # an evaluator drops r = 1
+            if tol is None:
+                ok, err = bit_compare(got, want)
+            else:
+                err = float((got.double() - want.double()).abs().max()
+                            / want.double().abs().max())
+                ok, worst = err <= tol, max(worst, err)
+            if not ok:
+                fail(f"{label} at bucket {b:,}: differs from the eager call (err {err})")
+        how = "bit for bit" if tol is None else f"within {worst:.3g} (tolerance {tol:g})"
+        plain = make()
+        plain._program = eager
+        walls = {}
+        for b in COMPILE_BUCKETS:
+            args = at(b)
+            walls[f"compiled {b}"] = wall_ms(lambda: ev(*args), COMPILE_CALLS)
+            walls[f"eager {b}"] = wall_ms(lambda: plain(*args), COMPILE_CALLS)
+    print(f"  {label}: every bucket of {ev.buckets[0]:,} to {ev.buckets[-1]:,} after warmup() "
+          f"under fail_on_recompile, {how} the eager call; warmup (compile and every bucket) "
+          f"{warm:.2f} s; host wall ms a request, compiled and eager evaluator, "
+          + "; ".join(f"{k} {fmt(v)}" for k, v in walls.items()), flush=True)
+    rec_out[label] = {"warmup_s": warm, "wall_ms": {k: v[0] for k, v in walls.items()}}
+    del ev, plain
+
+
+def compile_phase(dev, card, state, state2d, serving, state_nd):
     """The compiled path (``torch.compile``, the counterpart of
     ``jax.jit``): ``opcheck`` of every kernel op on the card; then each
     full-width call compiled by inductor (``fullgraph=True``) beside its
     eager call (:func:`compiled_case`): NS1's ``itp(q)``, the bank eval,
     NS1b (R3), NS3's ``Bilinear`` and NS3b's ``Bicubic``, all bit for bit,
     and NS1's build + eval (the build's arithmetic in inductor's code, within
-    ``F32_TOL``); ``Evaluator`` on NS1 and ``Evaluator2D`` on NS3 through
-    ``warmup()`` and every bucket with no recompile, beside the one program
-    a bucket design (:func:`evaluator_designs`).  Returns the launches."""
+    ``F32_TOL``); the f64-grade slice (:func:`df_compiled_cases`: the DF
+    and f48 bank serving, the scalar DF evaluator, NS3c, NS3g, NS3d, NS3f,
+    NS3d's weight tail, NS3e, ND3 and ND3b, bit for bit, and ND1 and ND2
+    through ``InterpND``, within tolerance); ``Evaluator`` on NS1 and
+    ``Evaluator2D`` on NS3 through ``warmup()`` and every bucket with no
+    recompile, beside the one program a bucket design
+    (:func:`evaluator_designs`), and ``DoubleFloatEvaluator`` (DF bank),
+    ``DoubleFloatEvaluator2D`` (NS3d), ``DoubleFloatEvaluatorND`` (ND3) and
+    ``EvaluatorND`` (ND2) the same way (:func:`served_by_bucket`), across
+    the ordering thresholds of K8 and K12.  Returns the launches."""
     import torch
 
     from ndarray_interp_tpu_torch.interp1d import CubicSpline, Interp1D
-    from ndarray_interp_tpu_torch.serving import Evaluator, Evaluator2D
+    from ndarray_interp_tpu_torch.serving import (DoubleFloatEvaluator, DoubleFloatEvaluator2D,
+                                                  DoubleFloatEvaluatorND, Evaluator, Evaluator2D,
+                                                  EvaluatorND)
 
     t_phase = time.perf_counter()
     opcheck_phase(dev)
@@ -6236,12 +6430,27 @@ def compile_phase(dev, card, state, state2d):
          (qx, qy), {"R1": 1, "R2n": 1, "ORD": 1}, None),
         ("NS1 build + eval, 2,048 knots x 1,000,000 f32", build_eval, (itp.data, q),
          {"K4": 1, "K1": 1}, F32_TOL),
+        *df_compiled_cases(serving, state2d, state_nd),
     ):
         compiled_case(label, fn, args, expect, tol, total, rec_out)
-    if total.get("ORD"):
-        total["ORD:R2n"] = total["ORD"]
     evaluator_designs("NS1", itp, Evaluator, (q,), total, rec_out)
     evaluator_designs("NS3 Bilinear", bil, Evaluator2D, (qx, qy), total, rec_out)
+    bank_ev, qd = serving["df"]
+    dqx, dqy = state2d["df queries"]
+    nd3, nd2 = state_nd["ND3"], state_nd["cubic", "float32"]
+    for label, make, queries, eager, tol in (
+        ("DoubleFloatEvaluator df bank 10,240 x 64",
+         lambda: DoubleFloatEvaluator(bank_ev._interp), (qd,), df_serve(bank_ev), None),
+        ("DoubleFloatEvaluator2D NS3d Bicubic df",
+         lambda: DoubleFloatEvaluator2D(state2d["Bicubic", "df"]._interp), (dqx, dqy),
+         df_serve(state2d["Bicubic", "df"]), None),
+        ("DoubleFloatEvaluatorND ND3 cubic df", lambda: DoubleFloatEvaluatorND(nd3._interp),
+         tuple(state_nd["df queries"]), df_serve(nd3), None),
+        ("EvaluatorND ND2 cubic f32", lambda: EvaluatorND(nd2), tuple(state_nd["queries",
+                                                                                "float32"]),
+         nd2, F32_TOL),
+    ):
+        served_by_bucket(label, make, queries, eager, tol, total, rec_out)
     seconds = time.perf_counter() - t_phase
     print(f"  the compile phase took {seconds:.1f} s; card {card}", flush=True)
     print("  compile record: " + json.dumps(rec_out), flush=True)
@@ -6411,14 +6620,15 @@ def main():
     launched_examples = examples_path()
     print("transforms (torch.func: vmap, grad, vmap(grad) at full width; counts set to 0 "
           "before each call):", flush=True)
-    launched_transforms = transforms_phase(dev, state, state2d, state_nd)
+    launched_transforms = transforms_phase(dev, state, state2d, state_nd, serving)
     launched_transforms = (dict.fromkeys(wrappers, 0)
                            | {f"ORD:{kid}": 0 for kid in ORDERED_TAILS} | launched_transforms)
     elapsed("transforms")
     print("compiled path (torch.compile, inductor, fullgraph=True: opcheck of every kernel op, "
-          "each full-width call against its eager call, Evaluator and Evaluator2D by bucket; "
-          "counts set to 0 before each call):", flush=True)
-    launched_compile = compile_phase(dev, card, state, state2d)
+          "each full-width call against its eager call, Evaluator, Evaluator2D, the three "
+          "double-float evaluators and EvaluatorND by bucket; counts set to 0 before each "
+          "call):", flush=True)
+    launched_compile = compile_phase(dev, card, state, state2d, serving, state_nd)
     launched_compile = (dict.fromkeys(wrappers, 0)
                         | {f"ORD:{kid}": 0 for kid in ORDERED_TAILS} | launched_compile)
     elapsed("compiled path")

@@ -6,10 +6,10 @@ double-float pairs (``df``), and the wrappers of the CUDA kernels
 ``eval_kernels_df_nd``, and ``cell_order``, the ordering ahead of K8, K9, K12,
 K13 and K14), and ``partition``: the wrappers' placement rules over DTensor.
 Every wrapper composes with ``torch.func`` (``vmap``, ``grad``) on both
-devices.  The f32/f64 kernels K1-K5, R1, R2a, R2b-R2d with R2n, R2g, R3 and
-R3idx are operators of the ``ndarray_interp`` namespace (:func:`kernel_ops`),
-so ``torch.compile`` traces the wrappers with each kernel one node of its
-graph."""
+devices.  Every kernel is an operator of the ``ndarray_interp`` namespace
+(:func:`kernel_ops`): the f32/f64 kernels K1-K5, R1, R2a, R2b-R2d with R2n,
+R2g, R3 and R3idx, the f64-grade K6-K15 and R4c, and ORD; so ``torch.compile``
+traces the wrappers with each kernel one node of its graph."""
 
 from .bank_eval import banked_eval, can_use_banked
 from .bank_tail import banked_hermite_tail, gathered_bank_eval
@@ -130,18 +130,27 @@ def kernel_wrappers():
 
 
 def kernel_ops():
-    """The operator behind each f32/f64 kernel's wrapper, by the name it has
-    in ``torch.ops.ndarray_interp`` (``_cuda.kernel_op``): K1 ``fused_eval_1d``,
+    """The operator behind each kernel's wrapper, by the name it has in
+    ``torch.ops.ndarray_interp`` (``_cuda.kernel_op``): K1 ``fused_eval_1d``,
     K2 ``fused_index_frac``, K3 ``fused_lower_index``, R1
     ``fused_cell_index``, K4 ``thomas_solve`` (both forms), K5
     ``banked_eval``, R2a ``gathered_bank_eval`` (the packed route: the table,
     then R2a), R3 ``big_eval_1d``, R3idx ``big_lower_index_frac``, R2b, R2c,
     R2d and R2n ``cell_tail`` (its ``form`` argument) and R2g
-    ``bilinear_grid_eval``.  Each value is the ``OpOverload``."""
-    from . import bank_eval, bank_tail, bigknots, eval_kernels, tail2d, thomas_kernel
+    ``bilinear_grid_eval``; K6 ``fused_eval_1d_df`` and, in its float64 store
+    form, ``fused_eval_1d_df_f64``, K7 ``fused_index_frac_df``, K8 and K9
+    ``df_bank_tail`` (its ``grade``) and ``df_bank_tail_f64``, K10-K14 and
+    R4c ``df_cell_tail`` (its ``form``) and ``df_cell_tail_f64``, K15 at both
+    grades ``df_nd_tail``, and ORD ``order_by_cell``.  Each value is the
+    ``OpOverload``."""
+    from . import (bank_eval, bank_tail, bigknots, cell_order, eval_kernels, eval_kernels_df,
+                   eval_kernels_df2d, eval_kernels_df_nd, tail2d, thomas_kernel)
 
     kops = (eval_kernels._EVAL_1D, eval_kernels._INDEX_FRAC, eval_kernels._LOWER_INDEX,
             eval_kernels._CELL_INDEX, thomas_kernel._THOMAS, bank_eval._BANKED,
             bank_tail._GATHERED, bigknots._BIG_EVAL, bigknots._BIG_INDEX_FRAC, tail2d._TAIL,
-            tail2d._GRID_TAIL)
+            tail2d._GRID_TAIL, eval_kernels_df._EVAL, eval_kernels_df._EVAL_F64,
+            eval_kernels_df._INDEX_FRAC, eval_kernels_df._BANK_TAIL,
+            eval_kernels_df._BANK_TAIL_F64, eval_kernels_df2d._TAIL, eval_kernels_df2d._TAIL_F64,
+            eval_kernels_df_nd._TAIL, cell_order._ORDER)
     return {k.op._opname: k.op for k in kops}

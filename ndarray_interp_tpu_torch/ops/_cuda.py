@@ -394,6 +394,35 @@ def plain_vjp(fn, inputs, needs_grad, g):
     return tuple(next(grads) if w else None for w in needs_grad)
 
 
+def save_operands(ctx, inputs, output):
+    """The ``setup_context`` of an op that also takes operands that are not
+    tensors (a form's name, sizes, strides): its tensors saved for the
+    backward, the others kept on ``ctx`` (:func:`saved_operands`)."""
+    ctx.save_for_backward(*(a for a in inputs if isinstance(a, torch.Tensor)))
+    ctx.tensor_at = [isinstance(a, torch.Tensor) for a in inputs]
+    ctx.operands = [None if t else a for t, a in zip(ctx.tensor_at, inputs)]
+
+
+def saved_operands(ctx):
+    """The inputs of an op that :func:`save_operands` saved, in order."""
+    tensors = iter(ctx.saved_tensors)
+    return [next(tensors) if t else a for t, a in zip(ctx.tensor_at, ctx.operands)]
+
+
+def plain_backward(plain):
+    """The backward of an op saved by :func:`save_operands`: the VJP
+    (:func:`plain_vjp`) of ``plain``, its plain version, in the float
+    operands; the index operands are held fixed and get no gradient."""
+
+    def backward(ctx, *grads):
+        inputs = saved_operands(ctx)
+        need = [w and isinstance(a, torch.Tensor) and a.is_floating_point()
+                for w, a in zip(ctx.needs_input_grad, inputs)]
+        return plain_vjp(plain, inputs, need, grads[0] if len(grads) == 1 else grads)
+
+    return backward
+
+
 def _batch_first(outs):
     return tuple(0 for _ in outs) if isinstance(outs, tuple) else 0
 
@@ -425,6 +454,12 @@ def vmap_queries(op, plain, info, in_dims, args, queries):
 
     outs = tuple(back(o) for o in outs) if isinstance(outs, tuple) else back(outs)
     return outs, _batch_first(outs)
+
+
+def query_rule(plain, queries):
+    """The ``vmap`` argument of :func:`kernel_op` for an op elementwise in
+    its operands at the positions ``queries``: :func:`vmap_queries`."""
+    return lambda op, info, in_dims, *args: vmap_queries(op, plain, info, in_dims, args, queries)
 
 
 def launch(name, dtype, device, *args):

@@ -35,9 +35,10 @@ batch in shared memory, with no global atomic and no memset; above it (the
 2-D keys) a histogram in device memory, its scan and a scatter, the first
 design, which the shared form's ideas did not speed up there.  The order
 within a bucket then varies from run to run.  Its plain version, :func:`_order_plain`, is a
-stable ``torch.argsort`` of the buckets.  ``order_by_cell.launches`` counts
-the orderings, those of :func:`order_by_interval` and
-:func:`order_by_flat_cell` too.
+stable ``torch.argsort`` of the buckets.  :func:`order_by_cell` calls the
+``torch.library`` op ``ndarray_interp::order_by_cell`` (under ``vmap``: one
+ordering a sample).  ``order_by_cell.launches`` counts the orderings, those
+of :func:`order_by_interval` and :func:`order_by_flat_cell` too.
 """
 
 from __future__ import annotations
@@ -105,15 +106,38 @@ def _order_plain(xi, yi, row_step, lo, rows, txh, txl, tyh, tyl):
     return torch.cat([key, words[perm], zeros], dim=1)
 
 
+def _order_launch(*args):
+    return _order_kernel(args, _form(bucket_count(args[4])))
+
+
+def _order_vmap(op, info, in_dims, *args):
+    """The batching rule of ORD's op: one ordering of each sample's batch
+    (the records of a sample index its own queries), stacked."""
+    def sample(b):
+        return [a.select(d, b) if d is not None else a for a, d in zip(args, in_dims)]
+
+    return torch.stack([op(*sample(b)) for b in range(info.batch_size)]), 0
+
+
+# ORD: forward the counting sort (_order_plain on the CPU); its records are
+# integers, not differentiable
+_ORDER = _cuda.kernel_op(
+    "order_by_cell",
+    "(Tensor xi, Tensor? yi, int row_step, int lo, int rows, Tensor tx_hi, Tensor? tx_lo, "
+    "Tensor? ty_hi, Tensor? ty_lo) -> Tensor",
+    lambda *a: _cuda.run("order_by_cell", a[5], _order_launch, _order_plain, *a),
+    lambda xi, *a: torch.empty((xi.shape[0], 8), dtype=torch.int32, device=xi.device),
+    setup_context=None, backward=lambda ctx, g: (None,) * 9,
+    vmap=_order_vmap,
+)
+
+
 def order_by_cell(xi, yi, row_step, lo, rows, tx_hi, tx_lo, ty_hi, ty_lo):
     """The ``(nq, 8)`` int32 records of the queries, in bucket order.  CPU
     tensors: :func:`_order_plain`; CUDA: the counting sort, in the form
     :func:`_form` picks.  ``yi``, ``ty_hi`` and ``ty_lo`` may be ``None``
     together (1-D, as :func:`order_by_interval`)."""
-    args = (xi, yi, row_step, lo, rows, tx_hi, tx_lo, ty_hi, ty_lo)
-    if _cuda.kernel_device("order_by_cell", tx_hi) == "cpu":
-        return _order_plain(*args)
-    return _order_kernel(args, _form(bucket_count(rows)))
+    return _ORDER(xi, yi, int(row_step), int(lo), int(rows), tx_hi, tx_lo, ty_hi, ty_lo)
 
 
 def _form(buckets):

@@ -34,12 +34,17 @@ operation order: :func:`eval_xla_df` (K6), :func:`_df_index_frac_xla` (K7),
 :func:`_df_tail_plain` (K8: :func:`_df_xla_tail` on ``index_select``-ed
 rows; on ordered records :func:`_df_tail_ordered_plain`) and
 :func:`_f48_tail_plain` (K9: the same after :func:`_unpack_f48_lo`; on
-ordered records :func:`_f48_tail_ordered_plain`).  A wrapper runs the plain version for CPU tensors
-and launches its kernel for CUDA tensors; the kernels are bit-identical to
-the plain versions.  ``launches`` on each wrapper counts its kernel's
-launches.  The routes' placement rules over DTensor (K6, K7 + K8 / K9) are
-in :mod:`.partition`.  These wrappers have no ``vmap`` rule: on the card a
-tensor batched by ``torch.func.vmap`` raises (ROADMAP Queue 3).
+ordered records :func:`_f48_tail_ordered_plain`).  Each wrapper calls a
+``torch.library`` op (``ndarray_interp::fused_eval_1d_df`` and its
+``_f64`` form, ``fused_index_frac_df``, ``df_bank_tail`` and its ``_f64``
+form by grade; ``_cuda.kernel_op``), which runs the plain version for CPU
+tensors and launches the kernel for CUDA tensors (the ordering of a large
+batch decided there, at run time); ``torch.compile`` traces each as one node.
+The kernels are bit-identical to the plain versions; an op's backward is the
+VJP of its plain version, and under ``vmap`` batched queries flatten into
+one launch.  ``launches`` on each wrapper counts its kernel's launches.  The
+routes' placement rules over DTensor (K6, K7 + K8 / K9) are in
+:mod:`.partition`.
 
 Semantics, and where they differ from the JAX package:
 
@@ -59,6 +64,9 @@ Semantics, and where they differ from the JAX package:
 """
 
 from __future__ import annotations
+
+import functools
+import operator
 
 import torch
 import torch.nn.functional as F
@@ -130,11 +138,16 @@ def _df_index_frac_xla(x_hi, x_lo, q_hi, q_lo):
     """Plain version of K7: ``(idx, t_hi, t_lo)`` with
     ``t = (q - x_l) / (x_r - x_l)`` in float64."""
     idx = _df_lower_index(x_hi, x_lo, q_hi, q_lo, x_hi.shape[0])
+    return (idx, *_df_frac(x_hi, x_lo, q_hi, q_lo, idx))
+
+
+def _df_frac(x_hi, x_lo, q_hi, q_lo, idx):
+    """The fraction pair ``(q - x_l) / (x_r - x_l)`` of the interval
+    ``idx``, in float64."""
     il = idx.long()
     x_l = df_to_f64(x_hi[il], x_lo[il])
     x_r = df_to_f64(x_hi[il + 1], x_lo[il + 1])
-    t_hi, t_lo = df_from_f64((df_to_f64(q_hi, q_lo) - x_l) / (x_r - x_l))
-    return idx, t_hi, t_lo
+    return df_from_f64((df_to_f64(q_hi, q_lo) - x_l) / (x_r - x_l))
 
 
 def _df_xla_tail(rows, th, tl, bank):
@@ -427,6 +440,97 @@ def _launch_tail(symbol, wrapper, blocks, packed, idx, th, tl, bank, f64=False):
     return out[0] if f64 else out
 
 
+# -- the ops -----------------------------------------------------------------------
+def _index_like(q):
+    return torch.empty(q.shape, dtype=torch.int32, device=q.device)
+
+
+def _index_frac_backward(ctx, g_idx, g_hi, g_lo):
+    """The VJP of the fraction pair with the interval fixed
+    (:func:`_df_frac`); the index has no gradient."""
+    x_hi, x_lo, q_hi, q_lo, idx = ctx.saved_tensors
+    return _cuda.plain_vjp(lambda *a: _df_frac(*a, idx), (x_hi, x_lo, q_hi, q_lo),
+                           ctx.needs_input_grad, (g_hi, g_lo))
+
+
+# K7: forward the kernel (_df_index_frac_xla on the CPU); under vmap batched
+# queries flatten into one launch, a batched table takes the plain version
+_INDEX_FRAC = _cuda.kernel_op(
+    "fused_index_frac_df",
+    "(Tensor x_hi, Tensor x_lo, Tensor q_hi, Tensor q_lo) -> (Tensor, Tensor, Tensor)",
+    lambda *a: _cuda.run("fused_index_frac_df", a[2], _launch_index_frac, _df_index_frac_xla,
+                         *a),
+    lambda x_hi, x_lo, q_hi, q_lo: (_index_like(q_hi), q_hi.new_empty(q_hi.shape),
+                                    q_hi.new_empty(q_hi.shape)),
+    setup_context=_cuda.save_inputs_and_index, backward=_index_frac_backward,
+    vmap=_cuda.query_rule(_df_index_frac_xla, (2, 3)),
+)
+
+
+def _eval_f64_plain(*args):
+    return df_to_f64(*eval_xla_df(*args))
+
+
+_EVAL_SCHEMA = ("(Tensor x_hi, Tensor x_lo, Tensor d_hi, Tensor d_lo, Tensor a_hi, Tensor a_lo, "
+                "Tensor b_hi, Tensor b_lo, Tensor q_hi, Tensor q_lo)")
+# K6 in its two store forms: the result pair, and the float64 one
+_EVAL = _cuda.kernel_op(
+    "fused_eval_1d_df", _EVAL_SCHEMA + " -> (Tensor, Tensor)",
+    lambda *a: _cuda.run("fused_eval_1d_df", a[8], _launch_eval, eval_xla_df, *a),
+    lambda *a: (a[8].new_empty(a[8].shape), a[8].new_empty(a[8].shape)),
+    setup_context=_cuda.save_operands, backward=_cuda.plain_backward(eval_xla_df),
+    vmap=_cuda.query_rule(eval_xla_df, (8, 9)),
+)
+_EVAL_F64 = _cuda.kernel_op(
+    "fused_eval_1d_df_f64", _EVAL_SCHEMA + " -> Tensor",
+    lambda *a: _cuda.run("fused_eval_1d_df", a[8], functools.partial(_launch_eval, f64=True),
+                         _eval_f64_plain, *a),
+    lambda *a: a[8].new_empty(a[8].shape, dtype=torch.float64),
+    setup_context=_cuda.save_operands, backward=_cuda.plain_backward(_eval_f64_plain),
+    vmap=_cuda.query_rule(_eval_f64_plain, (8, 9)),
+)
+
+
+def _bank_tail_plain(grade, packed, idx, t_hi, t_lo, bank):
+    return _BANK_TAILS[grade][0](packed, idx, t_hi, t_lo, bank)
+
+
+def _bank_tail_f64_plain(grade, packed, idx, t_hi, t_lo, bank):
+    return df_to_f64(*_bank_tail_plain(grade, packed, idx, t_hi, t_lo, bank))
+
+
+def _bank_tail_launch(grade, packed, idx, t_hi, t_lo, bank, f64=False):
+    _, symbol, wrapper, blocks = _BANK_TAILS[grade]
+    return _launch_tail(symbol, wrapper, blocks, packed, idx, t_hi, t_lo, bank, f64=f64)
+
+
+def _bank_tail_fake(grade, packed, idx, t_hi, t_lo, bank):
+    return (t_hi.new_empty((idx.shape[0], bank)), t_hi.new_empty((idx.shape[0], bank)))
+
+
+_BANK_SCHEMA = "(str grade, Tensor packed, Tensor idx, Tensor t_hi, Tensor t_lo, int bank)"
+# K8 (grade "df") and K9 ("f48") in their two store forms: forward the kernel
+# (its plain version on the CPU), the ordering of a large batch inside it;
+# under vmap batched idx and fractions flatten into one launch
+_BANK_TAIL = _cuda.kernel_op(
+    "df_bank_tail", _BANK_SCHEMA + " -> (Tensor, Tensor)",
+    lambda grade, *a: _cuda.run(_BANK_TAILS[grade][2].__name__, a[2], _bank_tail_launch,
+                                _bank_tail_plain, grade, *a),
+    _bank_tail_fake,
+    setup_context=_cuda.save_operands, backward=_cuda.plain_backward(_bank_tail_plain),
+    vmap=_cuda.query_rule(_bank_tail_plain, (2, 3, 4)),
+)
+_BANK_TAIL_F64 = _cuda.kernel_op(
+    "df_bank_tail_f64", _BANK_SCHEMA + " -> Tensor",
+    lambda grade, *a: _cuda.run(_BANK_TAILS[grade][2].__name__, a[2],
+                                functools.partial(_bank_tail_launch, f64=True),
+                                _bank_tail_f64_plain, grade, *a),
+    lambda *a: _bank_tail_fake(*a)[0].to(torch.float64),
+    setup_context=_cuda.save_operands, backward=_cuda.plain_backward(_bank_tail_f64_plain),
+    vmap=_cuda.query_rule(_bank_tail_f64_plain, (2, 3, 4)),
+)
+
+
 # -- public wrappers ---------------------------------------------------------------
 def fused_eval_1d_df(x_hi, x_lo, d_hi, d_lo, a_hi, a_lo, b_hi, b_lo, q_hi, q_lo):
     """Double-float evaluation; every argument is an ``(hi, lo)`` float32
@@ -438,10 +542,7 @@ def fused_eval_1d_df(x_hi, x_lo, d_hi, d_lo, a_hi, a_lo, b_hi, b_lo, q_hi, q_lo)
     ``[0, n-2]`` including ±inf, NaN queries give NaN, knots that collide in
     float32 are told apart.  CPU tensors: :func:`eval_xla_df`; CUDA: K6, on
     the knots widened once a block into shared memory."""
-    args = (x_hi, x_lo, d_hi, d_lo, a_hi, a_lo, b_hi, b_lo, q_hi, q_lo)
-    if _cuda.kernel_device("fused_eval_1d_df", q_hi) == "cpu":
-        return eval_xla_df(*args)
-    return _launch_eval(*args)
+    return _EVAL(x_hi, x_lo, d_hi, d_lo, a_hi, a_lo, b_hi, b_lo, q_hi, q_lo)
 
 
 def _fused_eval_1d_df_f64(x_hi, x_lo, d_hi, d_lo, a_hi, a_lo, b_hi, b_lo, q_hi, q_lo):
@@ -450,19 +551,14 @@ def _fused_eval_1d_df_f64(x_hi, x_lo, d_hi, d_lo, a_hi, a_lo, b_hi, b_lo, q_hi, 
     form, counted in ``fused_eval_1d_df.launches``; the linear escape's
     ``(h, 0)`` becomes ``(double)h``).  CPU tensors: the plain version's
     pair, recombined."""
-    args = (x_hi, x_lo, d_hi, d_lo, a_hi, a_lo, b_hi, b_lo, q_hi, q_lo)
-    if _cuda.kernel_device("fused_eval_1d_df", q_hi) == "cpu":
-        return df_to_f64(*eval_xla_df(*args))
-    return _launch_eval(*args, f64=True)
+    return _EVAL_F64(x_hi, x_lo, d_hi, d_lo, a_hi, a_lo, b_hi, b_lo, q_hi, q_lo)
 
 
 def fused_index_frac_df(x_hi, x_lo, q_hi, q_lo):
     """``(idx, t_hi, t_lo)`` of the queries against the knots, all pairs:
     idx int32 in ``[0, n-2]`` (NaN -> 0), ``t = (q - x_l) / (x_r - x_l)``
     as a pair.  CPU tensors: :func:`_df_index_frac_xla`; CUDA: K7."""
-    if _cuda.kernel_device("fused_index_frac_df", q_hi) == "cpu":
-        return _df_index_frac_xla(x_hi, x_lo, q_hi, q_lo)
-    return _launch_index_frac(x_hi, x_lo, q_hi, q_lo)
+    return _INDEX_FRAC(x_hi, x_lo, q_hi, q_lo)
 
 
 def gathered_df_tail(packed, idx, t_hi, t_lo, bank):
@@ -471,9 +567,7 @@ def gathered_df_tail(packed, idx, t_hi, t_lo, bank):
     pair.  CPU tensors: :func:`_df_tail_plain`; CUDA: K8, which gathers the
     rows itself, on the queries ordered by interval when the batch is
     large."""
-    if _cuda.kernel_device("gathered_df_tail", t_hi) == "cpu":
-        return _df_tail_plain(packed, idx, t_hi, t_lo, bank)
-    return _launch_tail("ndi_df_bank_tail", gathered_df_tail, 8, packed, idx, t_hi, t_lo, bank)
+    return _BANK_TAIL("df", packed, idx, t_hi, t_lo, operator.index(bank))
 
 
 def _gathered_df_tail_f64(packed, idx, t_hi, t_lo, bank):
@@ -481,30 +575,28 @@ def _gathered_df_tail_f64(packed, idx, t_hi, t_lo, bank):
     pair, bit for bit), which K8 writes itself on CUDA (its float64 store
     form, counted in ``gathered_df_tail.launches``).  CPU tensors: the plain
     version's pair, recombined."""
-    if _cuda.kernel_device("gathered_df_tail", t_hi) == "cpu":
-        return df_to_f64(*_df_tail_plain(packed, idx, t_hi, t_lo, bank))
-    return _launch_tail("ndi_df_bank_tail", gathered_df_tail, 8, packed, idx, t_hi, t_lo, bank,
-                        f64=True)
+    return _BANK_TAIL_F64("df", packed, idx, t_hi, t_lo, operator.index(bank))
 
 
 def gathered_f48_tail(packed, idx, t_hi, t_lo, bank):
     """:func:`gathered_df_tail` on a :func:`pack_bank_rows_f48` table.
     CPU tensors: :func:`_f48_tail_plain`; CUDA: K9, on the queries ordered
     by interval when the batch is large."""
-    if _cuda.kernel_device("gathered_f48_tail", t_hi) == "cpu":
-        return _f48_tail_plain(packed, idx, t_hi, t_lo, bank)
-    return _launch_tail("ndi_f48_bank_tail", gathered_f48_tail, 6, packed, idx, t_hi, t_lo, bank)
+    return _BANK_TAIL("f48", packed, idx, t_hi, t_lo, operator.index(bank))
 
 
 def _gathered_f48_tail_f64(packed, idx, t_hi, t_lo, bank):
     """:func:`gathered_f48_tail` recombined to float64, as
     :func:`_gathered_df_tail_f64` is for K8: K9's float64 store form on
     CUDA (counted in ``gathered_f48_tail.launches``)."""
-    if _cuda.kernel_device("gathered_f48_tail", t_hi) == "cpu":
-        return df_to_f64(*_f48_tail_plain(packed, idx, t_hi, t_lo, bank))
-    return _launch_tail("ndi_f48_bank_tail", gathered_f48_tail, 6, packed, idx, t_hi, t_lo, bank,
-                        f64=True)
+    return _BANK_TAIL_F64("f48", packed, idx, t_hi, t_lo, operator.index(bank))
 
+
+# grade: (plain version, kernel, wrapper counting its launches, table width in bp)
+_BANK_TAILS = {
+    "df": (_df_tail_plain, "ndi_df_bank_tail", gathered_df_tail, 8),
+    "f48": (_f48_tail_plain, "ndi_f48_bank_tail", gathered_f48_tail, 6),
+}
 
 fused_eval_1d_df.launches = 0
 fused_index_frac_df.launches = 0

@@ -57,9 +57,14 @@ operation order: :func:`_df_bilinear_xla_tail` (on rows gathered with
 :func:`_bicubic_df_weight_tail_ordered_plain`), :func:`_df_node_tail` for K14.  A
 wrapper runs the plain version for CPU tensors and launches its
 kernel for CUDA tensors; the kernels are bit-identical to the plain
-versions.  ``launches`` on each wrapper counts its kernel's launches.  The
-routes' placement rules over DTensor (K7 twice + K10-K14) are in
-:mod:`.partition`; the wrappers have no ``vmap`` rule (ROADMAP Queue 3).
+versions.  Each wrapper calls the ``torch.library`` op
+``ndarray_interp::df_cell_tail`` (or its ``_f64`` form) with its tail's
+``form`` (:data:`_TAILS`): the plain version for CPU tensors, the kernel,
+ordered where :func:`_orders` says so at run time, for CUDA tensors; its
+backward is the VJP of the plain version, and under ``vmap`` batched
+queries flatten into one launch.  ``launches`` on each wrapper counts its
+kernel's launches.  The routes' placement rules over DTensor (K7 twice +
+K10-K14) are in :mod:`.partition`.
 
 Not ported: the JAX node route's ``chunk`` option, which bounds XLA's
 memory for the intermediates of its tail (the kernel keeps none), and its
@@ -71,7 +76,9 @@ As in 1-D, the fraction is computed in float64: a ±inf query gives
 
 from __future__ import annotations
 
+import functools
 import math
+import operator
 
 import torch
 import torch.nn.functional as F
@@ -484,17 +491,61 @@ def _launch_ordered(symbol, packed, bp, ny, records, out_hi, out_lo):
     )
 
 
-# -- public wrappers ---------------------------------------------------------------
-def _tail(wrapper, args, f64=False):
-    """``wrapper`` on ``args`` (table, xi, yi, ny and the four fraction
-    halves): CPU tensors run its plain version (the pair recombined to
-    float64 where ``f64``), CUDA tensors its kernel (:data:`_TAILS`)."""
-    name = wrapper.__name__
-    plain, symbol, blocks, ordered, min_row = _TAILS[name]
-    if _cuda.kernel_device(name, args[4]) == "cpu":
-        out = plain(*args)
-        return df_to_f64(*out) if f64 else out
+# -- the ops -------------------------------------------------------------------------
+def _tail_plain(form, packed, xi, yi, ny, txh, txl, tyh, tyl):
+    return _TAILS[form][0](packed, xi, yi, ny, txh, txl, tyh, tyl)
+
+
+def _tail_f64_plain(*args):
+    return df_to_f64(*_tail_plain(*args))
+
+
+def _tail_launch(form, *args, f64=False):
+    _, symbol, blocks, ordered, min_row, wrapper = _TAILS[form]
     return _launch_tail(symbol, wrapper, blocks, *args, ordered, f64, min_row)
+
+
+def _tail_fake(form, packed, xi, yi, ny, txh, txl, tyh, tyl):
+    """The ``(nq, bp)`` outputs: ``bp`` from the table's width, as the
+    launch takes it (K14: its ``8r+4`` channels give ``r``)."""
+    blocks, ch = _TAILS[form][2], packed.shape[1]
+    bp = (ch - 4) // 8 if blocks is None else ch // blocks
+    return txh.new_empty((xi.shape[0], bp)), txh.new_empty((xi.shape[0], bp))
+
+
+_TAIL_SCHEMA = ("(str form, Tensor packed, Tensor xi, Tensor yi, int ny, Tensor tx_hi, "
+                "Tensor tx_lo, Tensor ty_hi, Tensor ty_lo)")
+_TAIL_QUERIES = (2, 3, 5, 6, 7, 8)
+# K10-K14 and R4c, the tail ``form`` of _TAILS, in their two store forms: forward
+# the kernel (its plain version on the CPU), the ordering of a large batch
+# inside it; under vmap batched indices and fractions flatten into one launch,
+# a batched table takes the plain version
+_TAIL = _cuda.kernel_op(
+    "df_cell_tail", _TAIL_SCHEMA + " -> (Tensor, Tensor)",
+    lambda form, *a: _cuda.run(_TAILS[form][5].__name__, a[4], _tail_launch, _tail_plain,
+                               form, *a),
+    _tail_fake,
+    setup_context=_cuda.save_operands, backward=_cuda.plain_backward(_tail_plain),
+    vmap=_cuda.query_rule(_tail_plain, _TAIL_QUERIES),
+)
+_TAIL_F64 = _cuda.kernel_op(
+    "df_cell_tail_f64", _TAIL_SCHEMA + " -> Tensor",
+    lambda form, *a: _cuda.run(_TAILS[form][5].__name__, a[4],
+                               functools.partial(_tail_launch, f64=True), _tail_f64_plain,
+                               form, *a),
+    lambda *a: _tail_fake(*a)[0].to(torch.float64),
+    setup_context=_cuda.save_operands, backward=_cuda.plain_backward(_tail_f64_plain),
+    vmap=_cuda.query_rule(_tail_f64_plain, _TAIL_QUERIES),
+)
+
+
+# -- public wrappers ---------------------------------------------------------------
+def _tail(form, args, f64=False):
+    """The tail ``form`` of :data:`_TAILS` on ``args`` (table, xi, yi, ny
+    and the four fraction halves): CPU tensors run its plain version (the
+    pair recombined to float64 where ``f64``), CUDA tensors its kernel."""
+    packed, xi, yi, ny, *fracs = args
+    return (_TAIL_F64 if f64 else _TAIL)(form, packed, xi, yi, operator.index(ny), *fracs)
 
 
 def gathered_bilinear_df_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
@@ -502,13 +553,13 @@ def gathered_bilinear_df_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
     each query, evaluated at its fractions: the ``(nq, bp)`` result pair.
     ``ny`` is the y knot count.  CPU tensors: :func:`_bilinear_df_tail_plain`;
     CUDA: K10, which gathers the rows itself."""
-    return _tail(gathered_bilinear_df_tail, (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo))
+    return _tail("bilinear_df", (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo))
 
 
 def gathered_bilinear_f48_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
     """:func:`gathered_bilinear_df_tail` on a :func:`pack_bilinear_rows_f48`
     table.  CPU tensors: :func:`_bilinear_f48_tail_plain`; CUDA: K11."""
-    return _tail(gathered_bilinear_f48_tail, (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo))
+    return _tail("bilinear_f48", (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo))
 
 
 def _gathered_bilinear_df_tail_f64(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
@@ -517,15 +568,13 @@ def _gathered_bilinear_df_tail_f64(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_l
     store form, counted in ``gathered_bilinear_df_tail.launches``): the
     ``(nq, bp)`` float64 result.  CPU tensors: the plain version's pair,
     recombined."""
-    return _tail(gathered_bilinear_df_tail, (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo),
-                 f64=True)
+    return _tail("bilinear_df", (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo), f64=True)
 
 
 def _gathered_bilinear_f48_tail_f64(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
     """:func:`_gathered_bilinear_df_tail_f64` for K11 on a
     :func:`pack_bilinear_rows_f48` table."""
-    return _tail(gathered_bilinear_f48_tail, (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo),
-                 f64=True)
+    return _tail("bilinear_f48", (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo), f64=True)
 
 
 def gathered_bicubic_df_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
@@ -533,28 +582,26 @@ def gathered_bicubic_df_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
     each query, evaluated at its fractions: the ``(nq, bp)`` result pair.
     CPU tensors: :func:`_bicubic_df_tail_plain`; CUDA: K12, on the queries
     ordered by cell when the batch is large."""
-    return _tail(gathered_bicubic_df_tail, (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo))
+    return _tail("bicubic_df", (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo))
 
 
 def gathered_bicubic_df_weight_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
     """:func:`gathered_bicubic_df_tail` in the weight form: 16 weights a
     query, summed block by block.  CPU tensors:
     :func:`_bicubic_df_weight_tail_plain`; CUDA: R4c."""
-    return _tail(gathered_bicubic_df_weight_tail,
-                 (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo))
+    return _tail("bicubic_weight", (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo))
 
 
 def gathered_bicubic_f48_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
     """:func:`gathered_bicubic_df_tail` on a :func:`pack_bicubic_rows_f48`
     table.  CPU tensors: :func:`_bicubic_f48_tail_plain`; CUDA: K13."""
-    return _tail(gathered_bicubic_f48_tail, (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo))
+    return _tail("bicubic_f48", (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo))
 
 
 def _gathered_bicubic_f48_tail_f64(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
     """:func:`_gathered_bilinear_df_tail_f64` for K13 on a
     :func:`pack_bicubic_rows_f48` table."""
-    return _tail(gathered_bicubic_f48_tail, (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo),
-                 f64=True)
+    return _tail("bicubic_f48", (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo), f64=True)
 
 
 def gathered_bicubic_node_df_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo):
@@ -564,35 +611,33 @@ def gathered_bicubic_node_df_tail(packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo
     y knot count.  CPU tensors: :func:`_bicubic_node_df_tail_plain`; CUDA:
     K14, which fetches the node rows itself, on the queries ordered by cell
     when the batch is large."""
-    return _tail(gathered_bicubic_node_df_tail,
-                 (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo))
+    return _tail("bicubic_node", (packed, xi, yi, ny, tx_hi, tx_lo, ty_hi, ty_lo))
 
 
-# each wrapper's plain version, kernel, table width in bp (None: K14's 8r+4),
-# kernel on ordered records and least row bytes a query that it orders at
+# each form's plain version, kernel, table width in bp (None: K14's 8r+4),
+# kernel on ordered records, least row bytes a query that it orders at, and
+# the wrapper that counts its launches
 _TAILS = {
-    "gathered_bilinear_df_tail": (_bilinear_df_tail_plain, "ndi_df_bilinear_tail", 8, None, None),
-    "gathered_bilinear_f48_tail": (_bilinear_f48_tail_plain, "ndi_f48_bilinear_tail", 6, None,
-                                   None),
-    "gathered_bicubic_df_tail": (_bicubic_df_tail_plain, "ndi_df_bicubic_tail", 32,
-                                 "ndi_df_bicubic_tail_ordered", _ORDER_MIN_ROW_BYTES),
-    "gathered_bicubic_df_weight_tail": (_bicubic_df_weight_tail_plain,
-                                        "ndi_df_bicubic_weight_tail", 32,
-                                        "ndi_df_bicubic_weight_tail_ordered",
-                                        _ORDER_MIN_ROW_BYTES),
-    "gathered_bicubic_f48_tail": (_bicubic_f48_tail_plain, "ndi_f48_bicubic_tail", 24,
-                                  "ndi_f48_bicubic_tail_ordered", _ORDER_MIN_ROW_BYTES_F48),
-    "gathered_bicubic_node_df_tail": (_bicubic_node_df_tail_plain, "ndi_df_bicubic_node_tail",
-                                      None, "ndi_df_bicubic_node_tail_ordered",
-                                      _ORDER_MIN_ROW_BYTES),
+    "bilinear_df": (_bilinear_df_tail_plain, "ndi_df_bilinear_tail", 8, None, None,
+                    gathered_bilinear_df_tail),
+    "bilinear_f48": (_bilinear_f48_tail_plain, "ndi_f48_bilinear_tail", 6, None, None,
+                     gathered_bilinear_f48_tail),
+    "bicubic_df": (_bicubic_df_tail_plain, "ndi_df_bicubic_tail", 32,
+                   "ndi_df_bicubic_tail_ordered", _ORDER_MIN_ROW_BYTES, gathered_bicubic_df_tail),
+    "bicubic_weight": (_bicubic_df_weight_tail_plain, "ndi_df_bicubic_weight_tail", 32,
+                       "ndi_df_bicubic_weight_tail_ordered", _ORDER_MIN_ROW_BYTES,
+                       gathered_bicubic_df_weight_tail),
+    "bicubic_f48": (_bicubic_f48_tail_plain, "ndi_f48_bicubic_tail", 24,
+                    "ndi_f48_bicubic_tail_ordered", _ORDER_MIN_ROW_BYTES_F48,
+                    gathered_bicubic_f48_tail),
+    "bicubic_node": (_bicubic_node_df_tail_plain, "ndi_df_bicubic_node_tail", None,
+                     "ndi_df_bicubic_node_tail_ordered", _ORDER_MIN_ROW_BYTES,
+                     gathered_bicubic_node_df_tail),
 }
 
-gathered_bilinear_df_tail.launches = 0
-gathered_bilinear_f48_tail.launches = 0
-gathered_bicubic_df_tail.launches = 0
-gathered_bicubic_df_weight_tail.launches = 0
-gathered_bicubic_f48_tail.launches = 0
-gathered_bicubic_node_df_tail.launches = 0
+for _form in _TAILS.values():
+    _form[5].launches = 0
+del _form
 
 
 # -- routes --------------------------------------------------------------------------

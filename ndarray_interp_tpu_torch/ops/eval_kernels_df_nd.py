@@ -24,10 +24,11 @@ axis, axis 0 most significant), each weight multiplies its widened row
 block, and the ``nbasis^k`` products are summed by the halving tree
 ``p[:h] + p[h:]``.  A wrapper runs the plain version for CPU tensors and
 launches the kernel for CUDA tensors; the kernel is bit-identical to the
-plain version.  ``launches`` on each wrapper counts its kernel's launches.
-The route's placement rule over DTensor is :mod:`.partition`'s
-``sharded_df_nd_packed``; the wrappers have no ``vmap`` rule (ROADMAP
-Queue 3).
+plain version.  Both wrappers call the ``torch.library`` op
+``ndarray_interp::df_nd_tail`` with their grade; under ``vmap`` its batched
+``(k, nq)`` query operands flatten along the query axis into one launch.
+``launches`` on each wrapper counts its kernel's launches.  The route's
+placement rule over DTensor is :mod:`.partition`'s ``sharded_df_nd_packed``.
 
 As in 1-D and 2-D the fraction is computed in float64: a ±inf query gives
 ``t = ±inf`` where the JAX double-float fraction is NaN.
@@ -176,6 +177,56 @@ def _launch_nd(wrapper, f48, packed, idx, t_hi, t_lo, cstrides, nbasis):
     return out_hi, out_lo
 
 
+# -- the op ----------------------------------------------------------------------------
+def _tail_plain(grade, packed, idx, t_hi, t_lo, cstrides, nbasis):
+    plain = _nd_f48_tail_plain if grade == "f48" else _nd_df_tail_plain
+    return plain(packed, idx, t_hi, t_lo, cstrides, nbasis)
+
+
+def _tail_launch(grade, *args):
+    f48 = grade == "f48"
+    return _launch_nd(nd_f48_tail if f48 else nd_df_tail, f48, *args)
+
+
+def _tail_fake(grade, packed, idx, t_hi, t_lo, cstrides, nbasis):
+    """The ``(nq, bp)`` outputs, ``bp`` from the table's width as the launch
+    takes it."""
+    nb = nbasis ** idx.shape[0]
+    bp = packed.shape[1] // (3 * nb // 2 if grade == "f48" else 2 * nb)
+    return t_hi.new_empty((idx.shape[1], bp)), t_hi.new_empty((idx.shape[1], bp))
+
+
+def _tail_vmap(op, info, in_dims, grade, packed, idx, t_hi, t_lo, cstrides, nbasis):
+    """The batching rule of K15's op: batched ``(k, nq)`` query operands
+    flatten along their query axis into one launch; a batched table takes
+    the plain version (:func:`_cuda.vmap_queries`, whose queries lie along
+    dim 0)."""
+    args = (grade, packed, idx, t_hi, t_lo, cstrides, nbasis)
+    if in_dims[1] is not None:
+        return _cuda.vmap_queries(op, _tail_plain, info, in_dims, args, (2, 3, 4))
+    size = info.batch_size
+    queries = []
+    for a, d in zip((idx, t_hi, t_lo), in_dims[2:5]):
+        a = a.unsqueeze(1).expand(a.shape[0], size, a.shape[1]) if d is None else a.movedim(d, 1)
+        queries.append(a.reshape(a.shape[0], -1))
+    hi, lo = op(grade, packed, *queries, cstrides, nbasis)
+    nq = queries[0].shape[1] // size
+    return (hi.reshape(size, nq, -1), lo.reshape(size, nq, -1)), (0, 0)
+
+
+# K15 at grade "df" or "f48": forward the kernel (its plain version on the CPU)
+_TAIL = _cuda.kernel_op(
+    "df_nd_tail",
+    "(str grade, Tensor packed, Tensor idx, Tensor t_hi, Tensor t_lo, int[] cstrides, "
+    "int nbasis) -> (Tensor, Tensor)",
+    lambda grade, *a: _cuda.run("nd_f48_tail" if grade == "f48" else "nd_df_tail", a[2],
+                                _tail_launch, _tail_plain, grade, *a),
+    _tail_fake,
+    setup_context=_cuda.save_operands, backward=_cuda.plain_backward(_tail_plain),
+    vmap=_tail_vmap,
+)
+
+
 # -- public wrappers -------------------------------------------------------------------
 def nd_df_tail(packed, idx, t_hi, t_lo, cstrides, nbasis=4):
     """Cell ``Σ idx[d]·cstrides[d]`` of the :func:`pack_rows_nd_df` table for
@@ -184,19 +235,13 @@ def nd_df_tail(packed, idx, t_hi, t_lo, cstrides, nbasis=4):
     ``(k, nq)``, ``nbasis`` 4 (cubic) or 2 (multilinear).  CPU tensors:
     :func:`_nd_df_tail_plain`; CUDA: K15, which gathers the rows itself, for
     ``k`` up to :data:`MAX_K` (more raises)."""
-    args = (packed, idx, t_hi, t_lo, cstrides, nbasis)
-    if _cuda.kernel_device("nd_df_tail", t_hi) == "cpu":
-        return _nd_df_tail_plain(*args)
-    return _launch_nd(nd_df_tail, False, *args)
+    return _TAIL("df", packed, idx, t_hi, t_lo, [int(s) for s in cstrides], int(nbasis))
 
 
 def nd_f48_tail(packed, idx, t_hi, t_lo, cstrides, nbasis=4):
     """:func:`nd_df_tail` on a :func:`pack_rows_nd_f48` table.  CPU tensors:
     :func:`_nd_f48_tail_plain`; CUDA: K15 at grade f48."""
-    args = (packed, idx, t_hi, t_lo, cstrides, nbasis)
-    if _cuda.kernel_device("nd_f48_tail", t_hi) == "cpu":
-        return _nd_f48_tail_plain(*args)
-    return _launch_nd(nd_f48_tail, True, *args)
+    return _TAIL("f48", packed, idx, t_hi, t_lo, [int(s) for s in cstrides], int(nbasis))
 
 
 nd_df_tail.launches = 0

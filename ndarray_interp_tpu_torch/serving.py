@@ -4,20 +4,26 @@ Counterpart of ``ndarray_interp_tpu.serving``.  :class:`Evaluator`,
 :class:`Evaluator2D` and :class:`EvaluatorND` pad each batch of queries up
 to a size bucket (powers of two by default) with the first knot(s),
 evaluate, and slice the padding off; requests longer than ``max_batch`` are
-evaluated in ``max_batch`` chunks.  As in the JAX package, where a
-``jax.jit`` program serves each bucket, :class:`Evaluator` and
-:class:`Evaluator2D` evaluate through one ``torch.compile`` program
-(``fullgraph=True``: a trace that breaks raises), the interpolator's
-``__call__`` with the kernels as ops of its graph (:func:`compile_program`).
-Its query axis is dynamic, so the one program serves every bucket: after
-:meth:`Evaluator.warmup` no call recompiles.  On the card the program is
-inductor's; on a CPU interpolator, which only tests use, the same graph runs
-on ``aot_eager``.  :class:`EvaluatorND` and the double-float evaluators run
-eagerly.  :class:`DoubleFloatEvaluator`,
+evaluated in ``max_batch`` chunks.  :class:`DoubleFloatEvaluator`,
 :class:`DoubleFloatEvaluator2D` and :class:`DoubleFloatEvaluatorND` serve
-float64-grade answers through the double-float kernels K6-K15
+float64-grade answers through the double-float kernels K6-K15 and R4c
 (``ops/eval_kernels_df.py``, ``ops/eval_kernels_df2d.py``,
 ``ops/eval_kernels_df_nd.py``).
+
+As in the JAX package, where a ``jax.jit`` program serves each bucket, every
+evaluator here evaluates through one ``torch.compile`` program
+(``fullgraph=True``: a trace that breaks raises; :func:`compile_program`)
+with the kernels as ops of its graph: :class:`Evaluator`,
+:class:`Evaluator2D` and :class:`EvaluatorND` the interpolator's
+``__call__``; the double-float evaluators the split of the padded float64
+queries into pairs, their route and the recombination to float64
+(:func:`_df_program`), where the JAX evaluators split and recombine on the
+host.  The query axis is dynamic, so the one program serves every bucket:
+after ``warmup()`` no call recompiles (the kernels' size-dependent choices,
+such as ordering a large batch by cell, are made inside the ops at run
+time).  The eager range and NaN checks stay outside the program.  On the
+card the program is inductor's; on a CPU interpolator, which only tests use,
+the same graph runs on ``aot_eager``.
 
     ev = Evaluator(interp).warmup()   # compiles, then runs every bucket
     values = ev(queries)              # any length, no recompile
@@ -85,6 +91,7 @@ def compile_program(fn, device):
     object, so each program's count is its own."""
     own = types.FunctionType(fn.__code__.replace(), fn.__globals__, fn.__name__,
                              fn.__defaults__, fn.__closure__)
+    own.__kwdefaults__ = fn.__kwdefaults__
     backend = "inductor" if device.type == "cuda" else "aot_eager"
     return torch.compile(own, fullgraph=True, backend=backend)
 
@@ -157,27 +164,51 @@ class _BucketedEvaluator:
             outs.append(run(*padded)[:m])
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
-    def _df_chunks(self, axes, run):
+    def _df_chunks(self, axes):
         """The double-float evaluators' loop: the float64 queries in chunks
-        of the bucket of their count, the last one padded with ``pad``;
-        each chunk split into pairs and run.  ``run`` returns the result
-        pair, recombined here to float64, or (the routes whose kernel has a
-        float64 store form: K6, K8-K11, K13) that float64 result itself.  ``axes``
-        holds one ``(flat queries, pad)`` per axis."""
+        of the bucket of their count, the last one padded with ``pad``, each
+        chunk run by the evaluator's compiled program (:func:`_df_program`),
+        which returns float64.  ``axes`` holds one ``(flat queries, pad)``
+        per axis."""
         n = axes[0][0].shape[0]
         bsz = self._bucket(n)
         outs = []
         for start in range(0, n, bsz):
-            halves = []
+            chunks = []
             for flat, pad in axes:
                 chunk = flat[start : start + bsz]
                 if chunk.shape[0] < bsz:
                     chunk = torch.cat([chunk, flat.new_full((bsz - chunk.shape[0],), pad)])
-                halves.extend(df_from_f64(chunk))
-            res = run(*halves)
-            outs.append(res if isinstance(res, torch.Tensor) else df_to_f64(*res))
+                elif chunk.storage_offset() or not chunk.is_contiguous():
+                    chunk = chunk.clone()  # the program's inputs start their storage
+                chunks.append(chunk)
+            outs.append(self._program(*_dynamic_queries(chunks)))
         res = outs[0] if len(outs) == 1 else torch.cat(outs)
         return res[:n]
+
+    def _df_warmup(self, pads, device):
+        """Compile the program and run every bucket, each query axis filled
+        with its pad value (one of ``pads`` an axis)."""
+        for b in self._buckets:
+            self._program(*_dynamic_queries(
+                [torch.full((b,), p, dtype=torch.float64, device=device) for p in pads]))
+        return self
+
+
+def _df_program(run, device):
+    """The compiled program of a double-float evaluator
+    (:func:`compile_program`): padded float64 query chunks, one a query
+    axis, split into ``(hi, lo)`` pairs, ``run`` on them (K7 and a tail, or
+    K6) and the result recombined to float64 where the tail returns a pair
+    (the tails with a float64 store form write float64 themselves).  The
+    JAX evaluators split and recombine on the host; here both are in the
+    one graph."""
+
+    def serve(*queries):
+        res = run(*(half for q in queries for half in df_from_f64(q)))
+        return res if isinstance(res, torch.Tensor) else df_to_f64(*res)
+
+    return compile_program(serve, device)
 
 
 class Evaluator(_BucketedEvaluator):
@@ -269,12 +300,21 @@ class EvaluatorND(_BucketedEvaluator):
     """Bucketed evaluator over an :class:`~.models.interpnd.InterpND`:
     ``ev(*coords)`` equals ``interp(*coords)`` for the ``k`` paired
     coordinate arrays of any one shape, padded with each axis's first knot.
-    Arguments and devices as :class:`Evaluator`."""
+    Arguments, devices and the compiled program ``interp(*coords)`` as
+    :class:`Evaluator`."""
+
+    def __init__(self, interp, max_batch: int = 1 << 20, buckets=None):
+        super().__init__(interp, max_batch, buckets)
+        self._program = compile_program(lambda *qs: interp(*qs), interp.data.device)
+
+    def _run(self, *qs):
+        return self._program(*_dynamic_queries(qs))
 
     def warmup(self):
-        """Evaluate every bucket once (kernel build, allocator blocks)."""
+        """Compile the program and run every bucket once (kernel build, no
+        later compile, allocator blocks)."""
         for b in self._buckets:
-            self._interp(*(ax[:1].expand(b).contiguous() for ax in self._interp.axes))
+            self._run(*(ax[:1].expand(b).contiguous() for ax in self._interp.axes))
         return self
 
     def __call__(self, *coords):
@@ -285,7 +325,7 @@ class EvaluatorND(_BucketedEvaluator):
         if flats[0].shape[0] == 0:
             return torch.zeros(shape, dtype=itp.data.dtype, device=itp.data.device)
         out = self._padded_chunks(
-            [(f, ax[:1].to(f.dtype)) for f, ax in zip(flats, itp.axes)], itp
+            [(f, ax[:1].to(f.dtype)) for f, ax in zip(flats, itp.axes)], self._run
         )
         return out.reshape(shape)
 
@@ -358,14 +398,12 @@ class DoubleFloatEvaluator(_BucketedEvaluator):
             self._run = functools.partial(route, *x_pair, self._packed, bank)
         else:
             self._run = functools.partial(_fused_eval_1d_df_f64, *x_pair, *pairs)
+        self._program = _df_program(self._run, x64.device)
 
     def warmup(self):
-        """Evaluate every bucket once (kernel build, allocator blocks)."""
-        x0 = torch.full((self._buckets[-1],), self._x0, dtype=torch.float64,
-                        device=self._interp.x.device)
-        for b in self._buckets:
-            self._run(*df_from_f64(x0[:b]))
-        return self
+        """Compile the program and run every bucket once (kernel build, no
+        later compile, allocator blocks)."""
+        return self._df_warmup([self._x0], self._interp.x.device)
 
     def __call__(self, queries):
         dev = self._interp.x.device
@@ -380,7 +418,7 @@ class DoubleFloatEvaluator(_BucketedEvaluator):
             _check_not_nan(flat)
         if self._mode == "periodic":
             flat = _wrap_periodic(flat, self._x0, self._xn)
-        return self._df_chunks([(flat, self._x0)], self._run).reshape(shape)
+        return self._df_chunks([(flat, self._x0)]).reshape(shape)
 
 
 class DoubleFloatEvaluator2D(_BucketedEvaluator):
@@ -440,6 +478,7 @@ class DoubleFloatEvaluator2D(_BucketedEvaluator):
                 self._packed = pack_bicubic_nodes_df(*rows_pair)
                 self._run = functools.partial(gathered_bicubic_nodes_eval_df, *axes,
                                               self._packed, r=r)
+                self._program = _df_program(self._run, x64.device)
                 return
             pack, route = {
                 "df": (pack_bicubic_rows_df, gathered_bicubic_eval_df_packed),
@@ -454,16 +493,12 @@ class DoubleFloatEvaluator2D(_BucketedEvaluator):
             }[grade]
             self._packed = pack(*df_from_f64(interp.data.detach().to(f64)))
             self._run = functools.partial(route, *axes, self._packed, y64.shape[0], r)
+        self._program = _df_program(self._run, x64.device)
 
     def warmup(self):
-        """Evaluate every bucket once (kernel build, allocator blocks)."""
-        dev = self._interp.x.device
-        b_max = self._buckets[-1]
-        qx = torch.full((b_max,), self._xr[0], dtype=torch.float64, device=dev)
-        qy = torch.full((b_max,), self._yr[0], dtype=torch.float64, device=dev)
-        for b in self._buckets:
-            self._run(*df_from_f64(qx[:b]), *df_from_f64(qy[:b]))
-        return self
+        """Compile the program and run every bucket once (kernel build, no
+        later compile, allocator blocks)."""
+        return self._df_warmup([self._xr[0], self._yr[0]], self._interp.x.device)
 
     def __call__(self, xs, ys):
         dev = self._interp.x.device
@@ -488,9 +523,7 @@ class DoubleFloatEvaluator2D(_BucketedEvaluator):
         else:
             _check_not_nan(fx, fy)
         flats = [_wrap_periodic(f, *rng) if wrap else f for _, f, rng, wrap in axes]
-        out = self._df_chunks(
-            [(flats[0], self._xr[0]), (flats[1], self._yr[0])], self._run
-        )
+        out = self._df_chunks([(flats[0], self._xr[0]), (flats[1], self._yr[0])])
         return out.reshape(shape)
 
 
@@ -560,16 +593,12 @@ class DoubleFloatEvaluatorND(_BucketedEvaluator):
         )
         pairs = [half for a in axes64 for half in df_from_f64(a)]
         self._run = functools.partial(route, *pairs, self._packed)
+        self._program = _df_program(self._run, self._packed.device)
 
     def warmup(self):
-        """Evaluate every bucket once (kernel build, allocator blocks)."""
-        dev = self._interp.data.device
-        b_max = self._buckets[-1]
-        firsts = [torch.full((b_max,), lo, dtype=torch.float64, device=dev)
-                  for lo, _ in self._ranges]
-        for b in self._buckets:
-            self._run(*(half for q in firsts for half in df_from_f64(q[:b])))
-        return self
+        """Compile the program and run every bucket once (kernel build, no
+        later compile, allocator blocks)."""
+        return self._df_warmup([lo for lo, _ in self._ranges], self._interp.data.device)
 
     def __call__(self, *coords):
         dev = self._interp.data.device
@@ -587,7 +616,7 @@ class DoubleFloatEvaluatorND(_BucketedEvaluator):
                 _check_in_range(f, lo, hi, f"the axis {d} ")
         flats = [_wrap_periodic(f, *rng) if wrap else f
                  for f, rng, wrap in zip(flats, self._ranges, self._wraps)]
-        out = self._df_chunks([(f, lo) for f, (lo, _) in zip(flats, self._ranges)], self._run)
+        out = self._df_chunks([(f, lo) for f, (lo, _) in zip(flats, self._ranges)])
         return out.reshape(shape)
 
 

@@ -370,13 +370,19 @@ def test_opcheck(case, grad):
         same(got, ref)
 
 
+# the ops of the f64-grade kernels and ORD, sampled in test_torch_compile_df.py
+DF_OPS = {"fused_eval_1d_df", "fused_eval_1d_df_f64", "fused_index_frac_df", "df_bank_tail",
+          "df_bank_tail_f64", "df_cell_tail", "df_cell_tail_f64", "df_nd_tail", "order_by_cell"}
+
+
 def test_every_kernel_is_an_op():
     """The eleven f32/f64 kernel wrappers (K1-K5, R1, R2a, R2b-R2d with
     R2n, R2g, R3, R3idx), each behind an op of the one namespace, each op
-    sampled above."""
-    assert sorted(kernel_ops()) == sorted({c.split()[0] for c in op_samples()})
+    sampled above; beside them the nine ops of the f64-grade kernels and
+    ORD."""
+    assert sorted(kernel_ops()) == sorted({c.split()[0] for c in op_samples()} | DF_OPS)
     assert all(op.namespace == _cuda.NAMESPACE for op in kernel_ops().values())
-    assert len(kernel_ops()) == 11
+    assert len(kernel_ops()) == 20
 
 
 # -- launches ----------------------------------------------------------------------------
