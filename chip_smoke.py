@@ -63,10 +63,14 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    inputs, for ``Bilinear`` also bit for bit against ``df_to_f64`` of the
    pair route, an out-of-bounds call), each call with the launch counts set
    to 0 just before it and read just after;
-5b. drives the N-D path the same way: ``InterpND`` linear, nearest and cubic
+5b. drives the N-D path the same way (each plain ``InterpND`` evaluation
+   runs its compiled program, as it does for a user, the first call of each
+   key compiling it; the path fails unless its calls asked for programs):
+   ``InterpND`` linear, nearest and cubic
    on a 64^3 grid (ND1, ND2) in f32 and f64 against SciPy, the cubic node
    layouts there (ND2b), a 256^3 cubic grid on the node layout and its
-   node2/node4 layouts, forced (ND2c, ND2d, bit-identical to each other; the
+   node2/node4 layouts, forced (ND2c, ND2d: their bodies bit-identical to
+   each other, their programs within ``F32_TOL``; the
    builder now takes the cell layout there, which the route rules build), ``DoubleFloatEvaluatorND`` df and f48 for cubic (ND3, ND3b)
    and linear at 64^3 in f64 against the port's f64 ``InterpND`` and SciPy,
    and ``DoubleFloatEvaluator2D`` on a 1024 x 1024 x 16 bicubic grid on the
@@ -85,16 +89,18 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    the example's vmapped ``StepInterpolator``, ``Nearest2D`` on NS3's grid
    against ``RegularGridInterpolator(method="nearest")``; calculus on the NS1
    spline in f64 (``derivative`` orders 1-3, ``solve``), a 10,000 x 64 f64
-   bank (``integrate`` over 4,096 bound pairs) and the NS3b ``Bicubic`` in f64
-   (``derivative``, ``integrate`` over 4,096 boxes) against SciPy's
+   bank (``integrate`` over 1,024 bound pairs) and the NS3b ``Bicubic`` in f64
+   (``derivative``, ``integrate`` over 1,024 boxes) against SciPy's
    ``CubicSpline`` and ``RectBivariateSpline`` (K2, K3, K4);
 5e. drives N-D calculus and checkpoints the same way at ND2's width (a
    64^3 grid on linspace(0, 1, 64) axes, 1,000,000 queries): ``InterpND``
    cubic in f64 on the cell layout (a 128 MB table), ``derivative`` at
    orders (1,0,0), (0,1,1), (2,1,0), (3,0,0) against the sequential SciPy
    oracle on a 2,048-query prefix (1e-10 of the scale), the node layout
-   against the cell layout on every query, order 1 on each axis (linear and
-   cubic) against ``torch.autograd.grad`` of ``__call__`` on 4,096 queries,
+   against the cell layout on every query at (1,0,0) (each order on the node
+   layout compiles a program of its own), order 1 on each axis (linear and
+   cubic) against ``torch.autograd.grad`` of ``__call__`` on 4,096 queries
+   (``derivative``'s eager body there),
    the f32 derivative against the f64 one, ``integrate`` over 16 boxes
    against sequential ``CubicSpline.integrate``; ``utils.checkpoint``'s
    ``save`` and ``load`` onto the card of the NS1 ``CubicSpline``, the NS3b
@@ -169,9 +175,21 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``.  It
    wall and device ms by CUDA events, the queue held full; ``Evaluator`` on
    NS1 and ``Evaluator2D`` on NS3 through ``warmup()`` and then every bucket
    under ``torch.compiler.set_stance("fail_on_recompile")``, bit for bit the
-   interpolator, beside the other design (one static program a bucket):
-   both warmups' seconds and host walls; inductor's and Triton's caches go
-   under ``ndarray_interp_tpu_torch/_build/``, compiled in this process;
+   interpolator, the warmup's seconds and host walls; inductor's and Triton's caches go
+   under ``ndarray_interp_tpu_torch/_build/``, compiled in this process.
+   Then the calculus compiled (``calculus_cases``: NS1's f64
+   ``derivative`` of orders 1-3 at 1,000,000 queries and ``solve``, the
+   10,000 x 64 f64 bank's ``integrate``, NS3b's f64 ``derivative(dx=1,
+   dy=1)``, each within ``F64_TOL`` of its eager call) and the plain N-D
+   calls that run ``InterpND``'s programs (``program_cases``: ND1/ND2
+   ``itp(*qs)`` in f32 and f64, ``derivative(orders=(1, 0, 0))`` on the f64
+   cell, f32 cell and f64 node tables, ``autograd.grad`` through
+   ``__call__`` and ``derivative``; most compiled by the N-D paths), each
+   beside its eager body (``set_stance("force_eager")``) with the proof
+   that it ran a program and both forms' times; ``tools/compile_phase.py``
+   runs the phase's f64-grade, calculus and N-D part alone, a 64^3 box of
+   ``integrate`` compiled by the caller among them (``box_cases``: its
+   plain call runs op by op);
 6. holds every kernel, through its public wrapper, against its plain version
    on the inputs the paths gave it, bit for bit; then times kernel and
    plain version at the paths' shapes with CUDA events (median, min and
@@ -714,10 +732,13 @@ def counted_calls():
     def drive(label, expect, fn):
         for w in wrappers.values():
             w.launches = 0
+        t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
         counts = {kid: w.launches for kid, w in wrappers.items()}
-        print(f"  {label}: launches {({k: c for k, c in counts.items() if c})}", flush=True)
+        print(f"  {label}: launches {({k: c for k, c in counts.items() if c})}; {secs:.2f} s",
+              flush=True)
         for kid in expect:
             if counts[kid] <= 0:
                 fail(f"{label}: {kid} was not launched")
@@ -819,8 +840,12 @@ def serving_path(dev, state, rng):
 # Before each timed run a spin kernel holds the stream, so the host enqueues
 # the whole run while the device is busy and the events measure device time.
 # Without it a single K1 launch (~24 us of device work) is timed together with
-# the ~50 us of Python and ctypes work that precedes it.
+# the ~50 us of Python and ctypes work that precedes it.  The spin lasts twice
+# the host time the warm-up took for that many calls, at least 5 ms and at most
+# HOLD_CYCLES.
 HOLD_CYCLES = 100_000_000  # ~50 ms at the H100's clock
+CYCLES_PER_MS = 2_000_000
+MIN_HOLD_MS = 5.0
 
 
 def device_ms(fn, calls):
@@ -828,14 +853,18 @@ def device_ms(fn, calls):
     CUDA events around ``calls`` back-to-back calls enqueued behind the spin."""
     import torch
 
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(WARMUP):
         fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 * calls / WARMUP
+    hold = int(min(HOLD_CYCLES, max(MIN_HOLD_MS, 2.0 * enqueue_ms) * CYCLES_PER_MS))
     torch.cuda.synchronize()
     times = []
     for _ in range(RUNS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(HOLD_CYCLES)
+        torch.cuda._sleep(hold)
         start.record()
         for _ in range(calls):
             fn()
@@ -3152,14 +3181,23 @@ def nd_path(dev, rng):
         check_close(f"{name} layout {itp.layout!r} {shape_b} at {NQND:,} queries (oracle "
                     f"sequential CubicSpline, first {NQ_BIG_ORACLE})", got[:NQ_BIG_ORACLE],
                     ref_b, F32_TOL, (NQ_BIG_ORACLE,), torch.float32)
+        # the layouts' bodies are bit-identical; their programs, each fused
+        # by inductor its own way, agree within F32_TOL
+        body = eager(itp)(*qb_d)
         if node_out is None:
-            node_out = got
-        elif not torch.equal(got, node_out):
-            fail(f"{name} layout {itp.layout!r} is not bit-identical to the node layout")
+            node_out, node_body = got, body
+        elif not torch.equal(body, node_body):
+            fail(f"{name} layout {itp.layout!r}: its body is not bit-identical to the node "
+                 "layout's")
         else:
-            print(f"    layout {itp.layout!r} bit-identical to the node layout")
+            err = float((got - node_out).abs().max() / node_out.abs().max())
+            print(f"    layout {itp.layout!r}: its body bit-identical to the node layout's, its "
+                  f"program within {err:.3e} of the node layout's", flush=True)
+            if not err <= F32_TOL:
+                fail(f"{name} layout {itp.layout!r}: its program differs from the node "
+                     f"layout's by {err}")
         out[name, itp.layout] = itp
-    del node_out, got, db_d
+    del node_out, node_body, body, got, db_d
 
     # ND3, ND3b, ND linear DF: DoubleFloatEvaluatorND on the 64^3 grid built in f64
     axes64 = [rep(np.linspace(0.0, 1.0, n)) for n in GRIDND]
@@ -3935,7 +3973,8 @@ def k5_phase(dev, card, rec, sweeps):
 DF_TAILS = (("mxu", "K12"), ("nested", "K12"), ("weight", "R4c"))
 NQ_STEP_ORACLE = 131_072  # SciPy interp1d on the host
 NQ_CALC_ORACLE = 65_536  # RectBivariateSpline.ev on the host, all 16 channels
-N_BOUNDS = 4096  # integration bound pairs (1-D) and boxes (2-D)
+N_BOUNDS = 1024  # integration bound pairs (1-D) and boxes (2-D); the oracle holds the
+# first N_BOUNDS_ORACLE of them
 N_BOUNDS_ORACLE = (1024, 256)  # of them SciPy integrates (1-D, 2-D: dblint is O(grid))
 
 
@@ -4070,11 +4109,11 @@ def calculus_path(dev, state, state2d, rng):
     counts set to 0 just before it and read just after: on the NS1 spline in
     f64 (2,048 knots, not-a-knot, extrapolating) ``derivative`` of orders 1-3
     at 1,000,000 queries (K3), ``roots()`` and ``solve(0.3)``; a 10,000 x 64
-    f64 bank built on the card (K4) and integrated over 4,096 bound pairs
+    f64 bank built on the card (K4) and integrated over 1,024 bound pairs
     (K3); the NS3b ``Bicubic`` in f64 (512 x 512 x 16): ``derivative`` at
     (dx, dy) in {(1, 0), (0, 1), (1, 1), (2, 0)} at 1,000,000 queries (K2)
     against ``RectBivariateSpline(s=0).ev`` on a prefix, and ``integrate``
-    over 4,096 boxes (the node grids solved again: K4) against
+    over 1,024 boxes (the node grids solved again: K4) against
     ``.integral``."""
     import scipy.interpolate as si
     import torch
@@ -4110,6 +4149,7 @@ def calculus_path(dev, state, state2d, rng):
     spb = si.CubicSpline(xb, bank)
     allclose_gate(f"bank integrate against CubicSpline.integrate, first {m:,} pairs", got[:m],
                   np.stack([spb.integrate(lo, hi) for lo, hi in bounds[:m]]), 1e-9, 1e-11)
+    out["bank"] = itpb
 
     x, y = state2d["axes"]
     _, bic, qx, qy, zd = state2d["float64"]
@@ -4217,7 +4257,7 @@ def calculus_nd_path(dev, state, state2d, rng):
     call with the launch counts set to 0 just before it and read just
     after.  Derivatives at each order of ``CALCND_ORDERS`` (f64, cell
     layout) against the sequential SciPy oracle on a 2,048-query prefix; the
-    node layout against the cell layout on every query; order 1 on each
+    node layout against the cell layout on every query at (1, 0, 0); order 1 on each
     axis, linear and cubic, against ``torch.autograd.grad`` of ``__call__``
     on a 4,096-query prefix; 16 boxes against sequential
     ``CubicSpline.integrate``; the NS1 ``CubicSpline`` (f32 and f64), the
@@ -4265,7 +4305,7 @@ def calculus_nd_path(dev, state, state2d, rng):
                       f"(first {NQ_ND_ORACLE:,}; {host:.1f} s on the host)", got[:NQ_ND_ORACLE],
                       ref, 0.0, CALCND_TOL * max(1.0, float(np.abs(ref).max())))
         cells[orders] = got
-    for orders in CALCND_ORDERS[:3]:
+    for orders in CALCND_ORDERS[:1]:  # each order on the node layout compiles its program
         got = drive(f"ND2 f64 node layout derivative(orders={orders}) at {NQND:,} queries", ["K2"],
                     lambda: node.derivative(*q_d, orders=orders))
         ref = cells[orders].cpu().numpy()
@@ -4280,10 +4320,12 @@ def calculus_nd_path(dev, state, state2d, rng):
         grads = drive(f"ND2 {method} f64 torch.autograd.grad of itp(*qs), {NQ_CALCND_GRAD:,} "
                       "queries", ["K2"], lambda: torch.autograd.grad(itp(*leaves).sum(), leaves))
         for d, g in enumerate(grads):
+            # the eager body of derivative (each order would compile a program
+            # of its own; the orders above ran theirs)
             orders = tuple(int(e == d) for e in range(3))
-            want = drive(f"ND2 {method} f64 derivative(orders={orders}), {NQ_CALCND_GRAD:,} "
-                         "queries", ["K2"], lambda: itp.derivative(*(q[sub] for q in q_d),
-                                                                   orders=orders))
+            want = drive(f"ND2 {method} f64 derivative(orders={orders}) eager body, "
+                         f"{NQ_CALCND_GRAD:,} queries", ["K2"], eager(
+                             lambda: itp.derivative(*(q[sub] for q in q_d), orders=orders)))
             ref = want.cpu().numpy()
             allclose_gate(f"ND2 {method} autograd axis {d} against derivative(orders={orders})",
                           g, ref, 1e-10, 1e-12 * float(np.abs(ref).max()))
@@ -4697,8 +4739,9 @@ def grid_bodies(drive, label, expect, axes, data, k, method, bcs, flats, extrapo
 def scaleout_grids(dev, drive, out):
     """(c) the 256^3 tricubic InterpND and (d) NS3's grid with Bilinear and
     Bicubic, each grid-shard rank's pack and body in turn; held to the
-    unsharded cell layout (the same table) bit for bit, the plain per-rank
-    versions and a float64 oracle or the 2-D path at f32 tolerance."""
+    unsharded cell layout's eager body (the same table) bit for bit, the
+    plain per-rank versions and a float64 oracle or the 2-D path at f32
+    tolerance."""
     import torch
 
     from ndarray_interp_tpu_torch.interp2d import Bicubic, Bilinear, Interp2D
@@ -4712,10 +4755,13 @@ def scaleout_grids(dev, drive, out):
                                       "cubic", bcs, qs, False)
     wall = (time.perf_counter() - t0) * 1e3
     rank_lines("(c)", runs, nbytes, "its body after its pack")
-    whole = InterpND.builder(data).points(*axes).method("cubic").layout("cell").build()
+    # the unsharded port's eager body (its build and call, which run compiled
+    # programs on the card, as plain PyTorch): the rank bodies split it
+    whole = eager(lambda: InterpND.builder(data).points(*axes).method("cubic").layout("cell")
+                  .build())()
     cell_bytes = whole.table.numel() * whole.table.element_size()
     total = total.reshape(-1)  # r = 1
-    same_bits("(c) vs the unsharded cell layout", total, whole(*qs))
+    same_bits("(c) vs the unsharded cell layout", total, eager(whole)(*qs))
     del whole
     ref = seq_spline_oracle([a.cpu().numpy().astype(np.float64) for a in axes],
                             data.cpu().numpy().astype(np.float64),
@@ -4744,8 +4790,9 @@ def scaleout_grids(dev, drive, out):
         wall = (time.perf_counter() - t0) * 1e3
         rank_lines(f"(d) {name}", runs, nbytes, "its body after its pack")
         b = InterpND.builder(data).points(x, y).method(method)
-        nd = (b.layout("cell") if method == "cubic" else b).build()
-        same_bits(f"(d) {name} vs the unsharded k = 2 cell table", total, nd(*qs).reshape(-1, r))
+        nd = eager((b.layout("cell") if method == "cubic" else b).build)()
+        same_bits(f"(d) {name} vs the unsharded k = 2 cell table", total,
+                  eager(nd)(*qs).reshape(-1, r))
         ok = ~torch.isnan(total[:, 0])
         path = itp(*qs).reshape(-1, r)
         err = scaled_gate(f"(d) {name} vs Interp2D", total[ok], path[ok], F32_TOL)
@@ -5521,6 +5568,17 @@ class patched:
             setattr(o, n, v)
 
 
+def nd_inline():
+    """A context in which every ``InterpND`` evaluation runs its body inline
+    instead of its compiled program (``models/interpnd.py``), as under an
+    outer ``torch.compile``: the route rules, whose layout costs
+    (``_LAYOUT_NS``) were fitted to the bodies and whose candidates would
+    each compile a program of their own."""
+    from ndarray_interp_tpu_torch.models import interpnd as mnd
+
+    return patched((mnd, "_runs_program", lambda *tensors: False))
+
+
 def launched(fn):
     """``fn()`` with every launch count set to 0 just before it; returns its
     result and the kernels it launched."""
@@ -5881,10 +5939,20 @@ def rule5_bilinear(dev, table_grids, above, gate, rows):
 def route_rules_phase(dev, card, sweeps, rules=(1, 2, 3, 4, 5)):
     """The route rules on this card: for each rule a few shapes on both
     sides of its boundary (``--sweeps``: the full grids behind the rule,
-    reported without the gate).  Returns the records."""
+    reported without the gate), ``InterpND``'s bodies inline
+    (:func:`nd_inline`).  Returns the records."""
     rows = []
     gate = not sweeps
     t0 = time.perf_counter()
+    # the rules were fitted to the eager calls: InterpND's layout costs
+    # (rule 3) and build peaks (rule 4) are its bodies', not its programs'
+    with nd_inline():
+        _route_rules(dev, sweeps, rules, gate, rows)
+    print(f"  route rules: {time.perf_counter() - t0:.1f} s; card {card}", flush=True)
+    return rows
+
+
+def _route_rules(dev, sweeps, rules, gate, rows):
     if 1 in rules:
         if sweeps:
             shapes = [(n, b, q) for n in BANK_SWEEP[0] for b in BANK_SWEEP[1]
@@ -5906,8 +5974,6 @@ def route_rules_phase(dev, card, sweeps, rules=(1, 2, 3, 4, 5)):
                    else CAP_ND_GRIDS[-1:], CAP_TIMED, gate, rows)
     if 5 in rules:
         rule5_bilinear(dev, BILINEAR_TABLE_GRIDS, BILINEAR_ABOVE_CAP, gate, rows)
-    print(f"  route rules: {time.perf_counter() - t0:.1f} s; card {card}", flush=True)
-    return rows
 
 
 def examples_path():
@@ -5994,8 +6060,8 @@ def transforms_phase(dev, state, state2d, state_nd, serving):
         walls[name] = case(f"{name} vmap(itp) over {VMAP_ROWS} rows", {"R1": 1, **tail},
                            lambda itp2=itp2: vmap(itp2)(*rows(qx, qy)), itp2(qx, qy))
     nd2, qs = state_nd["cubic", "float32"], state_nd["queries", "float32"]
-    walls["ND2"] = case(f"ND2 cubic 64^3 vmap(itp) over {VMAP_ROWS} rows", {"K2": 3},
-                        lambda: vmap(nd2)(*rows(*qs)), nd2(*qs))
+    walls["ND2"] = case(f"ND2 cubic 64^3 vmap(itp) over {VMAP_ROWS} rows (the body inline)",
+                        {"K2": 3}, lambda: vmap(nd2)(*rows(*qs)), eager(nd2)(*qs))
 
     rng = np.random.default_rng(55)
     xs = torch.as_tensor(np.sort(rng.uniform(0.0, 100.0, (N_BUILDS, 2048)), axis=1)
@@ -6164,40 +6230,68 @@ def add_launches(total, counts):
         total[f"ORD:{tails[0]}"] = total.get(f"ORD:{tails[0]}", 0) + counts["ORD"]
 
 
-def compiled_case(label, fn, args, expect, tol, total, rec_out):
-    """One full-width call compiled (inductor, ``fullgraph=True``) beside
-    its eager call: the first call's seconds (trace, compile, run), both
-    calls' launches (equal, and ``expect``), the compiled values against
-    the eager ones (bit for bit, or within ``tol`` of the largest |value|),
-    and each form's host wall and device ms by CUDA events (the queue held
-    full)."""
+def eager(fn):
+    """``fn`` with every compiled program's body run eagerly
+    (``torch.compiler.set_stance("force_eager")``, the counterpart of
+    ``jax.disable_jit``): a plain N-D call on the card as its eager body."""
     import torch
 
+    def call(*args):
+        with torch.compiler.set_stance("force_eager"):
+            return fn(*args)
+
+    return call
+
+
+def compare(got, want, tol):
+    """``(ok, how)``: ``got`` against ``want`` bit for bit (``tol`` None) or
+    within ``tol`` of the largest finite |value|, NaN where NaN; tuples
+    element by element."""
+    import torch
+
+    if isinstance(got, (tuple, list)):
+        res = [compare(g, w, tol) for g, w in zip(got, want)]
+        return len(got) == len(want) and all(ok for ok, _ in res), "; ".join(h for _, h in res)
+    if tol is None:
+        ok, err = bit_compare(got, want)
+        return ok, "bit for bit" if ok else f"DIFFERS (max abs err {err})"
+    g, w = got.double(), want.double()
+    nan_ok = torch.equal(torch.isnan(g), torch.isnan(w))
+    fin = ~(torch.isnan(g) | torch.isnan(w))
+    err = 0.0
+    if bool(fin.any()):
+        err = float((g[fin] - w[fin]).abs().max() / w[fin].abs().max().clamp_min(1e-300))
+    how = f"within {err:.3g} of the largest |value| (tolerance {tol:g})"
+    return nan_ok and err <= tol, how + ("" if nan_ok else ", NaN positions DIFFER")
+
+
+def compiled_case(label, fn, args, expect, tol, total, rec_out):
+    """One full-width call compiled (inductor, ``fullgraph=True``) beside
+    its eager call (:func:`eager`: any program of ``InterpND`` inside it
+    run as its body): the first call's seconds (trace, compile, run), both
+    calls' launches (equal, and ``expect``), the compiled values against
+    the eager ones (:func:`compare`: bit for bit, or within ``tol``), and
+    each form's host wall and device ms by CUDA events (the queue held
+    full; a call that syncs for its eager checks includes the sync's gap)."""
     from ndarray_interp_tpu_torch.serving import compile_program
 
-    program = compile_program(fn, args[0].device)
+    program = compile_program(fn, next(a for a in args if hasattr(a, "device")).device)
     t0 = time.perf_counter()
     got, counts = launched(lambda: program(*args))
     first_s = time.perf_counter() - t0
-    want, eager = launched(lambda: fn(*args))
+    body = eager(fn)
+    want, eager_counts = launched(lambda: body(*args))
     add_launches(total, counts)
-    if counts != eager or counts != expect:
-        fail(f"compiled {label}: launches {counts}, eager {eager}, expected {expect}")
-    if tol is None:
-        ok, err = bit_compare(got, want)
-        how = "bit for bit" if ok else f"DIFFERS (max abs err {err})"
-    else:
-        err = float((got.double() - want.double()).abs().max() / want.double().abs().max())
-        ok = err <= tol
-        how = f"within {err:.3g} of the largest |value| (tolerance {tol:g})"
+    if counts != eager_counts or counts != expect:
+        fail(f"compiled {label}: launches {counts}, eager {eager_counts}, expected {expect}")
+    ok, how = compare(got, want, tol)
     if not ok:
         fail(f"compiled {label}: {how} against the eager call")
-    walls = {form: wall_ms(f, COMPILE_CALLS) for form, f in (("eager", lambda: fn(*args)),
-                                                           ("compiled", lambda: program(*args)))}
-    dev_ms = {form: device_ms(f, COMPILE_CALLS) for form, f in (("eager", lambda: fn(*args)),
-                                                              ("compiled", lambda: program(*args)))}
+    forms = (("eager", lambda: body(*args)), ("compiled", lambda: program(*args)))
+    walls = {form: wall_ms(f, COMPILE_CALLS) for form, f in forms}
+    dev_ms = {form: device_ms(f, COMPILE_CALLS) for form, f in forms}
     print(f"  {label}: first compiled call {first_s:.2f} s; launches {counts} (eager "
-          f"{eager}); {how} the eager call; host wall eager {fmt(walls['eager'])}, compiled "
+          f"{eager_counts}); {how} the eager call; host wall eager {fmt(walls['eager'])}, compiled "
           f"{fmt(walls['compiled'])} ms a call; device eager {fmt(dev_ms['eager'])}, compiled "
           f"{fmt(dev_ms['compiled'])} ms a call", flush=True)
     rec_out[label] = {"first_call_s": first_s, "launches": counts,
@@ -6206,36 +6300,21 @@ def compiled_case(label, fn, args, expect, tol, total, rec_out):
     del got, want
 
 
-def evaluator_designs(label, itp, make, queries, total, rec_out):
+def served_evaluator(label, itp, make, queries, total, rec_out):
     """``make(itp)`` (``Evaluator`` or ``Evaluator2D``: one program, the
     query axis dynamic) through ``warmup()``, then every bucket under
-    ``fail_on_recompile``, each bit for bit ``itp`` on the same queries;
-    beside it the other design, one static program a bucket (each with a
-    code object of its own, under the recompile limit): both warmups'
-    seconds and both designs' host wall at ``COMPILE_BUCKETS``."""
+    ``fail_on_recompile``, each bit for bit ``itp`` on the same queries:
+    the warmup's seconds and the host wall at ``COMPILE_BUCKETS`` beside
+    ``itp``'s."""
     import torch
-
-    from ndarray_interp_tpu_torch.serving import compile_program
-
-    class PerBucket(make):
-        def __init__(self, interp):
-            super().__init__(interp)
-            call = (lambda q: interp(q)) if len(queries) == 1 else (lambda a, b: interp(a, b))
-            self._programs = {b: compile_program(call, interp.x.device) for b in self.buckets}
-
-        def _run(self, *padded):
-            return self._programs[padded[0].shape[0]](*padded)
 
     def at(size):
         return [torch.cat([q, q])[:size] for q in queries]
 
-    designs, warm = {}, {}
-    for name, cls in (("dynamic", make), ("per bucket", PerBucket)):
-        t0 = time.perf_counter()
-        designs[name] = cls(itp).warmup()
-        torch.cuda.synchronize()
-        warm[name] = time.perf_counter() - t0
-    ev = designs["dynamic"]
+    t0 = time.perf_counter()
+    ev = make(itp).warmup()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
     with torch.compiler.set_stance("fail_on_recompile"):
         for b in ev.buckets:
             args = at(b)
@@ -6251,12 +6330,10 @@ def evaluator_designs(label, itp, make, queries, total, rec_out):
         walls = {}
         for b in COMPILE_BUCKETS:
             args = at(b)
-            for name, e in designs.items():
-                walls[f"{name} {b}"] = wall_ms(lambda: e(*args), COMPILE_CALLS)
+            walls[f"dynamic {b}"] = wall_ms(lambda: ev(*args), COMPILE_CALLS)
             walls[f"eager {b}"] = wall_ms(lambda: itp(*args), COMPILE_CALLS)
-    print(f"  {make.__name__} {label}: warmup (compile and every bucket) one program "
-          f"{warm['dynamic']:.2f} s, one program a bucket {warm['per bucket']:.2f} s; host wall "
-          "ms a call, " + "; ".join(f"{k} {fmt(v)}" for k, v in walls.items()), flush=True)
+    print(f"  {make.__name__} {label}: warmup (compile and every bucket) {warm:.2f} s; host "
+          "wall ms a call, " + "; ".join(f"{k} {fmt(v)}" for k, v in walls.items()), flush=True)
     rec_out[f"{make.__name__} {label}"] = {
         "warmup_s": warm, "wall_ms": {k: v[0] for k, v in walls.items()}}
 
@@ -6320,24 +6397,174 @@ def df_compiled_cases(serving, state2d, state_nd):
     for cell, kid in (("ND3", "K15"), ("ND3b", "K15f48")):
         cases.append((f"{cell} DoubleFloatEvaluatorND cubic 64^3 at {NQND:,} f64",
                       df_serve(state_nd[cell]), dq, {"K7": 3, kid: 1}, None))
+    return cases
+
+
+def calculus_cases(calc):
+    """The 1-D and 2-D calculus at full width, each ``(label, fn, args,
+    expected launches, tolerance)`` for :func:`compiled_case`: NS1's f64
+    ``derivative`` of orders 1-3 at 1,000,000 queries (K3) and ``solve``
+    at a level tensor (the roots, no kernel), ``integrate`` of the 10,000 x
+    64 f64 bank over one tensor pair (K3) and NS3b's f64 ``Bicubic``
+    ``derivative(dx=1, dy=1)`` at 1,000,000 queries (K2 on each axis);
+    inductor rewrites their plain arithmetic, so each is held within
+    ``F64_TOL`` of its eager call."""
+    import torch
+
+    itp, q = calc["NS1"]
+    bank = calc["bank"]
+    bic, qx, qy = calc["NS3b"]
+    dev = q.device
+    cases = [(f"NS1 f64 derivative(order={o}), 2,048 knots at {q.numel():,}",
+              lambda q_, o=o: itp.derivative(q_, order=o), (q,), {"K3": 1}, F64_TOL)
+             for o in (1, 2, 3)]
+    lv = torch.tensor(0.3, dtype=torch.float64, device=dev)
+    cases.append(("NS1 f64 solve(level), 2,048 knots (the roots: 6,141 NaN-padded rows)",
+                  lambda l_: itp.solve(l_), (lv,), {}, F64_TOL))
+    lo, hi = (torch.tensor(v, dtype=torch.float64, device=dev) for v in (0.8125, 0.0625))
+    cases.append(("bank integrate(lo, hi), 10,000 x 64 f64, a reversed pair",
+                  lambda a, b: bank.integrate(a, b), (lo, hi), {"K3": 1}, F64_TOL))
+    cases.append((f"NS3b Bicubic f64 derivative(dx=1, dy=1), {'x'.join(map(str, GRID2D))} at "
+                  f"{qx.numel():,}",
+                  lambda a, b: bic.derivative(a, b, dx=1, dy=1), (qx, qy), {"K2": 2}, F64_TOL))
+    return cases
+
+
+def program_cases(state_nd, calc_nd):
+    """The plain calls on the card that run ``InterpND``'s compiled programs
+    (``models/interpnd.py``), each ``(label, fn, args, expected launches,
+    tolerance)`` for :func:`program_case`: ND1 and ND2 ``itp(*qs)`` at
+    64^3 and 1,000,000 queries (``_eval_flat_masked``; linear f32, cubic
+    f32 and f64), ``derivative(orders=(1, 0, 0))`` on the f64 cell, f32 cell
+    and f64 node tables (``_eval_flat_deriv``), and ``torch.autograd.grad``
+    through ``__call__`` and ``derivative`` on 4,096 queries."""
+    import torch
+
+    shape = "x".join(map(str, GRIDND))
+    cases = []
     for name, method, tag, tol in (("ND1", "linear", "float32", F32_TOL),
                                    ("ND2", "cubic", "float32", F32_TOL),
                                    ("ND2", "cubic", "float64", F64_TOL)):
         itp = state_nd[method, tag]
-        cases.append((f"{name} InterpND {method} {tag} itp(*qs) 64^3 at {NQND:,}",
+        cases.append((f"{name} InterpND {method} {tag} itp(*qs) {shape} at {NQND:,}",
                       lambda *qs, itp=itp: itp(*qs), tuple(state_nd["queries", tag]), {"K2": 3},
                       tol))
+    cub = calc_nd["cubic"]
+    q, q32 = tuple(calc_nd["queries"]), tuple(calc_nd["q32"])
+    for table, itp, qs, tol in (("f64 cell", cub, q, F64_TOL),
+                                ("f32 cell", calc_nd["f32"], q32, F32_TOL),
+                                ("f64 node", calc_nd["node"], q, F64_TOL)):
+        cases.append((f"ND2 {table} derivative(orders=(1, 0, 0)) {shape} at {NQND:,}",
+                      lambda *qs_, itp=itp: itp.derivative(*qs_, orders=(1, 0, 0)), qs,
+                      {"K2": 3}, tol))
+    sub = tuple(qq[:NQ_CALCND_GRAD] for qq in q)
+
+    def grad_call(*qs_):
+        leaves = [qq.clone().requires_grad_(True) for qq in qs_]
+        return torch.autograd.grad((cub(*leaves) ** 2).sum(), leaves)
+
+    def grad_deriv(*qs_):
+        leaves = [qq.clone().requires_grad_(True) for qq in qs_]
+        return torch.autograd.grad((cub.derivative(*leaves, orders=(1, 0, 0)) ** 2).sum(),
+                                   leaves)
+
+    cases.append((f"ND2 f64 torch.autograd.grad of itp(*qs) at {NQ_CALCND_GRAD:,}", grad_call,
+                  sub, {"K2": 3}, F64_TOL))
+    cases.append((f"ND2 f64 torch.autograd.grad of derivative(orders=(1, 0, 0)) at "
+                  f"{NQ_CALCND_GRAD:,}", grad_deriv, sub, {"K2": 3}, F64_TOL))
     return cases
 
 
-def served_by_bucket(label, make, queries, eager, tol, total, rec_out):
+def box_cases(calc_nd):
+    """One box of ``integrate`` on the f64 64^3 grid (the seven K4 solves of
+    its node grids), bounds as tensors, for :func:`compiled_case`: its plain
+    call runs op by op (the JAX package's ``_integrate_fn`` is not a program
+    of the port), so the caller compiles it; within ``F64_TOL`` of the eager
+    call."""
+    import torch
+
+    cub = calc_nd["cubic"]
+    box = [torch.tensor(v, dtype=torch.float64, device=cub.data.device)
+           for b in calc_nd["box"] for v in b]
+    return [(f"ND2 f64 integrate over one box {'x'.join(map(str, GRIDND))}",
+             lambda a, b, c, d, e, f: cub.integrate((a, b), (c, d), (e, f)), box, {"K4": 7},
+             F64_TOL)]
+
+
+def programs_asked():
+    """How many times a call has asked for one of ``InterpND``'s compiled
+    programs (``interpnd.PROGRAMS``) in this process; the programs made are
+    ``programs_made()``."""
+    from ndarray_interp_tpu_torch.models import interpnd as mnd
+
+    return sum(g.cache_info().hits + g.cache_info().misses for g in mnd.PROGRAMS)
+
+
+def programs_made():
+    from ndarray_interp_tpu_torch.models import interpnd as mnd
+
+    return sum(g.cache_info().misses for g in mnd.PROGRAMS)
+
+
+def graphs_compiled():
+    """Dynamo's count of the graphs it captured and compiled in this process."""
+    from torch._dynamo.utils import counters
+
+    return counters["stats"]["unique_graphs"]
+
+
+def program_case(label, fn, args, expect, tol, total, rec_out):
+    """A plain call on the card that runs one of ``InterpND``'s compiled
+    programs, beside its eager body (:func:`eager`).  Its first call's
+    seconds here (most of these programs were compiled by the N-D paths,
+    whose ``drive`` lines give their first calls' seconds) and the proof
+    that it ran a program: the call asked for one of ``interpnd.PROGRAMS``
+    (a ``fullgraph=True`` program runs its graph or raises);
+    both forms' launches (equal, and ``expect``); values within ``tol``
+    (:func:`compare`); each form's host wall and device ms by CUDA events,
+    the plain call's under ``fail_on_recompile`` (its program served every
+    timed call)."""
+    import torch
+
+    n_asked = programs_asked()
+    t0 = time.perf_counter()
+    got, counts = launched(lambda: fn(*args))
+    first_s = time.perf_counter() - t0
+    n_asked = programs_asked() - n_asked
+    if n_asked < 1:
+        fail(f"{label}: the plain call ran no compiled program")
+    body = eager(fn)
+    want, eager_counts = launched(lambda: body(*args))
+    add_launches(total, counts)
+    if counts != eager_counts or counts != expect:
+        fail(f"{label}: launches {counts}, eager body {eager_counts}, expected {expect}")
+    ok, how = compare(got, want, tol)
+    if not ok:
+        fail(f"{label}: the program {how} against its eager body")
+    with torch.compiler.set_stance("fail_on_recompile"):
+        walls = {"program": wall_ms(lambda: fn(*args), COMPILE_CALLS)}
+        dev_ms = {"program": device_ms(lambda: fn(*args), COMPILE_CALLS)}
+    walls["eager"] = wall_ms(lambda: body(*args), COMPILE_CALLS)
+    dev_ms["eager"] = device_ms(lambda: body(*args), COMPILE_CALLS)
+    print(f"  {label}: first call here {first_s:.2f} s, ran its program ({n_asked} asked); "
+          f"launches {counts} (eager body {eager_counts}); {how} the eager body; "
+          f"host wall eager {fmt(walls['eager'])}, program {fmt(walls['program'])} ms a call; "
+          f"device eager {fmt(dev_ms['eager'])}, program {fmt(dev_ms['program'])} ms a call",
+          flush=True)
+    rec_out[label] = {"first_call_s": first_s, "launches": counts,
+                      "wall_ms": {k: v[0] for k, v in walls.items()},
+                      "device_ms": {k: v[0] for k, v in dev_ms.items()}}
+    del got, want
+
+
+def served_by_bucket(label, make, queries, body, tol, total, rec_out):
     """``make()``, an evaluator of the slice (one program, the query axis
     dynamic), through ``warmup()``; then every bucket under
-    ``fail_on_recompile``, each against ``eager`` (the program's body run
+    ``fail_on_recompile``, each against ``body`` (the program's body run
     eagerly) on the same queries (bit for bit, or within ``tol`` of the
     largest |value|): the warmup's seconds and the host wall at
     ``COMPILE_BUCKETS`` beside the eager evaluator's, the same evaluator with
-    ``eager`` in place of its program (its checks, padding and chunks too)."""
+    ``body`` in place of its program (its checks, padding and chunks too)."""
     import torch
 
     def at(size):
@@ -6353,7 +6580,7 @@ def served_by_bucket(label, make, queries, eager, tol, total, rec_out):
             args = at(b)
             got, counts = launched(lambda: ev(*args))
             add_launches(total, counts)
-            want = eager(*args).reshape(got.shape)  # an evaluator drops r = 1
+            want = body(*args).reshape(got.shape)  # an evaluator drops r = 1
             if tol is None:
                 ok, err = bit_compare(got, want)
             else:
@@ -6364,7 +6591,7 @@ def served_by_bucket(label, make, queries, eager, tol, total, rec_out):
                 fail(f"{label} at bucket {b:,}: differs from the eager call (err {err})")
         how = "bit for bit" if tol is None else f"within {worst:.3g} (tolerance {tol:g})"
         plain = make()
-        plain._program = eager
+        plain._program = body
         walls = {}
         for b in COMPILE_BUCKETS:
             args = at(b)
@@ -6378,7 +6605,7 @@ def served_by_bucket(label, make, queries, eager, tol, total, rec_out):
     del ev, plain
 
 
-def compile_phase(dev, card, state, state2d, serving, state_nd):
+def compile_phase(dev, card, state, state2d, serving, state_nd, calc, calc_nd):
     """The compiled path (``torch.compile``, the counterpart of
     ``jax.jit``): ``opcheck`` of every kernel op on the card; then each
     full-width call compiled by inductor (``fullgraph=True``) beside its
@@ -6387,11 +6614,12 @@ def compile_phase(dev, card, state, state2d, serving, state_nd):
     and NS1's build + eval (the build's arithmetic in inductor's code, within
     ``F32_TOL``); the f64-grade slice (:func:`df_compiled_cases`: the DF
     and f48 bank serving, the scalar DF evaluator, NS3c, NS3g, NS3d, NS3f,
-    NS3d's weight tail, NS3e, ND3 and ND3b, bit for bit, and ND1 and ND2
-    through ``InterpND``, within tolerance); ``Evaluator`` on NS1 and
+    NS3d's weight tail, NS3e, ND3 and ND3b, bit for bit); the 1-D and 2-D
+    calculus (:func:`calculus_cases`, within ``F64_TOL``); the plain N-D
+    calls that run ``InterpND``'s programs beside their eager bodies (:func:`program_cases`,
+    :func:`program_case`); ``Evaluator`` on NS1 and
     ``Evaluator2D`` on NS3 through ``warmup()`` and every bucket with no
-    recompile, beside the one program a bucket design
-    (:func:`evaluator_designs`), and ``DoubleFloatEvaluator`` (DF bank),
+    recompile (:func:`served_evaluator`), and ``DoubleFloatEvaluator`` (DF bank),
     ``DoubleFloatEvaluator2D`` (NS3d), ``DoubleFloatEvaluatorND`` (ND3) and
     ``EvaluatorND`` (ND2) the same way (:func:`served_by_bucket`), across
     the ordering thresholds of K8 and K12.  Returns the launches."""
@@ -6431,14 +6659,17 @@ def compile_phase(dev, card, state, state2d, serving, state_nd):
         ("NS1 build + eval, 2,048 knots x 1,000,000 f32", build_eval, (itp.data, q),
          {"K4": 1, "K1": 1}, F32_TOL),
         *df_compiled_cases(serving, state2d, state_nd),
+        *calculus_cases(calc),
     ):
         compiled_case(label, fn, args, expect, tol, total, rec_out)
-    evaluator_designs("NS1", itp, Evaluator, (q,), total, rec_out)
-    evaluator_designs("NS3 Bilinear", bil, Evaluator2D, (qx, qy), total, rec_out)
+    for case in program_cases(state_nd, calc_nd):
+        program_case(*case, total, rec_out)
+    served_evaluator("NS1", itp, Evaluator, (q,), total, rec_out)
+    served_evaluator("NS3 Bilinear", bil, Evaluator2D, (qx, qy), total, rec_out)
     bank_ev, qd = serving["df"]
     dqx, dqy = state2d["df queries"]
     nd3, nd2 = state_nd["ND3"], state_nd["cubic", "float32"]
-    for label, make, queries, eager, tol in (
+    for label, make, queries, body, tol in (
         ("DoubleFloatEvaluator df bank 10,240 x 64",
          lambda: DoubleFloatEvaluator(bank_ev._interp), (qd,), df_serve(bank_ev), None),
         ("DoubleFloatEvaluator2D NS3d Bicubic df",
@@ -6448,9 +6679,9 @@ def compile_phase(dev, card, state, state2d, serving, state_nd):
          tuple(state_nd["df queries"]), df_serve(nd3), None),
         ("EvaluatorND ND2 cubic f32", lambda: EvaluatorND(nd2), tuple(state_nd["queries",
                                                                                 "float32"]),
-         nd2, F32_TOL),
+         eager(nd2), F32_TOL),
     ):
-        served_by_bucket(label, make, queries, eager, tol, total, rec_out)
+        served_by_bucket(label, make, queries, body, tol, total, rec_out)
     seconds = time.perf_counter() - t_phase
     print(f"  the compile phase took {seconds:.1f} s; card {card}", flush=True)
     print("  compile record: " + json.dumps(rec_out), flush=True)
@@ -6469,6 +6700,23 @@ def ord_times(times):
             "first_design_ms": head["first_ms"], "shapes": shapes}
 
 
+def compile_env():
+    """Inductor's and Triton's caches in the checkout's build directory, and
+    inductor's compile workers, one a core up to 8 (``InterpND``'s programs
+    hold tens of kernels each); :func:`stop_compile_workers` stops them."""
+    build = HERE / "ndarray_interp_tpu_torch" / "_build"
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(build / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(build / "triton"))
+    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", str(min(8, os.cpu_count() or 1)))
+
+
+def stop_compile_workers():
+    """Stop inductor's pool of compile workers, if it started one."""
+    from torch._inductor.async_compile import shutdown_compile_workers
+
+    shutdown_compile_workers()
+
+
 def main():
     import argparse
 
@@ -6478,12 +6726,7 @@ def main():
                          "R3idx's and K6's tree budgets, K5's query rounds, R2a's body, the "
                          "ordered branches' crossovers and ORD's forms")
     sweeps = ap.parse_args().sweeps
-    # inductor's and Triton's caches in the checkout's build directory, and its
-    # compiles in this process (no pool of compile workers to stop)
-    build = Path(__file__).resolve().parent / "ndarray_interp_tpu_torch" / "_build"
-    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(build / "inductor"))
-    os.environ.setdefault("TRITON_CACHE_DIR", str(build / "triton"))
-    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
+    compile_env()
     import torch
 
     if not torch.cuda.is_available():
@@ -6495,7 +6738,8 @@ def main():
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
+          f"{torch.cuda.get_device_name(0)}; inductor compile threads "
+          f"{os.environ['TORCHINDUCTOR_COMPILE_THREADS']}", flush=True)
 
     t0 = time.perf_counter()
     path = _cuda.build()
@@ -6552,8 +6796,14 @@ def main():
 
     print("N-D path (ND1-ND3b at 64^3 and 256^3) and NS3e at 1,000,000 queries (public API, "
           "device='cuda'; counts set to 0 before each call):", flush=True)
+    made, asked, graphs = programs_made(), programs_asked(), graphs_compiled()
     state_nd, launched_nd = nd_path(dev, np.random.default_rng(47))
-    print(f"  launches during the N-D path: {launched_nd}")
+    made, asked = programs_made() - made, programs_asked() - asked
+    graphs = graphs_compiled() - graphs
+    print(f"  launches during the N-D path: {launched_nd}; InterpND's programs: asked "
+          f"{asked} times, {made} made, Dynamo compiled {graphs} graphs", flush=True)
+    if made <= 0 or asked <= 0 or graphs <= 0:
+        fail("the N-D path's plain calls ran no compiled program")
     for kid in ("K2", "K4", "K7", "K14", "K15", "K15f48", "ORD"):
         if launched_nd[kid] <= 0:
             fail(f"{kid} was not launched by the N-D path")
@@ -6585,8 +6835,15 @@ def main():
     print("N-D calculus and checkpoints (InterpND derivative and integrate at 64^3 and 1,000,000 "
           "queries; save and load on the card; public API, device='cuda'; counts set to 0 "
           "before each call):", flush=True)
+    made, asked, graphs = programs_made(), programs_asked(), graphs_compiled()
     calc_nd, launched_calc_nd = calculus_nd_path(dev, state, state2d, np.random.default_rng(51))
-    print(f"  launches during the N-D calculus and checkpoint path: {launched_calc_nd}")
+    made, asked = programs_made() - made, programs_asked() - asked
+    graphs = graphs_compiled() - graphs
+    print(f"  launches during the N-D calculus and checkpoint path: {launched_calc_nd}; "
+          f"InterpND's programs: asked {asked} times, {made} made, Dynamo compiled {graphs} "
+          "graphs", flush=True)
+    if made <= 0 or asked <= 0 or graphs <= 0:
+        fail("the N-D calculus path's plain calls ran no compiled program")
     for kid in ("K2", "K4"):
         if launched_calc_nd[kid] <= 0:
             fail(f"{kid} was not launched by the N-D calculus and checkpoint path")
@@ -6628,7 +6885,7 @@ def main():
           "each full-width call against its eager call, Evaluator, Evaluator2D, the three "
           "double-float evaluators and EvaluatorND by bucket; counts set to 0 before each "
           "call):", flush=True)
-    launched_compile = compile_phase(dev, card, state, state2d, serving, state_nd)
+    launched_compile = compile_phase(dev, card, state, state2d, serving, state_nd, calc, calc_nd)
     launched_compile = (dict.fromkeys(wrappers, 0)
                         | {f"ORD:{kid}": 0 for kid in ORDERED_TAILS} | launched_compile)
     elapsed("compiled path")
@@ -6667,6 +6924,7 @@ def main():
     torch.cuda.synchronize()
     elapsed("timing")
 
+    stop_compile_workers()
     if failures:
         print(f"chip_smoke: {len(failures)} failure(s):", *failures, sep="\n  ")
         raise SystemExit(1)

@@ -42,10 +42,34 @@ on each axis; :meth:`InterpND.integrate` is the exact box quadrature
 whose cubic node grids come from the spline solves again (K4).  The
 checkpoint codec is in :mod:`..utils.checkpoint`; the pytree protocol is
 not ported, PyTorch does not need it.
+
+Compiled programs: as the JAX package runs cached ``jax.jit`` programs
+behind the plain API, an evaluation on the card runs the ``torch.compile``
+program of the same name: ``_eval_flat`` (``eval_unchecked``),
+``_eval_flat_masked`` (``__call__``) and ``_eval_flat_deriv``
+(``derivative``), each from :func:`..serving.compile_program` (inductor,
+``fullgraph=True``, a code object of its own).  One program serves a key:
+the key the JAX package's ``lru_cache`` / ``static_argnums`` take, and the
+dtypes, ranks and gradients of the inputs (:func:`_signature`).  The
+interpolator's tensors are its inputs, and the query axis and the grid's
+sizes are dynamic (:func:`_dynamic_grid`).  Its first call compiles it, as
+``jax.jit`` compiles on its first call: seconds for the cell layout, up to
+about a minute for a node layout.  The eager checks stay outside the
+program.  The JAX package's two other programs, the
+box integral (``_integrate_fn``) and the cubic build's pack
+(``_cubic_pack_fn``), run op by op here: compiled, each took tens of seconds
+on its first call to save about 13 ms a call on an H100, so a process gains
+only after thousands of builds or boxes of one key.  Every body runs inline,
+as a nested ``jax.jit`` is inlined, under an outer ``torch.compile`` or a
+``torch.func`` transform (:func:`..ops._cuda.traced`), for DTensor queries
+(each rank's shard) and on CPU tensors.
+``torch.compiler.set_stance("force_eager")`` runs every program's body
+eagerly, as ``jax.disable_jit()`` does.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 
@@ -274,7 +298,8 @@ def integrate_box(axes, data, los, his, method, bcs, extrapolate):
     element: per-axis integral weights contracted against the
     (mixed-derivative, for cubic: the spline solves, K4 on the GPU) node
     grids, ``2^k`` tensor contractions, no sampling
-    (``interpnd._integrate_fn`` of the JAX package)."""
+    (``interpnd._integrate_fn`` of the JAX package; op by op on a plain
+    call, see the module's docstring)."""
     k = len(axes)
     grids = interpnd_node_grids(axes, data, k, bcs) if method == "cubic" else {0: data}
     ws = [_axis_integral_weights(ax, los[d], his[d], method, extrapolate)
@@ -428,6 +453,112 @@ def _eval_core(interp, flats, orders=None):
     return torch.sum(g * w.reshape(w.shape + (1,) * len(trailing)), dim=1)
 
 
+# -- the compiled programs (the JAX package's jitted bodies) -------------------------------
+def _runs_program(*tensors):
+    """Whether a call runs its compiled program: every tensor (``None``
+    skipped) on the card and none traced.  Otherwise the body runs inline:
+    under an outer ``torch.compile`` or a ``torch.func`` transform, as a
+    nested ``jax.jit`` is inlined, and on CPU tensors, which only the tests
+    use (eager: no compile on the CPU)."""
+    return all(t.is_cuda and not traced(t) for t in tensors if t is not None)
+
+
+def _signature(axes, data, table, flats):
+    """The rest of a program's key, what shapes its graph beside the
+    statics: the device type (the backend: inductor on the card), whether
+    autograd records, and for each tensor (the ``k`` axes, the data, the
+    table or ``None``, the ``k`` flat queries) its dtype, its number of dims
+    and whether it requires grad.  Each variant is a program of its own, so
+    the recompiles Dynamo counts against its limit for one are only those of
+    new sizes and strides."""
+
+    def sig(t):
+        return None if t is None else (t.dtype, t.dim(), t.requires_grad)
+
+    return (data.device.type, torch.is_grad_enabled(), tuple(map(sig, axes)), sig(data),
+            sig(table), tuple(map(sig, flats)))
+
+
+def _dynamic_grid(axes, data, table):
+    """Views of an interpolator's tensors with the grid's sizes marked
+    dynamic (each axis, the data's leading ``k`` dims, the table's rows), so
+    that one program serves every grid of its key, as it serves every query
+    length.  Views, so that the interpolator's own tensors stay unmarked for
+    any other program that reads them (``EvaluatorND``'s); Dynamo may still
+    specialise a size (``maybe_mark_dynamic``)."""
+    k = len(axes)
+    axes = [ax.view(ax.shape) for ax in axes]
+    data = data.view(data.shape)
+    table = None if table is None else table.view(table.shape)
+    for t, dims in [(ax, (0,)) for ax in axes] + [(data, range(k)), (table, (0,))]:
+        for d in dims if t is not None else ():
+            torch._dynamo.maybe_mark_dynamic(t, d)
+    return axes, data, table
+
+
+def _compile(fn, signature):
+    from ..serving import compile_program  # serving imports this module
+
+    return compile_program(fn, torch.device(signature[0]))
+
+
+def _eval_flat_body(statics, orders, masked, axes, data, table, *flats):
+    """The body of the eval programs: :func:`_eval_core` at the flat
+    queries, each cast to its axis's dtype, for the interpolator of
+    ``statics = (method, extrapolate, bcs, layout)`` on the tensors
+    ``axes``, ``data`` and ``table``; ``orders`` evaluates a mixed partial;
+    ``masked`` sets out-of-range results to NaN unless extrapolating
+    (``__call__``)."""
+    method, extrapolate, bcs, layout = statics
+    itp = InterpND(axes, data, method, extrapolate, table, bcs, layout)
+    flats = [f.to(ax.dtype) for f, ax in zip(flats, axes)]
+    out = _eval_core(itp, flats, orders)
+    if masked and not extrapolate and (out.is_floating_point() or out.is_complex()):
+        ok = torch.ones(flats[0].shape, dtype=torch.bool, device=flats[0].device)
+        for d, (ax, q) in enumerate(zip(axes, flats)):
+            if not itp.wraps_axis(d):
+                ok = ok & is_in_range(ax, q)
+        out = torch.where(ok.reshape(tuple(ok.shape) + (1,) * (out.ndim - 1)), out, torch.nan)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _eval_flat(statics, signature):
+    """The program of ``eval_unchecked``: ``(axes, data, table, *flats) ->
+    values`` (the JAX package's ``_eval_flat``), for the interpolators of
+    ``statics = (method, extrapolate, bcs, layout)`` and the inputs of
+    ``signature`` (:func:`_signature`)."""
+    return _compile(lambda axes, data, table, *flats: _eval_flat_body(
+        statics, None, False, axes, data, table, *flats), signature)
+
+
+@functools.lru_cache(maxsize=None)
+def _eval_flat_masked(statics, signature):
+    """The program of ``__call__``, the out-of-range mask included
+    (``_eval_flat_masked``)."""
+    return _compile(lambda axes, data, table, *flats: _eval_flat_body(
+        statics, None, True, axes, data, table, *flats), signature)
+
+
+@functools.lru_cache(maxsize=None)
+def _eval_flat_deriv(statics, orders, signature):
+    """The program of ``derivative``, keyed on ``orders`` too
+    (``_eval_flat_deriv``, ``orders`` its static argument)."""
+    return _compile(lambda axes, data, table, *flats: _eval_flat_body(
+        statics, orders, False, axes, data, table, *flats), signature)
+
+
+PROGRAMS = (_eval_flat, _eval_flat_masked, _eval_flat_deriv)
+
+
+def clear_programs():
+    """Drop every compiled program: the next call on the card compiles its
+    program again (a new code object, so none of Dynamo's cache entries
+    for the old one serve it)."""
+    for getter in PROGRAMS:
+        getter.cache_clear()
+
+
 class InterpND:
     """Interpolator over the leading ``k`` axes of ``data``.
 
@@ -501,7 +632,8 @@ class InterpND:
         timed), else the cheapest
         by :meth:`route_cost_ns` among the node layouts whose table fits
         (the node layout always does)."""
-        if math.prod(n - 1 for n in grid_shape) * (4**k) * r <= config.interpnd_pack_max_elems:
+        # a list: Dynamo traces math.prod of a list, not of a generator
+        if math.prod([n - 1 for n in grid_shape]) * (4**k) * r <= config.interpnd_pack_max_elems:
             return "cell"
         nnodes = math.prod(grid_shape)
         fits = {"node"}
@@ -552,29 +684,40 @@ class InterpND:
     def _flats(self, coords):
         return [c.reshape(-1).to(ax.dtype) for c, ax in zip(coords, self.axes)]
 
+    def _eval_flats(self, flats, masked=False, orders=None, inline=False):
+        """The eval program of ``masked`` and ``orders`` on the flat queries
+        where :func:`_runs_program` says so and not ``inline``, else its body."""
+        statics = (self.method, self.extrapolates, self.bcs, self.layout)
+        args = (self.axes, self.data, self.table)
+        if not inline and _runs_program(*self.axes, self.data, self.table, *flats):
+            from ..serving import _dynamic_queries
+
+            key = _signature(*args, flats)
+            if orders is not None:
+                program = _eval_flat_deriv(statics, orders, key)
+            else:
+                program = (_eval_flat_masked if masked else _eval_flat)(statics, key)
+            return program(*_dynamic_grid(*args), *_dynamic_queries(flats))
+        return _eval_flat_body(statics, orders, masked, *args, *flats)
+
     def __call__(self, *coords):
         """Evaluate at ``k`` coordinate arrays of one common shape.  Never
         synchronises; out-of-range results are NaN unless extrapolating
         (periodic axes are never out of range).  DTensor queries run on each
-        rank's local shards and give a DTensor with their placements."""
+        rank's local shards, the body inline, and give a DTensor with their
+        placements."""
         if any(is_dtensor(c) for c in coords):
-            return local_call(self.__call__, *coords)
+            return local_call(lambda *cs: self._evaluate(cs, masked=True, inline=True), *coords)
+        return self._evaluate(coords, masked=True)
+
+    def _evaluate(self, coords, masked, inline=False):
         coords = self._as_query(coords)
-        flats = self._flats(coords)
-        out = _eval_core(self, flats)
-        if not self.extrapolates and (out.is_floating_point() or out.is_complex()):
-            ok = torch.ones(flats[0].shape, dtype=torch.bool, device=flats[0].device)
-            for d, (ax, q) in enumerate(zip(self.axes, flats)):
-                if not self.wraps_axis(d):
-                    ok = ok & is_in_range(ax, q)
-            out = torch.where(ok.reshape(tuple(ok.shape) + (1,) * (out.ndim - 1)), out, torch.nan)
+        out = self._eval_flats(self._flats(coords), masked=masked, inline=inline)
         return out.reshape(tuple(coords[0].shape) + tuple(self.data.shape[self.k :]))
 
     def eval_unchecked(self, *coords):
         """Evaluate without the out-of-range mask (edge-cell extrapolation)."""
-        coords = self._as_query(coords)
-        out = _eval_core(self, self._flats(coords))
-        return out.reshape(tuple(coords[0].shape) + tuple(self.data.shape[self.k :]))
+        return self._evaluate(coords, masked=False)
 
     # -- eager API -------------------------------------------------------------------
     def interp(self, *coords):
@@ -622,7 +765,7 @@ class InterpND:
         coords = self._as_query(coords)
         flats = self._flats(coords)
         self._check_queries(flats)
-        out = _eval_core(self, flats, orders)
+        out = self._eval_flats(flats, orders=orders)
         return out.reshape(tuple(coords[0].shape) + tuple(self.data.shape[self.k :]))
 
     def integrate(self, *bounds):
@@ -634,7 +777,10 @@ class InterpND:
         (``lo > hi`` negates); out-of-range bounds raise
         ``OutOfBoundsError`` unless extrapolating (then the edge cells
         extend).  ``"cubic"`` and ``"linear"`` only; periodic axes raise
-        ``ValueError`` (a box that wraps is ambiguous)."""
+        ``ValueError`` (a box that wraps is ambiguous).  Bounds may be
+        tensors: traced ones (``torch.compile``, ``torch.func.vmap``) skip the
+        swap and the range check, as the JAX package's tracers do, and a
+        reversed traced box integrates to the signed value directly."""
         if self.method == "nearest":
             raise TypeError("nearest does not support integrate()")
         if len(bounds) != self.k:
@@ -646,16 +792,17 @@ class InterpND:
         sign = 1.0
         los, his = [], []
         for d, ((lo, hi), ax) in enumerate(zip(bounds, self.axes)):
-            flo, fhi = float(lo), float(hi)
-            if flo > fhi:
-                lo, hi, flo, fhi = hi, lo, fhi, flo
-                sign = -sign
-            if not self.extrapolates:
-                a0, a1 = self._range_host()[d]
-                if flo < a0 or fhi > a1:
-                    raise OutOfBoundsError(
-                        f"axis {d}: integration bounds [{flo}, {fhi}] are not in range"
-                    )
+            if not (traced(lo) or traced(hi)):
+                flo, fhi = float(lo), float(hi)
+                if flo > fhi:
+                    lo, hi, flo, fhi = hi, lo, fhi, flo
+                    sign = -sign
+                if not self.extrapolates:
+                    a0, a1 = self._range_host()[d]
+                    if flo < a0 or fhi > a1:
+                        raise OutOfBoundsError(
+                            f"axis {d}: integration bounds [{flo}, {fhi}] are not in range"
+                        )
             los.append(_to_tensor(lo, ax.device).to(ax.dtype))
             his.append(_to_tensor(hi, ax.device).to(ax.dtype))
         bcs = self.bcs or (("not_a_knot",) * self.k if self.method == "cubic" else None)
